@@ -1,0 +1,83 @@
+"""Carry weights from the JAX package's parameter tree to the port.
+
+``params_from_jax`` maps the JAX encoder's parameter tree (nested dicts and
+lists of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``) to the
+reference checkpoint's state-dict names, which are also the names of
+``StreamformerEncoder``'s parameters. It is the port's own numpy copy of
+the mapping the JAX package writes checkpoints with: dense kernels (in, out)
+are transposed to torch's (out, in), the patch projection goes HWIO -> OIHW,
+and the MAP head's q/k/v are concatenated into ``in_proj_weight``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from streamformer_tpu_torch.config import StreamformerConfig
+
+
+def _a(x) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(x, np.float32))
+
+
+def _t(x) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(x, np.float32).T)
+
+
+def params_from_jax(params: Mapping[str, Any], cfg: StreamformerConfig) -> Dict[str, torch.Tensor]:
+    """JAX encoder parameter tree (numpy leaves) -> fp32 state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    emb = params["embeddings"]
+    sd["embeddings.patch_embeddings.projection.weight"] = np.ascontiguousarray(
+        np.transpose(_a(emb["patch_proj"]["kernel"]), (3, 2, 0, 1))
+    )
+    sd["embeddings.patch_embeddings.projection.bias"] = _a(emb["patch_proj"]["bias"])
+    sd["embeddings.position_embeddings"] = _a(emb["position_embeddings"])[None]
+    if "time_embeddings" in emb:
+        sd["embeddings.time_embeddings"] = _a(emb["time_embeddings"])[None]
+
+    def dense(name, p, lora_name=None):
+        sd[name + ".weight"] = _t(p["kernel"])
+        if "bias" in p:
+            sd[name + ".bias"] = _a(p["bias"])
+        if lora_name and "lora_a" in p:
+            sd[lora_name + "_lora_a.weight"] = _t(p["lora_a"])
+            sd[lora_name + "_lora_b.weight"] = _t(p["lora_b"])
+
+    def ln(name, p):
+        sd[name + ".weight"] = _a(p["scale"])
+        sd[name + ".bias"] = _a(p["bias"])
+
+    for i, layer in enumerate(params["layers"]):
+        lp = f"encoder.layer.{i}."
+        ln(lp + "layernorm_before", layer["layernorm_before"])
+        ln(lp + "layernorm_after", layer["layernorm_after"])
+        dense(lp + "attention.attention.qkv", layer["attention"]["qkv"],
+              lp + "attention.attention.qkv")
+        dense(lp + "attention.output.dense", layer["attention"]["out"],
+              lp + "attention.output.dense")
+        dense(lp + "intermediate.dense", layer["mlp"]["fc1"])
+        dense(lp + "output.dense", layer["mlp"]["fc2"])
+        if "temporal_attention" in layer:
+            ln(lp + "temporal_layernorm", layer["temporal_layernorm"])
+            dense(lp + "temporal_attention.attention.qkv", layer["temporal_attention"]["qkv"])
+            dense(lp + "temporal_attention.output.dense", layer["temporal_attention"]["out"])
+            dense(lp + "temporal_dense", layer["temporal_dense"])
+            sd[lp + "temporal_attention_gating"] = _a(layer["temporal_attention_gating"]).reshape(())
+
+    ln("post_layernorm", params["post_layernorm"])
+    mh = params["map_head"]
+    d = cfg.hidden_size
+    sd["head.probe"] = _a(mh["probe"]).reshape(1, 1, d)
+    sd["head.attention.in_proj_weight"] = np.concatenate(
+        [_t(mh[key]["kernel"]) for key in ("q", "k", "v")], 0
+    )
+    sd["head.attention.in_proj_bias"] = np.concatenate([_a(mh[key]["bias"]) for key in ("q", "k", "v")])
+    dense("head.attention.out_proj", mh["out"])
+    ln("head.layernorm", mh["layernorm"])
+    dense("head.mlp.fc1", mh["mlp"]["fc1"])
+    dense("head.mlp.fc2", mh["mlp"]["fc2"])
+    return {k: torch.tensor(v) for k, v in sd.items()}

@@ -1,0 +1,272 @@
+"""The attention kernels of the encoder's main path, each with its plain
+PyTorch version and a launch count.
+
+=====================  ===========================  ==========================
+wrapper                plain version                 replaces (JAX package)
+=====================  ===========================  ==========================
+``temporal_decode_pm``  ``temporal_decode_pm_plain``  ``fused_temporal_decode_pm``
+``spatial_flat``        ``spatial_flat_plain``        ``fused_spatial_flat`` (fwd)
+``temporal_fullclip``   ``temporal_fullclip_plain``   ``fused_temporal_fullclip``
+=====================  ===========================  ==========================
+
+A wrapper takes its plain version for tensors on the CPU, and only then. For
+CUDA tensors it launches its kernel from ``csrc/`` on the current stream or
+raises: there is no fallback. Each launch adds one to ``LAUNCHES[name]``;
+nothing else does. Heads are dh-wide slices of the flat D axis, dh a
+multiple of 8 and at most 128; inputs are float32 or bfloat16 and
+contiguous. The kernels have no backward yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from streamformer_tpu_torch.ops import build
+
+LAUNCHES: Dict[str, int] = {
+    "temporal_decode_pm": 0,
+    "spatial_flat": 0,
+    "temporal_fullclip": 0,
+}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_SMEM = 232448  # dynamic shared memory a block may use on sm_90
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(name: str, num_heads: int, d: int, **tensors: torch.Tensor) -> torch.device:
+    """Validate what every kernel requires; returns the common device."""
+    first = next(iter(tensors.values()))
+    for key, t in tensors.items():
+        if t.device != first.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {first.device}")
+        if t.dtype not in _DTYPE_CODES or t.dtype != first.dtype:
+            raise TypeError(
+                f"{name}: {key} is {t.dtype}; all inputs must share one dtype, "
+                "float32 or bfloat16"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    if num_heads <= 0 or d % num_heads:
+        raise ValueError(f"{name}: D={d} is not a multiple of num_heads={num_heads}")
+    dh = d // num_heads
+    if dh % 8 or dh > 128:
+        raise ValueError(f"{name}: head dim {dh} must be a multiple of 8 and <= 128")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    return first.device
+
+
+def _cuda_ready(name: str, *tensors: torch.Tensor) -> None:
+    """What a launch needs beyond ``_check``: aligned pointers, no autograd."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor data must be 16-byte aligned")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"{name}: the CUDA kernels have no backward yet "
+                "(ROADMAP slice 4, item 10)"
+            )
+
+
+def _launch(name: str, symbol: str, argtypes, device: torch.device, *args) -> None:
+    fn = build.function(name, symbol, argtypes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# A. t=1 streaming decode on the pos-major cache, with in-place append
+# ---------------------------------------------------------------------------
+
+
+def temporal_decode_pm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
+    """Plain version of ``temporal_decode_pm``: the same function, same
+    in-place cache update."""
+    c, r, d = k_cache.shape
+    h = num_heads
+    dh = d // h
+    scale = dh**-0.5
+    qf = q.float().view(r, h, dh)
+    length = cache_len.reshape(()).long()
+    slot = length % c
+    s_new = (qf * k_new.float().view(r, h, dh)).sum(-1, keepdim=True) * scale
+    s_old = torch.einsum("rhd,crhd->rhc", qf, k_cache.float().view(c, r, h, dh)) * scale
+    pos = torch.arange(c, device=q.device)
+    valid = (pos < length) & (pos != slot)
+    s_old = s_old.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(torch.cat([s_new, s_old], dim=-1), dim=-1)
+    vals = torch.cat(
+        [v_new.float().view(r, h, 1, dh), v_cache.float().view(c, r, h, dh).permute(1, 2, 0, 3)],
+        dim=2,
+    )
+    out = torch.einsum("rhc,rhcd->rhd", probs, vals).reshape(r, d).to(q.dtype)
+    index = slot.reshape(1)
+    k_cache.index_copy_(0, index, k_new.unsqueeze(0))
+    v_cache.index_copy_(0, index, v_new.unsqueeze(0))
+    return out
+
+
+def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
+    """t=1 causal attention of the new frame against the pos-major cache.
+
+    q, k_new, v_new: (R, D), rows are (b, n) pairs. k_cache, v_cache:
+    (C, R, D); positions < cache_len hold earlier frames (slot = position
+    mod C). cache_len: int32 tensor of one element on the same device, the
+    position the new frame takes; it is read on the device and not changed.
+
+    The new frame attends itself and old slots c < min(len, C) except slot
+    len % C, which it then overwrites in place (``k_cache[len % C] =
+    k_new``, the same for v). With len < C this is the linear cache; past C
+    the same call is the ring's sliding window over the last C frames.
+    Returns the attention output (R, D) in q's dtype. The kernel takes the
+    keys in position order with ``temporal_fullclip``'s arithmetic, so on
+    the card a linear stream reproduces the full clip bit for bit.
+    """
+    r, d = q.shape
+    if k_cache.ndim != 3 or k_cache.shape[1:] != (r, d) or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"temporal_decode_pm: caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)} "
+            f"do not match q {tuple(q.shape)} as (C, R, D)"
+        )
+    if k_new.shape != q.shape or v_new.shape != q.shape:
+        raise ValueError("temporal_decode_pm: k_new and v_new must have q's shape (R, D)")
+    if cache_len.numel() != 1 or cache_len.dtype != torch.int32:
+        raise TypeError("temporal_decode_pm: cache_len must be one int32 element")
+    device = _check("temporal_decode_pm", num_heads, d, q=q, k_new=k_new, v_new=v_new,
+                    k_cache=k_cache, v_cache=v_cache)
+    if cache_len.device != device:
+        raise ValueError(f"temporal_decode_pm: cache_len is on {cache_len.device}, not {device}")
+    if device.type == "cpu":
+        return temporal_decode_pm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads)
+    _cuda_ready("temporal_decode_pm", q, k_new, v_new, k_cache, v_cache)
+    smem = build.function("temporal_decode_pm", "sf_temporal_decode_pm_smem_bytes", (_I, _I))(
+        d // num_heads, k_cache.shape[0]
+    )
+    if smem > _MAX_SMEM:
+        raise ValueError(f"temporal_decode_pm: capacity {k_cache.shape[0]} needs {smem} bytes "
+                         "of shared memory per block")
+    out = torch.empty_like(q)
+    _launch(
+        "temporal_decode_pm", "sf_temporal_decode_pm",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), device,
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+        r, k_cache.shape[0], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B. spatial attention over the patches of each (b, t) row
+# ---------------------------------------------------------------------------
+
+
+def spatial_flat_plain(q, k, v, num_heads):
+    """Plain version of ``spatial_flat``: fp32 scores and softmax, probs
+    rounded to the input dtype before PV."""
+    r, n, d = q.shape
+    h = num_heads
+    dh = d // h
+
+    def heads(a):
+        return a.float().view(r, n, h, dh).transpose(1, 2)  # (R, H, N, dh)
+
+    s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * dh**-0.5
+    p = torch.softmax(s, dim=-1).to(q.dtype).float()
+    return torch.matmul(p, heads(v)).transpose(1, 2).reshape(r, n, d).to(q.dtype)
+
+
+def spatial_flat(q, k, v, num_heads):
+    """Non-causal softmax attention over N patches per row.
+
+    q, k, v: (R, N, D), rows are (b, t) pairs. Returns (R, N, D) in q's
+    dtype. N is at most 256 (224x224 at patch 16 gives 196)."""
+    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("spatial_flat: q, k, v must share one (R, N, D) shape")
+    r, n, d = q.shape
+    if n > 256:
+        raise NotImplementedError(
+            "spatial_flat: more than 256 patches per frame (ROADMAP slice 1, item 3a)"
+        )
+    device = _check("spatial_flat", num_heads, d, q=q, k=k, v=v)
+    if device.type == "cpu":
+        return spatial_flat_plain(q, k, v, num_heads)
+    _cuda_ready("spatial_flat", q, k, v)
+    code = _DTYPE_CODES[q.dtype]
+    smem = build.function("spatial_flat", "sf_spatial_flat_smem_bytes", (_I, _I, _I, _I))(
+        n, d, num_heads, code
+    )
+    if smem > _MAX_SMEM:
+        raise ValueError(f"spatial_flat: needs {smem} bytes of shared memory per block")
+    # split each row's queries only when R*H blocks alone leave SMs idle
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunks = max(1, min(-(-n // 16), -(-4 * sms // (r * num_heads))))
+    q_per_block = -(-n // chunks)
+    out = torch.empty_like(q)
+    _launch(
+        "spatial_flat", "sf_spatial_flat", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        r, n, d, num_heads, q_per_block, (d // num_heads) ** -0.5, code,
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# C. causal temporal attention over a full clip
+# ---------------------------------------------------------------------------
+
+
+def temporal_fullclip_plain(q, k, v, num_heads):
+    """Plain version of ``temporal_fullclip``: fp32 throughout, output
+    rounded to the input dtype."""
+    r, t, d = q.shape
+    h = num_heads
+    dh = d // h
+
+    def heads(a):
+        return a.float().view(r, t, h, dh).transpose(1, 2)  # (R, H, T, dh)
+
+    s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * dh**-0.5
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    return torch.matmul(p, heads(v)).transpose(1, 2).reshape(r, t, d).to(q.dtype)
+
+
+def temporal_fullclip(q, k, v, num_heads):
+    """Causal attention over the T <= 32 frames of each row.
+
+    q, k, v: (R, T, D), rows are (b, n) pairs; query t attends keys 0..t.
+    Returns (R, T, D) in q's dtype."""
+    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("temporal_fullclip: q, k, v must share one (R, T, D) shape")
+    r, t, d = q.shape
+    if t > 32:
+        raise NotImplementedError(
+            "temporal_fullclip: clips longer than 32 frames (ROADMAP slice 1, item 3a)"
+        )
+    device = _check("temporal_fullclip", num_heads, d, q=q, k=k, v=v)
+    if device.type == "cpu":
+        return temporal_fullclip_plain(q, k, v, num_heads)
+    _cuda_ready("temporal_fullclip", q, k, v)
+    out = torch.empty_like(q)
+    _launch(
+        "temporal_fullclip", "sf_temporal_fullclip", (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        r, t, d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
+    )
+    return out

@@ -1,0 +1,62 @@
+"""The PyTorch port stands alone: no file of ``streamformer_tpu_torch/`` nor
+``chip_smoke.py`` imports JAX or the JAX package (``streamformer_tpu`` and
+its submodules; ``streamformer_tpu_torch`` is the port itself)."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "streamformer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "streamformer_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == name or module.startswith(name + ".") for name in FORBIDDEN)
+
+
+def _imports(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_the_matcher_tells_the_packages_apart():
+    assert _forbidden("jax.numpy") and _forbidden("streamformer_tpu.models")
+    assert _forbidden("streamformer_tpu")
+    assert not _forbidden("streamformer_tpu_torch.ops") and not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imports(tree) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_runs_with_jax_unimportable():
+    """Import every module of the port and run a CPU step with ``jax`` and
+    ``streamformer_tpu`` blocked from import."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['streamformer_tpu'] = None\n"
+        "import torch\n"
+        "import streamformer_tpu_torch.checkpoint, streamformer_tpu_torch.ops.build\n"
+        "from streamformer_tpu_torch.config import StreamformerConfig\n"
+        "from streamformer_tpu_torch.models.encoder import StreamformerEncoder\n"
+        "cfg = StreamformerConfig(image_size=32, num_frames=2, hidden_size=32, num_hidden_layers=1,"
+        " num_attention_heads=2, intermediate_size=64, dtype='float32')\n"
+        "m = StreamformerEncoder(cfg, device='cpu')\n"
+        "out, cache = m.stream(torch.zeros(1, 1, 3, 32, 32), m.init_cache(1, capacity=2))\n"
+        "assert out['pooler_output'].shape == (1, 1, 32)\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
