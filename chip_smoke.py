@@ -27,21 +27,36 @@ Phases, each fatal on failure:
 6. a ring stream of 2C frames (C=8), kernel A held against its plain
    version on the ring's cache;
 7. streaming frames/s at batch 8 at steady state (ring, capacity 16), and
-   the device time by kernel over a profiled window.
+   the device time by kernel over a profiled window;
+8. the serving engine (``serving.StreamingEngine``, ragged cache, kernels D
+   and E) on the flagship model of phase 4: 8 slots, 12 streams of 4-16
+   frames fed in bursts (holds and slot recycling), each stream's pooled
+   features held to a lone B=1 stream within 0.008, in latency mode
+   (``tick()``) and throughput mode (``tick(frames=8)``); uint8 staging
+   with on-device normalize held to a float feed;
+9. ``server.StreamingServer`` on 127.0.0.1: two clients each open, feed
+   (uint8, base64), close and read their features, held to the engine's;
+10. engine frames/s at 8 slots at steady state in both tick modes, and the
+    device busy time per tick over a profiled window.
 
-The launch counters are zeroed just before phase 4's forward and read after
-phase 5: every kernel must have run on the main path. The last two lines are
-the ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
+Two paths are main paths: the lockstep encode (the launch counters are
+zeroed just before phase 4's forward and read after phase 5) and the
+serving engine (zeroed before each engine run of phase 8, read after it).
+Every kernel must have run on its path. The last two lines are the
+``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
 neither.
 """
 
+import base64
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; fp32 CUDA cores
@@ -51,6 +66,10 @@ CARD_VS_CPU_TOL = 1e-4  # fp32 encoder, card vs CPU: summation order only
 SOURCES = {
     "temporal_decode_pm": ("streamformer_tpu_torch/csrc/temporal_decode_pm.cu",
                            "streamformer_tpu/ops/attention.py:662"),
+    "temporal_decode_pm_ragged": ("streamformer_tpu_torch/csrc/temporal_decode_pm.cu",
+                                  "streamformer_tpu/ops/attention.py:751"),
+    "temporal_append_pm_ragged": ("streamformer_tpu_torch/csrc/temporal_append_pm.cu",
+                                  "streamformer_tpu/ops/attention.py:946"),
     "spatial_flat": ("streamformer_tpu_torch/csrc/spatial_flat.cu",
                      "streamformer_tpu/ops/attention.py:1531"),
     "temporal_fullclip": ("streamformer_tpu_torch/csrc/temporal_fullclip.cu",
@@ -62,6 +81,13 @@ FLAGSHIP_CONFIG = dict(dtype="bfloat16")  # the config's defaults are the flagsh
 SMALL_CONFIG = dict(image_size=48, num_frames=4, hidden_size=96, num_hidden_layers=3,
                     num_attention_heads=4, intermediate_size=192, dtype="float32")
 RING_CAPACITY = 8
+# kernel D's per-stream lengths (linear, and ring past C), E's lens and valid
+D_LENS = {"linear": [0, 1, 5, 9, 14, 15, 15, 15], "ring": [16, 17, 23, 31, 40, 41, 50, 63]}
+E_LENS, E_VALID, E_T = [0, 1, 5, 8, 8, 12, 15, 16], [8, 0, 8, 8, 3, 4, 1, 0], 8
+# serving: slots, streams and their frame counts (a seeded draw in [4, 16])
+ENGINE = dict(slots=8, streams=12, min_frames=4, max_frames=16, burst_ticks=4, frames=8)
+MEAN, STD = (0.481, 0.457, 0.408), (0.268, 0.261, 0.275)  # SigLIP-style normalize
+THROUGHPUT_STREAMS = 48  # of capacity-many frames each, for engine frames/s
 DEVICE = "cuda"
 
 
@@ -78,6 +104,7 @@ def main():
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    import numpy as np
     import torch.nn.functional as F
     from streamformer_tpu_torch.checkpoint import from_pretrained
     from streamformer_tpu_torch.config import StreamformerConfig
@@ -97,7 +124,8 @@ def main():
     print(smi)
     t0 = time.perf_counter()
     build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, 3 sources in parallel)")
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, {len(build.SOURCES)} sources "
+          "in parallel)")
 
     def time_ms(fn, iters=15):
         """Median device time of one call, L2 flushed before each."""
@@ -171,6 +199,60 @@ def main():
                    lambda: ops.temporal_decode_pm_plain(q, kn, vn, kc, vc, ln, h_),
                    lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
                    elt * r * d_ * (3 + 1 + 2 * n_read + 2), 4 * r * d_ * (n_read + 1))
+        # D: one engine tick, every stream at its own length (linear and ring)
+        r = b_ * n_
+        for mode, lens in D_LENS.items():
+            q, kn, vn = randn(r, d_, dtype=dtype), randn(r, d_, dtype=dtype), randn(r, d_, dtype=dtype)
+            kc, vc = randn(cap, r, d_, dtype=dtype), randn(cap, r, d_, dtype=dtype)
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            k_ref, v_ref = kc.clone(), vc.clone()
+            ref = ops.temporal_decode_pm_ragged_plain(q, kn, vn, k_ref, v_ref, ln, n_, h_)
+            got = ops.temporal_decode_pm_ragged(q, kn, vn, kc, vc, ln, n_, h_)
+            torch.cuda.synchronize()
+            if not (torch.equal(kc, k_ref) and torch.equal(vc, v_ref)):
+                fail(f"temporal_decode_pm_ragged {mode} {dn}: appended cache planes differ")
+            n_read = sum(min(x, cap - 1) for x in lens)  # old slots attended, over streams
+            rows_len = ln.long().repeat_interleave(n_)
+            window = (torch.arange(cap, device=dev)[None] <= rows_len[:, None]).view(r, 1, 1, cap)
+            q4 = q.view(r, h_, 1, dh)
+            k4 = kc.view(cap, r, h_, dh).permute(1, 2, 0, 3)
+            v4 = vc.view(cap, r, h_, dh).permute(1, 2, 0, 3)
+            record("temporal_decode_pm_ragged", f"{mode} R={r} C={cap} lens={lens}", dn,
+                   max_err(got, ref),
+                   lambda: ops.temporal_decode_pm_ragged(q, kn, vn, kc, vc, ln, n_, h_),
+                   lambda: ops.temporal_decode_pm_ragged_plain(q, kn, vn, kc, vc, ln, n_, h_),
+                   lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
+                   elt * d_ * (6 * r + 2 * n_ * n_read), 4 * d_ * n_ * (n_read + b_))
+        # E: one throughput-mode chunk, t=8 frames, mixed lens and valid
+        lens_t = torch.tensor(E_LENS, dtype=torch.int32, device=dev)
+        valid_t = torch.tensor(E_VALID, dtype=torch.int32, device=dev)
+        q, kn, vn = (randn(E_T, r, d_, dtype=dtype) for _ in range(3))
+        kc, vc = randn(cap, r, d_, dtype=dtype), randn(cap, r, d_, dtype=dtype)
+        k_ref, v_ref = kc.clone(), vc.clone()
+        ref = ops.temporal_append_pm_ragged_plain(q, kn, vn, k_ref, v_ref, lens_t, valid_t, n_, h_)
+        got = ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens_t, valid_t, n_, h_)
+        torch.cuda.synchronize()
+        if not (torch.equal(kc, k_ref) and torch.equal(vc, v_ref)):
+            fail(f"temporal_append_pm_ragged {dn}: appended cache planes differ")
+        err = max(max_err(got[:v, i * n_:(i + 1) * n_], ref[:v, i * n_:(i + 1) * n_])
+                  for i, v in enumerate(E_VALID) if v)  # columns past valid are unspecified
+        # yardstick: the t queries against [cache prefix, new frames], causal mask
+        ti = torch.arange(E_T, device=dev)
+        rows_len = lens_t.long().repeat_interleave(n_)
+        old = (torch.arange(cap, device=dev)[None, None] < rows_len[:, None, None]).expand(r, E_T, cap)
+        mask = torch.cat([old, (ti[None] <= ti[:, None]).expand(r, E_T, E_T)], -1)[:, None]
+        q4 = q.view(E_T, r, h_, dh).permute(1, 2, 0, 3)
+        k4 = torch.cat([kc, kn]).view(cap + E_T, r, h_, dh).permute(1, 2, 0, 3)
+        v4 = torch.cat([vc, vn]).view(cap + E_T, r, h_, dh).permute(1, 2, 0, 3)
+        n_old = sum(min(x, cap) for x in E_LENS)
+        record("temporal_append_pm_ragged", f"R={r} C={cap} t={E_T}", dn, err,
+               lambda: ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens_t, valid_t, n_, h_),
+               lambda: ops.temporal_append_pm_ragged_plain(q, kn, vn, kc, vc, lens_t, valid_t,
+                                                           n_, h_),
+               lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+               elt * n_ * d_ * (2 * n_old + 4 * E_T * b_ + 2 * sum(E_VALID)),
+               4 * d_ * n_ * (E_T * n_old + b_ * E_T * (E_T + 1) // 2))
+        del q, kn, vn, kc, vc, k_ref, v_ref, q4, k4, v4
         # B: the streaming step (R = B) and the full clip (R = B*T)
         for r in (b_, b_ * t_):
             q, k, v = (randn(r, n_, d_, dtype=dtype) for _ in range(3))
@@ -250,7 +332,7 @@ def main():
         fail(f"full clip shapes {tuple(hidden.shape)}, {tuple(pooled.shape)}")
     if not finite(full):
         fail("full clip outputs are not finite")
-    if after_full != {"temporal_decode_pm": 0, "spatial_flat": L, "temporal_fullclip": L}:
+    if after_full != {**dict.fromkeys(ops.LAUNCHES, 0), "spatial_flat": L, "temporal_fullclip": L}:
         fail(f"full-clip launches {after_full}")
     print(f"full clip B={b_} T={t_} bf16: finite, launches {after_full}")
 
@@ -268,7 +350,8 @@ def main():
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     stream_launches = {k: launches[k] - after_full[k] for k in launches}
-    if stream_launches != {"temporal_decode_pm": L * t_, "spatial_flat": L * t_, "temporal_fullclip": 0}:
+    if stream_launches != {**dict.fromkeys(ops.LAUNCHES, 0), "temporal_decode_pm": L * t_,
+                           "spatial_flat": L * t_}:
         fail(f"streaming launches {stream_launches}")
     if int(cache["len"]) != t_:
         fail(f"cache len {int(cache['len'])} after {t_} frames")
@@ -328,17 +411,201 @@ def main():
         print(f"  {e.device_time_total / window / 1e3:8.4f} ms/step  x{e.count // window:<3d} "
               f"{e.key[:90]}")
 
-    # ---- 8. summary
+    # ---- 8. the serving engine: ragged cache, kernels D and E
+    from streamformer_tpu_torch.server import StreamingServer
+    from streamformer_tpu_torch.serving import StreamingEngine
+
+    img = cfg.image_size
+    rng = np.random.default_rng(0)
+    lens = [int(x) for x in rng.integers(ENGINE["min_frames"], ENGINE["max_frames"] + 1,
+                                         ENGINE["streams"])]
+    clips = [rng.standard_normal((n, 3, img, img)).astype(np.float32) for n in lens]
+
+    def lone(clip):
+        """Oracle: one frame at a time through a lone B=1 lockstep cache."""
+        c1 = encoder.init_cache(cfg, 1)
+        feats = []
+        for i in range(len(clip)):
+            out, c1 = encoder.streaming_forward(model, torch.from_numpy(clip[None, i:i + 1]), c1)
+            feats.append(out["pooler_output"][0, 0].float())
+        return torch.stack(feats).cpu().numpy()
+
+    def serve(eng, clips, frames):
+        """Open every stream and feed it half its frames, tick a few times (the
+        short streams starve and hold, the rest wait for a slot), then feed
+        the rest, close and run to the end. Returns (features, ticks)."""
+        sids = [eng.open() for _ in clips]
+        for sid, clip in zip(sids, clips):
+            eng.feed(sid, clip[:len(clip) // 2])
+        ticks = sum(eng.tick(frames=frames) for _ in range(ENGINE["burst_ticks"]))
+        for sid, clip in zip(sids, clips):
+            eng.feed(sid, clip[len(clip) // 2:])
+            eng.close(sid)
+        ticks += eng.run_until_idle(frames=frames)
+        feats = []
+        for sid in sids:
+            f, done = eng.poll(sid)
+            if not done:
+                fail(f"engine stream {sid} not finished")
+            feats.append(f)
+        return feats, ticks
+
+    oracle = [lone(c) for c in clips]
+    engine_launches = {k: 0 for k in ops.LAUNCHES}
+    by_mode = {}
+    for mode_name, frames in (("latency", 1), ("throughput", ENGINE["frames"])):
+        eng = StreamingEngine(model, slots=ENGINE["slots"], mode="linear")
+        ops.reset_launches()
+        feats, ticks = serve(eng, clips, frames)
+        torch.cuda.synchronize()
+        run = dict(ops.LAUNCHES)
+        for k in run:
+            engine_launches[k] += run[k]
+        want = ({"temporal_decode_pm_ragged": L * ticks, "temporal_append_pm_ragged": 0}
+                if frames == 1 else
+                {"temporal_decode_pm_ragged": 0, "temporal_append_pm_ragged": L * ticks})
+        if any(run[k] != v for k, v in want.items()) or run["spatial_flat"] != L * ticks \
+                or run["temporal_decode_pm"] or run["temporal_fullclip"]:
+            fail(f"engine {mode_name} launches {run} over {ticks} ticks (L={L})")
+        errs = [float(np.abs(f - o).max()) if f.shape == o.shape else float("inf")
+                for f, o in zip(feats, oracle)]
+        bitwise = all(np.array_equal(f, o) for f, o in zip(feats, oracle))
+        if not max(errs) <= STREAM_TOL_POOLED:
+            fail(f"engine {mode_name}: pooled vs lone streams max-abs {max(errs)} "
+                 f"> {STREAM_TOL_POOLED}")
+        by_mode[mode_name] = feats
+        print(f"engine {mode_name} (tick frames={frames}), {len(clips)} streams of {lens} frames "
+              f"over {ENGINE['slots']} slots, {ticks} ticks: pooled vs lone B=1 streams max-abs "
+              f"{max(errs)} (<= {STREAM_TOL_POOLED}), bitwise {bitwise}; launches {run}")
+    mode_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(by_mode["latency"], by_mode["throughput"]))
+    if not mode_err <= STREAM_TOL_POOLED:
+        fail(f"engine tick(frames={ENGINE['frames']}) vs tick(): max-abs {mode_err}")
+    print(f"engine tick(frames={ENGINE['frames']}) vs tick(): max-abs {mode_err}")
+    del eng
+
+    # uint8 staging with on-device normalize against the host-normalized float feed
+    raw = [rng.integers(0, 256, (n, 3, img, img), dtype=np.uint8) for n in lens[:4]]
+    m_, s_ = (np.asarray(v, np.float32).reshape(1, 3, 1, 1) for v in (MEAN, STD))
+    u8_feats, _ = serve(StreamingEngine(model, slots=ENGINE["slots"], mode="linear",
+                                        stage_dtype="uint8", normalize=(MEAN, STD)), raw, 1)
+    float_feats, _ = serve(StreamingEngine(model, slots=ENGINE["slots"], mode="linear"),
+                           [(c.astype(np.float32) / 255.0 - m_) / s_ for c in raw], 1)
+    u8_err = max(float(np.abs(a - b).max()) for a, b in zip(u8_feats, float_feats))
+    if not u8_err <= STREAM_TOL_POOLED:
+        fail(f"uint8-staged engine vs float feed: max-abs {u8_err}")
+    print(f"engine uint8 staging + normalize vs float feed: max-abs {u8_err}")
+
+    # ---- 9. the HTTP server: two clients over a socket
+    srv = StreamingServer(model, slots=ENGINE["slots"], port=0, stage_dtype="uint8",
+                          normalize=(MEAN, STD)).start()
+
+    def request(method, path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}", data=data,
+                                     method=method, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    served, errors = {}, []
+
+    def client(i):
+        try:
+            sid = request("POST", "/streams")["sid"]
+            clip = raw[i]
+            request("POST", f"/streams/{sid}/frames",
+                    {"frames_b64": base64.b64encode(clip.tobytes()).decode(),
+                     "shape": list(clip.shape), "dtype": "uint8"})
+            request("POST", f"/streams/{sid}/close")
+            acc, deadline = [], time.time() + 120
+            while time.time() < deadline:
+                r = request("GET", f"/streams/{sid}/features")
+                acc.append(np.asarray(r["features"], np.float32).reshape(-1, d_))
+                if r["done"]:
+                    served[i] = np.concatenate(acc)
+                    return
+                time.sleep(0.01)
+            errors.append(f"client {i}: stream {sid} never finished")
+        except Exception as e:  # reported below: the phase fails
+            errors.append(f"client {i}: {e!r}")
+
+    try:
+        health = request("GET", "/healthz")
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=180)
+        health_after = request("GET", "/healthz")
+    finally:
+        srv.stop()
+    if errors or len(served) != 2 or not health["ok"]:
+        fail(f"server: {errors or served.keys()}, healthz {health}")
+    srv_err = max(float(np.abs(served[i] - u8_feats[i]).max()) for i in range(2))
+    if not srv_err <= STREAM_TOL_POOLED:
+        fail(f"server features vs the engine's: max-abs {srv_err}")
+    print(f"server: 2 clients, streams of {[len(raw[i]) for i in range(2)]} uint8 frames over "
+          f"HTTP; features vs the engine max-abs {srv_err}; healthz {health} -> {health_after}")
+
+    # ---- 10. engine frames/s at steady state, 8 slots, both tick modes
+    cap_frames = cfg.cache_capacity
+    pool = [rng.integers(0, 256, (cap_frames, 3, img, img), dtype=np.uint8) for _ in range(8)]
+
+    def engine_run(frames, streams):
+        """Serve ``streams`` streams of capacity-many frames, all fed up front,
+        to the end; returns (seconds, ticks, frames served). The clock stops
+        after the polls, which wait for the device."""
+        eng = StreamingEngine(model, slots=ENGINE["slots"], mode="linear", stage_dtype="uint8",
+                              normalize=(MEAN, STD))
+        sids = []
+        for i in range(streams):
+            sid = eng.open()
+            eng.feed(sid, pool[i % len(pool)])
+            eng.close(sid)
+            sids.append(sid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ticks = eng.run_until_idle(frames=frames)
+        n = sum(len(eng.poll(sid)[0]) for sid in sids)
+        return time.perf_counter() - t0, ticks, n
+
+    engine_run(1, ENGINE["slots"])  # warm-up
+    engine_run(ENGINE["frames"], ENGINE["slots"])
+    for mode_name, frames in (("latency", 1), ("throughput", ENGINE["frames"])):
+        sec, ticks, n = engine_run(frames, THROUGHPUT_STREAMS)
+        streams = 2 * ENGINE["slots"]  # two generations of streams, profiled
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            p_sec, p_ticks, _ = engine_run(frames, streams)
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and getattr(e, "device_time_total", 0) > 0]
+        dev_ms = sum(e.device_time_total for e in rows) / p_ticks / 1e3
+        tick_ms, wall_ms = sec * 1e3 / ticks, p_sec * 1e3 / p_ticks
+        print(f"engine {mode_name} mode (tick frames={frames}) ({smi}): {n / sec:.1f} frames/s, "
+              f"{n} frames in {ticks} ticks, {tick_ms:.3f} ms/tick; "
+              f"{THROUGHPUT_STREAMS} streams of {cap_frames} uint8 frames over "
+              f"{ENGINE['slots']} slots (linear C={cap}, bf16); profile of {streams} streams, "
+              f"{p_ticks} ticks: device busy {dev_ms:.3f} ms/tick, {100 * dev_ms / wall_ms:.1f} % "
+              f"of the profiled {wall_ms:.3f} ms/tick, {100 * dev_ms / tick_ms:.1f} % of the "
+              f"unprofiled tick")
+        for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
+            print(f"  {e.device_time_total / p_ticks / 1e3:8.4f} ms/tick  "
+                  f"x{e.count / p_ticks:<6.1f} {e.key[:90]}")
+
+    # ---- 11. summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
+                  "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
+                  "temporal_append_pm_ragged": f"R={b_ * n_} C={cap} t={E_T}",
                   "spatial_flat": f"R={b_} N={n_}", "temporal_fullclip": f"R={b_ * n_} T={t_}"}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = results[(name, main_shape[name], "bfloat16")]
+        count = launches[name] + engine_launches[name]  # the encode path and the engine's
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], max_abs_err=row["max_abs_err"], ms=row["ms"],
+                            launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-        if launches[name] == 0:
+        if count == 0:
             fail(f"{name} never launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

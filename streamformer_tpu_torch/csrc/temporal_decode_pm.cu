@@ -1,14 +1,20 @@
 // t=1 causal temporal attention against the position-major KV cache, with
-// the new frame's K/V appended in place.
+// the new frame's K/V appended in place: one stream (kernel A) or a batch of
+// streams, each at its own position (kernel D, continuous batching).
 //
-// Replaces: streamformer_tpu/ops/attention.py fused_temporal_decode_pm
-// (kernel body _pm_decode_kernel). Same contract: q, k_new, v_new are
-// (R, D) with heads as dh-wide slices of D; the caches are (C, R, D); len
-// (a device int32) is the position the new frame takes. The new frame
+// Replaces: streamformer_tpu/ops/attention.py fused_temporal_decode_pm (A)
+// and fused_temporal_decode_pm_ragged (D), which share the kernel body
+// _pm_decode_kernel. Same contract: q, k_new, v_new are (R, D) with heads
+// as dh-wide slices of D; the caches are (C, R, D); lens (device int32) holds
+// the position the new frame takes, one per stream, and row r belongs to
+// stream r / rows_per_stream (A: one stream of all R rows). The new frame
 // attends the last min(len, C-1) positions held in the cache and itself;
 // slot len % C (the position the new frame evicts: none for the linear
 // cache, the oldest for the ring's sliding window) is not read, and the new
-// frame's K/V are written there afterwards.
+// frame's K/V are written there afterwards. The TPU kernel pads each
+// stream's rows to a multiple of 8 so that a row block never spans two
+// streams; here each warp looks up its own row's length, so rows are not
+// padded.
 //
 // Keys are taken in position order, oldest first and the new frame last,
 // with the arithmetic of temporal_fullclip.cu step for step: each score is
@@ -27,8 +33,10 @@
 // row at once; for PV lanes over element pairs of dh (one 128-byte load per
 // key per warp at dh = 64, bf16), eight keys unrolled. Reads stop at the
 // valid prefix; len is read on the device, so a step never waits for the
-// host. Each warp writes only the (row, head) slice of the new plane, which
-// no warp reads, so the in-place append has no race across blocks.
+// host. Each warp writes only the (row, head) slice of its own stream's new
+// plane, which no warp reads, so the in-place append has no race across
+// blocks. D moves the same bytes as A, each stream reading its own valid
+// prefix; the per-stream length costs one integer division per warp.
 #include "common.cuh"
 
 namespace {
@@ -46,8 +54,9 @@ template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 temporal_decode_pm_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                           const T* __restrict__ v_new, T* k_cache, T* v_cache,
-                          const int* __restrict__ len_ptr, T* __restrict__ out,
-                          int rows, int capacity, int d, int heads, float scale) {
+                          const int* __restrict__ lens, int rows_per_stream,
+                          T* __restrict__ out, int rows, int capacity, int d, int heads,
+                          float scale) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -59,7 +68,7 @@ temporal_decode_pm_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const int nc = dh / 8;
   const long base = static_cast<long>(row) * d + head * dh;
   const long plane = static_cast<long>(rows) * d;
-  const int len = *len_ptr;
+  const int len = lens[row / rows_per_stream];
   const int n_old = min(len, capacity - 1);  // cached keys attended
   const int first = len - n_old;             // position of the oldest of them
   const int n_keys = n_old + 1;              // and the new frame, last
@@ -135,8 +144,8 @@ temporal_decode_pm_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
 
 template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
-           const void* len, void* out, int rows, int capacity, int d, int heads, float scale,
-           cudaStream_t stream) {
+           const void* lens, int rows_per_stream, void* out, int rows, int capacity, int d,
+           int heads, float scale, cudaStream_t stream) {
   const long warps = static_cast<long>(rows) * heads;
   const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
   const size_t smem = sizeof(float) * kWarps * warp_floats(d / heads, capacity);
@@ -146,9 +155,22 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, v
   if (err != cudaSuccess) return static_cast<int>(err);
   temporal_decode_pm_kernel<T><<<blocks, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
-      static_cast<T*>(k_cache), static_cast<T*>(v_cache), static_cast<const int*>(len),
-      static_cast<T*>(out), rows, capacity, d, heads, scale);
+      static_cast<T*>(k_cache), static_cast<T*>(v_cache), static_cast<const int*>(lens),
+      rows_per_stream, static_cast<T*>(out), rows, capacity, d, heads, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
+             const void* lens, int rows_per_stream, void* out, int rows, int capacity, int d,
+             int heads, float scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == SF_BFLOAT16)
+    return launch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out,
+                                 rows, capacity, d, heads, scale, st);
+  if (dtype == SF_FLOAT32)
+    return launch<float>(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out, rows,
+                         capacity, d, heads, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -157,16 +179,21 @@ extern "C" int sf_temporal_decode_pm_smem_bytes(int dh, int capacity) {
   return static_cast<int>(sizeof(float)) * kWarps * warp_floats(dh, capacity);
 }
 
+// A: one stream, len a single device int32
 extern "C" int sf_temporal_decode_pm(const void* q, const void* k_new, const void* v_new,
                                      void* k_cache, void* v_cache, const void* len, void* out,
                                      int rows, int capacity, int d, int heads, float scale,
                                      int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == SF_BFLOAT16)
-    return launch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, len, out, rows, capacity, d,
-                                 heads, scale, st);
-  if (dtype == SF_FLOAT32)
-    return launch<float>(q, k_new, v_new, k_cache, v_cache, len, out, rows, capacity, d, heads,
-                         scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, k_new, v_new, k_cache, v_cache, len, rows, out, rows, capacity, d, heads,
+                  scale, dtype, stream);
+}
+
+// D: rows / rows_per_stream streams, lens a device int32 vector of that length
+extern "C" int sf_temporal_decode_pm_ragged(const void* q, const void* k_new, const void* v_new,
+                                            void* k_cache, void* v_cache, const void* lens,
+                                            int rows_per_stream, void* out, int rows,
+                                            int capacity, int d, int heads, float scale,
+                                            int dtype, void* stream) {
+  return dispatch(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out, rows, capacity,
+                  d, heads, scale, dtype, stream);
 }

@@ -7,9 +7,10 @@ patches, and an MLP; a MAP head pools each frame's patches.
 
 Layouts follow the JAX package at every public function: activations are
 ``(B, T, N, D)`` (batch, frames, patches, hidden); the streaming cache holds
-one pos-major ``(C, B*N, D)`` K and V per layer plus a ``len`` tensor. The
-attention runs through ``ops.attention``: the CUDA kernels on the card, their
-plain versions on the CPU.
+one pos-major ``(C, B*N, D)`` K and V per layer plus a ``len`` tensor, one
+length for the lockstep cache or one per stream for the ragged cache of
+continuous batching. The attention runs through ``ops.attention``: the CUDA
+kernels on the card, their plain versions on the CPU.
 
 ``StreamformerEncoder`` owns the parameters, under the reference
 checkpoint's state-dict names, so ``load_state_dict`` takes a reference
@@ -221,11 +222,14 @@ class StreamformerEncoder(nn.Module):
     def forward(self, pixel_values: torch.Tensor) -> Dict[str, torch.Tensor]:
         return model_forward(self, pixel_values)
 
-    def init_cache(self, batch: int, capacity: Optional[int] = None) -> Cache:
-        return init_cache(self.cfg, batch, capacity=capacity, device=self.device)
+    def init_cache(self, batch: int, capacity: Optional[int] = None,
+                   per_stream_len: bool = False) -> Cache:
+        return init_cache(self.cfg, batch, capacity=capacity, per_stream_len=per_stream_len,
+                          device=self.device)
 
-    def stream(self, frame: torch.Tensor, cache: Cache) -> Tuple[Dict[str, torch.Tensor], Cache]:
-        return streaming_forward(self, frame, cache)
+    def stream(self, frames: torch.Tensor, cache: Cache,
+               new_valid: Optional[torch.Tensor] = None) -> Tuple[Dict[str, torch.Tensor], Cache]:
+        return streaming_forward(self, frames, cache, new_valid=new_valid)
 
 
 def _check_supported(cfg: StreamformerConfig) -> None:
@@ -249,24 +253,24 @@ def _check_supported(cfg: StreamformerConfig) -> None:
 def time_embeddings_for_positions(
     time_emb: torch.Tensor, start, t_new: int, total: int
 ) -> torch.Tensor:
-    """Time embeddings (t_new, D) for absolute frame positions
-    [start, start + t_new).
+    """Time embeddings for absolute frame positions [start, start + t_new):
+    (t_new, D) for one shared start, (B, t_new, D) for per-stream starts.
 
     When ``total`` exceeds the trained positions the table is
     nearest-interpolated to ``total`` (output i takes input
     floor(i * T_trained / total), torch's 'nearest'); positions past the
-    table are clamped to its last row. ``start`` may be an int or a device
-    tensor of one element (read on the device)."""
+    table are clamped to its last row. ``start`` is an int, a device tensor
+    of one element, or a (B,) device tensor (the ragged cache's lengths); it
+    is read on the device, never on the host."""
     t_trained = time_emb.shape[0]
     dev = time_emb.device
     table = time_emb
     if total > t_trained:
         table = time_emb[(torch.arange(total, device=dev) * t_trained) // total]
     start = torch.as_tensor(start, device=dev)
-    if start.ndim:
-        raise NotImplementedError("per-stream start positions (ROADMAP slice 2, item 4)")
-    pos = (start + torch.arange(t_new, device=dev)).clamp(0, table.shape[0] - 1)
-    return table.index_select(0, pos)
+    steps = torch.arange(t_new, device=dev)
+    pos = start[:, None] + steps if start.ndim == 1 else start + steps
+    return table[pos.clamp(0, table.shape[0] - 1)]
 
 
 def embed(
@@ -301,8 +305,9 @@ def embed(
     x = F.linear(x, proj.weight.to(dt).reshape(d, c * ps * ps), proj.bias.to(dt))
     x = x.reshape(b, t, n, d) + emb.position_embeddings.to(dt)
     total = total_frames if total_frames is not None else t
-    temb = time_embeddings_for_positions(emb.time_embeddings[0], start_pos, t, total)
-    return x + temb.to(dt)[None, :, None, :]
+    temb = time_embeddings_for_positions(emb.time_embeddings[0], start_pos, t, total).to(dt)
+    # (T, D) for a shared start, (B, T, D) for per-stream starts
+    return x + (temb[None, :, None, :] if temb.ndim == 2 else temb[:, :, None, :])
 
 
 # --------------------------------------------------------------------------
@@ -330,16 +335,26 @@ def temporal_attention(
     *,
     cache_kv: Optional[Dict[str, torch.Tensor]] = None,
     cache_len: Optional[torch.Tensor] = None,
+    new_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Causal attention over the frames T, batched over (B, N); x: (B, T, N, D).
 
     Full clip (``cache_kv`` None): ``ops.temporal_fullclip`` on (B*N, T, D)
     rows, query t attending frames 0..t.
 
-    Streaming (t = 1): ``ops.temporal_decode_pm`` attends the new frame to
-    the cache and writes its K/V IN PLACE into ``cache_kv["k"]`` and
-    ``cache_kv["v"]`` at slot ``cache_len % C``. ``cache_len`` is not
-    advanced here. The same call serves the linear cache and the ring.
+    Streaming: the new frames attend the cache and their K/V are written IN
+    PLACE into ``cache_kv["k"]`` and ``cache_kv["v"]``; ``cache_len`` (one
+    length, or (B,) per stream for the ragged cache) is not advanced here.
+
+    - t = 1 without ``new_valid``: ``ops.temporal_decode_pm`` (one length)
+      or ``ops.temporal_decode_pm_ragged`` (per stream), appending at slot
+      ``len % C``. The same call serves the linear cache and the ring.
+    - t >= 2, or ``new_valid`` given: ``ops.temporal_append_pm_ragged`` on
+      the linear cache. Stream b appends its first ``new_valid[b]`` frames
+      (all t by default) at slots len[b] + ti; a lockstep cache is one
+      stream of all B*N rows. The ring takes one frame at a time:
+      ``cfg.cache_mode == "ring"`` raises here, as the JAX package does for
+      the ragged ring.
     """
     b, t, n, d = x.shape
     h = cfg.num_attention_heads
@@ -351,16 +366,40 @@ def temporal_attention(
         ctx = ops.temporal_fullclip(rows(0), rows(1), rows(2), h)
         ctx = ctx.reshape(b, n, t, d).transpose(1, 2)
         return dense(ctx, attn.output.dense)
-    if t != 1:
-        raise NotImplementedError("multi-frame streaming appends (ROADMAP slice 2, item 4)")
+    ragged = cache_len.ndim == 1
+    if t == 1 and new_valid is None:
+        def rows1(i):  # (B, 1, N, D) slice -> (B*N, D)
+            return qkv[..., i * d:(i + 1) * d].reshape(b * n, d).contiguous()
 
-    def rows1(i):  # (B, 1, N, D) slice -> (B*N, D)
-        return qkv[..., i * d:(i + 1) * d].reshape(b * n, d).contiguous()
+        if ragged:
+            ctx = ops.temporal_decode_pm_ragged(
+                rows1(0), rows1(1), rows1(2), cache_kv["k"], cache_kv["v"], cache_len, n, h
+            )
+        else:
+            ctx = ops.temporal_decode_pm(
+                rows1(0), rows1(1), rows1(2), cache_kv["k"], cache_kv["v"], cache_len, h
+            )
+        return dense(ctx.reshape(b, 1, n, d), attn.output.dense)
+    if cfg.cache_mode == "ring":
+        raise NotImplementedError(
+            "multi-frame appends to the ring cache: the ring takes one frame per call "
+            "(ROADMAP slice 1, item 3a)"
+        )
 
-    ctx = ops.temporal_decode_pm(
-        rows1(0), rows1(1), rows1(2), cache_kv["k"], cache_kv["v"], cache_len, h
+    def rows_t(i):  # (B, T, N, D) slice -> (T, B*N, D)
+        return qkv[..., i * d:(i + 1) * d].transpose(0, 1).reshape(t, b * n, d).contiguous()
+
+    if ragged:
+        lens, per_stream = cache_len, n
+    else:  # lockstep: one stream of all B*N rows
+        lens, per_stream = cache_len.reshape(1), b * n
+    if new_valid is None:
+        new_valid = torch.full(lens.shape, t, dtype=torch.int32, device=lens.device)
+    ctx = ops.temporal_append_pm_ragged(
+        rows_t(0), rows_t(1), rows_t(2), cache_kv["k"], cache_kv["v"], lens, new_valid,
+        per_stream, h,
     )
-    return dense(ctx.reshape(b, 1, n, d), attn.output.dense)
+    return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
 
 
 # --------------------------------------------------------------------------
@@ -375,6 +414,7 @@ def layer_forward(
     *,
     cache_kv: Optional[Dict[str, torch.Tensor]] = None,
     cache_len: Optional[torch.Tensor] = None,
+    new_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One divided space-time block on (B, T, N, D): temporal LN ->
     causal temporal attention -> ``temporal_dense`` -> residual scaled by
@@ -383,7 +423,8 @@ def layer_forward(
     eps = cfg.layer_norm_eps
     t_ln = layer_norm(x, layer.temporal_layernorm, eps)
     t_attn = temporal_attention(
-        t_ln, layer.temporal_attention, cfg, cache_kv=cache_kv, cache_len=cache_len
+        t_ln, layer.temporal_attention, cfg, cache_kv=cache_kv, cache_len=cache_len,
+        new_valid=new_valid,
     )
     gate = torch.tanh(layer.temporal_attention_gating.float()).to(x.dtype)
     x = x + gate * dense(t_attn, layer.temporal_dense)
@@ -432,6 +473,16 @@ def model_forward(model: StreamformerEncoder, pixel_values: torch.Tensor) -> Dic
 # --------------------------------------------------------------------------
 
 
+def auto_cache_mode(cfg: StreamformerConfig) -> str:
+    """The cache mode a serving engine takes for mode="auto": "ring" for the
+    pos-major layout, whose t=1 decode (kernels A and D on the card, and
+    their plain versions on the CPU) serves the ring's sliding window as it
+    serves the linear cache; "linear" otherwise. The JAX package resolves to
+    "linear" off its TPU kernels, so a comparison with its engine names the
+    mode."""
+    return "ring" if cfg.cache_layout == "pos_major" else "linear"
+
+
 def init_cache(
     cfg: StreamformerConfig,
     batch: int,
@@ -443,11 +494,13 @@ def init_cache(
     device=None,
 ) -> Cache:
     """Preallocated temporal KV cache: ``{"layers": [{"k", "v"}, ...],
-    "len": int32 tensor ()}``, K/V pos-major (C, batch*N, D), zeros, every
-    stream in lockstep. ``capacity`` defaults to ``cfg.cache_capacity``; the
-    cache lives on ``cuda`` unless ``device`` names another device."""
-    if per_stream_len:
-        raise NotImplementedError("per-stream lengths, the ragged cache (ROADMAP slice 2, item 4)")
+    "len": int32 tensor}``, K/V pos-major (C, batch*N, D), zeros.
+
+    ``len`` is () with every stream in lockstep, or (batch,) with
+    ``per_stream_len``: the ragged cache of continuous batching, each stream
+    at its own position (see ``reset_streams``). Rows are not padded per
+    stream. ``capacity`` defaults to ``cfg.cache_capacity``; the cache lives
+    on ``cuda`` unless ``device`` names another device."""
     if cfg.cache_layout != "pos_major":
         raise NotImplementedError(
             f"cache layout {cfg.cache_layout!r}: the port keeps the pos-major cache "
@@ -469,7 +522,21 @@ def init_cache(
         {"k": torch.zeros(shape, dtype=dt, device=dev), "v": torch.zeros(shape, dtype=dt, device=dev)}
         for _ in range(cfg.num_hidden_layers)
     ]
-    return {"layers": layers, "len": torch.zeros((), dtype=torch.int32, device=dev)}
+    len_shape = (batch,) if per_stream_len else ()
+    return {"layers": layers, "len": torch.zeros(len_shape, dtype=torch.int32, device=dev)}
+
+
+def reset_streams(cache: Cache, done: torch.Tensor) -> Cache:
+    """Re-admit finished stream slots of a per-stream-length cache.
+
+    done: (B,) bool on the cache's device; True sets that stream's length to
+    0. IN PLACE, ``len.masked_fill_(done, 0)``, with no host read; the cache
+    is returned for the JAX package's calling convention. Stale K/V need no
+    clearing: every consumer masks positions >= len."""
+    if cache["len"].ndim != 1:
+        raise ValueError("reset_streams needs init_cache(per_stream_len=True)")
+    cache["len"].masked_fill_(done, 0)
+    return cache
 
 
 @torch.no_grad()
@@ -479,34 +546,46 @@ def streaming_forward(
     cache: Cache,
     *,
     total_frames_hint: Optional[int] = None,
+    new_valid: Optional[torch.Tensor] = None,
+    cfg: Optional[StreamformerConfig] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Cache]:
-    """Append one frame per stream: pixel_values (B, 1, C, H, W).
+    """Append T new frames per stream: pixel_values (B, T, C, H, W).
 
-    Returns (outputs, cache): ``last_hidden_state`` (B, 1, N, D) and
-    ``pooler_output`` (B, 1, D) for the new frame, equal to the last frame of
-    a full-clip forward over every frame so far (within the window, for the
-    ring). The cache is updated IN PLACE, K/V planes and ``len`` alike, and
-    returned for the JAX package's calling convention.
+    Returns (outputs, cache): ``last_hidden_state`` (B, T, N, D) and
+    ``pooler_output`` (B, T, D) for the new frames, equal to the last frames
+    of a full-clip forward over every frame so far (within the window, for
+    the ring). The cache is updated IN PLACE, K/V planes and ``len`` alike,
+    and returned for the JAX package's calling convention.
+
+    Ragged cache (``init_cache(per_stream_len=True)``): each stream b starts
+    at its own position len[b] (time embeddings, masks, appends), so row b
+    equals a lone stream at that position. ``new_valid`` (B,) int32 in
+    [0, T], ragged cache only: stream b appends only its first new_valid[b]
+    frames and its ``len`` advances by new_valid[b]; output columns past it
+    are unspecified. Without it every ``len`` advances by T. T >= 2, or
+    ``new_valid``, needs the linear cache.
 
     ``total_frames_hint`` is the sequence length used for time-embedding
     interpolation; by default ``cfg.num_frames`` (as the JAX package's code
     does), so positions past the trained table reuse its last row. The
     linear cache must not be run past its capacity: that is not checked, as
-    it would wait on the device for ``len``; the same kernel then acts as the
-    ring.
+    it would wait on the device for ``len``; the t=1 kernels then act as the
+    ring. ``cfg`` defaults to ``model.cfg``; a serving engine passes its own,
+    whose ``cache_mode`` may differ.
     """
-    cfg = model.cfg
+    cfg = cfg if cfg is not None else model.cfg
     b, t = pixel_values.shape[:2]
-    if t != 1:
-        raise NotImplementedError("multi-frame streaming appends (ROADMAP slice 2, item 4)")
     cache_len = cache["len"]
-    if cache_len.ndim:
-        raise NotImplementedError("per-stream lengths, the ragged cache (ROADMAP slice 2, item 4)")
+    if new_valid is not None:
+        if cache_len.ndim != 1:
+            raise ValueError("new_valid (per-stream partial appends) needs "
+                             "init_cache(per_stream_len=True)")
+        new_valid = torch.as_tensor(new_valid, dtype=torch.int32, device=cache_len.device)
     total = total_frames_hint if total_frames_hint is not None else cfg.num_frames
     x = embed(model, pixel_values, start_pos=cache_len, total_frames=max(total, t))
     for layer, kv in zip(model.encoder.layer, cache["layers"]):
-        x = layer_forward(layer, x, cfg, cache_kv=kv, cache_len=cache_len)
+        x = layer_forward(layer, x, cfg, cache_kv=kv, cache_len=cache_len, new_valid=new_valid)
     x = layer_norm(x, model.post_layernorm, cfg.layer_norm_eps)
     out = {"last_hidden_state": x, "pooler_output": map_pool(x, model.head, cfg)}
-    cache_len.add_(t)
+    cache_len.add_(t if new_valid is None else new_valid)
     return out, cache

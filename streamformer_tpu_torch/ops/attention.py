@@ -1,13 +1,15 @@
 """The attention kernels of the encoder's main path, each with its plain
 PyTorch version and a launch count.
 
-=====================  ===========================  ==========================
-wrapper                plain version                 replaces (JAX package)
-=====================  ===========================  ==========================
-``temporal_decode_pm``  ``temporal_decode_pm_plain``  ``fused_temporal_decode_pm``
-``spatial_flat``        ``spatial_flat_plain``        ``fused_spatial_flat`` (fwd)
-``temporal_fullclip``   ``temporal_fullclip_plain``   ``fused_temporal_fullclip``
-=====================  ===========================  ==========================
+=============================  ===================================  ===================================
+wrapper                        plain version                        replaces (JAX package)
+=============================  ===================================  ===================================
+``temporal_decode_pm``         ``temporal_decode_pm_plain``         ``fused_temporal_decode_pm``
+``temporal_decode_pm_ragged``  ``temporal_decode_pm_ragged_plain``  ``fused_temporal_decode_pm_ragged``
+``temporal_append_pm_ragged``  ``temporal_append_pm_ragged_plain``  ``fused_temporal_append_pm_ragged``
+``spatial_flat``               ``spatial_flat_plain``               ``fused_spatial_flat`` (fwd)
+``temporal_fullclip``          ``temporal_fullclip_plain``          ``fused_temporal_fullclip``
+=============================  ===================================  ===================================
 
 A wrapper takes its plain version for tensors on the CPU, and only then. For
 CUDA tensors it launches its kernel from ``csrc/`` on the current stream or
@@ -28,9 +30,16 @@ from streamformer_tpu_torch.ops import build
 
 LAUNCHES: Dict[str, int] = {
     "temporal_decode_pm": 0,
+    "temporal_decode_pm_ragged": 0,
+    "temporal_append_pm_ragged": 0,
     "spatial_flat": 0,
     "temporal_fullclip": 0,
 }
+
+# Keys one warp of ``temporal_append_pm_ragged`` holds: the cache capacity
+# plus the new frames (csrc/temporal_append_pm.cu, one lane per query). So a
+# call appends at most ``append_frame_cap(C)`` frames, 16 at capacity 16.
+APPEND_MAX_KEYS = 32
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on sm_90
@@ -79,8 +88,17 @@ def _cuda_ready(name: str, *tensors: torch.Tensor) -> None:
             )
 
 
-def _launch(name: str, symbol: str, argtypes, device: torch.device, *args) -> None:
-    fn = build.function(name, symbol, argtypes)
+def append_frame_cap(capacity: int) -> int:
+    """Most new frames one ``temporal_append_pm_ragged`` call takes on a cache
+    of ``capacity`` slots (0 when the capacity alone fills a warp's keys)."""
+    return max(0, APPEND_MAX_KEYS - capacity)
+
+
+def _launch(name: str, symbol: str, argtypes, device: torch.device, *args,
+            library: str = "") -> None:
+    """Launch C entry ``symbol`` of library ``library`` (default: ``name``)
+    on the current stream; count it under ``name``."""
+    fn = build.function(library or name, symbol, argtypes)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
@@ -97,28 +115,9 @@ def _launch(name: str, symbol: str, argtypes, device: torch.device, *args) -> No
 def temporal_decode_pm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     """Plain version of ``temporal_decode_pm``: the same function, same
     in-place cache update."""
-    c, r, d = k_cache.shape
-    h = num_heads
-    dh = d // h
-    scale = dh**-0.5
-    qf = q.float().view(r, h, dh)
-    length = cache_len.reshape(()).long()
-    slot = length % c
-    s_new = (qf * k_new.float().view(r, h, dh)).sum(-1, keepdim=True) * scale
-    s_old = torch.einsum("rhd,crhd->rhc", qf, k_cache.float().view(c, r, h, dh)) * scale
-    pos = torch.arange(c, device=q.device)
-    valid = (pos < length) & (pos != slot)
-    s_old = s_old.masked_fill(~valid, float("-inf"))
-    probs = torch.softmax(torch.cat([s_new, s_old], dim=-1), dim=-1)
-    vals = torch.cat(
-        [v_new.float().view(r, h, 1, dh), v_cache.float().view(c, r, h, dh).permute(1, 2, 0, 3)],
-        dim=2,
+    return temporal_decode_pm_ragged_plain(
+        q, k_new, v_new, k_cache, v_cache, cache_len.reshape(1), q.shape[0], num_heads
     )
-    out = torch.einsum("rhc,rhcd->rhd", probs, vals).reshape(r, d).to(q.dtype)
-    index = slot.reshape(1)
-    k_cache.index_copy_(0, index, k_new.unsqueeze(0))
-    v_cache.index_copy_(0, index, v_new.unsqueeze(0))
-    return out
 
 
 def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
@@ -149,17 +148,10 @@ def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
         raise TypeError("temporal_decode_pm: cache_len must be one int32 element")
     device = _check("temporal_decode_pm", num_heads, d, q=q, k_new=k_new, v_new=v_new,
                     k_cache=k_cache, v_cache=v_cache)
-    if cache_len.device != device:
-        raise ValueError(f"temporal_decode_pm: cache_len is on {cache_len.device}, not {device}")
+    _check_lengths("temporal_decode_pm", device, cache_len=cache_len)
     if device.type == "cpu":
         return temporal_decode_pm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads)
-    _cuda_ready("temporal_decode_pm", q, k_new, v_new, k_cache, v_cache)
-    smem = build.function("temporal_decode_pm", "sf_temporal_decode_pm_smem_bytes", (_I, _I))(
-        d // num_heads, k_cache.shape[0]
-    )
-    if smem > _MAX_SMEM:
-        raise ValueError(f"temporal_decode_pm: capacity {k_cache.shape[0]} needs {smem} bytes "
-                         "of shared memory per block")
+    _decode_ready("temporal_decode_pm", q, k_new, v_new, k_cache, v_cache, num_heads)
     out = torch.empty_like(q)
     _launch(
         "temporal_decode_pm", "sf_temporal_decode_pm",
@@ -167,6 +159,208 @@ def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
         r, k_cache.shape[0], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
+    )
+    return out
+
+
+def _check_lengths(name: str, device: torch.device, **lengths: torch.Tensor) -> None:
+    for key, t in lengths.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _decode_ready(name, q, k_new, v_new, k_cache, v_cache, num_heads) -> None:
+    """What a launch of A or D needs: aligned pointers, and the shared memory
+    the capacity asks for."""
+    _cuda_ready(name, q, k_new, v_new, k_cache, v_cache)
+    smem = build.function("temporal_decode_pm", "sf_temporal_decode_pm_smem_bytes", (_I, _I))(
+        q.shape[-1] // num_heads, k_cache.shape[0]
+    )
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: capacity {k_cache.shape[0]} needs {smem} bytes "
+                         "of shared memory per block")
+
+
+def _stream_lengths(name: str, lens: torch.Tensor, rows: int, rows_per_stream: int,
+                    **more: torch.Tensor) -> None:
+    """``lens`` (and any ``more``) must be (B,) int32 with B * rows_per_stream
+    == rows."""
+    if rows_per_stream <= 0 or rows % rows_per_stream:
+        raise ValueError(f"{name}: {rows} rows are not a multiple of "
+                         f"rows_per_stream={rows_per_stream}")
+    b = rows // rows_per_stream
+    for key, t in dict(lens=lens, **more).items():
+        if t.dtype != torch.int32 or t.shape != (b,):
+            raise TypeError(f"{name}: {key} must be int32 of shape ({b},), one per stream; "
+                            f"got {t.dtype} {tuple(t.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# D. A with per-stream lengths: continuous batching
+# ---------------------------------------------------------------------------
+
+
+def temporal_decode_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream,
+                                    num_heads):
+    """Plain version of ``temporal_decode_pm_ragged`` (and of A, one stream):
+    the same function, same in-place cache update."""
+    c, r, d = k_cache.shape
+    h = num_heads
+    dh = d // h
+    scale = dh**-0.5
+    qf = q.float().view(r, h, dh)
+    length = lens.long().repeat_interleave(rows_per_stream)  # (R,)
+    slot = length % c
+    s_new = (qf * k_new.float().view(r, h, dh)).sum(-1, keepdim=True) * scale
+    s_old = torch.einsum("rhd,crhd->rhc", qf, k_cache.float().view(c, r, h, dh)) * scale
+    pos = torch.arange(c, device=q.device)
+    valid = (pos[None] < length[:, None]) & (pos[None] != slot[:, None])  # (R, C)
+    s_old = s_old.masked_fill(~valid[:, None, :], float("-inf"))
+    probs = torch.softmax(torch.cat([s_new, s_old], dim=-1), dim=-1)
+    vals = torch.cat(
+        [v_new.float().view(r, h, 1, dh), v_cache.float().view(c, r, h, dh).permute(1, 2, 0, 3)],
+        dim=2,
+    )
+    out = torch.einsum("rhc,rhcd->rhd", probs, vals).reshape(r, d).to(q.dtype)
+    rows = torch.arange(r, device=q.device)
+    k_cache[slot, rows] = k_new
+    v_cache[slot, rows] = v_new
+    return out
+
+
+def temporal_decode_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream,
+                              num_heads):
+    """``temporal_decode_pm`` for a batch of streams, each at its own position.
+
+    q, k_new, v_new: (R, D); k_cache, v_cache: (C, R, D); row r belongs to
+    stream ``r // rows_per_stream``. lens: (B,) int32 on the same device,
+    B * rows_per_stream == R, the position each stream's new frame takes; it
+    is read on the device and not changed. Each stream attends, appends at
+    slot ``lens[b] % C`` and excludes that slot, as A does for one length, so
+    the call serves the linear cache and the ring. Rows are not padded per
+    stream. A ragged row's output equals, bit for bit on the card, A's for a
+    lone stream at the same position (one kernel source)."""
+    r, d = q.shape
+    if k_cache.ndim != 3 or k_cache.shape[1:] != (r, d) or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"temporal_decode_pm_ragged: caches {tuple(k_cache.shape)}, "
+            f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)} as (C, R, D)"
+        )
+    if k_new.shape != q.shape or v_new.shape != q.shape:
+        raise ValueError("temporal_decode_pm_ragged: k_new and v_new must have q's shape (R, D)")
+    _stream_lengths("temporal_decode_pm_ragged", lens, r, rows_per_stream)
+    device = _check("temporal_decode_pm_ragged", num_heads, d, q=q, k_new=k_new, v_new=v_new,
+                    k_cache=k_cache, v_cache=v_cache)
+    _check_lengths("temporal_decode_pm_ragged", device, lens=lens)
+    if device.type == "cpu":
+        return temporal_decode_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens,
+                                               rows_per_stream, num_heads)
+    _decode_ready("temporal_decode_pm_ragged", q, k_new, v_new, k_cache, v_cache, num_heads)
+    out = torch.empty_like(q)
+    _launch(
+        "temporal_decode_pm_ragged", "sf_temporal_decode_pm_ragged",
+        (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P), device,
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), lens.data_ptr(), rows_per_stream, out.data_ptr(),
+        r, k_cache.shape[0], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
+        library="temporal_decode_pm",
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# E. t new frames per stream: the throughput-mode append on the linear cache
+# ---------------------------------------------------------------------------
+
+
+def temporal_append_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, valid,
+                                    rows_per_stream, num_heads):
+    """Plain version of ``temporal_append_pm_ragged``: the same function, same
+    in-place cache update. fp32 throughout, output rounded to q's dtype."""
+    t, r, d = q.shape
+    c = k_cache.shape[0]
+    h = num_heads
+    dh = d // h
+    length = lens.long().repeat_interleave(rows_per_stream)  # (R,)
+    n_valid = valid.long().repeat_interleave(rows_per_stream)
+
+    def heads(a):  # (n, R, D) -> (R, H, n, dh)
+        return a.float().view(a.shape[0], r, h, dh).permute(1, 2, 0, 3)
+
+    keys = torch.cat([heads(k_cache), heads(k_new)], dim=2)  # (R, H, C + t, dh)
+    vals = torch.cat([heads(v_cache), heads(v_new)], dim=2)
+    s = torch.matmul(heads(q), keys.transpose(-1, -2)) * dh**-0.5  # (R, H, t, C + t)
+    ti = torch.arange(t, device=q.device)
+    old = torch.arange(c, device=q.device)[None, None, :] < length[:, None, None]  # (R, 1, C)
+    new = (ti[None, :] <= ti[:, None]).expand(r, t, t)  # query ti sees new frames 0..ti
+    mask = torch.cat([old.expand(r, t, c), new], dim=-1)  # (R, t, C + t)
+    p = torch.softmax(s.masked_fill(~mask[:, None], float("-inf")), dim=-1)
+    out = torch.matmul(p, vals).permute(2, 0, 1, 3).reshape(t, r, d).to(q.dtype)
+    slot = length[None, :] + ti[:, None]  # (t, R)
+    write = (ti[:, None] < n_valid[None, :]) & (slot < c)
+    frame, row = write.nonzero(as_tuple=True)
+    k_cache[slot[frame, row], row] = k_new[frame, row]
+    v_cache[slot[frame, row], row] = v_new[frame, row]
+    return out
+
+
+def temporal_append_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, valid, rows_per_stream,
+                              num_heads):
+    """Append t new frames per stream to the linear pos-major cache and
+    attend them, causally, in one call.
+
+    q, k_new, v_new: (t, R, D), new frame ti of row r at [ti, r]. k_cache,
+    v_cache: (C, R, D); row r belongs to stream ``r // rows_per_stream``.
+    lens, valid: (B,) int32 on the same device, B * rows_per_stream == R:
+    stream b holds lens[b] positions and appends its first valid[b] new
+    frames at slots lens[b] + ti (a slot past C is dropped). Query ti of
+    stream b attends cache slots < lens[b] and new frames 0..ti; outputs for
+    ti >= valid[b] are unspecified. lens and valid are read on the device and
+    not changed; the caller keeps lens + valid <= C (the linear contract,
+    checked by the serving engine on its host mirrors, never here, as that
+    would wait on the device). Capacity plus t may not exceed
+    ``APPEND_MAX_KEYS``. Returns (t, R, D) in q's dtype. On the card a
+    stream fed through this call in chunks reproduces the full clip bit for
+    bit (``temporal_fullclip``'s arithmetic)."""
+    if q.ndim != 3 or k_new.shape != q.shape or v_new.shape != q.shape:
+        raise ValueError("temporal_append_pm_ragged: q, k_new, v_new must share one "
+                         "(t, R, D) shape")
+    t, r, d = q.shape
+    if k_cache.ndim != 3 or k_cache.shape[1:] != (r, d) or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"temporal_append_pm_ragged: caches {tuple(k_cache.shape)}, "
+            f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)} as (C, R, D)"
+        )
+    c = k_cache.shape[0]
+    if t < 1 or c + t > APPEND_MAX_KEYS:
+        raise NotImplementedError(
+            f"temporal_append_pm_ragged: capacity {c} + {t} new frames exceeds the "
+            f"{APPEND_MAX_KEYS} keys a warp holds (ROADMAP slice 1, item 3a)"
+        )
+    _stream_lengths("temporal_append_pm_ragged", lens, r, rows_per_stream, valid=valid)
+    device = _check("temporal_append_pm_ragged", num_heads, d, q=q, k_new=k_new, v_new=v_new,
+                    k_cache=k_cache, v_cache=v_cache)
+    _check_lengths("temporal_append_pm_ragged", device, lens=lens, valid=valid)
+    if device.type == "cpu":
+        return temporal_append_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, valid,
+                                               rows_per_stream, num_heads)
+    _cuda_ready("temporal_append_pm_ragged", q, k_new, v_new, k_cache, v_cache)
+    code = _DTYPE_CODES[q.dtype]
+    smem = build.function("temporal_append_pm", "sf_temporal_append_pm_smem_bytes",
+                          (_I, _I, _I))(d // num_heads, c + t, code)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"temporal_append_pm_ragged: {c + t} keys need {smem} bytes of "
+                         "shared memory per block")
+    out = torch.empty_like(q)
+    _launch(
+        "temporal_append_pm_ragged", "sf_temporal_append_pm",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P), device,
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), lens.data_ptr(), valid.data_ptr(), rows_per_stream, out.data_ptr(),
+        r, t, c, d, num_heads, (d // num_heads) ** -0.5, code,
+        library="temporal_append_pm",
     )
     return out
 

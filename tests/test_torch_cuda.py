@@ -126,3 +126,153 @@ def test_wrappers_raise_instead_of_falling_back():
         ops.temporal_fullclip(q, q, q, 3)  # D not a multiple of the heads
     with pytest.raises(ValueError):
         ops.spatial_flat(q, q, q.cpu(), 4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "per_stream,lens,cap,heads,dh",
+    [
+        (7, [0, 3, 7, 2], 8, 4, 24),
+        (7, [8, 11, 19, 30], 8, 4, 24),  # ring: every length past capacity
+        (196, [0, 1, 5, 9, 14, 15, 15, 15], 16, 12, 64),  # flagship engine tick, linear
+        (196, [16, 17, 23, 31, 40, 41, 50, 63], 16, 12, 64),  # flagship, ring
+        (5, [4, 0, 2], 5, 2, 128),
+    ],
+)
+def test_temporal_decode_pm_ragged_matches_plain(dtype, per_stream, lens, cap, heads, dh):
+    d = heads * dh
+    rows = per_stream * len(lens)
+    q, kn, vn = (_randn((rows, d), dtype, s) for s in (1, 2, 3))
+    kc, vc = _randn((cap, rows, d), dtype, 4), _randn((cap, rows, d), dtype, 5)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    k_ref, v_ref = kc.clone(), vc.clone()
+    ref = ops.temporal_decode_pm_ragged_plain(q, kn, vn, k_ref, v_ref, lens_t, per_stream, heads)
+    before = ops.LAUNCHES["temporal_decode_pm_ragged"]
+    got = ops.temporal_decode_pm_ragged(q, kn, vn, kc, vc, lens_t, per_stream, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_decode_pm_ragged"] == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(kc, k_ref) and torch.equal(vc, v_ref)
+    assert lens_t.tolist() == lens
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_rows_equal_lone_streams_bitwise(dtype):
+    """Kernels A and D share one source: a ragged row's output equals, bit
+    for bit, A's for a lone stream at the same position."""
+    per_stream, lens, cap, heads, dh = 196, [0, 3, 15, 21], 16, 12, 64
+    d = heads * dh
+    rows = per_stream * len(lens)
+    q, kn, vn = (_randn((rows, d), dtype, s) for s in (1, 2, 3))
+    kc, vc = _randn((cap, rows, d), dtype, 4), _randn((cap, rows, d), dtype, 5)
+    k_all, v_all = kc.clone(), vc.clone()
+    got = ops.temporal_decode_pm_ragged(
+        q, kn, vn, k_all, v_all, torch.tensor(lens, dtype=torch.int32, device="cuda"),
+        per_stream, heads)
+    for b, length in enumerate(lens):
+        sl = slice(b * per_stream, (b + 1) * per_stream)
+        k1, v1 = kc[:, sl].contiguous(), vc[:, sl].contiguous()
+        lone = ops.temporal_decode_pm(
+            q[sl].contiguous(), kn[sl].contiguous(), vn[sl].contiguous(), k1, v1,
+            torch.tensor(length, dtype=torch.int32, device="cuda"), heads)
+        assert torch.equal(got[sl], lone), b
+        assert torch.equal(k_all[:, sl], k1) and torch.equal(v_all[:, sl], v1), b
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "per_stream,lens,valid,t,cap,heads,dh",
+    [
+        (7, [0, 2, 4], [3, 1, 0], 3, 8, 4, 24),
+        (196, [0, 1, 5, 8, 8, 12, 15, 16], [8, 0, 8, 8, 3, 4, 1, 0], 8, 16, 12, 64),  # flagship
+        (196, [0, 0], [16, 16], 16, 16, 12, 64),  # a whole clip in one call
+        (5, [3, 1], [1, 2], 2, 30, 2, 128),
+        (9, [2, 0, 1], [1, 1, 0], 1, 4, 3, 8),
+    ],
+)
+def test_temporal_append_pm_ragged_matches_plain(dtype, per_stream, lens, valid, t, cap, heads,
+                                                 dh):
+    d = heads * dh
+    rows = per_stream * len(lens)
+    q, kn, vn = (_randn((t, rows, d), dtype, s) for s in (6, 7, 8))
+    kc, vc = _randn((cap, rows, d), dtype, 9), _randn((cap, rows, d), dtype, 10)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    valid_t = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    k_ref, v_ref = kc.clone(), vc.clone()
+    ref = ops.temporal_append_pm_ragged_plain(q, kn, vn, k_ref, v_ref, lens_t, valid_t,
+                                              per_stream, heads)
+    before = ops.LAUNCHES["temporal_append_pm_ragged"]
+    got = ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens_t, valid_t, per_stream, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_append_pm_ragged"] == before + 1
+    assert torch.equal(kc, k_ref) and torch.equal(vc, v_ref)
+    for b, n in enumerate(valid):  # outputs past valid[b] are unspecified
+        sl = slice(b * per_stream, (b + 1) * per_stream)
+        if n:
+            assert (got[:n, sl].float() - ref[:n, sl].float()).abs().max().item() <= TOL[dtype], b
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("chunks", [[16], [8, 8], [3, 5, 1, 7], [1] * 16])
+def test_chunked_appends_equal_the_full_clip_bitwise(dtype, chunks):
+    """Kernel E fed a clip in chunks gives, bit for bit, kernel C's output
+    for every frame: the three kernels share one order of arithmetic."""
+    rows, heads, dh = 1568, 12, 64
+    t = sum(chunks)
+    d = heads * dh
+    q, k, v = (_randn((rows, t, d), dtype, s) for s in (12, 13, 14))
+    full = ops.temporal_fullclip(q, k, v, heads)
+    k_cache = torch.zeros(t, rows, d, dtype=dtype, device="cuda")
+    v_cache = torch.zeros_like(k_cache)
+    start = 0
+    for n in chunks:
+        def new(a):
+            return a[:, start:start + n].transpose(0, 1).contiguous()
+
+        lens = torch.tensor([start], dtype=torch.int32, device="cuda")
+        valid = torch.tensor([n], dtype=torch.int32, device="cuda")
+        got = ops.temporal_append_pm_ragged(new(q), new(k), new(v), k_cache, v_cache, lens, valid,
+                                            rows, heads)
+        assert torch.equal(got, full[:, start:start + n].transpose(0, 1)), start
+        start += n
+
+
+def test_ragged_engine_streams_equal_lone_streams():
+    """The serving engine on the card, fp32 small config: every stream's
+    features equal a lone B=1 stream's, in both tick modes, within the fp32
+    kernel tolerance (the matmuls run at another batch size)."""
+    from streamformer_tpu_torch.config import StreamformerConfig
+    from streamformer_tpu_torch.models import encoder
+    from streamformer_tpu_torch.serving import StreamingEngine
+
+    cfg = StreamformerConfig(image_size=32, num_frames=8, hidden_size=64, num_hidden_layers=2,
+                             num_attention_heads=4, intermediate_size=128, dtype="float32",
+                             cache_capacity=16)
+    model = encoder.StreamformerEncoder(cfg, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in model.encoder.layer:
+            layer.temporal_attention_gating.fill_(0.5)
+    rng = np.random.default_rng(0)
+    clips = [rng.standard_normal((n, 3, 32, 32)).astype(np.float32) for n in (3, 9, 2, 7, 5)]
+
+    def lone(clip):
+        cache = model.init_cache(1)
+        feats = []
+        for i in range(len(clip)):
+            out, cache = model.stream(torch.from_numpy(clip[None, i:i + 1]), cache)
+            feats.append(out["pooler_output"][0, 0].cpu().numpy())
+        return np.stack(feats)
+
+    for frames in (1, 4):
+        eng = StreamingEngine(model, slots=2, mode="linear")
+        sids = []
+        for clip in clips:
+            sid = eng.open()
+            eng.feed(sid, clip)
+            eng.close(sid)
+            sids.append(sid)
+        eng.run_until_idle(frames=frames)
+        for sid, clip in zip(sids, clips):
+            feats, done = eng.poll(sid)
+            assert done
+            assert np.abs(feats - lone(clip)).max() <= TOL[torch.float32], (frames, sid)

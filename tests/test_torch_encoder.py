@@ -173,10 +173,11 @@ def test_gelu_follows_the_dtype():
 
 def test_out_of_slice_features_raise():
     _, _, cfg, model = _pair()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # capacity 64 + 2 frames: past kernel E's 32 keys
         model.stream(torch.zeros(1, 2, 3, 48, 48), model.init_cache(1))
-    with pytest.raises(NotImplementedError):
-        encoder.init_cache(cfg, 1, per_stream_len=True, device="cpu")
+    ring = encoder.StreamformerEncoder(cfg.replace(cache_mode="ring"), device="cpu")
+    with pytest.raises(NotImplementedError):  # the ring takes one frame per call
+        ring.stream(torch.zeros(1, 2, 3, 48, 48), ring.init_cache(1, capacity=8))
     with pytest.raises(NotImplementedError):
         encoder.init_cache(cfg.replace(cache_dtype="int8"), 1, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -51,6 +51,7 @@ def test_port_runs_with_jax_unimportable():
         "sys.modules['jax'] = sys.modules['streamformer_tpu'] = None\n"
         "import torch\n"
         "import streamformer_tpu_torch.checkpoint, streamformer_tpu_torch.ops.build\n"
+        "import streamformer_tpu_torch.serving, streamformer_tpu_torch.server\n"
         "from streamformer_tpu_torch.config import StreamformerConfig\n"
         "from streamformer_tpu_torch.models.encoder import StreamformerEncoder\n"
         "cfg = StreamformerConfig(image_size=32, num_frames=2, hidden_size=32, num_hidden_layers=1,"

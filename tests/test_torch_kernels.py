@@ -81,6 +81,67 @@ def test_temporal_fullclip_matches_pallas(t):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize(
+    "lens",
+    [[0, 3, 7], [7, 0, 3], [8, 13, 19]],  # linear at 0, mid and C-1; ring past C
+)
+def test_temporal_decode_pm_ragged_matches_pallas(lens):
+    """Per-stream lengths, 8 rows per stream (a multiple of 8, so the JAX
+    kernel needs no row padding)."""
+    per_stream, c, h, dh = 8, 8, 4, 24
+    r, d = per_stream * len(lens), h * dh
+    q, kn, vn = (_randn((r, d), s) for s in (21, 22, 23))
+    kc, vc = _randn((c, r, d), 24), _randn((c, r, d), 25)
+    ref, k_ref, v_ref = A.fused_temporal_decode_pm_ragged(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(lens, jnp.int32), per_stream, num_heads=h,
+    )
+    k_got, v_got = _t(kc), _t(vc)
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    got = ops.temporal_decode_pm_ragged(_t(q), _t(kn), _t(vn), k_got, v_got, lens_t, per_stream, h)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(k_got.numpy(), np.asarray(k_ref))
+    np.testing.assert_array_equal(v_got.numpy(), np.asarray(v_ref))
+    assert lens_t.tolist() == lens
+
+
+@pytest.mark.parametrize(
+    "t,lens,valid",
+    [(1, [0, 3, 7], [1, 0, 1]), (3, [2, 0, 5], [3, 1, 0]), (3, [0, 4, 1], [0, 3, 3])],
+)
+def test_temporal_append_pm_ragged_matches_pallas(t, lens, valid):
+    """Outputs where ti < valid[b] (the rest are unspecified) and cache slots
+    below lens + valid (the Pallas kernel copies stale blocks through past
+    them), with lens + valid <= C."""
+    per_stream, c, h, dh = 8, 8, 4, 24
+    r, d = per_stream * len(lens), h * dh
+    q, kn, vn = (_randn((t, r, d), s) for s in (31, 32, 33))
+    kc, vc = _randn((c, r, d), 34), _randn((c, r, d), 35)
+    ref, k_ref, v_ref = A.fused_temporal_append_pm_ragged(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(lens, jnp.int32), jnp.asarray(valid, jnp.int32), per_stream, num_heads=h,
+    )
+    k_got, v_got = _t(kc), _t(vc)
+    got = ops.temporal_append_pm_ragged(
+        _t(q), _t(kn), _t(vn), k_got, v_got, torch.tensor(lens, dtype=torch.int32),
+        torch.tensor(valid, dtype=torch.int32), per_stream, h,
+    )
+    for b, (length, n) in enumerate(zip(lens, valid)):
+        sl = slice(b * per_stream, (b + 1) * per_stream)
+        np.testing.assert_allclose(got[:n, sl].numpy(), np.asarray(ref)[:n, sl], atol=ATOL, rtol=0)
+        for mine, theirs in ((k_got, k_ref), (v_got, v_ref)):
+            np.testing.assert_array_equal(mine[:length + n, sl].numpy(),
+                                          np.asarray(theirs)[:length + n, sl])
+
+
+def test_append_frame_cap():
+    """Kernel E holds capacity + new frames <= 32 keys per warp: 16 frames
+    at the flagship capacity 16, none past capacity 31."""
+    assert ops.append_frame_cap(16) == 16
+    assert ops.append_frame_cap(31) == 1
+    assert ops.append_frame_cap(32) == 0 and ops.append_frame_cap(64) == 0
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """A missing compiler is an error at first use, never a fallback."""
     from streamformer_tpu_torch.ops import build
@@ -99,6 +160,10 @@ def test_plain_versions_launch_nothing():
     ops.spatial_flat(x, x, x, 2)
     ops.temporal_fullclip(x, x, x, 2)
     ops.temporal_decode_pm(x[0], x[0], x[0], x.clone(), x.clone(), torch.tensor(1, dtype=torch.int32), 2)
+    lens = torch.tensor([1, 0, 3, 2, 0], dtype=torch.int32)
+    ops.temporal_decode_pm_ragged(x[0], x[0], x[0], x.clone(), x.clone(), lens, 1, 2)
+    ops.temporal_append_pm_ragged(x[:1], x[:1], x[:1], x.clone(), x.clone(), lens, lens.clamp(max=1),
+                                  1, 2)
     assert ops.LAUNCHES == before
 
 
@@ -119,6 +184,31 @@ def test_plain_versions_launch_nothing():
         (lambda x: ops.temporal_decode_pm(x[0], x[0], x[0], x, x, torch.tensor(1), 2), TypeError),
         (lambda x: ops.temporal_decode_pm(x[0], x[0], x[0], x[:, :4], x[:, :4],
                                           torch.tensor(1, dtype=torch.int32), 2), ValueError),
+        # D and E: lens and valid are (B,) int32, B * rows_per_stream == R
+        (lambda x: ops.temporal_decode_pm_ragged(x[0], x[0], x[0], x, x, torch.zeros(5), 1, 2),
+         TypeError),  # float lens
+        (lambda x: ops.temporal_decode_pm_ragged(x[0], x[0], x[0], x, x,
+                                                 torch.zeros(5, dtype=torch.int64), 1, 2),
+         TypeError),  # int64 lens
+        (lambda x: ops.temporal_decode_pm_ragged(x[0], x[0], x[0], x, x,
+                                                 torch.zeros(4, dtype=torch.int32), 1, 2),
+         TypeError),  # 4 lengths for 5 streams
+        (lambda x: ops.temporal_decode_pm_ragged(x[0], x[0], x[0], x, x,
+                                                 torch.zeros(2, dtype=torch.int32), 2, 2),
+         ValueError),  # 5 rows are not streams of 2
+        (lambda x: ops.temporal_append_pm_ragged(x[:1], x[:1], x[:1], x, x,
+                                                 torch.zeros(5, dtype=torch.int32),
+                                                 torch.zeros((5, 1), dtype=torch.int32), 1, 2),
+         TypeError),  # valid of the wrong shape
+        (lambda x: ops.temporal_append_pm_ragged(
+            x[:1].expand(31, 5, 32).contiguous(), x[:1].expand(31, 5, 32).contiguous(),
+            x[:1].expand(31, 5, 32).contiguous(), x, x, torch.zeros(5, dtype=torch.int32),
+            torch.zeros(5, dtype=torch.int32), 1, 2),
+         NotImplementedError),  # capacity 2 + 31 frames > 32 keys
+        (lambda x: ops.temporal_append_pm_ragged(
+            x[:1], x[:1], x[:1], x.repeat(16, 1, 1), x.repeat(16, 1, 1),
+            torch.zeros(5, dtype=torch.int32), torch.zeros(5, dtype=torch.int32), 1, 2),
+         NotImplementedError),  # capacity 32 + 1 frame > 32 keys
     ],
 )
 def test_wrappers_reject_what_the_kernels_do_not_take(call, error):
