@@ -37,12 +37,32 @@ Phases, each fatal on failure:
 9. ``server.StreamingServer`` on 127.0.0.1: two clients each open, feed
    (uint8, base64), close and read their features, held to the engine's;
 10. engine frames/s at 8 slots at steady state in both tick modes, and the
-    device busy time per tick over a profiled window.
+    device busy time per tick over a profiled window;
+11. kernels F and G (the int8 cache) against their plain versions at the
+    flagship shapes, bf16 and fp32, linear and ring, codes and scale columns
+    equal, timed beside one ``scaled_dot_product_attention`` call on the
+    dequantized cache (a yardstick of the float function: no PyTorch call
+    takes the int8 cache);
+12. lockstep int8 serving on the flagship model: 16 frames at batch 8 on an
+    int8 linear cache of capacity 16, each frame within the JAX package's
+    int8 gates of the bf16 full clip (cosine 0.999 with the int8 cache alone,
+    0.995 with int8 weights too), then a ring stream of 2C frames with int8
+    weights, kernel F L times a step; int8 streaming frames/s and the device
+    time by kernel;
+13. the engine on an int8 cache (kernel G) on phase 8's bursty streams,
+    with bf16 weights (each stream within 0.008 pooled of a lone B=1 stream
+    on an int8 cache) and with int8 weights (within two bf16 ulps at 1,
+    0.0156: int8 weights turn the bf16 rounding of products at another batch
+    size into code steps), in both tick modes, ``tick(frames=8)`` bit for bit
+    equal to ``tick()`` and G launched L times per t=1 step the engine ran;
+    engine frames/s with the device busy share for both.
 
-Two paths are main paths: the lockstep encode (the launch counters are
-zeroed just before phase 4's forward and read after phase 5) and the
-serving engine (zeroed before each engine run of phase 8, read after it).
-Every kernel must have run on its path. The last two lines are the
+Four paths are main paths: the lockstep encode (the launch counters are
+zeroed just before phase 4's forward and read after phase 5), the serving
+engine (zeroed before each engine run of phase 8, read after it), lockstep
+int8 serving (zeroed before each stream of phase 12) and the int8 engine
+(zeroed before each engine run of phase 13). Every kernel must have run on
+its path. The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
 neither.
@@ -62,6 +82,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; fp32 CUDA cores
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # kernel vs plain, max-abs (tests/test_torch_cuda.py)
 STREAM_TOL_HIDDEN, STREAM_TOL_POOLED = 0.078, 0.008
+# the JAX package's int8 gates against the float full clip: pooled cosine
+# (tests/test_streaming.py, int8 cache; tests/test_quant.py, int8 weights)
+INT8_CACHE_COS, INT8_WEIGHTS_COS = 0.999, 0.995
+# an engine stream with int8 weights against its lone B=1 stream, pooled
+# max-abs: 0.009765625 in both H100 runs that measured it (the bf16 products
+# of another batch size move an activation code on a rounding edge, and a
+# code step moves the output by more than 0.008); two bf16 ulps at 1
+INT8_WEIGHTS_ENGINE_TOL = 2 * 2.0 ** -7
 CARD_VS_CPU_TOL = 1e-4  # fp32 encoder, card vs CPU: summation order only
 SOURCES = {
     "temporal_decode_pm": ("streamformer_tpu_torch/csrc/temporal_decode_pm.cu",
@@ -70,6 +98,10 @@ SOURCES = {
                                   "streamformer_tpu/ops/attention.py:751"),
     "temporal_append_pm_ragged": ("streamformer_tpu_torch/csrc/temporal_append_pm.cu",
                                   "streamformer_tpu/ops/attention.py:946"),
+    "temporal_decode_pm_int8": ("streamformer_tpu_torch/csrc/temporal_decode_pm_int8.cu",
+                                "streamformer_tpu/ops/attention.py:1090"),
+    "temporal_decode_pm_int8_ragged": ("streamformer_tpu_torch/csrc/temporal_decode_pm_int8.cu",
+                                       "streamformer_tpu/ops/attention.py:1171"),
     "spatial_flat": ("streamformer_tpu_torch/csrc/spatial_flat.cu",
                      "streamformer_tpu/ops/attention.py:1531"),
     "temporal_fullclip": ("streamformer_tpu_torch/csrc/temporal_fullclip.cu",
@@ -421,12 +453,12 @@ def main():
                                          ENGINE["streams"])]
     clips = [rng.standard_normal((n, 3, img, img)).astype(np.float32) for n in lens]
 
-    def lone(clip):
+    def lone(clip, mdl=model):
         """Oracle: one frame at a time through a lone B=1 lockstep cache."""
-        c1 = encoder.init_cache(cfg, 1)
+        c1 = encoder.init_cache(mdl.cfg, 1)
         feats = []
         for i in range(len(clip)):
-            out, c1 = encoder.streaming_forward(model, torch.from_numpy(clip[None, i:i + 1]), c1)
+            out, c1 = encoder.streaming_forward(mdl, torch.from_numpy(clip[None, i:i + 1]), c1)
             feats.append(out["pooler_output"][0, 0].float())
         return torch.stack(feats).cpu().numpy()
 
@@ -551,11 +583,11 @@ def main():
     cap_frames = cfg.cache_capacity
     pool = [rng.integers(0, 256, (cap_frames, 3, img, img), dtype=np.uint8) for _ in range(8)]
 
-    def engine_run(frames, streams):
+    def engine_run(frames, streams, mdl=model):
         """Serve ``streams`` streams of capacity-many frames, all fed up front,
         to the end; returns (seconds, ticks, frames served). The clock stops
         after the polls, which wait for the device."""
-        eng = StreamingEngine(model, slots=ENGINE["slots"], mode="linear", stage_dtype="uint8",
+        eng = StreamingEngine(mdl, slots=ENGINE["slots"], mode="linear", stage_dtype="uint8",
                               normalize=(MEAN, STD))
         sids = []
         for i in range(streams):
@@ -569,38 +601,252 @@ def main():
         n = sum(len(eng.poll(sid)[0]) for sid in sids)
         return time.perf_counter() - t0, ticks, n
 
-    engine_run(1, ENGINE["slots"])  # warm-up
-    engine_run(ENGINE["frames"], ENGINE["slots"])
-    for mode_name, frames in (("latency", 1), ("throughput", ENGINE["frames"])):
-        sec, ticks, n = engine_run(frames, THROUGHPUT_STREAMS)
-        streams = 2 * ENGINE["slots"]  # two generations of streams, profiled
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            p_sec, p_ticks, _ = engine_run(frames, streams)
-        rows = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                and getattr(e, "device_time_total", 0) > 0]
-        dev_ms = sum(e.device_time_total for e in rows) / p_ticks / 1e3
-        tick_ms, wall_ms = sec * 1e3 / ticks, p_sec * 1e3 / p_ticks
-        print(f"engine {mode_name} mode (tick frames={frames}) ({smi}): {n / sec:.1f} frames/s, "
-              f"{n} frames in {ticks} ticks, {tick_ms:.3f} ms/tick; "
-              f"{THROUGHPUT_STREAMS} streams of {cap_frames} uint8 frames over "
-              f"{ENGINE['slots']} slots (linear C={cap}, bf16); profile of {streams} streams, "
-              f"{p_ticks} ticks: device busy {dev_ms:.3f} ms/tick, {100 * dev_ms / wall_ms:.1f} % "
-              f"of the profiled {wall_ms:.3f} ms/tick, {100 * dev_ms / tick_ms:.1f} % of the "
-              f"unprofiled tick")
-        for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
-            print(f"  {e.device_time_total / p_ticks / 1e3:8.4f} ms/tick  "
-                  f"x{e.count / p_ticks:<6.1f} {e.key[:90]}")
+    def engine_rates(mdl, tag):
+        """Engine frames/s in both tick modes and the device busy share."""
+        engine_run(1, ENGINE["slots"], mdl)  # warm-up
+        engine_run(ENGINE["frames"], ENGINE["slots"], mdl)
+        for mode_name, frames in (("latency", 1), ("throughput", ENGINE["frames"])):
+            sec, ticks, n = engine_run(frames, THROUGHPUT_STREAMS, mdl)
+            streams = 2 * ENGINE["slots"]  # two generations of streams, profiled
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                p_sec, p_ticks, _ = engine_run(frames, streams, mdl)
+            rows = [e for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                    and getattr(e, "device_time_total", 0) > 0]
+            dev_ms = sum(e.device_time_total for e in rows) / p_ticks / 1e3
+            tick_ms, wall_ms = sec * 1e3 / ticks, p_sec * 1e3 / p_ticks
+            print(f"{tag}engine {mode_name} mode (tick frames={frames}) ({smi}): "
+                  f"{n / sec:.1f} frames/s, {n} frames in {ticks} ticks, {tick_ms:.3f} ms/tick; "
+                  f"{THROUGHPUT_STREAMS} streams of {cap_frames} uint8 frames over "
+                  f"{ENGINE['slots']} slots (linear C={cap}, bf16); profile of {streams} streams, "
+                  f"{p_ticks} ticks: device busy {dev_ms:.3f} ms/tick, "
+                  f"{100 * dev_ms / wall_ms:.1f} % of the profiled {wall_ms:.3f} ms/tick, "
+                  f"{100 * dev_ms / tick_ms:.1f} % of the unprofiled tick")
+            for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
+                print(f"  {e.device_time_total / p_ticks / 1e3:8.4f} ms/tick  "
+                      f"x{e.count / p_ticks:<6.1f} {e.key[:90]}")
 
-    # ---- 11. summary
+    engine_rates(model, "")
+
+    # ---- 11. kernels F and G (int8 cache) against their plain versions
+    from streamformer_tpu_torch.ops import quant
+
+    r = b_ * n_
+
+    def int8_operands(dtype):
+        """A query, a new frame quantized by ``quantize_kv``, and an int8
+        cache of random codes with per-(slot, row) scales."""
+        q = randn(r, d_, dtype=dtype)
+        new = (*encoder.quantize_kv(randn(r, d_, dtype=dtype)),
+               *encoder.quantize_kv(randn(r, d_, dtype=dtype)))
+        new = (new[0], new[2], new[1], new[3])  # k codes, v codes, k scales, v scales
+        codes = torch.randint(-127, 128, (2, cap, r, d_), dtype=torch.int8, device=dev,
+                              generator=gen)
+        scales = 0.005 + 0.025 * torch.rand(2, cap, r, device=dev, generator=gen)
+        return q, new, [codes[0].clone(), codes[1].clone(), scales[0].clone(), scales[1].clone()]
+
+    def int8_bytes(elt, rows_read):
+        """q and the output; the new codes in and the plane writes; the new
+        scales in and their writes; each cached (slot, row) read: codes and
+        two scales."""
+        return elt * r * d_ * 2 + 2 * r * d_ * 2 + 4 * r * 2 * 2 + rows_read * (2 * d_ + 2 * 4)
+
+    def dequantized_sdpa(q, cache, rows_len, dtype):
+        """Yardstick: the new frame against the updated cache, dequantized to
+        q's dtype, with the valid slots as the mask."""
+        kd, vd = ((c.float() * s[..., None]).to(dtype) for c, s in ((cache[0], cache[2]),
+                                                                    (cache[1], cache[3])))
+        window = (torch.arange(cap, device=dev)[None] <= rows_len[:, None]).view(r, 1, 1, cap)
+        q4 = q.view(r, h_, 1, dh)
+        k4, v4 = (x.view(cap, r, h_, dh).permute(1, 2, 0, 3) for x in (kd, vd))
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        elt = torch.finfo(dtype).bits // 8
+        for mode, length in (("linear", cap - 1), ("ring", 2 * cap + 5)):
+            q, new, cache = int8_operands(dtype)
+            ref_cache = [c.clone() for c in cache]
+            ln = torch.tensor(length, dtype=torch.int32, device=dev)
+            ref = ops.temporal_decode_pm_int8_plain(q, *new, *ref_cache, ln, h_)
+            got = ops.temporal_decode_pm_int8(q, *new, *cache, ln, h_)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(cache, ref_cache)):
+                fail(f"temporal_decode_pm_int8 {mode} {dn}: appended codes or scales differ")
+            n_read = min(length, cap) - (1 if length >= cap else 0)
+            record("temporal_decode_pm_int8", f"{mode} R={r} C={cap} len={length}", dn,
+                   max_err(got, ref),
+                   lambda: ops.temporal_decode_pm_int8(q, *new, *cache, ln, h_),
+                   lambda: ops.temporal_decode_pm_int8_plain(q, *new, *cache, ln, h_),
+                   dequantized_sdpa(q, cache, torch.full((r,), length, device=dev), dtype),
+                   int8_bytes(elt, r * n_read), 4 * r * d_ * (n_read + 1))
+        for mode, lens in D_LENS.items():
+            q, new, cache = int8_operands(dtype)
+            ref_cache = [c.clone() for c in cache]
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            ref = ops.temporal_decode_pm_int8_ragged_plain(q, *new, *ref_cache, ln, n_, h_)
+            got = ops.temporal_decode_pm_int8_ragged(q, *new, *cache, ln, n_, h_)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(cache, ref_cache)):
+                fail(f"temporal_decode_pm_int8_ragged {mode} {dn}: appended codes or scales "
+                     "differ")
+            n_read = sum(min(x, cap - 1) for x in lens)  # old slots attended, over streams
+            record("temporal_decode_pm_int8_ragged", f"{mode} R={r} C={cap} lens={lens}", dn,
+                   max_err(got, ref),
+                   lambda: ops.temporal_decode_pm_int8_ragged(q, *new, *cache, ln, n_, h_),
+                   lambda: ops.temporal_decode_pm_int8_ragged_plain(q, *new, *cache, ln, n_, h_),
+                   dequantized_sdpa(q, cache, ln.long().repeat_interleave(n_), dtype),
+                   int8_bytes(elt, n_ * n_read), 4 * d_ * n_ * (n_read + b_))
+        del q, new, cache, ref_cache
+    torch.cuda.synchronize()
+
+    # ---- 12. lockstep int8 serving on the flagship model: kernel F
+    def cosine(a, b):
+        a, b = a.float().flatten(), b.float().flatten()
+        return float(a @ b / (a.norm() * b.norm() + 1e-12))
+
+    def int8_stream(mdl, what, gate):
+        """16 frames on an int8 linear cache, each held to the bf16 full
+        clip; returns the launches of the run."""
+        cache = encoder.init_cache(cfg, b_, dtype="int8")
+        ops.reset_launches()
+        worst = 1.0
+        for i in range(t_):
+            out, cache = encoder.streaming_forward(mdl, video[:, i:i + 1], cache)
+            c = cosine(out["pooler_output"], pooled[:, i:i + 1])
+            worst = min(worst, c)
+            if not (c > gate and finite(out)):
+                fail(f"int8 stream ({what}) frame {i}: pooled cosine {c} to the bf16 full clip "
+                     f"(> {gate})")
+        torch.cuda.synchronize()
+        run = dict(ops.LAUNCHES)
+        if run != {**dict.fromkeys(ops.LAUNCHES, 0), "temporal_decode_pm_int8": L * t_,
+                   "spatial_flat": L * t_}:
+            fail(f"int8 stream ({what}) launches {run}")
+        print(f"int8 linear stream, {what}, {t_} frames at batch {b_}: worst pooled cosine to the "
+              f"bf16 full clip {worst} (> {gate}); launches {run}")
+        return run
+
+    int8_launches = int8_stream(model, "int8 cache, bf16 weights", INT8_CACHE_COS)
+    q_model = quant.quantize_encoder(from_pretrained(ckpt, cfg.replace(cache_dtype="int8")))
+    for k, v in int8_stream(q_model, "int8 cache, int8 weights", INT8_WEIGHTS_COS).items():
+        int8_launches[k] += v
+    ring_cfg = q_model.cfg.replace(cache_mode="ring")
+    ring = encoder.init_cache(ring_cfg, b_)
+    ops.reset_launches()
+    for i in range(2 * cap):
+        out, ring = encoder.streaming_forward(q_model, video[:, i % t_:i % t_ + 1], ring,
+                                              cfg=ring_cfg)
+        if not finite(out):
+            fail(f"int8 ring frame {i}: outputs not finite")
+    torch.cuda.synchronize()
+    run = dict(ops.LAUNCHES)
+    if run["temporal_decode_pm_int8"] != L * 2 * cap or run["temporal_decode_pm"]:
+        fail(f"int8 ring launches {run} over {2 * cap} steps (L={L})")
+    for k, v in run.items():
+        int8_launches[k] += v
+    q, new, _ = int8_operands(torch.bfloat16)
+    layer0 = ring["layers"][0]
+    cache = [layer0[k] for k in ("k", "v", "k_scale", "v_scale")]
+    ref_cache = [c.clone() for c in cache]
+    ref = ops.temporal_decode_pm_int8_plain(q, *new, *ref_cache, ring["len"], h_)
+    got = ops.temporal_decode_pm_int8(q, *new, *cache, ring["len"], h_)
+    ring_err = max_err(got, ref)
+    if not (ring_err <= TOL["bfloat16"] and all(torch.equal(a, b)
+                                                for a, b in zip(cache, ref_cache))):
+        fail(f"int8 ring decode vs plain: max-abs {ring_err}")
+    print(f"int8 ring stream (int8 weights) {2 * cap} frames at C={cap}: finite, F {L} times a "
+          f"step; F vs plain on the ring cache (len={int(ring['len'])}): max-abs {ring_err}")
+    steps = 32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        encoder.streaming_forward(q_model, frame, ring, cfg=ring_cfg)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    print(f"int8 streaming encode, int8 weights and cache ({smi}): {b_ / step_s:.1f} frames/s at "
+          f"batch {b_}, {step_s * 1e3:.3f} ms/step (int8 ring cache C={cap}, steady state)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(window):
+            encoder.streaming_forward(q_model, frame, ring, cfg=ring_cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / window
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and getattr(e, "device_time_total", 0) > 0]
+    busy = sum(e.device_time_total for e in rows) / window / 1e3
+    print(f"int8 profile, {window} steady steps: device busy {busy:.3f} ms/step of {wall_ms:.3f} "
+          f"(profiled wall clock)")
+    for e in sorted(rows, key=lambda e: -e.device_time_total)[:12]:
+        print(f"  {e.device_time_total / window / 1e3:8.4f} ms/step  x{e.count // window:<3d} "
+              f"{e.key[:90]}")
+    host = [e for e in prof.key_averages() if getattr(e, "self_cpu_time_total", 0) > 0]
+    print("int8 profile, host time by operation:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"  {e.self_cpu_time_total / window / 1e3:8.4f} ms/step  x{e.count // window:<4d} "
+              f"{e.key[:90]}")
+    del ring, q, new, cache, ref_cache
+
+    # ---- 13. the engine on an int8 cache: kernel G
+    def cosines(feats, oracle):
+        return [float((f * o).sum() / (np.linalg.norm(f) * np.linalg.norm(o) + 1e-12))
+                if f.shape == o.shape else 0.0 for f, o in zip(feats, oracle)]
+
+    def int8_engine(mdl, what, tol):
+        """Phase 8's bursty streams in both tick modes against lone B=1
+        streams of ``mdl``, pooled max-abs within ``tol``; launches added to
+        ``int8_engine_launches``."""
+        oracle = [lone(c, mdl) for c in clips]
+        by_mode = {}
+        for mode_name, frames in (("latency", 1), ("throughput", ENGINE["frames"])):
+            eng = StreamingEngine(mdl, slots=ENGINE["slots"], mode="linear")
+            ops.reset_launches()
+            feats, ticks = serve(eng, clips, frames)
+            torch.cuda.synchronize()
+            run = dict(ops.LAUNCHES)
+            for k in run:
+                int8_engine_launches[k] += run[k]
+            steps = eng.forwards  # an int8 tick is one t=1 step per frame of its fullest slot
+            if run != {**dict.fromkeys(ops.LAUNCHES, 0),
+                       "temporal_decode_pm_int8_ragged": L * steps, "spatial_flat": L * steps}:
+                fail(f"int8 engine ({what}) {mode_name} launches {run} over {ticks} ticks, "
+                     f"{steps} steps")
+            err = max(float(np.abs(f - o).max()) if f.shape == o.shape else float("inf")
+                      for f, o in zip(feats, oracle))
+            cos = min(cosines(feats, oracle))
+            if not err <= tol:
+                fail(f"int8 engine ({what}) {mode_name}: pooled vs lone streams max-abs {err} "
+                     f"> {tol} (worst cosine {cos})")
+            by_mode[mode_name] = feats
+            print(f"int8 engine ({what}) {mode_name} (tick frames={frames}), {len(clips)} streams "
+                  f"over {ENGINE['slots']} slots, {ticks} ticks ({steps} steps): pooled vs lone "
+                  f"B=1 streams max-abs {err} (<= {tol}), worst cosine {cos}; launches {run}")
+        if not all(np.array_equal(a, b) for a, b in zip(by_mode["latency"],
+                                                         by_mode["throughput"])):
+            fail(f"int8 engine ({what}) tick(frames={ENGINE['frames']}) differs from tick()")
+        print(f"int8 engine ({what}) tick(frames={ENGINE['frames']}) == tick() bit for bit")
+
+    int8_engine_launches = dict.fromkeys(ops.LAUNCHES, 0)
+    c8_model = from_pretrained(ckpt, cfg.replace(cache_dtype="int8"))  # bf16 weights
+    int8_engine(c8_model, "int8 cache, bf16 weights", STREAM_TOL_POOLED)
+    int8_engine(q_model, "int8 cache, int8 weights", INT8_WEIGHTS_ENGINE_TOL)
+    engine_rates(c8_model, "int8-cache ")
+    engine_rates(q_model, "int8-cache int8-weight ")
+
+    # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
                   "temporal_append_pm_ragged": f"R={b_ * n_} C={cap} t={E_T}",
+                  "temporal_decode_pm_int8": f"linear R={b_ * n_} C={cap} len={cap - 1}",
+                  "temporal_decode_pm_int8_ragged":
+                      f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
                   "spatial_flat": f"R={b_} N={n_}", "temporal_fullclip": f"R={b_ * n_} T={t_}"}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = results[(name, main_shape[name], "bfloat16")]
-        count = launches[name] + engine_launches[name]  # the encode path and the engine's
+        count = sum(path[name] for path in  # the encode path, the engine's, and their int8 runs
+                    (launches, engine_launches, int8_launches, int8_engine_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

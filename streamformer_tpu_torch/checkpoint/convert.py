@@ -7,6 +7,12 @@ reference checkpoint's state-dict names, which are also the names of
 the mapping the JAX package writes checkpoints with: dense kernels (in, out)
 are transposed to torch's (out, in), the patch projection goes HWIO -> OIHW,
 and the MAP head's q/k/v are concatenated into ``in_proj_weight``.
+
+A quantized tree (``quantize_encoder_params``: ``kernel_q`` int8 and
+``kernel_scale`` leaves) maps to the state of ``ops.quant.Int8Linear``:
+``weight`` int8 (out, in) and ``weight_scale``; the MAP head's q/k/v codes
+and scales are concatenated along the output rows. Load it into a model
+quantized at the same threshold (``quant.quantize_encoder``).
 """
 
 from __future__ import annotations
@@ -27,8 +33,14 @@ def _t(x) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(x, np.float32).T)
 
 
+def _q(p) -> np.ndarray:
+    """int8 (in, out) kernel codes -> (out, in)."""
+    return np.ascontiguousarray(np.asarray(p["kernel_q"], np.int8).T)
+
+
 def params_from_jax(params: Mapping[str, Any], cfg: StreamformerConfig) -> Dict[str, torch.Tensor]:
-    """JAX encoder parameter tree (numpy leaves) -> fp32 state dict."""
+    """JAX encoder parameter tree (numpy leaves) -> fp32 state dict (int8
+    codes with fp32 scales for the dense layers of a quantized tree)."""
     sd: Dict[str, np.ndarray] = {}
     emb = params["embeddings"]
     sd["embeddings.patch_embeddings.projection.weight"] = np.ascontiguousarray(
@@ -40,7 +52,11 @@ def params_from_jax(params: Mapping[str, Any], cfg: StreamformerConfig) -> Dict[
         sd["embeddings.time_embeddings"] = _a(emb["time_embeddings"])[None]
 
     def dense(name, p, lora_name=None):
-        sd[name + ".weight"] = _t(p["kernel"])
+        if "kernel_q" in p:
+            sd[name + ".weight"] = _q(p)
+            sd[name + ".weight_scale"] = _a(p["kernel_scale"])
+        else:
+            sd[name + ".weight"] = _t(p["kernel"])
         if "bias" in p:
             sd[name + ".bias"] = _a(p["bias"])
         if lora_name and "lora_a" in p:
@@ -72,10 +88,13 @@ def params_from_jax(params: Mapping[str, Any], cfg: StreamformerConfig) -> Dict[
     mh = params["map_head"]
     d = cfg.hidden_size
     sd["head.probe"] = _a(mh["probe"]).reshape(1, 1, d)
-    sd["head.attention.in_proj_weight"] = np.concatenate(
-        [_t(mh[key]["kernel"]) for key in ("q", "k", "v")], 0
-    )
-    sd["head.attention.in_proj_bias"] = np.concatenate([_a(mh[key]["bias"]) for key in ("q", "k", "v")])
+    if "kernel_q" in mh["q"]:
+        sd["head.attention.in_proj_weight"] = np.concatenate([_q(mh[key]) for key in "qkv"], 0)
+        sd["head.attention.in_proj_weight_scale"] = np.concatenate(
+            [_a(mh[key]["kernel_scale"]) for key in "qkv"])
+    else:
+        sd["head.attention.in_proj_weight"] = np.concatenate([_t(mh[key]["kernel"]) for key in "qkv"], 0)
+    sd["head.attention.in_proj_bias"] = np.concatenate([_a(mh[key]["bias"]) for key in "qkv"])
     dense("head.attention.out_proj", mh["out"])
     ln("head.layernorm", mh["layernorm"])
     dense("head.mlp.fc1", mh["mlp"]["fc1"])

@@ -9,8 +9,13 @@ Layouts follow the JAX package at every public function: activations are
 ``(B, T, N, D)`` (batch, frames, patches, hidden); the streaming cache holds
 one pos-major ``(C, B*N, D)`` K and V per layer plus a ``len`` tensor, one
 length for the lockstep cache or one per stream for the ragged cache of
-continuous batching. The attention runs through ``ops.attention``: the CUDA
-kernels on the card, their plain versions on the CPU.
+continuous batching; an int8 cache adds per-(position, row) fp32 scales. The
+attention runs through ``ops.attention``: the CUDA kernels on the card,
+their plain versions on the CPU.
+
+Int8 serving: ``ops.quant.quantize_encoder`` swaps the large dense layers
+for ``Int8Linear`` (``dense`` dispatches on it), and ``init_cache`` with
+``cache_dtype="int8"`` keeps the temporal KV cache in int8.
 
 ``StreamformerEncoder`` owns the parameters, under the reference
 checkpoint's state-dict names, so ``load_state_dict`` takes a reference
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 
 from streamformer_tpu_torch.config import StreamformerConfig
 from streamformer_tpu_torch.ops import attention as ops
+from streamformer_tpu_torch.ops import quant
 
 Cache = Dict[str, object]
 
@@ -73,7 +79,10 @@ def dense(
     x: torch.Tensor, lin: nn.Linear, lora: Optional[Tuple[nn.Linear, nn.Linear]] = None
 ) -> torch.Tensor:
     """Affine map with the optional LoRA delta ``y = W x + b + B(A x)``
-    (the reference's convention: no extra scaling)."""
+    (the reference's convention: no extra scaling). An ``Int8Linear`` runs
+    the int8 product with x quantized per row (``quant.int8_dense``)."""
+    if isinstance(lin, quant.Int8Linear):
+        return quant.int8_dense(x, lin, lora)
     dt = x.dtype
     bias = None if lin.bias is None else lin.bias.to(dt)
     y = F.linear(x, lin.weight.to(dt), bias)
@@ -81,6 +90,17 @@ def dense(
         a, b = lora
         y = y + F.linear(F.linear(x, a.weight.to(dt)), b.weight.to(dt))
     return y
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last axis, one scale per row over the whole
+    hidden D (not per head), as the pos-major int8 cache keeps it:
+    (..., D) -> (int8 (..., D), fp32 (...,))."""
+    return quant.quantize_rows(x)
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (codes.float() * scale[..., None]).to(dtype)
 
 
 def act_fn(x: torch.Tensor, name: str = "gelu") -> torch.Tensor:
@@ -355,9 +375,21 @@ def temporal_attention(
       stream of all B*N rows. The ring takes one frame at a time:
       ``cfg.cache_mode == "ring"`` raises here, as the JAX package does for
       the ragged ring.
+
+    An int8 cache (``"k_scale"`` in ``cache_kv``) runs kernel F (one
+    length) or G (per stream) for each new frame, frame ti at position
+    len + ti (linear cache only for t >= 2): the new frame's K/V rows are
+    quantized, attended dequantized and appended with their scales, the
+    function of the JAX package's einsum path, which quantizes first and
+    attends the dequantized view. ``new_valid`` on an int8 cache raises.
     """
     b, t, n, d = x.shape
     h = cfg.num_attention_heads
+    quantized = cache_kv is not None and "k_scale" in cache_kv
+    if quantized and new_valid is not None:
+        raise NotImplementedError(
+            "partial appends (new_valid) on an int8 cache (ROADMAP slice 3, item 9b)"
+        )
     qkv = dense(x, attn.attention.qkv)  # (B, T, N, 3D)
     if cache_kv is None:
         def rows(i):  # (B, T, N, D) slice -> (B*N, T, D)
@@ -371,7 +403,9 @@ def temporal_attention(
         def rows1(i):  # (B, 1, N, D) slice -> (B*N, D)
             return qkv[..., i * d:(i + 1) * d].reshape(b * n, d).contiguous()
 
-        if ragged:
+        if quantized:
+            ctx = _decode_int8(rows1(0), rows1(1), rows1(2), cache_kv, cache_len, n, h)
+        elif ragged:
             ctx = ops.temporal_decode_pm_ragged(
                 rows1(0), rows1(1), rows1(2), cache_kv["k"], cache_kv["v"], cache_len, n, h
             )
@@ -385,6 +419,16 @@ def temporal_attention(
             "multi-frame appends to the ring cache: the ring takes one frame per call "
             "(ROADMAP slice 1, item 3a)"
         )
+    if quantized:
+        def frame(i, ti):  # frame ti of slice i -> (B*N, D)
+            return qkv[:, ti, :, i * d:(i + 1) * d].reshape(b * n, d).contiguous()
+
+        ctx = torch.stack([
+            _decode_int8(frame(0, ti), frame(1, ti), frame(2, ti), cache_kv,
+                         cache_len + ti if ti else cache_len, n, h)
+            for ti in range(t)
+        ])
+        return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
 
     def rows_t(i):  # (B, T, N, D) slice -> (T, B*N, D)
         return qkv[..., i * d:(i + 1) * d].transpose(0, 1).reshape(t, b * n, d).contiguous()
@@ -400,6 +444,20 @@ def temporal_attention(
         per_stream, h,
     )
     return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
+
+
+def _decode_int8(q, k_new, v_new, cache_kv, lens, rows_per_stream, h):
+    """One new frame (R, D) on the int8 cache: its K/V rows are quantized
+    over the whole D (``quantize_kv``, as the JAX package does before its
+    int8 kernels), then kernel F (one length) or G (per stream) attends and
+    appends the codes and the scales in place."""
+    kq, ks = quantize_kv(k_new)
+    vq, vs = quantize_kv(v_new)
+    planes = (cache_kv["k"], cache_kv["v"], cache_kv["k_scale"], cache_kv["v_scale"])
+    if lens.ndim == 1:
+        return ops.temporal_decode_pm_int8_ragged(q, kq, vq, ks, vs, *planes, lens,
+                                                  rows_per_stream, h)
+    return ops.temporal_decode_pm_int8(q, kq, vq, ks, vs, *planes, lens, h)
 
 
 # --------------------------------------------------------------------------
@@ -436,17 +494,29 @@ def layer_forward(
 def map_pool(x: torch.Tensor, head: nn.Module, cfg: StreamformerConfig) -> torch.Tensor:
     """SigLIP multihead-attention pooling of each frame's patches:
     (B, T, N, D) -> (B, T, D). A learned probe attends over the N patches
-    (torch nn.MultiheadAttention semantics), then LN + MLP residual."""
+    (torch nn.MultiheadAttention semantics), then LN + MLP residual.
+
+    A quantized head (``quant.quantize_encoder``) keeps ``in_proj_weight``
+    as int8 codes with ``in_proj_weight_scale``: q, k and v are then int8
+    products as the JAX package's three leaves are; k and v share x's
+    activation codes, so they run as one product of 2D columns."""
     b, t, n, d = x.shape
     h = cfg.num_attention_heads
     dh = d // h
     dt = x.dtype
     attn = head.attention
-    w_q, w_k, w_v = attn.in_proj_weight.to(dt).split(d)
-    b_q, b_k, b_v = attn.in_proj_bias.to(dt).split(d)
-    q = F.linear(head.probe.reshape(1, d).to(dt), w_q, b_q).reshape(h, dh)
-    k = F.linear(x, w_k, b_k).reshape(b, t, n, h, dh)
-    v = F.linear(x, w_v, b_v).reshape(b, t, n, h, dh)
+    probe = head.probe.reshape(1, d).to(dt)
+    if attn.in_proj_weight.dtype == torch.int8:
+        w, w_s, bias = attn.in_proj_weight, attn.in_proj_weight_scale, attn.in_proj_bias
+        q = quant.int8_linear(probe, w[:d], w_s[:d], bias[:d]).reshape(h, dh)
+        k, v = quant.int8_linear(x, w[d:], w_s[d:], bias[d:]).split(d, dim=-1)
+        k, v = k.reshape(b, t, n, h, dh), v.reshape(b, t, n, h, dh)
+    else:
+        w_q, w_k, w_v = attn.in_proj_weight.to(dt).split(d)
+        b_q, b_k, b_v = attn.in_proj_bias.to(dt).split(d)
+        q = F.linear(probe, w_q, b_q).reshape(h, dh)
+        k = F.linear(x, w_k, b_k).reshape(b, t, n, h, dh)
+        v = F.linear(x, w_v, b_v).reshape(b, t, n, h, dh)
     scores = torch.einsum("hd,btnhd->bthn", q.float(), k.float()) * dh**-0.5
     probs = torch.softmax(scores, dim=-1).to(dt)
     ctx = torch.einsum("bthn,btnhd->bthd", probs.float(), v.float()).to(dt).reshape(b, t, d)
@@ -496,6 +566,12 @@ def init_cache(
     """Preallocated temporal KV cache: ``{"layers": [{"k", "v"}, ...],
     "len": int32 tensor}``, K/V pos-major (C, batch*N, D), zeros.
 
+    The cache is kept in the compute dtype, or in int8 when ``dtype`` (else
+    ``cfg.cache_dtype``) says "int8": then each layer also holds fp32
+    ``k_scale`` and ``v_scale`` of shape (C, batch*N), the scale of each
+    (position slot, row), so that an append writes one contiguous row. A
+    float cache in another dtype than the compute dtype raises.
+
     ``len`` is () with every stream in lockstep, or (batch,) with
     ``per_stream_len``: the ragged cache of continuous batching, each stream
     at its own position (see ``reset_streams``). Rows are not padded per
@@ -508,20 +584,26 @@ def init_cache(
         )
     dt = compute_dtype(cfg)
     name = dtype if dtype is not None else (cfg.cache_dtype or cfg.dtype)
-    cache_dt = _DTYPES.get(name, name) if isinstance(name, str) else name
-    if cache_dt != dt:
+    cache_dt = {"int8": torch.int8, **_DTYPES}.get(name, name) if isinstance(name, str) else name
+    if cache_dt not in (dt, torch.int8):
         raise NotImplementedError(
-            f"cache dtype {name}: the cache is kept in the compute dtype "
-            "(int8 and mixed caches: ROADMAP slice 3, item 9)"
+            f"cache dtype {name}: a float cache is kept in the compute dtype {dt} "
+            "(mixed caches: ROADMAP slice 3, item 9a)"
         )
     dev = resolve_device(device)
     n = num_patches if num_patches is not None else cfg.num_patches
     cap = capacity if capacity is not None else cfg.cache_capacity
     shape = (cap, batch * n, cfg.hidden_size)
-    layers: List[Dict[str, torch.Tensor]] = [
-        {"k": torch.zeros(shape, dtype=dt, device=dev), "v": torch.zeros(shape, dtype=dt, device=dev)}
-        for _ in range(cfg.num_hidden_layers)
-    ]
+
+    def layer() -> Dict[str, torch.Tensor]:
+        kv = {"k": torch.zeros(shape, dtype=cache_dt, device=dev),
+              "v": torch.zeros(shape, dtype=cache_dt, device=dev)}
+        if cache_dt == torch.int8:
+            kv["k_scale"] = torch.zeros(shape[:2], dtype=torch.float32, device=dev)
+            kv["v_scale"] = torch.zeros(shape[:2], dtype=torch.float32, device=dev)
+        return kv
+
+    layers: List[Dict[str, torch.Tensor]] = [layer() for _ in range(cfg.num_hidden_layers)]
     len_shape = (batch,) if per_stream_len else ()
     return {"layers": layers, "len": torch.zeros(len_shape, dtype=torch.int32, device=dev)}
 
@@ -563,7 +645,8 @@ def streaming_forward(
     [0, T], ragged cache only: stream b appends only its first new_valid[b]
     frames and its ``len`` advances by new_valid[b]; output columns past it
     are unspecified. Without it every ``len`` advances by T. T >= 2, or
-    ``new_valid``, needs the linear cache.
+    ``new_valid``, needs the linear cache. An int8 cache takes T >= 2 as one
+    int8 decode per frame and refuses ``new_valid``.
 
     ``total_frames_hint`` is the sequence length used for time-embedding
     interpolation; by default ``cfg.num_frames`` (as the JAX package's code

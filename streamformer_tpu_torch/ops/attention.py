@@ -1,22 +1,25 @@
 """The attention kernels of the encoder's main path, each with its plain
 PyTorch version and a launch count.
 
-=============================  ===================================  ===================================
-wrapper                        plain version                        replaces (JAX package)
-=============================  ===================================  ===================================
-``temporal_decode_pm``         ``temporal_decode_pm_plain``         ``fused_temporal_decode_pm``
-``temporal_decode_pm_ragged``  ``temporal_decode_pm_ragged_plain``  ``fused_temporal_decode_pm_ragged``
-``temporal_append_pm_ragged``  ``temporal_append_pm_ragged_plain``  ``fused_temporal_append_pm_ragged``
-``spatial_flat``               ``spatial_flat_plain``               ``fused_spatial_flat`` (fwd)
-``temporal_fullclip``          ``temporal_fullclip_plain``          ``fused_temporal_fullclip``
-=============================  ===================================  ===================================
+==================================  ========================================  ========================================
+wrapper                             plain version                             replaces (JAX package)
+==================================  ========================================  ========================================
+``temporal_decode_pm``              ``temporal_decode_pm_plain``              ``fused_temporal_decode_pm``
+``temporal_decode_pm_ragged``       ``temporal_decode_pm_ragged_plain``       ``fused_temporal_decode_pm_ragged``
+``temporal_append_pm_ragged``       ``temporal_append_pm_ragged_plain``       ``fused_temporal_append_pm_ragged``
+``temporal_decode_pm_int8``         ``temporal_decode_pm_int8_plain``         ``fused_temporal_decode_pm_int8``
+``temporal_decode_pm_int8_ragged``  ``temporal_decode_pm_int8_ragged_plain``  ``fused_temporal_decode_pm_int8_ragged``
+``spatial_flat``                    ``spatial_flat_plain``                    ``fused_spatial_flat`` (fwd)
+``temporal_fullclip``               ``temporal_fullclip_plain``               ``fused_temporal_fullclip``
+==================================  ========================================  ========================================
 
 A wrapper takes its plain version for tensors on the CPU, and only then. For
 CUDA tensors it launches its kernel from ``csrc/`` on the current stream or
 raises: there is no fallback. Each launch adds one to ``LAUNCHES[name]``;
 nothing else does. Heads are dh-wide slices of the flat D axis, dh a
 multiple of 8 and at most 128; inputs are float32 or bfloat16 and
-contiguous. The kernels have no backward yet.
+contiguous (the int8 kernels take int8 codes and fp32 scales beside a float
+or bfloat16 query). The kernels have no backward yet.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ LAUNCHES: Dict[str, int] = {
     "temporal_decode_pm": 0,
     "temporal_decode_pm_ragged": 0,
     "temporal_append_pm_ragged": 0,
+    "temporal_decode_pm_int8": 0,
+    "temporal_decode_pm_int8_ragged": 0,
     "spatial_flat": 0,
     "temporal_fullclip": 0,
 }
@@ -363,6 +368,155 @@ def temporal_append_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, valid, ro
         library="temporal_append_pm",
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# F and G. t=1 decode on the int8 cache, one length or one per stream
+# ---------------------------------------------------------------------------
+
+
+def temporal_decode_pm_int8_ragged_plain(q, k_new, v_new, k_new_scale, v_new_scale, k_cache,
+                                         v_cache, k_scale, v_scale, lens, rows_per_stream,
+                                         num_heads):
+    """Plain version of ``temporal_decode_pm_int8_ragged`` (and of F, one
+    stream): the same function in fp32, same in-place writes of the codes
+    and the scales."""
+    c, r, d = k_cache.shape
+    h = num_heads
+    dh = d // h
+    scale = dh**-0.5
+    qf = q.float().view(r, h, dh)
+    length = lens.long().repeat_interleave(rows_per_stream)  # (R,)
+    slot = length % c
+    s_new = (qf * k_new.float().view(r, h, dh)).sum(-1, keepdim=True) * k_new_scale[:, None, None]
+    s_old = torch.einsum("rhd,crhd->rhc", qf, k_cache.float().view(c, r, h, dh))
+    s_old = s_old * k_scale.t()[:, None, :]
+    pos = torch.arange(c, device=q.device)
+    valid = (pos[None] < length[:, None]) & (pos[None] != slot[:, None])  # (R, C)
+    s_old = s_old.masked_fill(~valid[:, None, :], float("-inf"))
+    probs = torch.softmax(torch.cat([s_new, s_old], dim=-1) * scale, dim=-1)  # (R, H, 1 + C)
+    weights = probs * torch.cat([v_new_scale[:, None], v_scale.t()], dim=-1)[:, None, :]
+    vals = torch.cat(
+        [v_new.float().view(r, h, 1, dh), v_cache.float().view(c, r, h, dh).permute(1, 2, 0, 3)],
+        dim=2,
+    )
+    out = torch.einsum("rhc,rhcd->rhd", weights, vals).reshape(r, d).to(q.dtype)
+    rows = torch.arange(r, device=q.device)
+    k_cache[slot, rows] = k_new
+    v_cache[slot, rows] = v_new
+    k_scale[slot, rows] = k_new_scale
+    v_scale[slot, rows] = v_new_scale
+    return out
+
+
+def temporal_decode_pm_int8_plain(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache,
+                                  k_scale, v_scale, cache_len, num_heads):
+    """Plain version of ``temporal_decode_pm_int8``: the same function, same
+    in-place writes."""
+    return temporal_decode_pm_int8_ragged_plain(
+        q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache, k_scale, v_scale,
+        cache_len.reshape(1), q.shape[0], num_heads,
+    )
+
+
+def _check_int8(name, num_heads, q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache,
+                k_scale, v_scale) -> torch.device:
+    """Shapes, dtypes, devices and contiguity of F's and G's operands."""
+    if q.ndim != 2 or k_cache.ndim != 3:
+        raise ValueError(f"{name}: q must be (R, D) and the caches (C, R, D)")
+    r, d = q.shape
+    c = k_cache.shape[0]
+    want = {"k_new": (r, d), "v_new": (r, d), "k_new_scale": (r,), "v_new_scale": (r,),
+            "k_cache": (c, r, d), "v_cache": (c, r, d), "k_scale": (c, r), "v_scale": (c, r)}
+    given = dict(k_new=k_new, v_new=v_new, k_new_scale=k_new_scale, v_new_scale=v_new_scale,
+                 k_cache=k_cache, v_cache=v_cache, k_scale=k_scale, v_scale=v_scale)
+    for key, t in given.items():
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{name}: {key} is {tuple(t.shape)}, not {want[key]} for q "
+                             f"{tuple(q.shape)} and capacity {c}")
+        dtype = torch.float32 if key.endswith("scale") else torch.int8
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} is {t.dtype}, not {dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    return _check(name, num_heads, d, q=q)
+
+
+def _launch_int8(name, symbol, q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache,
+                 k_scale, v_scale, lens, rows_per_stream, num_heads):
+    _cuda_ready(name, q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache, k_scale,
+                v_scale)
+    r, d = q.shape
+    c = k_cache.shape[0]
+    smem = build.function("temporal_decode_pm_int8", "sf_temporal_decode_pm_int8_smem_bytes",
+                          (_I, _I))(d // num_heads, c)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: capacity {c} needs {smem} bytes of shared memory per block")
+    out = torch.empty_like(q)
+    args = [q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_new_scale.data_ptr(),
+            v_new_scale.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), lens.data_ptr()]
+    types = [_P] * 10
+    if rows_per_stream is not None:  # G
+        args.append(rows_per_stream)
+        types.append(_I)
+    _launch(name, symbol, (*types, _P, _I, _I, _I, _I, _F, _I, _P), q.device, *args,
+            out.data_ptr(), r, c, d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
+            library="temporal_decode_pm_int8")
+    return out
+
+
+def temporal_decode_pm_int8(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache,
+                            k_scale, v_scale, cache_len, num_heads):
+    """``temporal_decode_pm`` on the int8 cache, with the new frame quantized.
+
+    q: (R, D) float32 or bfloat16. k_new, v_new: (R, D) int8 codes of the
+    new frame, k_new_scale, v_new_scale: (R,) fp32, one scale per row over
+    the whole D (``encoder.quantize_kv``). k_cache, v_cache: (C, R, D) int8;
+    k_scale, v_scale: (C, R) fp32, the scale of each (position slot, row).
+    cache_len: int32 tensor of one element on the same device, the position
+    the new frame takes; it is read on the device and not changed.
+
+    Each (row, head) attends old slots c < min(len, C) except slot len % C,
+    plus the new frame dequantized, with score ``(q . codes) * k_scale *
+    dh**-0.5`` and value weight ``p * v_scale`` in fp32; then the new codes
+    and both scales are written IN PLACE at slot len % C. With len < C this
+    is the linear cache; past C the ring's sliding window. Returns (R, D) in
+    q's dtype."""
+    if cache_len.numel() != 1 or cache_len.dtype != torch.int32:
+        raise TypeError("temporal_decode_pm_int8: cache_len must be one int32 element")
+    device = _check_int8("temporal_decode_pm_int8", num_heads, q, k_new, v_new, k_new_scale,
+                         v_new_scale, k_cache, v_cache, k_scale, v_scale)
+    _check_lengths("temporal_decode_pm_int8", device, cache_len=cache_len)
+    if device.type == "cpu":
+        return temporal_decode_pm_int8_plain(q, k_new, v_new, k_new_scale, v_new_scale, k_cache,
+                                             v_cache, k_scale, v_scale, cache_len, num_heads)
+    return _launch_int8("temporal_decode_pm_int8", "sf_temporal_decode_pm_int8", q, k_new, v_new,
+                        k_new_scale, v_new_scale, k_cache, v_cache, k_scale, v_scale, cache_len,
+                        None, num_heads)
+
+
+def temporal_decode_pm_int8_ragged(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache,
+                                   k_scale, v_scale, lens, rows_per_stream, num_heads):
+    """``temporal_decode_pm_int8`` for a batch of streams, each at its own
+    position: lens (B,) int32 on the same device, B * rows_per_stream == R,
+    row r of stream ``r // rows_per_stream`` attends and appends at slot
+    ``lens[b] % C`` (linear cache and ring alike). Rows are not padded per
+    stream. A ragged row's output equals, bit for bit on the card, F's for a
+    lone stream at the same position (one kernel source)."""
+    device = _check_int8("temporal_decode_pm_int8_ragged", num_heads, q, k_new, v_new,
+                         k_new_scale, v_new_scale, k_cache, v_cache, k_scale, v_scale)
+    _stream_lengths("temporal_decode_pm_int8_ragged", lens, q.shape[0], rows_per_stream)
+    _check_lengths("temporal_decode_pm_int8_ragged", device, lens=lens)
+    if device.type == "cpu":
+        return temporal_decode_pm_int8_ragged_plain(q, k_new, v_new, k_new_scale, v_new_scale,
+                                                    k_cache, v_cache, k_scale, v_scale, lens,
+                                                    rows_per_stream, num_heads)
+    return _launch_int8("temporal_decode_pm_int8_ragged", "sf_temporal_decode_pm_int8_ragged", q,
+                        k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache, k_scale,
+                        v_scale, lens, rows_per_stream, num_heads)
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,10 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("temporal_decode_pm", "temporal_append_pm", "spatial_flat", "temporal_fullclip")
+SOURCES = (
+    "temporal_decode_pm", "temporal_append_pm", "temporal_decode_pm_int8", "spatial_flat",
+    "temporal_fullclip",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

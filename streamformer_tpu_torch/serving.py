@@ -14,7 +14,11 @@ Semantics, as in the JAX package:
 * ``tick()`` advances every occupied slot that has a frame by one frame
   (latency mode: kernel D on the card). ``tick(frames=k)`` advances each
   slot by up to k of its own frames (throughput mode: kernel E, one call per
-  chunk of ``ops.append_frame_cap(C)`` frames, linear cache only).
+  chunk of ``ops.append_frame_cap(C)`` frames, linear cache only). On an
+  int8 cache, and on the ring, it is t=1 steps (kernel G, or D), as the JAX
+  engine's scan, but only as many as the fullest slot has frames (the scan
+  runs k to bound its compiles; an eager step has none to bound); step i
+  holds the slots that have fewer than i + 1 frames.
 * A starved slot of the linear cache is HELD: it runs a dummy frame whose
   output is discarded and whose append is rolled back (``len`` unchanged),
   so the stream resumes where it paused. The ring cannot hold (its
@@ -87,9 +91,11 @@ class StreamingEngine:
         self.collect = collect
         dev = self._dev = model.device
         self._dt = encoder.compute_dtype(self.cfg)
-        # int8 caches raise here (ROADMAP slice 3, item 9)
         self._cache = encoder.init_cache(self.cfg, slots, capacity=capacity,
                                          per_stream_len=True, device=dev)
+        # kernel E appends float planes only: an int8 tick is t=1 steps
+        self._quantized = "k_scale" in self._cache["layers"][0]
+        self.forwards = 0  # streaming_forward calls: t=1 steps and kernel-E chunks
         # per-slot device staging ring: feed() writes clips here in bulk, a
         # tick reads frame stage[s, rd[s] % depth]. depth >= capacity, so a
         # linear stream always fits; ring streams that outrun it wait in the
@@ -161,6 +167,7 @@ class StreamingEngine:
         encoder.reset_streams(self._cache, admit)
         out, _ = encoder.streaming_forward(self.model, self._normalize(frames), self._cache,
                                            cfg=self.cfg)
+        self.forwards += 1
         self._cache["len"].sub_((~active).to(torch.int32))
         self._rd_dev = torch.where(active, rd + 1, rd)
         return out["pooler_output"]
@@ -181,6 +188,7 @@ class StreamingEngine:
             valid = (navail - ci).clamp(0, kk).to(torch.int32)
             out, _ = encoder.streaming_forward(self.model, frames, self._cache,
                                                new_valid=valid, cfg=self.cfg)
+            self.forwards += 1
             outs.append(out["pooler_output"])
         self._rd_dev = rd + navail
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
@@ -304,9 +312,11 @@ class StreamingEngine:
 
         ``frames=1`` is the latency mode. ``frames=k>1`` is the throughput
         mode: in linear mode each slot takes its own count (0..k; holds fill
-        the difference) through kernel E; in ring mode, which cannot hold,
-        every occupied slot takes the same min-over-slots count, as that many
-        t=1 steps. Decided on the host mirrors alone: no device read."""
+        the difference) through kernel E, or on an int8 cache as t=1 steps,
+        as many as the fullest slot has frames, step i holding the slots
+        with fewer than i + 1 frames; in ring mode, which cannot hold, every
+        occupied slot takes the same min-over-slots count, as that many t=1
+        steps. Decided on the host mirrors alone: no device read."""
         self._grant_slots()
         admit = np.zeros(self.slots, bool)
         for s in self._admit_next:
@@ -340,10 +350,13 @@ class StreamingEngine:
             # every occupied slot consumes exactly k: no ring holds
             k = min(k, min(int(a) for a in avail[avail > 0])) if avail.any() else 1
         navail = np.minimum(avail, k).astype(np.int32)
-        if k == 1 or self.mode == "ring":
-            active = navail > 0
+        if k == 1 or self.mode == "ring" or self._quantized:
+            # one step per frame of the fullest slot (one for an admit-only
+            # tick); step i's mask, row i, holds the slots without an i-th frame
+            k = max(1, int(navail.max()))
+            active = navail[None] > np.arange(k)[:, None]
             self._send_flags(b"step" + admit.tobytes() + active.tobytes(), admit, active)
-            steps = [self._step(self._admit_dev if i == 0 else self._no_admit, self._count_dev)
+            steps = [self._step(self._admit_dev if i == 0 else self._no_admit, self._count_dev[i])
                      for i in range(k)]
             pooled = steps[0] if k == 1 else torch.cat(steps, dim=1)
         else:

@@ -276,3 +276,120 @@ def test_ragged_engine_streams_equal_lone_streams():
             feats, done = eng.poll(sid)
             assert done
             assert np.abs(feats - lone(clip)).max() <= TOL[torch.float32], (frames, sid)
+
+
+def _int8_operands(rows, cap, d, seed, device="cuda"):
+    """New-frame codes and scales from ``quantize_kv`` of a random frame, and
+    an int8 cache of random codes with positive per-(slot, row) scales."""
+    from streamformer_tpu_torch.models import encoder
+
+    rng = np.random.default_rng(seed)
+    kn, vn = (torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32)).to(device)
+              for _ in range(2))
+    kq, ks = encoder.quantize_kv(kn)
+    vq, vs = encoder.quantize_kv(vn)
+    codes = torch.from_numpy(rng.integers(-127, 128, (2, cap, rows, d)).astype(np.int8)).to(device)
+    scales = torch.from_numpy(rng.uniform(0.005, 0.03, (2, cap, rows)).astype(np.float32)).to(device)
+    return (kq, vq, ks, vs), [x.clone() for x in (*codes, *scales)]  # 16-byte aligned
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "rows,cap,heads,dh,length",
+    [
+        (56, 8, 4, 24, 0),
+        (56, 8, 4, 24, 5),
+        (56, 8, 4, 24, 7),
+        (56, 8, 4, 24, 19),  # ring
+        (1568, 16, 12, 64, 15),  # flagship int8 streaming step, linear
+        (1568, 16, 12, 64, 37),  # flagship, ring
+        (40, 5, 2, 128, 3),
+        (40, 5, 1, 8, 9),
+    ],
+)
+def test_temporal_decode_pm_int8_matches_plain(dtype, rows, cap, heads, dh, length):
+    d = heads * dh
+    q = _randn((rows, d), dtype, 1)
+    new, cache = _int8_operands(rows, cap, d, 2)
+    ref_cache = [c.clone() for c in cache]
+    cache_len = torch.tensor(length, dtype=torch.int32, device="cuda")
+    ref = ops.temporal_decode_pm_int8_plain(q, *new, *ref_cache, cache_len, heads)
+    before = ops.LAUNCHES["temporal_decode_pm_int8"]
+    got = ops.temporal_decode_pm_int8(q, *new, *cache, cache_len, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_decode_pm_int8"] == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for mine, theirs in zip(cache, ref_cache):  # codes and scale columns
+        assert torch.equal(mine, theirs)
+    assert int(cache_len) == length
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "per_stream,lens,cap,heads,dh",
+    [
+        (7, [0, 3, 7, 2], 8, 4, 24),
+        (7, [8, 11, 19, 30], 8, 4, 24),  # ring
+        (196, [0, 1, 5, 9, 14, 15, 15, 15], 16, 12, 64),  # flagship engine tick, linear
+        (196, [16, 17, 23, 31, 40, 41, 50, 63], 16, 12, 64),  # flagship, ring
+        (5, [4, 0, 2], 5, 2, 128),
+    ],
+)
+def test_temporal_decode_pm_int8_ragged_matches_plain(dtype, per_stream, lens, cap, heads, dh):
+    d = heads * dh
+    rows = per_stream * len(lens)
+    q = _randn((rows, d), dtype, 3)
+    new, cache = _int8_operands(rows, cap, d, 4)
+    ref_cache = [c.clone() for c in cache]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ref = ops.temporal_decode_pm_int8_ragged_plain(q, *new, *ref_cache, lens_t, per_stream, heads)
+    before = ops.LAUNCHES["temporal_decode_pm_int8_ragged"]
+    got = ops.temporal_decode_pm_int8_ragged(q, *new, *cache, lens_t, per_stream, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_decode_pm_int8_ragged"] == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for mine, theirs in zip(cache, ref_cache):
+        assert torch.equal(mine, theirs)
+    assert lens_t.tolist() == lens
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_int8_ragged_rows_equal_lone_streams_bitwise(dtype):
+    """Kernels F and G share one source: a ragged row's output equals, bit
+    for bit, F's for a lone stream at the same position."""
+    per_stream, lens, cap, heads, dh = 196, [0, 3, 15, 21], 16, 12, 64
+    d = heads * dh
+    rows = per_stream * len(lens)
+    q = _randn((rows, d), dtype, 5)
+    new, cache = _int8_operands(rows, cap, d, 6)
+    whole = [c.clone() for c in cache]
+    got = ops.temporal_decode_pm_int8_ragged(
+        q, *new, *whole, torch.tensor(lens, dtype=torch.int32, device="cuda"), per_stream, heads)
+    for b, length in enumerate(lens):
+        sl = slice(b * per_stream, (b + 1) * per_stream)
+        lone_cache = [c[:, sl].contiguous() for c in cache]
+        lone = ops.temporal_decode_pm_int8(
+            q[sl].contiguous(), *(x[sl].contiguous() for x in new), *lone_cache,
+            torch.tensor(length, dtype=torch.int32, device="cuda"), heads)
+        assert torch.equal(got[sl], lone), b
+        for mine, theirs in zip(whole, lone_cache):
+            assert torch.equal(mine[:, sl], theirs), b
+
+
+@pytest.mark.parametrize("rows", [1, 8, 196, 1568])
+def test_int8_codes_and_products_on_the_card_equal_the_cpu(rows):
+    """Activation codes and scales (a true division on the card, as on the
+    CPU) and the exact s8 x s8 -> s32 product, at the row counts the
+    encoder gives them: the MAP head's probe (1), a pooled batch (8, padded
+    for cuBLASLt), a lone stream's frame (196), the flagship step (1568)."""
+    from streamformer_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy((3 * rng.standard_normal((rows, 768))).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-127, 128, (2304, 768)).astype(np.int8))
+    for dtype in DTYPES:
+        xq, xs = quant.quantize_rows(x.to(dtype))
+        xq_c, xs_c = quant.quantize_rows(x.to("cuda", dtype))
+        assert torch.equal(xq_c.cpu(), xq) and torch.equal(xs_c.cpu(), xs), dtype
+    got = quant.int8_matmul(xq.cuda(), w.cuda())
+    assert got.shape == (rows, 2304) and torch.equal(got.cpu(), quant.int8_matmul(xq, w))

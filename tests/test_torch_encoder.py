@@ -178,8 +178,8 @@ def test_out_of_slice_features_raise():
     ring = encoder.StreamformerEncoder(cfg.replace(cache_mode="ring"), device="cpu")
     with pytest.raises(NotImplementedError):  # the ring takes one frame per call
         ring.stream(torch.zeros(1, 2, 3, 48, 48), ring.init_cache(1, capacity=8))
-    with pytest.raises(NotImplementedError):
-        encoder.init_cache(cfg.replace(cache_dtype="int8"), 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="mixed caches"):  # a float cache of another dtype
+        encoder.init_cache(cfg.replace(cache_dtype="bfloat16"), 1, device="cpu")
     with pytest.raises(NotImplementedError):
         encoder.init_cache(cfg.replace(cache_layout="row_major"), 1, device="cpu")
     with pytest.raises(NotImplementedError):

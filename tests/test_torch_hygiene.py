@@ -44,14 +44,16 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_port_runs_with_jax_unimportable():
-    """Import every module of the port and run a CPU step with ``jax`` and
-    ``streamformer_tpu`` blocked from import."""
+    """Import every module of the port and run a CPU step, and an int8 one
+    (int8 weights, int8 cache), with ``jax`` and ``streamformer_tpu``
+    blocked from import."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = sys.modules['streamformer_tpu'] = None\n"
         "import torch\n"
         "import streamformer_tpu_torch.checkpoint, streamformer_tpu_torch.ops.build\n"
         "import streamformer_tpu_torch.serving, streamformer_tpu_torch.server\n"
+        "from streamformer_tpu_torch.ops import quant\n"
         "from streamformer_tpu_torch.config import StreamformerConfig\n"
         "from streamformer_tpu_torch.models.encoder import StreamformerEncoder\n"
         "cfg = StreamformerConfig(image_size=32, num_frames=2, hidden_size=32, num_hidden_layers=1,"
@@ -59,5 +61,11 @@ def test_port_runs_with_jax_unimportable():
         "m = StreamformerEncoder(cfg, device='cpu')\n"
         "out, cache = m.stream(torch.zeros(1, 1, 3, 32, 32), m.init_cache(1, capacity=2))\n"
         "assert out['pooler_output'].shape == (1, 1, 32)\n"
+        "q = quant.quantize_encoder(StreamformerEncoder(cfg.replace(cache_dtype='int8'), device='cpu'),"
+        " min_elements=0)\n"
+        "cache = q.init_cache(1, capacity=2)\n"
+        "out, cache = q.stream(torch.zeros(1, 1, 3, 32, 32), cache)\n"
+        "assert cache['layers'][0]['k'].dtype == torch.int8 and int(cache['len']) == 1\n"
+        "assert torch.isfinite(out['pooler_output']).all()\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -188,7 +188,8 @@ def test_engine_close_unadmitted_then_poll(pair):
 
 def test_engine_refusals(pair):
     """A starved open ring stream is an error (the ring cannot hold); a float
-    feed into uint8 staging, a mesh and an int8 cache are refused."""
+    feed into uint8 staging, a mesh and a float cache in another dtype than
+    the compute dtype are refused."""
     _, _, model = pair
     eng = StreamingEngine(model, slots=1, mode="ring")
     sid = eng.open()
@@ -207,9 +208,9 @@ def test_engine_refusals(pair):
     assert lin._fed[sid] == 0 and not lin._queues[sid] and not lin.has_work()
     with pytest.raises(NotImplementedError, match="item 14"):
         StreamingEngine(model, slots=2, mesh=object())
-    int8 = encoder.StreamformerEncoder(model.cfg.replace(cache_dtype="int8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StreamingEngine(int8, slots=2)
+    mixed = encoder.StreamformerEncoder(model.cfg.replace(cache_dtype="bfloat16"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9a"):
+        StreamingEngine(mixed, slots=2)
 
 
 def test_engine_staging_wraps_and_overflows(pair):
