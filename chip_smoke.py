@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Phases, each fatal on failure:
 
-1. the card's name and power limit (nvidia-smi), and the build of the three
-   kernels from ``streamformer_tpu_torch/csrc`` (one nvcc each, in parallel);
+1. the card's name and power limit (nvidia-smi), and the build of every
+   kernel source in ``streamformer_tpu_torch/csrc`` (one nvcc each, all
+   started together);
 2. each kernel against its plain version at the flagship shapes, bf16 and
    fp32 (kernel A linear and ring), with its time, the plain version's
    time, one ``scaled_dot_product_attention`` call's time (a yardstick the
@@ -55,14 +56,38 @@ Phases, each fatal on failure:
     0.0156: int8 weights turn the bf16 rounding of products at another batch
     size into code steps), in both tick modes, ``tick(frames=8)`` bit for bit
     equal to ``tick()`` and G launched L times per t=1 step the engine ran;
-    engine frames/s with the device busy share for both.
+    engine frames/s with the device busy share for both;
+14. the backward kernels H and I against their plain versions at the
+    flagship shapes (H: R=1568, T=16; I: R=128, N=196), bf16 and fp32, twice
+    for bit-equality, timed beside the backward of one
+    ``scaled_dot_product_attention`` call (a yardstick the port never calls);
+15. a small fp32 ``MultitaskModel`` on the card against the same model on
+    the CPU (plain versions): one ``loss_fn`` and backward for a task of each
+    of the seven kinds, every gradient leaf held to the CPU's, and a second
+    run on the card bit-equal to the first;
+16. the training path at full width: a ``MultitaskModel`` on the flagship
+    encoder (bf16 compute over fp32 master parameters) with the SigLIP-base
+    text tower shape frozen, seeded random weights, the hash tokenizer;
+    ``create_optimizer`` (AdamW, clip 1.0, weight decay 0.05, layer decay
+    0.75, cosine schedule with warm-up) and ``MultitaskTrainer.
+    train_one_epoch`` over batches of 8 clips alternating a classification, a
+    grounding and a VIS task, ``update_freq=2``, 6 optimizer updates: finite
+    losses whose sum over the three repeated batches falls from the first
+    round to the last, the text tower unchanged bit
+    for bit, B, C, H and I each L times a micro-step; then a short run with
+    ``remat="layer"`` (B and C 2L times a micro-step, the same losses) and
+    the peak memory of both;
+17. training clips/s and ms per micro-step at steady state, and a
+    ``torch.profiler`` window of the trainer: device busy ms per micro-step,
+    device time by kernel and launches per micro-step.
 
-Four paths are main paths: the lockstep encode (the launch counters are
+Five paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
-int8 serving (zeroed before each stream of phase 12) and the int8 engine
-(zeroed before each engine run of phase 13). Every kernel must have run on
-its path. The last two lines are the
+int8 serving (zeroed before each stream of phase 12), the int8 engine
+(zeroed before each engine run of phase 13) and training (zeroed before
+phase 16's epoch, read after it). Every kernel must have run on its path.
+The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
 neither.
@@ -106,6 +131,10 @@ SOURCES = {
                      "streamformer_tpu/ops/attention.py:1531"),
     "temporal_fullclip": ("streamformer_tpu_torch/csrc/temporal_fullclip.cu",
                           "streamformer_tpu/ops/attention.py:1335"),
+    "temporal_fullclip_bwd": ("streamformer_tpu_torch/csrc/temporal_fullclip_bwd.cu",
+                              "streamformer_tpu/ops/attention.py:1415"),
+    "spatial_flat_bwd": ("streamformer_tpu_torch/csrc/spatial_flat_bwd.cu",
+                         "streamformer_tpu/ops/attention.py:1589"),
 }
 # flagship: batch, frames, patches (224/16 squared), hidden, heads, cache capacity
 FLAGSHIP = dict(batch=8, frames=16, patches=196, hidden=768, heads=12, capacity=16)
@@ -120,6 +149,16 @@ E_LENS, E_VALID, E_T = [0, 1, 5, 8, 8, 12, 15, 16], [8, 0, 8, 8, 3, 4, 1, 0], 8
 ENGINE = dict(slots=8, streams=12, min_frames=4, max_frames=16, burst_ticks=4, frames=8)
 MEAN, STD = (0.481, 0.457, 0.408), (0.268, 0.261, 0.275)  # SigLIP-style normalize
 THROUGHPUT_STREAMS = 48  # of capacity-many frames each, for engine frames/s
+# training: the text tower of phase 15 (phase 16 takes SiglipTextConfig's defaults, the
+# SigLIP-base shape), and phase 16's run
+SMALL_TEXT_CONFIG = dict(vocab_size=1000, hidden_size=96, num_hidden_layers=2,
+                         num_attention_heads=4, intermediate_size=192, max_position_embeddings=16)
+TRAIN_TEXT_CONFIG = dict()
+TRAIN = dict(batch=8, update_freq=2, updates=6, remat_micro_steps=4, timed_micro_steps=12,
+             profiled_micro_steps=6, base_lr=1e-4, min_lr=1e-6, warmup_steps=1, clip_grad=1.0,
+             weight_decay=0.05, layer_decay=0.75, classes=10, vis_classes=5, mask_size=56)
+GRAD_CARD_VS_CPU_TOL = 1e-4  # of a leaf's largest gradient magnitude; fp32, summation order only
+REMAT_LOSS_TOL = 1e-2  # relative: the recompute repeats the forward; bf16 rounding at most
 DEVICE = "cuda"
 
 
@@ -188,14 +227,24 @@ def main():
     def finite(out):
         return all(torch.isfinite(x).all().item() for x in out.values())
 
+    def device_rows(prof):
+        """The profile's kernels and copies on the card, by name. A range
+        that the host annotated (``Optimizer.step#AdamW.step``) is no
+        kernel: its device time is its kernels' time over again."""
+        return [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and getattr(e, "device_time_total", 0) > 0
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith("Optimizer.")]
+
     # ---- 2. kernels against their plain versions at flagship shapes
     b_, t_, n_, d_, h_, cap = (FLAGSHIP[k] for k in
                                ("batch", "frames", "patches", "hidden", "heads", "capacity"))
     dh = d_ // h_
     results = {}
 
-    def record(name, shape_tag, dtype_name, err, fn, plain, library, nbytes, flops):
-        tol = TOL[dtype_name]
+    def record(name, shape_tag, dtype_name, err, fn, plain, library, nbytes, flops, tol=None):
+        tol = TOL[dtype_name] if tol is None else tol
         if not err <= tol:
             fail(f"{name} {shape_tag} {dtype_name}: max-abs error {err} > {tol}")
         ms, plain_ms, lib_ms = time_ms(fn), time_ms(plain), time_ms(library)
@@ -433,9 +482,7 @@ def main():
             encoder.streaming_forward(model, frame, cache)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / window
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and getattr(e, "device_time_total", 0) > 0]
+    rows = device_rows(prof)
     busy = sum(e.device_time_total for e in rows) / window / 1e3
     print(f"profile, {window} steady steps: device busy {busy:.3f} ms/step of {wall_ms:.3f} "
           f"(profiled wall clock)")
@@ -610,9 +657,7 @@ def main():
             streams = 2 * ENGINE["slots"]  # two generations of streams, profiled
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 p_sec, p_ticks, _ = engine_run(frames, streams, mdl)
-            rows = [e for e in prof.key_averages()
-                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                    and getattr(e, "device_time_total", 0) > 0]
+            rows = device_rows(prof)
             dev_ms = sum(e.device_time_total for e in rows) / p_ticks / 1e3
             tick_ms, wall_ms = sec * 1e3 / ticks, p_sec * 1e3 / p_ticks
             print(f"{tag}engine {mode_name} mode (tick frames={frames}) ({smi}): "
@@ -772,9 +817,7 @@ def main():
             encoder.streaming_forward(q_model, frame, ring, cfg=ring_cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / window
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and getattr(e, "device_time_total", 0) > 0]
+    rows = device_rows(prof)
     busy = sum(e.device_time_total for e in rows) / window / 1e3
     print(f"int8 profile, {window} steady steps: device busy {busy:.3f} ms/step of {wall_ms:.3f} "
           f"(profiled wall clock)")
@@ -834,6 +877,327 @@ def main():
     engine_rates(c8_model, "int8-cache ")
     engine_rates(q_model, "int8-cache int8-weight ")
 
+    # ---- 14. the backward kernels H and I against their plain versions
+    del c8_model, q_model
+    torch.cuda.empty_cache()
+
+    def grads_err(got, ref):
+        """Worst max-abs error over (dq, dk, dv), and the tolerance scale: the
+        largest gradient magnitude where that exceeds 1."""
+        err = max(max_err(a, b) for a, b in zip(got, ref))
+        return err, max(1.0, *(b.float().abs().max().item() for b in ref))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        elt = torch.finfo(dtype).bits // 8
+        for name, kernel, plain, r, length, causal, flops in (
+            ("temporal_fullclip_bwd", ops.temporal_fullclip_bwd, ops.temporal_fullclip_bwd_plain,
+             b_ * n_, t_, True, 5 * t_ * (t_ + 1) * b_ * n_ * d_),
+            ("spatial_flat_bwd", ops.spatial_flat_bwd, ops.spatial_flat_bwd_plain,
+             b_ * t_, n_, False, 10 * b_ * t_ * n_ * n_ * d_),
+        ):
+            q, k, v, g = (randn(r, length, d_, dtype=dtype) for _ in range(4))
+            got, again = kernel(q, k, v, g, h_), kernel(q, k, v, g, h_)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{name} {dn}: two runs on the same inputs differ")
+            err, scale = grads_err(got, plain(q, k, v, g, h_))
+            # yardstick: the backward of one SDPA call, on a graph built once
+            qh, kh, vh = (x.view(r, length, h_, dh).transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            gh = g.view(r, length, h_, dh).transpose(1, 2)
+            out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+            record(name, f"R={r} {'T' if causal else 'N'}={length}", dn, err,
+                   lambda: kernel(q, k, v, g, h_), lambda: plain(q, k, v, g, h_),
+                   lambda: torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True),
+                   7 * elt * r * length * d_, flops, tol=TOL[dn] * scale)
+            del q, k, v, g, got, again, qh, kh, vh, gh, out
+    torch.cuda.synchronize()
+
+    # ---- 15. a small fp32 MultitaskModel: gradients on the card against the CPU's
+    os.environ.setdefault("STREAMFORMER_ALLOW_HASH_TOKENIZER", "1")  # a dry run: no tokenizer files
+    from streamformer_tpu_torch.models.multitask import MultitaskModel
+    from streamformer_tpu_torch.models.text_encoder import SiglipTextConfig
+    from streamformer_tpu_torch.train import optim
+    from streamformer_tpu_torch.train.trainer import MultitaskTrainer, TrainState
+
+    small_text = SiglipTextConfig(**SMALL_TEXT_CONFIG)
+    mt_cpu = MultitaskModel(small, {}, small_text, device="cpu",
+                            generator=torch.Generator().manual_seed(3))
+    open_gates(mt_cpu.backbone, 3)
+    mt_card = MultitaskModel(small, {}, small_text)
+    mt_card.load_state_dict(mt_cpu.state_dict())
+    sb, st_, sn, sd_ = 2, small.num_frames, small.num_patches, small.hidden_size
+    srng = np.random.default_rng(4)
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    def small_batch(kind):
+        f = lambda *shape: srng.standard_normal(shape).astype(np.float32)  # noqa: E731
+        captions = srng.integers(0, small_text.vocab_size, (sb, 16)).astype(np.int32)
+        return {
+            "classification": {"label_embeddings": unit(f(5, sd_)),
+                               "label": srng.integers(0, 5, sb)},
+            "retrieval": {"caption_ids": captions},
+            "grounding": {"caption_ids": captions,
+                          "label": srng.integers(0, 2, (sb, st_)).astype(np.float32)},
+            "universal_localization": {"label_embeddings": unit(f(sb, 5, sd_)),
+                                       "class_mask": np.ones((sb, 5), bool),
+                                       "label": srng.integers(-1, 5, (sb, st_))},
+            "naive_localization": {"label_embeddings": f(5, sd_),
+                                   "target_labels": srng.integers(-1, 2, (1, sb * st_, 5))
+                                   .astype(np.float32)},
+            "vis": {"label_embeddings": unit(f(sb, 5, sd_)), "class_mask": np.ones((sb, 5), bool),
+                    "mask_target": srng.integers(-1, 5, (sb, st_, 12, 12))},
+            "refervos": {"caption_ids": captions,
+                         "mask_target": srng.integers(-1, 2, (sb, st_, 12, 12))},
+        }[kind]
+
+    def loss_and_grads(mdl, task, px, ti):
+        mdl.zero_grad(set_to_none=True)
+        loss, _ = mdl.loss_fn(task, px, ti)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in mdl.named_parameters()
+                             if p.grad is not None}
+
+    small_launches = dict.fromkeys(ops.LAUNCHES, 0)
+    worst_rel = 0.0
+    small_tasks = (("Kinetics", "classification"), ("TaskRetrieval", "retrieval"),
+                   ("CharadesSTA", "grounding"), ("TaskLocalization", "universal_localization"),
+                   ("THUMOS14", "naive_localization"), ("YoutubeVIS", "vis"), ("MEVIS", "refervos"))
+    for task, kind in small_tasks:
+        px = srng.standard_normal((sb, st_, 3, small.image_size, small.image_size)).astype(np.float32)
+        ti = small_batch(kind)
+        ref_loss, ref = loss_and_grads(mt_cpu, task, px, ti)
+        ops.reset_launches()
+        got_loss, got = loss_and_grads(mt_card, task, px, ti)
+        _, again = loss_and_grads(mt_card, task, px, ti)
+        torch.cuda.synchronize()
+        for k, v in ops.LAUNCHES.items():
+            small_launches[k] += v
+        if got.keys() != ref.keys() or not abs(got_loss - ref_loss) <= 1e-4 * max(1, abs(ref_loss)):
+            fail(f"small {task}: loss {got_loss} on the card, {ref_loss} on the CPU; "
+                 f"leaves {len(got)} vs {len(ref)}")
+        top = max(v.abs().max().item() for v in ref.values())
+        for leaf, want in ref.items():
+            # a leaf whose gradient is rounding noise is held to 1 % of the largest leaf's scale
+            bound = GRAD_CARD_VS_CPU_TOL * max(want.abs().max().item(), 1e-2 * top)
+            err = max_err(got[leaf], want)
+            worst_rel = max(worst_rel, err / (bound / GRAD_CARD_VS_CPU_TOL))
+            if not err <= bound:
+                fail(f"small {task}: gradient of {leaf} differs from the CPU's by {err} "
+                     f"(> {bound})")
+            if not torch.equal(got[leaf], again[leaf]):
+                fail(f"small {task}: gradient of {leaf} differs between two runs on the card")
+    sl = small.num_hidden_layers
+    want = {**dict.fromkeys(ops.LAUNCHES, 0), "spatial_flat": 2 * 7 * sl,
+            "temporal_fullclip": 2 * 7 * sl, "spatial_flat_bwd": 2 * 7 * sl,
+            "temporal_fullclip_bwd": 2 * 7 * sl}
+    if small_launches != want:
+        fail(f"small multitask launches {small_launches}")
+    print(f"small fp32 MultitaskModel, {len(small_tasks)} task kinds, card vs CPU: every gradient "
+          f"leaf within {GRAD_CARD_VS_CPU_TOL} of its scale (worst {worst_rel:.2e}), two runs on "
+          f"the card bit-equal; launches {small_launches}")
+    del mt_cpu, mt_card
+
+    # ---- 16. the training path at full width
+    tr = TRAIN
+    tb = tr["batch"]
+    train_tasks = {
+        "Kinetics": {"label2id": {f"action {i}": i for i in range(tr["classes"])}},
+        "YoutubeVIS": {"label2id": {"ytvis": {f"object {i}": i for i in range(tr["vis_classes"])}}},
+    }
+    train_cfg = StreamformerConfig(**FLAGSHIP_CONFIG)
+    text_cfg = SiglipTextConfig(hidden_size=train_cfg.hidden_size, **TRAIN_TEXT_CONFIG)
+
+    def make_trainer(remat):
+        """A seeded model (the same weights every time), its optimizer,
+        trainer and state."""
+        mdl = MultitaskModel(train_cfg.replace(remat=remat), train_tasks, text_cfg,
+                             generator=torch.Generator().manual_seed(5))
+        open_gates(mdl.backbone, 5)
+        lr = optim.cosine_lr_schedule(tr["base_lr"], tr["min_lr"], epochs=1,
+                                      steps_per_epoch=tr["updates"],
+                                      warmup_steps=tr["warmup_steps"])
+        tx = optim.create_optimizer(mdl, lr, weight_decay=tr["weight_decay"],
+                                    clip_grad=tr["clip_grad"], layer_decay=tr["layer_decay"],
+                                    num_layers=train_cfg.num_hidden_layers,
+                                    trainable_mask=optim.trainable_mask_frozen_text(mdl))
+        return mdl, lr, MultitaskTrainer(mdl, tx, update_freq=tr["update_freq"]), \
+            TrainState.create(mdl, tx)
+
+    class LossLog:
+        """A log writer that keeps each micro-step's (task, loss) and lr."""
+
+        def __init__(self):
+            self.losses, self.lrs = [], []
+
+        def set_step(self):
+            pass
+
+        def update(self, head="", **kw):
+            if head == "loss":
+                self.losses.extend(kw.items())
+            elif head == "opt":
+                self.lrs.append(kw["lr"])
+
+    tmodel, lr_sched, trainer, state = make_trainer("none")
+    if tmodel.device.type != dev.type:
+        fail(f"MultitaskModel lives on {tmodel.device}")
+    tmodel.prepare_for_multi_tasks()
+    masters = {p.dtype for p in tmodel.parameters()}
+    if masters != {torch.float32}:
+        fail(f"master parameters are {masters}, not fp32")
+    trng = np.random.default_rng(6)
+
+    def clips():
+        return torch.randn(tb, t_, 3, train_cfg.image_size, train_cfg.image_size, device=dev,
+                           generator=gen)
+
+    vis_table = tmodel.label_embeddings["YoutubeVIS"]["ytvis"]
+    captions = tmodel.tokenize([f"a person does thing {i} and then stops" for i in range(tb)])
+    one_round = [
+        ("Kinetics", {"pixel_values": clips(), "task_input": {
+            "label_embeddings": tmodel.label_embeddings["Kinetics"],
+            "label": trng.integers(0, tr["classes"], tb)}}),
+        ("CharadesSTA", {"pixel_values": clips(), "task_input": {
+            "caption_ids": captions,
+            "label": trng.integers(0, 2, (tb, t_)).astype(np.float32)}}),
+        ("YoutubeVIS", {"pixel_values": clips(), "task_input": {
+            "label_embeddings": vis_table[None].expand(tb, -1, -1),
+            "class_mask": np.ones((tb, tr["vis_classes"]), bool),
+            "mask_target": trng.integers(-1, tr["vis_classes"],
+                                         (tb, t_, tr["mask_size"], tr["mask_size"]))}}),
+    ]
+    micro_steps = tr["update_freq"] * tr["updates"]
+    stream = [one_round[i % 3] for i in range(micro_steps)]  # each batch comes back 4 times
+    text_before = {n: p.detach().clone() for n, p in tmodel.text.named_parameters()}
+    first_params = {n: p.detach().clone() for n, p in tmodel.backbone.named_parameters()}
+    log = LossLog()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, stats = trainer.train_one_epoch(state, iter(stream), 0,
+                                           torch.Generator(device=dev).manual_seed(7),
+                                           log_writer=log, lr_schedule=lr_sched, print_freq=4)
+    torch.cuda.synchronize()
+    first_epoch_s = time.perf_counter() - t0
+    peak_plain = torch.cuda.max_memory_allocated()
+    train_launches = dict(ops.LAUNCHES)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0),
+            **dict.fromkeys(("spatial_flat", "temporal_fullclip", "spatial_flat_bwd",
+                             "temporal_fullclip_bwd"), L * micro_steps)}
+    if train_launches != want:
+        fail(f"training launches {train_launches} over {micro_steps} micro-steps (L={L})")
+    if state.step != tr["updates"] or len(log.losses) != micro_steps:
+        fail(f"{state.step} updates and {len(log.losses)} logged losses, not {tr['updates']} and "
+             f"{micro_steps}")
+    if not all(np.isfinite(v) for _, v in log.losses):
+        fail(f"training losses {log.losses}")
+    by_task = {}
+    for task, value in log.losses:
+        by_task.setdefault(task, []).append(value)
+    # the objective the accumulated updates descend: the three repeated batches together
+    rounds = [sum(v for _, v in log.losses[i:i + 3]) for i in range(0, micro_steps, 3)]
+    if not rounds[-1] < rounds[0]:
+        fail(f"the loss over the three repeated batches did not fall: {rounds} ({by_task})")
+    if not all(torch.equal(p, text_before[n]) for n, p in tmodel.text.named_parameters()):
+        fail("the frozen text tower changed")
+    moved = sum(not torch.equal(p, first_params[n]) for n, p in tmodel.backbone.named_parameters())
+    if moved != len(first_params):
+        fail(f"only {moved} of {len(first_params)} backbone parameters moved")
+    print(f"training, flagship width ({smi}): {micro_steps} micro-steps of {tb} clips, "
+          f"{state.step} AdamW updates (update_freq={tr['update_freq']}), bf16 compute over fp32 "
+          f"masters; loss over the three repeated batches by round {rounds}, falling; by task "
+          f"{json.dumps(by_task)}; lr {log.lrs[::tr['update_freq']]}; "
+          f"grad norm (mean) {stats['grad_norm']:.4f}; text tower unchanged bit for bit; "
+          f"launches {train_launches}; peak memory {peak_plain / 2**30:.2f} GiB; first epoch "
+          f"{first_epoch_s:.1f} s")
+    del text_before, first_params
+
+    # ---- 17. training rate at steady state, and where a micro-step's time goes
+    timed = [one_round[i % 3] for i in range(tr["timed_micro_steps"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = trainer.train_one_epoch(state, iter(timed), 1,
+                                       torch.Generator(device=dev).manual_seed(8),
+                                       print_freq=len(timed))
+    torch.cuda.synchronize()
+    micro_s = (time.perf_counter() - t0) / len(timed)
+    print(f"training rate ({smi}): {tb / micro_s:.2f} clips/s, {micro_s * 1e3:.2f} ms per "
+          f"micro-step of {tb} clips ({len(timed)} micro-steps, {len(timed) // tr['update_freq']} "
+          f"updates, steady state, bf16, no remat)")
+    n_prof = tr["profiled_micro_steps"]
+    profiled = [one_round[i % 3] for i in range(2 + n_prof)]  # the trainer skips the first two
+    t0 = time.perf_counter()
+    state, _ = trainer.train_one_epoch(state, iter(profiled), 2,
+                                       torch.Generator(device=dev).manual_seed(9),
+                                       print_freq=len(profiled), profile_steps=n_prof,
+                                       profile_dir=os.path.join(root, "build", "train_profile"))
+    torch.cuda.synchronize()
+    rows = device_rows(trainer.last_profile)
+    busy = sum(e.device_time_total for e in rows) / n_prof / 1e3
+    groups = (("I spatial_flat_bwd", ("spatial_flat_bwd",)),
+              ("H temporal_fullclip_bwd", ("temporal_fullclip_bwd",)),
+              ("B spatial_flat", ("spatial_flat_kernel",)),
+              ("C temporal_fullclip", ("temporal_fullclip_kernel",)),
+              ("matmuls (cuBLAS, CUTLASS)", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+              ("optimizer (multi-tensor)", ("multi_tensor", "foreach", "adam")),
+              ("layer norm", ("layer_norm", "LayerNorm")),
+              ("reductions, softmax", ("reduce", "softmax", "Softmax")),
+              ("copies and casts", ("Memcpy", "Memset", "copy", "Copy")),
+              ("elementwise", ("elementwise", "Elementwise")))
+    by_group = dict.fromkeys([g for g, _ in groups] + ["other"], 0.0)
+    for e in rows:
+        group = next((g for g, keys in groups if any(k in e.key for k in keys)), "other")
+        by_group[group] += e.device_time_total / n_prof / 1e3
+    print(f"training profile, {n_prof} micro-steps ({n_prof // tr['update_freq']} updates): device "
+          f"busy {busy:.2f} ms per micro-step, {100 * busy / (micro_s * 1e3):.1f} % of the "
+          f"unprofiled micro-step; {sum(e.count for e in rows) / n_prof:.0f} launches per "
+          f"micro-step; device ms per micro-step by kind: "
+          + json.dumps({g: round(v, 3) for g, v in by_group.items()}))
+    for e in sorted(rows, key=lambda e: -e.device_time_total)[:14]:
+        print(f"  {e.device_time_total / n_prof / 1e3:8.4f} ms/micro-step  "
+              f"x{e.count / n_prof:<6.1f} {e.key[:90]}")
+    del tmodel, trainer, state, stream, timed, profiled
+    torch.cuda.empty_cache()
+
+    # ---- 16 again, with remat="layer": the same losses, a smaller peak
+    rmodel, r_sched, r_trainer, r_state = make_trainer("layer")
+    r_log = LossLog()
+    r_steps = tr["remat_micro_steps"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    r_state, _ = r_trainer.train_one_epoch(r_state, iter([one_round[i % 3] for i in range(r_steps)]),
+                                           0, torch.Generator(device=dev).manual_seed(7),
+                                           log_writer=r_log, lr_schedule=r_sched, print_freq=r_steps)
+    torch.cuda.synchronize()
+    remat_s = (time.perf_counter() - t0) / r_steps
+    peak_remat = torch.cuda.max_memory_allocated()
+    remat_launches = dict(ops.LAUNCHES)
+    want = {**dict.fromkeys(ops.LAUNCHES, 0), "spatial_flat": 2 * L * r_steps,
+            "temporal_fullclip": 2 * L * r_steps, "spatial_flat_bwd": L * r_steps,
+            "temporal_fullclip_bwd": L * r_steps}
+    if remat_launches != want:
+        fail(f"remat training launches {remat_launches} over {r_steps} micro-steps (L={L})")
+    remat_diff = max(abs(a[1] - b[1]) / max(abs(b[1]), 1e-6)
+                     for a, b in zip(r_log.losses, log.losses[:r_steps]))
+    if len(r_log.losses) != r_steps or not remat_diff <= REMAT_LOSS_TOL:
+        fail(f"remat losses {r_log.losses} differ from {log.losses[:r_steps]} by {remat_diff} "
+             f"(relative, > {REMAT_LOSS_TOL})")
+    print(f"training with remat=\"layer\" ({smi}): {r_steps} micro-steps, losses within "
+          f"{remat_diff:.2e} (relative) of the run without; launches {remat_launches}; peak "
+          f"memory {peak_remat / 2**30:.2f} GiB against {peak_plain / 2**30:.2f} GiB without; "
+          f"{remat_s * 1e3:.2f} ms per micro-step (the first {r_steps} of a run, warm-up included)")
+    for k in train_launches:
+        train_launches[k] += remat_launches[k]
+    del rmodel, r_trainer, r_state, one_round
+    torch.cuda.empty_cache()
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -841,12 +1205,15 @@ def main():
                   "temporal_decode_pm_int8": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_int8_ragged":
                       f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
-                  "spatial_flat": f"R={b_} N={n_}", "temporal_fullclip": f"R={b_ * n_} T={t_}"}
+                  "spatial_flat": f"R={b_} N={n_}", "temporal_fullclip": f"R={b_ * n_} T={t_}",
+                  "temporal_fullclip_bwd": f"R={b_ * n_} T={t_}",
+                  "spatial_flat_bwd": f"R={b_ * t_} N={n_}"}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = results[(name, main_shape[name], "bfloat16")]
-        count = sum(path[name] for path in  # the encode path, the engine's, and their int8 runs
-                    (launches, engine_launches, int8_launches, int8_engine_launches))
+        count = sum(path[name] for path in  # encode, engine, their int8 runs, and training
+                    (launches, engine_launches, int8_launches, int8_engine_launches,
+                     train_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

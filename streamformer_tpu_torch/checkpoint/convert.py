@@ -13,6 +13,14 @@ A quantized tree (``quantize_encoder_params``: ``kernel_q`` int8 and
 ``weight`` int8 (out, in) and ``weight_scale``; the MAP head's q/k/v codes
 and scales are concatenated along the output rows. Load it into a model
 quantized at the same threshold (``quant.quantize_encoder``).
+
+``text_params_from_jax`` maps the JAX text tower's tree to the HF
+``SiglipTextModel`` names that ``models.text_encoder.SiglipTextEncoder``
+holds, and ``multitask_from_jax`` the whole ``MultitaskModel`` tree
+(``backbone``, ``text``, ``logit_scale``, ``logit_bias``) to the state dict
+of the port's ``MultitaskModel``, so both packages train from the same
+weights. The maps are linear (transposes, reshapes, concatenations and
+renames), so they carry a JAX gradient tree to the port's names as well.
 """
 
 from __future__ import annotations
@@ -100,3 +108,44 @@ def params_from_jax(params: Mapping[str, Any], cfg: StreamformerConfig) -> Dict[
     dense("head.mlp.fc1", mh["mlp"]["fc1"])
     dense("head.mlp.fc2", mh["mlp"]["fc2"])
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def text_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX text-tower parameter tree (numpy leaves) -> fp32 state dict under
+    the HF ``SiglipTextModel`` names (``text_model.`` prefix)."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def dense(name, p):
+        sd[name + ".weight"] = _t(p["kernel"])
+        sd[name + ".bias"] = _a(p["bias"])
+
+    def ln(name, p):
+        sd[name + ".weight"] = _a(p["scale"])
+        sd[name + ".bias"] = _a(p["bias"])
+
+    sd["text_model.embeddings.token_embedding.weight"] = _a(params["token_embedding"])
+    sd["text_model.embeddings.position_embedding.weight"] = _a(params["position_embedding"])
+    for i, layer in enumerate(params["layers"]):
+        lp = f"text_model.encoder.layers.{i}."
+        ln(lp + "layer_norm1", layer["layer_norm1"])
+        for key in ("q", "k", "v", "out"):
+            dense(lp + f"self_attn.{key}_proj", layer["attn"][key])
+        ln(lp + "layer_norm2", layer["layer_norm2"])
+        dense(lp + "mlp.fc1", layer["mlp"]["fc1"])
+        dense(lp + "mlp.fc2", layer["mlp"]["fc2"])
+    ln("text_model.final_layer_norm", params["final_layer_norm"])
+    dense("text_model.head", params["head"])
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def multitask_from_jax(params: Mapping[str, Any], cfg: StreamformerConfig) -> Dict[str, torch.Tensor]:
+    """The JAX ``MultitaskModel.params`` tree (numpy leaves), or a gradient
+    tree of the same structure, -> the state dict of the port's
+    ``MultitaskModel``. A tree without ``text`` (a gradient taken with
+    respect to the trainable leaves only) maps without it."""
+    sd = {"backbone." + k: v for k, v in params_from_jax(params["backbone"], cfg).items()}
+    if "text" in params:
+        sd.update({"text." + k: v for k, v in text_params_from_jax(params["text"]).items()})
+    sd["logit_scale"] = torch.tensor(_a(params["logit_scale"]).reshape(()))
+    sd["logit_bias"] = torch.tensor(_a(params["logit_bias"]).reshape(()))
+    return sd

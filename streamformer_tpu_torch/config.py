@@ -55,13 +55,15 @@ class StreamformerConfig:
     cache_layout: str = "pos_major"
     # Compute dtype ("bfloat16" for serving, "float32" for parity runs).
     dtype: str = "bfloat16"
+    # Gradient checkpointing in training: "none", or "layer" to keep only
+    # each layer's input for the backward and recompute the layer there.
+    remat: str = "none"
     # Fields below are read by the JAX package only; kept so that one
     # config.json round-trips through both packages.
     use_pallas: bool = True
     use_pallas_streaming: bool = True
     use_pallas_spatial: bool = True
     matmul_precision: Optional[str] = None
-    remat: str = "none"
     shard_patches: bool = False
 
     @property

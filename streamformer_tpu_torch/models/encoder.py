@@ -19,22 +19,37 @@ for ``Int8Linear`` (``dense`` dispatches on it), and ``init_cache`` with
 
 ``StreamformerEncoder`` owns the parameters, under the reference
 checkpoint's state-dict names, so ``load_state_dict`` takes a reference
-(HF) state dict as it is. Matmul weights are kept in the compute dtype
-(``cfg.dtype``); LayerNorm parameters and the temporal gates stay fp32,
-because the JAX package applies them in fp32. The functions below take the
-module where the JAX package takes its parameter tree.
+(HF) state dict as it is. The functions below take the module where the JAX
+package takes its parameter tree.
 
-Inference only: dropout and drop-path are not applied, and the kernels have
-no backward yet.
+Serving and training build the module differently, and serving loads what
+it always did. By default (``trainable=False``) the matmul weights are kept
+in the compute dtype (``cfg.dtype``) and no parameter requires grad, so the
+serving paths record no autograd graph. ``trainable=True`` is the trainer's
+encoder: every parameter is an fp32 master parameter that requires grad, as
+the JAX package's ``init_params`` tree is fp32, and ``dense`` casts each
+weight to the compute dtype where it is used (bf16 compute over fp32
+masters; the cast's backward hands the optimizer an fp32 gradient).
+LayerNorm parameters and the temporal gates are fp32 either way, because the
+JAX package applies them in fp32.
+
+Training mode: ``model_forward(..., generator=g, deterministic=False)``
+applies dropout and stochastic depth from the explicit ``torch.Generator``
+``g`` (on the model's device) where the JAX package takes an ``rng``;
+``cfg.remat == "layer"`` recomputes each layer in the backward
+(``torch.utils.checkpoint``) with the same masks. The full-clip attention is
+differentiable through ``ops.SpatialFlat`` and ``ops.TemporalFullclip``; the
+streaming path has no backward, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from streamformer_tpu_torch.config import StreamformerConfig
 from streamformer_tpu_torch.ops import attention as ops
@@ -119,6 +134,61 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout from an explicit generator (on x's device). The
+    identity when ``deterministic``, at rate 0, or without a generator (the
+    JAX package applies none without an ``rng``)."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+              deterministic: bool) -> torch.Tensor:
+    """Stochastic depth on the leading (batch) axis: one Bernoulli draw per
+    sample, survivors scaled by 1 / keep probability."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    keep = torch.empty(shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _drop_path_rates(cfg: StreamformerConfig) -> List[float]:
+    """Per-layer stochastic-depth rates: linear from 0 to ``drop_path_rate``."""
+    n = cfg.num_hidden_layers
+    if n == 1:
+        return [0.0]
+    return [cfg.drop_path_rate * i / (n - 1) for i in range(n)]
+
+
+def _replayable(fn: Callable, generator: Optional[torch.Generator]) -> Callable:
+    """``fn`` draws from ``generator``. The returned function draws the same
+    numbers every time it runs again (a checkpoint's recompute in the
+    backward) and then leaves the generator where it found it;
+    ``torch.utils.checkpoint`` itself restores only the global RNG state."""
+    if generator is None:
+        return fn
+    start = generator.get_state()
+    ran = False
+
+    def inner(*args):
+        nonlocal ran
+        if not ran:
+            ran = True
+            return fn(*args)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*args)
+        finally:
+            generator.set_state(now)
+
+    return inner
+
+
 def _lora(parent: nn.Module, name: str) -> Optional[Tuple[nn.Linear, nn.Linear]]:
     a = getattr(parent, f"{name}_lora_a", None)
     return None if a is None else (a, getattr(parent, f"{name}_lora_b"))
@@ -175,15 +245,17 @@ class StreamformerEncoder(nn.Module):
     plain paths. Weights are initialised as the JAX package's
     ``init_params`` does (truncated normal 0.02 for projections, zero
     biases, embeddings and gates, a normal MAP probe) from ``generator``, or
-    from a fresh default generator.
+    from a fresh default generator. ``trainable=True`` gives fp32 master
+    parameters that require grad (the trainer's encoder); the default is the
+    serving encoder, weights in the compute dtype and no grad.
     """
 
     def __init__(self, cfg: StreamformerConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, trainable: bool = False):
         super().__init__()
         _check_supported(cfg)
         dev = resolve_device(device)
-        dt = compute_dtype(cfg)
+        dt = torch.float32 if trainable else compute_dtype(cfg)
         d, c, ps = cfg.hidden_size, cfg.num_channels, cfg.patch_size
         self.cfg = cfg
         self.embeddings = _container(
@@ -214,6 +286,7 @@ class StreamformerEncoder(nn.Module):
         )
         self.head.probe = nn.Parameter(torch.empty(1, 1, d, dtype=dt))
         self._init_weights(generator)
+        self.requires_grad_(trainable)
         self.to(dev)
 
     @torch.no_grad()
@@ -239,8 +312,11 @@ class StreamformerEncoder(nn.Module):
     def device(self) -> torch.device:
         return self.post_layernorm.weight.device
 
-    def forward(self, pixel_values: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return model_forward(self, pixel_values)
+    def forward(self, pixel_values: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = True) -> Dict[str, torch.Tensor]:
+        return model_forward(self, pixel_values, generator=generator,
+                             deterministic=deterministic)
 
     def init_cache(self, batch: int, capacity: Optional[int] = None,
                    per_stream_len: bool = False) -> Cache:
@@ -299,11 +375,16 @@ def embed(
     *,
     start_pos=0,
     total_frames: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ) -> torch.Tensor:
     """Patchify + position + time embeddings: (B, T, C, H, W) -> (B, T, N, D).
 
     The stride-p conv is run as one matmul on non-overlapping patches,
-    flattened in (C, ph, pw) order as the conv weight is."""
+    flattened in (C, ph, pw) order as the conv weight is. In training mode
+    (a ``generator`` and not ``deterministic``) hidden dropout follows the
+    position embeddings and again the time embeddings, as in the JAX
+    package."""
     cfg = model.cfg
     dt = compute_dtype(cfg)
     b, t, c, h, w = pixel_values.shape
@@ -324,10 +405,12 @@ def embed(
     proj = emb.patch_embeddings.projection
     x = F.linear(x, proj.weight.to(dt).reshape(d, c * ps * ps), proj.bias.to(dt))
     x = x.reshape(b, t, n, d) + emb.position_embeddings.to(dt)
+    x = dropout(x, cfg.hidden_dropout_prob, generator, deterministic)
     total = total_frames if total_frames is not None else t
     temb = time_embeddings_for_positions(emb.time_embeddings[0], start_pos, t, total).to(dt)
     # (T, D) for a shared start, (B, T, D) for per-stream starts
-    return x + (temb[None, :, None, :] if temb.ndim == 2 else temb[:, :, None, :])
+    x = x + (temb[None, :, None, :] if temb.ndim == 2 else temb[:, :, None, :])
+    return dropout(x, cfg.hidden_dropout_prob, generator, deterministic)
 
 
 # --------------------------------------------------------------------------
@@ -473,22 +556,38 @@ def layer_forward(
     cache_kv: Optional[Dict[str, torch.Tensor]] = None,
     cache_len: Optional[torch.Tensor] = None,
     new_valid: Optional[torch.Tensor] = None,
+    drop_path_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
 ) -> torch.Tensor:
     """One divided space-time block on (B, T, N, D): temporal LN ->
     causal temporal attention -> ``temporal_dense`` -> residual scaled by
     tanh(gate); LN -> spatial attention -> residual; LN -> MLP -> residual.
-    With ``cache_kv`` the layer's cache is updated in place."""
+    With ``cache_kv`` the layer's cache is updated in place.
+
+    In training mode stochastic depth falls where the JAX package puts it
+    (on the temporal attention's output before ``temporal_dense``, on the
+    spatial branch and on the MLP branch) and hidden dropout follows the
+    GELU and the MLP's second projection."""
     eps = cfg.layer_norm_eps
+
+    def dp(y):
+        return drop_path(y, drop_path_rate, generator, deterministic)
+
+    def drop(y):
+        return dropout(y, cfg.hidden_dropout_prob, generator, deterministic)
+
     t_ln = layer_norm(x, layer.temporal_layernorm, eps)
     t_attn = temporal_attention(
         t_ln, layer.temporal_attention, cfg, cache_kv=cache_kv, cache_len=cache_len,
         new_valid=new_valid,
     )
     gate = torch.tanh(layer.temporal_attention_gating.float()).to(x.dtype)
-    x = x + gate * dense(t_attn, layer.temporal_dense)
-    x = x + spatial_attention(layer_norm(x, layer.layernorm_before, eps), layer.attention, cfg)
+    x = x + gate * dense(dp(t_attn), layer.temporal_dense)
+    x = x + dp(spatial_attention(layer_norm(x, layer.layernorm_before, eps), layer.attention, cfg))
     m = dense(layer_norm(x, layer.layernorm_after, eps), layer.intermediate.dense)
-    return x + dense(gelu(m), layer.output.dense)
+    m = drop(dense(drop(gelu(m)), layer.output.dense))
+    return x + dp(m)
 
 
 def map_pool(x: torch.Tensor, head: nn.Module, cfg: StreamformerConfig) -> torch.Tensor:
@@ -525,15 +624,40 @@ def map_pool(x: torch.Tensor, head: nn.Module, cfg: StreamformerConfig) -> torch
     return pooled + dense(act_fn(y, cfg.hidden_act), head.mlp.fc2)
 
 
-@torch.no_grad()
-def model_forward(model: StreamformerEncoder, pixel_values: torch.Tensor) -> Dict[str, torch.Tensor]:
+def model_forward(
+    model: StreamformerEncoder,
+    pixel_values: torch.Tensor,
+    *,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+) -> Dict[str, torch.Tensor]:
     """Full-clip forward. pixel_values: (B, T, C, H, W), T <= 32, moved to
     the model's device. Returns ``last_hidden_state`` (B, T, N, D) and
-    ``pooler_output`` (B, T, D)."""
+    ``pooler_output`` (B, T, D).
+
+    Differentiable: a graph is recorded when grad mode is on and a parameter
+    (a ``trainable`` encoder) or the input requires grad. With a
+    ``generator`` on the model's device and ``deterministic=False`` dropout
+    and stochastic depth are drawn from it. ``cfg.remat == "layer"`` keeps
+    only each layer's input for the backward and recomputes the layer there,
+    with the same masks."""
     cfg = model.cfg
-    x = embed(model, pixel_values)
-    for layer in model.encoder.layer:
-        x = layer_forward(layer, x, cfg)
+    x = embed(model, pixel_values, generator=generator, deterministic=deterministic)
+    rates = _drop_path_rates(cfg)
+    if cfg.remat not in ("none", "layer"):
+        raise NotImplementedError(f"remat {cfg.remat!r}: the port takes 'none' or 'layer'")
+    remat = cfg.remat == "layer" and torch.is_grad_enabled()
+    for layer, rate in zip(model.encoder.layer, rates):
+        def run(y, layer=layer, rate=rate):
+            return layer_forward(layer, y, cfg, drop_path_rate=rate, generator=generator,
+                                 deterministic=deterministic)
+
+        if remat:
+            drawing = None if deterministic else generator
+            x = checkpoint(_replayable(run, drawing), x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = run(x)
     x = layer_norm(x, model.post_layernorm, cfg.layer_norm_eps)
     return {"last_hidden_state": x, "pooler_output": map_pool(x, model.head, cfg)}
 

@@ -10,7 +10,9 @@ wrapper                             plain version                             re
 ``temporal_decode_pm_int8``         ``temporal_decode_pm_int8_plain``         ``fused_temporal_decode_pm_int8``
 ``temporal_decode_pm_int8_ragged``  ``temporal_decode_pm_int8_ragged_plain``  ``fused_temporal_decode_pm_int8_ragged``
 ``spatial_flat``                    ``spatial_flat_plain``                    ``fused_spatial_flat`` (fwd)
-``temporal_fullclip``               ``temporal_fullclip_plain``               ``fused_temporal_fullclip``
+``temporal_fullclip``               ``temporal_fullclip_plain``               ``fused_temporal_fullclip`` (fwd)
+``spatial_flat_bwd``                ``spatial_flat_bwd_plain``                ``_spatial_flat_bwd_pallas``
+``temporal_fullclip_bwd``           ``temporal_fullclip_bwd_plain``           ``_fullclip_temporal_bwd_pallas``
 ==================================  ========================================  ========================================
 
 A wrapper takes its plain version for tensors on the CPU, and only then. For
@@ -19,7 +21,15 @@ raises: there is no fallback. Each launch adds one to ``LAUNCHES[name]``;
 nothing else does. Heads are dh-wide slices of the flat D axis, dh a
 multiple of 8 and at most 128; inputs are float32 or bfloat16 and
 contiguous (the int8 kernels take int8 codes and fp32 scales beside a float
-or bfloat16 query). The kernels have no backward yet.
+or bfloat16 query).
+
+The two full-clip kernels have a gradient: ``spatial_flat`` and
+``temporal_fullclip`` go through the ``torch.autograd.Function``s
+``SpatialFlat`` and ``TemporalFullclip`` whenever an input requires grad,
+on the CPU as on the card. The forward saves q, k, v only; the backward
+recomputes the probabilities in ``spatial_flat_bwd`` / ``temporal_fullclip_bwd``
+(a kernel on the card, the plain backward on the CPU). The streaming kernels
+have no backward, as in the JAX package, and raise when asked for one.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ LAUNCHES: Dict[str, int] = {
     "temporal_decode_pm_int8_ragged": 0,
     "spatial_flat": 0,
     "temporal_fullclip": 0,
+    "spatial_flat_bwd": 0,
+    "temporal_fullclip_bwd": 0,
 }
 
 # Keys one warp of ``temporal_append_pm_ragged`` holds: the cache capacity
@@ -82,15 +94,21 @@ def _check(name: str, num_heads: int, d: int, **tensors: torch.Tensor) -> torch.
 
 
 def _cuda_ready(name: str, *tensors: torch.Tensor) -> None:
-    """What a launch needs beyond ``_check``: aligned pointers, no autograd."""
+    """What a launch needs beyond ``_check``: aligned pointers, and no
+    autograd graph to record into (the full-clip wrappers reach this under
+    their ``autograd.Function``, where grad mode is off)."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor data must be 16-byte aligned")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"{name}: the CUDA kernels have no backward yet "
-                "(ROADMAP slice 4, item 10)"
+                f"{name}: the streaming kernels have no backward, as in the JAX "
+                "package; train through the full-clip path (model_forward)"
             )
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def append_frame_cap(capacity: int) -> int:
@@ -520,37 +538,71 @@ def temporal_decode_pm_int8_ragged(q, k_new, v_new, k_new_scale, v_new_scale, k_
 
 
 # ---------------------------------------------------------------------------
-# B. spatial attention over the patches of each (b, t) row
+# B and I. spatial attention over the patches of each (b, t) row
 # ---------------------------------------------------------------------------
+
+
+def _heads(a: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(R, L, D) -> fp32 (R, H, L, dh)."""
+    r, l, d = a.shape
+    return a.float().view(r, l, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _unheads(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(R, H, L, dh) -> (R, L, D) in ``dtype``."""
+    r, h, l, dh = a.shape
+    return a.transpose(1, 2).reshape(r, l, h * dh).to(dtype)
 
 
 def spatial_flat_plain(q, k, v, num_heads):
     """Plain version of ``spatial_flat``: fp32 scores and softmax, probs
     rounded to the input dtype before PV."""
-    r, n, d = q.shape
-    h = num_heads
-    dh = d // h
-
-    def heads(a):
-        return a.float().view(r, n, h, dh).transpose(1, 2)  # (R, H, N, dh)
-
-    s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * dh**-0.5
+    dh = q.shape[-1] // num_heads
+    s = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2)) * dh**-0.5
     p = torch.softmax(s, dim=-1).to(q.dtype).float()
-    return torch.matmul(p, heads(v)).transpose(1, 2).reshape(r, n, d).to(q.dtype)
+    return _unheads(torch.matmul(p, _heads(v, num_heads)), q.dtype)
 
 
-def spatial_flat(q, k, v, num_heads):
-    """Non-causal softmax attention over N patches per row.
+def spatial_flat_bwd_plain(q, k, v, g, num_heads):
+    """Plain version of ``spatial_flat_bwd``: (dq, dk, dv) of
+    ``spatial_flat`` for the output gradient g. The probabilities are
+    recomputed; s, p, dp and delta are fp32, and ``ds`` and ``p`` are rounded
+    to the input dtype before the last three products, as the kernel does."""
+    dt = q.dtype
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    qh, kh, vh, gh = (_heads(a, num_heads) for a in (q, k, v, g))
+    p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    delta = (dp * p).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    pb = p.to(dt).float()
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dv = torch.matmul(pb.transpose(-1, -2), gh)
+    return _unheads(dq, dt), _unheads(dk, dt), _unheads(dv, dt)
 
-    q, k, v: (R, N, D), rows are (b, t) pairs. Returns (R, N, D) in q's
-    dtype. N is at most 256 (224x224 at patch 16 gives 196)."""
-    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("spatial_flat: q, k, v must share one (R, N, D) shape")
-    r, n, d = q.shape
-    if n > 256:
+
+def _spatial_chunks(device: torch.device, r: int, n: int, num_heads: int) -> int:
+    """Rows of one (row, head) a block takes: the N rows are split only when
+    R*H blocks alone would leave SMs idle (the streaming step)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunks = max(1, min(-(-n // 16), -(-4 * sms // (r * num_heads))))
+    return -(-n // chunks)
+
+
+def _spatial_shape(name: str, q, *others) -> None:
+    if q.ndim != 3 or any(t.shape != q.shape for t in others):
+        raise ValueError(f"{name}: all operands must share one (R, N, D) shape")
+    if q.shape[1] > 256:
         raise NotImplementedError(
-            "spatial_flat: more than 256 patches per frame (ROADMAP slice 1, item 3a)"
+            f"{name}: more than 256 patches per frame (ROADMAP slice 1, item 3a)"
         )
+
+
+def _spatial_flat_forward(q, k, v, num_heads):
+    """Kernel B on the card, its plain version on the CPU; no autograd."""
+    _spatial_shape("spatial_flat", q, k, v)
+    r, n, d = q.shape
     device = _check("spatial_flat", num_heads, d, q=q, k=k, v=v)
     if device.type == "cpu":
         return spatial_flat_plain(q, k, v, num_heads)
@@ -561,52 +613,122 @@ def spatial_flat(q, k, v, num_heads):
     )
     if smem > _MAX_SMEM:
         raise ValueError(f"spatial_flat: needs {smem} bytes of shared memory per block")
-    # split each row's queries only when R*H blocks alone leave SMs idle
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = max(1, min(-(-n // 16), -(-4 * sms // (r * num_heads))))
-    q_per_block = -(-n // chunks)
     out = torch.empty_like(q)
     _launch(
         "spatial_flat", "sf_spatial_flat", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
         device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        r, n, d, num_heads, q_per_block, (d // num_heads) ** -0.5, code,
+        r, n, d, num_heads, _spatial_chunks(device, r, n, num_heads),
+        (d // num_heads) ** -0.5, code,
     )
     return out
 
 
+def spatial_flat_bwd(q, k, v, g, num_heads):
+    """Gradients of ``spatial_flat``: (dq, dk, dv), each (R, N, D) in q's
+    dtype, from the inputs and the output gradient g (R, N, D). Nothing of
+    the forward is needed but q, k, v: the probabilities are recomputed."""
+    _spatial_shape("spatial_flat_bwd", q, k, v, g)
+    r, n, d = q.shape
+    device = _check("spatial_flat_bwd", num_heads, d, q=q, k=k, v=v, g=g)
+    if device.type == "cpu":
+        return spatial_flat_bwd_plain(q, k, v, g, num_heads)
+    _cuda_ready("spatial_flat_bwd", q, k, v, g)
+    code = _DTYPE_CODES[q.dtype]
+    smem = build.function("spatial_flat_bwd", "sf_spatial_flat_bwd_smem_bytes",
+                          (_I, _I, _I, _I))(n, d, num_heads, code)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"spatial_flat_bwd: needs {smem} bytes of shared memory per block")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    # per (row, head, query): the softmax's max and 1/sum, and delta
+    stats = torch.empty(r * num_heads * 3 * n, dtype=torch.float32, device=device)
+    _launch(
+        "spatial_flat_bwd", "sf_spatial_flat_bwd",
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P), device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), r, n, d, num_heads,
+        _spatial_chunks(device, r, n, num_heads), (d // num_heads) ** -0.5, code,
+    )
+    return dq, dk, dv
+
+
+class SpatialFlat(torch.autograd.Function):
+    """``spatial_flat`` with its gradient: forward is kernel B, backward
+    kernel I (their plain versions on the CPU). Saves q, k, v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return _spatial_flat_forward(q, k, v, num_heads)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = spatial_flat_bwd(q, k, v, g.contiguous(), ctx.num_heads)
+        return dq, dk, dv, None
+
+
+def spatial_flat(q, k, v, num_heads):
+    """Non-causal softmax attention over N patches per row.
+
+    q, k, v: (R, N, D), rows are (b, t) pairs. Returns (R, N, D) in q's
+    dtype. N is at most 256 (224x224 at patch 16 gives 196). Differentiable
+    in q, k, v (``SpatialFlat``)."""
+    if _wants_grad(q, k, v):
+        return SpatialFlat.apply(q, k, v, num_heads)
+    return _spatial_flat_forward(q, k, v, num_heads)
+
+
 # ---------------------------------------------------------------------------
-# C. causal temporal attention over a full clip
+# C and H. causal temporal attention over a full clip
 # ---------------------------------------------------------------------------
+
+
+def _causal(t: int, device: torch.device) -> torch.Tensor:
+    return torch.ones(t, t, dtype=torch.bool, device=device).tril()
 
 
 def temporal_fullclip_plain(q, k, v, num_heads):
     """Plain version of ``temporal_fullclip``: fp32 throughout, output
     rounded to the input dtype."""
-    r, t, d = q.shape
-    h = num_heads
-    dh = d // h
-
-    def heads(a):
-        return a.float().view(r, t, h, dh).transpose(1, 2)  # (R, H, T, dh)
-
-    s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * dh**-0.5
-    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
-    return torch.matmul(p, heads(v)).transpose(1, 2).reshape(r, t, d).to(q.dtype)
+    t, dh = q.shape[1], q.shape[-1] // num_heads
+    s = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2)) * dh**-0.5
+    p = torch.softmax(s.masked_fill(~_causal(t, q.device), float("-inf")), dim=-1)
+    return _unheads(torch.matmul(p, _heads(v, num_heads)), q.dtype)
 
 
-def temporal_fullclip(q, k, v, num_heads):
-    """Causal attention over the T <= 32 frames of each row.
+def temporal_fullclip_bwd_plain(q, k, v, g, num_heads):
+    """Plain version of ``temporal_fullclip_bwd``: (dq, dk, dv) of
+    ``temporal_fullclip`` for the output gradient g, the probabilities
+    recomputed, fp32 throughout, each gradient rounded to the input dtype."""
+    dt = q.dtype
+    t, scale = q.shape[1], (q.shape[-1] // num_heads) ** -0.5
+    qh, kh, vh, gh = (_heads(a, num_heads) for a in (q, k, v, g))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.softmax(s.masked_fill(~_causal(t, q.device), float("-inf")), dim=-1)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    delta = (dp * p).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * scale  # masked keys: p == 0 -> ds == 0
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dv = torch.matmul(p.transpose(-1, -2), gh)
+    return _unheads(dq, dt), _unheads(dk, dt), _unheads(dv, dt)
 
-    q, k, v: (R, T, D), rows are (b, n) pairs; query t attends keys 0..t.
-    Returns (R, T, D) in q's dtype."""
-    if q.ndim != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("temporal_fullclip: q, k, v must share one (R, T, D) shape")
-    r, t, d = q.shape
-    if t > 32:
+
+def _temporal_shape(name: str, q, *others) -> None:
+    if q.ndim != 3 or any(t.shape != q.shape for t in others):
+        raise ValueError(f"{name}: all operands must share one (R, T, D) shape")
+    if q.shape[1] > 32:
         raise NotImplementedError(
-            "temporal_fullclip: clips longer than 32 frames (ROADMAP slice 1, item 3a)"
+            f"{name}: clips longer than 32 frames (ROADMAP slice 1, item 3a)"
         )
+
+
+def _temporal_fullclip_forward(q, k, v, num_heads):
+    """Kernel C on the card, its plain version on the CPU; no autograd."""
+    _temporal_shape("temporal_fullclip", q, k, v)
+    r, t, d = q.shape
     device = _check("temporal_fullclip", num_heads, d, q=q, k=k, v=v)
     if device.type == "cpu":
         return temporal_fullclip_plain(q, k, v, num_heads)
@@ -618,3 +740,58 @@ def temporal_fullclip(q, k, v, num_heads):
         r, t, d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
     )
     return out
+
+
+def temporal_fullclip_bwd(q, k, v, g, num_heads):
+    """Gradients of ``temporal_fullclip``: (dq, dk, dv), each (R, T, D) in
+    q's dtype, from the inputs and the output gradient g (R, T, D). Nothing
+    of the forward is needed but q, k, v: the probabilities are recomputed."""
+    _temporal_shape("temporal_fullclip_bwd", q, k, v, g)
+    r, t, d = q.shape
+    device = _check("temporal_fullclip_bwd", num_heads, d, q=q, k=k, v=v, g=g)
+    if device.type == "cpu":
+        return temporal_fullclip_bwd_plain(q, k, v, g, num_heads)
+    _cuda_ready("temporal_fullclip_bwd", q, k, v, g)
+    code = _DTYPE_CODES[q.dtype]
+    smem = build.function("temporal_fullclip_bwd", "sf_temporal_fullclip_bwd_smem_bytes",
+                          (_I, _I, _I, _I))(t, d, num_heads, code)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"temporal_fullclip_bwd: one (row, head) needs {smem} bytes of "
+                         "shared memory")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    _launch(
+        "temporal_fullclip_bwd", "sf_temporal_fullclip_bwd",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), r, t, d, num_heads, (d // num_heads) ** -0.5, code,
+    )
+    return dq, dk, dv
+
+
+class TemporalFullclip(torch.autograd.Function):
+    """``temporal_fullclip`` with its gradient: forward is kernel C,
+    backward kernel H (their plain versions on the CPU). Saves q, k, v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return _temporal_fullclip_forward(q, k, v, num_heads)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = temporal_fullclip_bwd(q, k, v, g.contiguous(), ctx.num_heads)
+        return dq, dk, dv, None
+
+
+def temporal_fullclip(q, k, v, num_heads):
+    """Causal attention over the T <= 32 frames of each row.
+
+    q, k, v: (R, T, D), rows are (b, n) pairs; query t attends keys 0..t.
+    Returns (R, T, D) in q's dtype. Differentiable in q, k, v
+    (``TemporalFullclip``)."""
+    if _wants_grad(q, k, v):
+        return TemporalFullclip.apply(q, k, v, num_heads)
+    return _temporal_fullclip_forward(q, k, v, num_heads)

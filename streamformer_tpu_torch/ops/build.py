@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = (
     "temporal_decode_pm", "temporal_append_pm", "temporal_decode_pm_int8", "spatial_flat",
-    "temporal_fullclip",
+    "temporal_fullclip", "spatial_flat_bwd", "temporal_fullclip_bwd",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

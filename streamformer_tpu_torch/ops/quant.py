@@ -99,7 +99,8 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor, weight_scale: torch.Tenso
 class Int8Linear(nn.Module):
     """A dense layer with int8 weights: ``weight`` (out, in) int8 and
     ``weight_scale`` (out,) fp32 are buffers, ``bias`` a parameter in the
-    compute dtype. The state-dict names are the float layer's plus
+    compute dtype that does not require grad (an int8 layer serves; it has no
+    backward). The state-dict names are the float layer's plus
     ``weight_scale``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
@@ -110,8 +111,8 @@ class Int8Linear(nn.Module):
                                                    device=device))
         self.register_buffer("weight_scale", torch.ones(out_features, dtype=torch.float32,
                                                         device=device))
-        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype, device=device)) if bias \
-            else None
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype, device=device),
+                                 requires_grad=False) if bias else None
 
     @classmethod
     @torch.no_grad()

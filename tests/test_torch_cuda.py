@@ -393,3 +393,90 @@ def test_int8_codes_and_products_on_the_card_equal_the_cpu(rows):
         assert torch.equal(xq_c.cpu(), xq) and torch.equal(xs_c.cpu(), xs), dtype
     got = quant.int8_matmul(xq.cuda(), w.cuda())
     assert got.shape == (rows, 2304) and torch.equal(got.cpu(), quant.int8_matmul(xq, w))
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels H and I. Their tolerance is the forward's, scaled to
+# the gradient's largest magnitude where that exceeds 1 (dk and dv sum over
+# the queries, so a bf16 ulp there is larger than at the forward's outputs).
+# ---------------------------------------------------------------------------
+
+
+def _grad_close(got, ref, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.shape == b.shape and a.dtype == dtype
+        bound = TOL[dtype] * max(1.0, b.float().abs().max().item())
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "rows,t,heads,dh",
+    [(7, 1, 4, 24), (9, 5, 4, 24), (1568, 16, 12, 64), (10, 32, 2, 128), (6, 13, 3, 8),
+     (64, 16, 4, 64)],
+)
+def test_temporal_fullclip_bwd_matches_plain_and_repeats(dtype, rows, t, heads, dh):
+    d = heads * dh
+    q, k, v, g = (_randn((rows, t, d), dtype, s) for s in (21, 22, 23, 24))
+    ref = ops.temporal_fullclip_bwd_plain(q, k, v, g, heads)
+    before = ops.LAUNCHES["temporal_fullclip_bwd"]
+    got = ops.temporal_fullclip_bwd(q, k, v, g, heads)
+    again = ops.temporal_fullclip_bwd(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_fullclip_bwd"] == before + 2
+    _grad_close(got, ref, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "rows,n,heads,dh",
+    [(3, 9, 4, 24), (5, 49, 2, 16), (8, 196, 12, 64), (128, 196, 12, 64), (2, 256, 2, 64),
+     (2, 176, 1, 128), (4, 33, 3, 40)],  # N=176 at dh=128: fp32 fills a block's shared memory
+)
+def test_spatial_flat_bwd_matches_plain_and_repeats(dtype, rows, n, heads, dh):
+    d = heads * dh
+    q, k, v, g = (_randn((rows, n, d), dtype, s) for s in (25, 26, 27, 28))
+    ref = ops.spatial_flat_bwd_plain(q, k, v, g, heads)
+    before = ops.LAUNCHES["spatial_flat_bwd"]
+    got = ops.spatial_flat_bwd(q, k, v, g, heads)
+    again = ops.spatial_flat_bwd(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spatial_flat_bwd"] == before + 2
+    _grad_close(got, ref, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_autograd_functions_launch_the_backward_kernels(dtype):
+    """``loss.backward()`` through both wrappers runs kernels I and H (on the
+    autograd engine's thread, on the forward's stream), with a transposed,
+    non-contiguous output gradient, and matches the plain backward."""
+    heads, dh = 4, 32
+    d = heads * dh
+    for name, fn, plain, shape in (
+        ("spatial_flat", ops.spatial_flat, ops.spatial_flat_bwd_plain, (6, 49, d)),
+        ("temporal_fullclip", ops.temporal_fullclip, ops.temporal_fullclip_bwd_plain, (49, 6, d)),
+    ):
+        q, k, v = (_randn(shape, dtype, s).requires_grad_() for s in (31, 32, 33))
+        w = _randn((shape[1], shape[0], d), dtype, 34)
+        before = dict(ops.LAUNCHES)
+        out = fn(q, k, v, heads)
+        (out.transpose(0, 1).float() * w.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] == before[name] + 1
+        assert ops.LAUNCHES[name + "_bwd"] == before[name + "_bwd"] + 1
+        g = w.transpose(0, 1).contiguous()
+        ref = plain(q.detach(), k.detach(), v.detach(), g, heads)
+        _grad_close((q.grad, k.grad, v.grad), ref, dtype)
+
+
+def test_streaming_kernels_refuse_a_gradient():
+    r, d, cap = 8, 64, 4
+    q = _randn((r, d), torch.float32, 1).requires_grad_()
+    kn, vn = _randn((r, d), torch.float32, 2), _randn((r, d), torch.float32, 3)
+    kc, vc = torch.zeros(cap, r, d, device="cuda"), torch.zeros(cap, r, d, device="cuda")
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.temporal_decode_pm(q, kn, vn, kc, vc,
+                               torch.tensor(0, dtype=torch.int32, device="cuda"), 4)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``streamformer_tpu_torch/`` nor
-``chip_smoke.py`` imports JAX or the JAX package (``streamformer_tpu`` and
-its submodules; ``streamformer_tpu_torch`` is the port itself)."""
+``chip_smoke.py`` imports JAX, a library built on it (optax, orbax, flax) or
+the JAX package (``streamformer_tpu`` and its submodules;
+``streamformer_tpu_torch`` is the port itself)."""
 
 import ast
 import pathlib
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "streamformer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "streamformer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "streamformer_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -32,7 +33,7 @@ def _imports(tree: ast.AST):
 
 def test_the_matcher_tells_the_packages_apart():
     assert _forbidden("jax.numpy") and _forbidden("streamformer_tpu.models")
-    assert _forbidden("streamformer_tpu")
+    assert _forbidden("streamformer_tpu") and _forbidden("optax") and _forbidden("orbax.checkpoint")
     assert not _forbidden("streamformer_tpu_torch.ops") and not _forbidden("jaxtyping")
 
 
@@ -67,5 +68,40 @@ def test_port_runs_with_jax_unimportable():
         "out, cache = q.stream(torch.zeros(1, 1, 3, 32, 32), cache)\n"
         "assert cache['layers'][0]['k'].dtype == torch.int8 and int(cache['len']) == 1\n"
         "assert torch.isfinite(out['pooler_output']).all()\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_training_path_runs_without_jax_optax_or_transformers():
+    """Two trainer micro-steps and an optimizer update on the CPU with
+    ``jax``, ``optax``, ``transformers`` and ``tensorboardX`` blocked from
+    import: the training path needs none of them (the hash tokenizer stands
+    in behind its environment variable)."""
+    code = (
+        "import os, sys\n"
+        "for name in ('jax', 'optax', 'orbax', 'transformers', 'tensorboardX', 'streamformer_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "os.environ['STREAMFORMER_ALLOW_HASH_TOKENIZER'] = '1'\n"
+        "import torch\n"
+        "from streamformer_tpu_torch.config import StreamformerConfig\n"
+        "from streamformer_tpu_torch.models.multitask import MultitaskModel\n"
+        "from streamformer_tpu_torch.models.text_encoder import SiglipTextConfig\n"
+        "from streamformer_tpu_torch.train import metrics, optim\n"
+        "from streamformer_tpu_torch.train.trainer import MultitaskTrainer, TrainState\n"
+        "cfg = StreamformerConfig(image_size=32, num_frames=2, hidden_size=32, num_hidden_layers=1,"
+        " num_attention_heads=2, intermediate_size=64, dtype='float32')\n"
+        "text = SiglipTextConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,"
+        " num_attention_heads=2, intermediate_size=64, max_position_embeddings=8)\n"
+        "model = MultitaskModel(cfg, {'Kinetics': {'label2id': {'run': 0, 'jump': 1}}}, text,"
+        " device='cpu')\n"
+        "model.prepare_for_multi_tasks()\n"
+        "tx = optim.create_optimizer(model, optim.cosine_lr_schedule(1e-3, 1e-5, 1, 2),"
+        " clip_grad=1.0, layer_decay=0.75, num_layers=1)\n"
+        "trainer = MultitaskTrainer(model, tx, update_freq=2)\n"
+        "batch = {'pixel_values': torch.randn(2, 2, 3, 32, 32), 'task_input': {"
+        "'label_embeddings': model.label_embeddings['Kinetics'], 'label': torch.tensor([0, 1])}}\n"
+        "state, stats = trainer.train_one_epoch(TrainState.create(model, tx),"
+        " iter([('Kinetics', batch)] * 2), 0, torch.Generator().manual_seed(0))\n"
+        "assert state.step == 1 and stats['loss'] > 0\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -214,3 +214,135 @@ def test_plain_versions_launch_nothing():
 def test_wrappers_reject_what_the_kernels_do_not_take(call, error):
     with pytest.raises(error):
         call(torch.randn(2, 5, 32))
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels H and I: their plain versions against the JAX
+# package's Pallas backward kernels in interpret mode, against jax.vjp of the
+# einsum references, and against autograd through the port's plain forwards.
+# fp32: 1e-4 max-abs against the Pallas kernels and the vjp (their own test's
+# bound, tests/test_pallas_attention.py), 1e-5 against autograd through the
+# plain forward (one function, two orders of summation). bf16: 2e-2.
+# ---------------------------------------------------------------------------
+
+_BWD = {
+    "spatial": (A._spatial_flat_bwd_pallas, A.spatial_flat_reference, ops.spatial_flat_plain,
+                ops.spatial_flat_bwd_plain, ops.spatial_flat, (4, 60, 4, 16)),
+    "temporal": (A._fullclip_temporal_bwd_pallas, A.fullclip_temporal_reference,
+                 ops.temporal_fullclip_plain, ops.temporal_fullclip_bwd_plain,
+                 ops.temporal_fullclip, (56, 8, 4, 16)),
+}
+
+
+def _bwd_inputs(kind, seed=40):
+    rows, length, h, dh = _BWD[kind][-1]
+    return [_randn((rows, length, h * dh), seed + i) for i in range(4)], h
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+def test_bwd_plain_matches_pallas_backward_fp32(kind):
+    pallas, _, _, plain, _, _ = _BWD[kind]
+    (q, k, v, g), h = _bwd_inputs(kind)
+    ref = pallas(*(jnp.asarray(a) for a in (q, k, v, g)), h, interpret=True)
+    got = plain(_t(q), _t(k), _t(v), _t(g), h)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+def test_bwd_plain_matches_pallas_backward_bf16(kind):
+    pallas, _, _, plain, _, _ = _BWD[kind]
+    (q, k, v, g), h = _bwd_inputs(kind)
+    ref = pallas(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g)), h, interpret=True)
+    got = plain(*(_t(a).bfloat16() for a in (q, k, v, g)), h)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b, np.float32), atol=2e-2,
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+def test_bwd_plain_matches_jax_vjp_of_the_reference(kind):
+    _, reference, _, plain, _, _ = _BWD[kind]
+    (q, k, v, g), h = _bwd_inputs(kind, seed=50)
+    _, vjp = jax.vjp(lambda a, b, c: reference(a, b, c, h), *(jnp.asarray(a) for a in (q, k, v)))
+    got = plain(_t(q), _t(k), _t(v), _t(g), h)
+    for name, a, b in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+@pytest.mark.parametrize("through", ["plain_bwd", "function"])
+def test_bwd_matches_autograd_through_the_plain_forward(kind, through):
+    """``through="function"``: the gradient taken through the wrapper's
+    ``autograd.Function`` (on the CPU: plain forward, plain backward), with a
+    transposed, non-contiguous output gradient."""
+    _, _, forward, plain, wrapper, _ = _BWD[kind]
+    (q, k, v, g), h = _bwd_inputs(kind, seed=60)
+    qt, kt, vt = (_t(a).requires_grad_() for a in (q, k, v))
+    ref = torch.autograd.grad(forward(qt, kt, vt, h), (qt, kt, vt), _t(g))
+    if through == "plain_bwd":
+        got = plain(qt.detach(), kt.detach(), vt.detach(), _t(g), h)
+    else:
+        out = wrapper(qt, kt, vt, h)
+        assert type(out.grad_fn).__name__ in ("SpatialFlatBackward", "TemporalFullclipBackward")
+        g_view = _t(g).transpose(0, 1).contiguous().transpose(0, 1)
+        assert not g_view.is_contiguous()
+        got = torch.autograd.grad(out, (qt, kt, vt), g_view)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+def test_functions_pass_a_finite_difference_check(kind):
+    """Central differences of sum(out * w) in fp32 (eps 1e-2, so the check's
+    own truncation and rounding stay near 1e-3) against the Functions'
+    gradients, along a random direction per input."""
+    wrapper = _BWD[kind][4]
+    rng = np.random.default_rng(70)
+    shape, h = (3, 5, 16), 2
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                  for _ in range(4))
+    inputs = [a.clone().requires_grad_() for a in (q, k, v)]
+    grads = torch.autograd.grad((wrapper(*inputs, h) * w).sum(), inputs)
+    eps = 1e-2
+    for i, grad in enumerate(grads):
+        direction = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        plus, minus = [q, k, v], [q, k, v]
+        plus[i] = plus[i] + eps * direction
+        minus[i] = minus[i] - eps * direction
+        with torch.no_grad():
+            numeric = ((wrapper(*plus, h) * w).sum() - (wrapper(*minus, h) * w).sum()) / (2 * eps)
+        np.testing.assert_allclose((grad * direction).sum().item(), numeric.item(), atol=5e-3,
+                                   rtol=5e-3)
+
+
+def test_wrappers_without_grad_build_no_graph():
+    (q, k, v, _), h = _bwd_inputs("spatial")
+    out = ops.spatial_flat(_t(q), _t(k), _t(v), h)
+    assert out.grad_fn is None and not out.requires_grad
+    (q, k, v, _), h = _bwd_inputs("temporal")
+    with torch.no_grad():
+        out = ops.temporal_fullclip(_t(q).requires_grad_(), _t(k), _t(v), h)
+    assert out.grad_fn is None
+
+
+@pytest.mark.parametrize(
+    "call,error",
+    [
+        (lambda: ops.spatial_flat_bwd(torch.zeros(2, 9, 32), torch.zeros(2, 9, 32),
+                                      torch.zeros(2, 9, 32), torch.zeros(2, 8, 32), 4), ValueError),
+        (lambda: ops.temporal_fullclip_bwd(torch.zeros(2, 35, 32), torch.zeros(2, 35, 32),
+                                           torch.zeros(2, 35, 32), torch.zeros(2, 35, 32), 4),
+         NotImplementedError),  # T = 35 > 32
+        (lambda: ops.spatial_flat_bwd(torch.zeros(2, 9, 32), torch.zeros(2, 9, 32),
+                                      torch.zeros(2, 9, 32),
+                                      torch.zeros(2, 9, 32, dtype=torch.bfloat16), 4), TypeError),
+        (lambda: ops.temporal_fullclip_bwd(torch.zeros(2, 4, 32), torch.zeros(2, 4, 32),
+                                           torch.zeros(2, 4, 32),
+                                           torch.zeros(4, 2, 32).transpose(0, 1), 4), ValueError),
+    ],
+)
+def test_backward_wrappers_check_their_inputs(call, error):
+    with pytest.raises(error):
+        call()
