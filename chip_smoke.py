@@ -79,14 +79,47 @@ Phases, each fatal on failure:
     the peak memory of both;
 17. training clips/s and ms per micro-step at steady state, and a
     ``torch.profiler`` window of the trainer: device busy ms per micro-step,
-    device time by kernel and launches per micro-step.
+    device time by kernel and launches per micro-step;
+18. kernels J and K (the row-major cache) against their plain versions at
+    the flagship shapes, bf16 and fp32, len 0, 7 and 15, K on int8 codes
+    (``quantize_kv_heads``) and on a float cache, J's written rows equal,
+    timed beside one ``scaled_dot_product_attention`` call;
+19. row-major lockstep streams on phase 4's model at batch 8: a linear
+    stream of 16 frames (C=16) through kernel J, each frame within the bf16
+    envelope of the full clip and bit for bit equal to the pos-major stream;
+    an int8 row-major stream through kernel K at pooled cosine > 0.999 to
+    the full clip; a row-major ring of 2C frames (C=8, no kernel, as in the
+    JAX package) within 0.008 pooled of the pos-major ring, on the main
+    input and on four more seeded inputs; and frames/s of a linear stream
+    on both layouts;
+20. multi-frame appends to the ring (C=8, 3C frames) in chunks of 4 and 12,
+    each frame within 0.008 pooled of the t=1 ring stream, kernel A L*t
+    times a chunk; the same on an int8 ring with kernel F;
+21. kernel L (head-split spatial attention) against its plain version at
+    (R, H, N, dh) = (8, 12, 196, 64) and (128, 12, 196, 64), bf16 and fp32,
+    forward and gradient, timed beside one ``scaled_dot_product_attention``
+    call;
+22. the streaming consumers at full width (bf16, capacity 16) on seeded
+    uint8 frames of 240x320 preprocessed on the card: the OAD extractor's
+    streaming mode (a 40-frame clip in chunks of 16, and four more seeded
+    clips) against a t=1 ring stream, its windowed mode against ``model_forward``, its batched mode (8
+    slots, 12 clips of 4-40 frames) against the streaming mode, with
+    extraction frames/s; the vision tower on a linear cache (C=16, chunks
+    through kernel E; C=64, one frame a call through kernel D) and on the
+    ring (C=8), each frame within the 0.078/0.008 envelope of a direct
+    ``streaming_forward`` stream, its context window and ``clear_cache``.
 
-Five paths are main paths: the lockstep encode (the launch counters are
+Nine paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
-(zeroed before each engine run of phase 13) and training (zeroed before
-phase 16's epoch, read after it). Every kernel must have run on its path.
+(zeroed before each engine run of phase 13), training (zeroed before
+phase 16's epoch, read after it), the row-major streams (zeroed before each
+stream of phase 19), the ring chunks (zeroed before each chunk of phase
+20), the consumers (zeroed before each extraction and tower run of phase
+22), and kernel L's own entry point, which no model path calls (zeroed
+before phase 21's forward and gradient step). Every kernel must have run on
+its path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -135,6 +168,12 @@ SOURCES = {
                               "streamformer_tpu/ops/attention.py:1415"),
     "spatial_flat_bwd": ("streamformer_tpu_torch/csrc/spatial_flat_bwd.cu",
                          "streamformer_tpu/ops/attention.py:1589"),
+    "temporal_decode_rm": ("streamformer_tpu_torch/csrc/temporal_decode_pm.cu",
+                           "streamformer_tpu/ops/attention.py:381"),
+    "temporal_decode_rm_readonly": ("streamformer_tpu_torch/csrc/temporal_decode_rm.cu",
+                                    "streamformer_tpu/ops/attention.py:463"),
+    "spatial_attention": ("streamformer_tpu_torch/csrc/spatial_flat.cu",
+                          "streamformer_tpu/ops/attention.py:138"),
 }
 # flagship: batch, frames, patches (224/16 squared), hidden, heads, cache capacity
 FLAGSHIP = dict(batch=8, frames=16, patches=196, hidden=768, heads=12, capacity=16)
@@ -157,6 +196,16 @@ TRAIN_TEXT_CONFIG = dict()
 TRAIN = dict(batch=8, update_freq=2, updates=6, remat_micro_steps=4, timed_micro_steps=12,
              profiled_micro_steps=6, base_lr=1e-4, min_lr=1e-6, warmup_steps=1, clip_grad=1.0,
              weight_decay=0.05, layer_decay=0.75, classes=10, vis_classes=5, mask_size=56)
+RM_LENS = (0, 7, 15)  # phase 18: J's and K's cache lengths at capacity 16
+L_SHAPES = ((8, 12, 196, 64), (128, 12, 196, 64))  # phase 21: (R, H, N, dh), step and clip
+CHUNKS = (4, 12)  # phase 20: ring appends of 4 and of 12 (> C) frames
+# phase 22: the consumers' clips (uint8, 240x320), the batched clip lengths' range
+OAD = dict(frames=40, chunk=16, height=240, width=320, clips=12, min_frames=4, max_frames=40)
+# phases 19 and 22: the row-major ring's and the OAD streaming mode's gaps to
+# their references are read again on inputs of these seeds, off the main path
+GAP_SEEDS = (1, 2, 3, 4)
+TOWER_CALLS = {"linear C=16": (16, "linear", (5, 11)), "linear C=64": (64, "linear", (3, 4, 9)),
+               "ring C=8": (8, "ring", (6, 10, 8))}
 GRAD_CARD_VS_CPU_TOL = 1e-4  # of a leaf's largest gradient magnitude; fp32, summation order only
 REMAT_LOSS_TOL = 1e-2  # relative: the recompute repeats the forward; bf16 rounding at most
 DEVICE = "cuda"
@@ -982,12 +1031,12 @@ def main():
         top = max(v.abs().max().item() for v in ref.values())
         for leaf, want in ref.items():
             # a leaf whose gradient is rounding noise is held to 1 % of the largest leaf's scale
-            bound = GRAD_CARD_VS_CPU_TOL * max(want.abs().max().item(), 1e-2 * top)
+            leaf_tol = GRAD_CARD_VS_CPU_TOL * max(want.abs().max().item(), 1e-2 * top)
             err = max_err(got[leaf], want)
-            worst_rel = max(worst_rel, err / (bound / GRAD_CARD_VS_CPU_TOL))
-            if not err <= bound:
+            worst_rel = max(worst_rel, err / (leaf_tol / GRAD_CARD_VS_CPU_TOL))
+            if not err <= leaf_tol:
                 fail(f"small {task}: gradient of {leaf} differs from the CPU's by {err} "
-                     f"(> {bound})")
+                     f"(> {leaf_tol})")
             if not torch.equal(got[leaf], again[leaf]):
                 fail(f"small {task}: gradient of {leaf} differs between two runs on the card")
     sl = small.num_hidden_layers
@@ -1198,6 +1247,354 @@ def main():
     del rmodel, r_trainer, r_state, one_round
     torch.cuda.empty_cache()
 
+    # ---- 18. kernels J and K (the row-major cache) against their plain versions
+    zeros = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def add(acc, run):
+        for k_, v_ in run.items():
+            acc[k_] += v_
+
+    r = b_ * n_
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        elt = torch.finfo(dtype).bits // 8
+        for length in RM_LENS:
+            ln = torch.tensor(length, dtype=torch.int32, device=dev)
+            window = (torch.arange(cap, device=dev) <= length).view(1, cap)  # after the write
+            q, kn, vn = (randn(r, d_, dtype=dtype) for _ in range(3))
+            kc, vc = randn(r, cap, d_, dtype=dtype), randn(r, cap, d_, dtype=dtype)
+            k_ref, v_ref = kc.clone(), vc.clone()
+            ref = ops.temporal_decode_rm_plain(q, kn, vn, k_ref, v_ref, ln, h_)
+            got = ops.temporal_decode_rm(q, kn, vn, kc, vc, ln, h_)
+            torch.cuda.synchronize()
+            if not (torch.equal(kc, k_ref) and torch.equal(vc, v_ref)):
+                fail(f"temporal_decode_rm len={length} {dn}: written cache rows differ")
+            q4 = q.view(r, h_, 1, dh)
+            k4, v4 = (x.view(r, cap, h_, dh).transpose(1, 2) for x in (kc, vc))
+            record("temporal_decode_rm", f"R={r} C={cap} len={length}", dn, max_err(got, ref),
+                   lambda: ops.temporal_decode_rm(q, kn, vn, kc, vc, ln, h_),
+                   lambda: ops.temporal_decode_rm_plain(q, kn, vn, kc, vc, ln, h_),
+                   lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
+                   elt * r * d_ * (3 + 1 + 2 * length + 2), 4 * r * d_ * (length + 1))
+            # K: the cache already holds the new frame; int8 codes and their
+            # per-(row, position, head) scales from one quantize, or float
+            kf, vf = randn(r, cap, d_, dtype=torch.float32), randn(r, cap, d_, dtype=torch.float32)
+            for mode in ("int8", "float"):
+                if mode == "int8":
+                    (kq, ks), (vq, vs) = (encoder.quantize_kv_heads(x, h_) for x in (kf, vf))
+                    args = (kq, vq, ks, vs)
+                    kd, vd = (encoder.dequantize_kv(c.view(r, cap, h_, dh), s_, dtype)
+                              .view(r, cap, d_) for c, s_ in ((kq, ks), (vq, vs)))
+                    nbytes = elt * r * d_ * 2 + 2 * r * (length + 1) * (d_ + 4 * h_)
+                else:
+                    args = (kf.to(dtype), vf.to(dtype), None, None)
+                    kd, vd = args[:2]
+                    nbytes = elt * r * d_ * 2 + 2 * elt * r * (length + 1) * d_
+                before = [None if a is None else a.clone() for a in args]
+                ref = ops.temporal_decode_rm_readonly_plain(q, *args, ln, h_)
+                got = ops.temporal_decode_rm_readonly(q, *args, ln, h_)
+                torch.cuda.synchronize()
+                if not all(a is None or torch.equal(a, b) for a, b in zip(args, before)):
+                    fail(f"temporal_decode_rm_readonly {mode} len={length} {dn} wrote its cache")
+                k4, v4 = (x.view(r, cap, h_, dh).transpose(1, 2) for x in (kd, vd))
+                record("temporal_decode_rm_readonly", f"{mode} R={r} C={cap} len={length}", dn,
+                       max_err(got, ref),
+                       lambda: ops.temporal_decode_rm_readonly(q, *args, ln, h_),
+                       lambda: ops.temporal_decode_rm_readonly_plain(q, *args, ln, h_),
+                       lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
+                       nbytes, 4 * r * d_ * (length + 1))
+            del q, kn, vn, kc, vc, k_ref, v_ref, kf, vf, args, before, kd, vd, q4, k4, v4
+    torch.cuda.synchronize()
+
+    # ---- 19. row-major lockstep streams on the flagship model: kernels J and K
+    rm_cfg = cfg.replace(cache_layout="row_major")
+    rm_launches = dict(zeros)
+    cache = encoder.init_cache(rm_cfg, b_)
+    ops.reset_launches()
+    rm_outs, worst_h, worst_p = [], 0.0, 0.0
+    for i in range(t_):
+        out, cache = encoder.streaming_forward(model, video[:, i:i + 1], cache, cfg=rm_cfg)
+        eh = max_err(out["last_hidden_state"], hidden[:, i:i + 1])
+        ep = max_err(out["pooler_output"], pooled[:, i:i + 1])
+        worst_h, worst_p = max(worst_h, eh), max(worst_p, ep)
+        if not (eh <= STREAM_TOL_HIDDEN and ep <= STREAM_TOL_POOLED):
+            fail(f"row-major stream frame {i}: hidden err {eh}, pooled err {ep}")
+        rm_outs.append(out)
+    torch.cuda.synchronize()
+    run = dict(ops.LAUNCHES)
+    if run != {**zeros, "temporal_decode_rm": L * t_, "spatial_flat": L * t_}:
+        fail(f"row-major stream launches {run}")
+    add(rm_launches, run)
+    pm_cache = encoder.init_cache(cfg, b_)
+    for i in range(t_):
+        out, pm_cache = encoder.streaming_forward(model, video[:, i:i + 1], pm_cache)
+        if not all(torch.equal(out[k], rm_outs[i][k]) for k in out):
+            fail(f"row-major stream frame {i} differs from the pos-major stream")
+    print(f"row-major linear stream {t_} frames at batch {b_} == full clip: max err hidden "
+          f"{worst_h} (<= {STREAM_TOL_HIDDEN}), pooled {worst_p} (<= {STREAM_TOL_POOLED}); bit for "
+          f"bit equal to the pos-major stream; launches {run}")
+    del rm_outs, pm_cache, cache
+    cache = encoder.init_cache(rm_cfg, b_, dtype="int8")
+    ops.reset_launches()
+    worst = 1.0
+    for i in range(t_):
+        out, cache = encoder.streaming_forward(model, video[:, i:i + 1], cache, cfg=rm_cfg)
+        c = cosine(out["pooler_output"], pooled[:, i:i + 1])
+        worst = min(worst, c)
+        if not (c > INT8_CACHE_COS and finite(out)):
+            fail(f"row-major int8 stream frame {i}: pooled cosine {c} (> {INT8_CACHE_COS})")
+    torch.cuda.synchronize()
+    run = dict(ops.LAUNCHES)
+    if run != {**zeros, "temporal_decode_rm_readonly": L * t_, "spatial_flat": L * t_}:
+        fail(f"row-major int8 stream launches {run}")
+    add(rm_launches, run)
+    print(f"row-major int8 linear stream, {t_} frames at batch {b_}: worst pooled cosine to the "
+          f"bf16 full clip {worst} (> {INT8_CACHE_COS}); launches {run}")
+    del cache
+    rm_ring_cfg, pm_ring_cfg = rm_cfg.replace(cache_mode="ring"), cfg.replace(cache_mode="ring")
+
+    def ring_gap(frames):
+        """Pooled max-abs between a row-major and a pos-major ring stream of
+        2C frames of ``frames`` (B, T, ...), taken in turn (frame i % T)."""
+        rm_ring = encoder.init_cache(rm_ring_cfg, b_, capacity=RING_CAPACITY)
+        pm_ring = encoder.init_cache(pm_ring_cfg, b_, capacity=RING_CAPACITY)
+        worst = 0.0
+        for i in range(2 * RING_CAPACITY):
+            frame_i = frames[:, i % t_:i % t_ + 1]
+            rm_out, rm_ring = encoder.streaming_forward(model, frame_i, rm_ring, cfg=rm_ring_cfg)
+            pm_out, pm_ring = encoder.streaming_forward(model, frame_i, pm_ring, cfg=pm_ring_cfg)
+            worst = max(worst, max_err(rm_out["pooler_output"], pm_out["pooler_output"]))
+        return worst
+
+    ops.reset_launches()
+    gaps = [ring_gap(video)]
+    torch.cuda.synchronize()
+    run = dict(ops.LAUNCHES)
+    if run != {**zeros, "temporal_decode_pm": 2 * L * RING_CAPACITY,
+               "spatial_flat": 2 * 2 * L * RING_CAPACITY}:
+        fail(f"ring streams launches {run}")
+    add(rm_launches, run)
+    for seed in GAP_SEEDS:
+        gaps.append(ring_gap(torch.randn(video.shape, device=dev,
+                                         generator=torch.Generator(device=dev).manual_seed(seed))))
+    if not max(gaps) <= STREAM_TOL_POOLED:
+        fail(f"row-major ring vs pos-major ring: pooled max-abs {gaps} > {STREAM_TOL_POOLED}")
+    print(f"row-major ring (plain attention, no kernel, as in the JAX package) vs pos-major ring "
+          f"(kernel A), {2 * RING_CAPACITY} frames at C={RING_CAPACITY}: pooled max-abs {gaps[0]} "
+          f"(<= {STREAM_TOL_POOLED}); on the inputs of seeds {list(GAP_SEEDS)}: {gaps[1:]}; "
+          f"launches {run}")
+
+    def stream_rate(c):
+        """frames/s of a linear stream of T frames from an empty cache."""
+        cache = encoder.init_cache(c, b_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(t_):
+            encoder.streaming_forward(model, video[:, i:i + 1], cache, cfg=c)
+        torch.cuda.synchronize()
+        return b_ * t_ / (time.perf_counter() - t0)
+
+    rates = {"pos-major": [], "row-major": []}
+    for name in ("pos-major", "row-major", "row-major", "pos-major"):
+        rates[name].append(stream_rate(cfg if name == "pos-major" else rm_cfg))
+    print(f"linear stream frames/s at batch {b_}, {t_} frames from an empty cache, C={cap}, bf16 "
+          f"({smi}), in turns: " + json.dumps({k: [round(x, 1) for x in v] for k, v in rates.items()}))
+
+    # ---- 20. multi-frame appends to the ring: A (float) and F (int8) once per frame
+    ring_cfg8 = cfg.replace(cache_mode="ring")
+    n_frames = 3 * RING_CAPACITY
+    frames3c = video[:, [i % t_ for i in range(n_frames)]]
+    chunk_launches = dict(zeros)
+    for kind, cache_dtype, kernel in (("float", None, "temporal_decode_pm"),
+                                      ("int8", "int8", "temporal_decode_pm_int8")):
+        ring1 = encoder.init_cache(ring_cfg8, b_, capacity=RING_CAPACITY, dtype=cache_dtype)
+        ref = torch.cat([encoder.streaming_forward(model, frames3c[:, i:i + 1], ring1,
+                                                   cfg=ring_cfg8)[0]["pooler_output"]
+                         for i in range(n_frames)], dim=1)
+        for chunk in CHUNKS:
+            ring = encoder.init_cache(ring_cfg8, b_, capacity=RING_CAPACITY, dtype=cache_dtype)
+            worst = 0.0
+            for lo in range(0, n_frames, chunk):
+                ops.reset_launches()
+                out, ring = encoder.streaming_forward(model, frames3c[:, lo:lo + chunk], ring,
+                                                      cfg=ring_cfg8)
+                torch.cuda.synchronize()
+                run = dict(ops.LAUNCHES)
+                if run != {**zeros, kernel: L * chunk, "spatial_flat": L}:
+                    fail(f"{kind} ring chunk of {chunk} launches {run}")
+                add(chunk_launches, run)
+                worst = max(worst, max_err(out["pooler_output"], ref[:, lo:lo + chunk]))
+            if not worst <= STREAM_TOL_POOLED:
+                fail(f"{kind} ring in chunks of {chunk} vs t=1 steps: pooled max-abs {worst}")
+            print(f"{kind} ring C={RING_CAPACITY}, {n_frames} frames in chunks of {chunk}: pooled "
+                  f"max-abs {worst} to the t=1 ring stream (<= {STREAM_TOL_POOLED}); {kernel} "
+                  f"{L} * {chunk} times a chunk")
+        del ring1, ring, ref
+    del frames3c
+
+    # ---- 21. kernel L, head-split spatial attention, against its plain version
+    l_launches = dict(zeros)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        elt = torch.finfo(dtype).bits // 8
+        for rr, hh, nn, dd in L_SHAPES:
+            q, k, v, g = (randn(rr, hh, nn, dd, dtype=dtype) for _ in range(4))
+            # its entry point as a caller drives it: forward and gradient
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            ops.reset_launches()
+            out = ops.spatial_attention(*leaves)
+            out.backward(g)
+            torch.cuda.synchronize()
+            run = dict(ops.LAUNCHES)
+            if run != {**zeros, "spatial_attention": 1}:
+                fail(f"spatial_attention forward and gradient launches {run}")
+            add(l_launches, run)
+            plain = [x.clone().requires_grad_() for x in (q, k, v)]
+            ref = ops.spatial_attention_plain(*plain)
+            ref.backward(g)
+            gerr, gscale = grads_err([x.grad for x in leaves], [x.grad for x in plain])
+            if not gerr <= TOL[dn] * gscale:
+                fail(f"spatial_attention gradient {dn}: max-abs {gerr} > {TOL[dn] * gscale}")
+            print(f"spatial_attention gradient R={rr} {dn}: max-abs {gerr} to autograd of the "
+                  "plain version")
+            record("spatial_attention", f"R={rr} H={hh} N={nn} dh={dd}", dn,
+                   max_err(out.detach(), ref.detach()),
+                   lambda: ops.spatial_attention(q, k, v),
+                   lambda: ops.spatial_attention_plain(q, k, v),
+                   lambda: F.scaled_dot_product_attention(q, k, v),
+                   4 * elt * rr * hh * nn * dd, 4 * rr * hh * nn * nn * dd)
+            del q, k, v, g, leaves, plain, out, ref
+    torch.cuda.synchronize()
+
+    # ---- 22. the streaming consumers at full width: OAD extractor and vision tower
+    from streamformer_tpu_torch.downstream.vision_tower import TimesformerVisionTower
+    from streamformer_tpu_torch.extract import oad
+
+    consumer_launches = dict(zeros)
+    orng = np.random.default_rng(10)
+
+    def uint8_video(n):
+        return orng.integers(0, 256, (n, OAD["height"], OAD["width"], 3), dtype=np.uint8)
+
+    ring16 = cfg.replace(cache_mode="ring")
+    px = oad.preprocess_frames(uint8_video(OAD["frames"]), cfg.image_size)
+    if px.device.type != dev.type or px.shape != (OAD["frames"], 3, cfg.image_size, cfg.image_size):
+        fail(f"preprocess_frames gave {tuple(px.shape)} on {px.device}")
+    padded = -(-OAD["frames"] // OAD["chunk"]) * OAD["chunk"]
+    ops.reset_launches()
+    feats = oad.extract_features_streaming(model, px, chunk=OAD["chunk"])
+    torch.cuda.synchronize()
+    run = dict(ops.LAUNCHES)
+    if run != {**zeros, "temporal_decode_pm": L * padded, "spatial_flat": L * padded // OAD["chunk"]}:
+        fail(f"OAD streaming launches {run}")
+    add(consumer_launches, run)
+
+    def oad_gap(clip, got):
+        """Pooled max-abs of the streaming mode's features ``got`` to a t=1
+        ring stream of the same preprocessed clip."""
+        c1 = encoder.init_cache(ring16, 1)
+        ref = np.stack([encoder.streaming_forward(model, clip[None, i:i + 1], c1, cfg=ring16)[0]
+                        ["pooler_output"][0, 0].float().cpu().numpy()
+                        for i in range(clip.shape[0])])
+        return float(np.abs(got - ref).max())
+
+    errs = [oad_gap(px, feats)]
+    if feats.shape != (OAD["frames"], d_):
+        fail(f"OAD streaming mode gave {feats.shape}")
+    for seed in GAP_SEEDS:
+        clip = oad.preprocess_frames(np.random.default_rng(seed).integers(
+            0, 256, (OAD["frames"], OAD["height"], OAD["width"], 3), dtype=np.uint8),
+            cfg.image_size)
+        errs.append(oad_gap(clip, oad.extract_features_streaming(model, clip, chunk=OAD["chunk"])))
+    if not max(errs) <= STREAM_TOL_POOLED:
+        fail(f"OAD streaming mode: max-abs {errs} to the t=1 ring stream")
+    print(f"OAD streaming mode, {OAD['frames']} uint8 frames of {OAD['height']}x{OAD['width']} "
+          f"preprocessed on the card, chunks of {OAD['chunk']} on the ring C={cap}: pooled max-abs "
+          f"{errs[0]} to a t=1 ring stream (<= {STREAM_TOL_POOLED}); on the clips of seeds "
+          f"{list(GAP_SEEDS)}: {errs[1:]}; launches {run}")
+    ops.reset_launches()
+    win = oad.extract_features_windowed(model, px)
+    torch.cuda.synchronize()
+    run = dict(ops.LAUNCHES)
+    if run != {**zeros, "spatial_flat": L, "temporal_fullclip": L}:
+        fail(f"OAD windowed launches {run}")
+    add(consumer_launches, run)
+    starts = list(range(0, OAD["frames"] - 6 + 1, 4))
+    batch = torch.stack([px[s_:s_ + 6] for s_ in starts]).to(torch.bfloat16)
+    direct = encoder.model_forward(model, batch)["pooler_output"][:, -1].float().cpu().numpy()
+    lone_w = max(float(np.abs(encoder.model_forward(model, batch[j:j + 1])["pooler_output"]
+                              [0, -1].float().cpu().numpy() - win[j]).max())
+                 for j in range(len(starts)))
+    if not (np.array_equal(win, direct) and lone_w <= STREAM_TOL_POOLED):
+        fail(f"OAD windowed mode: differs from model_forward (lone windows max-abs {lone_w})")
+    print(f"OAD windowed mode, {len(starts)} windows of 6: equal to model_forward's last frames; "
+          f"lone windows max-abs {lone_w}; launches {run}")
+    blens = [int(x) for x in orng.integers(OAD["min_frames"], OAD["max_frames"] + 1, OAD["clips"])]
+    bclips = [oad.preprocess_frames(uint8_video(n), cfg.image_size) for n in blens]
+    want = [oad.extract_features_streaming(model, c, chunk=OAD["chunk"]) for c in bclips]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    got = oad.extract_features_batched(model, bclips, slots=ENGINE["slots"])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    run = dict(ops.LAUNCHES)
+    if not (run["temporal_decode_pm_ragged"] > 0 and run["temporal_decode_pm_ragged"] % L == 0
+            and run["temporal_decode_pm"] == 0 and run["temporal_append_pm_ragged"] == 0):
+        fail(f"OAD batched launches {run}")
+    add(consumer_launches, run)
+    errs = [float(np.abs(g_ - w_).max()) if g_.shape == w_.shape else float("inf")
+            for g_, w_ in zip(got, want)]
+    if not max(errs) <= STREAM_TOL_POOLED:
+        fail(f"OAD batched mode vs streaming mode: max-abs {max(errs)}")
+    print(f"OAD batched mode ({smi}), {len(blens)} clips of {blens} frames over {ENGINE['slots']} "
+          f"slots (ring C={cap}): max-abs {max(errs)} to the streaming mode (<= "
+          f"{STREAM_TOL_POOLED}); {sum(blens) / sec:.1f} frames/s extracted ({sum(blens)} frames "
+          f"in {sec:.3f} s, preprocessed clips on the card); launches {run}")
+    want_tower = {"linear C=16": {"temporal_append_pm_ragged": 2 * L, "spatial_flat": 2 * L},
+                  "linear C=64": {"temporal_decode_pm_ragged": 16 * L, "spatial_flat": 16 * L},
+                  "ring C=8": {"temporal_decode_pm": 24 * L, "spatial_flat": 3 * L}}
+    for name, (capacity, mode, calls) in TOWER_CALLS.items():
+        tcfg = cfg.replace(cache_capacity=capacity, cache_mode=mode, streaming_mode=True)
+        tower = TimesformerVisionTower(model, cfg=tcfg)
+        tpx = tower.preprocess(uint8_video(sum(calls)))[None]
+        dcache = encoder.init_cache(tcfg, 1)
+        direct = [encoder.streaming_forward(model, tpx[:, i:i + 1], dcache, cfg=tcfg,
+                                            total_frames_hint=max(tcfg.num_frames, capacity))[0]
+                  for i in range(sum(calls))]
+        d_hidden = torch.cat([o["last_hidden_state"] for o in direct], dim=1)
+        d_pooled = torch.cat([o["pooler_output"] for o in direct], dim=1)
+        ops.reset_launches()
+        lo, worst_h, worst_p, first = 0, 0.0, 0.0, None
+        for t in calls:
+            ctx = tower(tpx[:, lo:lo + t])
+            lo += t
+            first = ctx.clone() if first is None else first
+            if ctx.shape != (1, min(lo, tower.context_length), n_, d_):
+                fail(f"tower {name}: context {tuple(ctx.shape)} after {lo} frames")
+            new = ctx[:, -t:]
+            worst_h = max(worst_h, max_err(new, d_hidden[:, lo - t:lo]))
+            worst_p = max(worst_p, max_err(encoder.map_pool(new, model.head, tcfg),
+                                           d_pooled[:, lo - t:lo]))
+        torch.cuda.synchronize()
+        run = dict(ops.LAUNCHES)
+        if run != {**zeros, **want_tower[name]}:
+            fail(f"tower {name} launches {run}")
+        add(consumer_launches, run)
+        if not (worst_h <= STREAM_TOL_HIDDEN and worst_p <= STREAM_TOL_POOLED):
+            fail(f"tower {name}: hidden {worst_h}, pooled {worst_p} from the direct stream")
+        if tower(None) is not ctx:
+            fail(f"tower {name}: forward(None) does not return the held context")
+        tower.clear_cache()
+        if not torch.equal(tower(tpx[:, :calls[0]]), first):
+            fail(f"tower {name}: clear_cache did not restart the stream")
+        print(f"vision tower {name}, calls of {list(calls)} frames: max err hidden {worst_h} "
+              f"(<= {STREAM_TOL_HIDDEN}), pooled {worst_p} (<= {STREAM_TOL_POOLED}) to a direct "
+              f"t=1 stream; context {tuple(ctx.shape)}; forward(None) and clear_cache hold; "
+              f"launches {run}")
+        del tower, dcache, direct, d_hidden, d_pooled
+    torch.cuda.empty_cache()
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -1207,13 +1604,16 @@ def main():
                       f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
                   "spatial_flat": f"R={b_} N={n_}", "temporal_fullclip": f"R={b_ * n_} T={t_}",
                   "temporal_fullclip_bwd": f"R={b_ * n_} T={t_}",
-                  "spatial_flat_bwd": f"R={b_ * t_} N={n_}"}
+                  "spatial_flat_bwd": f"R={b_ * t_} N={n_}",
+                  "temporal_decode_rm": f"R={b_ * n_} C={cap} len={cap - 1}",
+                  "temporal_decode_rm_readonly": f"int8 R={b_ * n_} C={cap} len={cap - 1}",
+                  "spatial_attention": "R={} H={} N={} dh={}".format(*L_SHAPES[0])}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         row = results[(name, main_shape[name], "bfloat16")]
-        count = sum(path[name] for path in  # encode, engine, their int8 runs, and training
-                    (launches, engine_launches, int8_launches, int8_engine_launches,
-                     train_launches))
+        count = sum(path[name] for path in  # encode, engine, their int8 runs, training, then
+                    (launches, engine_launches, int8_launches, int8_engine_launches,  # this slice's
+                     train_launches, rm_launches, chunk_launches, consumer_launches, l_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -1,11 +1,15 @@
-// Non-causal softmax attention over the N patches of each (b, t) row, heads
-// as dh-wide slices of D.
+// Non-causal softmax attention over the N patches of each (b, t) row: heads
+// as dh-wide slices of D (kernel B), or head-split (kernel L).
 //
 // Replaces: streamformer_tpu/ops/attention.py fused_spatial_flat, forward
-// (_spatial_flat_pallas, kernel body _spatial_flat_kernel). Same contract:
-// q, k, v, out are (R, N, D); scores are taken from input-type values with
-// fp32 accumulation, the softmax runs in fp32, and the probabilities are
-// rounded to the input type before the PV product, as the TPU kernel does.
+// (_spatial_flat_pallas, kernel body _spatial_flat_kernel), and
+// fused_spatial_attention (_spatial_pallas, body _spatial_kernel). Same
+// contract: q, k, v, out are (R, N, D) for B and (R, H, N, dh) for L, which
+// the kernel reads through three strides (row, head, token); scores are taken
+// from input-type values with fp32 accumulation, the softmax runs in fp32,
+// and the probabilities are rounded to the input type before the PV
+// product, as both TPU kernels do. L's TPU kernel pads N to 128 for Mosaic's
+// tiles; nothing is padded here.
 //
 // Bound on the H100: bytes at the full-clip shape in bf16 (about 2*N
 // operations per byte against the tensor cores' ~295), operations in fp32.
@@ -21,7 +25,9 @@
 // PV: lanes split into dh/8 chunks of the output times a power-of-two
 // number of key groups, reduced with shuffles at the end. The wrapper
 // splits the queries of a row into chunks only when R*H blocks alone would
-// leave SMs idle (the streaming step).
+// leave SMs idle (the streaming step). L is B's body on head-split strides:
+// a head's rows are contiguous dh-element runs there, which changes the
+// addresses and nothing else.
 #include "common.cuh"
 
 namespace {
@@ -33,10 +39,9 @@ constexpr int kMaxKpl = 8;  // keys per lane in QK^T: N <= 256
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 spatial_flat_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    T* __restrict__ out, int n, int d, int heads, int q_per_block, int stride,
-                    float scale) {
+                    T* __restrict__ out, int n, int dh, int heads, long row_elems,
+                    long head_elems, int tok_elems, int q_per_block, int stride, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int dh = d / heads;
   const int nc = dh / 8;  // 8-element chunks of a head slice
   T* ks = reinterpret_cast<T*>(smem);                                // n x stride
   T* vs = ks + static_cast<long>(n) * stride;                        // n x stride
@@ -45,13 +50,13 @@ spatial_flat_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int row = blockIdx.x / heads;
   const int head = blockIdx.x % heads;
-  const long row_base = static_cast<long>(row) * n * d + head * dh;
+  const long row_base = row * row_elems + head * head_elems;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
   for (int i = threadIdx.x; i < n * nc; i += blockDim.x) {
     const int key = i / nc, c = i % nc;
-    const long g = row_base + static_cast<long>(key) * d + c * 8;
+    const long g = row_base + static_cast<long>(key) * tok_elems + c * 8;
     copy8(ks + key * stride + c * 8, k + g);
     copy8(vs + key * stride + c * 8, v + g);
   }
@@ -72,7 +77,8 @@ spatial_flat_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int q0 = q_begin + warp * kQ; q0 < q_end; q0 += kWarps * kQ) {
     for (int i = lane; i < kQ * dh; i += 32) {
       const int qi = i / dh, e = i % dh;
-      qs[i] = q0 + qi < q_end ? to_f32(q[row_base + static_cast<long>(q0 + qi) * d + e]) : 0.f;
+      qs[i] = q0 + qi < q_end ? to_f32(q[row_base + static_cast<long>(q0 + qi) * tok_elems + e])
+                              : 0.f;
     }
     __syncwarp();
 
@@ -160,7 +166,7 @@ spatial_flat_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int qi = 0; qi < kQ; ++qi)
         if (q0 + qi < q_end)
-          store8(out + row_base + static_cast<long>(q0 + qi) * d + pv_c * 8, acc[qi]);
+          store8(out + row_base + static_cast<long>(q0 + qi) * tok_elems + pv_c * 8, acc[qi]);
     }
     __syncwarp();
   }
@@ -175,10 +181,14 @@ inline int smem_bytes(int n, int dh, int elem) {
   return 2 * n * row_stride(dh, elem) * elem + kWarps * kQ * dh * 4 + kWarps * n * 16;
 }
 
+// head_split: q, k, v, out are (R, H, N, dh), else (R, N, H*dh)
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int rows, int n, int d,
-           int heads, int q_per_block, float scale, cudaStream_t stream) {
-  const int dh = d / heads;
+int launch(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
+           int heads, bool head_split, int q_per_block, float scale, cudaStream_t stream) {
+  const long d = static_cast<long>(heads) * dh;
+  const long row_elems = n * d;
+  const long head_elems = head_split ? static_cast<long>(n) * dh : dh;
+  const int tok_elems = head_split ? dh : static_cast<int>(d);
   const int elem = static_cast<int>(sizeof(T));
   const int stride = row_stride(dh, elem);
   const int smem = smem_bytes(n, dh, elem);
@@ -189,8 +199,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int rows, int
   const dim3 grid(static_cast<unsigned>(rows) * heads, (n + q_per_block - 1) / q_per_block);
   spatial_flat_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), n, d, heads, q_per_block, stride, scale);
+      static_cast<T*>(out), n, dh, heads, row_elems, head_elems, tok_elems, q_per_block, stride,
+      scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
+             int heads, bool head_split, int q_per_block, float scale, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == SF_BFLOAT16)
+    return launch<__nv_bfloat16>(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale,
+                                 st);
+  if (dtype == SF_FLOAT32)
+    return launch<float>(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -199,13 +221,17 @@ extern "C" int sf_spatial_flat_smem_bytes(int n, int d, int heads, int dtype) {
   return smem_bytes(n, d / heads, dtype == SF_BFLOAT16 ? 2 : 4);
 }
 
+// B: q, k, v, out (R, N, D)
 extern "C" int sf_spatial_flat(const void* q, const void* k, const void* v, void* out, int rows,
                                int n, int d, int heads, int q_per_block, float scale, int dtype,
                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == SF_BFLOAT16)
-    return launch<__nv_bfloat16>(q, k, v, out, rows, n, d, heads, q_per_block, scale, st);
-  if (dtype == SF_FLOAT32)
-    return launch<float>(q, k, v, out, rows, n, d, heads, q_per_block, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, k, v, out, rows, n, d / heads, heads, false, q_per_block, scale, dtype,
+                  stream);
+}
+
+// L: q, k, v, out (R, H, N, dh)
+extern "C" int sf_spatial_heads(const void* q, const void* k, const void* v, void* out, int rows,
+                                int heads, int n, int dh, int q_per_block, float scale,
+                                int dtype, void* stream) {
+  return dispatch(q, k, v, out, rows, n, dh, heads, true, q_per_block, scale, dtype, stream);
 }

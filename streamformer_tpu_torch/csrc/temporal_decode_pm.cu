@@ -1,20 +1,26 @@
-// t=1 causal temporal attention against the position-major KV cache, with
-// the new frame's K/V appended in place: one stream (kernel A) or a batch of
-// streams, each at its own position (kernel D, continuous batching).
+// t=1 causal temporal attention against the KV cache, with the new frame's
+// K/V appended in place: on the position-major cache one stream (kernel A)
+// or a batch of streams, each at its own position (kernel D, continuous
+// batching); on the row-major cache one stream (kernel J).
 //
 // Replaces: streamformer_tpu/ops/attention.py fused_temporal_decode_pm (A)
 // and fused_temporal_decode_pm_ragged (D), which share the kernel body
-// _pm_decode_kernel. Same contract: q, k_new, v_new are (R, D) with heads
-// as dh-wide slices of D; the caches are (C, R, D); lens (device int32) holds
-// the position the new frame takes, one per stream, and row r belongs to
-// stream r / rows_per_stream (A: one stream of all R rows). The new frame
-// attends the last min(len, C-1) positions held in the cache and itself;
-// slot len % C (the position the new frame evicts: none for the linear
-// cache, the oldest for the ring's sliding window) is not read, and the new
-// frame's K/V are written there afterwards. The TPU kernel pads each
-// stream's rows to a multiple of 8 so that a row block never spans two
-// streams; here each warp looks up its own row's length, so rows are not
-// padded.
+// _pm_decode_kernel, and fused_temporal_decode_inplace (J, body
+// _decode_write_kernel). Same contract: q, k_new, v_new are (R, D) with heads
+// as dh-wide slices of D; the caches are (C, R, D) for A and D, (R, C, D)
+// for J, which the kernel reads through two strides (slot and row); lens
+// (device int32) holds the position the new frame takes, one per stream, and
+// row r belongs to stream r / rows_per_stream (A and J: one stream of all R
+// rows). The new frame attends the last min(len, C-1) positions held in the
+// cache and itself; slot len % C (the position the new frame evicts: none
+// for the linear cache, the oldest for the ring's sliding window) is not
+// read, and the new frame's K/V are written there afterwards. J's contract is
+// the linear cache (len < C), so it attends positions < len and writes at
+// len, as the TPU kernel does; the TPU kernel's 8-row write-back window and
+// its capacity % 8 gate are Mosaic tiling and have no counterpart here. The
+// TPU kernels pad each stream's rows to a multiple of 8 so that a row block
+// never spans two streams; here each warp looks up its own row's length, so
+// rows are not padded.
 //
 // Keys are taken in position order, oldest first and the new frame last,
 // with the arithmetic of temporal_fullclip.cu step for step: each score is
@@ -22,7 +28,8 @@
 // a sequential sum in key order, PV as a sequential FMA chain in key order,
 // and one multiply by the reciprocal of the sum. So on the linear cache a
 // streamed frame's attention output equals, bit for bit, the full clip's
-// output for that frame, and streaming reproduces the full clip exactly.
+// output for that frame, and streaming reproduces the full clip exactly; J
+// runs the same body, so a row-major stream equals the pos-major one.
 //
 // Bound on the H100: bytes. Each (row, head) does 4*dh operations per cache
 // slot on 4*dh bytes (bf16) of K/V, about one operation per byte, far
@@ -34,9 +41,11 @@
 // key per warp at dh = 64, bf16), eight keys unrolled. Reads stop at the
 // valid prefix; len is read on the device, so a step never waits for the
 // host. Each warp writes only the (row, head) slice of its own stream's new
-// plane, which no warp reads, so the in-place append has no race across
+// slot, which no warp reads, so the in-place append has no race across
 // blocks. D moves the same bytes as A, each stream reading its own valid
-// prefix; the per-stream length costs one integer division per warp.
+// prefix; the per-stream length costs one integer division per warp. On the
+// row-major layout consecutive positions of a row lie D elements apart
+// instead of R*D, which changes the addresses and nothing else.
 #include "common.cuh"
 
 namespace {
@@ -56,7 +65,7 @@ temporal_decode_pm_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                           const T* __restrict__ v_new, T* k_cache, T* v_cache,
                           const int* __restrict__ lens, int rows_per_stream,
                           T* __restrict__ out, int rows, int capacity, int d, int heads,
-                          float scale) {
+                          long slot_stride, long row_stride, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -66,8 +75,8 @@ temporal_decode_pm_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const int head = static_cast<int>(w % heads);
   const int dh = d / heads;
   const int nc = dh / 8;
-  const long base = static_cast<long>(row) * d + head * dh;
-  const long plane = static_cast<long>(rows) * d;
+  const long base = static_cast<long>(row) * d + head * dh;  // in q, k_new, v_new, out
+  const long cbase = row * row_stride + head * dh;             // in the caches
   const int len = lens[row / rows_per_stream];
   const int n_old = min(len, capacity - 1);  // cached keys attended
   const int first = len - n_old;             // position of the oldest of them
@@ -82,7 +91,7 @@ temporal_decode_pm_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   float m = -INFINITY;
   for (int i = lane; i < n_keys; i += 32) {
     const T* kp = i < n_old
-        ? k_cache + static_cast<long>((first + i) % capacity) * plane + base
+        ? k_cache + ((first + i) % capacity) * slot_stride + cbase
         : k_new + base;
     float s = 0.f;
     for (int c0 = 0; c0 < nc; c0 += kGroup) {  // kGroup loads in flight, then the FMAs
@@ -114,14 +123,14 @@ temporal_decode_pm_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   const int pairs = dh / 2;
   const bool on0 = lane < pairs;
   const bool on1 = lane + 32 < pairs;
-  const long off = base + 2 * lane;
+  const long off = 2 * lane;
   const float2 zero = make_float2(0.f, 0.f);
   float2 acc0 = zero, acc1 = zero;
 #pragma unroll 8
   for (int i = 0; i < n_keys; ++i) {
     const T* vp = i < n_old
-        ? v_cache + static_cast<long>((first + i) % capacity) * plane
-        : v_new;
+        ? v_cache + ((first + i) % capacity) * slot_stride + cbase
+        : v_new + base;
     const float p = ps[i];
     const float2 v0 = on0 ? load2(vp + off) : zero;
     const float2 v1 = on1 ? load2(vp + off + 64) : zero;
@@ -129,23 +138,24 @@ temporal_decode_pm_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     acc1.x = fmaf(p, v1.x, acc1.x); acc1.y = fmaf(p, v1.y, acc1.y);
   }
 
-  const long new_plane = static_cast<long>(len % capacity) * plane + off;
+  const long new_slot = (len % capacity) * slot_stride + cbase + off;
+  const long mine = base + off;
   if (on0) {
-    store2(out + off, make_float2(__fmul_rn(acc0.x, inv), __fmul_rn(acc0.y, inv)));
-    copy2(k_cache + new_plane, k_new + off);
-    copy2(v_cache + new_plane, v_new + off);
+    store2(out + mine, make_float2(__fmul_rn(acc0.x, inv), __fmul_rn(acc0.y, inv)));
+    copy2(k_cache + new_slot, k_new + mine);
+    copy2(v_cache + new_slot, v_new + mine);
   }
   if (on1) {
-    store2(out + off + 64, make_float2(__fmul_rn(acc1.x, inv), __fmul_rn(acc1.y, inv)));
-    copy2(k_cache + new_plane + 64, k_new + off + 64);
-    copy2(v_cache + new_plane + 64, v_new + off + 64);
+    store2(out + mine + 64, make_float2(__fmul_rn(acc1.x, inv), __fmul_rn(acc1.y, inv)));
+    copy2(k_cache + new_slot + 64, k_new + mine + 64);
+    copy2(v_cache + new_slot + 64, v_new + mine + 64);
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
            const void* lens, int rows_per_stream, void* out, int rows, int capacity, int d,
-           int heads, float scale, cudaStream_t stream) {
+           int heads, long slot_stride, long row_stride, float scale, cudaStream_t stream) {
   const long warps = static_cast<long>(rows) * heads;
   const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
   const size_t smem = sizeof(float) * kWarps * warp_floats(d / heads, capacity);
@@ -156,20 +166,24 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, v
   temporal_decode_pm_kernel<T><<<blocks, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
       static_cast<T*>(k_cache), static_cast<T*>(v_cache), static_cast<const int*>(lens),
-      rows_per_stream, static_cast<T*>(out), rows, capacity, d, heads, scale);
+      rows_per_stream, static_cast<T*>(out), rows, capacity, d, heads, slot_stride, row_stride,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// row_major: the caches are (R, C, D), else (C, R, D)
 int dispatch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
              const void* lens, int rows_per_stream, void* out, int rows, int capacity, int d,
-             int heads, float scale, int dtype, void* stream) {
+             int heads, bool row_major, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long slot_stride = row_major ? d : static_cast<long>(rows) * d;
+  const long row_stride = row_major ? static_cast<long>(capacity) * d : d;
   if (dtype == SF_BFLOAT16)
     return launch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out,
-                                 rows, capacity, d, heads, scale, st);
+                                 rows, capacity, d, heads, slot_stride, row_stride, scale, st);
   if (dtype == SF_FLOAT32)
     return launch<float>(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out, rows,
-                         capacity, d, heads, scale, st);
+                         capacity, d, heads, slot_stride, row_stride, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -185,7 +199,7 @@ extern "C" int sf_temporal_decode_pm(const void* q, const void* k_new, const voi
                                      int rows, int capacity, int d, int heads, float scale,
                                      int dtype, void* stream) {
   return dispatch(q, k_new, v_new, k_cache, v_cache, len, rows, out, rows, capacity, d, heads,
-                  scale, dtype, stream);
+                  false, scale, dtype, stream);
 }
 
 // D: rows / rows_per_stream streams, lens a device int32 vector of that length
@@ -195,5 +209,14 @@ extern "C" int sf_temporal_decode_pm_ragged(const void* q, const void* k_new, co
                                             int capacity, int d, int heads, float scale,
                                             int dtype, void* stream) {
   return dispatch(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out, rows, capacity,
-                  d, heads, scale, dtype, stream);
+                  d, heads, false, scale, dtype, stream);
+}
+
+// J: one stream on the row-major (R, C, D) caches, len a single device int32
+extern "C" int sf_temporal_decode_rm(const void* q, const void* k_new, const void* v_new,
+                                     void* k_cache, void* v_cache, const void* len, void* out,
+                                     int rows, int capacity, int d, int heads, float scale,
+                                     int dtype, void* stream) {
+  return dispatch(q, k_new, v_new, k_cache, v_cache, len, rows, out, rows, capacity, d, heads,
+                  true, scale, dtype, stream);
 }

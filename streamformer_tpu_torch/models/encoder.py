@@ -7,9 +7,12 @@ patches, and an MLP; a MAP head pools each frame's patches.
 
 Layouts follow the JAX package at every public function: activations are
 ``(B, T, N, D)`` (batch, frames, patches, hidden); the streaming cache holds
-one pos-major ``(C, B*N, D)`` K and V per layer plus a ``len`` tensor, one
-length for the lockstep cache or one per stream for the ragged cache of
-continuous batching; an int8 cache adds per-(position, row) fp32 scales. The
+one K and V per layer plus a ``len`` tensor, one length for the lockstep
+cache or one per stream for the ragged cache of continuous batching. The
+default layout is pos-major ``(C, B*N, D)``, an int8 cache adding
+per-(position, row) fp32 scales; ``cfg.cache_layout="row_major"`` keeps the
+JAX package's compatibility layout ``(B, N, C, D)``, lockstep only, an int8
+cache adding per-(row, position, head) scales ``(B, N, C, H)``. The
 attention runs through ``ops.attention``: the CUDA kernels on the card,
 their plain versions on the CPU.
 
@@ -108,10 +111,19 @@ def dense(
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 over the last axis, one scale per row over the whole
-    hidden D (not per head), as the pos-major int8 cache keeps it:
-    (..., D) -> (int8 (..., D), fp32 (...,))."""
+    """Symmetric int8 over the last axis (the JAX package's ``quantize_kv``,
+    codes rounded half to even): (..., K) -> (int8 (..., K), fp32 (...,)).
+    The pos-major int8 cache gives it (..., D) rows, one scale per row over
+    the whole hidden D; ``quantize_kv_heads`` is the row-major cache's."""
     return quant.quantize_rows(x)
+
+
+def quantize_kv_heads(x: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row-major int8 cache's quantizer: ``quantize_kv`` over each head's
+    dh slice, one scale per head, as the JAX package quantizes its (..., H,
+    dh) row-major K/V: (..., D) -> (int8 (..., D), fp32 (..., H))."""
+    codes, scale = quantize_kv(x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads))
+    return codes.reshape(x.shape), scale
 
 
 def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -439,6 +451,7 @@ def temporal_attention(
     cache_kv: Optional[Dict[str, torch.Tensor]] = None,
     cache_len: Optional[torch.Tensor] = None,
     new_valid: Optional[torch.Tensor] = None,
+    attend_cap: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal attention over the frames T, batched over (B, N); x: (B, T, N, D).
 
@@ -448,31 +461,33 @@ def temporal_attention(
     Streaming: the new frames attend the cache and their K/V are written IN
     PLACE into ``cache_kv["k"]`` and ``cache_kv["v"]``; ``cache_len`` (one
     length, or (B,) per stream for the ragged cache) is not advanced here.
+    On the pos-major cache:
 
     - t = 1 without ``new_valid``: ``ops.temporal_decode_pm`` (one length)
       or ``ops.temporal_decode_pm_ragged`` (per stream), appending at slot
       ``len % C``. The same call serves the linear cache and the ring.
-    - t >= 2, or ``new_valid`` given: ``ops.temporal_append_pm_ragged`` on
-      the linear cache. Stream b appends its first ``new_valid[b]`` frames
-      (all t by default) at slots len[b] + ti; a lockstep cache is one
-      stream of all B*N rows. The ring takes one frame at a time:
-      ``cfg.cache_mode == "ring"`` raises here, as the JAX package does for
-      the ragged ring.
+    - t >= 2 on the ring (lockstep only, as in the JAX package): one t=1
+      decode per new frame, frame ti at position len + ti, so query p sees
+      positions (p - C, p] and of t > C frames only the last C stay, the
+      function of the JAX package's ``_ring_attend_pos_major``.
+    - t >= 2 on the linear cache, or ``new_valid`` given:
+      ``ops.temporal_append_pm_ragged``. Stream b appends its first
+      ``new_valid[b]`` frames (all t by default) at slots len[b] + ti; a
+      lockstep cache is one stream of all B*N rows.
 
     An int8 cache (``"k_scale"`` in ``cache_kv``) runs kernel F (one
     length) or G (per stream) for each new frame, frame ti at position
-    len + ti (linear cache only for t >= 2): the new frame's K/V rows are
-    quantized, attended dequantized and appended with their scales, the
-    function of the JAX package's einsum path, which quantizes first and
-    attends the dequantized view. ``new_valid`` on an int8 cache raises.
+    len + ti: the new frame's K/V rows are quantized, attended dequantized
+    and appended with their scales, the function of the JAX package's
+    einsum path, which quantizes first and attends the dequantized view.
+    ``new_valid`` on an int8 cache raises.
+
+    The row-major cache (``cfg.cache_layout == "row_major"``) takes
+    ``_row_major_attend``; ``attend_cap`` bounds the keys its einsum paths
+    read, as the JAX package's capacity bucketing does.
     """
     b, t, n, d = x.shape
     h = cfg.num_attention_heads
-    quantized = cache_kv is not None and "k_scale" in cache_kv
-    if quantized and new_valid is not None:
-        raise NotImplementedError(
-            "partial appends (new_valid) on an int8 cache (ROADMAP slice 3, item 9b)"
-        )
     qkv = dense(x, attn.attention.qkv)  # (B, T, N, 3D)
     if cache_kv is None:
         def rows(i):  # (B, T, N, D) slice -> (B*N, T, D)
@@ -482,6 +497,25 @@ def temporal_attention(
         ctx = ctx.reshape(b, n, t, d).transpose(1, 2)
         return dense(ctx, attn.output.dense)
     ragged = cache_len.ndim == 1
+    if cfg.cache_layout == "row_major":
+        if new_valid is not None:
+            raise ValueError("new_valid (per-stream partial appends) is a pos_major feature")
+        if ragged:
+            raise NotImplementedError(
+                "ragged (per-stream) lengths are a pos_major-layout feature; the row-major "
+                "compatibility layout is lockstep-only"
+            )
+        return dense(_row_major_attend(qkv, cache_kv, cache_len, cfg, attend_cap),
+                     attn.output.dense)
+    quantized = "k_scale" in cache_kv
+    ring = cfg.cache_mode == "ring"
+    if quantized and new_valid is not None:
+        raise NotImplementedError(
+            "partial appends (new_valid) on an int8 cache (ROADMAP slice 3, item 9b)"
+        )
+    if ring and new_valid is not None:
+        raise ValueError("new_valid holds are illegal in ring mode (a wrap-around dummy write "
+                         "would evict in-window history)")
     if t == 1 and new_valid is None:
         def rows1(i):  # (B, 1, N, D) slice -> (B*N, D)
             return qkv[..., i * d:(i + 1) * d].reshape(b * n, d).contiguous()
@@ -497,20 +531,24 @@ def temporal_attention(
                 rows1(0), rows1(1), rows1(2), cache_kv["k"], cache_kv["v"], cache_len, h
             )
         return dense(ctx.reshape(b, 1, n, d), attn.output.dense)
-    if cfg.cache_mode == "ring":
+    if ring and ragged:
         raise NotImplementedError(
-            "multi-frame appends to the ring cache: the ring takes one frame per call "
-            "(ROADMAP slice 1, item 3a)"
+            "ragged (per-stream) lengths reach the ring cache only through the t=1 decode "
+            "(whose slot-mod write and mask handle them); multi-frame ring appends are "
+            "lockstep-only"
         )
-    if quantized:
+    if quantized or ring:
         def frame(i, ti):  # frame ti of slice i -> (B*N, D)
             return qkv[:, ti, :, i * d:(i + 1) * d].reshape(b * n, d).contiguous()
 
-        ctx = torch.stack([
-            _decode_int8(frame(0, ti), frame(1, ti), frame(2, ti), cache_kv,
-                         cache_len + ti if ti else cache_len, n, h)
-            for ti in range(t)
-        ])
+        def decode(ti):  # frame ti at position len + ti
+            lens = cache_len + ti if ti else cache_len
+            if quantized:
+                return _decode_int8(frame(0, ti), frame(1, ti), frame(2, ti), cache_kv, lens, n, h)
+            return ops.temporal_decode_pm(frame(0, ti), frame(1, ti), frame(2, ti),
+                                          cache_kv["k"], cache_kv["v"], lens, h)
+
+        ctx = torch.stack([decode(ti) for ti in range(t)])
         return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
 
     def rows_t(i):  # (B, T, N, D) slice -> (T, B*N, D)
@@ -527,6 +565,111 @@ def temporal_attention(
         per_stream, h,
     )
     return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
+
+
+def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
+                      cfg: StreamformerConfig, attend_cap: Optional[int]) -> torch.Tensor:
+    """Streaming temporal attention on the lockstep row-major cache, K/V
+    (B, N, C, D) updated IN PLACE: qkv (B, T, N, 3D) -> ctx (B, T, N, D),
+    before the output projection. The JAX package's row-major branch
+    (``temporal_attention``), case by case:
+
+    - linear, t = 1, float: kernel J (``ops.temporal_decode_rm``) attends
+      and writes the new frame at position len, on the (B*N, C, D) view;
+    - linear, t = 1, int8: the new row is quantized per head
+      (``quantize_kv_heads``) and written with its (B, N, C, H) scales, then
+      kernel K (``ops.temporal_decode_rm_readonly``) reads positions <= len;
+    - linear, t >= 2: the t rows are written at positions len.. (the start
+      clamped to C - t, as ``dynamic_update_slice`` clamps it), then plain
+      attention over the cache (the first ``attend_cap`` positions, when
+      given), query ti seeing positions <= len + ti;
+    - ring, any t: plain attention over the cache as it was plus the new
+      frames, query len + ti seeing cache slot s's newest position p < len
+      when p > len + ti - C and new frame j when ti - C < j <= ti; then the
+      last min(t, C) frames are written at slots (len + ti) % C. The new
+      frames are attended unquantized on an int8 ring, as the JAX einsum
+      attends them.
+
+    Plain attention computes the scores, the softmax and PV in fp32 and
+    rounds only its output to the compute dtype, as the kernels do; the JAX
+    einsum rounds the probabilities to the compute dtype before PV, which in
+    bf16 moves a ring stream 0.0088 pooled from the pos-major ring's kernel
+    A on the card (ROADMAP section 3), and in fp32 changes nothing."""
+    b, t, n, d3 = qkv.shape
+    d = d3 // 3
+    h = cfg.num_attention_heads
+    dh = d // h
+    dt = qkv.dtype
+    cap = cache["k"].shape[2]
+    quantized = "k_scale" in cache
+
+    def flat(a):  # (B, N, C, X) -> the (B*N, C, X) view, shared with the cache
+        return a.view(b * n, cap, a.shape[-1])
+
+    if cfg.cache_mode != "ring" and t == 1 and not quantized:
+        def rows1(i):  # (B, 1, N, D) slice -> (B*N, D)
+            return qkv[..., i * d:(i + 1) * d].reshape(b * n, d).contiguous()
+
+        ctx = ops.temporal_decode_rm(rows1(0), rows1(1), rows1(2), flat(cache["k"]),
+                                     flat(cache["v"]), cache_len, h)
+        return ctx.reshape(b, 1, n, d)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, t, n, h, dh) for i in range(3))
+    steps = torch.arange(t, device=qkv.device)
+
+    def write(key: str, val: torch.Tensor, slots: torch.Tensor) -> None:
+        """New rows val (B, T', N, H, dh) at positions ``slots`` (T',)."""
+        val = val.transpose(1, 2).reshape(b, n, -1, d)  # (B, N, T', D)
+        if quantized:
+            codes, scale = quantize_kv_heads(val, h)
+            cache[key].index_copy_(2, slots, codes)
+            cache[f"{key}_scale"].index_copy_(2, slots, scale)
+        else:
+            cache[key].index_copy_(2, slots, val.to(cache[key].dtype))
+
+    def full_kv(key: str, limit: int = cap) -> torch.Tensor:
+        """(B, N, C', H, dh) in fp32: the cache's first ``limit`` positions,
+        dequantized to the compute dtype on an int8 cache."""
+        arr = cache[key][:, :, :limit].reshape(b, n, limit, h, dh)
+        if quantized:
+            arr = dequantize_kv(arr, cache[f"{key}_scale"][:, :, :limit], dt)
+        return arr.to(dt).float()
+
+    qf = q.float()
+    scale = dh**-0.5
+    if cfg.cache_mode == "ring":
+        s_old = torch.einsum("bqnhd,bnkhd->bnhqk", qf, full_kv("k")) * scale
+        s_new = torch.einsum("bqnhd,bknhd->bnhqk", qf, k.float()) * scale
+        qpos = cache_len + steps[:, None]  # (t, 1)
+        slot = torch.arange(cap, device=qkv.device)[None]  # (1, C)
+        # slot s holds the newest position p = s (mod C) below len; unwritten slots give p < 0
+        kpos_old = slot + cap * torch.div(cache_len - 1 - slot, cap, rounding_mode="floor")
+        ok_old = (kpos_old >= 0) & (kpos_old > qpos - cap)  # (t, C)
+        ok_new = (steps[None] <= steps[:, None]) & (steps[None] > steps[:, None] - cap)  # (t, t)
+        scores = torch.cat([s_old.masked_fill(~ok_old, float("-inf")),
+                            s_new.masked_fill(~ok_new, float("-inf"))], dim=-1)
+        probs = torch.softmax(scores, dim=-1)
+        vals = torch.cat([full_kv("v").transpose(1, 2), v.float()], dim=1)  # (B, C + t, N, H, dh)
+        ctx = torch.einsum("bnhqk,bknhd->bqnhd", probs, vals).to(dt).reshape(b, t, n, d)
+        keep = min(t, cap)
+        slots = (cache_len + steps[t - keep:]) % cap
+        write("k", k[:, t - keep:], slots)
+        write("v", v[:, t - keep:], slots)
+        return ctx
+    start = cache_len.clamp(max=cap - t)  # dynamic_update_slice's clamp
+    write("k", k, start + steps)
+    write("v", v, start + steps)
+    if t == 1:  # int8: kernel K over the cache as written; its reads stop at len
+        ctx = ops.temporal_decode_rm_readonly(
+            q.reshape(b * n, d).contiguous(), flat(cache["k"]), flat(cache["v"]),
+            flat(cache["k_scale"]), flat(cache["v_scale"]), cache_len, h,
+        )
+        return ctx.reshape(b, 1, n, d)
+    limit = cap if attend_cap is None else min(attend_cap, cap)
+    scores = torch.einsum("bqnhd,bnkhd->bnhqk", qf, full_kv("k", limit)) * scale
+    visible = torch.arange(limit, device=qkv.device)[None] <= cache_len + steps[:, None]
+    probs = torch.softmax(scores.masked_fill(~visible, float("-inf")), dim=-1)
+    ctx = torch.einsum("bnhqk,bnkhd->bqnhd", probs, full_kv("v", limit))
+    return ctx.to(dt).reshape(b, t, n, d)
 
 
 def _decode_int8(q, k_new, v_new, cache_kv, lens, rows_per_stream, h):
@@ -556,6 +699,7 @@ def layer_forward(
     cache_kv: Optional[Dict[str, torch.Tensor]] = None,
     cache_len: Optional[torch.Tensor] = None,
     new_valid: Optional[torch.Tensor] = None,
+    attend_cap: Optional[int] = None,
     drop_path_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
@@ -580,7 +724,7 @@ def layer_forward(
     t_ln = layer_norm(x, layer.temporal_layernorm, eps)
     t_attn = temporal_attention(
         t_ln, layer.temporal_attention, cfg, cache_kv=cache_kv, cache_len=cache_len,
-        new_valid=new_valid,
+        new_valid=new_valid, attend_cap=attend_cap,
     )
     gate = torch.tanh(layer.temporal_attention_gating.float()).to(x.dtype)
     x = x + gate * dense(dp(t_attn), layer.temporal_dense)
@@ -688,24 +832,28 @@ def init_cache(
     device=None,
 ) -> Cache:
     """Preallocated temporal KV cache: ``{"layers": [{"k", "v"}, ...],
-    "len": int32 tensor}``, K/V pos-major (C, batch*N, D), zeros.
+    "len": int32 tensor}``, zeros. K/V are pos-major (C, batch*N, D) for
+    ``cfg.cache_layout == "pos_major"``, row-major (batch, N, C, D) for
+    "row_major".
 
     The cache is kept in the compute dtype, or in int8 when ``dtype`` (else
     ``cfg.cache_dtype``) says "int8": then each layer also holds fp32
-    ``k_scale`` and ``v_scale`` of shape (C, batch*N), the scale of each
-    (position slot, row), so that an append writes one contiguous row. A
-    float cache in another dtype than the compute dtype raises.
+    ``k_scale`` and ``v_scale``, of shape (C, batch*N) on the pos-major
+    layout, the scale of each (position slot, row), so that an append writes
+    one contiguous row; of shape (batch, N, C, H) on the row-major layout,
+    one per (row, position, head), as the JAX package keeps them. A float
+    cache in another dtype than the compute dtype raises.
 
     ``len`` is () with every stream in lockstep, or (batch,) with
     ``per_stream_len``: the ragged cache of continuous batching, each stream
-    at its own position (see ``reset_streams``). Rows are not padded per
-    stream. ``capacity`` defaults to ``cfg.cache_capacity``; the cache lives
-    on ``cuda`` unless ``device`` names another device."""
-    if cfg.cache_layout != "pos_major":
-        raise NotImplementedError(
-            f"cache layout {cfg.cache_layout!r}: the port keeps the pos-major cache "
-            "(row-major: ROADMAP slice 7, item 20)"
-        )
+    at its own position (see ``reset_streams``), pos-major only. Rows are
+    not padded per stream. ``capacity`` defaults to ``cfg.cache_capacity``;
+    the cache lives on ``cuda`` unless ``device`` names another device."""
+    if cfg.cache_layout not in ("pos_major", "row_major"):
+        raise ValueError(f"cache layout {cfg.cache_layout!r}: 'pos_major' or 'row_major'")
+    row_major = cfg.cache_layout == "row_major"
+    if per_stream_len and row_major:
+        raise NotImplementedError("per-stream lengths are a pos_major-layout feature")
     dt = compute_dtype(cfg)
     name = dtype if dtype is not None else (cfg.cache_dtype or cfg.dtype)
     cache_dt = {"int8": torch.int8, **_DTYPES}.get(name, name) if isinstance(name, str) else name
@@ -717,14 +865,19 @@ def init_cache(
     dev = resolve_device(device)
     n = num_patches if num_patches is not None else cfg.num_patches
     cap = capacity if capacity is not None else cfg.cache_capacity
-    shape = (cap, batch * n, cfg.hidden_size)
+    if row_major:
+        shape = (batch, n, cap, cfg.hidden_size)
+        scale_shape = (batch, n, cap, cfg.num_attention_heads)
+    else:
+        shape = (cap, batch * n, cfg.hidden_size)
+        scale_shape = shape[:2]
 
     def layer() -> Dict[str, torch.Tensor]:
         kv = {"k": torch.zeros(shape, dtype=cache_dt, device=dev),
               "v": torch.zeros(shape, dtype=cache_dt, device=dev)}
         if cache_dt == torch.int8:
-            kv["k_scale"] = torch.zeros(shape[:2], dtype=torch.float32, device=dev)
-            kv["v_scale"] = torch.zeros(shape[:2], dtype=torch.float32, device=dev)
+            kv["k_scale"] = torch.zeros(scale_shape, dtype=torch.float32, device=dev)
+            kv["v_scale"] = torch.zeros(scale_shape, dtype=torch.float32, device=dev)
         return kv
 
     layers: List[Dict[str, torch.Tensor]] = [layer() for _ in range(cfg.num_hidden_layers)]
@@ -752,6 +905,7 @@ def streaming_forward(
     cache: Cache,
     *,
     total_frames_hint: Optional[int] = None,
+    attend_capacity: Optional[int] = None,
     new_valid: Optional[torch.Tensor] = None,
     cfg: Optional[StreamformerConfig] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Cache]:
@@ -768,13 +922,18 @@ def streaming_forward(
     equals a lone stream at that position. ``new_valid`` (B,) int32 in
     [0, T], ragged cache only: stream b appends only its first new_valid[b]
     frames and its ``len`` advances by new_valid[b]; output columns past it
-    are unspecified. Without it every ``len`` advances by T. T >= 2, or
-    ``new_valid``, needs the linear cache. An int8 cache takes T >= 2 as one
-    int8 decode per frame and refuses ``new_valid``.
+    are unspecified. Without it every ``len`` advances by T. ``new_valid``
+    needs the linear cache; T >= 2 on the ring needs the lockstep cache (one
+    t=1 decode per frame). An int8 cache takes T >= 2 as one int8 decode per
+    frame and refuses ``new_valid``. The row-major layout is lockstep only.
 
     ``total_frames_hint`` is the sequence length used for time-embedding
     interpolation; by default ``cfg.num_frames`` (as the JAX package's code
-    does), so positions past the trained table reuse its last row. The
+    does), so positions past the trained table reuse its last row; a call of
+    T frames interpolates to max(hint, T). ``attend_capacity``, when given
+    and at least len + T, bounds the cache positions the row-major einsum
+    paths read, as the JAX package's capacity buckets do; it does not change
+    the result, and the kernels' reads stop at the valid prefix anyway. The
     linear cache must not be run past its capacity: that is not checked, as
     it would wait on the device for ``len``; the t=1 kernels then act as the
     ring. ``cfg`` defaults to ``model.cfg``; a serving engine passes its own,
@@ -791,7 +950,8 @@ def streaming_forward(
     total = total_frames_hint if total_frames_hint is not None else cfg.num_frames
     x = embed(model, pixel_values, start_pos=cache_len, total_frames=max(total, t))
     for layer, kv in zip(model.encoder.layer, cache["layers"]):
-        x = layer_forward(layer, x, cfg, cache_kv=kv, cache_len=cache_len, new_valid=new_valid)
+        x = layer_forward(layer, x, cfg, cache_kv=kv, cache_len=cache_len, new_valid=new_valid,
+                          attend_cap=attend_capacity)
     x = layer_norm(x, model.post_layernorm, cfg.layer_norm_eps)
     out = {"last_hidden_state": x, "pooler_output": map_pool(x, model.head, cfg)}
     cache_len.add_(t if new_valid is None else new_valid)

@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from streamformer_tpu_torch.data.transforms import linear_resize_weights
 from streamformer_tpu_torch.parallel.contrastive import (
     all_gather_features,
     axis_rank,
@@ -227,20 +228,6 @@ def dense_feature_projection(x: torch.Tensor, p: Projection, eps: float = 1e-6) 
     return y + m
 
 
-def _resize_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
-    """(n_out, n_in) weights of a linear resize along one axis with
-    half-pixel centres: a triangle kernel around each output sample, widened
-    by the scale when the axis shrinks (antialiasing), rows normalized, which
-    at the borders is the edge clamp. ``jax.image.resize(..., "linear")``
-    builds the same matrix."""
-    scale = n_out / n_in
-    width = max(1.0 / scale, 1.0)
-    sample = (torch.arange(n_out, device=device, dtype=torch.float32) + 0.5) / scale - 0.5
-    taps = torch.arange(n_in, device=device, dtype=torch.float32)
-    w = (1.0 - (sample[:, None] - taps[None, :]).abs() / width).clamp_min(0.0)
-    return w / w.sum(dim=1, keepdim=True)
-
-
 def _bilinear_resize_logits(logits: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """(..., hp, wp, L) -> (..., out_h, out_w, L), bilinear with half-pixel
     centres (torch's ``align_corners=False``), as two small matrix products,
@@ -250,8 +237,8 @@ def _bilinear_resize_logits(logits: torch.Tensor, out_h: int, out_w: int) -> tor
     unless asked). As products its backward sums in a fixed order, where
     ``F.interpolate``'s backward on a card adds with atomics."""
     hp, wp = logits.shape[-3], logits.shape[-2]
-    wy = _resize_weights(hp, out_h, logits.device)
-    wx = _resize_weights(wp, out_w, logits.device)
+    wy = linear_resize_weights(hp, out_h, logits.device)
+    wx = linear_resize_weights(wp, out_w, logits.device)
     rows = torch.einsum("oh,...hwl->...owl", wy, logits)
     return torch.einsum("pw,...owl->...opl", wx, rows)
 

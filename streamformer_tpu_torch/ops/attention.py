@@ -5,6 +5,8 @@ PyTorch version and a launch count.
 wrapper                             plain version                             replaces (JAX package)
 ==================================  ========================================  ========================================
 ``temporal_decode_pm``              ``temporal_decode_pm_plain``              ``fused_temporal_decode_pm``
+``temporal_decode_rm``              ``temporal_decode_rm_plain``              ``fused_temporal_decode_inplace``
+``temporal_decode_rm_readonly``     ``temporal_decode_rm_readonly_plain``     ``fused_temporal_decode``
 ``temporal_decode_pm_ragged``       ``temporal_decode_pm_ragged_plain``       ``fused_temporal_decode_pm_ragged``
 ``temporal_append_pm_ragged``       ``temporal_append_pm_ragged_plain``       ``fused_temporal_append_pm_ragged``
 ``temporal_decode_pm_int8``         ``temporal_decode_pm_int8_plain``         ``fused_temporal_decode_pm_int8``
@@ -13,23 +15,26 @@ wrapper                             plain version                             re
 ``temporal_fullclip``               ``temporal_fullclip_plain``               ``fused_temporal_fullclip`` (fwd)
 ``spatial_flat_bwd``                ``spatial_flat_bwd_plain``                ``_spatial_flat_bwd_pallas``
 ``temporal_fullclip_bwd``           ``temporal_fullclip_bwd_plain``           ``_fullclip_temporal_bwd_pallas``
+``spatial_attention``               ``spatial_attention_plain``               ``fused_spatial_attention``
 ==================================  ========================================  ========================================
 
 A wrapper takes its plain version for tensors on the CPU, and only then. For
 CUDA tensors it launches its kernel from ``csrc/`` on the current stream or
 raises: there is no fallback. Each launch adds one to ``LAUNCHES[name]``;
-nothing else does. Heads are dh-wide slices of the flat D axis, dh a
-multiple of 8 and at most 128; inputs are float32 or bfloat16 and
-contiguous (the int8 kernels take int8 codes and fp32 scales beside a float
-or bfloat16 query).
+nothing else does. Heads are dh-wide slices of the flat D axis
+(``spatial_attention`` takes them split, (R, H, N, dh)), dh a multiple of 8
+and at most 128; inputs are float32 or bfloat16 and contiguous (the int8
+kernels take int8 codes and fp32 scales beside a float or bfloat16 query).
 
 The two full-clip kernels have a gradient: ``spatial_flat`` and
 ``temporal_fullclip`` go through the ``torch.autograd.Function``s
 ``SpatialFlat`` and ``TemporalFullclip`` whenever an input requires grad,
 on the CPU as on the card. The forward saves q, k, v only; the backward
 recomputes the probabilities in ``spatial_flat_bwd`` / ``temporal_fullclip_bwd``
-(a kernel on the card, the plain backward on the CPU). The streaming kernels
-have no backward, as in the JAX package, and raise when asked for one.
+(a kernel on the card, the plain backward on the CPU). ``spatial_attention``
+goes through ``SpatialAttention``, whose backward is autograd of its plain
+version, as the JAX package's is the einsum VJP. The streaming kernels have
+no backward, as in the JAX package, and raise when asked for one.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from streamformer_tpu_torch.ops import build
 
 LAUNCHES: Dict[str, int] = {
     "temporal_decode_pm": 0,
+    "temporal_decode_rm": 0,
+    "temporal_decode_rm_readonly": 0,
     "temporal_decode_pm_ragged": 0,
     "temporal_append_pm_ragged": 0,
     "temporal_decode_pm_int8": 0,
@@ -51,6 +58,7 @@ LAUNCHES: Dict[str, int] = {
     "temporal_fullclip": 0,
     "spatial_flat_bwd": 0,
     "temporal_fullclip_bwd": 0,
+    "spatial_attention": 0,
 }
 
 # Keys one warp of ``temporal_append_pm_ragged`` holds: the cache capacity
@@ -174,7 +182,8 @@ def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     _check_lengths("temporal_decode_pm", device, cache_len=cache_len)
     if device.type == "cpu":
         return temporal_decode_pm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads)
-    _decode_ready("temporal_decode_pm", q, k_new, v_new, k_cache, v_cache, num_heads)
+    _decode_ready("temporal_decode_pm", q, k_new, v_new, k_cache, v_cache, num_heads,
+                  k_cache.shape[0])
     out = torch.empty_like(q)
     _launch(
         "temporal_decode_pm", "sf_temporal_decode_pm",
@@ -194,15 +203,15 @@ def _check_lengths(name: str, device: torch.device, **lengths: torch.Tensor) -> 
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def _decode_ready(name, q, k_new, v_new, k_cache, v_cache, num_heads) -> None:
-    """What a launch of A or D needs: aligned pointers, and the shared memory
-    the capacity asks for."""
+def _decode_ready(name, q, k_new, v_new, k_cache, v_cache, num_heads, capacity) -> None:
+    """What a launch of A, D or J needs: aligned pointers, and the shared
+    memory the capacity asks for."""
     _cuda_ready(name, q, k_new, v_new, k_cache, v_cache)
     smem = build.function("temporal_decode_pm", "sf_temporal_decode_pm_smem_bytes", (_I, _I))(
-        q.shape[-1] // num_heads, k_cache.shape[0]
+        q.shape[-1] // num_heads, capacity
     )
     if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: capacity {k_cache.shape[0]} needs {smem} bytes "
+        raise ValueError(f"{name}: capacity {capacity} needs {smem} bytes "
                          "of shared memory per block")
 
 
@@ -221,14 +230,151 @@ def _stream_lengths(name: str, lens: torch.Tensor, rows: int, rows_per_stream: i
 
 
 # ---------------------------------------------------------------------------
+# J and K. t=1 decode on the row-major cache: in place, and read-only
+# ---------------------------------------------------------------------------
+
+
+def temporal_decode_rm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
+    """Plain version of ``temporal_decode_rm``: A's plain version on the
+    (C, R, D) view of the row-major cache; the same in-place write."""
+    return temporal_decode_pm_plain(q, k_new, v_new, k_cache.transpose(0, 1),
+                                    v_cache.transpose(0, 1), cache_len, num_heads)
+
+
+def temporal_decode_rm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
+    """t=1 causal attention of the new frame against the row-major cache,
+    with its K/V written in place.
+
+    q, k_new, v_new: (R, D), rows are (b, n) pairs. k_cache, v_cache:
+    (R, C, D); positions < cache_len hold earlier frames. cache_len: int32
+    tensor of one element on the same device, the position the new frame
+    takes; it is read on the device and not changed. The contract is the
+    linear cache, cache_len < C (not checked: that would wait on the
+    device). The new frame attends positions < cache_len and itself, then
+    ``k_cache[:, cache_len] = k_new`` (the same for v). Any capacity. Returns
+    (R, D) in q's dtype. The kernel is A's on row-major strides, the same
+    order of arithmetic, so on the card a row-major linear stream equals the
+    pos-major one bit for bit."""
+    r, d = q.shape
+    if k_cache.ndim != 3 or (k_cache.shape[0], k_cache.shape[2]) != (r, d) \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"temporal_decode_rm: caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)} "
+            f"do not match q {tuple(q.shape)} as (R, C, D)"
+        )
+    if k_new.shape != q.shape or v_new.shape != q.shape:
+        raise ValueError("temporal_decode_rm: k_new and v_new must have q's shape (R, D)")
+    if cache_len.numel() != 1 or cache_len.dtype != torch.int32:
+        raise TypeError("temporal_decode_rm: cache_len must be one int32 element")
+    device = _check("temporal_decode_rm", num_heads, d, q=q, k_new=k_new, v_new=v_new,
+                    k_cache=k_cache, v_cache=v_cache)
+    _check_lengths("temporal_decode_rm", device, cache_len=cache_len)
+    if device.type == "cpu":
+        return temporal_decode_rm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads)
+    _decode_ready("temporal_decode_rm", q, k_new, v_new, k_cache, v_cache, num_heads,
+                  k_cache.shape[1])
+    out = torch.empty_like(q)
+    _launch(
+        "temporal_decode_rm", "sf_temporal_decode_rm",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), device,
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+        r, k_cache.shape[1], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
+        library="temporal_decode_pm",
+    )
+    return out
+
+
+def temporal_decode_rm_readonly_plain(q, k, v, k_scale, v_scale, cache_len, num_heads):
+    """Plain version of ``temporal_decode_rm_readonly``: fp32 throughout,
+    the int8 scales folded after the reductions as the kernel folds them."""
+    r, c, d = k.shape
+    h = num_heads
+    dh = d // h
+    qf = q.float().view(r, h, dh)
+    s = torch.einsum("rhd,rchd->rhc", qf, k.float().view(r, c, h, dh)) * dh**-0.5
+    if k_scale is not None:
+        s = s * k_scale.permute(0, 2, 1)
+    valid = torch.arange(c, device=q.device) <= cache_len.reshape(())
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)  # (R, H, C)
+    if v_scale is not None:
+        p = p * v_scale.permute(0, 2, 1)
+    return torch.einsum("rhc,rchd->rhd", p, v.float().view(r, c, h, dh)).reshape(r, d).to(q.dtype)
+
+
+def temporal_decode_rm_readonly(q, k, v, k_scale, v_scale, cache_len, num_heads):
+    """Read-only t=1 decode against the row-major cache, float or int8.
+
+    q: (R, D) float32 or bfloat16. k, v: (R, C, D), already holding the new
+    frame at position cache_len (the caller wrote it): either in q's dtype
+    with ``k_scale`` and ``v_scale`` None, or int8 codes with fp32 scales of
+    shape (R, C, H), one per (row, position, head) (``encoder.
+    quantize_kv_heads``). cache_len: int32 tensor of one element on the same
+    device, read on the device. Each (row, head) attends positions
+    0..min(cache_len, C-1), with score ``(q . codes) * dh**-0.5 * k_scale``
+    and value weight ``p * v_scale`` in fp32; nothing is written. Returns
+    (R, D) in q's dtype."""
+    name = "temporal_decode_rm_readonly"
+    if q.ndim != 2 or k.ndim != 3 or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[1] \
+            or v.shape != k.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)}, v {tuple(v.shape)} do not match q "
+                         f"{tuple(q.shape)} as (R, C, D)")
+    if cache_len.numel() != 1 or cache_len.dtype != torch.int32:
+        raise TypeError(f"{name}: cache_len must be one int32 element")
+    r, c, d = k.shape
+    device = _check(name, num_heads, d, q=q)
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError(f"{name}: give both scales or neither")
+    want = torch.int8 if quantized else q.dtype
+    for key, t in (("k", k), ("v", v)):
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} is {t.dtype}, not {want}"
+                            + ("" if quantized else " (a float cache in q's dtype)"))
+    tensors = dict(k=k, v=v)
+    if quantized:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
+        for key in ("k_scale", "v_scale"):
+            t = tensors[key]
+            if t.dtype != torch.float32 or tuple(t.shape) != (r, c, num_heads):
+                raise TypeError(f"{name}: {key} must be fp32 of shape {(r, c, num_heads)}, got "
+                                f"{t.dtype} {tuple(t.shape)}")
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    _check_lengths(name, device, cache_len=cache_len)
+    if device.type == "cpu":
+        return temporal_decode_rm_readonly_plain(q, k, v, k_scale, v_scale, cache_len, num_heads)
+    _cuda_ready(name, q, *tensors.values())
+    smem = build.function("temporal_decode_rm", "sf_temporal_decode_rm_readonly_smem_bytes",
+                          (_I, _I))(d // num_heads, c)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: capacity {c} needs {smem} bytes of shared memory per block")
+    out = torch.empty_like(q)
+    _launch(
+        name, "sf_temporal_decode_rm_readonly",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P), device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
+        cache_len.data_ptr(), out.data_ptr(), r, c, d, num_heads, (d // num_heads) ** -0.5,
+        _DTYPE_CODES[q.dtype], int(quantized),
+        library="temporal_decode_rm",
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
 # D. A with per-stream lengths: continuous batching
 # ---------------------------------------------------------------------------
 
 
 def temporal_decode_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream,
                                     num_heads):
-    """Plain version of ``temporal_decode_pm_ragged`` (and of A, one stream):
-    the same function, same in-place cache update."""
+    """Plain version of ``temporal_decode_pm_ragged`` (and of A, one stream,
+    and of J on the transposed view of its cache): the same function, same
+    in-place cache update."""
     c, r, d = k_cache.shape
     h = num_heads
     dh = d // h
@@ -237,13 +383,14 @@ def temporal_decode_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, row
     length = lens.long().repeat_interleave(rows_per_stream)  # (R,)
     slot = length % c
     s_new = (qf * k_new.float().view(r, h, dh)).sum(-1, keepdim=True) * scale
-    s_old = torch.einsum("rhd,crhd->rhc", qf, k_cache.float().view(c, r, h, dh)) * scale
+    s_old = torch.einsum("rhd,crhd->rhc", qf, k_cache.float().reshape(c, r, h, dh)) * scale
     pos = torch.arange(c, device=q.device)
     valid = (pos[None] < length[:, None]) & (pos[None] != slot[:, None])  # (R, C)
     s_old = s_old.masked_fill(~valid[:, None, :], float("-inf"))
     probs = torch.softmax(torch.cat([s_new, s_old], dim=-1), dim=-1)
     vals = torch.cat(
-        [v_new.float().view(r, h, 1, dh), v_cache.float().view(c, r, h, dh).permute(1, 2, 0, 3)],
+        [v_new.float().view(r, h, 1, dh),
+         v_cache.float().reshape(c, r, h, dh).permute(1, 2, 0, 3)],
         dim=2,
     )
     out = torch.einsum("rhc,rhcd->rhd", probs, vals).reshape(r, d).to(q.dtype)
@@ -280,7 +427,8 @@ def temporal_decode_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, rows_per_
     if device.type == "cpu":
         return temporal_decode_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens,
                                                rows_per_stream, num_heads)
-    _decode_ready("temporal_decode_pm_ragged", q, k_new, v_new, k_cache, v_cache, num_heads)
+    _decode_ready("temporal_decode_pm_ragged", q, k_new, v_new, k_cache, v_cache, num_heads,
+                  k_cache.shape[0])
     out = torch.empty_like(q)
     _launch(
         "temporal_decode_pm_ragged", "sf_temporal_decode_pm_ragged",
@@ -678,6 +826,79 @@ def spatial_flat(q, k, v, num_heads):
     if _wants_grad(q, k, v):
         return SpatialFlat.apply(q, k, v, num_heads)
     return _spatial_flat_forward(q, k, v, num_heads)
+
+
+# ---------------------------------------------------------------------------
+# L. spatial attention on head-split operands
+# ---------------------------------------------------------------------------
+
+
+def spatial_attention_plain(q, k, v):
+    """Plain version of ``spatial_attention``: fp32 scores and softmax, probs
+    rounded to v's dtype before PV, as the TPU kernel rounds them."""
+    dh = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh**-0.5
+    p = torch.softmax(s, dim=-1).to(v.dtype).float()
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def _spatial_attention_forward(q, k, v):
+    """Kernel L on the card, its plain version on the CPU; no autograd."""
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("spatial_attention: all operands must share one (R, H, N, dh) shape")
+    r, h, n, dh = q.shape
+    if n > 256:
+        raise NotImplementedError(
+            "spatial_attention: more than 256 patches per frame (ROADMAP slice 1, item 3a)"
+        )
+    device = _check("spatial_attention", h, h * dh, q=q, k=k, v=v)
+    if device.type == "cpu":
+        return spatial_attention_plain(q, k, v)
+    _cuda_ready("spatial_attention", q, k, v)
+    code = _DTYPE_CODES[q.dtype]
+    smem = build.function("spatial_flat", "sf_spatial_flat_smem_bytes", (_I, _I, _I, _I))(
+        n, h * dh, h, code
+    )
+    if smem > _MAX_SMEM:
+        raise ValueError(f"spatial_attention: needs {smem} bytes of shared memory per block")
+    out = torch.empty_like(q)
+    _launch(
+        "spatial_attention", "sf_spatial_heads", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        r, h, n, dh, _spatial_chunks(device, r, n, h), dh**-0.5, code,
+        library="spatial_flat",
+    )
+    return out
+
+
+class SpatialAttention(torch.autograd.Function):
+    """``spatial_attention`` with its gradient: forward is kernel L (its
+    plain version on the CPU), backward autograd of the plain version, as
+    the JAX package's backward is the VJP of its einsum reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _spatial_attention_forward(q, k, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            return torch.autograd.grad(spatial_attention_plain(*qkv), qkv, g)
+
+
+def spatial_attention(q, k, v):
+    """Non-causal softmax attention over N patches for each (row, head).
+
+    q, k, v: (R, H, N, dh), N at most 256. Returns (R, H, N, dh) in q's
+    dtype. Differentiable in q, k, v (``SpatialAttention``). The encoder
+    does not call it (it runs ``spatial_flat`` on flat rows), as the JAX
+    package's encoder does not call ``fused_spatial_attention``."""
+    if _wants_grad(q, k, v):
+        return SpatialAttention.apply(q, k, v)
+    return _spatial_attention_forward(q, k, v)
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = (
-    "temporal_decode_pm", "temporal_append_pm", "temporal_decode_pm_int8", "spatial_flat",
-    "temporal_fullclip", "spatial_flat_bwd", "temporal_fullclip_bwd",
+    "temporal_decode_pm", "temporal_decode_rm", "temporal_append_pm", "temporal_decode_pm_int8",
+    "spatial_flat", "temporal_fullclip", "spatial_flat_bwd", "temporal_fullclip_bwd",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -480,3 +480,115 @@ def test_streaming_kernels_refuse_a_gradient():
     with pytest.raises(NotImplementedError, match="no backward"):
         ops.temporal_decode_pm(q, kn, vn, kc, vc,
                                torch.tensor(0, dtype=torch.int32, device="cuda"), 4)
+
+
+# ---------------------------------------------------------------------------
+# J, K and L: the row-major cache and head-split spatial attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "rows,cap,heads,dh,length",
+    [
+        (56, 8, 4, 24, 0),
+        (56, 8, 4, 24, 7),
+        (56, 20, 4, 16, 13),  # a capacity that is not a multiple of 8
+        (1568, 16, 12, 64, 15),  # flagship streaming step
+        (1568, 16, 12, 64, 7),
+        (40, 5, 2, 128, 3),
+    ],
+)
+def test_temporal_decode_rm_matches_plain_and_pos_major(dtype, rows, cap, heads, dh, length):
+    """Kernel J against its plain version, the row-major cache after the
+    write equal; and bit for bit equal to kernel A on the same cache held
+    pos-major (one body, two strides)."""
+    d = heads * dh
+    q, kn, vn = (_randn((rows, d), dtype, s) for s in (41, 42, 43))
+    kc, vc = _randn((rows, cap, d), dtype, 44), _randn((rows, cap, d), dtype, 45)
+    k_pm, v_pm = kc.transpose(0, 1).contiguous(), vc.transpose(0, 1).contiguous()
+    cache_len = torch.tensor(length, dtype=torch.int32, device="cuda")
+    k_ref, v_ref = kc.clone(), vc.clone()
+    ref = ops.temporal_decode_rm_plain(q, kn, vn, k_ref, v_ref, cache_len, heads)
+    before = ops.LAUNCHES["temporal_decode_rm"]
+    got = ops.temporal_decode_rm(q, kn, vn, kc, vc, cache_len, heads)
+    pm = ops.temporal_decode_pm(q, kn, vn, k_pm, v_pm, cache_len, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_decode_rm"] == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(kc, k_ref) and torch.equal(vc, v_ref)
+    assert torch.equal(got, pm)
+    assert torch.equal(kc.transpose(0, 1), k_pm) and torch.equal(vc.transpose(0, 1), v_pm)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize(
+    "rows,cap,heads,dh,length",
+    [(56, 8, 4, 24, 0), (56, 8, 4, 24, 7), (56, 20, 4, 16, 13), (1568, 16, 12, 64, 15),
+     (1568, 16, 12, 64, 0), (40, 5, 2, 128, 3)],
+)
+def test_temporal_decode_rm_readonly_matches_plain(dtype, quantized, rows, cap, heads, dh, length):
+    """Kernel K, float cache and int8 codes with per-(row, position, head)
+    scales from ``quantize_kv_heads``; nothing is written."""
+    from streamformer_tpu_torch.models import encoder
+
+    d = heads * dh
+    q = _randn((rows, d), dtype, 51)
+    k, v = _randn((rows, cap, d), torch.float32, 52), _randn((rows, cap, d), torch.float32, 53)
+    if quantized:
+        (kq, ks), (vq, vs) = encoder.quantize_kv_heads(k, heads), encoder.quantize_kv_heads(v, heads)
+        args = [kq, vq, ks, vs]
+    else:
+        args = [k.to(dtype), v.to(dtype), None, None]
+    before_args = [None if a is None else a.clone() for a in args]
+    cache_len = torch.tensor(length, dtype=torch.int32, device="cuda")
+    ref = ops.temporal_decode_rm_readonly_plain(q, *args, cache_len, heads)
+    before = ops.LAUNCHES["temporal_decode_rm_readonly"]
+    got = ops.temporal_decode_rm_readonly(q, *args, cache_len, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_decode_rm_readonly"] == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert all(a is None or torch.equal(a, b) for a, b in zip(args, before_args))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "rows,heads,n,dh",
+    [(3, 4, 9, 24), (8, 12, 196, 64), (128, 12, 196, 64), (2, 2, 256, 64), (2, 1, 196, 128),
+     (4, 3, 33, 40)],
+)
+def test_spatial_attention_matches_plain_and_spatial_flat(dtype, rows, heads, n, dh):
+    """Kernel L against its plain version, and bit for bit equal to kernel B
+    on the same operands laid out flat (one body, head-split strides)."""
+    q, k, v = (_randn((rows, heads, n, dh), dtype, s) for s in (61, 62, 63))
+    ref = ops.spatial_attention_plain(q, k, v)
+    before = ops.LAUNCHES["spatial_attention"]
+    got = ops.spatial_attention(q, k, v)
+
+    def flat(a):
+        return a.transpose(1, 2).reshape(rows, n, heads * dh).contiguous()
+
+    b = ops.spatial_flat(flat(q), flat(k), flat(v), heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spatial_attention"] == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(flat(got), b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spatial_attention_gradient_is_the_plain_versions(dtype):
+    """L's backward is autograd of its plain version (the JAX package's
+    einsum VJP): the forward launches kernel L once, the gradients equal
+    autograd through the plain version."""
+    shape = (4, 3, 49, 32)
+    leaves = [_randn(shape, dtype, s).requires_grad_() for s in (71, 72, 73)]
+    w = _randn(shape, dtype, 74)
+    before = ops.LAUNCHES["spatial_attention"]
+    (ops.spatial_attention(*leaves).float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spatial_attention"] == before + 1
+    plain = [x.detach().clone().requires_grad_() for x in leaves]
+    (ops.spatial_attention_plain(*plain).float() * w.float()).sum().backward()
+    for a, b in zip(leaves, plain):
+        assert torch.equal(a.grad, b.grad)

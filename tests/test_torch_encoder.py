@@ -176,12 +176,14 @@ def test_out_of_slice_features_raise():
     with pytest.raises(NotImplementedError):  # capacity 64 + 2 frames: past kernel E's 32 keys
         model.stream(torch.zeros(1, 2, 3, 48, 48), model.init_cache(1))
     ring = encoder.StreamformerEncoder(cfg.replace(cache_mode="ring"), device="cpu")
-    with pytest.raises(NotImplementedError):  # the ring takes one frame per call
-        ring.stream(torch.zeros(1, 2, 3, 48, 48), ring.init_cache(1, capacity=8))
+    with pytest.raises(NotImplementedError):  # a ragged ring takes one frame per call
+        ring.stream(torch.zeros(1, 2, 3, 48, 48), ring.init_cache(1, capacity=8,
+                                                                  per_stream_len=True))
     with pytest.raises(NotImplementedError, match="mixed caches"):  # a float cache of another dtype
         encoder.init_cache(cfg.replace(cache_dtype="bfloat16"), 1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        encoder.init_cache(cfg.replace(cache_layout="row_major"), 1, device="cpu")
+    with pytest.raises(NotImplementedError):  # the row-major layout is lockstep only
+        encoder.init_cache(cfg.replace(cache_layout="row_major"), 1, per_stream_len=True,
+                           device="cpu")
     with pytest.raises(NotImplementedError):
         model(torch.zeros(1, 2, 3, 64, 64))
     with pytest.raises(NotImplementedError):

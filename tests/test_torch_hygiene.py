@@ -45,15 +45,17 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_port_runs_with_jax_unimportable():
-    """Import every module of the port and run a CPU step, and an int8 one
-    (int8 weights, int8 cache), with ``jax`` and ``streamformer_tpu``
-    blocked from import."""
+    """Import every module of the port and run a CPU step, an int8 one
+    (int8 weights, int8 cache), the OAD extractor and the vision tower, with
+    ``jax`` and ``streamformer_tpu`` blocked from import."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = sys.modules['streamformer_tpu'] = None\n"
         "import torch\n"
         "import streamformer_tpu_torch.checkpoint, streamformer_tpu_torch.ops.build\n"
         "import streamformer_tpu_torch.serving, streamformer_tpu_torch.server\n"
+        "from streamformer_tpu_torch.extract import oad\n"
+        "from streamformer_tpu_torch.downstream.vision_tower import TimesformerVisionTower\n"
         "from streamformer_tpu_torch.ops import quant\n"
         "from streamformer_tpu_torch.config import StreamformerConfig\n"
         "from streamformer_tpu_torch.models.encoder import StreamformerEncoder\n"
@@ -68,6 +70,12 @@ def test_port_runs_with_jax_unimportable():
         "out, cache = q.stream(torch.zeros(1, 1, 3, 32, 32), cache)\n"
         "assert cache['layers'][0]['k'].dtype == torch.int8 and int(cache['len']) == 1\n"
         "assert torch.isfinite(out['pooler_output']).all()\n"
+        "import numpy as np\n"
+        "frames = np.zeros((3, 40, 50, 3), np.uint8)\n"
+        "px = oad.preprocess_frames(frames, 32, device='cpu')\n"
+        "assert oad.extract_features_streaming(m, px, chunk=2, capacity=2).shape == (3, 32)\n"
+        "tower = TimesformerVisionTower(m, streaming_mode=True)\n"
+        "assert tower(px[None, :2]).shape == (1, 2, 4, 32)\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 

@@ -328,8 +328,8 @@ def test_int8_weights_with_int8_ring_cache():
 
 def test_int8_refusals():
     """What an int8 cache still refuses: partial appends (``new_valid``) and
-    multi-frame ring appends; and a float cache in another dtype than the
-    compute dtype."""
+    multi-frame appends to a ragged ring; and a float cache in another dtype
+    than the compute dtype."""
     _, _, cfg, model = _int8_pair(cache_capacity=8)
     x = torch.zeros(2, 2, 3, 48, 48)
     with pytest.raises(NotImplementedError, match="item 9b"):
@@ -337,7 +337,7 @@ def test_int8_refusals():
                      new_valid=torch.tensor([1, 2], dtype=torch.int32))
     ring = encoder.StreamformerEncoder(cfg.replace(cache_mode="ring"), device="cpu")
     with pytest.raises(NotImplementedError, match="ring"):
-        ring.stream(x, ring.init_cache(2))
+        ring.stream(x, ring.init_cache(2, per_stream_len=True))
     with pytest.raises(NotImplementedError, match="item 9a"):
         encoder.init_cache(cfg.replace(cache_dtype="bfloat16"), 1, device="cpu")
 
