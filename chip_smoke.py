@@ -10,12 +10,14 @@ Phases, each fatal on failure:
 
 1. the card's name and power limit (nvidia-smi), and the build of every
    kernel source in ``streamformer_tpu_torch/csrc`` (one nvcc each, all
-   started together);
+   started together); the bf16 kernels of B/L and I hold HMMA (tensor-core)
+   instructions (``cuobjdump -sass``);
 2. each kernel against its plain version at the flagship shapes, bf16 and
    fp32 (kernel A linear and ring), with its time, the plain version's
    time, one ``scaled_dot_product_attention`` call's time (a yardstick the
    port never calls) and the bound (the card's least time for the bytes
-   and operations);
+   and operations); B on the full clip's R=128 rows bit-equal to B on each
+   8-row slice (batch invariance);
 3. the whole encoder on the card against the same encoder on the CPU (the
    plain versions) at a small fp32 config: full clip, a linear stream and a
    ring stream of 2C frames;
@@ -79,7 +81,8 @@ Phases, each fatal on failure:
     the peak memory of both;
 17. training clips/s and ms per micro-step at steady state, and a
     ``torch.profiler`` window of the trainer: device busy ms per micro-step,
-    device time by kernel and launches per micro-step;
+    device time by kernel and launches per micro-step (B, C, H and I each
+    matched by its symbol, fatal if one reads no time);
 18. kernels J and K (the row-major cache) against their plain versions at
     the flagship shapes, bf16 and fp32, len 0, 7 and 15, K on int8 codes
     (``quantize_kv_heads``) and on a float cache, J's written rows equal,
@@ -88,10 +91,9 @@ Phases, each fatal on failure:
     stream of 16 frames (C=16) through kernel J, each frame within the bf16
     envelope of the full clip and bit for bit equal to the pos-major stream;
     an int8 row-major stream through kernel K at pooled cosine > 0.999 to
-    the full clip; a row-major ring of 2C frames (C=8, no kernel, as in the
-    JAX package) within 0.008 pooled of the pos-major ring, on the main
-    input and on four more seeded inputs; and frames/s of a linear stream
-    on both layouts;
+    the full clip; a row-major ring of 2C frames (C=8, kernel J) within
+    0.008 pooled of the pos-major ring, on the main input and on four more
+    seeded inputs; and frames/s of a linear stream on both layouts;
 20. multi-frame appends to the ring (C=8, 3C frames) in chunks of 4 and 12,
     each frame within 0.008 pooled of the t=1 ring stream, kernel A L*t
     times a chunk; the same on an int8 ring with kernel F;
@@ -246,6 +248,18 @@ def main():
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, {len(build.SOURCES)} sources "
           "in parallel)")
+    # the bf16 bodies of B/L and I run on the tensor cores: HMMA in their SASS
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    for lib in ("spatial_flat", "spatial_flat_bwd"):
+        sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(lib))], check=True,
+                              capture_output=True, text=True).stdout
+        hmma = {}
+        for fn in sass.split("Function : ")[1:]:
+            if "_tc_kernel" in fn.split("\n", 1)[0]:
+                hmma[fn.split("\n", 1)[0].strip()] = fn.count("HMMA")
+        if not hmma or not all(hmma.values()):
+            fail(f"{lib}: bf16 kernels without HMMA instructions: {hmma}")
+        print(f"{lib}: HMMA instructions in the bf16 kernels' SASS: {sorted(hmma.values())}")
 
     def time_ms(fn, iters=15):
         """Median device time of one call, L2 flushed before each."""
@@ -386,13 +400,24 @@ def main():
         # B: the streaming step (R = B) and the full clip (R = B*T)
         for r in (b_, b_ * t_):
             q, k, v = (randn(r, n_, d_, dtype=dtype) for _ in range(3))
-            err = max_err(ops.spatial_flat(q, k, v, h_), ops.spatial_flat_plain(q, k, v, h_))
+            out = ops.spatial_flat(q, k, v, h_)
+            err = max_err(out, ops.spatial_flat_plain(q, k, v, h_))
             qh, kh, vh = (x.view(r, n_, h_, dh).transpose(1, 2) for x in (q, k, v))
             record("spatial_flat", f"R={r} N={n_}", dn, err,
                    lambda: ops.spatial_flat(q, k, v, h_),
                    lambda: ops.spatial_flat_plain(q, k, v, h_),
                    lambda: F.scaled_dot_product_attention(qh, kh, vh),
                    4 * elt * r * n_ * d_, 4 * r * n_ * n_ * d_)
+            # batch invariance: the full clip's rows equal, bit for bit, B on each
+            # streaming step's slice of B rows (the stream-against-clip and
+            # engine gates compare B at one R against B at another)
+            for i in range(0, r, b_):
+                if not torch.equal(ops.spatial_flat(q[i:i + b_], k[i:i + b_], v[i:i + b_], h_),
+                                   out[i:i + b_]):
+                    fail(f"spatial_flat {dn}: rows {i}..{i + b_ - 1} of R={r} differ from B "
+                         f"on those {b_} rows alone")
+            if r > b_:
+                print(f"spatial_flat {dn}: R={r} bit-equal to B on each slice of {b_} rows")
         # C: the full clip's temporal attention (R = B*N rows of T frames)
         r = b_ * n_
         q, k, v = (randn(r, t_, d_, dtype=dtype) for _ in range(3))
@@ -1188,9 +1213,12 @@ def main():
     torch.cuda.synchronize()
     rows = device_rows(trainer.last_profile)
     busy = sum(e.device_time_total for e in rows) / n_prof / 1e3
+    # the kernels' symbols (csrc/): I's and H's before B's and C's, which
+    # their names contain; bf16 B is spatial_flat_tc_kernel, fp32 B
+    # spatial_flat_kernel
     groups = (("I spatial_flat_bwd", ("spatial_flat_bwd",)),
               ("H temporal_fullclip_bwd", ("temporal_fullclip_bwd",)),
-              ("B spatial_flat", ("spatial_flat_kernel",)),
+              ("B spatial_flat", ("spatial_flat_tc_kernel", "spatial_flat_kernel")),
               ("C temporal_fullclip", ("temporal_fullclip_kernel",)),
               ("matmuls (cuBLAS, CUTLASS)", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
               ("optimizer (multi-tensor)", ("multi_tensor", "foreach", "adam")),
@@ -1202,6 +1230,9 @@ def main():
     for e in rows:
         group = next((g for g, keys in groups if any(k in e.key for k in keys)), "other")
         by_group[group] += e.device_time_total / n_prof / 1e3
+    missing = [g for g, _ in groups[:4] if by_group[g] <= 0]
+    if missing:
+        fail(f"training profile: no device time matched {missing}: a kernel symbol was renamed")
     print(f"training profile, {n_prof} micro-steps ({n_prof // tr['update_freq']} updates): device "
           f"busy {busy:.2f} ms per micro-step, {100 * busy / (micro_s * 1e3):.1f} % of the "
           f"unprofiled micro-step; {sum(e.count for e in rows) / n_prof:.0f} launches per "
@@ -1371,6 +1402,7 @@ def main():
     torch.cuda.synchronize()
     run = dict(ops.LAUNCHES)
     if run != {**zeros, "temporal_decode_pm": 2 * L * RING_CAPACITY,
+               "temporal_decode_rm": 2 * L * RING_CAPACITY,
                "spatial_flat": 2 * 2 * L * RING_CAPACITY}:
         fail(f"ring streams launches {run}")
     add(rm_launches, run)
@@ -1379,8 +1411,8 @@ def main():
                                          generator=torch.Generator(device=dev).manual_seed(seed))))
     if not max(gaps) <= STREAM_TOL_POOLED:
         fail(f"row-major ring vs pos-major ring: pooled max-abs {gaps} > {STREAM_TOL_POOLED}")
-    print(f"row-major ring (plain attention, no kernel, as in the JAX package) vs pos-major ring "
-          f"(kernel A), {2 * RING_CAPACITY} frames at C={RING_CAPACITY}: pooled max-abs {gaps[0]} "
+    print(f"row-major ring (kernel J) vs pos-major ring (kernel A), {2 * RING_CAPACITY} frames "
+          f"at C={RING_CAPACITY}: pooled max-abs {gaps[0]} "
           f"(<= {STREAM_TOL_POOLED}); on the inputs of seeds {list(GAP_SEEDS)}: {gaps[1:]}; "
           f"launches {run}")
 

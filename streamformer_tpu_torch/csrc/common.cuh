@@ -1,5 +1,7 @@
 // Helpers shared by the port's attention kernels: fp32 <-> storage-type
-// conversion, 2- and 8-element vector loads and stores, warp reductions.
+// conversion, 2- and 8-element vector loads and stores, warp reductions; and
+// the tensor-core pieces of the bf16 spatial bodies (B, L and I): staging,
+// ldmatrix, mma.sync and the softmax over 16-key steps.
 //
 // Every kernel computes in fp32 and stores in its input type: float or
 // __nv_bfloat16. The C entry points take a dtype code (SF_FLOAT32,
@@ -14,16 +16,6 @@ enum { SF_FLOAT32 = 0, SF_BFLOAT16 = 1 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Round an fp32 value through the storage type (round to nearest even).
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Two consecutive elements; p is aligned to two elements.
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -94,4 +86,273 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// ---- Tensor-core helpers (bf16 bodies): cp.async staging, ldmatrix, and
+// mma.sync.m16n8k16 with bf16 operands and fp32 accumulation. Fragment
+// layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with g = lane / 4
+// and c = lane % 4:
+//   A 16x16, four b32 registers: (g, 2c..2c+1), (g+8, 2c..), (g, 8+2c..),
+//     (g+8, 8+2c..);
+//   B 16x8 (k x n), two registers: (k = 2c..2c+1, n = g), (k = 8+2c.., n = g);
+//   C 16x8 fp32, four values: (g, 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1).
+// Two neighbouring C tiles (columns 0-7 and 8-15) are thus, packed in pairs,
+// the A fragment of a product over those 16 columns.
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; completes at cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8 (16-byte aligned).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+// The same, each matrix transposed.
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a b: a 16x16 (A fragment), b 16x8 (b0, b1), c 16x8 fp32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to bf16 (nearest even) and packed, lo first.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Reductions over the four lanes of a quad (the lanes holding one C row).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Staged bf16 operand rows for ldmatrix: dh padded with zeros to a multiple
+// of 16, then to an odd number of 16-byte units, so that the eight rows of
+// an 8x8 matrix fall in eight distinct bank groups.
+inline int tc_row_stride(int dh) { return ((((dh + 15) / 16 * 16) * 2 / 16) | 1) * 8; }
+
+// Stage rows [0, npad) of the (n x dh) head slices of a and b (rows `tok`
+// elements apart from `base`) into as and bs, `stride` elements a row, with
+// cp.async by the whole block. Rows past n and columns past dh (up to
+// dh rounded to 16) are zeros: nothing past the operands is read. The caller
+// waits (cp_async_wait_all, __syncthreads) before reading.
+__device__ __forceinline__ void stage2_tc(__nv_bfloat16* as, __nv_bfloat16* bs,
+                                          const __nv_bfloat16* __restrict__ a,
+                                          const __nv_bfloat16* __restrict__ b, long base,
+                                          int tok, int n, int npad, int dh, int stride) {
+  const int nc = (dh + 15) / 16 * 2;  // 16-byte units a staged row
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < npad * nc; i += blockDim.x) {
+    const int r = i / nc, c = i % nc;
+    __nv_bfloat16* ad = as + r * stride + c * 8;
+    __nv_bfloat16* bd = bs + r * stride + c * 8;
+    if (r < n && c * 8 < dh) {
+      const long src = base + static_cast<long>(r) * tok + c * 8;
+      cp_async16(ad, a + src);
+      cp_async16(bd, b + src);
+    } else {
+      *reinterpret_cast<uint4*>(ad) = zero;
+      *reinterpret_cast<uint4*>(bd) = zero;
+    }
+  }
+  cp_async_commit();
+}
+
+// A fragments of rows [r0, r0 + 16) of a head slice, straight from device
+// memory (zeros past n and past dh): a[kk] is the fragment of dh step kk.
+template <int DT>
+__device__ __forceinline__ void load_frags(unsigned (&a)[DT][4],
+                                           const __nv_bfloat16* __restrict__ x, long base, int tok,
+                                           int r0, int n, int dh, int lane) {
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + g + (i & 1) * 8, e = kk * 16 + 2 * c + (i >> 1) * 8;
+      a[kk][i] = r < n && e < dh
+                     ? *reinterpret_cast<const unsigned*>(x + base + static_cast<long>(r) * tok + e)
+                     : 0u;
+    }
+  }
+}
+
+// acc (16 x 16: two 8-column C tiles) = A X[16 t, 16 t + 16)^T, A given as
+// fragments over ndt dh steps, X staged (rows `stride` elements apart).
+template <int DT>
+__device__ __forceinline__ void frags_times_rows(float (&acc)[2][4], const unsigned (&a)[DT][4],
+                                                 const __nv_bfloat16* xs, int t, int ndt,
+                                                 int stride, int lane) {
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+    if (kk < ndt) {
+      unsigned b[4];  // rows 0-7 of the step (b0, b1), rows 8-15 (b2, b3)
+      ldsm_x4(b, xs + (t * 16 + (mi >> 1) * 8 + (lane & 7)) * stride + kk * 16 + (mi & 1) * 8);
+      mma_bf16(acc[0], a[kk], b[0], b[1]);
+      mma_bf16(acc[1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x dh) += W X[16 t, 16 t + 16), W a 16x16 A fragment, X staged.
+template <int DT>
+__device__ __forceinline__ void weights_times_cols(float (&acc)[2 * DT][4], const unsigned (&w)[4],
+                                                   const __nv_bfloat16* xs, int t, int ndt,
+                                                   int stride, int lane) {
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int dd = 0; dd < DT; ++dd) {
+    if (dd < ndt) {
+      unsigned b[4];  // dh 0-7 of the step (b0, b1), dh 8-15 (b2, b3)
+      ldsm_x4_trans(b,
+                    xs + (t * 16 + (mi & 1) * 8 + (lane & 7)) * stride + dd * 16 + (mi >> 1) * 8);
+      mma_bf16(acc[2 * dd], w, b[0], b[1]);
+      mma_bf16(acc[2 * dd + 1], w, b[2], b[3]);
+    }
+  }
+}
+
+// A 16 x dh accumulator (2 DT C tiles) set to zero.
+template <int DT>
+__device__ __forceinline__ void zero_tiles(float (&acc)[2 * DT][4]) {
+#pragma unroll
+  for (int j = 0; j < 2 * DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// Rows r0 + g and r0 + g + 8 (those below `limit`) of a 16 x dh accumulator
+// to out in bf16, rows `tok` elements apart from `base`.
+template <int DT>
+__device__ __forceinline__ void store_tiles(__nv_bfloat16* __restrict__ out,
+                                            const float (&acc)[2 * DT][4], long base, int tok,
+                                            int r0, int limit, int dh, int ndt, int lane) {
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * DT; ++j) {
+    const int e = j * 8 + 2 * c;
+    if (j < 2 * ndt && e < dh) {
+      if (r0 + g < limit)
+        *reinterpret_cast<unsigned*>(out + base + static_cast<long>(r0 + g) * tok + e) =
+            pack_bf16(acc[j][0], acc[j][1]);
+      if (r0 + g + 8 < limit)
+        *reinterpret_cast<unsigned*>(out + base + static_cast<long>(r0 + g + 8) * tok + e) =
+            pack_bf16(acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// The A fragment of a 16x16 product operand from two C tiles (columns 0-7,
+// 8-15), rounded to bf16.
+__device__ __forceinline__ void pack_frag(unsigned (&w)[4], const float (&x)[2][4]) {
+  w[0] = pack_bf16(x[0][0], x[0][1]);
+  w[1] = pack_bf16(x[0][2], x[0][3]);
+  w[2] = pack_bf16(x[1][0], x[1][1]);
+  w[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+// 2^x by the SFU (ex2.approx.ftz: about 2 ulp, subnormals to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Scores of a 16-query tile against keys [16 t, 16 t + 16): fp32 products
+// of bf16 operands, keys at or past n set to -inf (only the last step has
+// any). The scale is applied with the exponent: with c = scale * log2(e),
+// exp(scale s - scale m) = 2^(c s - c m), one FFMA and one ex2 an element.
+template <int DT>
+__device__ __forceinline__ void scores16(float (&s)[2][4], const unsigned (&qa)[DT][4],
+                                         const __nv_bfloat16* ks, int t, int n, int ndt,
+                                         int stride, int lane) {
+  frags_times_rows<DT>(s, qa, ks, t, ndt, stride, lane);
+  if ((t + 1) * 16 > n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (t * 16 + h * 8 + 2 * (lane & 3) + (e & 1) >= n) s[h][e] = -INFINITY;
+  }
+}
+
+// The softmax statistics of a 16-query tile's rows g (values 0, 1 of each C
+// tile) and g + 8 (values 2, 3) over the n keys, in one pass over 16-key
+// steps: mc = -c m, with m the row's largest score, and inv = 1 / sum of
+// 2^(c s + mc). Each lane keeps a running max and sum of its own columns,
+// rescaled when its max grows; the quad then combines them.
+template <int DT>
+__device__ __forceinline__ void softmax_stats(float (&mc)[2], float (&inv)[2],
+                                              const unsigned (&qa)[DT][4],
+                                              const __nv_bfloat16* ks, int n, int ndt, int stride,
+                                              float c, int lane) {
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  const int nkt = (n + 15) / 16;
+#pragma unroll 2
+  for (int t = 0; t < nkt; ++t) {
+    float s[2][4];
+    scores16<DT>(s, qa, ks, t, n, ndt, stride, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(mx[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                          fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+      const float b = mn == -INFINITY ? 0.f : -mn * c;  // no key of this lane yet: 0
+      sum[r] = sum[r] * ex2(fmaf(mx[r], c, b)) + ex2(fmaf(s[0][2 * r], c, b)) +
+               ex2(fmaf(s[0][2 * r + 1], c, b)) + ex2(fmaf(s[1][2 * r], c, b)) +
+               ex2(fmaf(s[1][2 * r + 1], c, b));
+      mx[r] = mn;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mc[r] = -quad_max(mx[r]) * c;
+    inv[r] = __fdiv_rn(1.f, quad_sum(sum[r] * ex2(fmaf(mx[r], c, mc[r]))));
+  }
+}
+
+// Normalised probabilities from the statistics: 2^(c s + mc) inv, fp32.
+__device__ __forceinline__ void probs16(float (&p)[2][4], const float (&s)[2][4],
+                                        const float (&mc)[2], const float (&inv)[2], float c) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[h][e] = ex2(fmaf(s[h][e], c, mc[e >> 1])) * inv[e >> 1];
 }

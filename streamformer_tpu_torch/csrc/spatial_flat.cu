@@ -6,37 +6,68 @@
 // fused_spatial_attention (_spatial_pallas, body _spatial_kernel). Same
 // contract: q, k, v, out are (R, N, D) for B and (R, H, N, dh) for L, which
 // the kernel reads through three strides (row, head, token); scores are taken
-// from input-type values with fp32 accumulation, the softmax runs in fp32,
-// and the probabilities are rounded to the input type before the PV
-// product, as both TPU kernels do. L's TPU kernel pads N to 128 for Mosaic's
-// tiles; nothing is padded here.
+// from input-type values with fp32 accumulation and multiplied by the scale
+// in fp32, the softmax runs in fp32 and is exact (two passes over the whole
+// score row), and the normalised probabilities are rounded to the input type
+// before the PV product, as both TPU kernels do. L's TPU kernel pads N to 128
+// for Mosaic's tiles; here N is padded to 16 in shared memory only.
 //
-// Bound on the H100: bytes at the full-clip shape in bf16 (about 2*N
-// operations per byte against the tensor cores' ~295), operations in fp32.
-// This first version computes on the CUDA cores, not the tensor cores, so
-// what limits it is the fp32 FMA rate and the shared-memory reads that feed
-// it; its design keeps each K/V byte read from device memory once per
-// block. One block per (row, head, query chunk): the head's K and V slices
-// (N x dh) are staged in shared memory with rows padded to an odd number of
-// 16-byte units, so that eight lanes reading eight rows hit distinct banks.
-// Each warp takes four queries at a time, so every K/V element read from
-// shared memory feeds four FMAs. QK^T: lane j holds the scores of keys j,
-// j+32, ... (N <= 256), accumulated over dh in chunks of eight.
-// PV: lanes split into dh/8 chunks of the output times a power-of-two
-// number of key groups, reduced with shuffles at the end. The wrapper
-// splits the queries of a row into chunks only when R*H blocks alone would
-// leave SMs idle (the streaming step). L is B's body on head-split strides:
-// a head's rows are contiguous dh-element runs there, which changes the
-// addresses and nothing else.
+// Bound on the H100: bytes at the full-clip shape in bf16. Each (row, head)
+// reads q, k, v and writes out, N x dh elements each, for 4 N^2 dh
+// operations: about N/2 = 98 operations a byte at N=196, under the ~295 a
+// byte where the bf16 tensor cores would become the limit. The products
+// therefore belong on the tensor cores, and the design's work is to read
+// each byte once and to hide the load latency behind the products.
+//
+// bf16 body (spatial_flat_tc_kernel), on the tensor cores. One block per
+// (row, head, chunk of at most 208 queries: the whole row at N=196), one
+// warp per 16-query tile of the chunk, two blocks an SM. The head's K and V
+// (N x dh) go to shared memory with cp.async, rows zero-padded to a multiple
+// of 16 keys (padded keys must hold zeros: they get probability 0, and
+// 0 x NaN from stale memory would be NaN) and dh zero-padded to 16, each row
+// then padded to an odd number of 16-byte units so that ldmatrix is free of
+// bank conflicts. While the copies fly, each warp loads its Q fragments
+// straight from device memory. The softmax is exact and normalised before
+// rounding, in two passes over 16-key steps:
+//   1. S = Q K^T on mma.sync.m16n8k16 (bf16 operands, fp32 accumulation; K
+//      fragments by ldmatrix); each lane keeps a running max and sum of its
+//      columns, the quad combines them into the row's max m and 1/sum;
+//   2. S again (the same bits), p = exp(scale s - scale m) / sum rounded to
+//      bf16 and packed straight into A fragments (the C layout of two
+//      neighbouring 8-key tiles is the A layout of a 16-key step), and
+//      O += P V on mma.sync with V fragments by ldmatrix.trans.
+// The scale multiplies the fp32 scores inside the exponent: with
+// c = scale log2(e), exp(scale s - scale m) = 2^(c s - c m), one FFMA and one
+// ex2.approx an element. The key steps are rolled loops: a body that kept
+// the whole score row in registers, unrolled over the row, measured slower
+// on the H100. Computing S twice costs a third more tensor work. A query's
+// arithmetic depends on its (row, head) operands only, never on the chunk
+// or tile that holds it: B is batch-invariant, and L (B's body on
+// head-split strides) is bit-equal to B. A template bounds dh
+// (16-wide steps) so that narrow heads hold fewer registers.
+//
+// fp32 body (spatial_flat_kernel), on the CUDA cores: TF32 could not hold
+// the 2e-5 fp32 gate, so fp32 keeps exact FMAs. One block per (row, head,
+// query chunk): the head's K and V slices (N x dh) are staged in shared
+// memory with rows padded to an odd number of 16-byte units, so that eight
+// lanes reading eight rows hit distinct banks. Each warp takes four queries
+// at a time, so every K/V element read from shared memory feeds four FMAs.
+// QK^T: lane j holds the scores of keys j, j+32, ... (N <= 256),
+// accumulated over dh in chunks of eight. PV: lanes split into dh/8 chunks
+// of the output times a power-of-two number of key groups, reduced with
+// shuffles at the end. The wrapper splits the queries of a row into chunks
+// only when R*H blocks alone would leave SMs idle (the streaming step).
 #include "common.cuh"
 
 namespace {
 
+// ---- fp32 body on the CUDA cores
+
+using T = float;
 constexpr int kWarps = 4;   // warps per block
 constexpr int kQ = 4;       // queries a warp takes at a time
 constexpr int kMaxKpl = 8;  // keys per lane in QK^T: N <= 256
 
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 spatial_flat_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     T* __restrict__ out, int n, int dh, int heads, long row_elems,
@@ -110,7 +141,7 @@ spatial_flat_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
     }
 
-    // fp32 softmax per query, probabilities rounded to the input type
+    // fp32 softmax per query
     float p[kQ][kMaxKpl];
 #pragma unroll
     for (int qi = 0; qi < kQ; ++qi) {
@@ -129,7 +160,7 @@ spatial_flat_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
       const float inv = 1.f / warp_sum(sum);
 #pragma unroll
-      for (int j = 0; j < kMaxKpl; ++j) p[qi][j] = round_to<T>(p[qi][j] * inv);
+      for (int j = 0; j < kMaxKpl; ++j) p[qi][j] = p[qi][j] * inv;
     }
 #pragma unroll
     for (int j = 0; j < kMaxKpl; ++j) {
@@ -182,7 +213,6 @@ inline int smem_bytes(int n, int dh, int elem) {
 }
 
 // head_split: q, k, v, out are (R, H, N, dh), else (R, N, H*dh)
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
            int heads, bool head_split, int q_per_block, float scale, cudaStream_t stream) {
   const long d = static_cast<long>(heads) * dh;
@@ -192,33 +222,133 @@ int launch(const void* q, const void* k, const void* v, void* out, int rows, int
   const int elem = static_cast<int>(sizeof(T));
   const int stride = row_stride(dh, elem);
   const int smem = smem_bytes(n, dh, elem);
-  cudaError_t err = cudaFuncSetAttribute(spatial_flat_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(spatial_flat_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(rows) * heads, (n + q_per_block - 1) / q_per_block);
-  spatial_flat_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
+  spatial_flat_kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), n, dh, heads, row_elems, head_elems, tok_elems, q_per_block, stride,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 body on the tensor cores
+
+using bf16 = __nv_bfloat16;
+
+// Most warps a block has: 208 queries, a whole row of the flagship (N=196)
+// in one block, so that K and V are staged once per (row, head). Two such
+// blocks fit an SM (at most 78 registers a thread, for dh <= 64).
+constexpr int kTcMaxWarps = 13;
+
+// DT: most 16-wide dh steps (dh <= 16 DT); the runtime count ndt is at most
+// DT. The key steps are a rolled loop, so the body stays small.
+template <int DT>
+__global__ void __launch_bounds__(kTcMaxWarps * 32, DT <= 4 ? 2 : 1)
+spatial_flat_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out, int n, int dh,
+                       int heads, long row_elems, long head_elems, int tok, int q_per_block,
+                       int chunks, int stride, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nkt = (n + 15) / 16, ndt = (dh + 15) / 16;
+  const int npad = nkt * 16;
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // npad x stride
+  bf16* vs = ks + npad * stride;             // npad x stride
+
+  const int rh = blockIdx.x / chunks, chunk = blockIdx.x % chunks;
+  const long base = static_cast<long>(rh / heads) * row_elems + (rh % heads) * head_elems;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const float c2 = scale * kLog2e;
+
+  stage2_tc(ks, vs, k, v, base, tok, n, npad, dh, stride);
+  const int q_begin = chunk * q_per_block;
+  const int q_end = min(n, q_begin + q_per_block);
+  int q0 = q_begin + warp * 16;
+  unsigned qa[DT][4];
+  load_frags<DT>(qa, q, base, tok, q0, n, dh, lane);  // overlaps the staging copies
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (; q0 < q_end; q0 += warps * 16) {
+    // pass 1: the exact row max and sum over all n keys
+    float mc[2], inv[2];
+    softmax_stats<DT>(mc, inv, qa, ks, n, ndt, stride, c2, lane);
+    // pass 2: O = P V, P normalised and rounded to bf16 in the A fragments
+    float o[2 * DT][4];
+    zero_tiles<DT>(o);
+    for (int t = 0; t < nkt; ++t) {
+      float s[2][4], p[2][4];
+      scores16<DT>(s, qa, ks, t, n, ndt, stride, lane);
+      probs16(p, s, mc, inv, c2);
+      unsigned w[4];
+      pack_frag(w, p);
+      weights_times_cols<DT>(o, w, vs, t, ndt, stride, lane);
+    }
+    if (q0 + warps * 16 < q_end) load_frags<DT>(qa, q, base, tok, q0 + warps * 16, n, dh, lane);
+    store_tiles<DT>(out, o, base, tok, q0, q_end, dh, ndt, lane);
+  }
+}
+
+// K and V, 16 * ceil(n / 16) rows each.
+inline int tc_smem_bytes(int n, int dh) {
+  return 2 * ((n + 15) / 16 * 16) * tc_row_stride(dh) * 2;
+}
+
+template <int DT>
+int launch_tc_body(const void* q, const void* k, const void* v, void* out, int rows, int n,
+                   int dh, int heads, long row_elems, long head_elems, int tok, int q_per_block,
+                   float scale, cudaStream_t stream) {
+  const int smem = tc_smem_bytes(n, dh);
+  cudaError_t err = cudaFuncSetAttribute(spatial_flat_tc_kernel<DT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = (n + q_per_block - 1) / q_per_block;
+  const dim3 grid(static_cast<unsigned>(rows) * heads * chunks);
+  // one warp for each 16-query tile of a chunk
+  spatial_flat_tc_kernel<DT><<<grid, q_per_block / 16 * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), n, dh, heads, row_elems, head_elems, tok, q_per_block, chunks,
+      tc_row_stride(dh), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// head_split: q, k, v, out are (R, H, N, dh), else (R, N, H*dh). The query
+// chunk is rounded up to whole 16-query tiles, at most kTcMaxWarps of them.
+int launch_tc(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
+              int heads, bool head_split, int q_per_block, float scale, cudaStream_t stream) {
+  if (n > 256 || dh > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const long d = static_cast<long>(heads) * dh;
+  const long row_elems = n * d;
+  const long head_elems = head_split ? static_cast<long>(n) * dh : dh;
+  const int tok = head_split ? dh : static_cast<int>(d);
+  const int qpb = min((q_per_block + 15) / 16, kTcMaxWarps) * 16;
+  if (dh <= 32)
+    return launch_tc_body<2>(q, k, v, out, rows, n, dh, heads, row_elems, head_elems, tok, qpb,
+                             scale, stream);
+  if (dh <= 64)
+    return launch_tc_body<4>(q, k, v, out, rows, n, dh, heads, row_elems, head_elems, tok, qpb,
+                             scale, stream);
+  return launch_tc_body<8>(q, k, v, out, rows, n, dh, heads, row_elems, head_elems, tok, qpb,
+                           scale, stream);
+}
+
 int dispatch(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
              int heads, bool head_split, int q_per_block, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == SF_BFLOAT16)
-    return launch<__nv_bfloat16>(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale,
-                                 st);
+    return launch_tc(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale, st);
   if (dtype == SF_FLOAT32)
-    return launch<float>(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale, st);
+    return launch(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" int sf_spatial_flat_smem_bytes(int n, int d, int heads, int dtype) {
-  return smem_bytes(n, d / heads, dtype == SF_BFLOAT16 ? 2 : 4);
+  return dtype == SF_BFLOAT16 ? tc_smem_bytes(n, d / heads) : smem_bytes(n, d / heads, 4);
 }
 
 // B: q, k, v, out (R, N, D)

@@ -12,16 +12,45 @@
 //   dq = ds k              dk = ds^T q             dv = p^T g
 //
 // with the TPU kernel's rounding: products take operands in the input type
-// with fp32 accumulation, the softmax statistics and delta are fp32, and ds
-// and p are rounded to the input type before the last three products.
+// with fp32 accumulation, the softmax statistics and delta are fp32 (delta
+// from the fp32 p, not from the rounded output), and ds and p are rounded to
+// the input type before the last three products.
 //
-// Bound on the H100: bytes in bf16 if the products ran on the tensor cores
-// (seven (R, N, D) arrays against about 2.5*N operations per byte). This
-// first version computes on the CUDA cores, so what limits it is the fp32
-// FMA rate and the shared-memory reads that feed it. An (N, N) tile of p
-// does not fit beside the operands, and dk and dv sum over the queries while
-// dq sums over the keys. So the work is two kernels of the forward's shape
-// (spatial_flat.cu), launched back to back by one C entry:
+// Bound on the H100: bytes in bf16. A (row, head) moves seven N x dh arrays
+// (14 N dh bytes) for 10 N^2 dh operations, about 0.7 N = 140 operations a
+// byte at N=196, under the ~295 a byte where the bf16 tensor cores become
+// the limit. On the CUDA cores the same work is bound by the fp32 FMA rate
+// instead, which is what the bf16 body below removes.
+//
+// bf16 body (spatial_flat_bwd_tc_kernel), on the tensor cores, one launch.
+// One block per (row, head) holds all N queries and keys (N <= 256), four
+// warps, in two phases split by __syncthreads; every product runs on
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulation) over rolled loops of
+// 16-key (or 16-query) steps, as in the forward (spatial_flat.cu), and the
+// exponentials are 2^(c s - c m) with c = scale log2(e):
+//
+//   1. query side: K and V of the head in shared memory (cp.async, zero rows
+//      and columns to 16, rows padded for conflict-free ldmatrix). Each warp
+//      takes 16-query tiles, its Q and G fragments in registers, and sweeps
+//      the keys three times: S = Q K^T for the row's max and 1/sum (running
+//      per lane, combined by the quad); S and dP = G V^T for
+//      delta = sum_j dp p with the fp32 p; S and dP again (the same bits) for
+//      ds = p (dp - delta) scale, rounded to bf16 and packed straight into A
+//      fragments of dq = ds K (K by ldmatrix.trans). dq is written, and
+//      (-c m, 1/sum, delta) go to shared memory, three fp32 a query.
+//   2. key side: Q and G restaged into the same shared memory. Each warp
+//      takes 16-key tiles, its K and V fragments in registers, over 16-query
+//      steps: S^T = K Q^T and dP^T = V G^T, P^T from the shared statistics,
+//      ds^T and the bf16-rounded P^T as A fragments of dk = ds^T Q and
+//      dv = P^T G (Q, G by ldmatrix.trans), summed in registers over the
+//      query steps and written once.
+//
+// No global scratch and no atomics: every output element is summed by one
+// lane in a fixed order, so two runs give the same bits.
+//
+// fp32 body, on the CUDA cores (TF32 could not hold the 2e-5 fp32 gate): two
+// kernels of the forward's fp32 shape (spatial_flat.cu), launched back to
+// back by one C entry:
 //
 //   1. query side, one block per (row, head, query chunk), K and V of the
 //      head staged in shared memory: each warp takes four queries, lane j
@@ -35,20 +64,21 @@
 //      chain of FMAs, takes p and ds from the statistics, and reduces
 //      dk = ds^T q and dv = p^T g over the queries with shuffles.
 //
-// Every output element is owned by one lane and summed in a fixed order:
-// no atomics, two runs give the same bits. The price is that s and dp are
-// computed twice (seven products for the TPU kernel's five).
+// Every output element is owned by one lane and summed in a fixed order, so
+// this body too repeats bit for bit; it computes s and dp twice.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;   // warps per block
+// ---- fp32 body on the CUDA cores
+
+using T = float;
+constexpr int kWarps = 4;   // warps per block (both bodies)
 constexpr int kQ = 4;       // rows (queries or keys) a warp takes at a time
 constexpr int kMaxKpl = 8;  // columns per lane: N <= 256
 
 // Stage the head slice (n x dh) of a and b into shared memory, rows padded
 // to `stride` elements.
-template <typename T>
 __device__ __forceinline__ void stage2(T* as, T* bs, const T* __restrict__ a,
                                        const T* __restrict__ b, long row_base, int n, int d,
                                        int nc, int stride) {
@@ -61,7 +91,6 @@ __device__ __forceinline__ void stage2(T* as, T* bs, const T* __restrict__ a,
 }
 
 // The warp's kQ rows [r0, r0 + kQ) of a and b as fp32 (zeros past r_end).
-template <typename T>
 __device__ __forceinline__ void own_rows(float* as, float* bs, const T* __restrict__ a,
                                          const T* __restrict__ b, long row_base, int r0,
                                          int r_end, int d, int dh, int lane) {
@@ -76,7 +105,6 @@ __device__ __forceinline__ void own_rows(float* as, float* bs, const T* __restri
 
 // acc[ri][j] = sum over dh of own[ri] . staged[lane + 32 j], one sequential
 // FMA chain over dh for each pair (the same chain on both sides).
-template <typename T>
 __device__ __forceinline__ void dots(float (&acc)[kQ][kMaxKpl], const float* own, const T* staged,
                                      int n, int nc, int dh, int stride, int lane) {
   const int kpl = (n + 31) / 32;
@@ -112,7 +140,6 @@ __device__ __forceinline__ void dots(float (&acc)[kQ][kMaxKpl], const float* own
 // handed over through `ps` (n float4, one per column). Lanes split into dh/8
 // chunks of the output times a power-of-two number of column groups, summed
 // with shuffles at the end.
-template <typename T>
 __device__ __forceinline__ void weighted_rows(T* __restrict__ out, const float (&w)[kQ][kMaxKpl],
                                               float4* ps, const T* staged, long row_base, int r0,
                                               int r_end, int n, int d, int nc, int stride,
@@ -162,7 +189,6 @@ __device__ __forceinline__ void weighted_rows(T* __restrict__ out, const float (
 }
 
 // Kernel 1: the query side. stats: (rows * heads, 3, n) fp32.
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 spatial_flat_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ g, T* __restrict__ dq,
@@ -233,15 +259,14 @@ spatial_flat_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         st[2 * n + q0 + qi] = delta;
       }
 #pragma unroll
-      for (int j = 0; j < kMaxKpl; ++j)  // ds, rounded to the input type
-        dp[qi][j] = round_to<T>(__fmul_rn(__fmul_rn(p[qi][j], __fsub_rn(dp[qi][j], delta)), scale));
+      for (int j = 0; j < kMaxKpl; ++j)  // ds
+        dp[qi][j] = __fmul_rn(__fmul_rn(p[qi][j], __fsub_rn(dp[qi][j], delta)), scale);
     }
     weighted_rows(dq, dp, ps, ks, row_base, q0, q_end, n, d, nc, stride, lane);
   }
 }
 
 // Kernel 2: the key side.
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 spatial_flat_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ g,
@@ -292,8 +317,8 @@ spatial_flat_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int kj = 0; kj < kQ; ++kj) {
         const float pf = on ? __fmul_rn(expf(__fsub_rn(__fmul_rn(p[kj][j], scale), m)), inv) : 0.f;
-        ds[kj][j] = round_to<T>(__fmul_rn(__fmul_rn(pf, __fsub_rn(ds[kj][j], delta)), scale));
-        p[kj][j] = round_to<T>(pf);
+        ds[kj][j] = __fmul_rn(__fmul_rn(pf, __fsub_rn(ds[kj][j], delta)), scale);
+        p[kj][j] = pf;
       }
     }
     weighted_rows(dk, ds, ps, qs, row_base, k0, k_end, n, d, nc, stride, lane);
@@ -312,7 +337,6 @@ inline int smem_bytes(int n, int dh, int elem) {
          3 * n * 4;
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
            void* dv, void* stats, int rows, int n, int d, int heads, int per_block, float scale,
            cudaStream_t stream) {
@@ -320,43 +344,197 @@ int launch(const void* q, const void* k, const void* v, const void* g, void* dq,
   const int elem = static_cast<int>(sizeof(T));
   const int stride = row_stride(dh, elem);
   const int smem = smem_bytes(n, dh, elem);
-  cudaError_t err = cudaFuncSetAttribute(spatial_flat_bwd_dq_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(spatial_flat_bwd_dq_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(spatial_flat_bwd_dkv_kernel<T>,
+  err = cudaFuncSetAttribute(spatial_flat_bwd_dkv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(rows) * heads, (n + per_block - 1) / per_block);
-  spatial_flat_bwd_dq_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
+  spatial_flat_bwd_dq_kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<T*>(dq), static_cast<float*>(stats), n, d, heads,
       per_block, stride, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  spatial_flat_bwd_dkv_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
+  spatial_flat_bwd_dkv_kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<T*>(dk), static_cast<T*>(dv),
       static_cast<const float*>(stats), n, d, heads, per_block, stride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 body on the tensor cores
+
+using bf16 = __nv_bfloat16;
+
+// DT: most 16-wide dh steps (dh <= 16 DT); the key and query steps are
+// rolled loops, so the body stays small.
+template <int DT>
+__global__ void __launch_bounds__(kWarps * 32)
+spatial_flat_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ g,
+                           bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int n, int d, int heads, int stride, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dh = d / heads;
+  const int nkt = (n + 15) / 16, ndt = (dh + 15) / 16;
+  const int npad = nkt * 16;
+  bf16* xs = reinterpret_cast<bf16*>(smem);                 // npad x stride: K, then Q
+  bf16* ys = xs + npad * stride;                            // npad x stride: V, then G
+  float* st = reinterpret_cast<float*>(ys + npad * stride);  // 3 x npad: -c m, 1/sum, delta
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, c = lane & 3;
+  const float c2 = scale * kLog2e;
+  const long base = static_cast<long>(blockIdx.x / heads) * n * d + (blockIdx.x % heads) * dh;
+
+  // ---- 1. the query side: dq, and the statistics of every query
+  stage2_tc(xs, ys, k, v, base, d, n, npad, dh, stride);
+  unsigned qa[DT][4], ga[DT][4];
+  load_frags<DT>(qa, q, base, d, warp * 16, n, dh, lane);  // overlaps the staging copies
+  load_frags<DT>(ga, g, base, d, warp * 16, n, dh, lane);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int q0 = warp * 16; q0 < n; q0 += kWarps * 16) {
+    float mc[2], inv[2];
+    softmax_stats<DT>(mc, inv, qa, xs, n, ndt, stride, c2, lane);
+    // delta = sum_j dp p, with the fp32 p
+    float delta[2] = {0.f, 0.f};
+    for (int t = 0; t < nkt; ++t) {
+      float s[2][4], p[2][4], dp[2][4];
+      scores16<DT>(s, qa, xs, t, n, ndt, stride, lane);
+      probs16(p, s, mc, inv, c2);
+      frags_times_rows<DT>(dp, ga, ys, t, ndt, stride, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) delta[e >> 1] = fmaf(p[h][e], dp[h][e], delta[e >> 1]);
+    }
+    delta[0] = quad_sum(delta[0]);
+    delta[1] = quad_sum(delta[1]);
+    // dq = ds K, ds = p (dp - delta) scale rounded to bf16
+    float acc[2 * DT][4];
+    zero_tiles<DT>(acc);
+    for (int t = 0; t < nkt; ++t) {
+      float s[2][4], p[2][4], dp[2][4];
+      scores16<DT>(s, qa, xs, t, n, ndt, stride, lane);
+      probs16(p, s, mc, inv, c2);
+      frags_times_rows<DT>(dp, ga, ys, t, ndt, stride, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[h][e] = __fmul_rn(__fmul_rn(p[h][e], __fsub_rn(dp[h][e], delta[e >> 1])), scale);
+      unsigned w[4];
+      pack_frag(w, p);
+      weights_times_cols<DT>(acc, w, xs, t, ndt, stride, lane);
+    }
+    if (c == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        st[q0 + gq + 8 * r] = mc[r];
+        st[npad + q0 + gq + 8 * r] = inv[r];
+        st[2 * npad + q0 + gq + 8 * r] = delta[r];
+      }
+    }
+    if (q0 + kWarps * 16 < n) {
+      load_frags<DT>(qa, q, base, d, q0 + kWarps * 16, n, dh, lane);
+      load_frags<DT>(ga, g, base, d, q0 + kWarps * 16, n, dh, lane);
+    }
+    store_tiles<DT>(dq, acc, base, d, q0, n, dh, ndt, lane);
+  }
+  __syncthreads();  // K and V are done with; the statistics are complete
+
+  // ---- 2. the key side: dk = ds^T Q and dv = P^T G
+  stage2_tc(xs, ys, q, g, base, d, n, npad, dh, stride);
+  unsigned ka[DT][4], va[DT][4];
+  load_frags<DT>(ka, k, base, d, warp * 16, n, dh, lane);
+  load_frags<DT>(va, v, base, d, warp * 16, n, dh, lane);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int k0 = warp * 16; k0 < n; k0 += kWarps * 16) {
+    float dka[2 * DT][4], dva[2 * DT][4];
+    zero_tiles<DT>(dka);
+    zero_tiles<DT>(dva);
+    for (int t = 0; t < nkt; ++t) {
+      // rows: the warp's 16 keys; columns: queries 16 t .. 16 t + 15
+      float sT[2][4], dpT[2][4];
+      frags_times_rows<DT>(sT, ka, xs, t, ndt, stride, lane);
+      frags_times_rows<DT>(dpT, va, ys, t, ndt, stride, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = t * 16 + h * 8 + 2 * c + (e & 1);  // the query
+          const float pf = i < n ? ex2(fmaf(sT[h][e], c2, st[i])) * st[npad + i] : 0.f;
+          dpT[h][e] = __fmul_rn(__fmul_rn(pf, __fsub_rn(dpT[h][e], st[2 * npad + i])), scale);
+          sT[h][e] = pf;
+        }
+      }
+      unsigned wds[4], wp[4];
+      pack_frag(wds, dpT);
+      pack_frag(wp, sT);
+      weights_times_cols<DT>(dka, wds, xs, t, ndt, stride, lane);
+      weights_times_cols<DT>(dva, wp, ys, t, ndt, stride, lane);
+    }
+    if (k0 + kWarps * 16 < n) {
+      load_frags<DT>(ka, k, base, d, k0 + kWarps * 16, n, dh, lane);
+      load_frags<DT>(va, v, base, d, k0 + kWarps * 16, n, dh, lane);
+    }
+    store_tiles<DT>(dk, dka, base, d, k0, n, dh, ndt, lane);
+    store_tiles<DT>(dv, dva, base, d, k0, n, dh, ndt, lane);
+  }
+}
+
+// Two staged operands (16 * ceil(n / 16) rows each) and the statistics
+// (three fp32 a query).
+inline int tc_smem_bytes(int n, int dh) {
+  const int npad = (n + 15) / 16 * 16;
+  return 2 * npad * tc_row_stride(dh) * 2 + 3 * npad * 4;
+}
+
+template <int DT>
+int launch_tc_body(const void* q, const void* k, const void* v, const void* g, void* dq,
+                   void* dk, void* dv, int rows, int n, int d, int heads, float scale,
+                   cudaStream_t stream) {
+  const int smem = tc_smem_bytes(n, d / heads);
+  cudaError_t err = cudaFuncSetAttribute(spatial_flat_bwd_tc_kernel<DT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  spatial_flat_bwd_tc_kernel<DT><<<static_cast<unsigned>(rows) * heads, kWarps * 32, smem,
+                                   stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), n, d, heads, tc_row_stride(d / heads), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tc(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+              void* dv, int rows, int n, int d, int heads, float scale, cudaStream_t stream) {
+  const int dh = d / heads;
+  if (n > 256 || dh > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh <= 32) return launch_tc_body<2>(q, k, v, g, dq, dk, dv, rows, n, d, heads, scale, stream);
+  if (dh <= 64) return launch_tc_body<4>(q, k, v, g, dq, dk, dv, rows, n, d, heads, scale, stream);
+  return launch_tc_body<8>(q, k, v, g, dq, dk, dv, rows, n, d, heads, scale, stream);
+}
+
 }  // namespace
 
 extern "C" int sf_spatial_flat_bwd_smem_bytes(int n, int d, int heads, int dtype) {
-  return smem_bytes(n, d / heads, dtype == SF_BFLOAT16 ? 2 : 4);
+  return dtype == SF_BFLOAT16 ? tc_smem_bytes(n, d / heads) : smem_bytes(n, d / heads, 4);
 }
 
-// stats: fp32 scratch of rows * heads * 3 * n elements, written by the query
-// side and read by the key side.
+// stats (fp32 only, else unused): fp32 scratch of rows * heads * 3 * n
+// elements, written by the query side and read by the key side. per_block:
+// the fp32 body's rows a block takes; the bf16 body takes a whole head.
 extern "C" int sf_spatial_flat_bwd(const void* q, const void* k, const void* v, const void* g,
                                    void* dq, void* dk, void* dv, void* stats, int rows, int n,
                                    int d, int heads, int per_block, float scale, int dtype,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == SF_BFLOAT16)
-    return launch<__nv_bfloat16>(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, per_block,
-                                 scale, st);
+    return launch_tc(q, k, v, g, dq, dk, dv, rows, n, d, heads, scale, st);
   if (dtype == SF_FLOAT32)
-    return launch<float>(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, per_block, scale, st);
+    return launch(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, per_block, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

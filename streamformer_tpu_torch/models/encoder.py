@@ -574,8 +574,10 @@ def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_l
     before the output projection. The JAX package's row-major branch
     (``temporal_attention``), case by case:
 
-    - linear, t = 1, float: kernel J (``ops.temporal_decode_rm``) attends
-      and writes the new frame at position len, on the (B*N, C, D) view;
+    - t = 1, float, linear or ring: kernel J (``ops.temporal_decode_rm``)
+      attends and writes the new frame at slot len % C, on the (B*N, C, D)
+      view; J is kernel A's body on row-major strides, so a row-major stream
+      equals the pos-major one bit for bit on either cache;
     - linear, t = 1, int8: the new row is quantized per head
       (``quantize_kv_heads``) and written with its (B, N, C, H) scales, then
       kernel K (``ops.temporal_decode_rm_readonly``) reads positions <= len;
@@ -583,12 +585,12 @@ def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_l
       clamped to C - t, as ``dynamic_update_slice`` clamps it), then plain
       attention over the cache (the first ``attend_cap`` positions, when
       given), query ti seeing positions <= len + ti;
-    - ring, any t: plain attention over the cache as it was plus the new
-      frames, query len + ti seeing cache slot s's newest position p < len
-      when p > len + ti - C and new frame j when ti - C < j <= ti; then the
-      last min(t, C) frames are written at slots (len + ti) % C. The new
-      frames are attended unquantized on an int8 ring, as the JAX einsum
-      attends them.
+    - ring, t >= 2, and the int8 ring at any t: plain attention over the
+      cache as it was plus the new frames, query len + ti seeing cache slot
+      s's newest position p < len when p > len + ti - C and new frame j when
+      ti - C < j <= ti; then the last min(t, C) frames are written at slots
+      (len + ti) % C. The new frames are attended unquantized on an int8
+      ring, as the JAX einsum attends them.
 
     Plain attention computes the scores, the softmax and PV in fp32 and
     rounds only its output to the compute dtype, as the kernels do; the JAX
@@ -606,7 +608,7 @@ def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_l
     def flat(a):  # (B, N, C, X) -> the (B*N, C, X) view, shared with the cache
         return a.view(b * n, cap, a.shape[-1])
 
-    if cfg.cache_mode != "ring" and t == 1 and not quantized:
+    if t == 1 and not quantized:
         def rows1(i):  # (B, 1, N, D) slice -> (B*N, D)
             return qkv[..., i * d:(i + 1) * d].reshape(b * n, d).contiguous()
 

@@ -40,6 +40,7 @@ no backward, as in the JAX package, and raise when asked for one.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -65,6 +66,11 @@ LAUNCHES: Dict[str, int] = {
 # plus the new frames (csrc/temporal_append_pm.cu, one lane per query). So a
 # call appends at most ``append_frame_cap(C)`` frames, 16 at capacity 16.
 APPEND_MAX_KEYS = 32
+
+# Queries a block of the bf16 spatial kernels (B, L) takes: thirteen warps
+# of 16, a whole row of the flagship (N=196), so K and V are staged once per
+# (row, head). A query's bits do not depend on it.
+_TC_ROWS = 208
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448  # dynamic shared memory a block may use on sm_90
@@ -248,13 +254,13 @@ def temporal_decode_rm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     q, k_new, v_new: (R, D), rows are (b, n) pairs. k_cache, v_cache:
     (R, C, D); positions < cache_len hold earlier frames. cache_len: int32
     tensor of one element on the same device, the position the new frame
-    takes; it is read on the device and not changed. The contract is the
-    linear cache, cache_len < C (not checked: that would wait on the
-    device). The new frame attends positions < cache_len and itself, then
-    ``k_cache[:, cache_len] = k_new`` (the same for v). Any capacity. Returns
-    (R, D) in q's dtype. The kernel is A's on row-major strides, the same
-    order of arithmetic, so on the card a row-major linear stream equals the
-    pos-major one bit for bit."""
+    takes; it is read on the device and not changed. As kernel A: on a
+    linear cache (cache_len < C) the new frame attends positions
+    < cache_len and itself; past C (the ring) it attends the C - 1 newest
+    earlier frames and itself; then ``k_cache[:, cache_len % C] = k_new``
+    (the same for v). Any capacity. Returns (R, D) in q's dtype. The kernel
+    is A's on row-major strides, the same order of arithmetic, so on the
+    card a row-major stream equals the pos-major one bit for bit."""
     r, d = q.shape
     if k_cache.ndim != 3 or (k_cache.shape[0], k_cache.shape[2]) != (r, d) \
             or v_cache.shape != k_cache.shape:
@@ -730,10 +736,19 @@ def spatial_flat_bwd_plain(q, k, v, g, num_heads):
     return _unheads(dq, dt), _unheads(dk, dt), _unheads(dv, dt)
 
 
-def _spatial_chunks(device: torch.device, r: int, n: int, num_heads: int) -> int:
-    """Rows of one (row, head) a block takes: the N rows are split only when
-    R*H blocks alone would leave SMs idle (the streaming step)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _spatial_chunks(device: torch.device, r: int, n: int, num_heads: int,
+                    dtype: torch.dtype) -> int:
+    """Rows of one (row, head) a block takes. bf16 (tensor cores, one warp
+    per 16 rows): ``_TC_ROWS``. fp32: the N rows are split only when R*H
+    blocks alone would leave SMs idle (the streaming step)."""
+    if dtype == torch.bfloat16:
+        return min(n, _TC_ROWS)
+    sms = _sm_count(device)
     chunks = max(1, min(-(-n // 16), -(-4 * sms // (r * num_heads))))
     return -(-n // chunks)
 
@@ -765,7 +780,7 @@ def _spatial_flat_forward(q, k, v, num_heads):
     _launch(
         "spatial_flat", "sf_spatial_flat", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
         device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        r, n, d, num_heads, _spatial_chunks(device, r, n, num_heads),
+        r, n, d, num_heads, _spatial_chunks(device, r, n, num_heads, q.dtype),
         (d // num_heads) ** -0.5, code,
     )
     return out
@@ -787,14 +802,16 @@ def spatial_flat_bwd(q, k, v, g, num_heads):
     if smem > _MAX_SMEM:
         raise ValueError(f"spatial_flat_bwd: needs {smem} bytes of shared memory per block")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    # per (row, head, query): the softmax's max and 1/sum, and delta
-    stats = torch.empty(r * num_heads * 3 * n, dtype=torch.float32, device=device)
+    # fp32 (two kernels): per (row, head, query) the softmax's max and 1/sum,
+    # and delta; the bf16 kernel keeps them in shared memory
+    stats = (torch.empty(r * num_heads * 3 * n, dtype=torch.float32, device=device)
+             if q.dtype == torch.float32 else None)
     _launch(
         "spatial_flat_bwd", "sf_spatial_flat_bwd",
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P), device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), stats.data_ptr(), r, n, d, num_heads,
-        _spatial_chunks(device, r, n, num_heads), (d // num_heads) ** -0.5, code,
+        dv.data_ptr(), None if stats is None else stats.data_ptr(), r, n, d, num_heads,
+        _spatial_chunks(device, r, n, num_heads, q.dtype), (d // num_heads) ** -0.5, code,
     )
     return dq, dk, dv
 
@@ -865,7 +882,7 @@ def _spatial_attention_forward(q, k, v):
     _launch(
         "spatial_attention", "sf_spatial_heads", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
         device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        r, h, n, dh, _spatial_chunks(device, r, n, h), dh**-0.5, code,
+        r, h, n, dh, _spatial_chunks(device, r, n, h, q.dtype), dh**-0.5, code,
         library="spatial_flat",
     )
     return out

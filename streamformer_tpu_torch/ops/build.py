@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -87,11 +88,15 @@ def build(names: Iterable[str] = SOURCES) -> None:
 
 def function(name: str, symbol: str, argtypes: Tuple) -> ctypes._CFuncPtr:
     """The C entry ``symbol`` of kernel library ``name``, built if needed,
-    with its argument types set and an int (cudaError_t) result."""
-    if name not in _loaded:
-        build((name,))
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    fn = getattr(_loaded[name], symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    with its argument types set and an int (cudaError_t) result. Looked up
+    once: every launch goes through here."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        if name not in _loaded:
+            build((name,))
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(_loaded[name], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
     return fn

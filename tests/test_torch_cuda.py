@@ -84,6 +84,55 @@ def test_spatial_flat_matches_plain(dtype, rows, n, heads, dh):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,n,heads,dh", [(128, 196, 12, 64), (16, 33, 3, 40)])
+def test_spatial_flat_is_batch_invariant(dtype, rows, n, heads, dh, monkeypatch):
+    """A query's output bits depend on its (row, head) operands only: B on
+    all rows equals B on each 8-row slice, and B under every query-chunk
+    count the wrapper can pick (the streaming-vs-full-clip and engine gates
+    compare B at one R against B at another)."""
+    d = heads * dh
+    q, k, v = (_randn((rows, n, d), dtype, s) for s in (81, 82, 83))
+    full = ops.spatial_flat(q, k, v, heads)
+    for i in range(0, rows, 8):
+        part = ops.spatial_flat(q[i:i + 8], k[i:i + 8], v[i:i + 8], heads)
+        assert torch.equal(part, full[i:i + 8]), i
+    for chunks in range(1, -(-n // 16) + 1):
+        monkeypatch.setattr(ops, "_spatial_chunks", lambda *a, c=chunks: -(-n // c))
+        assert torch.equal(ops.spatial_flat(q, k, v, heads), full), chunks
+
+
+def _nan_tail(shape, dtype, seed):
+    """A tensor of ``shape`` that is the leading rows of a buffer whose next
+    row is NaN, and a clean copy of it."""
+    buf = _randn((shape[0] + 1, *shape[1:]), dtype, seed)
+    buf[shape[0]] = float("nan")
+    view = buf[:shape[0]]
+    assert view.is_contiguous()
+    return view, view.clone()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,n,heads,dh", [(3, 9, 4, 24), (4, 33, 3, 40), (8, 196, 12, 64)])
+def test_spatial_kernels_read_nothing_past_their_rows(dtype, rows, n, heads, dh):
+    """B, I and L on operands that are the leading rows of buffers whose next
+    row is NaN: the outputs are finite and equal to the run on clean copies."""
+    d = heads * dh
+    (q, qc), (k, kc), (v, vc), (g, gc) = (_nan_tail((rows, n, d), dtype, s)
+                                          for s in (91, 92, 93, 94))
+    out = ops.spatial_flat(q, k, v, heads)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, ops.spatial_flat(qc, kc, vc, heads))
+    grads = ops.spatial_flat_bwd(q, k, v, g, heads)
+    assert all(torch.isfinite(x).all() for x in grads)
+    clean = ops.spatial_flat_bwd(qc, kc, vc, gc, heads)
+    assert all(torch.equal(a, b) for a, b in zip(grads, clean))
+    (q, qc), (k, kc), (v, vc) = (_nan_tail((rows, heads, n, dh), dtype, s) for s in (95, 96, 97))
+    out = ops.spatial_attention(q, k, v)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, ops.spatial_attention(qc, kc, vc))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize(
     "rows,t,heads,dh",
     [(7, 1, 4, 24), (9, 4, 4, 24), (1568, 16, 12, 64), (10, 32, 2, 128), (6, 13, 3, 8)],
@@ -497,12 +546,14 @@ def test_streaming_kernels_refuse_a_gradient():
         (1568, 16, 12, 64, 15),  # flagship streaming step
         (1568, 16, 12, 64, 7),
         (40, 5, 2, 128, 3),
+        (56, 8, 4, 24, 19),  # ring: len past capacity
+        (1568, 8, 12, 64, 21),  # flagship ring step, C=8
     ],
 )
 def test_temporal_decode_rm_matches_plain_and_pos_major(dtype, rows, cap, heads, dh, length):
     """Kernel J against its plain version, the row-major cache after the
     write equal; and bit for bit equal to kernel A on the same cache held
-    pos-major (one body, two strides)."""
+    pos-major (one body, two strides), on the linear cache and the ring."""
     d = heads * dh
     q, kn, vn = (_randn((rows, d), dtype, s) for s in (41, 42, 43))
     kc, vc = _randn((rows, cap, d), dtype, 44), _randn((rows, cap, d), dtype, 45)

@@ -62,8 +62,14 @@ def test_temporal_decode_pm_matches_pallas(length):
     np.testing.assert_array_equal(v_got.numpy(), np.asarray(v_ref))
 
 
-def test_spatial_flat_matches_pallas():
-    r, n, h, dh = 3, 9, 4, 24
+# (rows, N, heads, dh): the card tests' small shapes (tests/test_torch_cuda.py),
+# so that the plain version the card holds the kernel to is itself held to
+# the Pallas kernel there; N of 9, 33, 49 and 256, dh of 16, 24, 40 and 64
+SPATIAL_SHAPES = [(3, 9, 4, 24), (4, 33, 3, 40), (5, 49, 2, 16), (2, 256, 2, 64)]
+
+
+@pytest.mark.parametrize("r,n,h,dh", SPATIAL_SHAPES)
+def test_spatial_flat_matches_pallas(r, n, h, dh):
     d = h * dh
     q, k, v = (_randn((r, n, d), s) for s in (6, 7, 8))
     ref = A.fused_spatial_flat(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), h)
@@ -232,6 +238,10 @@ _BWD = {
                  ops.temporal_fullclip_plain, ops.temporal_fullclip_bwd_plain,
                  ops.temporal_fullclip, (56, 8, 4, 16)),
 }
+# the spatial backward also at the card tests' small shapes
+_BWD.update({f"spatial-n{n}-dh{dh}": _BWD["spatial"][:-1] + ((r, n, h, dh),)
+             for r, n, h, dh in SPATIAL_SHAPES})
+_PALLAS_KINDS = ["spatial", "temporal"] + [k for k in _BWD if k.startswith("spatial-")]
 
 
 def _bwd_inputs(kind, seed=40):
@@ -239,7 +249,7 @@ def _bwd_inputs(kind, seed=40):
     return [_randn((rows, length, h * dh), seed + i) for i in range(4)], h
 
 
-@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+@pytest.mark.parametrize("kind", _PALLAS_KINDS)
 def test_bwd_plain_matches_pallas_backward_fp32(kind):
     pallas, _, _, plain, _, _ = _BWD[kind]
     (q, k, v, g), h = _bwd_inputs(kind)
@@ -249,7 +259,7 @@ def test_bwd_plain_matches_pallas_backward_fp32(kind):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+@pytest.mark.parametrize("kind", _PALLAS_KINDS)
 def test_bwd_plain_matches_pallas_backward_bf16(kind):
     pallas, _, _, plain, _, _ = _BWD[kind]
     (q, k, v, g), h = _bwd_inputs(kind)
