@@ -11,12 +11,15 @@ Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi), and the build of every
    kernel source in ``streamformer_tpu_torch/csrc`` (one nvcc each, all
    started together); the bf16 kernels of B/L and I hold HMMA (tensor-core)
-   instructions (``cuobjdump -sass``);
+   instructions, and the decode bodies of A/D/J and F/G the bulk
+   asynchronous copy UBLKCP (``cuobjdump -sass``);
 2. each kernel against its plain version at the flagship shapes, bf16 and
-   fp32 (kernel A linear and ring), with its time, the plain version's
-   time, one ``scaled_dot_product_attention`` call's time (a yardstick the
-   port never calls) and the bound (the card's least time for the bytes
-   and operations); B on the full clip's R=128 rows bit-equal to B on each
+   fp32 (kernel A linear and ring, and linear at capacity 64), with its time (a call's, CUDA events
+   around the wrapper, and the kernel's own device time, ``torch.profiler``
+   over the same L2-flushed calls), the plain version's time, one
+   ``scaled_dot_product_attention`` call's time (a yardstick the port never
+   calls) and the bound (the card's least time for the bytes and
+   operations); B on the full clip's R=128 rows bit-equal to B on each
    8-row slice (batch invariance);
 3. the whole encoder on the card against the same encoder on the CPU (the
    plain versions) at a small fp32 config: full clip, a linear stream and a
@@ -42,10 +45,10 @@ Phases, each fatal on failure:
 10. engine frames/s at 8 slots at steady state in both tick modes, and the
     device busy time per tick over a profiled window;
 11. kernels F and G (the int8 cache) against their plain versions at the
-    flagship shapes, bf16 and fp32, linear and ring, codes and scale columns
-    equal, timed beside one ``scaled_dot_product_attention`` call on the
-    dequantized cache (a yardstick of the float function: no PyTorch call
-    takes the int8 cache);
+    flagship shapes, bf16 and fp32, linear and ring (F also linear at
+    capacity 64), codes and scale columns equal, timed beside one
+    ``scaled_dot_product_attention`` call on the dequantized cache (a
+    yardstick of the float function: no PyTorch call takes the int8 cache);
 12. lockstep int8 serving on the flagship model: 16 frames at batch 8 on an
     int8 linear cache of capacity 16, each frame within the JAX package's
     int8 gates of the bf16 full clip (cosine 0.999 with the int8 cache alone,
@@ -183,6 +186,11 @@ FLAGSHIP_CONFIG = dict(dtype="bfloat16")  # the config's defaults are the flagsh
 SMALL_CONFIG = dict(image_size=48, num_frames=4, hidden_size=96, num_hidden_layers=3,
                     num_attention_heads=4, intermediate_size=192, dtype="float32")
 RING_CAPACITY = 8
+# kernels A and F: (mode, capacity, len) at the flagship's capacity, linear
+# and ring, and at the config's default capacity (64, past one stage of the
+# decode body's shared-memory ring)
+DECODE_CASES = (("linear", FLAGSHIP["capacity"], FLAGSHIP["capacity"] - 1),
+                ("ring", FLAGSHIP["capacity"], 2 * FLAGSHIP["capacity"] + 5), ("linear", 64, 63))
 # kernel D's per-stream lengths (linear, and ring past C), E's lens and valid
 D_LENS = {"linear": [0, 1, 5, 9, 14, 15, 15, 15], "ring": [16, 17, 23, 31, 40, 41, 50, 63]}
 E_LENS, E_VALID, E_T = [0, 1, 5, 8, 8, 12, 15, 16], [8, 0, 8, 8, 3, 4, 1, 0], 8
@@ -208,6 +216,22 @@ OAD = dict(frames=40, chunk=16, height=240, width=320, clips=12, min_frames=4, m
 GAP_SEEDS = (1, 2, 3, 4)
 TOWER_CALLS = {"linear C=16": (16, "linear", (5, 11)), "linear C=64": (64, "linear", (3, 4, 9)),
                "ring C=8": (8, "ring", (6, 10, 8))}
+# each wrapper's kernels (csrc/), by what their symbols contain: a kernel
+# row's device time is theirs alone in a profile of its calls
+KERNEL_SYMBOLS = {
+    "temporal_decode_pm": ("temporal_decode_pm_kernel",),
+    "temporal_decode_pm_ragged": ("temporal_decode_pm_kernel",),
+    "temporal_decode_rm": ("temporal_decode_pm_kernel",),
+    "temporal_append_pm_ragged": ("temporal_append_pm_kernel",),
+    "temporal_decode_pm_int8": ("temporal_decode_pm_int8_kernel",),
+    "temporal_decode_pm_int8_ragged": ("temporal_decode_pm_int8_kernel",),
+    "spatial_flat": ("spatial_flat_tc_kernel", "spatial_flat_kernel"),
+    "spatial_attention": ("spatial_flat_tc_kernel", "spatial_flat_kernel"),
+    "temporal_fullclip": ("temporal_fullclip_kernel",),
+    "temporal_fullclip_bwd": ("temporal_fullclip_bwd_kernel",),
+    "spatial_flat_bwd": ("spatial_flat_bwd",),
+    "temporal_decode_rm_readonly": ("temporal_decode_rm_kernel",),
+}
 GRAD_CARD_VS_CPU_TOL = 1e-4  # of a leaf's largest gradient magnitude; fp32, summation order only
 REMAT_LOSS_TOL = 1e-2  # relative: the recompute repeats the forward; bf16 rounding at most
 DEVICE = "cuda"
@@ -228,6 +252,7 @@ def main():
     sys.path.insert(0, root)
     import numpy as np
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
     from streamformer_tpu_torch.checkpoint import from_pretrained
     from streamformer_tpu_torch.config import StreamformerConfig
     from streamformer_tpu_torch.models import encoder
@@ -238,6 +263,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the capacity-64 cases of A and F draw from their own stream, so that
+    # gen's draws, and every later phase's inputs, are those of the
+    # flagship cases alone
+    gen64 = torch.Generator(device=dev).manual_seed(64)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
 
     # ---- 1. card and build
@@ -260,6 +289,18 @@ def main():
         if not hmma or not all(hmma.values()):
             fail(f"{lib}: bf16 kernels without HMMA instructions: {hmma}")
         print(f"{lib}: HMMA instructions in the bf16 kernels' SASS: {sorted(hmma.values())}")
+    # the decode bodies (decode_row.cuh) stage a row with cp.async.bulk, which
+    # sm_90a's SASS spells UBLKCP (UBLKCP.S.G: global to shared)
+    for lib in ("temporal_decode_pm", "temporal_decode_pm_int8"):
+        sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(lib))], check=True,
+                              capture_output=True, text=True).stdout
+        bulk = {}
+        for fn in sass.split("Function : ")[1:]:
+            if f"{lib}_kernel" in fn.split("\n", 1)[0]:
+                bulk[fn.split("\n", 1)[0].strip()] = fn.count("UBLKCP")
+        if not bulk or not all(bulk.values()):
+            fail(f"{lib}: decode kernels without bulk copies (UBLKCP): {bulk}")
+        print(f"{lib}: UBLKCP instructions in the decode kernels' SASS: {sorted(bulk.values())}")
 
     def time_ms(fn, iters=15):
         """Median device time of one call, L2 flushed before each."""
@@ -277,12 +318,29 @@ def main():
         torch.cuda.synchronize()
         return statistics.median(times)
 
+    def device_ms(fn, symbols, iters=15):
+        """The kernel's own device time a call: ``torch.profiler`` over
+        iters calls, L2 flushed before each, as time_ms times them (whose
+        events also hold the wrapper's host work). Each kernel's mean over
+        the launches the profile recorded (late in a run it may miss some),
+        summed over the kernels a call runs."""
+        fn()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in device_rows(prof) if any(sym in e.key for sym in symbols)]
+        if not rows:
+            fail(f"no device time matched {symbols}: a kernel symbol was renamed")
+        return sum(e.device_time_total / e.count for e in rows) / 1e3
+
     def bound(nbytes, flops, dtype_name):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
-    def randn(*shape, dtype):
-        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+    def randn(*shape, dtype, g=gen):
+        return torch.randn(*shape, device=dev, generator=g).to(dtype)
 
     def max_err(a, b):
         return (a.float().cpu() - b.float().cpu()).abs().max().item()
@@ -311,9 +369,11 @@ def main():
         if not err <= tol:
             fail(f"{name} {shape_tag} {dtype_name}: max-abs error {err} > {tol}")
         ms, plain_ms, lib_ms = time_ms(fn), time_ms(plain), time_ms(library)
+        dev_ms = device_ms(fn, KERNEL_SYMBOLS[name])
         bound_ms, bound_by = bound(nbytes, flops, dtype_name)
         row = dict(name=name, shape=shape_tag, dtype=dtype_name, max_abs_err=err, tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+                   device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
         print("kernel " + json.dumps(row))
         results[(name, shape_tag, dtype_name)] = row
 
@@ -322,23 +382,24 @@ def main():
         elt = torch.finfo(dtype).bits // 8
         # A: one streaming step, linear (len C-1) and ring (len past C)
         r = b_ * n_
-        for mode, length in (("linear", cap - 1), ("ring", 2 * cap + 5)):
-            q, kn, vn = randn(r, d_, dtype=dtype), randn(r, d_, dtype=dtype), randn(r, d_, dtype=dtype)
-            kc, vc = randn(cap, r, d_, dtype=dtype), randn(cap, r, d_, dtype=dtype)
+        for mode, c_, length in DECODE_CASES:
+            g_ = gen if c_ == cap else gen64
+            q, kn, vn = (randn(r, d_, dtype=dtype, g=g_) for _ in range(3))
+            kc, vc = randn(c_, r, d_, dtype=dtype, g=g_), randn(c_, r, d_, dtype=dtype, g=g_)
             ln = torch.tensor(length, dtype=torch.int32, device=dev)
             k_ref, v_ref = kc.clone(), vc.clone()
             ref = ops.temporal_decode_pm_plain(q, kn, vn, k_ref, v_ref, ln, h_)
             got = ops.temporal_decode_pm(q, kn, vn, kc, vc, ln, h_)
             torch.cuda.synchronize()
             if not (torch.equal(kc, k_ref) and torch.equal(vc, v_ref)):
-                fail(f"temporal_decode_pm {mode} {dn}: appended cache planes differ")
-            n_read = min(length, cap) - (1 if length >= cap else 0)  # old slots attended
+                fail(f"temporal_decode_pm {mode} C={c_} {dn}: appended cache planes differ")
+            n_read = min(length, c_) - (1 if length >= c_ else 0)  # old slots attended
             # yardstick: the new frame against the updated cache's valid slots
-            window = (torch.arange(cap, device=dev) <= length).view(1, cap)
+            window = (torch.arange(c_, device=dev) <= length).view(1, c_)
             q4 = q.view(r, h_, 1, dh)
-            k4 = kc.view(cap, r, h_, dh).permute(1, 2, 0, 3)
-            v4 = vc.view(cap, r, h_, dh).permute(1, 2, 0, 3)
-            record("temporal_decode_pm", f"{mode} R={r} C={cap} len={length}", dn, max_err(got, ref),
+            k4 = kc.view(c_, r, h_, dh).permute(1, 2, 0, 3)
+            v4 = vc.view(c_, r, h_, dh).permute(1, 2, 0, 3)
+            record("temporal_decode_pm", f"{mode} R={r} C={c_} len={length}", dn, max_err(got, ref),
                    lambda: ops.temporal_decode_pm(q, kn, vn, kc, vc, ln, h_),
                    lambda: ops.temporal_decode_pm_plain(q, kn, vn, kc, vc, ln, h_),
                    lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
@@ -547,8 +608,6 @@ def main():
     step_s = (time.perf_counter() - t0) / steps
     print(f"streaming encode ({smi}): {b_ / step_s:.1f} frames/s at batch {b_}, "
           f"{step_s * 1e3:.3f} ms/step (ring cache C={cap}, steady state, bf16)")
-    from torch.profiler import ProfilerActivity, profile
-
     window = 8
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -752,16 +811,17 @@ def main():
 
     r = b_ * n_
 
-    def int8_operands(dtype):
+    def int8_operands(dtype, c_=cap):
         """A query, a new frame quantized by ``quantize_kv``, and an int8
-        cache of random codes with per-(slot, row) scales."""
-        q = randn(r, d_, dtype=dtype)
-        new = (*encoder.quantize_kv(randn(r, d_, dtype=dtype)),
-               *encoder.quantize_kv(randn(r, d_, dtype=dtype)))
+        cache of c_ slots of random codes with per-(slot, row) scales."""
+        g_ = gen if c_ == cap else gen64
+        q = randn(r, d_, dtype=dtype, g=g_)
+        new = (*encoder.quantize_kv(randn(r, d_, dtype=dtype, g=g_)),
+               *encoder.quantize_kv(randn(r, d_, dtype=dtype, g=g_)))
         new = (new[0], new[2], new[1], new[3])  # k codes, v codes, k scales, v scales
-        codes = torch.randint(-127, 128, (2, cap, r, d_), dtype=torch.int8, device=dev,
-                              generator=gen)
-        scales = 0.005 + 0.025 * torch.rand(2, cap, r, device=dev, generator=gen)
+        codes = torch.randint(-127, 128, (2, c_, r, d_), dtype=torch.int8, device=dev,
+                              generator=g_)
+        scales = 0.005 + 0.025 * torch.rand(2, c_, r, device=dev, generator=g_)
         return q, new, [codes[0].clone(), codes[1].clone(), scales[0].clone(), scales[1].clone()]
 
     def int8_bytes(elt, rows_read):
@@ -775,25 +835,27 @@ def main():
         q's dtype, with the valid slots as the mask."""
         kd, vd = ((c.float() * s[..., None]).to(dtype) for c, s in ((cache[0], cache[2]),
                                                                     (cache[1], cache[3])))
-        window = (torch.arange(cap, device=dev)[None] <= rows_len[:, None]).view(r, 1, 1, cap)
+        c_ = kd.shape[0]
+        window = (torch.arange(c_, device=dev)[None] <= rows_len[:, None]).view(r, 1, 1, c_)
         q4 = q.view(r, h_, 1, dh)
-        k4, v4 = (x.view(cap, r, h_, dh).permute(1, 2, 0, 3) for x in (kd, vd))
+        k4, v4 = (x.view(c_, r, h_, dh).permute(1, 2, 0, 3) for x in (kd, vd))
         return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window)
 
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         elt = torch.finfo(dtype).bits // 8
-        for mode, length in (("linear", cap - 1), ("ring", 2 * cap + 5)):
-            q, new, cache = int8_operands(dtype)
+        for mode, c_, length in DECODE_CASES:
+            q, new, cache = int8_operands(dtype, c_)
             ref_cache = [c.clone() for c in cache]
             ln = torch.tensor(length, dtype=torch.int32, device=dev)
             ref = ops.temporal_decode_pm_int8_plain(q, *new, *ref_cache, ln, h_)
             got = ops.temporal_decode_pm_int8(q, *new, *cache, ln, h_)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(cache, ref_cache)):
-                fail(f"temporal_decode_pm_int8 {mode} {dn}: appended codes or scales differ")
-            n_read = min(length, cap) - (1 if length >= cap else 0)
-            record("temporal_decode_pm_int8", f"{mode} R={r} C={cap} len={length}", dn,
+                fail(f"temporal_decode_pm_int8 {mode} C={c_} {dn}: appended codes or scales "
+                     "differ")
+            n_read = min(length, c_) - (1 if length >= c_ else 0)
+            record("temporal_decode_pm_int8", f"{mode} R={r} C={c_} len={length}", dn,
                    max_err(got, ref),
                    lambda: ops.temporal_decode_pm_int8(q, *new, *cache, ln, h_),
                    lambda: ops.temporal_decode_pm_int8_plain(q, *new, *cache, ln, h_),
@@ -1648,7 +1710,8 @@ def main():
                      train_launches, rm_launches, chunk_launches, consumer_launches, l_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
-                            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                            device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+                            bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"]))
         if count == 0:
             fail(f"{name} never launched on the main path")

@@ -1,6 +1,7 @@
 // Helpers shared by the port's attention kernels: fp32 <-> storage-type
-// conversion, 2- and 8-element vector loads and stores, warp reductions; and
-// the tensor-core pieces of the bf16 spatial bodies (B, L and I): staging,
+// conversion, 2- and 8-element vector loads and stores, warp reductions;
+// bulk asynchronous copies on mbarriers (the decode bodies); and the
+// tensor-core pieces of the bf16 spatial bodies (B, L and I): staging,
 // ldmatrix, mma.sync and the softmax over 16-key steps.
 //
 // Every kernel computes in fp32 and stores in its input type: float or
@@ -113,6 +114,59 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---- Bulk asynchronous copies (the decode bodies, decode_row.cuh): one
+// thread asks the copy engine for a contiguous run of bytes, global ->
+// shared (cp.async.bulk; 16-byte aligned addresses, a size that is a
+// multiple of 16), which completes on an mbarrier in shared memory. The
+// barrier's phase ends when its arrivals have happened (arrive.expect_tx,
+// which also announces the bytes to come, and any cp.async arrivals) and
+// all those bytes have landed; the consumers wait on the phase's parity.
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
+}
+// After every mbar_init, before the barriers are used by any thread or copy.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
+                                              unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 4 bytes global -> shared; cp_async_arrive_noinc makes the barrier count
+// one arrival once this thread's earlier cp.async copies have landed (the
+// barrier's arrival count includes it).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive_noinc(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
 }
 
 // Four 8x8 bf16 matrices from shared memory; lane i gives the address of

@@ -1,0 +1,408 @@
+// The body of the t=1 decode kernels: A, D and J on a float cache
+// (temporal_decode_pm.cu) and F and G on an int8 cache
+// (temporal_decode_pm_int8.cu). Each source wraps decode_rows in its own
+// __global__ kernel; the contracts are in those sources.
+//
+// Bound on the H100: bytes (one to two operations per byte of the cache).
+// A (row, head) holds only 2-4 KB of K and V at the flagship, so the body
+// keeps whole rows in flight, K and V at once, and never waits for one
+// before asking for the next.
+//
+// Here a block owns a row across all heads, and walks rows: the grid is
+// persistent (as many blocks as fit on the card), block b taking rows b,
+// b + grid, ... In the pos-major layout a row's slot in a plane is one
+// contiguous run of D elements (1536 bytes in bf16 at the flagship), in
+// the row-major layout too. One producer warp copies, row after row, the
+// query's row and the valid prefix of K and then of V, each slot (the new
+// frame's row last) with one bulk asynchronous copy (cp.async.bulk,
+// completing on an mbarrier), into a ring of two stages of up to `chunk`
+// slots; it refills a stage as soon as the consumers hand it back (another
+// mbarrier), so the next chunk, or the next row's first, is in flight
+// while a chunk computes. The int8 scales of a chunk's keys are copied
+// once by the producer's lanes, with 4-byte cp.async on the same barrier.
+//
+// The eight consumer warps compute from shared memory: one thread per
+// (head, key) for the score chains and the exps, one thread per head for
+// the max and the sum, one thread per (head, 8 elements) for PV, whose
+// sums wait in shared memory between V chunks. A staged slot row is padded
+// by 16 bytes, so that the eight threads of a quarter warp, at eight
+// consecutive keys of one head, read eight distinct bank groups. The new
+// frame's row, staged as the last key, is written to slot len % C from
+// shared memory (and, int8, its two scales); no block reads that slot.
+//
+// Rows whose byte width is not a multiple of 16 (int8 with D % 16 == 8)
+// cannot be bulk-copied: there the producer's lanes stage them with 8-byte
+// loads, and the arithmetic is the same.
+//
+// The order of arithmetic is the contract (temporal_fullclip.cu repeats
+// it, so a linear stream equals the full clip bit for bit): per (row,
+// head), each score is one sequential fp32 FMA chain over dh in element
+// order, times the scale (int8: times the key's scale, then the scale);
+// the max, expf(s - max), a sequential sum in key order, oldest first and
+// the new frame last; the reciprocal of the sum; PV one sequential FMA
+// chain in key order (int8: with weight p * v_scale); one multiply by the
+// reciprocal last.
+#pragma once
+
+#include <cstdint>
+#include <mutex>
+#include <type_traits>
+#include <vector>
+
+#include "common.cuh"
+
+namespace decode {
+
+constexpr int kConsumers = 256;            // eight consumer warps
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kStages = 2;                 // of the ring
+constexpr int kMaxChunk = 32;              // keys a stage holds at most: a producer lane each
+constexpr int kSlotBudget = 18624;         // slot bytes of a stage: 12 bf16 rows at D=768
+
+// Shared memory of a block. A stage holds `chunk` slot rows of
+// `slot_bytes`, then the query's row (used by a row's first chunk), the
+// chunk's int8 scales and the row's length. After the two stages: the
+// query in fp32, PV sums, (heads, C) fp32 scores (rows C + 1 apart, so
+// that a thread per head reads distinct banks), the reciprocals of the
+// sums, and the barriers.
+struct Plan {
+  int slot_bytes, chunk, q_at, scales_at, len_at, stage_bytes;
+  int q, acc, scores, inv, full, empty, total;
+};
+
+__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+
+__host__ __device__ inline Plan plan(int d, int heads, int capacity, int kv_bytes, int q_bytes,
+                                     bool quant) {
+  Plan p;
+  p.slot_bytes = round16(d * kv_bytes) + 16;
+  const int most = capacity < kMaxChunk ? capacity : kMaxChunk;
+  p.chunk = kSlotBudget / p.slot_bytes;
+  p.chunk = p.chunk < 1 ? 1 : (p.chunk > most ? most : p.chunk);
+  p.q_at = p.chunk * p.slot_bytes;
+  p.scales_at = p.q_at + round16(d * q_bytes);
+  p.len_at = p.scales_at + (quant ? round16(4 * p.chunk) : 0);
+  p.stage_bytes = p.len_at + 16;
+  p.q = kStages * p.stage_bytes;
+  p.acc = p.q + round16(4 * d);
+  p.scores = p.acc + round16(4 * d);
+  p.inv = p.scores + round16(4 * heads * (capacity + 1));
+  p.full = p.inv + round16(4 * heads);
+  p.empty = p.full + 8 * kStages;
+  p.total = p.empty + 8 * kStages;
+  return p;
+}
+
+template <typename T, typename KV>
+struct Args {
+  const T* q;
+  const KV* k_new;
+  const KV* v_new;
+  const float* k_new_scale;  // int8 only: (R,)
+  const float* v_new_scale;
+  KV* k_cache;
+  KV* v_cache;
+  float* k_scale;  // int8 only: (C, R)
+  float* v_scale;
+  const int* lens;  // one per stream; row r is stream r / rows_per_stream
+  int rows_per_stream;
+  T* out;
+  int rows, capacity, d, heads;
+  long slot_stride, row_stride;  // elements between slots, and rows, of a cache
+  float scale;
+};
+
+// The eight consumer warps' own barrier (the producer warp never joins).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Four int8 codes (a 32-bit word) to fp32, exactly: each code, offset by
+// 128, becomes the low byte of the mantissa of 2^23, and 2^23 + 128 is
+// subtracted (a byte permute and an add, where a conversion instruction
+// runs at an eighth of the FMA rate).
+__device__ __forceinline__ void codes4(unsigned w, float* o) {
+  const unsigned u = w ^ 0x80808080u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    o[b] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + b)), 8388736.f);
+}
+
+// The dot product of a head's query (fp32) with one key row, both in
+// shared memory: one fmaf chain in element order.
+template <typename KV>
+__device__ __forceinline__ float dot(const float* q, const KV* k, int dh) {
+  float s = 0.f;
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    if (dh % 16 == 0) {  // 16 codes a load
+      for (int c = 0; c < dh; c += 16) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(k + c);
+        float kf[16], qf[16];
+        codes4(raw.x, kf);
+        codes4(raw.y, kf + 4);
+        codes4(raw.z, kf + 8);
+        codes4(raw.w, kf + 12);
+        load8(q + c, qf);
+        load8(q + c + 8, qf + 8);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) s = fmaf(qf[e], kf[e], s);
+      }
+    } else {  // a head slice 8 bytes aligned: 8 codes a load
+      for (int c = 0; c < dh; c += 8) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(k + c);
+        float kf[8], qf[8];
+        codes4(raw.x, kf);
+        codes4(raw.y, kf + 4);
+        load8(q + c, qf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s = fmaf(qf[e], kf[e], s);
+      }
+    }
+  } else {
+    for (int c = 0; c < dh; c += 8) {
+      float kf[8], qf[8];
+      load8(k + c, kf);
+      load8(q + c, qf);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s = fmaf(qf[e], kf[e], s);
+    }
+  }
+  return s;
+}
+
+// Eight consecutive elements of a staged row, in fp32.
+__device__ __forceinline__ void eight(const float* p, float* o) { load8(p, o); }
+__device__ __forceinline__ void eight(const __nv_bfloat16* p, float* o) { load8(p, o); }
+__device__ __forceinline__ void eight(const int8_t* p, float* o) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  codes4(raw.x, o);
+  codes4(raw.y, o + 4);
+}
+
+template <typename T, typename KV>
+__device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan p = plan(a.d, a.heads, a.capacity, sizeof(KV), sizeof(T), kQuant);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = a.d, heads = a.heads, dh = d / heads, cap = a.capacity;
+  const int row_bytes = d * static_cast<int>(sizeof(KV));
+  const int q_bytes = d * static_cast<int>(sizeof(T));
+  const bool bulk = row_bytes % 16 == 0;  // else 8-byte loads (int8, D % 16 == 8)
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + p.full);
+  unsigned long long* empty = reinterpret_cast<unsigned long long*>(smem + p.empty);
+  auto stage = [&](int g) { return smem + (g % kStages) * p.stage_bytes; };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, kQuant ? 33 : 1);  // int8: and the lanes' scale copies
+      mbar_init(empty + s, 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // ---- the producer warp
+    int g = 0, lens = 0;          // g: chunks issued; lens: lane i holds row k + i's length
+    for (int k = 0, row = blockIdx.x; row < a.rows; ++k, row += gridDim.x) {
+      if (k % 32 == 0) {
+        const long r = row + static_cast<long>(lane) * gridDim.x;
+        lens = r < a.rows ? a.lens[r / a.rows_per_stream] : 0;
+      }
+      const int len = __shfl_sync(0xffffffffu, lens, k % 32);
+      const int n_old = min(len, cap - 1);
+      const int n_keys = n_old + 1;
+      const int slot0 = (len - n_old) % cap;
+      const int nck = (n_keys + p.chunk - 1) / p.chunk;
+      // key i's row of K (kv 0) or V (kv 1): slot (slot0 + i) % C, the new frame last
+      auto source = [&](int kv, int i) -> const KV* {
+        if (i == n_old) return (kv ? a.v_new : a.k_new) + static_cast<long>(row) * d;
+        int s = slot0 + i;
+        if (s >= cap) s -= cap;
+        return (kv ? a.v_cache : a.k_cache) + s * a.slot_stride + row * a.row_stride;
+      };
+      for (int j = 0; j < 2 * nck; ++j, ++g) {
+        const int kv = j >= nck;
+        const int k0 = (j - kv * nck) * p.chunk, cnt = min(p.chunk, n_keys - k0);
+        mbar_wait(empty + g % kStages, ((g / kStages) & 1) ^ 1);
+        unsigned char* st = stage(g);
+        if (kQuant) {  // the scale of key k0 + lane, copied by the lane itself
+          if (lane < cnt) {
+            const int i = k0 + lane;
+            long s = slot0 + i;
+            if (s >= cap) s -= cap;
+            const float* src = i == n_old ? (kv ? a.v_new_scale : a.k_new_scale) + row
+                                          : (kv ? a.v_scale : a.k_scale) + s * a.rows + row;
+            cp_async4(st + p.scales_at + 4 * lane, src);
+          }
+          cp_async_arrive_noinc(full + g % kStages);
+        }
+        if (lane == 0) *reinterpret_cast<int*>(st + p.len_at) = len;
+        if (!bulk) {  // 8-byte loads by the lanes
+          const int words = row_bytes / 8;
+          for (int w = lane; w < cnt * words; w += 32) {
+            const int i = w / words, c = w - i * words;
+            *reinterpret_cast<uint2*>(st + i * p.slot_bytes + 8 * c) =
+                reinterpret_cast<const uint2*>(source(kv, k0 + i))[c];
+          }
+        }
+        __syncwarp();
+        if (lane == 0) {
+          unsigned long long* bar = full + g % kStages;
+          mbar_expect_tx(bar, (j == 0 ? q_bytes : 0) + (bulk ? cnt * row_bytes : 0));
+          if (j == 0) bulk_copy_g2s(st + p.q_at, a.q + static_cast<long>(row) * d, q_bytes, bar);
+          if (bulk)
+            for (int i = 0; i < cnt; ++i)
+              bulk_copy_g2s(st + i * p.slot_bytes, source(kv, k0 + i), row_bytes, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warps
+  float* qs = reinterpret_cast<float*>(smem + p.q);
+  float* accs = reinterpret_cast<float*>(smem + p.acc);
+  float* ps = reinterpret_cast<float*>(smem + p.scores);
+  float* invs = reinterpret_cast<float*>(smem + p.inv);
+  const int ss = cap + 1;  // between the score rows of two heads
+  int g = 0;
+  for (int row = blockIdx.x; row < a.rows; row += gridDim.x) {
+    int len = 0, n_old = 0, n_keys = 1, nck = 1;
+    for (int j = 0; j < 2 * nck; ++j, ++g) {
+      mbar_wait(full + g % kStages, (g / kStages) & 1);
+      const unsigned char* buf = stage(g);
+      const float* scales = reinterpret_cast<const float*>(buf + p.scales_at);
+      if (j == 0) {  // the row's first chunk: its length, and its query in fp32
+        len = *reinterpret_cast<const int*>(buf + p.len_at);
+        n_old = min(len, cap - 1);
+        n_keys = n_old + 1;
+        nck = (n_keys + p.chunk - 1) / p.chunk;
+        const T* qt = reinterpret_cast<const T*>(buf + p.q_at);
+        for (int e = tid; e < d; e += kConsumers) qs[e] = to_f32(qt[e]);
+        consumers_sync();
+      }
+      const int kv = j >= nck;
+      const int k0 = (j - kv * nck) * p.chunk, cnt = min(p.chunk, n_keys - k0);
+      if (!kv) {  // scores: one thread per (head, key)
+        for (int w = tid; w < heads * cnt; w += kConsumers) {
+          const int h = w / cnt, i = w - h * cnt;
+          const KV* kp = reinterpret_cast<const KV*>(buf + i * p.slot_bytes) + h * dh;
+          float s = dot(qs + h * dh, kp, dh);
+          if (kQuant) s = __fmul_rn(s, scales[i]);
+          ps[h * ss + k0 + i] = __fmul_rn(s, a.scale);
+        }
+      } else {  // PV: one thread per (head, 8 elements)
+        const bool last = k0 + cnt == n_keys;
+        for (int e0 = 8 * tid; e0 < d; e0 += 8 * kConsumers) {
+          const int h = e0 / dh;
+          const float* w = ps + h * ss + k0;
+          float acc[8], v[8];
+          if (k0 == 0) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+          } else {
+            load8(accs + e0, acc);
+          }
+          for (int i = 0; i < cnt; ++i) {
+            const float wt = kQuant ? __fmul_rn(w[i], scales[i]) : w[i];
+            eight(reinterpret_cast<const KV*>(buf + i * p.slot_bytes) + e0, v);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[e] = fmaf(wt, v[e], acc[e]);
+          }
+          if (last) {
+            const float inv = invs[h];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[e] = __fmul_rn(acc[e], inv);
+            store8(a.out + static_cast<long>(row) * d + e0, acc);
+          } else {
+            store8(accs + e0, acc);
+          }
+        }
+      }
+      if (kQuant && tid == 0 && k0 + cnt == n_keys)  // and the new frame's scale
+        (kv ? a.v_scale : a.k_scale)[static_cast<long>(len % cap) * a.rows + row] =
+            scales[n_old - k0];
+      if (k0 + cnt == n_keys) {  // the chunk holds the new frame: append it at slot len % C
+        unsigned char* to = reinterpret_cast<unsigned char*>(
+            (kv ? a.v_cache : a.k_cache) + (len % cap) * a.slot_stride + row * a.row_stride);
+        const unsigned char* from = buf + (n_old - k0) * p.slot_bytes;
+        if (bulk) {  // 16-byte aligned rows
+          for (int w = tid; w < row_bytes / 16; w += kConsumers)
+            reinterpret_cast<uint4*>(to)[w] = reinterpret_cast<const uint4*>(from)[w];
+        } else {
+          for (int w = tid; w < row_bytes / 8; w += kConsumers)
+            reinterpret_cast<uint2*>(to)[w] = reinterpret_cast<const uint2*>(from)[w];
+        }
+      }
+      if (j == nck - 1) {  // all scores in: the softmax
+        consumers_sync();
+        for (int h = tid; h < heads; h += kConsumers) {  // each head's max
+          float m = -INFINITY;
+          for (int i = 0; i < n_keys; ++i) m = fmaxf(m, ps[h * ss + i]);
+          invs[h] = m;
+        }
+        consumers_sync();
+        for (int w = tid; w < heads * n_keys; w += kConsumers) {  // exp, a (head, key) each
+          const int h = w / n_keys, i = w - h * n_keys;
+          ps[h * ss + i] = expf(__fsub_rn(ps[h * ss + i], invs[h]));
+        }
+        consumers_sync();
+        for (int h = tid; h < heads; h += kConsumers) {  // each head's sum, in key order
+          float sum = 0.f;
+          for (int i = 0; i < n_keys; ++i) sum = __fadd_rn(sum, ps[h * ss + i]);
+          invs[h] = __fdiv_rn(1.f, sum);
+        }
+      }
+      consumers_sync();  // every consumer is done with the stage
+      if (tid == 0) mbar_arrive(empty + g % kStages);
+    }
+  }
+}
+
+// Blocks of the persistent grid: as many as fit on the card, at most one a
+// row. The kernel's shared-memory attributes are set, and its occupancy is
+// asked, once per (kernel, device, shared-memory bytes); every later launch
+// finds the grid in a table, so a launch makes one runtime call besides
+// itself (cudaGetDevice).
+template <typename Kernel>
+inline cudaError_t grid_size(Kernel kernel, const Plan& p, int rows, int* blocks) {
+  struct Seen {
+    Kernel kernel;
+    int device, smem, blocks;
+  };
+  static std::mutex mutex;
+  static std::vector<Seen> seen;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  int most = p.total;  // the attribute only grows: it bounds every size seen
+  for (const Seen& s : seen) {
+    if (s.kernel != kernel || s.device != device) continue;
+    if (s.smem == p.total) {
+      *blocks = rows < s.blocks ? rows : s.blocks;
+      return cudaSuccess;
+    }
+    most = s.smem > most ? s.smem : most;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, p.total);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  seen.push_back({kernel, device, p.total, sms * per_sm});
+  *blocks = rows < sms * per_sm ? rows : sms * per_sm;
+  return cudaSuccess;
+}
+
+}  // namespace decode

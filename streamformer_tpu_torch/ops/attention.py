@@ -213,9 +213,9 @@ def _decode_ready(name, q, k_new, v_new, k_cache, v_cache, num_heads, capacity) 
     """What a launch of A, D or J needs: aligned pointers, and the shared
     memory the capacity asks for."""
     _cuda_ready(name, q, k_new, v_new, k_cache, v_cache)
-    smem = build.function("temporal_decode_pm", "sf_temporal_decode_pm_smem_bytes", (_I, _I))(
-        q.shape[-1] // num_heads, capacity
-    )
+    smem = build.function("temporal_decode_pm", "sf_temporal_decode_pm_smem_bytes",
+                          (_I, _I, _I, _I))(q.shape[-1], num_heads, capacity,
+                                            _DTYPE_CODES[q.dtype])
     if smem > _MAX_SMEM:
         raise ValueError(f"{name}: capacity {capacity} needs {smem} bytes "
                          "of shared memory per block")
@@ -623,7 +623,7 @@ def _launch_int8(name, symbol, q, k_new, v_new, k_new_scale, v_new_scale, k_cach
     r, d = q.shape
     c = k_cache.shape[0]
     smem = build.function("temporal_decode_pm_int8", "sf_temporal_decode_pm_int8_smem_bytes",
-                          (_I, _I))(d // num_heads, c)
+                          (_I, _I, _I, _I))(d, num_heads, c, _DTYPE_CODES[q.dtype])
     if smem > _MAX_SMEM:
         raise ValueError(f"{name}: capacity {c} needs {smem} bytes of shared memory per block")
     out = torch.empty_like(q)

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, ``build/lib<name>-<digest>.so`` at the root of the checkout,
-loaded with ``ctypes``. The digest covers the sources and the flags, so an
-edited kernel is rebuilt and a stale library is never loaded. Sources are
-compiled for ``sm_90a`` (Hopper) only, one ``nvcc`` per source, all started
-together. A failed build raises; nothing falls back.
+loaded with ``ctypes``. The digest covers the source, every header in
+``csrc/`` and the flags, so an edited kernel is rebuilt and a stale library
+is never loaded. Sources are compiled for ``sm_90a`` (Hopper) only, one
+``nvcc`` per source, all started together. A failed build raises; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for path in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -186,6 +186,7 @@ def test_wrappers_raise_instead_of_falling_back():
         (196, [0, 1, 5, 9, 14, 15, 15, 15], 16, 12, 64),  # flagship engine tick, linear
         (196, [16, 17, 23, 31, 40, 41, 50, 63], 16, 12, 64),  # flagship, ring
         (5, [4, 0, 2], 5, 2, 128),
+        (7, [0, 1000, 3, 77], 16, 12, 64),  # length 0 and far past C in one call
     ],
 )
 def test_temporal_decode_pm_ragged_matches_plain(dtype, per_stream, lens, cap, heads, dh):
@@ -382,6 +383,7 @@ def test_temporal_decode_pm_int8_matches_plain(dtype, rows, cap, heads, dh, leng
         (196, [0, 1, 5, 9, 14, 15, 15, 15], 16, 12, 64),  # flagship engine tick, linear
         (196, [16, 17, 23, 31, 40, 41, 50, 63], 16, 12, 64),  # flagship, ring
         (5, [4, 0, 2], 5, 2, 128),
+        (7, [0, 1000, 3, 77], 16, 12, 64),  # length 0 and far past C in one call
     ],
 )
 def test_temporal_decode_pm_int8_ragged_matches_plain(dtype, per_stream, lens, cap, heads, dh):
@@ -643,3 +645,165 @@ def test_spatial_attention_gradient_is_the_plain_versions(dtype):
     (ops.spatial_attention_plain(*plain).float() * w.float()).sum().backward()
     for a, b in zip(leaves, plain):
         assert torch.equal(a.grad, b.grad)
+
+
+# ---------------------------------------------------------------------------
+# The decode bodies A, D, J and F, G (one source, decode_row.cuh): what they
+# read, and capacities past one shared-memory stage
+# ---------------------------------------------------------------------------
+
+
+def _unread(lens, per_stream, cap):
+    """(C, R) mask of the slots a decode does not read: slots >= len on the
+    linear cache, slot len % C on the ring, per row of each stream."""
+    mask = torch.zeros(cap, per_stream * len(lens), dtype=torch.bool)
+    for b, length in enumerate(lens):
+        rows = slice(b * per_stream, (b + 1) * per_stream)
+        if length < cap:
+            mask[length:, rows] = True
+        else:
+            mask[length % cap, rows] = True
+    return mask.cuda()
+
+
+def _decode_case(kernel, dtype, rows_or_streams, cap, heads, dh, lens, seed):
+    """Operands of one decode kernel call: (run, plain, caches) where
+    run(fn, caches) calls the kernel ("kernel") or its plain version ("plain")
+    on the given caches and returns the output. caches are pos-major
+    (C, R, ...) for every kernel; J's are transposed to (R, C, D) for the
+    call and back."""
+    d = heads * dh
+    ragged = kernel in ("D", "G")
+    per_stream = rows_or_streams if ragged else None
+    rows = per_stream * len(lens) if ragged else rows_or_streams
+    q = _randn((rows, d), dtype, seed)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if kernel in ("F", "G"):
+        new, caches = _int8_operands(rows, cap, d, seed + 1)
+    else:
+        new = [_randn((rows, d), dtype, seed + s) for s in (1, 2)]
+        caches = [_randn((cap, rows, d), dtype, seed + s) for s in (3, 4)]
+
+    def run(which, cs):
+        if kernel == "A":
+            fn = ops.temporal_decode_pm if which == "kernel" else ops.temporal_decode_pm_plain
+            return fn(q, *new, *cs, lens_t.reshape(()), heads)
+        if kernel == "D":
+            fn = (ops.temporal_decode_pm_ragged if which == "kernel"
+                  else ops.temporal_decode_pm_ragged_plain)
+            return fn(q, *new, *cs, lens_t, per_stream, heads)
+        if kernel == "J":
+            fn = ops.temporal_decode_rm if which == "kernel" else ops.temporal_decode_rm_plain
+            rm = [c.transpose(0, 1).contiguous() for c in cs]
+            out = fn(q, *new, *rm, lens_t.reshape(()), heads)
+            for c, r in zip(cs, rm):
+                c.copy_(r.transpose(0, 1))
+            return out
+        if kernel == "F":
+            fn = (ops.temporal_decode_pm_int8 if which == "kernel"
+                  else ops.temporal_decode_pm_int8_plain)
+            return fn(q, *new, *cs, lens_t.reshape(()), heads)
+        fn = (ops.temporal_decode_pm_int8_ragged if which == "kernel"
+              else ops.temporal_decode_pm_int8_ragged_plain)
+        return fn(q, *new, *cs, lens_t, per_stream, heads)
+
+    return run, caches, (per_stream if ragged else rows)
+
+
+DECODE_KERNELS = ["A", "D", "J", "F", "G"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["linear", "ring"])
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_decode_kernels_read_nothing_past_the_valid_prefix(kernel, mode, dtype):
+    """Every cache slot a decode must not read is NaN (slots >= len on the
+    linear cache, slot len % C on the ring; F and G: their scales too): the
+    outputs are finite and bit-equal to the run on clean caches, and the
+    slots the new frame takes are equal."""
+    cap, heads, dh = 16, 12, 64
+    if kernel in ("D", "G"):
+        lens = [0, 5, 15, 9] if mode == "linear" else [16, 23, 40, 63]
+        size = 13
+    else:
+        lens = [9] if mode == "linear" else [37]
+        size = 40
+    run, clean, per_stream = _decode_case(kernel, dtype, size, cap, heads, dh, lens, 101)
+    mask = _unread(lens, per_stream, cap)
+    poisoned = [c.clone() for c in clean]
+    for c in poisoned:
+        if c.dtype == torch.int8:
+            continue  # codes cannot be NaN: their scales are
+        c[mask] = float("nan")
+    got = run("kernel", poisoned)
+    ref = run("kernel", clean)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, ref)
+    written = torch.zeros_like(mask)
+    rows = torch.arange(mask.shape[1], device="cuda")
+    written[torch.tensor(lens, device="cuda").repeat_interleave(per_stream) % cap, rows] = True
+    for a, b in zip(poisoned, clean):
+        assert torch.equal(a[written], b[written])
+        assert torch.equal(a[~mask], b[~mask])
+
+
+@pytest.mark.parametrize(
+    "dtype,cap", [(torch.bfloat16, 64), (torch.float32, 64), (torch.float32, 256)],
+    ids=["bf16-C64", "fp32-C64", "fp32-C256"],
+)
+@pytest.mark.parametrize("mode", ["linear", "ring"])
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_decode_kernels_at_large_capacities(kernel, mode, dtype, cap):
+    """Capacities past one shared-memory stage (the config's default 64, and
+    256 in fp32, where a stage holds 6 slots), at the flagship width on an
+    odd row count: each kernel against its plain version, the appended
+    planes (and scale columns) equal."""
+    heads, dh = 12, 64
+    if kernel in ("D", "G"):
+        lens = [0, cap // 2, cap - 1] if mode == "linear" else [cap, 2 * cap + 3, 5 * cap + 1]
+        size = 13
+    else:
+        lens = [cap - 1] if mode == "linear" else [3 * cap + 5]
+        size = 37
+    run, caches, _ = _decode_case(kernel, dtype, size, cap, heads, dh, lens, 111)
+    ref_caches = [c.clone() for c in caches]
+    ref = run("plain", ref_caches)
+    before = dict(ops.LAUNCHES)
+    got = run("kernel", caches)
+    torch.cuda.synchronize()
+    assert sum(ops.LAUNCHES.values()) == sum(before.values()) + 1
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for mine, theirs in zip(caches, ref_caches):
+        assert torch.equal(mine, theirs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+def test_decode_kernels_walk_many_rows_a_block(kernel, dtype):
+    """More rows than 64 times the persistent grid, at a narrow width (two
+    heads of 8, C=4): each block walks past 64 rows, so its producer warp
+    reloads its lanes' row lengths (32 rows at a time) twice. D and G give
+    every row a stream of its own, at lengths drawn from 0 to 3C (linear and
+    ring in one call). Each kernel against its plain version, the appended
+    planes (and scale columns) equal."""
+    cap, heads, dh = 4, 2, 8
+    # a block is 288 threads, so at most 2048 // 288 = 7 fit an SM
+    grid = 7 * torch.cuda.get_device_properties(0).multi_processor_count
+    rows = 70 * grid + 5
+    if kernel in ("D", "G"):
+        lens = np.random.default_rng(7).integers(0, 3 * cap, rows).tolist()
+        size = 1
+    else:
+        lens = [cap + 1]
+        size = rows
+    run, caches, _ = _decode_case(kernel, dtype, size, cap, heads, dh, lens, 121)
+    ref_caches = [c.clone() for c in caches]
+    ref = run("plain", ref_caches)
+    before = dict(ops.LAUNCHES)
+    got = run("kernel", caches)
+    torch.cuda.synchronize()
+    assert sum(ops.LAUNCHES.values()) == sum(before.values()) + 1
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for mine, theirs in zip(caches, ref_caches):
+        assert torch.equal(mine, theirs)

@@ -41,11 +41,23 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-@pytest.mark.parametrize("length", [0, 3, 7, 8, 13, 19])
-def test_temporal_decode_pm_matches_pallas(length):
-    """Linear cache at len 0, mid and C-1; ring (len >= C) at C, C+5 and
-    2C+3, where the new plane wraps to slot len % C."""
-    r, c, h, dh = 24, 8, 4, 24
+# (rows, C, heads, dh, len): the first six at 24 rows, C=8, linear at len 0,
+# mid and C-1, ring (len >= C) at C, C+5 and 2C+3, where the new plane wraps
+# to slot len % C; then the card tests' decode shapes
+# (tests/test_torch_cuda.py): 56 rows (mid and ring), 40 rows at C=5 with
+# dh 128 and with one head of dh 8 (ring)
+DECODE_SHAPES = [pytest.param(24, 8, 4, 24, n, id=str(n)) for n in (0, 3, 7, 8, 13, 19)] + [
+    pytest.param(56, 8, 4, 24, 5, id="r56-c8-h4-dh24-len5"),
+    pytest.param(56, 8, 4, 24, 19, id="r56-c8-h4-dh24-len19"),
+    pytest.param(40, 5, 2, 128, 3, id="r40-c5-h2-dh128-len3"),
+    pytest.param(40, 5, 1, 8, 9, id="r40-c5-h1-dh8-len9"),
+]
+
+
+@pytest.mark.parametrize("r,c,h,dh,length", DECODE_SHAPES)
+def test_temporal_decode_pm_matches_pallas(r, c, h, dh, length):
+    """The plain version of kernel A (which the card holds A to) against the
+    Pallas kernel, output and both caches after the in-place write."""
     d = h * dh
     q, kn, vn = (_randn((r, d), s) for s in (1, 2, 3))
     kc, vc = _randn((c, r, d), 4), _randn((c, r, d), 5)

@@ -179,14 +179,13 @@ def _int8_cache(c, r, d, seed):
     return codes, scales
 
 
-def _jax_int8_decode(q, kn, vn, codes, scales, lens, per_stream):
+def _jax_int8_decode(q, kn, vn, codes, scales, lens, per_stream, h=4):
     """The Pallas kernel on the same inputs: new frame quantized by the JAX
     package's quantize_kv, the scales transposed to its (R, C) layout."""
     knq, kns = jax_encoder.quantize_kv(jnp.asarray(kn))
     vnq, vns = jax_encoder.quantize_kv(jnp.asarray(vn))
     args = (jnp.asarray(q), knq, vnq, kns[:, None], vns[:, None], jnp.asarray(codes[0]),
             jnp.asarray(codes[1]), jnp.asarray(scales[0].T), jnp.asarray(scales[1].T))
-    h = 4
     if per_stream is None:
         out = A.fused_temporal_decode_pm_int8(*args, jnp.asarray(lens, jnp.int32), num_heads=h)
     else:
@@ -195,37 +194,53 @@ def _jax_int8_decode(q, kn, vn, codes, scales, lens, per_stream):
     return out, (knq, vnq, kns, vns)
 
 
-def _port_int8_decode(q, kn, vn, codes, scales, lens, per_stream):
+def _port_int8_decode(q, kn, vn, codes, scales, lens, per_stream, h=4):
     knq, kns = encoder.quantize_kv(torch.from_numpy(kn))
     vnq, vns = encoder.quantize_kv(torch.from_numpy(vn))
     cache = [torch.from_numpy(codes[0].copy()), torch.from_numpy(codes[1].copy()),
              torch.from_numpy(scales[0].copy()), torch.from_numpy(scales[1].copy())]
     lens_t = torch.tensor(lens, dtype=torch.int32)
     if per_stream is None:
-        out = ops.temporal_decode_pm_int8(torch.from_numpy(q), knq, vnq, kns, vns, *cache, lens_t, 4)
+        out = ops.temporal_decode_pm_int8(torch.from_numpy(q), knq, vnq, kns, vns, *cache, lens_t, h)
     else:
         out = ops.temporal_decode_pm_int8_ragged(torch.from_numpy(q), knq, vnq, kns, vns, *cache,
-                                                 lens_t, per_stream, 4)
+                                                 lens_t, per_stream, h)
     return out, cache
 
 
-@pytest.mark.parametrize(
-    "lens,per_stream",
-    [(0, None), (7, None), (15, None), (16, None), (21, None), (37, None),  # F: linear, ring
-     ([0, 7], 32), ([15, 3], 32), ([16, 21, 37], 32), ([40, 0, 9], 32)],  # G
-)
-def test_int8_decode_matches_pallas(lens, per_stream):
-    """F (one length) and G (32 rows per stream) at lens 0, mid and C-1, and
-    ring lens past C, where the new plane wraps to slot len % C."""
-    c, h, dh = 16, 4, 24
+# F (one length) and G (32 rows per stream) at 64 rows, C=16, four heads of
+# dh 24: lens 0, mid and C-1, and ring lens past C, where the new plane wraps
+# to slot len % C. Then the card tests' head widths, one head of dh 8 and
+# two of dh 128 (tests/test_torch_cuda.py), at rows and a capacity the
+# Pallas kernel's tiling takes (a 32-row divisor, C % 8 == 0; it refuses
+# the card tests' 40 and 56 rows and C=5), linear and ring.
+INT8_DECODE_CASES = [
+    pytest.param(lens, per_stream, 4, 24, id=tag)
+    for lens, per_stream, tag in (
+        (0, None, "0-None"), (7, None, "7-None"), (15, None, "15-None"), (16, None, "16-None"),
+        (21, None, "21-None"), (37, None, "37-None"), ([0, 7], 32, "lens6-32"),
+        ([15, 3], 32, "lens7-32"), ([16, 21, 37], 32, "lens8-32"), ([40, 0, 9], 32, "lens9-32"))
+] + [
+    pytest.param(9, None, 1, 8, id="h1-dh8-9-None"),
+    pytest.param(37, None, 1, 8, id="h1-dh8-37-None"),
+    pytest.param(5, None, 2, 128, id="h2-dh128-5-None"),
+    pytest.param(21, None, 2, 128, id="h2-dh128-21-None"),
+]
+
+
+@pytest.mark.parametrize("lens,per_stream,h,dh", INT8_DECODE_CASES)
+def test_int8_decode_matches_pallas(lens, per_stream, h, dh):
+    """The plain versions of F and G (which the card holds them to) against
+    the Pallas kernels: output, codes and the scale columns."""
+    c = 16
     r = 64 if per_stream is None else per_stream * len(lens)
     d = h * dh
     q, kn, vn = (_randn((r, d), s) for s in (51, 52, 53))
     codes, scales = _int8_cache(c, r, d, 54)
     (ref, k_ref, v_ref), (knq, vnq, kns, vns) = _jax_int8_decode(q, kn, vn, codes, scales, lens,
-                                                                per_stream)
+                                                                per_stream, h)
     got, (k_got, v_got, ks_got, vs_got) = _port_int8_decode(q, kn, vn, codes, scales, lens,
-                                                            per_stream)
+                                                            per_stream, h)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=KERNEL_ATOL)
     np.testing.assert_array_equal(k_got.numpy(), np.asarray(k_ref))
     np.testing.assert_array_equal(v_got.numpy(), np.asarray(v_ref))
