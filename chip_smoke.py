@@ -11,8 +11,8 @@ Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi), and the build of every
    kernel source in ``streamformer_tpu_torch/csrc`` (one nvcc each, all
    started together); the bf16 kernels of B/L and I hold HMMA (tensor-core)
-   instructions, and the decode bodies of A/D/J and F/G the bulk
-   asynchronous copy UBLKCP (``cuobjdump -sass``);
+   instructions, and the decode bodies of A/D/J and F/G and the full-clip
+   kernels C and H the bulk asynchronous copy UBLKCP (``cuobjdump -sass``);
 2. each kernel against its plain version at the flagship shapes, bf16 and
    fp32 (kernel A linear and ring, and linear at capacity 64), with its time (a call's, CUDA events
    around the wrapper, and the kernel's own device time, ``torch.profiler``
@@ -20,7 +20,8 @@ Phases, each fatal on failure:
    ``scaled_dot_product_attention`` call's time (a yardstick the port never
    calls) and the bound (the card's least time for the bytes and
    operations); B on the full clip's R=128 rows bit-equal to B on each
-   8-row slice (batch invariance);
+   8-row slice (batch invariance); C's packed entry (the (B, T, N, 3D) qkv
+   read in place) bit-equal to C on the transposed (R, T, D) rows;
 3. the whole encoder on the card against the same encoder on the CPU (the
    plain versions) at a small fp32 config: full clip, a linear stream and a
    ring stream of 2C frames;
@@ -66,6 +67,8 @@ Phases, each fatal on failure:
     flagship shapes (H: R=1568, T=16; I: R=128, N=196), bf16 and fp32, twice
     for bit-equality, timed beside the backward of one
     ``scaled_dot_product_attention`` call (a yardstick the port never calls);
+    H's packed entry (one (B, T, N, 3D) gradient) bit-equal to H on the
+    transposed rows;
 15. a small fp32 ``MultitaskModel`` on the card against the same model on
     the CPU (plain versions): one ``loss_fn`` and backward for a task of each
     of the seven kinds, every gradient leaf held to the CPU's, and a second
@@ -289,9 +292,11 @@ def main():
         if not hmma or not all(hmma.values()):
             fail(f"{lib}: bf16 kernels without HMMA instructions: {hmma}")
         print(f"{lib}: HMMA instructions in the bf16 kernels' SASS: {sorted(hmma.values())}")
-    # the decode bodies (decode_row.cuh) stage a row with cp.async.bulk, which
-    # sm_90a's SASS spells UBLKCP (UBLKCP.S.G: global to shared)
-    for lib in ("temporal_decode_pm", "temporal_decode_pm_int8"):
+    # the decode bodies (decode_row.cuh) and C and H (fullclip.cuh) stage
+    # their operands with cp.async.bulk, which sm_90a's SASS spells UBLKCP
+    # (UBLKCP.S.G: global to shared)
+    for lib in ("temporal_decode_pm", "temporal_decode_pm_int8", "temporal_fullclip",
+                "temporal_fullclip_bwd"):
         sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(lib))], check=True,
                               capture_output=True, text=True).stdout
         bulk = {}
@@ -299,8 +304,8 @@ def main():
             if f"{lib}_kernel" in fn.split("\n", 1)[0]:
                 bulk[fn.split("\n", 1)[0].strip()] = fn.count("UBLKCP")
         if not bulk or not all(bulk.values()):
-            fail(f"{lib}: decode kernels without bulk copies (UBLKCP): {bulk}")
-        print(f"{lib}: UBLKCP instructions in the decode kernels' SASS: {sorted(bulk.values())}")
+            fail(f"{lib}: kernels without bulk copies (UBLKCP): {bulk}")
+        print(f"{lib}: UBLKCP instructions in the kernels' SASS: {sorted(bulk.values())}")
 
     def time_ms(fn, iters=15):
         """Median device time of one call, L2 flushed before each."""
@@ -322,18 +327,20 @@ def main():
         """The kernel's own device time a call: ``torch.profiler`` over
         iters calls, L2 flushed before each, as time_ms times them (whose
         events also hold the wrapper's host work). Each kernel's mean over
-        the launches the profile recorded (late in a run it may miss some),
-        summed over the kernels a call runs."""
+        the launches the profile recorded (late in a run it may miss some,
+        or, now and then, all: a profile without the kernel's rows is taken
+        again, twice at most), summed over the kernels a call runs."""
         fn()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in device_rows(prof) if any(sym in e.key for sym in symbols)]
-        if not rows:
-            fail(f"no device time matched {symbols}: a kernel symbol was renamed")
-        return sum(e.device_time_total / e.count for e in rows) / 1e3
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            rows = [e for e in device_rows(prof) if any(sym in e.key for sym in symbols)]
+            if rows:
+                return sum(e.device_time_total / e.count for e in rows) / 1e3
+        fail(f"no device time matched {symbols} in three profiles: a kernel symbol was renamed")
 
     def bound(nbytes, flops, dtype_name):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
@@ -489,7 +496,15 @@ def main():
                lambda: ops.temporal_fullclip_plain(q, k, v, h_),
                lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
                4 * elt * r * t_ * d_, 2 * t_ * (t_ + 1) * r * d_)
-        del q, k, v, qh, kh, vh
+        # the packed entry (the encoder's call) reads the (B, T, N, 3D) qkv in
+        # place: bit-equal to C on the transposed (R, T, D) rows
+        qkv = torch.cat([x.view(b_, n_, t_, d_).transpose(1, 2) for x in (q, k, v)], -1)
+        packed = ops.temporal_fullclip_qkv(qkv, h_).transpose(1, 2).reshape(r, t_, d_)
+        if not torch.equal(packed, ops.temporal_fullclip(q, k, v, h_)):
+            fail(f"temporal_fullclip_qkv {dn}: differs from temporal_fullclip on the same rows")
+        print(f"temporal_fullclip_qkv {dn}: (B, T, N, 3D) in place bit-equal to the (R, T, D) "
+              "entry")
+        del q, k, v, qh, kh, vh, qkv, packed
     torch.cuda.synchronize()
 
     def open_gates(model, seed):
@@ -1037,6 +1052,18 @@ def main():
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"{name} {dn}: two runs on the same inputs differ")
+            if causal:  # the packed entry: one (B, T, N, 3D) gradient, bit-equal to H's three
+                def packed(x):
+                    return x.view(b_, n_, t_, -1).transpose(1, 2)
+
+                grad = ops.temporal_fullclip_qkv_bwd(
+                    torch.cat([packed(x) for x in (q, k, v)], -1), packed(g).contiguous(), h_)
+                if not all(torch.equal(packed(x), grad[..., i * d_:(i + 1) * d_])
+                           for i, x in enumerate(got)):
+                    fail(f"temporal_fullclip_qkv_bwd {dn}: differs from {name} on the same rows")
+                print(f"temporal_fullclip_qkv_bwd {dn}: one (B, T, N, 3D) gradient bit-equal to "
+                      f"{name}'s three")
+                del grad
             err, scale = grads_err(got, plain(q, k, v, g, h_))
             # yardstick: the backward of one SDPA call, on a graph built once
             qh, kh, vh = (x.view(r, length, h_, dh).transpose(1, 2).detach().requires_grad_()

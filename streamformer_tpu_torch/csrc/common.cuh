@@ -1,6 +1,7 @@
 // Helpers shared by the port's attention kernels: fp32 <-> storage-type
 // conversion, 2- and 8-element vector loads and stores, warp reductions;
-// bulk asynchronous copies on mbarriers (the decode bodies); and the
+// bulk asynchronous copies on mbarriers and the size of a persistent grid
+// (the decode bodies, and C and H); and the
 // tensor-core pieces of the bf16 spatial bodies (B, L and I): staging,
 // ldmatrix, mma.sync and the softmax over 16-key steps.
 //
@@ -12,6 +13,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
+#include <vector>
 
 enum { SF_FLOAT32 = 0, SF_BFLOAT16 = 1 };
 
@@ -116,7 +120,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// ---- Bulk asynchronous copies (the decode bodies, decode_row.cuh): one
+// ---- Bulk asynchronous copies (decode_row.cuh, fullclip.cuh): one
 // thread asks the copy engine for a contiguous run of bytes, global ->
 // shared (cp.async.bulk; 16-byte aligned addresses, a size that is a
 // multiple of 16), which completes on an mbarrier in shared memory. The
@@ -149,6 +153,9 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
         : "memory");
   }
 }
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
 __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
                                               unsigned long long* bar) {
   asm volatile(
@@ -167,6 +174,48 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_arrive_noinc(unsigned long long* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
+}
+
+// Blocks of a persistent grid: as many as fit on the card at `smem` bytes
+// of dynamic shared memory, at most `items`. The kernel's shared-memory
+// attributes are set, and its occupancy is asked, once per (kernel, device,
+// shared-memory bytes); every later launch finds the grid in a table, so a
+// launch makes one runtime call besides itself (cudaGetDevice).
+template <typename Kernel>
+inline cudaError_t persistent_grid(Kernel kernel, int threads, int smem, int items, int* blocks) {
+  struct Seen {
+    Kernel kernel;
+    int device, smem, blocks;
+  };
+  static std::mutex mutex;
+  static std::vector<Seen> seen;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  int most = smem;  // the attribute only grows: it bounds every size seen
+  for (const Seen& s : seen) {
+    if (s.kernel != kernel || s.device != device) continue;
+    if (s.smem == smem) {
+      *blocks = items < s.blocks ? items : s.blocks;
+      return cudaSuccess;
+    }
+    most = s.smem > most ? s.smem : most;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  seen.push_back({kernel, device, smem, sms * per_sm});
+  *blocks = items < sms * per_sm ? items : sms * per_sm;
+  return cudaSuccess;
 }
 
 // Four 8x8 bf16 matrices from shared memory; lane i gives the address of

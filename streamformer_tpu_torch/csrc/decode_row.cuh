@@ -45,9 +45,7 @@
 #pragma once
 
 #include <cstdint>
-#include <mutex>
 #include <type_traits>
-#include <vector>
 
 #include "common.cuh"
 
@@ -115,9 +113,6 @@ struct Args {
 // The eight consumer warps' own barrier (the producer warp never joins).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
 // Four int8 codes (a 32-bit word) to fp32, exactly: each code, offset by
@@ -361,48 +356,6 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
       if (tid == 0) mbar_arrive(empty + g % kStages);
     }
   }
-}
-
-// Blocks of the persistent grid: as many as fit on the card, at most one a
-// row. The kernel's shared-memory attributes are set, and its occupancy is
-// asked, once per (kernel, device, shared-memory bytes); every later launch
-// finds the grid in a table, so a launch makes one runtime call besides
-// itself (cudaGetDevice).
-template <typename Kernel>
-inline cudaError_t grid_size(Kernel kernel, const Plan& p, int rows, int* blocks) {
-  struct Seen {
-    Kernel kernel;
-    int device, smem, blocks;
-  };
-  static std::mutex mutex;
-  static std::vector<Seen> seen;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mutex);
-  int most = p.total;  // the attribute only grows: it bounds every size seen
-  for (const Seen& s : seen) {
-    if (s.kernel != kernel || s.device != device) continue;
-    if (s.smem == p.total) {
-      *blocks = rows < s.blocks ? rows : s.blocks;
-      return cudaSuccess;
-    }
-    most = s.smem > most ? s.smem : most;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, p.total);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  seen.push_back({kernel, device, p.total, sms * per_sm});
-  *blocks = rows < sms * per_sm ? rows : sms * per_sm;
-  return cudaSuccess;
 }
 
 }  // namespace decode

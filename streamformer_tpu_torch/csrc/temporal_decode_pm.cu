@@ -60,7 +60,8 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, v
                        rows, capacity, d, heads, slot_stride, row_stride, scale};
   const decode::Plan plan = decode::plan(d, heads, capacity, sizeof(T), sizeof(T), false);
   int blocks = 0;
-  const cudaError_t err = decode::grid_size(temporal_decode_pm_kernel<T>, plan, rows, &blocks);
+  const cudaError_t err =
+      persistent_grid(temporal_decode_pm_kernel<T>, decode::kThreads, plan.total, rows, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   temporal_decode_pm_kernel<T><<<blocks, decode::kThreads, plan.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

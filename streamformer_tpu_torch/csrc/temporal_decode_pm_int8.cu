@@ -61,7 +61,8 @@ int launch(const void* q, const void* k_new, const void* v_new, const void* k_ne
   const decode::Plan plan = decode::plan(d, heads, capacity, 1, sizeof(T), true);
   int blocks = 0;
   const cudaError_t err =
-      decode::grid_size(temporal_decode_pm_int8_kernel<T>, plan, rows, &blocks);
+      persistent_grid(temporal_decode_pm_int8_kernel<T>, decode::kThreads, plan.total, rows,
+                      &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   temporal_decode_pm_int8_kernel<T><<<blocks, decode::kThreads, plan.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -3,9 +3,12 @@
 //
 // Replaces: streamformer_tpu/ops/attention.py fused_temporal_fullclip,
 // forward (_fullclip_temporal_pallas, kernel body
-// _fullclip_temporal_kernel). Same contract: q, k, v, out are (R, T, D);
-// query t attends keys 0..t; scores, softmax and the PV sum are fp32, and
-// the output is rounded to the input type.
+// _fullclip_temporal_kernel). Same contract: query t attends keys 0..t;
+// scores, softmax and the PV sum are fp32, and the output is rounded to the
+// input type. The operands are read in place: q, k, v and out are each a
+// base pointer and element strides over (b, t, n), D contiguous, so one
+// kernel takes the (B, T, N, 3D) output of the qkv projection (the encoder)
+// and (R, T, D) rows (B = R, N = 1).
 //
 // The arithmetic is the one temporal_decode_pm.cu repeats for a streamed
 // frame: each score one sequential fp32 FMA chain over dh, then scaled;
@@ -13,122 +16,174 @@
 // in key order, one multiply by the reciprocal of the sum. Keep the two in
 // step: streaming equals the full clip bit for bit only while they agree.
 //
-// Bound on the H100: bytes. Per (row, head) the work is about T*T*dh FMAs
-// on 4*T*dh elements, a few operations per byte at T = 16. The design moves
-// each byte once with many loads in flight: one warp per (row, head) copies
-// the head's T x dh slices of K and V into shared memory, 16 bytes a lane,
-// neighbouring lanes on neighbouring addresses; then one lane per query
-// keeps its T scores in registers (no shuffles), and every lane reads the
-// same K or V chunk from shared memory at once (a broadcast).
-#include "common.cuh"
+// Bound on the H100: bytes (4 T dh elements a (row, head) against about
+// T^2 dh FMAs, a few a byte at T = 16). The pipeline (fullclip.cuh) keeps
+// rows in flight on bulk asynchronous copies in a persistent grid; the
+// consumers run three phases an item: the causal scores, the softmax, PV
+// (a thread per two queries, so that each staged V chunk feeds both).
+#include "fullclip.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;   // warps per block, one (row, head) each
-constexpr int kMaxT = 32;   // one lane per query
+using fullclip::Args;
+using fullclip::consumers_sync;
+using fullclip::kConsumers;
+using fullclip::kKeyGroup;
+using fullclip::kStages;
+using fullclip::kThreads;
+
+// The softmax of one (head, query t) row: the exps in place (keys 0..t), the
+// reciprocal of their sum at *inv.
+template <int N>
+__device__ __forceinline__ void softmax_row(float* sr, int t, float* inv) {
+  float x[N];
+  const float sum = fullclip::exps<N>(sr, t, x);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j <= t) sr[j] = x[j];
+  *inv = __fdiv_rn(1.f, sum);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-temporal_fullclip_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, T* __restrict__ out, int rows, int t_len,
-                         int d, int heads, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long w = static_cast<long>(blockIdx.x) * kWarps + warp;
-  if (w >= static_cast<long>(rows) * heads) return;
-  const int row = static_cast<int>(w / heads);
-  const int head = static_cast<int>(w % heads);
-  const int dh = d / heads;
-  const int nc = dh / 8;
-  const long base = static_cast<long>(row) * t_len * d + head * dh;
-  T* ks = reinterpret_cast<T*>(smem) + static_cast<long>(warp) * 2 * t_len * dh;  // t_len x dh
-  T* vs = ks + t_len * dh;                                                        // t_len x dh
-  for (int i = lane; i < t_len * nc; i += 32) {
-    const int j = i / nc, c = i % nc;
-    const long g = base + static_cast<long>(j) * d + 8 * c;
-    copy8(ks + j * dh + 8 * c, k + g);
-    copy8(vs + j * dh + 8 * c, v + g);
+__global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_kernel(const Args<3> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const fullclip::Plan& p = a.p;
+  fullclip::setup(smem, p, a.t_len);
+  const int tid = threadIdx.x;
+  if (tid >= kConsumers) {  // the producer warp
+    fullclip::produce<T>(smem, a);
+    return;
   }
-  __syncwarp();
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + p.full);
+  unsigned long long* empty = reinterpret_cast<unsigned long long*>(smem + p.empty);
+  float* scores = reinterpret_cast<float*>(smem + p.scores);
+  float* invs = reinterpret_cast<float*>(smem + p.inv);
+  const int* tri = reinterpret_cast<const int*>(smem + p.tri);
+  const int t_len = a.t_len, dh = a.dh, hg = p.hg, ss = p.ss, nc = dh / 8;
+  const int rs = p.row_bytes / static_cast<int>(sizeof(T));  // elements between frame rows
+  T* out = static_cast<T*>(a.out[0].p);
+  for (int item = blockIdx.x, k = 0; item < a.items; item += gridDim.x, ++k) {
+    const int s = k % kStages;
+    const int row = item / p.groups, col = (item - row * p.groups) * hg * dh;
+    mbar_wait(full + s, (k / kStages) & 1);
+    const T* qs = reinterpret_cast<const T*>(smem + s * p.stage_bytes);
+    const T* ks = qs + p.op_bytes / sizeof(T);
+    const T* vs = ks + p.op_bytes / sizeof(T);
 
-  const int t = lane;  // this lane's query position
-  const bool on = t < t_len;
-  float s[kMaxT];
+    // scores: a task per (head, query t, group of keys <= t)
+    for (int w = tid; w < hg * p.n_tri; w += kConsumers) {
+      const int h = w / p.n_tri, e = tri[w - h * p.n_tri];
+      const int t = e >> 8, j0 = (e & 255) * kKeyGroup;
+      const int nk = min(kKeyGroup, t + 1 - j0);
+      float acc[kKeyGroup];
+      fullclip::dot_group(qs + t * rs + h * dh, ks + j0 * rs + h * dh, rs, nk, dh, acc);
+      float* to = scores + (h * t_len + t) * ss + j0;
 #pragma unroll
-  for (int j = 0; j < kMaxT; ++j) s[j] = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    float qv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (on) load8(q + base + static_cast<long>(t) * d + 8 * c, qv);
-#pragma unroll
-    for (int j = 0; j < kMaxT; ++j) {
-      if (j < t_len) {  // the same for every lane
-        float kf[8];
-        load8(ks + j * dh + 8 * c, kf);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s[j] = fmaf(qv[e], kf[e], s[j]);
-      }
+      for (int kk = 0; kk < kKeyGroup; ++kk)
+        if (kk < nk) to[kk] = __fmul_rn(acc[kk], a.scale);
     }
-  }
+    consumers_sync();
 
-  float m = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kMaxT; ++j) {
-    s[j] = __fmul_rn(s[j], scale);
-    if (j <= t && j < t_len) m = fmaxf(m, s[j]);
-  }
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxT; ++j) {
-    s[j] = j <= t && j < t_len ? expf(__fsub_rn(s[j], m)) : 0.f;
-    sum = __fadd_rn(sum, s[j]);
-  }
-  const float inv = __fdiv_rn(1.f, sum);
+    // softmax: a thread per (head, query); exps in place, the reciprocal aside
+    for (int w = tid; w < hg * t_len; w += kConsumers) {
+      if (t_len <= 16)
+        softmax_row<16>(scores + w * ss, w % t_len, invs + w);
+      else
+        softmax_row<fullclip::kMaxT>(scores + w * ss, w % t_len, invs + w);
+    }
+    consumers_sync();
 
-  for (int c = 0; c < nc; ++c) {
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    // PV of two queries t0 and t0 + 1: a thread per (query pair, head, 8
+    // elements), keys in order; each staged V chunk feeds both
+    const int per_t = hg * nc;
+    for (int w = tid; w < (t_len + 1) / 2 * per_t; w += kConsumers) {
+      const int t0 = w / per_t * 2, r = w - t0 / 2 * per_t, h = r / nc;
+      const int c = h * dh + (r - h * nc) * 8;
+      const float* p0 = scores + (h * t_len + t0) * ss;  // query t0's row; t0 + 1's follows
+      float acc[2][8];
 #pragma unroll
-    for (int j = 0; j < kMaxT; ++j) {
-      if (j < t_len) {
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[f][e] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j <= t0; ++j) {
         float vf[8];
-        load8(vs + j * dh + 8 * c, vf);
+        load8(vs + j * rs + c, vf);
+        const float a0 = p0[j], a1 = p0[ss + j];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = fmaf(s[j], vf[e], acc[e]);
+        for (int e = 0; e < 8; ++e) {
+          acc[0][e] = fmaf(a0, vf[e], acc[0][e]);
+          acc[1][e] = fmaf(a1, vf[e], acc[1][e]);
+        }
+      }
+      const bool two = t0 + 1 < t_len;
+      if (two) {
+        float vf[8];
+        load8(vs + (t0 + 1) * rs + c, vf);
+        const float a1 = p0[ss + t0 + 1];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[1][e] = fmaf(a1, vf[e], acc[1][e]);
+      }
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        if (f == 0 || two) {
+          const float inv = invs[h * t_len + t0 + f];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[f][e] = __fmul_rn(acc[f][e], inv);
+          store8(out + fullclip::at(a.out[0], row, a.n, t0 + f, col + c), acc[f]);
+        }
       }
     }
-    if (on) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = __fmul_rn(acc[e], inv);
-      store8(out + base + static_cast<long>(t) * d + 8 * c, acc);
-    }
+    consumers_sync();  // every consumer is done with the stage
+    if (tid == 0) mbar_arrive(empty + s);
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int rows, int t_len, int d,
+int launch(const void* const* ptrs, const long long* strides, int batch, int n, int t_len, int d,
            int heads, float scale, cudaStream_t stream) {
-  const long warps = static_cast<long>(rows) * heads;
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  const size_t smem = sizeof(T) * kWarps * 2 * t_len * d / heads;
-  cudaError_t err = cudaFuncSetAttribute(temporal_fullclip_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const int dh = d / heads;
+  const fullclip::Plan p = fullclip::plan(heads, t_len, dh, sizeof(T), 3, false);
+  if (p.hg < 1 || t_len < 1 || t_len > fullclip::kMaxT || dh % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args<3> a;
+  for (int o = 0; o < 4; ++o) {
+    fullclip::Operand& x = o < 3 ? a.in[o] : a.out[0];
+    x = {const_cast<void*>(ptrs[o]), strides[3 * o], strides[3 * o + 1], strides[3 * o + 2]};
+  }
+  a.out[1] = a.out[2] = a.out[0];
+  a.p = p;
+  a.items = batch * n * p.groups;
+  a.n = n;
+  a.t_len = t_len;
+  a.dh = dh;
+  a.scale = scale;
+  int blocks = 0;
+  const cudaError_t err =
+      persistent_grid(temporal_fullclip_kernel<T>, kThreads, p.total, a.items, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  temporal_fullclip_kernel<T><<<blocks, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), rows, t_len, d, heads, scale);
+  temporal_fullclip_kernel<T><<<blocks, kThreads, p.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int sf_temporal_fullclip(const void* q, const void* k, const void* v, void* out,
-                                    int rows, int t_len, int d, int heads, float scale, int dtype,
+// Shared memory a block needs (the wrapper refuses shapes past a block's
+// most); 0 when not even one head fits.
+extern "C" int sf_temporal_fullclip_smem_bytes(int t_len, int d, int heads, int dtype) {
+  const fullclip::Plan p =
+      fullclip::plan(heads, t_len, d / heads, dtype == SF_BFLOAT16 ? 2 : 4, 3, false);
+  return p.hg ? p.total : 0;
+}
+
+// ptrs: q, k, v, out; strides: their (b, t, n) element strides, three each.
+extern "C" int sf_temporal_fullclip(const void* const* ptrs, const long long* strides, int batch,
+                                    int n, int t_len, int d, int heads, float scale, int dtype,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == SF_BFLOAT16)
-    return launch<__nv_bfloat16>(q, k, v, out, rows, t_len, d, heads, scale, st);
+    return launch<__nv_bfloat16>(ptrs, strides, batch, n, t_len, d, heads, scale, st);
   if (dtype == SF_FLOAT32)
-    return launch<float>(q, k, v, out, rows, t_len, d, heads, scale, st);
+    return launch<float>(ptrs, strides, batch, n, t_len, d, heads, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

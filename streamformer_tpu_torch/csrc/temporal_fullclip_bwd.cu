@@ -4,216 +4,241 @@
 //
 // Replaces: streamformer_tpu/ops/attention.py _fullclip_temporal_bwd_pallas
 // (kernel body _fullclip_temporal_bwd_kernel), the backward of
-// fused_temporal_fullclip. Same contract: q, k, v, g, dq, dk, dv are
-// (R, T, D); nothing is saved by the forward but q, k, v, so the
-// probabilities are recomputed; everything is fp32 and the three gradients
-// are rounded to the input type once, when they are written:
+// fused_temporal_fullclip. Same contract: nothing is saved by the forward
+// but q, k, v, so the probabilities are recomputed; everything is fp32 and
+// the three gradients are rounded to the input type once, when they are
+// written:
 //
 //   p      = softmax(q k^T * scale, causal)        dv[j] = sum_t p[t][j] g[t]
 //   dp     = g v^T                                  ds    = p (dp - delta) scale
 //   delta  = sum_j p[t][j] dp[t][j]                 dq[t] = sum_j ds[t][j] k[j]
 //                                                   dk[j] = sum_t ds[t][j] q[t]
 //
-// The scores and the softmax repeat temporal_fullclip.cu's order of
-// arithmetic, so p here is the forward's p bit for bit.
+// Operands are read and written in place, each a base pointer and element
+// strides over (b, t, n), D contiguous, as in temporal_fullclip.cu: the
+// encoder's q, k, v are the (B, T, N, 3D) output of the qkv projection, and
+// dq, dk, dv the three thirds of its (B, T, N, 3D) gradient.
 //
-// Bound on the H100: bytes (seven (R, T, D) arrays moved once against a few
-// operations per byte at T = 16). One warp per (row, head). Phase 1 is the
-// forward's layout: K and V of the head staged in shared memory, one lane
-// per query, its T scores, probabilities and dp in registers; the lane
-// writes its dq row and leaves its rows of p and ds in shared memory. Phase
-// 2 turns the warp around: each lane owns 8-element chunks of (key j, dh)
-// and sums over the queries t >= j in order, reading q and g from shared
-// memory, so dk and dv are accumulated inside the warp and written once.
-// No atomics: two runs give the same bits.
-#include "common.cuh"
+// The scores and the softmax repeat temporal_fullclip.cu's order of
+// arithmetic, so p here is the forward's p bit for bit; every sum runs in a
+// fixed order inside one thread, with no atomics, so two runs give the same
+// bits.
+//
+// Bound on the H100: bytes (seven T x dh slices a (row, head) moved once
+// against a few operations per byte at T = 16). The pipeline (fullclip.cuh)
+// stages q, k, v and g of an item in flight on bulk asynchronous copies;
+// the consumers run three phases an item: the causal scores and dp (one
+// task per (head, query, group of keys), as C's scores), the softmax with
+// delta and ds (a thread per (head, query)), and the three products, one
+// thread per (two frames x0 and x0 + 1, head, 8 elements) computing dq[x]
+// over keys j <= x and dk[x], dv[x] over queries t >= x: T + 2 steps,
+// whatever x0, each staged chunk loaded once for the two frames (which
+// halves the shared-memory reads and bf16 conversions a product).
+#include "fullclip.cuh"
 
 namespace {
 
-constexpr int kMaxWarps = 4;  // warps per block, one (row, head) each
-constexpr int kMaxT = 32;     // one lane per query
+using fullclip::Args;
+using fullclip::consumers_sync;
+using fullclip::kConsumers;
+using fullclip::kKeyGroup;
+using fullclip::kStages;
+using fullclip::kThreads;
 
-// Per warp: K, V, Q, G of the head (t_len x dh each, input type), then p and
-// ds (t_len x pstride fp32 each).
-inline __host__ __device__ int p_stride(int t_len) { return t_len | 1; }
-inline __host__ __device__ size_t warp_bytes(int t_len, int dh, int elem) {
-  const size_t bytes = static_cast<size_t>(4) * t_len * dh * elem +
-                       static_cast<size_t>(2) * t_len * p_stride(t_len) * 4;
-  return (bytes + 15) / 16 * 16;  // the next warp's K stays 16-byte aligned
+// One (head, query t) row: the forward's p in place of the scores, then
+// delta = sum_j p dp (in key order) and ds in place of dp (keys 0..t).
+template <int N>
+__device__ __forceinline__ void softmax_grad_row(float* pr, float* dr, int t, float scale) {
+  float x[N];
+  const float inv = __fdiv_rn(1.f, fullclip::exps<N>(pr, t, x));
+  float dp[N];
+  float delta = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    x[j] = __fmul_rn(x[j], inv);  // 0 past t
+    dp[j] = j <= t ? dr[j] : 0.f;
+    delta = fmaf(x[j], dp[j], delta);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j <= t) {
+      pr[j] = x[j];
+      dr[j] = __fmul_rn(__fmul_rn(x[j], __fsub_rn(dp[j], delta)), scale);
+    }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-temporal_fullclip_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const T* __restrict__ g,
-                             T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-                             int rows, int t_len, int d, int heads, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const long w = static_cast<long>(blockIdx.x) * warps + warp;
-  if (w >= static_cast<long>(rows) * heads) return;
-  const int row = static_cast<int>(w / heads);
-  const int head = static_cast<int>(w % heads);
-  const int dh = d / heads;
-  const int nc = dh / 8;
-  const int ps_stride = p_stride(t_len);
-  const long base = static_cast<long>(row) * t_len * d + head * dh;
-  unsigned char* mine = smem + warp * warp_bytes(t_len, dh, sizeof(T));
-  T* ks = reinterpret_cast<T*>(mine);  // t_len x dh
-  T* vs = ks + t_len * dh;
-  T* qs = vs + t_len * dh;
-  T* gs = qs + t_len * dh;
-  float* ps = reinterpret_cast<float*>(gs + t_len * dh);  // t_len x ps_stride
-  float* dss = ps + t_len * ps_stride;
-  for (int i = lane; i < t_len * nc; i += 32) {
-    const int j = i / nc, c = i % nc;
-    const long src = base + static_cast<long>(j) * d + 8 * c;
-    copy8(ks + j * dh + 8 * c, k + src);
-    copy8(vs + j * dh + 8 * c, v + src);
-    copy8(qs + j * dh + 8 * c, q + src);
-    copy8(gs + j * dh + 8 * c, g + src);
+__global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_bwd_kernel(const Args<4> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const fullclip::Plan& p = a.p;
+  fullclip::setup(smem, p, a.t_len);
+  const int tid = threadIdx.x;
+  if (tid >= kConsumers) {  // the producer warp
+    fullclip::produce<T>(smem, a);
+    return;
   }
-  __syncwarp();
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + p.full);
+  unsigned long long* empty = reinterpret_cast<unsigned long long*>(smem + p.empty);
+  float* ps = reinterpret_cast<float*>(smem + p.scores);  // scores, then p
+  float* dps = reinterpret_cast<float*>(smem + p.dps);    // dp, then ds
+  const int* tri = reinterpret_cast<const int*>(smem + p.tri);
+  const int t_len = a.t_len, dh = a.dh, hg = p.hg, ss = p.ss, nc = dh / 8;
+  const int rs = p.row_bytes / static_cast<int>(sizeof(T));  // elements between frame rows
+  for (int item = blockIdx.x, k = 0; item < a.items; item += gridDim.x, ++k) {
+    const int s = k % kStages;
+    const int row = item / p.groups, col = (item - row * p.groups) * hg * dh;
+    mbar_wait(full + s, (k / kStages) & 1);
+    const T* qs = reinterpret_cast<const T*>(smem + s * p.stage_bytes);
+    const T* ks = qs + p.op_bytes / sizeof(T);
+    const T* vs = ks + p.op_bytes / sizeof(T);
+    const T* gs = vs + p.op_bytes / sizeof(T);
 
-  // ---- phase 1: lane t is query t
-  const int t = lane;
-  const bool on = t < t_len;
-  float s[kMaxT], dp[kMaxT];
+    // scores and dp: a task per (head, query t, group of keys <= t)
+    for (int w = tid; w < hg * p.n_tri; w += kConsumers) {
+      const int h = w / p.n_tri, e = tri[w - h * p.n_tri];
+      const int t = e >> 8, j0 = (e & 255) * kKeyGroup;
+      const int nk = min(kKeyGroup, t + 1 - j0);
+      const int qo = t * rs + h * dh, ko = j0 * rs + h * dh;
+      float sc[kKeyGroup], dp[kKeyGroup];
+      fullclip::dot_group(qs + qo, ks + ko, rs, nk, dh, sc);
+      fullclip::dot_group(gs + qo, vs + ko, rs, nk, dh, dp);
+      const int to = (h * t_len + t) * ss + j0;
 #pragma unroll
-  for (int j = 0; j < kMaxT; ++j) s[j] = dp[j] = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    float qv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float gv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (on) {
-      load8(q + base + static_cast<long>(t) * d + 8 * c, qv);
-      load8(g + base + static_cast<long>(t) * d + 8 * c, gv);
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxT; ++j) {
-      if (j < t_len) {  // the same for every lane
-        float kf[8], vf[8];
-        load8(ks + j * dh + 8 * c, kf);
-        load8(vs + j * dh + 8 * c, vf);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          s[j] = fmaf(qv[e], kf[e], s[j]);
-          dp[j] = fmaf(gv[e], vf[e], dp[j]);
+      for (int kk = 0; kk < kKeyGroup; ++kk) {
+        if (kk < nk) {
+          ps[to + kk] = __fmul_rn(sc[kk], a.scale);
+          dps[to + kk] = dp[kk];
         }
       }
     }
-  }
-  // the forward's softmax: scaled scores, max, exp, sequential sum
-  float m = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kMaxT; ++j) {
-    s[j] = __fmul_rn(s[j], scale);
-    if (j <= t && j < t_len) m = fmaxf(m, s[j]);
-  }
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxT; ++j) {
-    s[j] = j <= t && j < t_len ? expf(__fsub_rn(s[j], m)) : 0.f;
-    sum = __fadd_rn(sum, s[j]);
-  }
-  const float inv = on ? __fdiv_rn(1.f, sum) : 0.f;
-  float delta = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxT; ++j) {
-    s[j] = __fmul_rn(s[j], inv);  // p; 0 for masked keys
-    delta = fmaf(s[j], dp[j], delta);
-  }
-#pragma unroll
-  for (int j = 0; j < kMaxT; ++j) {
-    dp[j] = s[j] * (dp[j] - delta) * scale;  // ds; 0 for masked keys
-    if (on && j < t_len) {
-      ps[t * ps_stride + j] = s[j];
-      dss[t * ps_stride + j] = dp[j];
+    consumers_sync();
+
+    // the forward's softmax, then delta and ds: a thread per (head, query)
+    for (int w = tid; w < hg * t_len; w += kConsumers) {
+      if (t_len <= 16)
+        softmax_grad_row<16>(ps + w * ss, dps + w * ss, w % t_len, a.scale);
+      else
+        softmax_grad_row<fullclip::kMaxT>(ps + w * ss, dps + w * ss, w % t_len, a.scale);
     }
-  }
-  for (int c = 0; c < nc; ++c) {
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    consumers_sync();
+
+    // dq, dk, dv of two frames x0 and x0 + 1: dq[x] over keys j <= x, dk[x]
+    // and dv[x] over queries t >= x, in order; each staged chunk feeds both
+    const int per_x = hg * nc;
+    for (int w = tid; w < (t_len + 1) / 2 * per_x; w += kConsumers) {
+      const int x0 = w / per_x * 2, r = w - x0 / 2 * per_x, h = r / nc;
+      const int c = h * dh + (r - h * nc) * 8;
+      float aq[2][8], ak[2][8], av[2][8];
 #pragma unroll
-    for (int j = 0; j < kMaxT; ++j) {
-      if (j < t_len) {
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) aq[f][e] = ak[f][e] = av[f][e] = 0.f;
+      const float* ds0 = dps + (h * t_len + x0) * ss;  // query x0's row; x0 + 1's follows
+#pragma unroll 2
+      for (int j = 0; j <= x0; ++j) {
         float kf[8];
-        load8(ks + j * dh + 8 * c, kf);
+        load8(ks + j * rs + c, kf);
+        const float d0 = ds0[j], d1 = ds0[ss + j];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = fmaf(dp[j], kf[e], acc[e]);
+        for (int e = 0; e < 8; ++e) {
+          aq[0][e] = fmaf(d0, kf[e], aq[0][e]);
+          aq[1][e] = fmaf(d1, kf[e], aq[1][e]);
+        }
+      }
+      const bool two = x0 + 1 < t_len;
+      {
+        float kf[8], qf[8], gf[8];
+        if (two) {
+          load8(ks + (x0 + 1) * rs + c, kf);
+          const float d1 = ds0[ss + x0 + 1];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) aq[1][e] = fmaf(d1, kf[e], aq[1][e]);
+        }
+        load8(qs + x0 * rs + c, qf);
+        load8(gs + x0 * rs + c, gf);
+        const float d0 = ds0[x0], p0 = ps[(h * t_len + x0) * ss + x0];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          ak[0][e] = fmaf(d0, qf[e], ak[0][e]);
+          av[0][e] = fmaf(p0, gf[e], av[0][e]);
+        }
+      }
+#pragma unroll 2
+      for (int t = x0 + 1; t < t_len; ++t) {
+        float qf[8], gf[8];
+        load8(qs + t * rs + c, qf);
+        load8(gs + t * rs + c, gf);
+        const int tx = (h * t_len + t) * ss + x0;
+        const float d0 = dps[tx], p0 = ps[tx], d1 = dps[tx + 1], p1 = ps[tx + 1];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          ak[0][e] = fmaf(d0, qf[e], ak[0][e]);
+          av[0][e] = fmaf(p0, gf[e], av[0][e]);
+          ak[1][e] = fmaf(d1, qf[e], ak[1][e]);
+          av[1][e] = fmaf(p1, gf[e], av[1][e]);
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        if (f == 0 || two) {
+          const float* grads[3] = {aq[f], ak[f], av[f]};
+#pragma unroll
+          for (int o = 0; o < 3; ++o)
+            store8(static_cast<T*>(a.out[o].p) + fullclip::at(a.out[o], row, a.n, x0 + f, col + c),
+                   grads[o]);
+        }
       }
     }
-    if (on) store8(dq + base + static_cast<long>(t) * d + 8 * c, acc);
+    consumers_sync();  // every consumer is done with the stage
+    if (tid == 0) mbar_arrive(empty + s);
   }
-  __syncwarp();
-
-  // ---- phase 2: each lane owns chunks (key j, 8 elements of dh)
-  for (int i = lane; i < t_len * nc; i += 32) {
-    const int j = i / nc, c = i % nc;
-    float ak[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float av[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int tq = j; tq < t_len; ++tq) {  // queries that attend key j, in order
-      const float ds_tj = dss[tq * ps_stride + j];
-      const float p_tj = ps[tq * ps_stride + j];
-      float qf[8], gf[8];
-      load8(qs + tq * dh + 8 * c, qf);
-      load8(gs + tq * dh + 8 * c, gf);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        ak[e] = fmaf(ds_tj, qf[e], ak[e]);
-        av[e] = fmaf(p_tj, gf[e], av[e]);
-      }
-    }
-    const long dst = base + static_cast<long>(j) * d + 8 * c;
-    store8(dk + dst, ak);
-    store8(dv + dst, av);
-  }
-}
-
-// Warps per block: as many as the shared memory of one block holds, at most
-// kMaxWarps; 0 when one warp's share alone is too large.
-inline int warps_per_block(int t_len, int dh, int elem) {
-  const size_t one = warp_bytes(t_len, dh, elem);
-  const size_t fit = 232448 / one;
-  return static_cast<int>(fit < static_cast<size_t>(kMaxWarps) ? fit : kMaxWarps);
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-           void* dv, int rows, int t_len, int d, int heads, float scale, cudaStream_t stream) {
+int launch(const void* const* ptrs, const long long* strides, int batch, int n, int t_len, int d,
+           int heads, float scale, cudaStream_t stream) {
   const int dh = d / heads;
-  const int wpb = warps_per_block(t_len, dh, sizeof(T));
-  if (wpb < 1 || t_len > kMaxT) return static_cast<int>(cudaErrorInvalidValue);
-  const long warps = static_cast<long>(rows) * heads;
-  const unsigned blocks = static_cast<unsigned>((warps + wpb - 1) / wpb);
-  const size_t smem = wpb * warp_bytes(t_len, dh, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(temporal_fullclip_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const fullclip::Plan p = fullclip::plan(heads, t_len, dh, sizeof(T), 4, true);
+  if (p.hg < 1 || t_len < 1 || t_len > fullclip::kMaxT || dh % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args<4> a;
+  for (int o = 0; o < 7; ++o) {
+    fullclip::Operand& x = o < 4 ? a.in[o] : a.out[o - 4];
+    x = {const_cast<void*>(ptrs[o]), strides[3 * o], strides[3 * o + 1], strides[3 * o + 2]};
+  }
+  a.p = p;
+  a.items = batch * n * p.groups;
+  a.n = n;
+  a.t_len = t_len;
+  a.dh = dh;
+  a.scale = scale;
+  int blocks = 0;
+  const cudaError_t err =
+      persistent_grid(temporal_fullclip_bwd_kernel<T>, kThreads, p.total, a.items, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  temporal_fullclip_bwd_kernel<T><<<blocks, wpb * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv),
-      rows, t_len, d, heads, scale);
+  temporal_fullclip_bwd_kernel<T><<<blocks, kThreads, p.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared memory one warp needs; the wrapper refuses shapes whose share does
-// not fit one block.
+// Shared memory a block needs (the wrapper refuses shapes past a block's
+// most); 0 when not even one head fits.
 extern "C" int sf_temporal_fullclip_bwd_smem_bytes(int t_len, int d, int heads, int dtype) {
-  return static_cast<int>(warp_bytes(t_len, d / heads, dtype == SF_BFLOAT16 ? 2 : 4));
+  const fullclip::Plan p =
+      fullclip::plan(heads, t_len, d / heads, dtype == SF_BFLOAT16 ? 2 : 4, 4, true);
+  return p.hg ? p.total : 0;
 }
 
-extern "C" int sf_temporal_fullclip_bwd(const void* q, const void* k, const void* v,
-                                        const void* g, void* dq, void* dk, void* dv, int rows,
-                                        int t_len, int d, int heads, float scale, int dtype,
-                                        void* stream) {
+// ptrs: q, k, v, g, dq, dk, dv; strides: their (b, t, n) element strides,
+// three each.
+extern "C" int sf_temporal_fullclip_bwd(const void* const* ptrs, const long long* strides,
+                                        int batch, int n, int t_len, int d, int heads, float scale,
+                                        int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == SF_BFLOAT16)
-    return launch<__nv_bfloat16>(q, k, v, g, dq, dk, dv, rows, t_len, d, heads, scale, st);
+    return launch<__nv_bfloat16>(ptrs, strides, batch, n, t_len, d, heads, scale, st);
   if (dtype == SF_FLOAT32)
-    return launch<float>(q, k, v, g, dq, dk, dv, rows, t_len, d, heads, scale, st);
+    return launch<float>(ptrs, strides, batch, n, t_len, d, heads, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -455,8 +455,9 @@ def temporal_attention(
 ) -> torch.Tensor:
     """Causal attention over the frames T, batched over (B, N); x: (B, T, N, D).
 
-    Full clip (``cache_kv`` None): ``ops.temporal_fullclip`` on (B*N, T, D)
-    rows, query t attending frames 0..t.
+    Full clip (``cache_kv`` None): ``ops.temporal_fullclip_qkv`` on the
+    (B, T, N, 3D) output of the qkv projection as it is, query t attending
+    frames 0..t; its gradient is one (B, T, N, 3D) tensor.
 
     Streaming: the new frames attend the cache and their K/V are written IN
     PLACE into ``cache_kv["k"]`` and ``cache_kv["v"]``; ``cache_len`` (one
@@ -489,13 +490,8 @@ def temporal_attention(
     b, t, n, d = x.shape
     h = cfg.num_attention_heads
     qkv = dense(x, attn.attention.qkv)  # (B, T, N, 3D)
-    if cache_kv is None:
-        def rows(i):  # (B, T, N, D) slice -> (B*N, T, D)
-            return qkv[..., i * d:(i + 1) * d].transpose(1, 2).reshape(b * n, t, d).contiguous()
-
-        ctx = ops.temporal_fullclip(rows(0), rows(1), rows(2), h)
-        ctx = ctx.reshape(b, n, t, d).transpose(1, 2)
-        return dense(ctx, attn.output.dense)
+    if cache_kv is None:  # C (and H) read qkv and write ctx in place: no copies around them
+        return dense(ops.temporal_fullclip_qkv(qkv, h), attn.output.dense)
     ragged = cache_len.ndim == 1
     if cfg.cache_layout == "row_major":
         if new_valid is not None:

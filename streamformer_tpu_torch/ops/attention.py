@@ -15,6 +15,8 @@ wrapper                             plain version                             re
 ``temporal_fullclip``               ``temporal_fullclip_plain``               ``fused_temporal_fullclip`` (fwd)
 ``spatial_flat_bwd``                ``spatial_flat_bwd_plain``                ``_spatial_flat_bwd_pallas``
 ``temporal_fullclip_bwd``           ``temporal_fullclip_bwd_plain``           ``_fullclip_temporal_bwd_pallas``
+``temporal_fullclip_qkv``           ``temporal_fullclip_qkv_plain``           ``fused_temporal_fullclip`` (packed)
+``temporal_fullclip_qkv_bwd``       ``temporal_fullclip_qkv_bwd_plain``       ``_fullclip_temporal_bwd_pallas`` (packed)
 ``spatial_attention``               ``spatial_attention_plain``               ``fused_spatial_attention``
 ==================================  ========================================  ========================================
 
@@ -25,11 +27,17 @@ nothing else does. Heads are dh-wide slices of the flat D axis
 (``spatial_attention`` takes them split, (R, H, N, dh)), dh a multiple of 8
 and at most 128; inputs are float32 or bfloat16 and contiguous (the int8
 kernels take int8 codes and fp32 scales beside a float or bfloat16 query).
+C and H read their operands in place through strides: the packed entries
+``temporal_fullclip_qkv`` and ``temporal_fullclip_qkv_bwd`` take the (B, T,
+N, 3D) output of the qkv projection as it is (the encoder's full clip), the
+(R, T, D) entries contiguous rows; both count under ``temporal_fullclip`` and
+``temporal_fullclip_bwd``.
 
-The two full-clip kernels have a gradient: ``spatial_flat`` and
-``temporal_fullclip`` go through the ``torch.autograd.Function``s
-``SpatialFlat`` and ``TemporalFullclip`` whenever an input requires grad,
-on the CPU as on the card. The forward saves q, k, v only; the backward
+The two full-clip kernels have a gradient: ``spatial_flat``,
+``temporal_fullclip`` and ``temporal_fullclip_qkv`` go through the
+``torch.autograd.Function``s ``SpatialFlat``, ``TemporalFullclip`` and
+``TemporalFullclipQKV`` whenever an input requires grad, on the CPU as on
+the card. The forward saves q, k, v (or qkv) only; the backward
 recomputes the probabilities in ``spatial_flat_bwd`` / ``temporal_fullclip_bwd``
 (a kernel on the card, the plain backward on the CPU). ``spatial_attention``
 goes through ``SpatialAttention``, whose backward is autograd of its plain
@@ -84,8 +92,12 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(name: str, num_heads: int, d: int, **tensors: torch.Tensor) -> torch.device:
-    """Validate what every kernel requires; returns the common device."""
+def _check(name: str, num_heads: int, d: int, strided: bool = False,
+           **tensors: torch.Tensor) -> torch.device:
+    """Validate what every kernel requires; returns the common device.
+    Inputs are contiguous, or with ``strided`` (C and H, which bulk-copy
+    16-byte spans) have a contiguous last axis and 16-byte aligned data and
+    strides."""
     first = next(iter(tensors.values()))
     for key, t in tensors.items():
         if t.device != first.device:
@@ -95,7 +107,14 @@ def _check(name: str, num_heads: int, d: int, **tensors: torch.Tensor) -> torch.
                 f"{name}: {key} is {t.dtype}; all inputs must share one dtype, "
                 "float32 or bfloat16"
             )
-        if not t.is_contiguous():
+        if strided:
+            if (t.stride(-1) != 1 or t.data_ptr() % 16
+                    or any(s * t.element_size() % 16 for s in t.stride()[:-1])):
+                raise ValueError(
+                    f"{name}: {key} (strides {t.stride()}) needs a contiguous last axis and "
+                    "16-byte aligned data and strides"
+                )
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
     if num_heads <= 0 or d % num_heads:
         raise ValueError(f"{name}: D={d} is not a multiple of num_heads={num_heads}")
@@ -963,6 +982,37 @@ def _temporal_shape(name: str, q, *others) -> None:
         )
 
 
+def _frame_strides(x: torch.Tensor):
+    """Element strides over (b, t, n) of a (B, T, N, D) view, or of (R, T, D)
+    rows taken as B = R, N = 1."""
+    return tuple(x.stride()[:3]) if x.ndim == 4 else (x.stride(0), x.stride(1), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _fullclip_smem(name: str, symbol: str, t: int, d: int, num_heads: int, code: int) -> int:
+    """Shared memory a block of C or H takes at this shape (0: none fits)."""
+    return build.function(name, f"{symbol}_smem_bytes", (_I, _I, _I, _I))(t, d, num_heads, code)
+
+
+def _fullclip_kernel(name: str, symbol: str, operands, batch: int, n: int, t: int, d: int,
+                     num_heads: int):
+    """Launch C or H on operands read and written in place: each a (tensor,
+    column) pair, the D-wide slice from ``column`` on of a (B, T, N, D')
+    tensor or of (R, T, D) rows, whose last axis is contiguous; count it
+    under ``name``."""
+    first = operands[0][0]
+    code = _DTYPE_CODES[first.dtype]
+    smem = _fullclip_smem(name, symbol, t, d, num_heads, code)
+    if not 0 < smem <= _MAX_SMEM:
+        raise ValueError(f"{name}: one (row, head) of T={t}, D={d}, {num_heads} heads does not "
+                         "fit a block's shared memory")
+    ptrs = (_P * len(operands))(*(x.data_ptr() + col * x.element_size() for x, col in operands))
+    strides = (ctypes.c_longlong * (3 * len(operands)))(
+        *(s for x, _ in operands for s in _frame_strides(x)))
+    _launch(name, symbol, (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P), first.device, ptrs, strides,
+            batch, n, t, d, num_heads, (d // num_heads) ** -0.5, code)
+
+
 def _temporal_fullclip_forward(q, k, v, num_heads):
     """Kernel C on the card, its plain version on the CPU; no autograd."""
     _temporal_shape("temporal_fullclip", q, k, v)
@@ -972,11 +1022,8 @@ def _temporal_fullclip_forward(q, k, v, num_heads):
         return temporal_fullclip_plain(q, k, v, num_heads)
     _cuda_ready("temporal_fullclip", q, k, v)
     out = torch.empty_like(q)
-    _launch(
-        "temporal_fullclip", "sf_temporal_fullclip", (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-        device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        r, t, d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
-    )
+    _fullclip_kernel("temporal_fullclip", "sf_temporal_fullclip",
+                     [(x, 0) for x in (q, k, v, out)], r, 1, t, d, num_heads)
     return out
 
 
@@ -990,19 +1037,9 @@ def temporal_fullclip_bwd(q, k, v, g, num_heads):
     if device.type == "cpu":
         return temporal_fullclip_bwd_plain(q, k, v, g, num_heads)
     _cuda_ready("temporal_fullclip_bwd", q, k, v, g)
-    code = _DTYPE_CODES[q.dtype]
-    smem = build.function("temporal_fullclip_bwd", "sf_temporal_fullclip_bwd_smem_bytes",
-                          (_I, _I, _I, _I))(t, d, num_heads, code)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"temporal_fullclip_bwd: one (row, head) needs {smem} bytes of "
-                         "shared memory")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    _launch(
-        "temporal_fullclip_bwd", "sf_temporal_fullclip_bwd",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), r, t, d, num_heads, (d // num_heads) ** -0.5, code,
-    )
+    _fullclip_kernel("temporal_fullclip_bwd", "sf_temporal_fullclip_bwd",
+                     [(x, 0) for x in (q, k, v, g, dq, dk, dv)], r, 1, t, d, num_heads)
     return dq, dk, dv
 
 
@@ -1033,3 +1070,126 @@ def temporal_fullclip(q, k, v, num_heads):
     if _wants_grad(q, k, v):
         return TemporalFullclip.apply(q, k, v, num_heads)
     return _temporal_fullclip_forward(q, k, v, num_heads)
+
+
+# The packed entry: the encoder's own layout, read and written in place.
+
+
+def _thirds(qkv: torch.Tensor):
+    """q, k, v (or dq, dk, dv): the three D-wide views of a (B, T, N, 3D)
+    tensor."""
+    d = qkv.shape[-1] // 3
+    return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+
+
+def _packed_rows(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, N, D) -> (B*N, T, D), the JAX encoder's transpose."""
+    b, t, n, d = x.shape
+    return x.transpose(1, 2).reshape(b * n, t, d)
+
+
+def _unpacked(rows: torch.Tensor, b: int, n: int) -> torch.Tensor:
+    """(B*N, T, D) -> a (B, T, N, D) view."""
+    r, t, d = rows.shape
+    return rows.reshape(b, n, t, d).transpose(1, 2)
+
+
+def temporal_fullclip_qkv_plain(qkv, num_heads):
+    """Plain version of ``temporal_fullclip_qkv``: the slices and transposes
+    of the JAX encoder around ``temporal_fullclip_plain``."""
+    b, _, n, _ = qkv.shape
+    rows = (_packed_rows(x) for x in _thirds(qkv))
+    return _unpacked(temporal_fullclip_plain(*rows, num_heads), b, n).contiguous()
+
+
+def temporal_fullclip_qkv_bwd_plain(qkv, g, num_heads):
+    """Plain version of ``temporal_fullclip_qkv_bwd``: ``temporal_fullclip_bwd_plain``
+    on the transposed slices, its three gradients put back side by side."""
+    b, _, n, _ = qkv.shape
+    grads = temporal_fullclip_bwd_plain(*(_packed_rows(x) for x in _thirds(qkv)),
+                                        _packed_rows(g), num_heads)
+    return torch.cat([_unpacked(x, b, n) for x in grads], -1)
+
+
+def _packed_check(name: str, qkv, num_heads, **more) -> torch.device:
+    """What the packed entries require: a (B, T, N, 3D) qkv (and a (B, T,
+    N, D) g), T <= 32, and layouts the bulk copies take: D contiguous,
+    strides and data 16-byte aligned. Raises on anything else, on the CPU
+    as on the card: there is no fallback to a copy."""
+    if qkv.ndim != 4 or qkv.shape[-1] % 3:
+        raise ValueError(f"{name}: qkv must be (B, T, N, 3D), not {tuple(qkv.shape)}")
+    b, t, n, d3 = qkv.shape
+    for key, x in more.items():
+        if x.shape != (b, t, n, d3 // 3):
+            raise ValueError(f"{name}: {key} must be (B, T, N, D) = {(b, t, n, d3 // 3)}")
+    if t > 32:
+        raise NotImplementedError(
+            f"{name}: clips longer than 32 frames (ROADMAP slice 1, item 3a)"
+        )
+    device = _check(name, num_heads, d3 // 3, strided=True, qkv=qkv, **more)
+    if device.type == "cuda":
+        _cuda_ready(name, qkv, *more.values())
+    return device
+
+
+def _temporal_fullclip_qkv_forward(qkv, num_heads):
+    """Kernel C on the card, its plain version on the CPU; no autograd."""
+    device = _packed_check("temporal_fullclip_qkv", qkv, num_heads)
+    if device.type == "cpu":
+        return temporal_fullclip_qkv_plain(qkv, num_heads)
+    b, t, n, d3 = qkv.shape
+    d = d3 // 3
+    out = qkv.new_empty(b, t, n, d)
+    _fullclip_kernel("temporal_fullclip", "sf_temporal_fullclip",
+                     [(qkv, 0), (qkv, d), (qkv, 2 * d), (out, 0)], b, n, t, d, num_heads)
+    return out
+
+
+def temporal_fullclip_qkv_bwd(qkv, g, num_heads):
+    """Gradient of ``temporal_fullclip_qkv``: one (B, T, N, 3D) tensor, dq,
+    dk and dv side by side as q, k and v are in ``qkv``, written in place by
+    kernel H from qkv and the output gradient g (B, T, N, D)."""
+    device = _packed_check("temporal_fullclip_qkv_bwd", qkv, num_heads, g=g)
+    if device.type == "cpu":
+        return temporal_fullclip_qkv_bwd_plain(qkv, g, num_heads)
+    b, t, n, d3 = qkv.shape
+    d = d3 // 3
+    grad = qkv.new_empty(qkv.shape)
+    thirds = [(qkv, 0), (qkv, d), (qkv, 2 * d)]
+    _fullclip_kernel("temporal_fullclip_bwd", "sf_temporal_fullclip_bwd",
+                     [*thirds, (g, 0), *((grad, col) for _, col in thirds)], b, n, t, d, num_heads)
+    return grad
+
+
+class TemporalFullclipQKV(torch.autograd.Function):
+    """``temporal_fullclip_qkv`` with its gradient: forward is kernel C,
+    backward kernel H, both on the packed layout (their plain versions on
+    the CPU). Saves qkv only."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return _temporal_fullclip_qkv_forward(qkv, num_heads)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return temporal_fullclip_qkv_bwd(qkv, g, ctx.num_heads), None
+
+
+def temporal_fullclip_qkv(qkv, num_heads):
+    """``temporal_fullclip`` on the encoder's own layout.
+
+    qkv: (B, T, N, 3D), the output of the qkv projection: q, k, v are its
+    three D-wide slices, and (b, n) its rows. Returns the contiguous (B, T,
+    N, D) context in qkv's dtype, which the output projection takes as it
+    is. Kernels C and H read and write the operands in place, so nothing is
+    sliced, transposed or copied around them; the gradient is one (B, T, N,
+    3D) tensor. Differentiable in qkv (``TemporalFullclipQKV``). The D axis
+    must be contiguous, and the data and the other strides 16-byte aligned
+    (the output of a linear layer is); the output gradient too."""
+    if _wants_grad(qkv):
+        return TemporalFullclipQKV.apply(qkv, num_heads)
+    return _temporal_fullclip_qkv_forward(qkv, num_heads)

@@ -1,5 +1,5 @@
-"""Times of the t=1 decode kernels (A, D, J, F, G) and of the lockstep
-streaming step, on the card.
+"""Times of the t=1 decode kernels (A, D, J, F, G), of the full-clip kernels
+C and H, and of the lockstep streaming step, on the card.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -9,18 +9,24 @@ To time another checkout's kernels on the same inputs, run this file by its
 path with that checkout first on ``PYTHONPATH`` (the wrappers it calls keep
 one signature across the port's slices); each checkout builds its own
 kernels under its own ``build/``. Two checkouts timed in one call, in the
-order a, b, b, a, compare on one card.
+order a, b, b, a, compare on one card. ``--kernels C,H --no-streaming``
+times the full-clip kernels alone.
 
 It prints one JSON object a line, each tagged with ``--label``:
 
 - a kernel row for each kernel, dtype (bf16 and fp32) and capacity (16 and
   64) at the flagship shape (1568 rows, 12 heads of 64; A, J, F at length
-  C-1, D and G at eight streams of 196 rows): ``device_ms``, the kernel's
-  own time a call (``torch.profiler`` over 15 calls, L2 flushed before
-  each); ``call_ms``, the median of CUDA events around the wrapper over the
-  same 15 calls (host work included); ``host_us``, the host's time a call
-  over 200 calls queued back to back (the launch path alone: 200 calls do
-  not fill the launch queue, so the host never waits for the card);
+  C-1, D and G at eight streams of 196 rows; C and H on (1568, 16, 768)
+  rows, and, where the checkout has it, the packed entry on the (8, 16,
+  196, 2304) qkv as ``Cqkv`` and ``Hqkv``): ``device_ms``, the kernel's own
+  time a call (``torch.profiler`` over 15 calls, L2 flushed before each);
+  ``call_ms``, the median of CUDA events around the wrapper over the same 15
+  calls (host work included); ``host_us``, the host's time a call over 200
+  calls queued back to back (the launch path alone: 200 calls do not fill
+  the launch queue, so the host never waits for the card). C and H rows
+  also carry ``plain_ms`` (the plain version) and ``sdpa_ms`` (one causal
+  ``scaled_dot_product_attention`` call, or its backward), by CUDA events
+  in the same way, and ``bound_ms``, the bytes moved once at 3.35 TB/s;
 - a streaming row: the flagship encoder (bf16, seeded random weights, batch
   8, ring cache C=16) over 32 steady steps, three times: frames/s and
   ms/step by the host's clock.
@@ -44,7 +50,67 @@ ROWS, HEADS, DH, PER_STREAM = 1568, 12, 64, 196
 D_LENS = {16: [0, 1, 5, 9, 14, 15, 15, 15], 64: [0, 4, 20, 36, 56, 63, 63, 63]}
 SYMBOLS = {"A": "temporal_decode_pm_kernel", "D": "temporal_decode_pm_kernel",
            "J": "temporal_decode_pm_kernel", "F": "temporal_decode_pm_int8_kernel",
-           "G": "temporal_decode_pm_int8_kernel"}
+           "G": "temporal_decode_pm_int8_kernel", "C": "temporal_fullclip_kernel",
+           "H": "temporal_fullclip_bwd_kernel", "Cqkv": "temporal_fullclip_kernel",
+           "Hqkv": "temporal_fullclip_bwd_kernel"}
+FULLCLIP = ("C", "H", "Cqkv", "Hqkv")
+BATCH, FRAMES = 8, 16  # the full clip: 1568 rows are 8 clips of 196 patches
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+
+
+def fullclip_operands(kernel: str, dtype: torch.dtype, seed: int):
+    """C or H (or their packed entry) on seeded operands: the wrapper's call,
+    its plain version's, and one causal scaled_dot_product_attention call's
+    (its backward for H; None for the packed entry), each without
+    arguments; and the bytes moved once."""
+    rng = np.random.default_rng(seed)
+    d = HEADS * DH
+
+    def card(shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(DEVICE, dtype)
+
+    q, k, v, g = (card((ROWS, FRAMES, d)) for _ in range(4))
+    nbytes = (4 if kernel.startswith("C") else 7) * ROWS * FRAMES * d * q.element_size()
+    heads = [x.view(ROWS, FRAMES, HEADS, DH).transpose(1, 2) for x in (q, k, v, g)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kernel == "C":
+        return (lambda: ops.temporal_fullclip(q, k, v, HEADS),
+                lambda: ops.temporal_fullclip_plain(q, k, v, HEADS),
+                lambda: sdpa(*heads[:3], is_causal=True), nbytes)
+    if kernel == "H":
+        sdpa_in = [x.detach().requires_grad_() for x in heads[:3]]
+        sdpa_out = sdpa(*sdpa_in, is_causal=True)
+        return (lambda: ops.temporal_fullclip_bwd(q, k, v, g, HEADS),
+                lambda: ops.temporal_fullclip_bwd_plain(q, k, v, g, HEADS),
+                lambda: torch.autograd.grad(sdpa_out, sdpa_in, heads[3], retain_graph=True),
+                nbytes)
+
+    def packed(x):  # (B*N, T, D) rows -> (B, T, N, D)
+        return x.view(BATCH, PER_STREAM, FRAMES, -1).transpose(1, 2)
+
+    qkv = torch.cat([packed(x) for x in (q, k, v)], -1)
+    gp = packed(g).contiguous()
+    if kernel == "Cqkv":
+        return (lambda: ops.temporal_fullclip_qkv(qkv, HEADS),
+                lambda: ops.temporal_fullclip_qkv_plain(qkv, HEADS), None, nbytes)
+    return (lambda: ops.temporal_fullclip_qkv_bwd(qkv, gp, HEADS),
+            lambda: ops.temporal_fullclip_qkv_bwd_plain(qkv, gp, HEADS), None, nbytes)
+
+
+def events_ms(fn, flush: torch.Tensor) -> float:
+    """Median of CUDA events around 15 calls, L2 flushed before each."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(15):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def operands(kernel: str, dtype: torch.dtype, cap: int, seed: int):
@@ -78,24 +144,35 @@ def operands(kernel: str, dtype: torch.dtype, cap: int, seed: int):
 
 
 def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor) -> dict:
-    fn = operands(kernel, dtype, cap, seed=cap)
+    extra = {}
+    if kernel in FULLCLIP:
+        fn, plain, sdpa, nbytes = fullclip_operands(kernel, dtype, seed=FRAMES)
+        extra = {"plain_ms": events_ms(plain, flush),
+                 "sdpa_ms": None if sdpa is None else events_ms(sdpa, flush),
+                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    else:
+        fn = operands(kernel, dtype, cap, seed=cap)
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        calls = []
-        for _ in range(15):
-            flush.zero_()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            calls.append((start, end))
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and SYMBOLS[kernel] in e.key and e.device_time_total > 0]
-    if not rows:
+    for _ in range(3):  # a profile late in a run may come back without the kernel's rows
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            calls = []
+            for _ in range(15):
+                flush.zero_()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                calls.append((start, end))
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and SYMBOLS[kernel] in e.key and e.device_time_total > 0]
+        if rows:
+            break
+    else:
         raise SystemExit(f"decode_timing: no device time for {SYMBOLS[kernel]}")
     device_ms = sum(e.device_time_total / e.count for e in rows) / 1e3
     call_ms = statistics.median(s.elapsed_time(e) for s, e in calls)
@@ -106,7 +183,7 @@ def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor) -
     host_us = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
     return {"kernel": kernel, "dtype": str(dtype).split(".")[-1], "capacity": cap,
-            "device_ms": device_ms, "call_ms": call_ms, "host_us": host_us}
+            "device_ms": device_ms, "call_ms": call_ms, "host_us": host_us, **extra}
 
 
 def streaming_row() -> dict:
@@ -138,13 +215,17 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default="this checkout")
     parser.add_argument("--no-streaming", action="store_true", help="kernel rows only")
+    parser.add_argument("--kernels", default="A,D,J,F,G,C,H,Cqkv,Hqkv",
+                        help="comma-separated, of " + ", ".join(SYMBOLS))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_timing: needs a CUDA device")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    for kernel in ("A", "D", "J", "F", "G"):
+    for kernel in args.kernels.split(","):
+        if kernel.endswith("qkv") and not hasattr(ops, "temporal_fullclip_qkv"):
+            continue  # a checkout from before the packed entry
         for dtype in (torch.bfloat16, torch.float32):
-            for cap in (16, 64):
+            for cap in ((FRAMES,) if kernel in FULLCLIP else (16, 64)):
                 row = kernel_row(kernel, dtype, cap, flush)
                 print(json.dumps({"label": args.label, **row}), flush=True)
     if not args.no_streaming:

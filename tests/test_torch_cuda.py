@@ -807,3 +807,120 @@ def test_decode_kernels_walk_many_rows_a_block(kernel, dtype):
     assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
     for mine, theirs in zip(caches, ref_caches):
         assert torch.equal(mine, theirs)
+
+
+# ---------------------------------------------------------------------------
+# C and H on the bulk-copy pipeline (csrc/fullclip.cuh): the (R, T, D) entries
+# and the packed entry, which reads the (B, T, N, 3D) output of the qkv
+# projection in place and writes one (B, T, N, 3D) gradient
+# ---------------------------------------------------------------------------
+
+FULLCLIP_SHAPES = [  # (rows, T, heads, dh): T of 1 to 32, dh of 8 to 128, 1 to 12 heads
+    (5, 1, 12, 8), (9, 5, 1, 8), (13, 16, 3, 128), (11, 32, 12, 64), (33, 32, 1, 128),
+    (7, 16, 12, 64), (3, 5, 2, 64), (21, 32, 4, 8),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,t,heads,dh", FULLCLIP_SHAPES)
+def test_fullclip_kernels_match_plain(dtype, rows, t, heads, dh):
+    """C and H against their plain versions, H twice bit for bit."""
+    d = heads * dh
+    q, k, v, g = (_randn((rows, t, d), dtype, s) for s in (101, 102, 103, 104))
+    before = dict(ops.LAUNCHES)
+    out = ops.temporal_fullclip(q, k, v, heads)
+    got = ops.temporal_fullclip_bwd(q, k, v, g, heads)
+    again = ops.temporal_fullclip_bwd(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_fullclip"] == before["temporal_fullclip"] + 1
+    assert ops.LAUNCHES["temporal_fullclip_bwd"] == before["temporal_fullclip_bwd"] + 2
+    ref = ops.temporal_fullclip_plain(q, k, v, heads)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    _grad_close(got, ops.temporal_fullclip_bwd_plain(q, k, v, g, heads), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _packed_case(dtype, b, t, n, heads, dh, seed):
+    d = heads * dh
+    qkv, g = _randn((b, t, n, 3 * d), dtype, seed), _randn((b, t, n, d), dtype, seed + 1)
+
+    def rows(x):  # (B, T, N, D') slice -> contiguous (B*N, T, D')
+        return x.transpose(1, 2).reshape(b * n, t, x.shape[-1]).contiguous()
+
+    return qkv, g, rows, d
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,n,heads,dh", [(8, 16, 196, 12, 64), (3, 5, 7, 3, 8),
+                                            (2, 32, 9, 2, 128), (1, 1, 5, 12, 64)])
+def test_packed_entry_equals_the_row_entry_bitwise(dtype, b, t, n, heads, dh):
+    """The packed entry (C and H reading qkv in place) gives, bit for bit,
+    the (R, T, D) entry's output on the transposed, contiguous slices, and
+    its gradient (through autograd, with the launches counted under C's and
+    H's names) the three row gradients side by side."""
+    qkv, g, rows, d = _packed_case(dtype, b, t, n, heads, dh, 111)
+    q, k, v = (rows(qkv[..., i * d:(i + 1) * d]) for i in range(3))
+    want = ops.temporal_fullclip(q, k, v, heads)
+    grads = ops.temporal_fullclip_bwd(q, k, v, rows(g), heads)
+    x = qkv.clone().requires_grad_()
+    before = dict(ops.LAUNCHES)
+    out = ops.temporal_fullclip_qkv(x, heads)
+    (grad,) = torch.autograd.grad(out, x, g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_fullclip"] == before["temporal_fullclip"] + 1
+    assert ops.LAUNCHES["temporal_fullclip_bwd"] == before["temporal_fullclip_bwd"] + 1
+    assert sum(ops.LAUNCHES.values()) == sum(before.values()) + 2
+    assert out.shape == (b, t, n, d) and out.is_contiguous()
+    assert torch.equal(rows(out), want)
+    assert grad.shape == qkv.shape
+    for i, dx in enumerate(grads):
+        assert torch.equal(rows(grad[..., i * d:(i + 1) * d]), dx), i
+    assert torch.equal(ops.temporal_fullclip_qkv_bwd(qkv, g, heads), grad)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_packed_entry_reads_aligned_strided_layouts(dtype):
+    """qkv and g as views into wider rows (strides 16-byte aligned, not
+    contiguous) are read in place: the results equal those of contiguous
+    copies, and nothing past the views (NaN) is read."""
+    b, t, n, heads, dh = 2, 6, 5, 3, 16
+    d = heads * dh
+    buf = _randn((b, t, n, 3 * d + 16), dtype, 121)
+    buf[..., 3 * d:] = float("nan")
+    gbuf = _randn((b, t, n, d + 8), dtype, 122)
+    gbuf[..., d:] = float("nan")
+    qkv, g = buf[..., :3 * d], gbuf[..., :d]
+    out = ops.temporal_fullclip_qkv(qkv, heads)
+    grad = ops.temporal_fullclip_qkv_bwd(qkv, g, heads)
+    assert torch.isfinite(out).all() and torch.isfinite(grad).all()
+    assert torch.equal(out, ops.temporal_fullclip_qkv(qkv.contiguous(), heads))
+    assert torch.equal(grad, ops.temporal_fullclip_qkv_bwd(qkv.contiguous(), g.contiguous(), heads))
+    with pytest.raises(ValueError):
+        ops.temporal_fullclip_qkv(_randn((b, t, n, 3 * d + 2), dtype, 123)[..., :3 * d], heads)
+    with pytest.raises(ValueError):
+        ops.temporal_fullclip_qkv_bwd(qkv, gbuf[..., 2:d + 2], heads)  # data 4 or 8 bytes in
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fullclip_kernels_walk_many_items_a_block(dtype):
+    """More rows than 64 times the persistent grid, at a narrow width (two
+    heads of 8, T=5): each block of C and H walks past 64 items, and its
+    two stages turn over many times. Both entries against the plain
+    versions, H twice bit for bit."""
+    heads, dh, t, n = 2, 8, 5, 7
+    d = heads * dh
+    # a block is 288 threads, so at most 2048 // 288 = 7 fit an SM
+    grid = 7 * torch.cuda.get_device_properties(0).multi_processor_count
+    b = -(-(70 * grid + 5) // n)
+    qkv, g, rows, _ = _packed_case(dtype, b, t, n, heads, dh, 131)
+    out = ops.temporal_fullclip_qkv(qkv, heads)
+    grad = ops.temporal_fullclip_qkv_bwd(qkv, g, heads)
+    again = ops.temporal_fullclip_qkv_bwd(qkv, g, heads)
+    torch.cuda.synchronize()
+    assert (out.float() - ops.temporal_fullclip_qkv_plain(qkv, heads).float()).abs().max() \
+        <= TOL[dtype]
+    ref = ops.temporal_fullclip_qkv_bwd_plain(qkv, g, heads)
+    _grad_close((grad,), (ref,), dtype)
+    assert torch.equal(grad, again)
+    q, k, v = (rows(qkv[..., i * d:(i + 1) * d]) for i in range(3))
+    assert torch.equal(ops.temporal_fullclip(q, k, v, heads), rows(out))
