@@ -11,8 +11,9 @@ Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi), and the build of every
    kernel source in ``streamformer_tpu_torch/csrc`` (one nvcc each, all
    started together); the bf16 kernels of B/L and I hold HMMA (tensor-core)
-   instructions, and the decode bodies of A/D/J and F/G and the full-clip
-   kernels C and H the bulk asynchronous copy UBLKCP (``cuobjdump -sass``);
+   instructions, and the decode bodies of A/D/J, F/G and K, the full-clip
+   kernels C and H and the append kernel E the bulk asynchronous copy
+   UBLKCP (``cuobjdump -sass``);
 2. each kernel against its plain version at the flagship shapes, bf16 and
    fp32 (kernel A linear and ring, and linear at capacity 64), with its time (a call's, CUDA events
    around the wrapper, and the kernel's own device time, ``torch.profiler``
@@ -21,7 +22,9 @@ Phases, each fatal on failure:
    calls) and the bound (the card's least time for the bytes and
    operations); B on the full clip's R=128 rows bit-equal to B on each
    8-row slice (batch invariance); C's packed entry (the (B, T, N, 3D) qkv
-   read in place) bit-equal to C on the transposed (R, T, D) rows;
+   read in place) bit-equal to C on the transposed (R, T, D) rows; E at
+   capacities 16 and 64, its packed entry bit-equal to its (t, R, D) entry
+   with the same appended planes;
 3. the whole encoder on the card against the same encoder on the CPU (the
    plain versions) at a small fp32 config: full clip, a linear stream and a
    ring stream of 2C frames;
@@ -44,7 +47,8 @@ Phases, each fatal on failure:
 9. ``server.StreamingServer`` on 127.0.0.1: two clients each open, feed
    (uint8, base64), close and read their features, held to the engine's;
 10. engine frames/s at 8 slots at steady state in both tick modes, and the
-    device busy time per tick over a profiled window;
+    device busy time per tick over a profiled window, the float throughput
+    tick's beside the earlier design's (``EARLIER_THROUGHPUT_TICK``);
 11. kernels F and G (the int8 cache) against their plain versions at the
     flagship shapes, bf16 and fp32, linear and ring (F also linear at
     capacity 64), codes and scale columns equal, timed beside one
@@ -113,7 +117,7 @@ Phases, each fatal on failure:
     clips) against a t=1 ring stream, its windowed mode against ``model_forward``, its batched mode (8
     slots, 12 clips of 4-40 frames) against the streaming mode, with
     extraction frames/s; the vision tower on a linear cache (C=16, chunks
-    through kernel E; C=64, one frame a call through kernel D) and on the
+    through kernel E; C=64, each call one append through kernel E) and on the
     ring (C=8), each frame within the 0.078/0.008 envelope of a direct
     ``streaming_forward`` stream, its context window and ``clear_cache``.
 
@@ -197,10 +201,16 @@ DECODE_CASES = (("linear", FLAGSHIP["capacity"], FLAGSHIP["capacity"] - 1),
 # kernel D's per-stream lengths (linear, and ring past C), E's lens and valid
 D_LENS = {"linear": [0, 1, 5, 9, 14, 15, 15, 15], "ring": [16, 17, 23, 31, 40, 41, 50, 63]}
 E_LENS, E_VALID, E_T = [0, 1, 5, 8, 8, 12, 15, 16], [8, 0, 8, 8, 3, 4, 1, 0], 8
+E_LENS_64 = [0, 9, 20, 33, 40, 51, 60, 64]  # E at capacity 64, the same valid
 # serving: slots, streams and their frame counts (a seeded draw in [4, 16])
 ENGINE = dict(slots=8, streams=12, min_frames=4, max_frames=16, burst_ticks=4, frames=8)
 MEAN, STD = (0.481, 0.457, 0.408), (0.268, 0.261, 0.275)  # SigLIP-style normalize
 THROUGHPUT_STREAMS = 48  # of capacity-many frames each, for engine frames/s
+# the float throughput tick of phase 10 with the earlier kernel E (a warp a
+# (row, head), a lane a query, q, k and v copied to (t, R, D) rows around it
+# and ctx back): device busy ms a tick and frames/s, four runs on an H100
+# 80GB HBM3 at 700 W; printed beside this run's for comparison
+EARLIER_THROUGHPUT_TICK = dict(busy_ms=(17.142, 17.251), frames_per_s=(2087.0, 2814.5))
 # training: the text tower of phase 15 (phase 16 takes SiglipTextConfig's defaults, the
 # SigLIP-base shape), and phase 16's run
 SMALL_TEXT_CONFIG = dict(vocab_size=1000, hidden_size=96, num_hidden_layers=2,
@@ -292,11 +302,11 @@ def main():
         if not hmma or not all(hmma.values()):
             fail(f"{lib}: bf16 kernels without HMMA instructions: {hmma}")
         print(f"{lib}: HMMA instructions in the bf16 kernels' SASS: {sorted(hmma.values())}")
-    # the decode bodies (decode_row.cuh) and C and H (fullclip.cuh) stage
-    # their operands with cp.async.bulk, which sm_90a's SASS spells UBLKCP
-    # (UBLKCP.S.G: global to shared)
-    for lib in ("temporal_decode_pm", "temporal_decode_pm_int8", "temporal_fullclip",
-                "temporal_fullclip_bwd"):
+    # the decode bodies (decode_row.cuh: A, D, J, F, G and K), C and H
+    # (fullclip.cuh) and E stage their operands with cp.async.bulk, which
+    # sm_90a's SASS spells UBLKCP (UBLKCP.S.G: global to shared)
+    for lib in ("temporal_decode_pm", "temporal_decode_pm_int8", "temporal_decode_rm",
+                "temporal_fullclip", "temporal_fullclip_bwd", "temporal_append_pm"):
         sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(lib))], check=True,
                               capture_output=True, text=True).stdout
         bulk = {}
@@ -435,36 +445,57 @@ def main():
                    lambda: ops.temporal_decode_pm_ragged_plain(q, kn, vn, kc, vc, ln, n_, h_),
                    lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
                    elt * d_ * (6 * r + 2 * n_ * n_read), 4 * d_ * n_ * (n_read + b_))
-        # E: one throughput-mode chunk, t=8 frames, mixed lens and valid
-        lens_t = torch.tensor(E_LENS, dtype=torch.int32, device=dev)
-        valid_t = torch.tensor(E_VALID, dtype=torch.int32, device=dev)
-        q, kn, vn = (randn(E_T, r, d_, dtype=dtype) for _ in range(3))
-        kc, vc = randn(cap, r, d_, dtype=dtype), randn(cap, r, d_, dtype=dtype)
-        k_ref, v_ref = kc.clone(), vc.clone()
-        ref = ops.temporal_append_pm_ragged_plain(q, kn, vn, k_ref, v_ref, lens_t, valid_t, n_, h_)
-        got = ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens_t, valid_t, n_, h_)
-        torch.cuda.synchronize()
-        if not (torch.equal(kc, k_ref) and torch.equal(vc, v_ref)):
-            fail(f"temporal_append_pm_ragged {dn}: appended cache planes differ")
-        err = max(max_err(got[:v, i * n_:(i + 1) * n_], ref[:v, i * n_:(i + 1) * n_])
-                  for i, v in enumerate(E_VALID) if v)  # columns past valid are unspecified
-        # yardstick: the t queries against [cache prefix, new frames], causal mask
-        ti = torch.arange(E_T, device=dev)
-        rows_len = lens_t.long().repeat_interleave(n_)
-        old = (torch.arange(cap, device=dev)[None, None] < rows_len[:, None, None]).expand(r, E_T, cap)
-        mask = torch.cat([old, (ti[None] <= ti[:, None]).expand(r, E_T, E_T)], -1)[:, None]
-        q4 = q.view(E_T, r, h_, dh).permute(1, 2, 0, 3)
-        k4 = torch.cat([kc, kn]).view(cap + E_T, r, h_, dh).permute(1, 2, 0, 3)
-        v4 = torch.cat([vc, vn]).view(cap + E_T, r, h_, dh).permute(1, 2, 0, 3)
-        n_old = sum(min(x, cap) for x in E_LENS)
-        record("temporal_append_pm_ragged", f"R={r} C={cap} t={E_T}", dn, err,
-               lambda: ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens_t, valid_t, n_, h_),
-               lambda: ops.temporal_append_pm_ragged_plain(q, kn, vn, kc, vc, lens_t, valid_t,
-                                                           n_, h_),
-               lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
-               elt * n_ * d_ * (2 * n_old + 4 * E_T * b_ + 2 * sum(E_VALID)),
-               4 * d_ * n_ * (E_T * n_old + b_ * E_T * (E_T + 1) // 2))
-        del q, kn, vn, kc, vc, k_ref, v_ref, q4, k4, v4
+        # E: one throughput-mode chunk, t=8 frames, mixed lens and valid, at
+        # the flagship capacity (the (t, R, D) entry, and the packed entry on
+        # the same frames as a (B, t, N, 3D) qkv, bit for bit equal) and at
+        # capacity 64 (its own generator, as A's and F's)
+        for c_, e_lens in ((cap, E_LENS), (64, E_LENS_64)):
+            g_ = gen if c_ == cap else gen64
+            lens_t = torch.tensor(e_lens, dtype=torch.int32, device=dev)
+            valid_t = torch.tensor(E_VALID, dtype=torch.int32, device=dev)
+            q, kn, vn = (randn(E_T, r, d_, dtype=dtype, g=g_) for _ in range(3))
+            kc, vc = randn(c_, r, d_, dtype=dtype, g=g_), randn(c_, r, d_, dtype=dtype, g=g_)
+            k_ref, v_ref = kc.clone(), vc.clone()
+            ref = ops.temporal_append_pm_ragged_plain(q, kn, vn, k_ref, v_ref, lens_t, valid_t, n_,
+                                                      h_)
+            k_rows, v_rows = kc.clone(), vc.clone()
+            got = ops.temporal_append_pm_ragged(q, kn, vn, k_rows, v_rows, lens_t, valid_t, n_, h_)
+            qkv = torch.cat([q, kn, vn], -1).view(E_T, b_, n_, 3 * d_).transpose(0, 1).contiguous()
+            packed = ops.temporal_append_pm_qkv(qkv, kc, vc, lens_t, valid_t, n_, h_)
+            torch.cuda.synchronize()
+            for planes, how in (((k_rows, v_rows), "(t, R, D) entry"), ((kc, vc), "packed entry")):
+                if not (torch.equal(planes[0], k_ref) and torch.equal(planes[1], v_ref)):
+                    fail(f"temporal_append_pm_ragged C={c_} {dn} {how}: appended cache planes "
+                         "differ")
+            if not torch.equal(packed.transpose(0, 1).reshape(E_T, r, d_), got):
+                fail(f"temporal_append_pm_qkv C={c_} {dn}: differs from the (t, R, D) entry")
+            err = max(max_err(got[:v, i * n_:(i + 1) * n_], ref[:v, i * n_:(i + 1) * n_])
+                      for i, v in enumerate(E_VALID) if v)  # columns past valid are unspecified
+            # yardstick: the t queries against [cache prefix, new frames], causal mask
+            ti = torch.arange(E_T, device=dev)
+            rows_len = lens_t.long().repeat_interleave(n_)
+            old = (torch.arange(c_, device=dev)[None, None] < rows_len[:, None, None]).expand(
+                r, E_T, c_)
+            mask = torch.cat([old, (ti[None] <= ti[:, None]).expand(r, E_T, E_T)], -1)[:, None]
+            q4 = q.view(E_T, r, h_, dh).permute(1, 2, 0, 3)
+            k4 = torch.cat([kc, kn]).view(c_ + E_T, r, h_, dh).permute(1, 2, 0, 3)
+            v4 = torch.cat([vc, vn]).view(c_ + E_T, r, h_, dh).permute(1, 2, 0, 3)
+            n_old = sum(min(x, c_) for x in e_lens)
+            nbytes = elt * n_ * d_ * (2 * n_old + 4 * E_T * b_ + 2 * sum(E_VALID))
+            flops = 4 * d_ * n_ * (E_T * n_old + b_ * E_T * (E_T + 1) // 2)
+            sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+            if c_ == cap:
+                record("temporal_append_pm_ragged", f"R={r} C={c_} t={E_T}", dn, err,
+                       lambda: ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens_t, valid_t,
+                                                             n_, h_),
+                       lambda: ops.temporal_append_pm_ragged_plain(q, kn, vn, kc, vc, lens_t,
+                                                                   valid_t, n_, h_),
+                       sdpa, nbytes, flops)
+            record("temporal_append_pm_ragged", f"qkv R={r} C={c_} t={E_T}", dn, err,
+                   lambda: ops.temporal_append_pm_qkv(qkv, kc, vc, lens_t, valid_t, n_, h_),
+                   lambda: ops.temporal_append_pm_qkv_plain(qkv, kc, vc, lens_t, valid_t, n_, h_),
+                   sdpa, nbytes, flops)
+            del q, kn, vn, kc, vc, k_ref, v_ref, k_rows, v_rows, qkv, q4, k4, v4
         # B: the streaming step (R = B) and the full clip (R = B*T)
         for r in (b_, b_ * t_):
             q, k, v = (randn(r, n_, d_, dtype=dtype) for _ in range(3))
@@ -815,6 +846,13 @@ def main():
                   f"{p_ticks} ticks: device busy {dev_ms:.3f} ms/tick, "
                   f"{100 * dev_ms / wall_ms:.1f} % of the profiled {wall_ms:.3f} ms/tick, "
                   f"{100 * dev_ms / tick_ms:.1f} % of the unprofiled tick")
+            if not tag and frames > 1:
+                was = EARLIER_THROUGHPUT_TICK
+                print(f"  beside the earlier kernel E (a warp a (row, head), copies around it; "
+                      f"H100 80GB HBM3, 700 W): device busy {was['busy_ms'][0]}-"
+                      f"{was['busy_ms'][1]} ms/tick, {was['frames_per_s'][0]}-"
+                      f"{was['frames_per_s'][1]} frames/s; this run {dev_ms:.3f} ms/tick, "
+                      f"{n / sec:.1f} frames/s")
             for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
                 print(f"  {e.device_time_total / p_ticks / 1e3:8.4f} ms/tick  "
                       f"x{e.count / p_ticks:<6.1f} {e.key[:90]}")
@@ -1673,7 +1711,7 @@ def main():
           f"{STREAM_TOL_POOLED}); {sum(blens) / sec:.1f} frames/s extracted ({sum(blens)} frames "
           f"in {sec:.3f} s, preprocessed clips on the card); launches {run}")
     want_tower = {"linear C=16": {"temporal_append_pm_ragged": 2 * L, "spatial_flat": 2 * L},
-                  "linear C=64": {"temporal_decode_pm_ragged": 16 * L, "spatial_flat": 16 * L},
+                  "linear C=64": {"temporal_append_pm_ragged": 3 * L, "spatial_flat": 3 * L},
                   "ring C=8": {"temporal_decode_pm": 24 * L, "spatial_flat": 3 * L}}
     for name, (capacity, mode, calls) in TOWER_CALLS.items():
         tcfg = cfg.replace(cache_capacity=capacity, cache_mode=mode, streaming_mode=True)
@@ -1719,7 +1757,7 @@ def main():
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
-                  "temporal_append_pm_ragged": f"R={b_ * n_} C={cap} t={E_T}",
+                  "temporal_append_pm_ragged": f"qkv R={b_ * n_} C={cap} t={E_T}",
                   "temporal_decode_pm_int8": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_int8_ragged":
                       f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",

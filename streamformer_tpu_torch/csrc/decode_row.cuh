@@ -1,7 +1,8 @@
 // The body of the t=1 decode kernels: A, D and J on a float cache
-// (temporal_decode_pm.cu) and F and G on an int8 cache
-// (temporal_decode_pm_int8.cu). Each source wraps decode_rows in its own
-// __global__ kernel; the contracts are in those sources.
+// (temporal_decode_pm.cu), F and G on an int8 cache
+// (temporal_decode_pm_int8.cu), and, read-only, K on the row-major cache,
+// float or int8 (temporal_decode_rm.cu). Each source wraps decode_rows in
+// its own __global__ kernel; the contracts are in those sources.
 //
 // Bound on the H100: bytes (one to two operations per byte of the cache).
 // A (row, head) holds only 2-4 KB of K and V at the flagship, so the body
@@ -25,10 +26,11 @@
 // (head, key) for the score chains and the exps, one thread per head for
 // the max and the sum, one thread per (head, 8 elements) for PV, whose
 // sums wait in shared memory between V chunks. A staged slot row is padded
-// by 16 bytes, so that the eight threads of a quarter warp, at eight
-// consecutive keys of one head, read eight distinct bank groups. The new
-// frame's row, staged as the last key, is written to slot len % C from
-// shared memory (and, int8, its two scales); no block reads that slot.
+// by 16 bytes (but in the read-only mode, below), so that the eight threads
+// of a quarter warp, at eight consecutive keys of one head, read eight
+// distinct bank groups. The new frame's row, staged as the last key, is
+// written to slot len % C from shared memory (and, int8, its two scales);
+// no block reads that slot.
 //
 // Rows whose byte width is not a multiple of 16 (int8 with D % 16 == 8)
 // cannot be bulk-copied: there the producer's lanes stage them with 8-byte
@@ -42,6 +44,21 @@
 // the new frame last; the reciprocal of the sum; PV one sequential FMA
 // chain in key order (int8: with weight p * v_scale); one multiply by the
 // reciprocal last.
+//
+// The read-only mode (kReadOnly, kernel K) takes keys 0..min(len, C-1) of
+// the linear cache in position order, the new frame already at position
+// len; it has no new row and writes nothing. On the row-major cache a
+// chunk's positions are one contiguous span, copied with one bulk copy into
+// unpadded slots (measured faster than a copy a slot into padded ones); so
+// that the threads of neighbouring keys still read distinct bank groups,
+// each score chain starts at a load of its own (the key index, modulo the
+// loads a head's row takes) and wraps around: K's scores are one
+// sequential fp32 FMA chain over dh, in that rotated order (K is held to
+// its plain version within tolerance, not bit for bit to another kernel).
+// Its int8 cache keeps one scale per (row, position, head), (R, C, H): a
+// chunk's scales are one span of chunk x H floats (one bulk copy where H %
+// 4 == 0, else the lanes' 4-byte copies), and K's own order applies the
+// scale after the dot's scale: (dot * scale) * k_scale.
 #pragma once
 
 #include <cstdint>
@@ -70,16 +87,18 @@ struct Plan {
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
+// scale_cols: int8 scales a key (F, G: 1 a row; K: one a head); span: the
+// read-only mode's unpadded slots, a chunk one copy (rows of whole 16 bytes)
 __host__ __device__ inline Plan plan(int d, int heads, int capacity, int kv_bytes, int q_bytes,
-                                     bool quant) {
+                                     bool quant, int scale_cols = 1, bool span = false) {
   Plan p;
-  p.slot_bytes = round16(d * kv_bytes) + 16;
+  p.slot_bytes = round16(d * kv_bytes) + (span && d * kv_bytes % 16 == 0 ? 0 : 16);
   const int most = capacity < kMaxChunk ? capacity : kMaxChunk;
   p.chunk = kSlotBudget / p.slot_bytes;
   p.chunk = p.chunk < 1 ? 1 : (p.chunk > most ? most : p.chunk);
   p.q_at = p.chunk * p.slot_bytes;
   p.scales_at = p.q_at + round16(d * q_bytes);
-  p.len_at = p.scales_at + (quant ? round16(4 * p.chunk) : 0);
+  p.len_at = p.scales_at + (quant ? round16(4 * p.chunk * scale_cols) : 0);
   p.stage_bytes = p.len_at + 16;
   p.q = kStages * p.stage_bytes;
   p.acc = p.q + round16(4 * d);
@@ -100,7 +119,7 @@ struct Args {
   const float* v_new_scale;
   KV* k_cache;
   KV* v_cache;
-  float* k_scale;  // int8 only: (C, R)
+  float* k_scale;  // int8 only: (C, R); read-only: (R, C, H)
   float* v_scale;
   const int* lens;  // one per stream; row r is stream r / rows_per_stream
   int rows_per_stream;
@@ -128,12 +147,16 @@ __device__ __forceinline__ void codes4(unsigned w, float* o) {
 
 // The dot product of a head's query (fp32) with one key row, both in
 // shared memory: one fmaf chain in element order.
-template <typename KV>
-__device__ __forceinline__ float dot(const float* q, const KV* k, int dh) {
+// kRotate (the read-only mode's unpadded slots): the chain starts at the
+// rot-th load of the row and wraps around, so that neighbouring keys' threads
+// read distinct bank groups at each step.
+template <typename KV, bool kRotate = false>
+__device__ __forceinline__ float dot(const float* q, const KV* k, int dh, int rot = 0) {
   float s = 0.f;
   if constexpr (std::is_same<KV, int8_t>::value) {
     if (dh % 16 == 0) {  // 16 codes a load
-      for (int c = 0; c < dh; c += 16) {
+      int c = kRotate ? rot % (dh / 16) * 16 : 0;
+      for (int u = 0; u < dh; u += 16, c = kRotate && c + 16 == dh ? 0 : c + 16) {
         const uint4 raw = *reinterpret_cast<const uint4*>(k + c);
         float kf[16], qf[16];
         codes4(raw.x, kf);
@@ -157,7 +180,8 @@ __device__ __forceinline__ float dot(const float* q, const KV* k, int dh) {
       }
     }
   } else {
-    for (int c = 0; c < dh; c += 8) {
+    int c = kRotate ? rot % (dh / 8) * 8 : 0;
+    for (int u = 0; u < dh; u += 8, c = kRotate && c + 8 == dh ? 0 : c + 8) {
       float kf[8], qf[8];
       load8(k + c, kf);
       load8(q + c, qf);
@@ -177,11 +201,12 @@ __device__ __forceinline__ void eight(const int8_t* p, float* o) {
   codes4(raw.y, o + 4);
 }
 
-template <typename T, typename KV>
+template <typename T, typename KV, bool kReadOnly = false>
 __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Plan p = plan(a.d, a.heads, a.capacity, sizeof(KV), sizeof(T), kQuant);
+  const Plan p = plan(a.d, a.heads, a.capacity, sizeof(KV), sizeof(T), kQuant,
+                      kReadOnly ? a.heads : 1, kReadOnly);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int d = a.d, heads = a.heads, dh = d / heads, cap = a.capacity;
   const int row_bytes = d * static_cast<int>(sizeof(KV));
@@ -210,22 +235,34 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
       const int len = __shfl_sync(0xffffffffu, lens, k % 32);
       const int n_old = min(len, cap - 1);
       const int n_keys = n_old + 1;
-      const int slot0 = (len - n_old) % cap;
+      const int slot0 = kReadOnly ? 0 : (len - n_old) % cap;
       const int nck = (n_keys + p.chunk - 1) / p.chunk;
-      // key i's row of K (kv 0) or V (kv 1): slot (slot0 + i) % C, the new frame last
+      // key i's row of K (kv 0) or V (kv 1): slot (slot0 + i) % C, the new
+      // frame last (read-only: slot i, the new frame's among them)
       auto source = [&](int kv, int i) -> const KV* {
-        if (i == n_old) return (kv ? a.v_new : a.k_new) + static_cast<long>(row) * d;
+        if (!kReadOnly && i == n_old)
+          return (kv ? a.v_new : a.k_new) + static_cast<long>(row) * d;
         int s = slot0 + i;
         if (s >= cap) s -= cap;
         return (kv ? a.v_cache : a.k_cache) + s * a.slot_stride + row * a.row_stride;
       };
+      // read-only int8: the chunk's (keys, H) scales, one span
+      const bool scale_span = kReadOnly && kQuant && heads % 4 == 0;
       for (int j = 0; j < 2 * nck; ++j, ++g) {
         const int kv = j >= nck;
         const int k0 = (j - kv * nck) * p.chunk, cnt = min(p.chunk, n_keys - k0);
         mbar_wait(empty + g % kStages, ((g / kStages) & 1) ^ 1);
         unsigned char* st = stage(g);
-        if (kQuant) {  // the scale of key k0 + lane, copied by the lane itself
-          if (lane < cnt) {
+        const float* scale_src =  // read-only int8: the chunk's scales span
+            kReadOnly && kQuant
+                ? (kv ? a.v_scale : a.k_scale) + (static_cast<long>(row) * cap + k0) * heads
+                : nullptr;
+        if (kQuant) {
+          if (kReadOnly) {  // the lanes' 4-byte copies where the span is not 16-byte aligned
+            if (!scale_span)
+              for (int e = lane; e < cnt * heads; e += 32)
+                cp_async4(st + p.scales_at + 4 * e, scale_src + e);
+          } else if (lane < cnt) {  // the scale of key k0 + lane, copied by the lane itself
             const int i = k0 + lane;
             long s = slot0 + i;
             if (s >= cap) s -= cap;
@@ -247,9 +284,13 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
         __syncwarp();
         if (lane == 0) {
           unsigned long long* bar = full + g % kStages;
-          mbar_expect_tx(bar, (j == 0 ? q_bytes : 0) + (bulk ? cnt * row_bytes : 0));
+          const unsigned scale_bytes = scale_span ? 4 * cnt * heads : 0;
+          mbar_expect_tx(bar, (j == 0 ? q_bytes : 0) + (bulk ? cnt * row_bytes : 0) + scale_bytes);
           if (j == 0) bulk_copy_g2s(st + p.q_at, a.q + static_cast<long>(row) * d, q_bytes, bar);
-          if (bulk)
+          if (scale_span) bulk_copy_g2s(st + p.scales_at, scale_src, scale_bytes, bar);
+          if (bulk && kReadOnly)  // positions k0.. of a row-major row: one span
+            bulk_copy_g2s(st, source(kv, k0), cnt * row_bytes, bar);
+          else if (bulk)
             for (int i = 0; i < cnt; ++i)
               bulk_copy_g2s(st + i * p.slot_bytes, source(kv, k0 + i), row_bytes, bar);
         }
@@ -286,9 +327,14 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
         for (int w = tid; w < heads * cnt; w += kConsumers) {
           const int h = w / cnt, i = w - h * cnt;
           const KV* kp = reinterpret_cast<const KV*>(buf + i * p.slot_bytes) + h * dh;
-          float s = dot(qs + h * dh, kp, dh);
-          if (kQuant) s = __fmul_rn(s, scales[i]);
-          ps[h * ss + k0 + i] = __fmul_rn(s, a.scale);
+          float s = dot<KV, kReadOnly>(qs + h * dh, kp, dh, i);
+          if (kQuant && kReadOnly) {
+            s = __fmul_rn(__fmul_rn(s, a.scale), scales[i * heads + h]);
+          } else {
+            if (kQuant) s = __fmul_rn(s, scales[i]);
+            s = __fmul_rn(s, a.scale);
+          }
+          ps[h * ss + k0 + i] = s;
         }
       } else {  // PV: one thread per (head, 8 elements)
         const bool last = k0 + cnt == n_keys;
@@ -303,7 +349,8 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
             load8(accs + e0, acc);
           }
           for (int i = 0; i < cnt; ++i) {
-            const float wt = kQuant ? __fmul_rn(w[i], scales[i]) : w[i];
+            const float wt =
+                kQuant ? __fmul_rn(w[i], scales[kReadOnly ? i * heads + h : i]) : w[i];
             eight(reinterpret_cast<const KV*>(buf + i * p.slot_bytes) + e0, v);
 #pragma unroll
             for (int e = 0; e < 8; ++e) acc[e] = fmaf(wt, v[e], acc[e]);
@@ -318,10 +365,10 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
           }
         }
       }
-      if (kQuant && tid == 0 && k0 + cnt == n_keys)  // and the new frame's scale
+      if (kQuant && !kReadOnly && tid == 0 && k0 + cnt == n_keys)  // and the new frame's scale
         (kv ? a.v_scale : a.k_scale)[static_cast<long>(len % cap) * a.rows + row] =
             scales[n_old - k0];
-      if (k0 + cnt == n_keys) {  // the chunk holds the new frame: append it at slot len % C
+      if (!kReadOnly && k0 + cnt == n_keys) {  // the new frame's chunk: append it at slot len % C
         unsigned char* to = reinterpret_cast<unsigned char*>(
             (kv ? a.v_cache : a.k_cache) + (len % cap) * a.slot_stride + row * a.row_stride);
         const unsigned char* from = buf + (n_old - k0) * p.slot_bytes;

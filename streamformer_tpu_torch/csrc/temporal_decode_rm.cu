@@ -22,149 +22,61 @@
 // Bound on the H100: bytes. Each (row, head) does 4*dh operations per
 // position on 2*dh bytes of int8 codes plus two scales (4*dh bytes in
 // bf16), one or two operations per byte, far below where the tensor cores
-// would be the limit. The design is kernel A's on row-major strides: one
-// warp per (row, head); for the scores one lane per key, each issuing all
-// of its key row's loads at once (16 bytes each in float, 8 in int8); for PV
-// lanes over element pairs. A row's positions are D elements apart, so a
-// warp's PV loads of one key are one contiguous run of 2*dh codes. Reads
-// stop at the valid prefix, with len read on the device.
-#include <cstdint>
-
-#include "common.cuh"
+// would be the limit. In the row-major layout a row's positions 0..len of
+// K (or V) are one contiguous span of (len + 1) D elements, and its scales
+// one span of (len + 1) H floats. The design is decode_row.cuh's read-only
+// mode: a persistent grid, a block owning one row across all heads at a
+// time; a producer warp bulk-copies the row's query, then its K positions
+// and then its V positions, a chunk of positions one copy, with each
+// chunk's (positions, H) scales, into two stages on mbarriers, refilling a
+// stage as soon as the eight consumer warps hand it back; the consumers
+// compute a thread per (head, key) for the scores (each chain starting at a
+// load of its own, for the banks) and a thread per (head, 8 elements) for
+// PV. Reads stop at the valid prefix, with len read on the device. Every
+// input byte is read once.
+#include "decode_row.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // warps per block, one (row, head) each
-constexpr int kGroup = 8;  // 8-element chunks of a key row loaded at once
-
-// floats of shared memory per warp: q (dh) and the scores (capacity),
-// rounded up to keep every warp's q 16-byte aligned
-__host__ __device__ inline int warp_floats(int dh, int capacity) {
-  return (dh + capacity + 3) & ~3;
+// T: the type of q and the output; KV: the cache's (T, or int8_t with scales)
+template <typename T, typename KV>
+__global__ void __launch_bounds__(decode::kThreads)
+temporal_decode_rm_kernel(const decode::Args<T, KV> a) {
+  decode::decode_rows<T, KV, true>(a);
 }
 
-// Eight cache elements as floats: int8 codes (8 bytes, 8-byte aligned) or
-// common.cuh's 16-byte loads.
-__device__ __forceinline__ void load8_cache(const int8_t* p, float* o) {
-  const int2 raw = *reinterpret_cast<const int2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) o[e] = static_cast<float>(c[e]);
-}
-__device__ __forceinline__ void load8_cache(const float* p, float* o) { load8(p, o); }
-__device__ __forceinline__ void load8_cache(const __nv_bfloat16* p, float* o) { load8(p, o); }
-
-// Two cache elements as floats.
-__device__ __forceinline__ float2 load2_cache(const int8_t* p) {
-  const char2 c = *reinterpret_cast<const char2*>(p);
-  return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
-}
-__device__ __forceinline__ float2 load2_cache(const float* p) { return load2(p); }
-__device__ __forceinline__ float2 load2_cache(const __nv_bfloat16* p) { return load2(p); }
-
-// T: the type of q and the output; C: the cache's (T, or int8_t with scales)
-template <typename T, typename C>
-__global__ void __launch_bounds__(kWarps * 32)
-temporal_decode_rm_kernel(const T* __restrict__ q, const C* __restrict__ k,
-                          const C* __restrict__ v, const float* __restrict__ k_scale,
-                          const float* __restrict__ v_scale, const int* __restrict__ lens,
-                          T* __restrict__ out, int rows, int capacity, int d, int heads,
-                          float scale) {
-  constexpr bool kQuantized = sizeof(C) == 1;
-  extern __shared__ __align__(16) float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long w = static_cast<long>(blockIdx.x) * kWarps + warp;
-  if (w >= static_cast<long>(rows) * heads) return;
-  const int row = static_cast<int>(w / heads);
-  const int head = static_cast<int>(w % heads);
-  const int dh = d / heads;
-  const int nc = dh / 8;
-  const long base = static_cast<long>(row) * d + head * dh;                  // in q, out
-  const long cbase = static_cast<long>(row) * capacity * d + head * dh;      // in k, v
-  const long sbase = static_cast<long>(row) * capacity * heads + head;       // in the scales
-  const int n_keys = min(lens[0], capacity - 1) + 1;  // positions 0..len
-
-  float* qs = smem + warp * warp_floats(dh, capacity);
-  float* ps = qs + dh;
-  for (int e = lane; e < dh; e += 32) qs[e] = to_f32(q[base + e]);
-  __syncwarp();
-
-  // scores, one lane per key
-  float m = -INFINITY;
-  for (int i = lane; i < n_keys; i += 32) {
-    const C* kp = k + cbase + static_cast<long>(i) * d;
-    float s = 0.f;
-    for (int c0 = 0; c0 < nc; c0 += kGroup) {  // kGroup loads in flight, then the FMAs
-      float kf[kGroup][8];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g)
-        if (c0 + g < nc) load8_cache(kp + 8 * (c0 + g), kf[g]);
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        if (c0 + g < nc) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s = fmaf(qs[8 * (c0 + g) + e], kf[g][e], s);
-        }
-      }
-    }
-    s = __fmul_rn(s, scale);
-    if constexpr (kQuantized) s = __fmul_rn(s, k_scale[sbase + static_cast<long>(i) * heads]);
-    ps[i] = s;
-    m = fmaxf(m, s);
-  }
-  m = warp_max(m);
-  __syncwarp();
-  for (int i = lane; i < n_keys; i += 32) ps[i] = expf(__fsub_rn(ps[i], m));
-  __syncwarp();
-  float sum = 0.f;
-  for (int i = 0; i < n_keys; ++i) sum = __fadd_rn(sum, ps[i]);  // key order, every lane
-  const float inv = __fdiv_rn(1.f, sum);
-
-  // PV, lanes over element pairs: lane holds pairs lane and lane + 32
-  const int pairs = dh / 2;
-  const bool on0 = lane < pairs;
-  const bool on1 = lane + 32 < pairs;
-  const long off = 2 * lane;
-  const float2 zero = make_float2(0.f, 0.f);
-  float2 acc0 = zero, acc1 = zero;
-#pragma unroll 8
-  for (int i = 0; i < n_keys; ++i) {
-    const C* vp = v + cbase + static_cast<long>(i) * d;
-    const float p = kQuantized ? __fmul_rn(ps[i], v_scale[sbase + static_cast<long>(i) * heads])
-                               : ps[i];
-    const float2 v0 = on0 ? load2_cache(vp + off) : zero;
-    const float2 v1 = on1 ? load2_cache(vp + off + 64) : zero;
-    acc0.x = fmaf(p, v0.x, acc0.x); acc0.y = fmaf(p, v0.y, acc0.y);
-    acc1.x = fmaf(p, v1.x, acc1.x); acc1.y = fmaf(p, v1.y, acc1.y);
-  }
-  if (on0) store2(out + base + off, make_float2(__fmul_rn(acc0.x, inv), __fmul_rn(acc0.y, inv)));
-  if (on1)
-    store2(out + base + off + 64, make_float2(__fmul_rn(acc1.x, inv), __fmul_rn(acc1.y, inv)));
-}
-
-template <typename T, typename C>
+template <typename T, typename KV>
 int launch(const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
            const void* len, void* out, int rows, int capacity, int d, int heads, float scale,
            cudaStream_t stream) {
-  const long warps = static_cast<long>(rows) * heads;
-  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
-  const size_t smem = sizeof(float) * kWarps * warp_floats(d / heads, capacity);
-  cudaError_t err = cudaFuncSetAttribute(temporal_decode_rm_kernel<T, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  constexpr bool kQuant = sizeof(KV) == 1;
+  decode::Args<T, KV> a{static_cast<const T*>(q), nullptr, nullptr, nullptr, nullptr,
+                        const_cast<KV*>(static_cast<const KV*>(k)),
+                        const_cast<KV*>(static_cast<const KV*>(v)),
+                        const_cast<float*>(static_cast<const float*>(k_scale)),
+                        const_cast<float*>(static_cast<const float*>(v_scale)),
+                        static_cast<const int*>(len), rows, static_cast<T*>(out),
+                        rows, capacity, d, heads, d, static_cast<long>(capacity) * d, scale};
+  const decode::Plan plan =
+      decode::plan(d, heads, capacity, sizeof(KV), sizeof(T), kQuant, heads, true);
+  int blocks = 0;
+  const cudaError_t err =
+      persistent_grid(temporal_decode_rm_kernel<T, KV>, decode::kThreads, plan.total, rows,
+                      &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  temporal_decode_rm_kernel<T, C><<<blocks, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const C*>(k), static_cast<const C*>(v),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const int*>(len), static_cast<T*>(out), rows, capacity, d, heads, scale);
+  temporal_decode_rm_kernel<T, KV><<<blocks, decode::kThreads, plan.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int sf_temporal_decode_rm_readonly_smem_bytes(int dh, int capacity) {
-  return static_cast<int>(sizeof(float)) * kWarps * warp_floats(dh, capacity);
+// Shared memory a block needs at width d, heads and capacity, for q's dtype
+// and an int8 (quantized 1) or float cache.
+extern "C" int sf_temporal_decode_rm_readonly_smem_bytes(int d, int heads, int capacity,
+                                                         int dtype, int quantized) {
+  const int elt = dtype == SF_FLOAT32 ? 4 : 2;
+  return decode::plan(d, heads, capacity, quantized ? 1 : elt, elt, quantized != 0, heads, true)
+      .total;
 }
 
 // K: k, v (R, C, D) int8 with (R, C, H) fp32 scales when quantized is 1, else

@@ -79,8 +79,8 @@ class TimesformerVisionTower:
 
     def _chunk(self) -> int:
         """Frames per call on the linear cache: what one kernel-E call takes
-        at this capacity, and at most ``num_frames``; 1 (kernel D) where the
-        capacity alone fills kernel E's keys (capacity >= 32)."""
+        at this capacity, and at most ``num_frames``; 1 (kernel D) where not
+        one frame of E's plan fits (capacities in the tens of thousands)."""
         return max(1, min(ops.append_frame_cap(self.cfg.cache_capacity), self.cfg.num_frames))
 
     @torch.no_grad()

@@ -472,7 +472,8 @@ def temporal_attention(
       positions (p - C, p] and of t > C frames only the last C stay, the
       function of the JAX package's ``_ring_attend_pos_major``.
     - t >= 2 on the linear cache, or ``new_valid`` given:
-      ``ops.temporal_append_pm_ragged``. Stream b appends its first
+      ``ops.temporal_append_pm_qkv`` (kernel E on the (B, T, N, 3D) qkv as
+      it is, up to 32 frames a call). Stream b appends its first
       ``new_valid[b]`` frames (all t by default) at slots len[b] + ti; a
       lockstep cache is one stream of all B*N rows.
 
@@ -547,20 +548,16 @@ def temporal_attention(
         ctx = torch.stack([decode(ti) for ti in range(t)])
         return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
 
-    def rows_t(i):  # (B, T, N, D) slice -> (T, B*N, D)
-        return qkv[..., i * d:(i + 1) * d].transpose(0, 1).reshape(t, b * n, d).contiguous()
-
     if ragged:
         lens, per_stream = cache_len, n
     else:  # lockstep: one stream of all B*N rows
         lens, per_stream = cache_len.reshape(1), b * n
     if new_valid is None:
         new_valid = torch.full(lens.shape, t, dtype=torch.int32, device=lens.device)
-    ctx = ops.temporal_append_pm_ragged(
-        rows_t(0), rows_t(1), rows_t(2), cache_kv["k"], cache_kv["v"], lens, new_valid,
-        per_stream, h,
-    )
-    return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
+    # E reads q, k, v from qkv and writes ctx (B, T, N, D) in place: no copies around it
+    ctx = ops.temporal_append_pm_qkv(qkv, cache_kv["k"], cache_kv["v"], lens, new_valid,
+                                     per_stream, h)
+    return dense(ctx, attn.output.dense)
 
 
 def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,

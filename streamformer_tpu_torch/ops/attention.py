@@ -17,6 +17,7 @@ wrapper                             plain version                             re
 ``temporal_fullclip_bwd``           ``temporal_fullclip_bwd_plain``           ``_fullclip_temporal_bwd_pallas``
 ``temporal_fullclip_qkv``           ``temporal_fullclip_qkv_plain``           ``fused_temporal_fullclip`` (packed)
 ``temporal_fullclip_qkv_bwd``       ``temporal_fullclip_qkv_bwd_plain``       ``_fullclip_temporal_bwd_pallas`` (packed)
+``temporal_append_pm_qkv``          ``temporal_append_pm_qkv_plain``          ``fused_temporal_append_pm_ragged`` (packed)
 ``spatial_attention``               ``spatial_attention_plain``               ``fused_spatial_attention``
 ==================================  ========================================  ========================================
 
@@ -27,11 +28,12 @@ nothing else does. Heads are dh-wide slices of the flat D axis
 (``spatial_attention`` takes them split, (R, H, N, dh)), dh a multiple of 8
 and at most 128; inputs are float32 or bfloat16 and contiguous (the int8
 kernels take int8 codes and fp32 scales beside a float or bfloat16 query).
-C and H read their operands in place through strides: the packed entries
-``temporal_fullclip_qkv`` and ``temporal_fullclip_qkv_bwd`` take the (B, T,
-N, 3D) output of the qkv projection as it is (the encoder's full clip), the
-(R, T, D) entries contiguous rows; both count under ``temporal_fullclip`` and
-``temporal_fullclip_bwd``.
+C, H and E read their operands in place through strides: the packed entries
+``temporal_fullclip_qkv``, ``temporal_fullclip_qkv_bwd`` and
+``temporal_append_pm_qkv`` take the (B, T, N, 3D) output of the qkv
+projection as it is (the encoder's full clip, and its multi-frame append on
+the linear cache), the (R, T, D) and (t, R, D) entries rows; each counts
+under its kernel's (R, T, D) or (t, R, D) entry's name.
 
 The two full-clip kernels have a gradient: ``spatial_flat``,
 ``temporal_fullclip`` and ``temporal_fullclip_qkv`` go through the
@@ -70,10 +72,9 @@ LAUNCHES: Dict[str, int] = {
     "spatial_attention": 0,
 }
 
-# Keys one warp of ``temporal_append_pm_ragged`` holds: the cache capacity
-# plus the new frames (csrc/temporal_append_pm.cu, one lane per query). So a
-# call appends at most ``append_frame_cap(C)`` frames, 16 at capacity 16.
-APPEND_MAX_KEYS = 32
+# New frames one call of kernel E takes at most (C's kMaxT), on any capacity
+# whose plan fits a block's shared memory (``append_frame_cap``).
+APPEND_MAX_FRAMES = 32
 
 # Queries a block of the bf16 spatial kernels (B, L) takes: thirteen warps
 # of 16, a whole row of the flagship (N=196), so K and V are staged once per
@@ -144,10 +145,30 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _append_min_smem(t: int, capacity: int, head_dim: int, itemsize: int) -> int:
+    """Shared memory of kernel E's smallest plan (csrc/temporal_append_pm.cu,
+    ``plan_for(1, 1, ...)``): one head an item, one key a stage. A call fits
+    when this does; the kernel then takes the largest plan that fits."""
+    row = _round16(head_dim * itemsize) + 16  # a staged span, padded
+    keys = capacity + t
+    return (2 * row + 16 + t * row + _round16(4 * t * (keys | 1))
+            + (_round16(4 * t * head_dim) if keys > 1 else 0) + _round16(4 * t) + 48)
+
+
 def append_frame_cap(capacity: int) -> int:
-    """Most new frames one ``temporal_append_pm_ragged`` call takes on a cache
-    of ``capacity`` slots (0 when the capacity alone fills a warp's keys)."""
-    return max(0, APPEND_MAX_KEYS - capacity)
+    """Most new frames one call of kernel E (``temporal_append_pm_ragged``,
+    ``temporal_append_pm_qkv``) takes on a cache of ``capacity`` slots, at
+    every width the kernels take (the plan of the widest, heads of 128 in
+    fp32): at most ``APPEND_MAX_FRAMES``, as many as the plan fits in a
+    block's shared memory; 0 when not even one does."""
+    for t in range(APPEND_MAX_FRAMES, 0, -1):
+        if _append_min_smem(t, capacity, 128, 4) <= _MAX_SMEM:
+            return t
+    return 0
 
 
 def _launch(name: str, symbol: str, argtypes, device: torch.device, *args,
@@ -374,7 +395,8 @@ def temporal_decode_rm_readonly(q, k, v, k_scale, v_scale, cache_len, num_heads)
         return temporal_decode_rm_readonly_plain(q, k, v, k_scale, v_scale, cache_len, num_heads)
     _cuda_ready(name, q, *tensors.values())
     smem = build.function("temporal_decode_rm", "sf_temporal_decode_rm_readonly_smem_bytes",
-                          (_I, _I))(d // num_heads, c)
+                          (_I, _I, _I, _I, _I))(d, num_heads, c, _DTYPE_CODES[q.dtype],
+                                                int(quantized))
     if smem > _MAX_SMEM:
         raise ValueError(f"{name}: capacity {c} needs {smem} bytes of shared memory per block")
     out = torch.empty_like(q)
@@ -502,6 +524,50 @@ def temporal_append_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, val
     return out
 
 
+def _append_checks(name, t, r, d, k_cache, v_cache, lens, valid, rows_per_stream, num_heads,
+                   dtype, device) -> None:
+    """What kernel E requires beyond its new frames' layout: (C, R, D)
+    caches of their dtype, contiguous, on their device; (B,) int32 lens and
+    valid; 1 <= t <= ``APPEND_MAX_FRAMES``; a plan that fits a block's shared
+    memory (``_append_min_smem``). Raises on anything else, on the CPU as on
+    the card."""
+    if k_cache.ndim != 3 or k_cache.shape[1:] != (r, d) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"{name}: caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)} do not "
+                         f"match {r} rows of D={d} as (C, R, D)")
+    for key, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.dtype != dtype or x.device != device or not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous {dtype} tensor on {device}, "
+                             f"got {x.dtype} on {x.device}")
+    _stream_lengths(name, lens, r, rows_per_stream, valid=valid)
+    _check_lengths(name, device, lens=lens, valid=valid)
+    if not 1 <= t <= APPEND_MAX_FRAMES:
+        raise NotImplementedError(f"{name}: {t} new frames; a call takes 1 to "
+                                  f"{APPEND_MAX_FRAMES} (ROADMAP slice 1, item 3a)")
+    c, dh = k_cache.shape[0], d // num_heads
+    smem = _append_min_smem(t, c, dh, k_cache.element_size())
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: capacity {c} with {t} new frames needs {smem} bytes of shared "
+                         f"memory per block even at one head of {dh} and one key a stage "
+                         f"(at most {_MAX_SMEM})")
+
+
+def _append_kernel(operands, k_cache, v_cache, lens, valid, rows_per_stream, batch, n, t, d,
+                   num_heads) -> None:
+    """Launch kernel E on q, k_new, v_new and out read and written in place,
+    each a (tensor, column, (b, t, n) element strides) triple; count it under
+    ``temporal_append_pm_ragged``."""
+    ptrs = (_P * 4)(*(x.data_ptr() + col * x.element_size() for x, col, _ in operands))
+    strides = (ctypes.c_longlong * 12)(*(s for _, _, st in operands for s in st))
+    _launch(
+        "temporal_append_pm_ragged", "sf_temporal_append_pm",
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P), k_cache.device,
+        ptrs, strides, k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        valid.data_ptr(), rows_per_stream, batch, n, t, k_cache.shape[0], d, num_heads,
+        (d // num_heads) ** -0.5, _DTYPE_CODES[k_cache.dtype],
+        library="temporal_append_pm",
+    )
+
+
 def temporal_append_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, valid, rows_per_stream,
                               num_heads):
     """Append t new frames per stream to the linear pos-major cache and
@@ -516,48 +582,69 @@ def temporal_append_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, valid, ro
     ti >= valid[b] are unspecified. lens and valid are read on the device and
     not changed; the caller keeps lens + valid <= C (the linear contract,
     checked by the serving engine on its host mirrors, never here, as that
-    would wait on the device). Capacity plus t may not exceed
-    ``APPEND_MAX_KEYS``. Returns (t, R, D) in q's dtype. On the card a
-    stream fed through this call in chunks reproduces the full clip bit for
-    bit (``temporal_fullclip``'s arithmetic)."""
+    would wait on the device). A call takes up to ``APPEND_MAX_FRAMES`` new
+    frames on any capacity whose plan fits (``append_frame_cap``). q, k_new
+    and v_new are read in place: their D axis contiguous, their data and
+    other strides 16-byte aligned. Returns (t, R, D) in q's dtype. On the
+    card a stream fed through this call in chunks reproduces the full clip
+    bit for bit (``temporal_fullclip``'s arithmetic)."""
+    name = "temporal_append_pm_ragged"
     if q.ndim != 3 or k_new.shape != q.shape or v_new.shape != q.shape:
-        raise ValueError("temporal_append_pm_ragged: q, k_new, v_new must share one "
-                         "(t, R, D) shape")
+        raise ValueError(f"{name}: q, k_new, v_new must share one (t, R, D) shape")
     t, r, d = q.shape
-    if k_cache.ndim != 3 or k_cache.shape[1:] != (r, d) or v_cache.shape != k_cache.shape:
-        raise ValueError(
-            f"temporal_append_pm_ragged: caches {tuple(k_cache.shape)}, "
-            f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)} as (C, R, D)"
-        )
-    c = k_cache.shape[0]
-    if t < 1 or c + t > APPEND_MAX_KEYS:
-        raise NotImplementedError(
-            f"temporal_append_pm_ragged: capacity {c} + {t} new frames exceeds the "
-            f"{APPEND_MAX_KEYS} keys a warp holds (ROADMAP slice 1, item 3a)"
-        )
-    _stream_lengths("temporal_append_pm_ragged", lens, r, rows_per_stream, valid=valid)
-    device = _check("temporal_append_pm_ragged", num_heads, d, q=q, k_new=k_new, v_new=v_new,
-                    k_cache=k_cache, v_cache=v_cache)
-    _check_lengths("temporal_append_pm_ragged", device, lens=lens, valid=valid)
+    device = _check(name, num_heads, d, strided=True, q=q, k_new=k_new, v_new=v_new)
+    _append_checks(name, t, r, d, k_cache, v_cache, lens, valid, rows_per_stream, num_heads,
+                   q.dtype, device)
     if device.type == "cpu":
         return temporal_append_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, valid,
                                                rows_per_stream, num_heads)
-    _cuda_ready("temporal_append_pm_ragged", q, k_new, v_new, k_cache, v_cache)
-    code = _DTYPE_CODES[q.dtype]
-    smem = build.function("temporal_append_pm", "sf_temporal_append_pm_smem_bytes",
-                          (_I, _I, _I))(d // num_heads, c + t, code)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"temporal_append_pm_ragged: {c + t} keys need {smem} bytes of "
-                         "shared memory per block")
-    out = torch.empty_like(q)
-    _launch(
-        "temporal_append_pm_ragged", "sf_temporal_append_pm",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P), device,
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), lens.data_ptr(), valid.data_ptr(), rows_per_stream, out.data_ptr(),
-        r, t, c, d, num_heads, (d // num_heads) ** -0.5, code,
-        library="temporal_append_pm",
-    )
+    _cuda_ready(name, q, k_new, v_new, k_cache, v_cache)
+    out = q.new_empty(q.shape)
+    # row r of (t, R, D) is (b, n) = (r, 0): strides (R axis, t axis, none)
+    _append_kernel([(x, 0, (x.stride(1), x.stride(0), 0)) for x in (q, k_new, v_new, out)],
+                   k_cache, v_cache, lens, valid, rows_per_stream, r, 1, t, d, num_heads)
+    return out
+
+
+def temporal_append_pm_qkv_plain(qkv, k_cache, v_cache, lens, valid, rows_per_stream,
+                                 num_heads):
+    """Plain version of ``temporal_append_pm_qkv``: the JAX encoder's slices
+    and transposes of qkv around ``temporal_append_pm_ragged_plain``."""
+    b, t, n, d3 = qkv.shape
+    rows = (x.transpose(0, 1).reshape(t, b * n, d3 // 3) for x in _thirds(qkv))
+    ctx = temporal_append_pm_ragged_plain(*rows, k_cache, v_cache, lens, valid, rows_per_stream,
+                                          num_heads)
+    return ctx.reshape(t, b, n, -1).transpose(0, 1).contiguous()
+
+
+def temporal_append_pm_qkv(qkv, k_cache, v_cache, lens, valid, rows_per_stream, num_heads):
+    """``temporal_append_pm_ragged`` on the encoder's own layout.
+
+    qkv: (B, t, N, 3D), the output of the qkv projection: q, k_new and v_new
+    are its three D-wide slices, row b * N + n of the caches (C, B*N, D) is
+    (b, n). lens, valid and rows_per_stream as for
+    ``temporal_append_pm_ragged`` (lockstep: one stream of B*N rows; ragged:
+    one stream per b, rows_per_stream = N). Returns the contiguous (B, t, N,
+    D) context in qkv's dtype, which the output projection takes as it is.
+    Kernel E reads the slices and writes the context in place, so nothing is
+    sliced, transposed or copied around it; it counts under
+    ``temporal_append_pm_ragged``. The D axis must be contiguous, and the data
+    and the other strides 16-byte aligned (the output of a linear layer is);
+    there is no fallback to a copy."""
+    name = "temporal_append_pm_qkv"
+    device = _packed_check(name, qkv, num_heads)
+    b, t, n, d3 = qkv.shape
+    d = d3 // 3
+    _append_checks(name, t, b * n, d, k_cache, v_cache, lens, valid, rows_per_stream, num_heads,
+                   qkv.dtype, device)
+    if device.type == "cpu":
+        return temporal_append_pm_qkv_plain(qkv, k_cache, v_cache, lens, valid, rows_per_stream,
+                                            num_heads)
+    _cuda_ready(name, k_cache, v_cache)
+    out = qkv.new_empty(b, t, n, d)
+    _append_kernel([(x, col, tuple(x.stride()[:3]))
+                    for x, col in ((qkv, 0), (qkv, d), (qkv, 2 * d), (out, 0))],
+                   k_cache, v_cache, lens, valid, rows_per_stream, b, n, t, d, num_heads)
     return out
 
 

@@ -363,8 +363,8 @@ class StreamingEngine:
             if self._chunk() < 1:
                 raise NotImplementedError(
                     f"throughput mode on a linear cache of capacity "
-                    f"{self.cfg.cache_capacity}: kernel E holds capacity + frames <= "
-                    f"{ops.APPEND_MAX_KEYS} keys (ROADMAP slice 1, item 3a)"
+                    f"{self.cfg.cache_capacity}: not one frame of kernel E's plan fits a "
+                    f"block's shared memory at this capacity (ops.append_frame_cap)"
                 )
             self._send_flags(b"append" + admit.tobytes() + navail.tobytes(), admit, navail)
             pooled = self._step_append(k, self._admit_dev, self._count_dev)

@@ -1,5 +1,6 @@
-"""Times of the t=1 decode kernels (A, D, J, F, G), of the full-clip kernels
-C and H, and of the lockstep streaming step, on the card.
+"""Times of the t=1 decode kernels (A, D, J, F, G, and the read-only K), of
+the full-clip kernels C and H, of the multi-frame append E, and of the
+lockstep streaming step, on the card.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -10,7 +11,8 @@ path with that checkout first on ``PYTHONPATH`` (the wrappers it calls keep
 one signature across the port's slices); each checkout builds its own
 kernels under its own ``build/``. Two checkouts timed in one call, in the
 order a, b, b, a, compare on one card. ``--kernels C,H --no-streaming``
-times the full-clip kernels alone.
+times the full-clip kernels alone, ``--kernels E,Eqkv,K,Kf`` the append and
+the read-only decode.
 
 It prints one JSON object a line, each tagged with ``--label``:
 
@@ -23,10 +25,17 @@ It prints one JSON object a line, each tagged with ``--label``:
   ``call_ms``, the median of CUDA events around the wrapper over the same 15
   calls (host work included); ``host_us``, the host's time a call over 200
   calls queued back to back (the launch path alone: 200 calls do not fill
-  the launch queue, so the host never waits for the card). C and H rows
-  also carry ``plain_ms`` (the plain version) and ``sdpa_ms`` (one causal
-  ``scaled_dot_product_attention`` call, or its backward), by CUDA events
-  in the same way, and ``bound_ms``, the bytes moved once at 3.35 TB/s;
+  the launch queue, so the host never waits for the card). C, H, E and K
+  rows also carry ``plain_ms`` (the plain version) and ``sdpa_ms`` (one
+  ``scaled_dot_product_attention`` call on the same function, or its
+  backward; K's on the dequantized cache), by CUDA events in the same way,
+  and ``bound_ms``, the bytes moved once at 3.35 TB/s. E is one throughput
+  tick's call (t=8, eight streams of 196 rows at lens 0-16, or 0-64 at
+  capacity 64, some valid partially) on (t, R, D) rows, and ``Eqkv`` the
+  packed entry on the same frames as an (8, 8, 196, 2304) qkv, where the
+  checkout has it; K reads an int8 cache with (R, C, H) scales, ``Kf`` a
+  float one, at length C-1. A checkout whose E refuses capacity 64 prints
+  ``"refused"`` for that row;
 - a streaming row: the flagship encoder (bf16, seeded random weights, batch
   8, ring cache C=16) over 32 steady steps, three times: frames/s and
   ms/step by the host's clock.
@@ -52,8 +61,14 @@ SYMBOLS = {"A": "temporal_decode_pm_kernel", "D": "temporal_decode_pm_kernel",
            "J": "temporal_decode_pm_kernel", "F": "temporal_decode_pm_int8_kernel",
            "G": "temporal_decode_pm_int8_kernel", "C": "temporal_fullclip_kernel",
            "H": "temporal_fullclip_bwd_kernel", "Cqkv": "temporal_fullclip_kernel",
-           "Hqkv": "temporal_fullclip_bwd_kernel"}
+           "Hqkv": "temporal_fullclip_bwd_kernel", "E": "temporal_append_pm_kernel",
+           "Eqkv": "temporal_append_pm_kernel", "K": "temporal_decode_rm_kernel",
+           "Kf": "temporal_decode_rm_kernel"}
 FULLCLIP = ("C", "H", "Cqkv", "Hqkv")
+WITH_YARDSTICKS = FULLCLIP + ("E", "Eqkv", "K", "Kf")
+# E: a throughput tick's lens by capacity, and valid (chip_smoke.py's E_LENS, E_VALID)
+E_LENS = {16: [0, 1, 5, 8, 8, 12, 15, 16], 64: [0, 9, 20, 33, 40, 51, 60, 64]}
+E_VALID, E_T = [8, 0, 8, 8, 3, 4, 1, 0], 8
 BATCH, FRAMES = 8, 16  # the full clip: 1568 rows are 8 clips of 196 patches
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 
@@ -95,6 +110,77 @@ def fullclip_operands(kernel: str, dtype: torch.dtype, seed: int):
                 lambda: ops.temporal_fullclip_qkv_plain(qkv, HEADS), None, nbytes)
     return (lambda: ops.temporal_fullclip_qkv_bwd(qkv, gp, HEADS),
             lambda: ops.temporal_fullclip_qkv_bwd_plain(qkv, gp, HEADS), None, nbytes)
+
+
+def append_operands(kernel: str, dtype: torch.dtype, cap: int, seed: int):
+    """E (or its packed entry) on seeded operands: the wrapper's call, its
+    plain version's, one masked scaled_dot_product_attention call's, and
+    the bytes moved once."""
+    rng = np.random.default_rng(seed)
+    d = HEADS * DH
+
+    def card(shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(DEVICE, dtype)
+
+    q, kn, vn = (card((E_T, ROWS, d)) for _ in range(3))
+    kc, vc = card((cap, ROWS, d)), card((cap, ROWS, d))
+    lens = torch.tensor(E_LENS[cap], dtype=torch.int32, device=DEVICE)
+    valid = torch.tensor(E_VALID, dtype=torch.int32, device=DEVICE)
+    n_old = sum(min(x, cap) for x in E_LENS[cap])
+    nbytes = q.element_size() * PER_STREAM * d * (2 * n_old + 4 * E_T * BATCH + 2 * sum(E_VALID))
+    ti = torch.arange(E_T, device=DEVICE)
+    old = torch.arange(cap, device=DEVICE)[None, None] < lens.long().repeat_interleave(
+        PER_STREAM)[:, None, None]
+    mask = torch.cat([old.expand(ROWS, E_T, cap),
+                      (ti[None] <= ti[:, None]).expand(ROWS, E_T, E_T)], -1)[:, None]
+    q4 = q.view(E_T, ROWS, HEADS, DH).permute(1, 2, 0, 3)
+    k4, v4 = (torch.cat([c, n]).view(cap + E_T, ROWS, HEADS, DH).permute(1, 2, 0, 3)
+              for c, n in ((kc, kn), (vc, vn)))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+    if kernel == "E":
+        return (lambda: ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens, valid, PER_STREAM,
+                                                      HEADS),
+                lambda: ops.temporal_append_pm_ragged_plain(q, kn, vn, kc, vc, lens, valid,
+                                                            PER_STREAM, HEADS), sdpa, nbytes)
+    qkv = torch.cat([q, kn, vn], -1).view(E_T, BATCH, PER_STREAM, 3 * d).transpose(0, 1)
+    qkv = qkv.contiguous()
+    return (lambda: ops.temporal_append_pm_qkv(qkv, kc, vc, lens, valid, PER_STREAM, HEADS),
+            lambda: ops.temporal_append_pm_qkv_plain(qkv, kc, vc, lens, valid, PER_STREAM, HEADS),
+            sdpa, nbytes)
+
+
+def readonly_operands(kernel: str, dtype: torch.dtype, cap: int, seed: int):
+    """K at length C-1 on an int8 cache with (R, C, H) scales ("K") or a
+    float cache in q's dtype ("Kf"): the wrapper's call, its plain
+    version's, one scaled_dot_product_attention call's on the (dequantized)
+    cache, and the bytes moved once."""
+    rng = np.random.default_rng(seed)
+    d = HEADS * DH
+    q = torch.from_numpy(rng.standard_normal((ROWS, d), np.float32)).to(DEVICE, dtype)
+    length = cap - 1
+    if kernel == "K":
+        codes = [torch.from_numpy(rng.integers(-127, 128, (ROWS, cap, d), np.int8)).to(DEVICE)
+                 for _ in range(2)]
+        scales = [torch.from_numpy(rng.uniform(0.005, 0.03, (ROWS, cap, HEADS)).astype(
+            np.float32)).to(DEVICE) for _ in range(2)]
+        args = (*codes, *scales)
+        dense = [(c.view(ROWS, cap, HEADS, DH).float() * s[..., None]).to(dtype)
+                 for c, s in zip(codes, scales)]
+        nbytes = q.element_size() * ROWS * d * 2 + 2 * ROWS * (length + 1) * (d + 4 * HEADS)
+    else:
+        dense = [torch.from_numpy(rng.standard_normal((ROWS, cap, d), np.float32)).to(DEVICE, dtype)
+                 for _ in range(2)]
+        args = (*dense, None, None)
+        nbytes = q.element_size() * ROWS * d * (2 + 2 * (length + 1))
+    ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
+    q4 = q.view(ROWS, HEADS, 1, DH)
+    k4, v4 = (x.view(ROWS, cap, HEADS, DH).transpose(1, 2) for x in dense)
+    window = (torch.arange(cap, device=DEVICE) <= length).view(1, cap)
+    return (lambda: ops.temporal_decode_rm_readonly(q, *args, ln, HEADS),
+            lambda: ops.temporal_decode_rm_readonly_plain(q, *args, ln, HEADS),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                                     attn_mask=window),
+            nbytes)
 
 
 def events_ms(fn, flush: torch.Tensor) -> float:
@@ -145,8 +231,18 @@ def operands(kernel: str, dtype: torch.dtype, cap: int, seed: int):
 
 def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor) -> dict:
     extra = {}
-    if kernel in FULLCLIP:
-        fn, plain, sdpa, nbytes = fullclip_operands(kernel, dtype, seed=FRAMES)
+    if kernel in WITH_YARDSTICKS:
+        if kernel in FULLCLIP:
+            fn, plain, sdpa, nbytes = fullclip_operands(kernel, dtype, seed=FRAMES)
+        elif kernel.startswith("E"):
+            fn, plain, sdpa, nbytes = append_operands(kernel, dtype, cap, seed=cap)
+        else:
+            fn, plain, sdpa, nbytes = readonly_operands(kernel, dtype, cap, seed=cap)
+        try:
+            fn()
+        except NotImplementedError:  # an earlier E: capacity + t past its 32 keys
+            return {"kernel": kernel, "dtype": str(dtype).split(".")[-1], "capacity": cap,
+                    "refused": True}
         extra = {"plain_ms": events_ms(plain, flush),
                  "sdpa_ms": None if sdpa is None else events_ms(sdpa, flush),
                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
@@ -222,7 +318,9 @@ def main() -> None:
         raise SystemExit("decode_timing: needs a CUDA device")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     for kernel in args.kernels.split(","):
-        if kernel.endswith("qkv") and not hasattr(ops, "temporal_fullclip_qkv"):
+        entry = {"Cqkv": "temporal_fullclip_qkv", "Hqkv": "temporal_fullclip_qkv",
+                 "Eqkv": "temporal_append_pm_qkv"}.get(kernel)
+        if entry and not hasattr(ops, entry):
             continue  # a checkout from before the packed entry
         for dtype in (torch.bfloat16, torch.float32):
             for cap in ((FRAMES,) if kernel in FULLCLIP else (16, 64)):

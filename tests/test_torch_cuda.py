@@ -238,6 +238,14 @@ def test_ragged_rows_equal_lone_streams_bitwise(dtype):
         (196, [0, 0], [16, 16], 16, 16, 12, 64),  # a whole clip in one call
         (5, [3, 1], [1, 2], 2, 30, 2, 128),
         (9, [2, 0, 1], [1, 1, 0], 1, 4, 3, 8),
+        # capacities past the 32 keys a warp held once, t = 1, 8 and 32
+        (196, [0, 5, 31, 20], [1, 1, 1, 0], 1, 32, 12, 64),
+        (196, [0, 24, 9, 16], [8, 8, 3, 5], 8, 32, 12, 64),
+        (98, [0, 32, 0, 10], [32, 32, 16, 20], 32, 64, 12, 64),
+        (196, [0, 40, 56, 63], [8, 8, 8, 1], 8, 64, 12, 64),
+        (50, [0, 100, 200, 255], [1, 1, 1, 1], 1, 256, 12, 64),
+        (50, [0, 100, 224, 248], [32, 32, 32, 8], 32, 256, 12, 64),
+        (20, [0, 130, 240], [8, 8, 8], 8, 256, 4, 32),
     ],
 )
 def test_temporal_append_pm_ragged_matches_plain(dtype, per_stream, lens, valid, t, cap, heads,
@@ -579,7 +587,11 @@ def test_temporal_decode_rm_matches_plain_and_pos_major(dtype, rows, cap, heads,
 @pytest.mark.parametrize(
     "rows,cap,heads,dh,length",
     [(56, 8, 4, 24, 0), (56, 8, 4, 24, 7), (56, 20, 4, 16, 13), (1568, 16, 12, 64, 15),
-     (1568, 16, 12, 64, 0), (40, 5, 2, 128, 3)],
+     (1568, 16, 12, 64, 0), (40, 5, 2, 128, 3),
+     # past one stage of the decode body (C = 64, 256), heads not a multiple
+     # of four (the int8 scales by the lanes), int8 rows of 8 bytes (no bulk copy)
+     (1568, 64, 12, 64, 63), (200, 256, 12, 64, 255), (200, 256, 12, 64, 100),
+     (56, 64, 3, 24, 40), (40, 20, 1, 8, 13)],
 )
 def test_temporal_decode_rm_readonly_matches_plain(dtype, quantized, rows, cap, heads, dh, length):
     """Kernel K, float cache and int8 codes with per-(row, position, head)
@@ -924,3 +936,135 @@ def test_fullclip_kernels_walk_many_items_a_block(dtype):
     assert torch.equal(grad, again)
     q, k, v = (rows(qkv[..., i * d:(i + 1) * d]) for i in range(3))
     assert torch.equal(ops.temporal_fullclip(q, k, v, heads), rows(out))
+
+
+# ---------------------------------------------------------------------------
+# E on the bulk-copy pipeline (csrc/temporal_append_pm.cu): the packed entry,
+# its plan, and blocks that walk many items
+# ---------------------------------------------------------------------------
+
+
+def _append_case(dtype, b, t, n, heads, dh, cap, lens, valid, seed):
+    """A (B, t, N, 3D) qkv and (C, B*N, D) caches on the card, with the (t,
+    R, D) rows of its slices; lens and valid one per clip."""
+    d = heads * dh
+    qkv = _randn((b, t, n, 3 * d), dtype, seed)
+    caches = [_randn((cap, b * n, d), dtype, seed + s) for s in (1, 2)]
+    lens_t, valid_t = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (lens, valid))
+    rows = [qkv[..., i * d:(i + 1) * d].transpose(0, 1).reshape(t, b * n, d).contiguous()
+            for i in range(3)]
+    return qkv, caches, lens_t, valid_t, rows
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,n,heads,dh,cap,lens,valid", [
+    (8, 8, 196, 12, 64, 16, [0, 1, 5, 8, 8, 12, 15, 16], [8, 0, 8, 8, 3, 4, 1, 0]),
+    (4, 3, 196, 12, 64, 64, [0, 20, 61, 40], [3, 3, 3, 1]),
+    (3, 32, 20, 12, 64, 256, [0, 100, 224], [32, 32, 32]),
+    (2, 5, 7, 3, 8, 9, [4, 0], [5, 2]),
+])
+def test_append_packed_entry_equals_the_row_entry_bitwise(dtype, b, t, n, heads, dh, cap, lens,
+                                                          valid):
+    """The packed entry (E reading q, k, v in place from qkv and writing a
+    contiguous (B, t, N, D)) gives, bit for bit, the (t, R, D) entry's
+    output on the transposed, contiguous slices, appends the same rows, and
+    counts under the (t, R, D) entry's name."""
+    qkv, caches, lens_t, valid_t, rows = _append_case(dtype, b, t, n, heads, dh, cap, lens,
+                                                      valid, 131)
+    row_caches = [c.clone() for c in caches]
+    want = ops.temporal_append_pm_ragged(*rows, *row_caches, lens_t, valid_t, n, heads)
+    before = dict(ops.LAUNCHES)
+    got = ops.temporal_append_pm_qkv(qkv, *caches, lens_t, valid_t, n, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_append_pm_ragged"] == before["temporal_append_pm_ragged"] + 1
+    assert sum(ops.LAUNCHES.values()) == sum(before.values()) + 1
+    assert got.shape == (b, t, n, heads * dh) and got.is_contiguous()
+    assert torch.equal(got.transpose(0, 1).reshape(want.shape), want)
+    for mine, theirs in zip(caches, row_caches):
+        assert torch.equal(mine, theirs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_append_reads_nothing_past_its_keys(dtype):
+    """Cache slots at or past each stream's len are NaN, and so are the
+    columns past qkv's view: the outputs of the valid frames are finite and
+    equal to those on clean operands, and the appended rows are the new
+    frames'."""
+    b, t, n, heads, dh, cap = 3, 4, 11, 3, 16, 24
+    d = heads * dh
+    lens, valid = [0, 9, 20], [4, 2, 4]
+    buf = _randn((b, t, n, 3 * d + 16), dtype, 141)
+    buf[..., 3 * d:] = float("nan")
+    qkv = buf[..., :3 * d]
+    clean = [_randn((cap, b * n, d), dtype, s) for s in (142, 143)]
+    poisoned = [c.clone() for c in clean]
+    for c in poisoned:
+        for i, length in enumerate(lens):
+            c[length:, i * n:(i + 1) * n] = float("nan")
+    lens_t, valid_t = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (lens, valid))
+    got = ops.temporal_append_pm_qkv(qkv, *poisoned, lens_t, valid_t, n, heads)
+    ref = ops.temporal_append_pm_qkv(qkv.contiguous(), *clean, lens_t, valid_t, n, heads)
+    torch.cuda.synchronize()
+    for i, nv in enumerate(valid):
+        assert torch.isfinite(got[i, :nv]).all()
+        assert torch.equal(got[i, :nv], ref[i, :nv])
+    for a, c in zip(poisoned, clean):
+        for i, (length, nv) in enumerate(zip(lens, valid)):
+            rows = slice(i * n, (i + 1) * n)
+            assert torch.equal(a[:length + nv, rows], c[:length + nv, rows])
+
+
+def test_append_plan_agrees_with_the_wrapper():
+    """The kernel's plan (csrc/temporal_append_pm.cu) fits a block where, and
+    only where, the wrapper's smallest plan does (``_append_min_smem``),
+    within a block's shared memory, and at the flagship takes whole items:
+    every key of an item in one stage."""
+    import ctypes
+
+    from streamformer_tpu_torch.ops import build
+
+    fn = build.function("temporal_append_pm", "sf_temporal_append_pm_plan",
+                        (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 2)
+    hg, chunk = ctypes.c_int(), ctypes.c_int()
+    for dtype in DTYPES:
+        elt = torch.tensor([], dtype=dtype).element_size()
+        code = ops._DTYPE_CODES[dtype]
+        for t, cap, heads, dh in [(8, 16, 12, 64), (32, 256, 12, 64), (1, 4, 2, 8),
+                                  (32, 1500, 2, 8), (32, 1800, 2, 8), (32, 4000, 12, 128),
+                                  (8, 64, 12, 64), (31, 1800, 1, 8)]:
+            total = fn(t, cap, heads * dh, heads, code, ctypes.byref(hg), ctypes.byref(chunk))
+            fits = ops._append_min_smem(t, cap, dh, elt) <= ops._MAX_SMEM
+            assert (total > 0) == fits, (dtype, t, cap, heads, dh)
+            if total:
+                assert total <= ops._MAX_SMEM and heads % hg.value == 0 and chunk.value >= 1
+        fn(8, 16, 768, 12, code, ctypes.byref(hg), ctypes.byref(chunk))
+        assert chunk.value == 16 + 8, dtype
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_append_walks_many_items_a_block(dtype):
+    """More items than 64 times the persistent grid, at a narrow width (one
+    head of 16, C=6, t=3): each block walks past 64 items, so its producer
+    warp reloads its lanes' lens and valid (32 items at a time) twice. Streams
+    of 8 rows at lens and valid drawn so that lens + valid <= C. Against the
+    plain version, the appended planes equal."""
+    cap, t, heads, dh, per_stream = 6, 3, 1, 16, 8
+    grid = 7 * torch.cuda.get_device_properties(0).multi_processor_count
+    streams = (70 * grid + 5 + per_stream - 1) // per_stream
+    rng = np.random.default_rng(151)
+    lens = rng.integers(0, cap + 1, streams)
+    valid = np.minimum(rng.integers(0, t + 1, streams), cap - lens)
+    rows, d = streams * per_stream, heads * dh
+    q, kn, vn = (_randn((t, rows, d), dtype, s) for s in (152, 153, 154))
+    caches = [_randn((cap, rows, d), dtype, s) for s in (155, 156)]
+    lens_t, valid_t = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (lens, valid))
+    ref_caches = [c.clone() for c in caches]
+    ref = ops.temporal_append_pm_ragged_plain(q, kn, vn, *ref_caches, lens_t, valid_t,
+                                              per_stream, heads)
+    got = ops.temporal_append_pm_ragged(q, kn, vn, *caches, lens_t, valid_t, per_stream, heads)
+    torch.cuda.synchronize()
+    for mine, theirs in zip(caches, ref_caches):
+        assert torch.equal(mine, theirs)
+    keep = (torch.arange(t, device="cuda")[:, None]
+            < valid_t.long().repeat_interleave(per_stream)[None])  # (t, R)
+    assert (got.float() - ref.float()).abs()[keep].max().item() <= TOL[dtype]

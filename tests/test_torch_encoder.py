@@ -173,8 +173,8 @@ def test_gelu_follows_the_dtype():
 
 def test_out_of_slice_features_raise():
     _, _, cfg, model = _pair()
-    with pytest.raises(NotImplementedError):  # capacity 64 + 2 frames: past kernel E's 32 keys
-        model.stream(torch.zeros(1, 2, 3, 48, 48), model.init_cache(1))
+    with pytest.raises(NotImplementedError):  # 33 frames in one call: past kernel E's 32
+        model.stream(torch.zeros(1, 33, 3, 48, 48), model.init_cache(1))
     ring = encoder.StreamformerEncoder(cfg.replace(cache_mode="ring"), device="cpu")
     with pytest.raises(NotImplementedError):  # a ragged ring takes one frame per call
         ring.stream(torch.zeros(1, 2, 3, 48, 48), ring.init_cache(1, capacity=8,

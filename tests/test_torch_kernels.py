@@ -153,11 +153,20 @@ def test_temporal_append_pm_ragged_matches_pallas(t, lens, valid):
 
 
 def test_append_frame_cap():
-    """Kernel E holds capacity + new frames <= 32 keys per warp: 16 frames
-    at the flagship capacity 16, none past capacity 31."""
-    assert ops.append_frame_cap(16) == 16
-    assert ops.append_frame_cap(31) == 1
-    assert ops.append_frame_cap(32) == 0 and ops.append_frame_cap(64) == 0
+    """Kernel E takes up to 32 new frames (C's kMaxT) on any capacity whose
+    plan fits a block's shared memory: 32 at the capacities the engine and
+    the tower run (16, 64, 256), fewer where only the plan's scores bound
+    it, none where not even one frame's fits. The answer holds at every
+    width (the plan of heads of 128 in fp32)."""
+    assert ops.append_frame_cap(16) == 32
+    assert ops.append_frame_cap(31) == 32 and ops.append_frame_cap(32) == 32
+    assert ops.append_frame_cap(64) == 32 and ops.append_frame_cap(256) == 32
+    assert 0 < ops.append_frame_cap(2000) < 32
+    assert ops.append_frame_cap(60000) == 0
+    for c in (16, 64, 2000):  # the answer is the most frames whose smallest plan fits
+        t = ops.append_frame_cap(c)
+        assert ops._append_min_smem(t, c, 128, 4) <= ops._MAX_SMEM
+        assert t == 32 or ops._append_min_smem(t + 1, c, 128, 4) > ops._MAX_SMEM
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -219,14 +228,14 @@ def test_plain_versions_launch_nothing():
                                                  torch.zeros((5, 1), dtype=torch.int32), 1, 2),
          TypeError),  # valid of the wrong shape
         (lambda x: ops.temporal_append_pm_ragged(
-            x[:1].expand(31, 5, 32).contiguous(), x[:1].expand(31, 5, 32).contiguous(),
-            x[:1].expand(31, 5, 32).contiguous(), x, x, torch.zeros(5, dtype=torch.int32),
+            x[:1].expand(33, 5, 32).contiguous(), x[:1].expand(33, 5, 32).contiguous(),
+            x[:1].expand(33, 5, 32).contiguous(), x, x, torch.zeros(5, dtype=torch.int32),
             torch.zeros(5, dtype=torch.int32), 1, 2),
-         NotImplementedError),  # capacity 2 + 31 frames > 32 keys
+         NotImplementedError),  # 33 new frames > the 32 a call takes
         (lambda x: ops.temporal_append_pm_ragged(
-            x[:1], x[:1], x[:1], x.repeat(16, 1, 1), x.repeat(16, 1, 1),
+            x[:0], x[:0], x[:0], x.repeat(16, 1, 1), x.repeat(16, 1, 1),
             torch.zeros(5, dtype=torch.int32), torch.zeros(5, dtype=torch.int32), 1, 2),
-         NotImplementedError),  # capacity 32 + 1 frame > 32 keys
+         NotImplementedError),  # no new frame
     ],
 )
 def test_wrappers_reject_what_the_kernels_do_not_take(call, error):

@@ -127,6 +127,27 @@ def test_engine_matches_lone_streams(pair, mode, frames):
         assert np.abs(got - lone_stream(model, clip)).max() <= VS_LONE
 
 
+def test_throughput_ticks_at_capacity_64_equal_latency_ticks(pair, monkeypatch):
+    """A linear engine of capacity 64 (past the 32 keys kernel E once held)
+    runs throughput ticks on kernel E (its plain version here) in chunks of
+    ``num_frames``: tick(frames=8) equals tick() within 1e-5."""
+    from streamformer_tpu_torch.ops import attention as ops
+
+    _, _, model = pair
+    clips = _clips(5, [9, 20, 3])
+    one = _serve(StreamingEngine(model, slots=2, capacity=64, mode="linear"), clips, 1)
+    eng = StreamingEngine(model, slots=2, capacity=64, mode="linear")
+    assert eng._chunk() == 8
+    appends = []
+    orig = ops.temporal_append_pm_qkv
+    monkeypatch.setattr(ops, "temporal_append_pm_qkv",
+                        lambda *a: appends.append(a[0].shape[1]) or orig(*a))
+    eight = _serve(eng, clips, 8)
+    assert appends and max(appends) == 8
+    for a, b in zip(one, eight):
+        assert a.shape == b.shape and np.abs(a - b).max() <= VS_LONE
+
+
 def test_throughput_chunks_keep_the_trained_time_table():
     """A chunk longer than ``num_frames`` would stretch the time-embedding
     table over the chunk: the engine chunks at ``num_frames``, so

@@ -3,8 +3,9 @@ fp32, within the repo's 1e-3.
 
 Same weights (``params_from_jax``) and frames. The JAX tower chunks a
 linear call at its kernel's ``APPEND_T_MAX``, the port at
-``min(append_frame_cap(C), num_frames)`` (one frame a call at a capacity of
-32 or more): both are contract-equal to one append of the call's frames.
+``min(append_frame_cap(C), num_frames)`` (``num_frames`` at every capacity
+these tests take): both are contract-equal to one append of the call's
+frames.
 Both interpolate the time table to max(num_frames, capacity).
 """
 
@@ -54,11 +55,38 @@ def test_linear_tower_matches_jax(calls):
 
 
 def test_linear_tower_at_a_large_capacity_appends_one_frame_a_call():
-    """Capacity 32 fills kernel E's keys: the port takes one frame a call
-    (kernel D's path), the JAX tower chunks of 8; the same function."""
+    """Capacity 32, which once filled kernel E's keys (the port then took
+    one frame a call): kernel E's plan takes any capacity that fits a
+    block, so the port appends in chunks of ``num_frames`` (4), the JAX
+    tower in chunks of 8; the same function."""
     towers = _towers(cache_capacity=32)
-    assert towers[1]._chunk() == 1
+    assert towers[1]._chunk() == 4
     _feed(towers, [3, 5, 1])
+
+
+def test_linear_tower_at_capacity_64_chunks_equal_single_frames(monkeypatch):
+    """Capacity 64 (past the 32 keys kernel E once held) appends calls of 3,
+    4 and 9 frames in chunks of ``num_frames`` through kernel E (its plain
+    version here); the same frames one a call (kernel D) give every context
+    within 1e-5 (fp32, two orders of summation)."""
+    _, chunked = _towers(cache_capacity=64)
+    _, single = _towers(cache_capacity=64)
+    assert chunked._chunk() == 4
+    appends = []
+    orig = ops.temporal_append_pm_qkv
+    monkeypatch.setattr(ops, "temporal_append_pm_qkv",
+                        lambda *a: appends.append(a[0].shape[1]) or orig(*a))
+    px = torch.from_numpy(_video(2, 16, seed=5))
+    lo = 0
+    for t in (3, 4, 9):
+        got = chunked(px[:, lo:lo + t])
+        for i in range(lo, lo + t):
+            want = single(px[:, i:i + 1])
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-5, (lo, t)
+        lo += t
+    layers = chunked.cfg.num_hidden_layers
+    assert appends == [3] * layers + [4] * layers + [4] * (2 * layers)  # the 1-frame rest: D
 
 
 @pytest.mark.parametrize("calls", [[3, 3, 2], [6, 1], [1] * 6], ids=["mixed", "t_past_C", "t1"])
