@@ -119,9 +119,24 @@ Phases, each fatal on failure:
     extraction frames/s; the vision tower on a linear cache (C=16, chunks
     through kernel E; C=64, each call one append through kernel E) and on the
     ring (C=8), each frame within the 0.078/0.008 envelope of a direct
-    ``streaming_forward`` stream, its context window and ``clear_cache``.
+    ``streaming_forward`` stream, its context window and ``clear_cache``;
+23. the training entry point at full width: ``siglip_init`` on a seeded
+    random SigLIP-base state dict (``pytorch_model.bin``), its encoder at
+    gate 0 on an 8-frame clip against each frame alone (time table zeroed,
+    0.078 / 0.008); the train augmentation's device ms per batch (8 uint8
+    clips of 16x256x340, ``torch.profiler``); ``train.run.train`` (the CLI's
+    training function) handed in-memory clips of three tasks (the card's
+    machine has no cv2 to decode files), the SigLIP-initialised backbone as
+    ``--model_path``, 2 epochs of 6 micro-steps at batch 8, ``update_freq=2``,
+    the loader in train mode (RandAugment m7 n4, resized crop, flip,
+    normalize, erasing on the card): B, C, H and I L times a micro-step,
+    clips/s with the loader in the loop beside phase 17's; a SIGTERM after
+    the second update of epoch 1, then a fresh call resuming from the
+    mid-epoch checkpoint, equal to the uninterrupted run bit for bit; the
+    time ``save_checkpoint`` takes to return with ``block=True`` and
+    ``block=False``, and the checkpoint's bytes on disk.
 
-Nine paths are main paths: the lockstep encode (the launch counters are
+Ten paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
@@ -130,8 +145,9 @@ phase 16's epoch, read after it), the row-major streams (zeroed before each
 stream of phase 19), the ring chunks (zeroed before each chunk of phase
 20), the consumers (zeroed before each extraction and tower run of phase
 22), and kernel L's own entry point, which no model path calls (zeroed
-before phase 21's forward and gradient step). Every kernel must have run on
-its path.
+before phase 21's forward and gradient step), and the training entry point
+(zeroed before phase 23's uninterrupted run, read after it). Every kernel
+must have run on its path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -245,6 +261,14 @@ KERNEL_SYMBOLS = {
     "spatial_flat_bwd": ("spatial_flat_bwd",),
     "temporal_decode_rm_readonly": ("temporal_decode_rm_kernel",),
 }
+# phase 23: the training entry point. SigLIP-base's text tower (the vision
+# tower's widths are the flagship's); three in-memory tasks of 16 clips of
+# 256x340 uint8 frames, batch 8, so 6 micro-steps an epoch; the SIGTERM
+# after the second update of epoch 1
+SIGLIP_TEXT = dict(vocab=32000, positions=64)
+ENTRY = dict(batch=8, epochs=2, update_freq=2, clips_per_task=16, height=256, width=340,
+             lr=1e-3, preempt_after_update=2, classes=10, vis_classes=5, mask_size=56,
+             aug_batches=3, siglip_frames=8, text_layers=12)
 GRAD_CARD_VS_CPU_TOL = 1e-4  # of a leaf's largest gradient magnitude; fp32, summation order only
 REMAT_LOSS_TOL = 1e-2  # relative: the recompute repeats the forward; bf16 rounding at most
 DEVICE = "cuda"
@@ -1754,6 +1778,315 @@ def main():
         del tower, dcache, direct, d_hidden, d_pooled
     torch.cuda.empty_cache()
 
+    # ---- 23. the training entry point at full width: SigLIP init, the loader
+    # with on-card augmentation, checkpoints and a resume after SIGTERM
+    import shutil
+    import signal
+    import tempfile
+
+    from streamformer_tpu_torch.checkpoint.siglip_init import init_from_siglip_dir
+    from streamformer_tpu_torch.data import collate
+    from streamformer_tpu_torch.data.datasets import MultiTaskDataset
+    from streamformer_tpu_torch.train import checkpoint as ckpt_lib
+    from streamformer_tpu_torch.train import run as train_run
+    from streamformer_tpu_torch.train import trainer as trainer_mod
+
+    en = ENTRY
+    work = tempfile.mkdtemp(prefix="entry-", dir=os.path.join(root, "build"))
+    try:
+        # 23a. SigLIP init from a seeded random SigLIP-base state dict
+        srng = torch.Generator(device=dev).manual_seed(23)
+        d, m_ = cfg.hidden_size, cfg.intermediate_size
+
+        def tower(prefix, n_layers):
+            shapes = {}
+            for i in range(n_layers):
+                e = f"{prefix}encoder.layers.{i}."
+                for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    shapes[f"{e}self_attn.{name}.weight"] = (d, d)
+                    shapes[f"{e}self_attn.{name}.bias"] = (d,)
+                for name in ("layer_norm1", "layer_norm2"):
+                    shapes[f"{e}{name}.weight"], shapes[f"{e}{name}.bias"] = (d,), (d,)
+                shapes[f"{e}mlp.fc1.weight"], shapes[f"{e}mlp.fc1.bias"] = (m_, d), (m_,)
+                shapes[f"{e}mlp.fc2.weight"], shapes[f"{e}mlp.fc2.bias"] = (d, m_), (d,)
+            return shapes
+
+        v = "vision_model."
+        shapes = {v + "embeddings.patch_embedding.weight": (d, 3, cfg.patch_size, cfg.patch_size),
+                  v + "embeddings.patch_embedding.bias": (d,),
+                  v + "embeddings.position_embedding.weight": (cfg.num_patches, d),
+                  **tower(v, L), v + "post_layernorm.weight": (d,), v + "post_layernorm.bias": (d,),
+                  v + "head.probe": (1, 1, d), v + "head.attention.in_proj_weight": (3 * d, d),
+                  v + "head.attention.in_proj_bias": (3 * d,),
+                  v + "head.attention.out_proj.weight": (d, d),
+                  v + "head.attention.out_proj.bias": (d,), v + "head.layernorm.weight": (d,),
+                  v + "head.layernorm.bias": (d,), v + "head.mlp.fc1.weight": (m_, d),
+                  v + "head.mlp.fc1.bias": (m_,), v + "head.mlp.fc2.weight": (d, m_),
+                  v + "head.mlp.fc2.bias": (d,),
+                  "text_model.embeddings.token_embedding.weight": (SIGLIP_TEXT["vocab"], d),
+                  "text_model.embeddings.position_embedding.weight": (SIGLIP_TEXT["positions"], d),
+                  **tower("text_model.", en["text_layers"]),
+                  "text_model.final_layer_norm.weight": (d,),
+                  "text_model.final_layer_norm.bias": (d,), "text_model.head.weight": (d, d),
+                  "text_model.head.bias": (d,), "logit_scale": (1,), "logit_bias": (1,)}
+        siglip_sd = {}
+        for name, shape in shapes.items():
+            x = torch.randn(shape, device=dev, generator=srng)
+            if "norm" in name and name.endswith("weight"):
+                x = 1.0 + 0.1 * x
+            elif name.endswith("probe"):
+                pass
+            else:
+                x = 0.02 * x
+            siglip_sd[name] = x.cpu()
+        siglip_dir = os.path.join(work, "siglip")
+        os.makedirs(siglip_dir)
+        torch.save(siglip_sd, os.path.join(siglip_dir, "pytorch_model.bin"))
+        n_siglip = sum(x.numel() for x in siglip_sd.values())
+        del siglip_sd
+        t0 = time.perf_counter()
+        audit = os.path.join(work, "siglip_audit.json")
+        enc_sd, text_sd, extras = init_from_siglip_dir(
+            siglip_dir, cfg, generator=torch.Generator().manual_seed(24), audit_path=audit)
+        init_s = time.perf_counter() - t0
+        with open(audit) as f:
+            audit_json = json.load(f)
+        if "map_head" not in audit_json["loaded"] or len(audit_json["fresh_init"]) != L + 2:
+            fail(f"siglip audit {audit_json}")
+        if len(text_sd) != 2 + 16 * en["text_layers"] + 4 or set(extras) != {"logit_scale", "logit_bias"}:
+            fail(f"siglip text tower of {len(text_sd)} leaves, extras {sorted(extras)}")
+        sig_model = encoder.StreamformerEncoder(cfg)
+        sig_model.load_state_dict(enc_sd)
+        gates = [float(layer.temporal_attention_gating) for layer in sig_model.encoder.layer]
+        if any(g != 0.0 for g in gates):
+            fail(f"siglip init: gates {gates}")
+        with torch.no_grad():
+            sig_model.embeddings.time_embeddings.zero_()  # each frame at SigLIP's own
+        sclip = torch.randn(1, en["siglip_frames"], 3, cfg.image_size, cfg.image_size, device=dev,
+                            generator=srng)
+        whole = encoder.model_forward(sig_model, sclip)
+        sig_h = sig_p = 0.0
+        for t in range(en["siglip_frames"]):
+            alone = encoder.model_forward(sig_model, sclip[:, t:t + 1])
+            sig_h = max(sig_h, max_err(whole["last_hidden_state"][:, t], alone["last_hidden_state"][:, 0]))
+            sig_p = max(sig_p, max_err(whole["pooler_output"][:, t], alone["pooler_output"][:, 0]))
+        if not (finite(whole) and sig_h <= STREAM_TOL_HIDDEN and sig_p <= STREAM_TOL_POOLED):
+            fail(f"siglip init: the {en['siglip_frames']}-frame clip differs from each frame "
+                 f"alone by {sig_h} hidden, {sig_p} pooled")
+        print(f"siglip_init ({smi}): a seeded random SigLIP-base state dict ({n_siglip} values, "
+              f"pytorch_model.bin) -> encoder and text tower in {init_s:.1f} s; gates 0; an "
+              f"{en['siglip_frames']}-frame clip against each frame alone (time table zeroed): "
+              f"hidden {sig_h} (<= {STREAM_TOL_HIDDEN}), pooled {sig_p} (<= {STREAM_TOL_POOLED})")
+        backbone_dir = os.path.join(work, "backbone")
+        cfg.save_pretrained(backbone_dir)
+        torch.save(enc_sd, os.path.join(backbone_dir, "pytorch_model.bin"))
+        del sig_model, whole, enc_sd, text_sd
+        torch.cuda.empty_cache()
+
+        # 23b. three in-memory tasks in the JAX datasets' task_input shapes
+        drng = np.random.default_rng(25)
+        n_clips = en["clips_per_task"]
+        frames = drng.integers(0, 256, (3 * n_clips, cfg.num_frames, en["height"], en["width"], 3),
+                               dtype=np.uint8)
+
+        class InMemory:
+            """A task of seeded uint8 clips held in memory (the card's machine
+            has no cv2 to decode files with)."""
+
+            def __init__(self, task_name, first, task_input):
+                self.task_name, self.first, self.task_input = task_name, first, task_input
+
+            def __len__(self):
+                return n_clips
+
+            def __getitem__(self, i):
+                return {"task_name": self.task_name,
+                        "task_input": {"frames": frames[self.first + i], **self.task_input(i)}}
+
+        nf = cfg.num_frames
+        grounding_labels = drng.integers(0, 2, (n_clips, nf)).astype(np.float32)
+        masks = drng.integers(-1, en["vis_classes"], (n_clips, nf, en["mask_size"], en["mask_size"]))
+        train_ds = MultiTaskDataset([
+            InMemory("Kinetics", 0, lambda i: {"label": np.int64(i % en["classes"])}),
+            InMemory("CharadesSTA", n_clips,
+                     lambda i: {"caption": f"a person does thing {i} and then stops",
+                                "label": grounding_labels[i]}),
+            InMemory("YoutubeVIS", 2 * n_clips,
+                     lambda i: {"mask_target": masks[i], "dataset": "ytvis",
+                                "selected_classes": np.arange(en["vis_classes"])}),
+        ])
+        mtc = {"Kinetics": {"label2id": {f"action {i}": i for i in range(en["classes"])}},
+               "CharadesSTA": {"label2id": None},
+               "YoutubeVIS": {"label2id": {"ytvis": {f"object {i}": i
+                                                     for i in range(en["vis_classes"])}}}}
+        micro_per_epoch = 3 * n_clips // en["batch"]
+
+        def entry_args(out):
+            return train_run.get_args([
+                "--metadata", "(in memory)", "--output_dir", out, "--model_path", backbone_dir,
+                "--batch_size", str(en["batch"]), "--epochs", str(en["epochs"]),
+                "--update_freq", str(en["update_freq"]), "--lr", str(en["lr"]),
+                "--warmup_steps", "1", "--clip_grad", "1.0", "--layer_decay", "0.75",
+                "--num_workers", "8", "--seed", "0", "--hidden_size", str(cfg.hidden_size),
+                "--num_layers", str(L), "--num_heads", str(cfg.num_attention_heads),
+                "--intermediate_size", str(cfg.intermediate_size),
+                "--input_size", str(cfg.image_size), "--num_frames", str(cfg.num_frames),
+                "--text_layers", str(en["text_layers"])])
+
+        # the augmentation's device time per batch
+        aug = collate.make_train_augment(cfg.image_size)
+        aug_batch = torch.from_numpy(frames[:en["batch"]]).to(dev)
+        aug(aug_batch, 0, 0, list(range(en["batch"])))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(1, 1 + en["aug_batches"]):
+            aug_out = aug(aug_batch, 0, step, list(range(en["batch"])))
+        torch.cuda.synchronize()
+        aug_host_ms = (time.perf_counter() - t0) * 1e3 / en["aug_batches"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for step in range(1, 1 + en["aug_batches"]):  # the same batches again
+                aug_out = aug(aug_batch, 0, step, list(range(en["batch"])))
+            torch.cuda.synchronize()
+        aug_rows = device_rows(prof)
+        aug_ms = sum(e.device_time_total for e in aug_rows) / en["aug_batches"] / 1e3
+        if not aug_rows or aug_out.shape != (en["batch"], nf, 3, cfg.image_size, cfg.image_size) \
+                or not torch.isfinite(aug_out).all():
+            fail(f"train augmentation: {tuple(aug_out.shape)}, {len(aug_rows)} device rows")
+        top = sorted(aug_rows, key=lambda e: -e.device_time_total)[:6]
+        print(f"train augmentation ({smi}): batch of {en['batch']} uint8 clips of {nf}x"
+              f"{en['height']}x{en['width']} -> ({en['batch']}, {nf}, 3, {cfg.image_size}, "
+              f"{cfg.image_size}) (RandAugment rand-m7-n4-mstd0.5-inc1, resized crop, flip, "
+              f"normalize, erasing): device {aug_ms:.3f} ms per batch ({en['aug_batches']} profiled "
+              f"batches), {aug_host_ms:.3f} ms a batch by the host clock to its end; "
+              "largest: " + ", ".join(f"{e.key[:40]} {e.device_time_total / en['aug_batches'] / 1e3:.3f}"
+                                      for e in top))
+        del aug_batch, aug_out
+
+        # 23c. the full run, uninterrupted
+        print("training entry point: the card's machine has no cv2, so train_run.train gets a "
+              "MultiTaskDataset of in-memory clips instead of build_datasets' metadata reader")
+        args_a = entry_args(os.path.join(work, "whole"))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state_a = train_run.train(args_a, train_ds, None, mtc)
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t0
+        entry_launches = dict(ops.LAUNCHES)
+        micro_total = en["epochs"] * micro_per_epoch
+        want = {**zeros, **dict.fromkeys(("spatial_flat", "temporal_fullclip", "spatial_flat_bwd",
+                                          "temporal_fullclip_bwd"), L * micro_total)}
+        if entry_launches != want:
+            fail(f"training entry launches {entry_launches} over {micro_total} micro-steps (L={L})")
+        with open(os.path.join(args_a.output_dir, "log.txt")) as f:
+            log_lines = [json.loads(line) for line in f]
+        updates = micro_total // en["update_freq"]
+        if state_a.step != updates or [r["epoch"] for r in log_lines] != [0, 1] or \
+                not all(np.isfinite(r["loss"]) for r in log_lines):
+            fail(f"training entry: {state_a.step} updates, log {log_lines}")
+        if sorted(x for x in os.listdir(args_a.output_dir) if x.startswith("checkpoint")) != \
+                ["checkpoint-0", "checkpoint-1"]:
+            fail(f"training entry checkpoints {os.listdir(args_a.output_dir)}")
+        steady = log_lines[-1]["epoch_time"] / micro_per_epoch
+        print(f"training entry point ({smi}): {en['epochs']} epochs of {micro_per_epoch} "
+              f"micro-steps of {en['batch']} clips (update_freq={en['update_freq']}, {state_a.step} "
+              f"AdamW updates) from the SigLIP-initialised backbone (--model_path), the loader in "
+              f"train mode: losses by epoch {[round(r['loss'], 4) for r in log_lines]}; launches "
+              f"{entry_launches} ({L} a micro-step each); epoch 1: {steady * 1e3:.2f} ms per "
+              f"micro-step, {en['batch'] / steady:.2f} clips/s with the loader in the loop, against "
+              f"phase 17's {micro_s * 1e3:.2f} ms, {tb / micro_s:.2f} clips/s on pre-built batches "
+              f"({100 * (steady / micro_s - 1):+.1f} %); epoch times "
+              f"{[round(r['epoch_time'], 3) for r in log_lines]} s; whole call {entry_s:.1f} s")
+        want_state = {k: v.detach().cpu().clone() for k, v in state_a.model.state_dict().items()}
+        want_opt = {k: {f: x.detach().cpu().clone() for f, x in st.items()}
+                    for k, st in state_a.optimizer.state_dict()["inner"]["state"].items()}
+        want_count = state_a.optimizer.count
+        del state_a
+        shutil.rmtree(args_a.output_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # 23d. SIGTERM after the second update of epoch 1, then a fresh call resumes
+        real_step_fn = trainer_mod.MultitaskTrainer.step_fn
+        seen = {"updates": 0}
+        per_epoch_updates = micro_per_epoch // en["update_freq"]
+
+        def preempting_step_fn(self, task_name, apply_update):
+            fn = real_step_fn(self, task_name, apply_update)
+
+            def wrapped(st, *a):
+                st, out = fn(st, *a)
+                if apply_update and st.step > per_epoch_updates:
+                    seen["updates"] += 1
+                    if seen["updates"] == en["preempt_after_update"]:
+                        signal.raise_signal(signal.SIGTERM)
+                return st, out
+
+            return wrapped
+
+        args_b = entry_args(os.path.join(work, "cut"))
+        trainer_mod.MultitaskTrainer.step_fn = preempting_step_fn
+        try:
+            ops.reset_launches()
+            cut = train_run.train(args_b, train_ds, None, mtc)
+        finally:
+            trainer_mod.MultitaskTrainer.step_fn = real_step_fn
+        cut_step = cut.step
+        del cut
+        torch.cuda.empty_cache()
+        meta = ckpt_lib._load_flat(os.path.join(args_b.output_dir, "checkpoint-1"))
+        cut_at = (int(meta["meta/epoch"]), int(meta["meta/micro"]), int(meta["meta/step"]))
+        del meta
+        want_cut = (1, en["preempt_after_update"] * en["update_freq"],
+                    per_epoch_updates + en["preempt_after_update"])
+        if cut_step != want_cut[2] or cut_at != want_cut:
+            fail(f"preempted run: step {cut_step}, checkpoint (epoch, micro, step) {cut_at}, "
+                 f"not {want_cut}")
+        resumed = train_run.train(args_b, train_ds, None, mtc)
+        torch.cuda.synchronize()
+        resumed_launches = dict(ops.LAUNCHES)
+        got_state = resumed.model.state_dict()
+        got_opt = resumed.optimizer.state_dict()["inner"]["state"]
+        diff = [k for k, x in want_state.items() if not torch.equal(got_state[k].cpu(), x)]
+        diff += [f"optimizer {k}.{f}" for k, st in want_opt.items() for f, x in st.items()
+                 if not torch.equal(got_opt[k][f].cpu(), x)]
+        if diff or resumed.optimizer.count != want_count or got_opt.keys() != want_opt.keys():
+            fail(f"the resumed run differs from the uninterrupted one: {diff[:8]} ({len(diff)}), "
+                 f"count {resumed.optimizer.count} vs {want_count}")
+        if resumed_launches["spatial_flat"] != L * micro_total:
+            fail(f"preempted and resumed runs launched {resumed_launches}")
+        print(f"preemption ({smi}): SIGTERM after update {en['preempt_after_update']} of epoch 1 -> "
+              f"mid-epoch checkpoint (epoch, micro, step) {cut_at}; a fresh call resumed from it: "
+              f"parameters ({len(want_state)} tensors), AdamW moments and update count "
+              f"({want_count}) equal to the uninterrupted run's bit for bit; launches of both calls "
+              f"{resumed_launches}")
+        del want_state, want_opt, got_state, got_opt
+
+        # 23e. what a save costs: blocking and asynchronous
+        timing_dir = os.path.join(work, "timing")
+        t0 = time.perf_counter()
+        path = ckpt_lib.save_checkpoint(timing_dir, 0, resumed.model, resumed.optimizer,
+                                        step=resumed.step)
+        block_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dp, fn))
+                         for dp, _, fns in os.walk(path) for fn in fns)
+        t0 = time.perf_counter()
+        ckpt_lib.save_checkpoint(timing_dir, 1, resumed.model, resumed.optimizer,
+                                 step=resumed.step, block=False)
+        async_s = time.perf_counter() - t0
+        ckpt_lib.wait_for_checkpoints()
+        async_total_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in resumed.model.parameters())
+        n_trained = sum(p.numel() for p in resumed.optimizer.params())
+        print(f"checkpoint ({smi}): {ckpt_bytes} bytes on disk ({ckpt_bytes / 2**30:.2f} GiB: "
+              f"{n_params} fp32 parameters, AdamW moments of {n_trained}); save_checkpoint "
+              f"returns after {block_s:.3f} s with block=True, {async_s:.3f} s with block=False "
+              f"(the write committed {async_total_s:.3f} s after the call)")
+        del resumed
+        add(entry_launches, resumed_launches)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -1771,8 +2104,9 @@ def main():
     for name, (source, replaces) in SOURCES.items():
         row = results[(name, main_shape[name], "bfloat16")]
         count = sum(path[name] for path in  # encode, engine, their int8 runs, training, then
-                    (launches, engine_launches, int8_launches, int8_engine_launches,  # this slice's
-                     train_launches, rm_launches, chunk_launches, consumer_launches, l_launches))
+                    (launches, engine_launches, int8_launches, int8_engine_launches,  # the later
+                     train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'
+                     l_launches, entry_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             device_ms=row["device_ms"], plain_ms=row["plain_ms"],

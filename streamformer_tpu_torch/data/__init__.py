@@ -1,2 +1,2 @@
-"""Host and on-device data handling of the port: the transforms and video
-decoding its streaming consumers use."""
+"""Host and on-device data handling of the port: datasets, samplers, video
+decoding, the augmentations on the device and the multitask loader."""

@@ -375,7 +375,7 @@ def time_embeddings_for_positions(
     table = time_emb
     if total > t_trained:
         table = time_emb[(torch.arange(total, device=dev) * t_trained) // total]
-    start = torch.as_tensor(start, device=dev)
+    start = torch.as_tensor(start).to(dev, non_blocking=True)  # an int: no stream sync
     steps = torch.arange(t_new, device=dev)
     pos = start[:, None] + steps if start.ndim == 1 else start + steps
     return table[pos.clamp(0, table.shape[0] - 1)]

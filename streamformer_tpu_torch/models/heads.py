@@ -97,8 +97,7 @@ def classification_head(pooler_output, label_embeddings, labels, logit_scale, lo
     img = _norm(pooler_output[:, -1, :].float())  # causal: the last frame sees all
     logits = _logits(img @ label_embeddings.t(), logit_scale, logit_bias)  # (B, L)
     b = logits.shape[0]
-    targets = -torch.ones_like(logits)
-    targets[torch.arange(b, device=logits.device), labels.long()] = 1.0
+    targets = (-torch.ones_like(logits)).scatter_(1, labels.long()[:, None], 1.0)  # no sync
     return _logsig_loss(targets, logits) / b, logits
 
 

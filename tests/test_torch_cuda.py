@@ -1068,3 +1068,156 @@ def test_append_walks_many_items_a_block(dtype):
     keep = (torch.arange(t, device="cuda")[:, None]
             < valid_t.long().repeat_interleave(per_stream)[None])  # (t, R)
     assert (got.float() - ref.float()).abs()[keep].max().item() <= TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# the data path on the card: the augmentations' applies and the loader
+# ---------------------------------------------------------------------------
+
+from streamformer_tpu_torch.data import collate  # noqa: E402
+from streamformer_tpu_torch.data import rand_augment as RA  # noqa: E402
+from streamformer_tpu_torch.data import random_erasing as RE  # noqa: E402
+from streamformer_tpu_torch.data import transforms as T  # noqa: E402
+
+AUG_SHAPE = (3, 4, 64, 96, 3)  # (B, T, H, W, C) uint8 clips
+AUG_TOL = 1e-5  # card vs CPU, on the [0, 1] scale: summation order and 1-ulp cos/sin
+
+
+def _clips(seed=0, shape=AUG_SHAPE):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8))
+
+
+def _card_and_cpu(fn, *tensors, scale=255.0):
+    """fn on the CPU and twice on the card: the card within AUG_TOL (on the
+    [0, 1] scale) of the CPU, and its second run bit-equal to its first."""
+    cpu = fn(*tensors)
+    card = fn(*(t.cuda() for t in tensors))
+    again = fn(*(t.cuda() for t in tensors))
+    torch.cuda.synchronize()
+    assert card.device.type == "cuda" and card.shape == cpu.shape and card.dtype == cpu.dtype
+    assert torch.equal(card, again)
+    err = ((card.cpu().double() - cpu.double()).abs().max() / scale).item()
+    assert err <= AUG_TOL, err
+
+
+AUG_APPLIES = {
+    "adjust_brightness": lambda x: T.adjust_brightness(x, [0.4, 1.0, 1.6]),
+    "adjust_contrast": lambda x: T.adjust_contrast(x, [0.4, 1.0, 1.6]),
+    "adjust_saturation": lambda x: T.adjust_saturation(x, [0.4, 1.0, 1.6]),
+    "adjust_sharpness": lambda x: T.adjust_sharpness(x, [0.4, 1.0, 1.6]),
+    "invert": T.invert,
+    "posterize": lambda x: T.posterize(x, [4, 6, 8]),
+    "solarize": lambda x: T.solarize(x, [60.0, 128.0, 256.0]),
+    "solarize_add": lambda x: T.solarize_add(x, [10.0, 40.0, 110.0]),
+    "autocontrast": T.autocontrast,
+    "equalize": T.equalize,
+    "flip_where": lambda x: T.flip_where(x, [True, False, True]),
+    "shear_x": lambda x: T.shear_x(x, [0.21, -0.3, 0.0]),
+    "shear_y": lambda x: T.shear_y(x, [-0.17, 0.3, 0.05]),
+    "translate_x": lambda x: T.translate_x(x, [-7.3, 20.0, 0.5]),
+    "translate_y": lambda x: T.translate_y(x, [5.6, -12.0, 0.0]),
+    "rotate": lambda x: T.rotate(x, [17.3, -30.0, 4.0]),
+    "crop_at": lambda x: T.crop_at(x, [0, 5, 17], [3, 0, 40], (32, 48)),
+    "resize_bilinear": lambda x: T.resize(x, (40, 52)),
+    "resize_bicubic": lambda x: T.resize(x, (80, 120), "bicubic"),
+    "resize_nearest": lambda x: T.resize(x, (33, 50), "nearest"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AUG_APPLIES))
+def test_augmentation_applies_on_the_card_match_the_cpu(name):
+    _card_and_cpu(lambda x: AUG_APPLIES[name](x.float()), _clips(1))
+
+
+@pytest.mark.parametrize("name", RA.RAND_TRANSFORMS)
+def test_rand_augment_ops_on_the_card_match_the_cpu(name):
+    _card_and_cpu(lambda x: RA._apply_op(name, x.float(), [0.0, 5.3, 10.0], [True, False, True],
+                                         {"inc": True}), _clips(2))
+
+
+def test_resized_crop_and_erasing_on_the_card_match_the_cpu():
+    boxes = [(0.0, 0.0, 64.0, 96.0), (3.25, 7.5, 20.0, 26.5), (10.0, 2.0, 50.0, 90.0)]
+    _card_and_cpu(lambda x: T.resized_crop(x.float() / 255.0, boxes, (56, 56)), _clips(3),
+                  scale=1.0)
+    erase = [(1, 2, 10, 20), None, (30, 40, 30, 50)]
+    noise = torch.from_numpy(np.random.default_rng(4).standard_normal((3, 4, 64, 96, 3))
+                             .astype(np.float32))
+    _card_and_cpu(lambda x, n: RE.apply_erasing(x.float(), erase, n), _clips(4), noise, scale=1.0)
+
+
+def test_train_augment_on_the_card_matches_the_cpu():
+    """The whole train augmentation (RandAugment m7 n4, resized crop to 56,
+    flip, normalize, erasing) with one batch's draws, the erasing noise the
+    CPU's, on the card and on the CPU."""
+    aug = collate.make_train_augment(56, reprob=1.0)
+    clips = _clips(5)
+    draws = aug.draw(3, 11, [4, 9, 2], clips.shape[2], clips.shape[3])
+    assert all(d["erase"] is not None for d in draws["samples"])
+    fill = {}
+
+    def fill_like(x, boxes, seeds, mode="pixel"):  # the CPU's noise on either device
+        key = tuple(seeds)
+        if key not in fill:
+            fill[key] = real_fill(x.cpu(), boxes, seeds, mode)
+        return fill[key].to(x.device)
+
+    real_fill = RE.erasing_fill
+    RE.erasing_fill = fill_like
+    try:
+        _card_and_cpu(lambda x: aug.apply(x, draws), clips, scale=1.0)
+    finally:
+        RE.erasing_fill = real_fill
+
+
+def test_loader_feeds_the_trainer_on_the_card_from_pinned_memory():
+    """A train-mode ``MultitaskLoader`` stages each uint8 batch in pinned
+    memory, augments it on the card, and the trainer's micro-steps run the
+    four training kernels on it."""
+    import os
+
+    os.environ.setdefault("STREAMFORMER_ALLOW_HASH_TOKENIZER", "1")
+    from streamformer_tpu_torch.config import StreamformerConfig
+    from streamformer_tpu_torch.data import datasets, samplers
+    from streamformer_tpu_torch.models.multitask import MultitaskModel
+    from streamformer_tpu_torch.models.text_encoder import SiglipTextConfig
+    from streamformer_tpu_torch.train import optim
+    from streamformer_tpu_torch.train.trainer import MultitaskTrainer, TrainState
+
+    class Clips:
+        task_name = "Kinetics"
+
+        def __init__(self):
+            self.frames = np.random.default_rng(6).integers(0, 256, (8, 4, 60, 80, 3),
+                                                            dtype=np.uint8)
+
+        def __len__(self):
+            return len(self.frames)
+
+        def __getitem__(self, i):
+            return {"task_name": "Kinetics",
+                    "task_input": {"frames": self.frames[i], "label": np.int64(i % 3)}}
+
+    cfg = StreamformerConfig(image_size=48, num_frames=4, hidden_size=96, num_hidden_layers=2,
+                             num_attention_heads=4, intermediate_size=192, dtype="bfloat16")
+    text = SiglipTextConfig(vocab_size=100, hidden_size=96, num_hidden_layers=1,
+                            num_attention_heads=4, intermediate_size=192,
+                            max_position_embeddings=8)
+    model = MultitaskModel(cfg, {"Kinetics": {"label2id": {"a": 0, "b": 1, "c": 2}}}, text,
+                           generator=torch.Generator().manual_seed(0))
+    model.prepare_for_multi_tasks()
+    ds = datasets.MultiTaskDataset([Clips()])
+    sampler = samplers.DistributedBatchTaskUniqueSampler(ds.task_specs(), 2)
+    loader = collate.MultitaskLoader(ds, sampler, model, crop_size=48, num_workers=2)
+    loader.set_epoch(0)
+    _, host, _, _ = loader._collate_host([ds[0], ds[1]], [0, 1])
+    assert host.is_pinned() and host.dtype == torch.uint8
+    tx = optim.create_optimizer(model, optim.cosine_lr_schedule(1e-4, 1e-6, 1, 2),
+                                trainable_mask=optim.trainable_mask_frozen_text(model))
+    trainer = MultitaskTrainer(model, tx, update_freq=2)
+    ops.reset_launches()
+    state, stats = trainer.train_one_epoch(TrainState.create(model, tx), iter(loader), 0,
+                                           torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    assert state.step == 2 and np.isfinite(stats["loss"])
+    for name in ("spatial_flat", "temporal_fullclip", "spatial_flat_bwd", "temporal_fullclip_bwd"):
+        assert ops.LAUNCHES[name] == 4 * cfg.num_hidden_layers, (name, dict(ops.LAUNCHES))

@@ -113,3 +113,26 @@ def test_training_path_runs_without_jax_optax_or_transformers():
         "assert state.step == 1 and stats['loss'] > 0\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_data_path_imports_without_decoders_or_parsers():
+    """Every module of the data path and the training entry point imports
+    with ``cv2``, ``yaml``, ``pandas`` and ``tensorboardX`` blocked (they are
+    imported where a file is decoded or parsed, or a writer made), as well
+    as JAX and the JAX package; a batch is then augmented on the CPU."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'optax', 'orbax', 'streamformer_tpu', 'cv2', 'yaml', 'pandas',"
+        " 'tensorboardX'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from streamformer_tpu_torch.data import (build, checker, collate, datasets, rand_augment,"
+        " random_erasing, samplers, seg_datasets, transforms, video_io)\n"
+        "from streamformer_tpu_torch.train import checkpoint, run\n"
+        "from streamformer_tpu_torch.checkpoint import siglip_init\n"
+        "clips = torch.randint(0, 256, (2, 2, 40, 48, 3), dtype=torch.uint8)\n"
+        "out = collate.make_train_augment(32)(clips, 0, 0, [3, 7])\n"
+        "assert out.shape == (2, 2, 3, 32, 32) and torch.isfinite(out).all()\n"
+        "assert run.get_args(['--metadata', 'm.yaml', '--device', 'cpu']).device == 'cpu'\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
