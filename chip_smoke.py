@@ -134,9 +134,19 @@ Phases, each fatal on failure:
     the second update of epoch 1, then a fresh call resuming from the
     mid-epoch checkpoint, equal to the uninterrupted run bit for bit; the
     time ``save_checkpoint`` takes to return with ``block=True`` and
-    ``block=False``, and the checkpoint's bytes on disk.
+    ``block=False``, and the checkpoint's bytes on disk;
+24. distribution: ``parallel.mesh.init_distributed`` (NCCL, world size 1;
+    the card's machine has one GPU) and ``make_mesh(1, 1)``; phase 16's
+    model and optimizer with ``MultitaskTrainer(mesh=)`` through phase 16's
+    12 micro-steps and phase 17's 12 timed ones, the timed losses equal to
+    phase 17's bit for bit, B, C, H and I L times a micro-step, the ms per
+    micro-step beside phase 17's, and the device ms of the update's
+    gradient sync (the bucketed all-reduce of the fp32 buffer); then B, C,
+    H and I at the rank shape of model parallelism 2 (6 heads of 64, the
+    packed qkv (8, 16, 196, 1152)) against their plain versions, bf16 and
+    fp32, timed beside ``scaled_dot_product_attention``.
 
-Ten paths are main paths: the lockstep encode (the launch counters are
+Eleven paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
@@ -146,8 +156,9 @@ stream of phase 19), the ring chunks (zeroed before each chunk of phase
 20), the consumers (zeroed before each extraction and tower run of phase
 22), and kernel L's own entry point, which no model path calls (zeroed
 before phase 21's forward and gradient step), and the training entry point
-(zeroed before phase 23's uninterrupted run, read after it). Every kernel
-must have run on its path.
+(zeroed before phase 23's uninterrupted run, read after it), and the mesh
+trainer (zeroed before phase 24's warm-up, read after its timed epoch).
+Every kernel must have run on its path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -1143,6 +1154,7 @@ def main():
     os.environ.setdefault("STREAMFORMER_ALLOW_HASH_TOKENIZER", "1")  # a dry run: no tokenizer files
     from streamformer_tpu_torch.models.multitask import MultitaskModel
     from streamformer_tpu_torch.models.text_encoder import SiglipTextConfig
+    from streamformer_tpu_torch.parallel.sharding import shard_model
     from streamformer_tpu_torch.train import optim
     from streamformer_tpu_torch.train.trainer import MultitaskTrainer, TrainState
 
@@ -1236,12 +1248,13 @@ def main():
     train_cfg = StreamformerConfig(**FLAGSHIP_CONFIG)
     text_cfg = SiglipTextConfig(hidden_size=train_cfg.hidden_size, **TRAIN_TEXT_CONFIG)
 
-    def make_trainer(remat):
+    def make_trainer(remat, mesh=None):
         """A seeded model (the same weights every time), its optimizer,
-        trainer and state."""
+        trainer and state; over ``mesh``, sharded on its model dim first."""
         mdl = MultitaskModel(train_cfg.replace(remat=remat), train_tasks, text_cfg,
                              generator=torch.Generator().manual_seed(5))
         open_gates(mdl.backbone, 5)
+        shard_model(mdl, mesh)
         lr = optim.cosine_lr_schedule(tr["base_lr"], tr["min_lr"], epochs=1,
                                       steps_per_epoch=tr["updates"],
                                       warmup_steps=tr["warmup_steps"])
@@ -1249,7 +1262,7 @@ def main():
                                     clip_grad=tr["clip_grad"], layer_decay=tr["layer_decay"],
                                     num_layers=train_cfg.num_hidden_layers,
                                     trainable_mask=optim.trainable_mask_frozen_text(mdl))
-        return mdl, lr, MultitaskTrainer(mdl, tx, update_freq=tr["update_freq"]), \
+        return mdl, lr, MultitaskTrainer(mdl, tx, update_freq=tr["update_freq"], mesh=mesh), \
             TrainState.create(mdl, tx)
 
     class LossLog:
@@ -1344,11 +1357,12 @@ def main():
 
     # ---- 17. training rate at steady state, and where a micro-step's time goes
     timed = [one_round[i % 3] for i in range(tr["timed_micro_steps"])]
+    timed_log = LossLog()  # phase 24 holds its losses to these
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, _ = trainer.train_one_epoch(state, iter(timed), 1,
                                        torch.Generator(device=dev).manual_seed(8),
-                                       print_freq=len(timed))
+                                       log_writer=timed_log, print_freq=len(timed))
     torch.cuda.synchronize()
     micro_s = (time.perf_counter() - t0) / len(timed)
     print(f"training rate ({smi}): {tb / micro_s:.2f} clips/s, {micro_s * 1e3:.2f} ms per "
@@ -1426,7 +1440,7 @@ def main():
           f"{remat_s * 1e3:.2f} ms per micro-step (the first {r_steps} of a run, warm-up included)")
     for k in train_launches:
         train_launches[k] += remat_launches[k]
-    del rmodel, r_trainer, r_state, one_round
+    del rmodel, r_trainer, r_state  # one_round stays for phase 24
     torch.cuda.empty_cache()
 
     # ---- 18. kernels J and K (the row-major cache) against their plain versions
@@ -2087,6 +2101,132 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # ---- 24. distribution: the trainer over a (data, model) mesh on NCCL, and B, C, H and I
+    # at the rank shape of model parallelism 2
+    import socket
+
+    import torch.distributed as dist
+    from streamformer_tpu_torch.parallel import mesh as mesh_lib
+    from streamformer_tpu_torch.train import trainer as trainer_lib
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh_lib.init_distributed(f"localhost:{port}", 1, 0)  # NCCL, world size 1
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"the process group runs {dist.get_backend()}, not nccl")
+        mesh = mesh_lib.make_mesh(1, 1)
+        pmodel, p_sched, p_trainer, p_state = make_trainer("none", mesh)
+        pmodel.prepare_for_multi_tasks()
+        warm = [one_round[i % 3] for i in range(tr["update_freq"] * tr["updates"])]
+        timed = [one_round[i % 3] for i in range(tr["timed_micro_steps"])]
+        p_log = LossLog()
+        ops.reset_launches()
+        p_state, _ = p_trainer.train_one_epoch(p_state, iter(warm), 0,
+                                               torch.Generator(device=dev).manual_seed(7),
+                                               print_freq=4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_state, _ = p_trainer.train_one_epoch(p_state, iter(timed), 1,
+                                               torch.Generator(device=dev).manual_seed(8),
+                                               log_writer=p_log, print_freq=len(timed))
+        torch.cuda.synchronize()
+        mesh_micro_s = (time.perf_counter() - t0) / len(timed)
+        dist_launches = dict(ops.LAUNCHES)
+        want = {**dict.fromkeys(ops.LAUNCHES, 0),
+                **dict.fromkeys(("spatial_flat", "temporal_fullclip", "spatial_flat_bwd",
+                                 "temporal_fullclip_bwd"), L * (len(warm) + len(timed)))}
+        if dist_launches != want:
+            fail(f"mesh training launches {dist_launches}, not {want}")
+        if p_log.losses != timed_log.losses:
+            fail(f"mesh training losses {p_log.losses} differ from phase 17's "
+                 f"{timed_log.losses}")
+        # the update's gradient sync alone: the bucketed all-reduce of the fp32 buffer
+        n_elem = p_state.flat.numel()
+        n_buckets = len(p_state.flat.split(trainer_lib.BUCKET))
+        syncs = 5
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(syncs):
+                p_trainer._sync_gradients(p_state)
+            torch.cuda.synchronize()
+        sync_rows = device_rows(prof)
+        sync_ms = sum(e.device_time_total for e in sync_rows) / syncs / 1e3
+        t0 = time.perf_counter()
+        for _ in range(syncs):
+            p_trainer._sync_gradients(p_state)
+        torch.cuda.synchronize()
+        sync_wall_ms = (time.perf_counter() - t0) / syncs * 1e3
+        print(f"distributed training ({smi}): mesh data=1 x model=1 over NCCL (world size 1), "
+              f"{len(timed)} micro-steps after {len(warm)} of warm-up at "
+              f"{mesh_micro_s * 1e3:.2f} ms per micro-step against phase 17's "
+              f"{micro_s * 1e3:.2f} ({tb / mesh_micro_s:.2f} clips/s); losses equal to phase "
+              f"17's bit for bit {p_log.losses}; launches {dist_launches}; gradient sync an "
+              f"update: all-reduce of the fp32 buffer of {n_elem} elements "
+              f"({4 * n_elem / 2**30:.3f} GiB) in {n_buckets} buckets, {sync_ms:.4f} device ms, "
+              f"{sync_wall_ms:.3f} ms host clock ("
+              + ", ".join(f"{e.key[:40]} x{e.count // syncs}" for e in sync_rows) + ")")
+        del pmodel, p_trainer, p_state, warm, timed, one_round
+        torch.cuda.empty_cache()
+    finally:
+        mesh_lib.shutdown()
+
+    # B, C, H and I at the rank shape of mp=2: half the heads, the packed qkv of the
+    # column-parallel projection (B, T, N, 3D / 2), read in place
+    h_r, d_r = h_ // 2, d_ // 2
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        elt = torch.finfo(dtype).bits // 8
+        qkv = randn(b_, t_, n_, 3 * d_r, dtype=dtype)
+        g = randn(b_, t_, n_, d_r, dtype=dtype)
+        tag = f"mp=2 rank qkv ({b_}, {t_}, {n_}, {3 * d_r}) H={h_r}"
+        # C and H: the encoder's packed entries
+        err = max_err(ops.temporal_fullclip_qkv(qkv, h_r),
+                      ops.temporal_fullclip_qkv_plain(qkv, h_r))
+        qh, kh, vh = (x.reshape(b_, t_, n_, h_r, dh).permute(0, 2, 3, 1, 4)
+                      for x in qkv.split(d_r, dim=-1))
+        record("temporal_fullclip", tag, dn, err, lambda: ops.temporal_fullclip_qkv(qkv, h_r),
+               lambda: ops.temporal_fullclip_qkv_plain(qkv, h_r),
+               lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+               4 * elt * b_ * t_ * n_ * d_r, 2 * t_ * (t_ + 1) * b_ * n_ * d_r)
+        got = ops.temporal_fullclip_qkv_bwd(qkv, g, h_r)
+        ref = ops.temporal_fullclip_qkv_bwd_plain(qkv, g, h_r)
+        scale = max(1.0, ref.float().abs().max().item())
+        qs, ks, vs = (x.detach().requires_grad_() for x in (qh, kh, vh))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        gs = g.reshape(b_, t_, n_, h_r, dh).permute(0, 2, 3, 1, 4)
+        record("temporal_fullclip_bwd", tag, dn, max_err(got, ref),
+               lambda: ops.temporal_fullclip_qkv_bwd(qkv, g, h_r),
+               lambda: ops.temporal_fullclip_qkv_bwd_plain(qkv, g, h_r),
+               lambda: torch.autograd.grad(out, (qs, ks, vs), gs, retain_graph=True),
+               7 * elt * b_ * t_ * n_ * d_r, 5 * t_ * (t_ + 1) * b_ * n_ * d_r,
+               tol=TOL[dn] * scale)
+        del got, ref, qs, ks, vs, out, gs, qh, kh, vh
+        # B and I: the encoder's (B*T, N, D / 2) rows of each third
+        q, k, v = (qkv[..., i * d_r:(i + 1) * d_r].reshape(b_ * t_, n_, d_r).contiguous()
+                   for i in range(3))
+        gr = g.reshape(b_ * t_, n_, d_r)
+        tag = f"mp=2 rank R={b_ * t_} N={n_} D={d_r} H={h_r}"
+        qh, kh, vh = (x.view(b_ * t_, n_, h_r, dh).transpose(1, 2) for x in (q, k, v))
+        record("spatial_flat", tag, dn, max_err(ops.spatial_flat(q, k, v, h_r),
+                                                ops.spatial_flat_plain(q, k, v, h_r)),
+               lambda: ops.spatial_flat(q, k, v, h_r), lambda: ops.spatial_flat_plain(q, k, v, h_r),
+               lambda: F.scaled_dot_product_attention(qh, kh, vh),
+               4 * elt * b_ * t_ * n_ * d_r, 4 * b_ * t_ * n_ * n_ * d_r)
+        got = ops.spatial_flat_bwd(q, k, v, gr, h_r)
+        ref = ops.spatial_flat_bwd_plain(q, k, v, gr, h_r)
+        err = max(max_err(a, c) for a, c in zip(got, ref))
+        scale = max(1.0, *(c.float().abs().max().item() for c in ref))
+        qs, ks, vs = (x.detach().requires_grad_() for x in (qh, kh, vh))
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        gs = gr.view(b_ * t_, n_, h_r, dh).transpose(1, 2)
+        record("spatial_flat_bwd", tag, dn, err, lambda: ops.spatial_flat_bwd(q, k, v, gr, h_r),
+               lambda: ops.spatial_flat_bwd_plain(q, k, v, gr, h_r),
+               lambda: torch.autograd.grad(out, (qs, ks, vs), gs, retain_graph=True),
+               7 * elt * b_ * t_ * n_ * d_r, 10 * b_ * t_ * n_ * n_ * d_r, tol=TOL[dn] * scale)
+        del qkv, g, q, k, v, gr, got, ref, qs, ks, vs, out, gs, qh, kh, vh
+    torch.cuda.empty_cache()
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -2106,7 +2246,7 @@ def main():
         count = sum(path[name] for path in  # encode, engine, their int8 runs, training, then
                     (launches, engine_launches, int8_launches, int8_engine_launches,  # the later
                      train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'
-                     l_launches, entry_launches))
+                     l_launches, entry_launches, dist_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             device_ms=row["device_ms"], plain_ms=row["plain_ms"],

@@ -37,17 +37,25 @@ LayerNorm parameters and the temporal gates are fp32 either way, because the
 JAX package applies them in fp32.
 
 Training mode: ``model_forward(..., generator=g, deterministic=False)``
-applies dropout and stochastic depth from the explicit ``torch.Generator``
-``g`` (on the model's device) where the JAX package takes an ``rng``;
-``cfg.remat == "layer"`` recomputes each layer in the backward
-(``torch.utils.checkpoint``) with the same masks. The full-clip attention is
-differentiable through ``ops.SpatialFlat`` and ``ops.TemporalFullclip``; the
-streaming path has no backward, as in the JAX package.
+applies dropout and stochastic depth where the JAX package takes an
+``rng``: ``g`` is a ``Draws`` (masks keyed by seed, global sample index,
+draw site and element, so a data rank, a microbatch or a tensor-parallel
+shard draws its part of the one-process masks) or a ``torch.Generator``,
+whose seed keys them; ``cfg.remat == "layer"`` recomputes each layer in the
+backward (``torch.utils.checkpoint``) with the same masks. The full-clip
+attention is differentiable through ``ops.SpatialFlat`` and
+``ops.TemporalFullclip``; the streaming path has no backward, as in the JAX
+package.
+
+Tensor and sequence parallelism (``parallel.sharding.shard_encoder``): the
+encoder holds its model group's shard of the attention and MLP blocks, and
+the full-clip forward and backward call the group's collectives
+(``model.parallel``); the kernels run at the local head count.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -57,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from streamformer_tpu_torch.config import StreamformerConfig
 from streamformer_tpu_torch.ops import attention as ops
 from streamformer_tpu_torch.ops import quant
+from streamformer_tpu_torch.parallel import sharding
 
 Cache = Dict[str, object]
 
@@ -146,26 +155,98 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            deterministic: bool) -> torch.Tensor:
-    """Inverted dropout from an explicit generator (on x's device). The
-    identity when ``deterministic``, at rate 0, or without a generator (the
-    JAX package applies none without an ``rng``)."""
-    if deterministic or rate == 0.0 or generator is None:
-        return x
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
-    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+_M32 = 0xFFFFFFFF
 
 
-def drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-              deterministic: bool) -> torch.Tensor:
-    """Stochastic depth on the leading (batch) axis: one Bernoulli draw per
-    sample, survivors scaled by 1 / keep probability."""
+def _mix32(x):
+    """A 32-bit integer hash (two xorshift-multiply rounds) of values in
+    [0, 2**32): a Python int, or an int64 tensor elementwise on any device
+    (every product stays below 2**63, so the CPU and the card agree)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x1B873593) & _M32
+    return x ^ (x >> 16)
+
+
+class Draws:
+    """The dropout and stochastic-depth draws of one forward, keyed by
+    (seed, global sample index, site, element) and computed by a hash, not
+    read from a generator's stream. A sample draws the same masks whatever
+    batch, data rank, microbatch or tensor-parallel shard it runs in, and a
+    recompute (``remat="layer"``) draws them again.
+
+    ``index`` (B,) int64, on the activations' device, holds the global
+    indices of the rows the forward sees; a site numbers a draw point of the
+    model (``embed``: 0 and 1; layer i: ``_layer_site(i)`` + 0..4)."""
+
+    def __init__(self, seed: int, index: torch.Tensor):
+        self.seed = int(seed)
+        self.index = index
+
+    @classmethod
+    def of(cls, generator, batch: int, device) -> Optional["Draws"]:
+        """``generator`` as draws over ``batch`` rows: a ``Draws`` as it is,
+        a ``torch.Generator`` keyed by its seed (read, never advanced) with
+        the rows numbered 0..batch-1, None as None."""
+        if generator is None or isinstance(generator, Draws):
+            return generator
+        return cls(generator.initial_seed(), torch.arange(batch, device=device))
+
+    def rows(self, start: int, stop: int) -> "Draws":
+        """The draws of rows [start, stop) (a microbatch)."""
+        return Draws(self.seed, self.index[start:stop])
+
+    def uniform(self, site: int, full: Tuple[int, ...], start: Optional[Tuple[int, ...]] = None,
+                size: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+        """(B, *size) fp32 uniforms in [0, 1) on steps of 2**-24: each row's
+        draws of the elements of a per-sample tensor of shape ``full``, for
+        the window of ``size`` elements from ``start`` (all of it by
+        default)."""
+        start = (0,) * len(full) if start is None else start
+        size = tuple(full) if size is None else size
+        key = _mix32(self.seed & _M32)
+        key = _mix32(key ^ ((self.seed >> 32) & _M32))
+        key = _mix32((key + 0x9E3779B9 * (site + 1)) & _M32)
+        rows = _mix32(((self.index.long() * 0x2545F491) & _M32) ^ key)  # (B,)
+        dev = self.index.device
+        elem = torch.zeros((), dtype=torch.int64, device=dev)
+        stride = 1
+        for ax in reversed(range(len(full))):
+            pos = torch.arange(start[ax], start[ax] + size[ax], dtype=torch.int64, device=dev)
+            elem = elem + (pos * stride).reshape((-1,) + (1,) * (len(full) - 1 - ax))
+            stride *= full[ax]
+        elem = (elem * 0x9E3779B9) & _M32
+        bits = _mix32((rows.reshape((-1,) + (1,) * len(full)) + elem) & _M32)
+        return (bits >> 8).float() * 2.0**-24
+
+
+def dropout(x: torch.Tensor, rate: float, generator, deterministic: bool, *, site: int = 0,
+            full: Optional[Tuple[int, ...]] = None,
+            start: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """Inverted dropout with the masks of ``Draws`` at ``site`` (a
+    ``torch.Generator`` keys them by its seed). x (B, ...) is the window of a
+    per-sample tensor of shape ``full`` from ``start`` (a tensor-parallel
+    shard of it), all of it by default. The identity when ``deterministic``,
+    at rate 0, or without a generator (the JAX package applies none without
+    an ``rng``)."""
     if deterministic or rate == 0.0 or generator is None:
         return x
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    keep = torch.empty(shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
-    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+    draws = Draws.of(generator, x.shape[0], x.device)
+    keep = draws.uniform(site, tuple(x.shape[1:]) if full is None else full, start,
+                         tuple(x.shape[1:])) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, generator, deterministic: bool, *,
+              site: int = 0) -> torch.Tensor:
+    """Stochastic depth on the leading (batch) axis: one draw per sample,
+    survivors scaled by 1 / keep probability."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    draws = Draws.of(generator, x.shape[0], x.device)
+    keep = (draws.uniform(site, ()) >= rate).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _drop_path_rates(cfg: StreamformerConfig) -> List[float]:
@@ -176,29 +257,9 @@ def _drop_path_rates(cfg: StreamformerConfig) -> List[float]:
     return [cfg.drop_path_rate * i / (n - 1) for i in range(n)]
 
 
-def _replayable(fn: Callable, generator: Optional[torch.Generator]) -> Callable:
-    """``fn`` draws from ``generator``. The returned function draws the same
-    numbers every time it runs again (a checkpoint's recompute in the
-    backward) and then leaves the generator where it found it;
-    ``torch.utils.checkpoint`` itself restores only the global RNG state."""
-    if generator is None:
-        return fn
-    start = generator.get_state()
-    ran = False
-
-    def inner(*args):
-        nonlocal ran
-        if not ran:
-            ran = True
-            return fn(*args)
-        now = generator.get_state()
-        generator.set_state(start)
-        try:
-            return fn(*args)
-        finally:
-            generator.set_state(now)
-
-    return inner
+def _layer_site(i: int) -> int:
+    """The first draw site of layer ``i`` (``embed`` takes sites 0 and 1)."""
+    return 8 * (i + 1)
 
 
 def _lora(parent: nn.Module, name: str) -> Optional[Tuple[nn.Linear, nn.Linear]]:
@@ -297,6 +358,8 @@ class StreamformerEncoder(nn.Module):
             ),
         )
         self.head.probe = nn.Parameter(torch.empty(1, 1, d, dtype=dt))
+        # the model group this encoder is sharded over (parallel.sharding.shard_encoder)
+        self.parallel = None
         self._init_weights(generator)
         self.requires_grad_(trainable)
         self.to(dev)
@@ -417,12 +480,12 @@ def embed(
     proj = emb.patch_embeddings.projection
     x = F.linear(x, proj.weight.to(dt).reshape(d, c * ps * ps), proj.bias.to(dt))
     x = x.reshape(b, t, n, d) + emb.position_embeddings.to(dt)
-    x = dropout(x, cfg.hidden_dropout_prob, generator, deterministic)
+    x = dropout(x, cfg.hidden_dropout_prob, generator, deterministic, site=0)
     total = total_frames if total_frames is not None else t
     temb = time_embeddings_for_positions(emb.time_embeddings[0], start_pos, t, total).to(dt)
     # (T, D) for a shared start, (B, T, D) for per-stream starts
     x = x + (temb[None, :, None, :] if temb.ndim == 2 else temb[:, :, None, :])
-    return dropout(x, cfg.hidden_dropout_prob, generator, deterministic)
+    return dropout(x, cfg.hidden_dropout_prob, generator, deterministic, site=1)
 
 
 # --------------------------------------------------------------------------
@@ -430,17 +493,57 @@ def embed(
 # --------------------------------------------------------------------------
 
 
-def spatial_attention(x: torch.Tensor, attn: nn.Module, cfg: StreamformerConfig) -> torch.Tensor:
+def _col_sharded(weight: torch.Tensor, full_out: int) -> bool:
+    """Whether a column-parallel product's weight holds a shard of its
+    output rows (a block whose heads or width do not divide over the model
+    group stays replicated)."""
+    return weight.shape[0] < full_out
+
+
+def _enter(x: torch.Tensor, parallel, sharded: bool, patches: bool) -> torch.Tensor:
+    """Into a block's column-parallel product (``parallel.region_in``); x
+    itself in one process."""
+    return x if parallel is None else sharding.region_in(x, parallel, sharded, patches)
+
+
+def _output(ctx: torch.Tensor, lin: nn.Linear, lora, parallel, sharded: bool,
+            patches: bool) -> torch.Tensor:
+    """A block's closing product. In one process ``dense``; under tensor
+    parallelism the row-parallel product of this rank's columns, its
+    partial sums reduced over the model group (``sharding.region_out``),
+    the bias added once after the reduction."""
+    if parallel is None:
+        return dense(ctx, lin, lora)
+    dt = ctx.dtype
+    y = F.linear(ctx, lin.weight.to(dt))
+    if lora is not None:
+        a, b = lora
+        y = y + F.linear(F.linear(ctx, a.weight.to(dt)), b.weight.to(dt))
+    y = sharding.region_out(y, parallel, sharded, patches)
+    return y if lin.bias is None else y + lin.bias.to(dt)
+
+
+def spatial_attention(x: torch.Tensor, attn: nn.Module, cfg: StreamformerConfig,
+                      parallel=None) -> torch.Tensor:
     """Softmax attention over the patches N, batched over (B, T);
-    x: (B, T, N, D). Runs ``ops.spatial_flat`` on flat-D rows."""
-    b, t, n, d = x.shape
-    qkv = dense(x, attn.attention.qkv, _lora(attn.attention, "qkv"))  # (B, T, N, 3D)
+    x: (B, T, N, D). Runs ``ops.spatial_flat`` on flat-D rows. Under tensor
+    parallelism (``parallel``, a ``sharding.TensorParallel``) the qkv
+    projection holds this rank's heads, so the kernel runs at the local head
+    count, and the output projection is row-parallel."""
+    patches = parallel is not None and parallel.shard_patches
+    qkv_w = attn.attention.qkv.weight
+    sharded = parallel is not None and _col_sharded(qkv_w, 3 * cfg.hidden_size)
+    x = _enter(x, parallel, sharded, patches)
+    b, t, n, _ = x.shape
+    qkv = dense(x, attn.attention.qkv, _lora(attn.attention, "qkv"))  # (B, T, N, 3D / mp)
+    d = qkv.shape[-1] // 3
 
     def rows(i):
         return qkv[..., i * d:(i + 1) * d].reshape(b * t, n, d).contiguous()
 
-    ctx = ops.spatial_flat(rows(0), rows(1), rows(2), cfg.num_attention_heads)
-    return dense(ctx.reshape(b, t, n, d), attn.output.dense, _lora(attn.output, "dense"))
+    ctx = ops.spatial_flat(rows(0), rows(1), rows(2), d // cfg.head_dim)
+    return _output(ctx.reshape(b, t, n, d), attn.output.dense, _lora(attn.output, "dense"),
+                   parallel, sharded, patches)
 
 
 def temporal_attention(
@@ -452,12 +555,17 @@ def temporal_attention(
     cache_len: Optional[torch.Tensor] = None,
     new_valid: Optional[torch.Tensor] = None,
     attend_cap: Optional[int] = None,
+    parallel=None,
 ) -> torch.Tensor:
     """Causal attention over the frames T, batched over (B, N); x: (B, T, N, D).
 
     Full clip (``cache_kv`` None): ``ops.temporal_fullclip_qkv`` on the
     (B, T, N, 3D) output of the qkv projection as it is, query t attending
-    frames 0..t; its gradient is one (B, T, N, 3D) tensor.
+    frames 0..t; its gradient is one (B, T, N, 3D) tensor. Under tensor
+    parallelism (``parallel``) the projection holds this rank's heads, the
+    kernel reads its (B, T, N, 3D / mp) output in place at the local head
+    count, and the output projection is row-parallel; streaming is one
+    process's.
 
     Streaming: the new frames attend the cache and their K/V are written IN
     PLACE into ``cache_kv["k"]`` and ``cache_kv["v"]``; ``cache_len`` (one
@@ -488,11 +596,18 @@ def temporal_attention(
     ``_row_major_attend``; ``attend_cap`` bounds the keys its einsum paths
     read, as the JAX package's capacity bucketing does.
     """
+    if cache_kv is None:  # C (and H) read qkv and write ctx in place: no copies around them
+        patches = parallel is not None and parallel.shard_patches
+        qkv_w = attn.attention.qkv.weight
+        sharded = parallel is not None and _col_sharded(qkv_w, 3 * cfg.hidden_size)
+        qkv = dense(_enter(x, parallel, sharded, patches), attn.attention.qkv)
+        ctx = ops.temporal_fullclip_qkv(qkv, qkv.shape[-1] // (3 * cfg.head_dim))
+        return _output(ctx, attn.output.dense, None, parallel, sharded, patches)
+    if parallel is not None:
+        raise NotImplementedError("streaming a tensor-parallel encoder (ROADMAP item 14b)")
     b, t, n, d = x.shape
     h = cfg.num_attention_heads
     qkv = dense(x, attn.attention.qkv)  # (B, T, N, 3D)
-    if cache_kv is None:  # C (and H) read qkv and write ctx in place: no copies around them
-        return dense(ops.temporal_fullclip_qkv(qkv, h), attn.output.dense)
     ragged = cache_len.ndim == 1
     if cfg.cache_layout == "row_major":
         if new_valid is not None:
@@ -696,8 +811,10 @@ def layer_forward(
     new_valid: Optional[torch.Tensor] = None,
     attend_cap: Optional[int] = None,
     drop_path_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    generator=None,
     deterministic: bool = True,
+    site: int = 0,
+    parallel=None,
 ) -> torch.Tensor:
     """One divided space-time block on (B, T, N, D): temporal LN ->
     causal temporal attention -> ``temporal_dense`` -> residual scaled by
@@ -707,29 +824,50 @@ def layer_forward(
     In training mode stochastic depth falls where the JAX package puts it
     (on the temporal attention's output before ``temporal_dense``, on the
     spatial branch and on the MLP branch) and hidden dropout follows the
-    GELU and the MLP's second projection."""
+    GELU and the MLP's second projection; ``generator`` (a ``Draws`` or a
+    ``torch.Generator``) keys them, from draw site ``site`` on.
+
+    Tensor parallelism (``parallel``, a ``sharding.TensorParallel``): each
+    block (temporal attention, spatial attention, MLP) is a column-parallel
+    product of this rank's heads or columns and a row-parallel one reduced
+    over the model group; ``temporal_dense`` is replicated and runs on the
+    reduced attention output, so the temporal branch costs one reduction.
+    With ``parallel.shard_patches`` x holds this rank's patches (sequence
+    parallelism): the norms, the gate and the residuals run on them, an
+    all-gather opens each block and a reduce-scatter closes it."""
     eps = cfg.layer_norm_eps
+    patches = parallel is not None and parallel.shard_patches
 
-    def dp(y):
-        return drop_path(y, drop_path_rate, generator, deterministic)
-
-    def drop(y):
-        return dropout(y, cfg.hidden_dropout_prob, generator, deterministic)
+    def dp(y, k):
+        return drop_path(y, drop_path_rate, generator, deterministic, site=site + k)
 
     t_ln = layer_norm(x, layer.temporal_layernorm, eps)
     t_attn = temporal_attention(
         t_ln, layer.temporal_attention, cfg, cache_kv=cache_kv, cache_len=cache_len,
-        new_valid=new_valid, attend_cap=attend_cap,
+        new_valid=new_valid, attend_cap=attend_cap, parallel=parallel,
     )
     gate = torch.tanh(layer.temporal_attention_gating.float()).to(x.dtype)
-    x = x + gate * dense(dp(t_attn), layer.temporal_dense)
-    x = x + dp(spatial_attention(layer_norm(x, layer.layernorm_before, eps), layer.attention, cfg))
-    m = dense(layer_norm(x, layer.layernorm_after, eps), layer.intermediate.dense)
-    m = drop(dense(drop(gelu(m)), layer.output.dense))
-    return x + dp(m)
+    x = x + gate * dense(dp(t_attn, 0), layer.temporal_dense)
+    x = x + dp(spatial_attention(layer_norm(x, layer.layernorm_before, eps), layer.attention, cfg,
+                                 parallel), 1)
+    fc1, fc2 = layer.intermediate.dense, layer.output.dense
+    sharded = parallel is not None and _col_sharded(fc1.weight, cfg.intermediate_size)
+    m = gelu(dense(_enter(layer_norm(x, layer.layernorm_after, eps), parallel, sharded, patches),
+                   fc1))
+    b, t, n, cols = m.shape
+    full = (t, n, cfg.intermediate_size)  # this rank's columns of the per-sample masks
+    m = dropout(m, cfg.hidden_dropout_prob, generator, deterministic, site=site + 3, full=full,
+                start=(0, 0, parallel.rank * cols if sharded else 0))
+    m = _output(m, fc2, None, parallel, sharded, patches)
+    n_local = m.shape[2]  # this rank's patches under sequence parallelism
+    m = dropout(m, cfg.hidden_dropout_prob, generator, deterministic, site=site + 4,
+                full=(t, n_local * parallel.size if patches else n_local, m.shape[3]),
+                start=(0, parallel.rank * n_local if patches else 0, 0))
+    return x + dp(m, 2)
 
 
-def map_pool(x: torch.Tensor, head: nn.Module, cfg: StreamformerConfig) -> torch.Tensor:
+def map_pool(x: torch.Tensor, head: nn.Module, cfg: StreamformerConfig,
+             parallel=None) -> torch.Tensor:
     """SigLIP multihead-attention pooling of each frame's patches:
     (B, T, N, D) -> (B, T, D). A learned probe attends over the N patches
     (torch nn.MultiheadAttention semantics), then LN + MLP residual.
@@ -737,37 +875,68 @@ def map_pool(x: torch.Tensor, head: nn.Module, cfg: StreamformerConfig) -> torch
     A quantized head (``quant.quantize_encoder``) keeps ``in_proj_weight``
     as int8 codes with ``in_proj_weight_scale``: q, k and v are then int8
     products as the JAX package's three leaves are; k and v share x's
-    activation codes, so they run as one product of 2D columns."""
+    activation codes, so they run as one product of 2D columns.
+
+    Under tensor parallelism (``parallel``) the in-projection holds this
+    rank's heads and the MLP's first product its columns; the out-projection
+    and the second product are row-parallel (x is whole on every rank)."""
     b, t, n, d = x.shape
-    h = cfg.num_attention_heads
-    dh = d // h
+    dh = cfg.head_dim
     dt = x.dtype
     attn = head.attention
     probe = head.probe.reshape(1, d).to(dt)
+    sharded = parallel is not None and _col_sharded(attn.in_proj_weight, 3 * d)
     if attn.in_proj_weight.dtype == torch.int8:
+        h = cfg.num_attention_heads
         w, w_s, bias = attn.in_proj_weight, attn.in_proj_weight_scale, attn.in_proj_bias
         q = quant.int8_linear(probe, w[:d], w_s[:d], bias[:d]).reshape(h, dh)
         k, v = quant.int8_linear(x, w[d:], w_s[d:], bias[d:]).split(d, dim=-1)
         k, v = k.reshape(b, t, n, h, dh), v.reshape(b, t, n, h, dh)
     else:
-        w_q, w_k, w_v = attn.in_proj_weight.to(dt).split(d)
-        b_q, b_k, b_v = attn.in_proj_bias.to(dt).split(d)
+        w_q, w_k, w_v = attn.in_proj_weight.to(dt).chunk(3)
+        b_q, b_k, b_v = attn.in_proj_bias.to(dt).chunk(3)
+        h = w_q.shape[0] // dh  # this rank's heads
+        xin = _enter(x, parallel, sharded, False)
         q = F.linear(probe, w_q, b_q).reshape(h, dh)
-        k = F.linear(x, w_k, b_k).reshape(b, t, n, h, dh)
-        v = F.linear(x, w_v, b_v).reshape(b, t, n, h, dh)
+        k = F.linear(xin, w_k, b_k).reshape(b, t, n, h, dh)
+        v = F.linear(xin, w_v, b_v).reshape(b, t, n, h, dh)
     scores = torch.einsum("hd,btnhd->bthn", q.float(), k.float()) * dh**-0.5
     probs = torch.softmax(scores, dim=-1).to(dt)
-    ctx = torch.einsum("bthn,btnhd->bthd", probs.float(), v.float()).to(dt).reshape(b, t, d)
-    pooled = dense(ctx, attn.out_proj)
-    y = dense(layer_norm(pooled, head.layernorm, cfg.layer_norm_eps), head.mlp.fc1)
-    return pooled + dense(act_fn(y, cfg.hidden_act), head.mlp.fc2)
+    ctx = torch.einsum("bthn,btnhd->bthd", probs.float(), v.float()).to(dt).reshape(b, t, h * dh)
+    pooled = _output(ctx, attn.out_proj, None, parallel, sharded, False)
+    fc1 = head.mlp.fc1
+    mlp_sharded = parallel is not None and _col_sharded(fc1.weight, cfg.intermediate_size)
+    y = dense(_enter(layer_norm(pooled, head.layernorm, cfg.layer_norm_eps), parallel, mlp_sharded,
+                     False), fc1)
+    return pooled + _output(act_fn(y, cfg.hidden_act), head.mlp.fc2, None, parallel, mlp_sharded,
+                            False)
+
+
+def run_layers(layers, x: torch.Tensor, cfg: StreamformerConfig, *, first: int = 0,
+               generator=None, deterministic: bool = True, parallel=None) -> torch.Tensor:
+    """The trunk's layers ``first``, ``first + 1``, ... in order on x (B, T,
+    N, D): each at its global index's stochastic-depth rate and draw sites.
+    ``cfg.remat == "layer"`` keeps only each layer's input for the backward
+    and recomputes the layer there; the keyed draws give the same masks."""
+    if cfg.remat not in ("none", "layer"):
+        raise NotImplementedError(f"remat {cfg.remat!r}: the port takes 'none' or 'layer'")
+    rates = _drop_path_rates(cfg)
+    remat = cfg.remat == "layer" and torch.is_grad_enabled()
+    for i, layer in enumerate(layers, start=first):
+        def run(y, layer=layer, i=i):
+            return layer_forward(layer, y, cfg, drop_path_rate=rates[i], generator=generator,
+                                 deterministic=deterministic, site=_layer_site(i),
+                                 parallel=parallel)
+
+        x = checkpoint(run, x, use_reentrant=False, preserve_rng_state=False) if remat else run(x)
+    return x
 
 
 def model_forward(
     model: StreamformerEncoder,
     pixel_values: torch.Tensor,
     *,
-    generator: Optional[torch.Generator] = None,
+    generator=None,
     deterministic: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Full-clip forward. pixel_values: (B, T, C, H, W), T <= 32, moved to
@@ -776,29 +945,28 @@ def model_forward(
 
     Differentiable: a graph is recorded when grad mode is on and a parameter
     (a ``trainable`` encoder) or the input requires grad. With a
-    ``generator`` on the model's device and ``deterministic=False`` dropout
-    and stochastic depth are drawn from it. ``cfg.remat == "layer"`` keeps
-    only each layer's input for the backward and recomputes the layer there,
-    with the same masks."""
-    cfg = model.cfg
-    x = embed(model, pixel_values, generator=generator, deterministic=deterministic)
-    rates = _drop_path_rates(cfg)
-    if cfg.remat not in ("none", "layer"):
-        raise NotImplementedError(f"remat {cfg.remat!r}: the port takes 'none' or 'layer'")
-    remat = cfg.remat == "layer" and torch.is_grad_enabled()
-    for layer, rate in zip(model.encoder.layer, rates):
-        def run(y, layer=layer, rate=rate):
-            return layer_forward(layer, y, cfg, drop_path_rate=rate, generator=generator,
-                                 deterministic=deterministic)
+    ``generator`` and ``deterministic=False`` dropout and stochastic depth
+    are drawn: a ``Draws`` keys them by each row's global sample index, a
+    ``torch.Generator`` by its seed and the row. ``cfg.remat == "layer"``
+    keeps only each layer's input for the backward and recomputes the layer
+    there, with the same masks.
 
-        if remat:
-            drawing = None if deterministic else generator
-            x = checkpoint(_replayable(run, drawing), x, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = run(x)
+    A model sharded by ``parallel.sharding.shard_encoder`` (``model.parallel``
+    set) runs tensor parallel over its model group, every rank on the same
+    rows; with ``shard_patches`` the trunk holds each rank's patches."""
+    cfg = model.cfg
+    par = model.parallel
+    draws = None if deterministic else Draws.of(generator, pixel_values.shape[0], model.device)
+    x = embed(model, pixel_values, generator=draws, deterministic=deterministic)
+    patches = par is not None and par.shard_patches
+    if patches:
+        x = sharding.split_patches(x, par)
+    x = run_layers(model.encoder.layer, x, cfg, generator=draws, deterministic=deterministic,
+                   parallel=par)
+    if patches:
+        x = sharding.gather_patches(x, par)
     x = layer_norm(x, model.post_layernorm, cfg.layer_norm_eps)
-    return {"last_hidden_state": x, "pooler_output": map_pool(x, model.head, cfg)}
+    return {"last_hidden_state": x, "pooler_output": map_pool(x, model.head, cfg, par)}
 
 
 # --------------------------------------------------------------------------
@@ -934,6 +1102,8 @@ def streaming_forward(
     ring. ``cfg`` defaults to ``model.cfg``; a serving engine passes its own,
     whose ``cache_mode`` may differ.
     """
+    if model.parallel is not None:
+        raise NotImplementedError("streaming a tensor-parallel encoder (ROADMAP item 14b)")
     cfg = cfg if cfg is not None else model.cfg
     b, t = pixel_values.shape[:2]
     cache_len = cache["len"]

@@ -12,8 +12,9 @@ fp32 whatever the backbone's compute dtype: its inputs are cast up at entry
 
 The distributed terms (ring SigLIP, all-gathered contrastive batches) take a
 ``torch.distributed`` process group where the JAX package takes a mesh axis
-name; ``group=None`` is the single-process form and the only one implemented
-(``parallel.contrastive``).
+name; ``group=None`` is the single-process form (``parallel.contrastive``).
+Over a data group of W ranks each holding B samples, a head's loss averaged
+over the group is its loss on the global batch of W*B samples.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from streamformer_tpu_torch.data.transforms import linear_resize_weights
+from streamformer_tpu_torch.parallel import sharding
 from streamformer_tpu_torch.parallel.contrastive import (
     all_gather_features,
     axis_rank,
@@ -204,15 +206,21 @@ def dense_projection_params(head: nn.Module) -> Projection:
     """Frozen copy of the MAP head's V, out-projection, LayerNorm and MLP,
     used to project patch tokens into the pooled-embedding space. Every
     tensor is detached: the spatial heads train the backbone through the
-    patch features only, never through this projection."""
+    patch features only, never through this projection. A tensor-parallel
+    head's shards are gathered whole (a collective of its model group)."""
     d = head.attention.out_proj.weight.shape[0]
     attn = head.attention
+
+    def whole(p):
+        return sharding.full_tensor(p, sharding.shard_info(p))
+
+    in_w, in_b = whole(attn.in_proj_weight), whole(attn.in_proj_bias)
     tensors = {
-        "v.weight": attn.in_proj_weight[2 * d:], "v.bias": attn.in_proj_bias[2 * d:],
-        "out.weight": attn.out_proj.weight, "out.bias": attn.out_proj.bias,
+        "v.weight": in_w[2 * d:], "v.bias": in_b[2 * d:],
+        "out.weight": whole(attn.out_proj.weight), "out.bias": attn.out_proj.bias,
         "layernorm.weight": head.layernorm.weight, "layernorm.bias": head.layernorm.bias,
-        "fc1.weight": head.mlp.fc1.weight, "fc1.bias": head.mlp.fc1.bias,
-        "fc2.weight": head.mlp.fc2.weight, "fc2.bias": head.mlp.fc2.bias,
+        "fc1.weight": whole(head.mlp.fc1.weight), "fc1.bias": whole(head.mlp.fc1.bias),
+        "fc2.weight": whole(head.mlp.fc2.weight), "fc2.bias": head.mlp.fc2.bias,
     }
     return {k: v.detach().float() for k, v in tensors.items()}
 

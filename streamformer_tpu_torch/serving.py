@@ -71,8 +71,8 @@ class StreamingEngine:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                f"a serving engine sharded over a device mesh (axis {mesh_axis!r}): "
-                "ROADMAP slice 4, item 14"
+                f"a serving engine sharded over a device mesh (axis {mesh_axis!r}): one engine "
+                "process a GPU behind a router, ROADMAP item 14b"
             )
         cfg = model.cfg
         capacity = capacity or cfg.cache_capacity

@@ -1,7 +1,6 @@
 """Training checkpoints: save, retention, restore and auto-resume. The port
 of the JAX package's ``train/checkpoint.py`` (orbax there,
-``torch.distributed.checkpoint`` here, in one process without a process
-group).
+``torch.distributed.checkpoint`` here, written by one process).
 
 A checkpoint is the directory ``<output_dir>/checkpoint-<epoch>`` holding
 the model's state dict, the ``ScheduledOptimizer``'s state (the inner
@@ -16,6 +15,14 @@ only.
 is staged and writes it on a background thread (a second save first waits
 for the one in flight, so saves commit in order); ``wait_for_checkpoints``
 and an ``atexit`` barrier make the last save durable.
+
+Over many processes a checkpoint is always the one-process layout: the
+shards of a tensor-parallel model and of its AdamW moments are gathered
+whole (every rank of a model group takes part), rank 0 alone writes and
+commits, and a blocking save ends in a barrier. Every rank restores the
+same checkpoint (``auto_resume`` takes rank 0's choice) and cuts its own
+shards from it, so a checkpoint of any topology loads into any other and
+into one process.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ import threading
 from typing import Dict, Optional
 
 import torch
+
+from streamformer_tpu_torch.parallel import mesh as mesh_lib
+from streamformer_tpu_torch.parallel import sharding
 
 _PARAMS, _STATE, _COUNT, _META, _INDEX = "params/", "optimizer/state/", "optimizer/count", "meta/", "index"
 
@@ -121,16 +131,29 @@ def _unpack(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _whole(value, p: torch.Tensor) -> torch.Tensor:
+    """``value`` (a parameter, or an optimizer tensor of its shape) whole
+    when ``p`` is a tensor-parallel shard."""
+    value = torch.as_tensor(value)
+    info = sharding.shard_info(p)
+    return sharding.full_tensor(value, info if value.shape == p.shape else None)
+
+
 def _flat_state(model: torch.nn.Module, optimizer, epoch: int, step: int, micro: int
-                ) -> Dict[str, torch.Tensor]:
-    """The checkpoint as a flat dict of tensors, staged on the CPU."""
-    named = {_PARAMS + k: v for k, v in model.state_dict().items()}
+                ) -> Optional[Dict[str, torch.Tensor]]:
+    """The checkpoint as a flat dict of tensors, staged on the CPU, in the
+    one-process layout (None on a process other than rank 0)."""
+    params = dict(model.named_parameters())
+    named = {_PARAMS + k: _whole(v, params[k]) if k in params else v
+             for k, v in model.state_dict().items()}
     if optimizer is not None:
         names = {id(p): n for n, p in model.named_parameters()}
         for p, state in optimizer.inner.state.items():
             for key, value in state.items():
                 if value is not None:
-                    named[f"{_STATE}{names[id(p)]}/{key}"] = torch.as_tensor(value)
+                    named[f"{_STATE}{names[id(p)]}/{key}"] = _whole(value, p)
+    if not mesh_lib.is_main_process():
+        return None  # it took part in the gathers; rank 0 writes
     sd = _pack(named)
     if optimizer is not None:
         sd[_COUNT] = torch.tensor(optimizer.count, dtype=torch.int64)
@@ -162,14 +185,18 @@ def save_checkpoint(output_dir: str, epoch: int, model: torch.nn.Module, optimiz
     ``checkpoint-<epoch>``; returns its path. ``micro > 0`` marks a
     mid-epoch checkpoint. ``block=False`` returns once the CPU copy is
     staged; the write overlaps what follows. The preemption save, right
-    before the process exits, keeps ``block=True``."""
-    os.makedirs(output_dir, exist_ok=True)
+    before the process exits, keeps ``block=True``. Over many processes
+    every process calls it; rank 0 writes."""
     path = _ckpt_dir(output_dir, epoch)
     state = _flat_state(model, optimizer, epoch, step, micro)
-    _WRITER.submit(lambda: _write(state, path))
+    if mesh_lib.is_main_process():
+        os.makedirs(output_dir, exist_ok=True)
+        _WRITER.submit(lambda: _write(state, path))
+        if block:
+            _WRITER.wait()
+        _prune(output_dir, epoch, keep_every, keep_last)
     if block:
-        _WRITER.wait()
-    _prune(output_dir, epoch, keep_every, keep_last)
+        mesh_lib.barrier()
     return path
 
 
@@ -205,10 +232,14 @@ def _load_optimizer(optimizer, model: torch.nn.Module, flat: Dict[str, torch.Ten
     for group in optimizer.inner.param_groups:
         for p in group["params"]:
             index[names[id(p)]] = len(index)  # torch's state_dict numbering
+    params = dict(model.named_parameters())
     state: Dict[int, Dict[str, torch.Tensor]] = {}
     for key, value in flat.items():
         if key.startswith(_STATE):
             name, field = key[len(_STATE):].rsplit("/", 1)
+            info = sharding.shard_info(params[name])
+            if info is not None and value.dim() == params[name].dim():  # a moment, not a count
+                value = sharding.local_piece(value, info)
             state.setdefault(index[name], {})[field] = value
     groups = optimizer.inner.state_dict()["param_groups"]
     optimizer.inner.load_state_dict({"state": state, "param_groups": groups})
@@ -218,10 +249,14 @@ def _load_optimizer(optimizer, model: torch.nn.Module, flat: Dict[str, torch.Ten
 def restore_checkpoint(output_dir: str, epoch: int, model: torch.nn.Module, optimizer=None
                        ) -> Dict[str, int]:
     """Load ``checkpoint-<epoch>`` into ``model`` (and ``optimizer``) in
-    place; returns its meta {epoch, step, micro}."""
+    place; returns its meta {epoch, step, micro}. A tensor-parallel model
+    takes its shards of the whole tensors."""
     wait_for_checkpoints()
     flat = _load_flat(_ckpt_dir(output_dir, epoch))
-    model.load_state_dict({k[len(_PARAMS):]: v for k, v in flat.items() if k.startswith(_PARAMS)})
+    params = dict(model.named_parameters())
+    model.load_state_dict({
+        name: sharding.local_piece(v, sharding.shard_info(params[name])) if name in params else v
+        for name, v in ((k[len(_PARAMS):], v) for k, v in flat.items() if k.startswith(_PARAMS))})
     if optimizer is not None:
         _load_optimizer(optimizer, model, flat)
     return {key: int(flat[_META + key]) for key in ("epoch", "step", "micro")}
@@ -230,8 +265,10 @@ def restore_checkpoint(output_dir: str, epoch: int, model: torch.nn.Module, opti
 def auto_resume(output_dir: str, model: torch.nn.Module, optimizer=None
                 ) -> Optional[Dict[str, int]]:
     """Restore the newest ``checkpoint-*`` if there is one (the reference's
-    auto_load_model); returns its meta, or None."""
+    auto_load_model); returns its meta, or None. Over many processes every
+    process restores the one rank 0 finds."""
     e = latest_checkpoint(output_dir)
-    if e is None:
+    e = mesh_lib.broadcast_int(-1 if e is None else e)
+    if e < 0:
         return None
     return restore_checkpoint(output_dir, e, model, optimizer)

@@ -1,10 +1,11 @@
 """Logging and metering for the trainer: the port's own copy of the JAX
 package's ``train/metrics.py`` (nothing here touches a device).
 
-One process trains one GPU for now, so metric values are already global;
-averaging meters over ranks comes with the distributed trainer (ROADMAP
-item 14). ``TensorboardLogger`` stays optional: ``tensorboardX`` is imported
-when one is made, not with this module.
+The values logged are already global: over many processes the trainer
+hands over the data group's mean loss, and only rank 0 prints
+(``MetricLogger(quiet=True)`` elsewhere) and writes ``log.txt``.
+``TensorboardLogger`` stays optional: ``tensorboardX`` is imported when one
+is made, not with this module.
 """
 
 from __future__ import annotations
@@ -65,9 +66,10 @@ class SmoothedValue:
 class MetricLogger:
     """Iteration logger with ETA."""
 
-    def __init__(self, delimiter: str = "  "):
+    def __init__(self, delimiter: str = "  ", quiet: bool = False):
         self.meters: Dict[str, SmoothedValue] = defaultdict(SmoothedValue)
         self.delimiter = delimiter
+        self.quiet = quiet  # count and time, print nothing (a process other than rank 0)
 
     def update(self, **kwargs):
         for k, v in kwargs.items():
@@ -90,7 +92,7 @@ class MetricLogger:
         for obj in iterable:
             yield obj
             iter_time.update(time.time() - end)
-            if i % print_freq == 0:
+            if i % print_freq == 0 and not self.quiet:
                 if total:
                     eta = iter_time.global_avg * (total - i)
                     eta_str = str(datetime.timedelta(seconds=int(eta)))
@@ -103,7 +105,8 @@ class MetricLogger:
             i += 1
             end = time.time()
         elapsed = str(datetime.timedelta(seconds=int(time.time() - start)))
-        print(f"{header} Total time: {elapsed}")
+        if not self.quiet:
+            print(f"{header} Total time: {elapsed}")
 
 
 class TensorboardLogger:

@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from streamformer_tpu_torch.parallel import sharding
+
 Schedule = Callable[[int], float]
 Named = Union[nn.Module, Dict[str, torch.Tensor], Iterable[Tuple[str, torch.Tensor]]]
 
@@ -220,8 +222,7 @@ class ScheduledOptimizer:
                 p.grad = torch.zeros_like(p)
         if self.clip_grad is not None and params:
             grads = [p.grad for p in params]
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)).to(torch.float32))
+            norm = sharding.grad_norm(params)  # a sharded leaf counted over its model group
             # optax: g if norm < max_norm else g / norm * max_norm; on the device
             divisor = torch.where(norm < self.clip_grad, torch.ones_like(norm),
                                   norm / self.clip_grad)

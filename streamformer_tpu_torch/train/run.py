@@ -1,9 +1,11 @@
 """Training entry point: the port of the JAX package's ``train/run.py``
-(reference run_finetuning_multi_task.py), one process on one GPU.
+(reference run_finetuning_multi_task.py), one process a GPU.
 
 Usage:
     python -m streamformer_tpu_torch.train.run --metadata path/to/all.yaml \\
         --output_dir out --batch_size 16 --epochs 20 --lr 2e-5 ...
+    torchrun --nproc_per_node 8 -m streamformer_tpu_torch.train.run \\
+        --distributed --mp 2 --metadata ... (4 data ranks x 2 model ranks)
 
 ``--device cpu`` runs it on the CPU (the kernels' plain versions). Flow:
 datasets from the YAML metadata (``build_datasets``) -> ``train``: the
@@ -13,9 +15,15 @@ the epoch loop with an asynchronous checkpoint after every epoch and a
 blocking mid-epoch one on SIGTERM, after which the process exits for a
 restart into the same run.
 
-Data or model parallelism (``--dp``/``--mp`` past 1, ``--shard_patches``,
-``--distributed``) is ROADMAP item 14 and validation (``--eval_freq``)
-item 19: they raise ``NotImplementedError``.
+``--distributed`` joins the job's process group (``torchrun``'s
+environment, or ``--coordinator_address``, ``--num_processes`` and
+``--process_id``; NCCL on the cards, gloo with ``--device cpu``) and trains
+on a ``(data, model)`` mesh of ``--dp`` x ``--mp`` ranks (``--dp`` 0: the
+world over ``--mp``): ``--batch_size`` is a data rank's, the sampler gives
+each data rank its rank-strided rows, the model is sharded over ``--mp``
+(``--shard_patches``: sequence parallel too), and rank 0 alone logs and
+writes checkpoints. Validation (``--eval_freq``) is ROADMAP item 19: it
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,11 +76,15 @@ def get_args(argv=None):
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--balance_datasets", action="store_true")
     p.add_argument("--remat", default="none", choices=["none", "layer"])
-    p.add_argument("--dp", type=int, default=0, help="data-parallel size (ROADMAP item 14)")
-    p.add_argument("--mp", type=int, default=1, help="model-parallel size (ROADMAP item 14)")
-    p.add_argument("--shard_patches", action="store_true")
-    p.add_argument("--distributed", action="store_true")
-    p.add_argument("--coordinator_address", default=None)
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel mesh dim; 0 = the world size / mp")
+    p.add_argument("--mp", type=int, default=1, help="model (tensor) parallel mesh dim")
+    p.add_argument("--shard_patches", action="store_true",
+                   help="sequence parallel: shard the patch axis over mp")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the job's process group (torchrun's environment)")
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of process 0 (with --distributed)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--profile_steps", type=int, default=0,
@@ -83,10 +95,6 @@ def get_args(argv=None):
 
 
 def check_supported(args) -> None:
-    if args.dp > 1 or args.mp > 1 or args.shard_patches or args.distributed:
-        raise NotImplementedError(
-            "data or model parallel training (--dp/--mp past 1, --shard_patches, --distributed) "
-            "is ROADMAP slice 4, item 14; the trainer runs one process on one GPU")
     if args.eval_freq > 0:
         raise NotImplementedError("validation during training (--eval_freq) comes with "
                                   "eval/validate.py, ROADMAP item 19")
@@ -111,11 +119,30 @@ def _log_writer(args):
     return metrics_lib.TensorboardLogger(args.log_dir or os.path.join(args.output_dir, "tb"))
 
 
+def _mesh(args):
+    """The (data, model) mesh of the job, or None in one process without
+    ``--distributed``; refuses a --dp x --mp that is not the world."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    dp = args.dp if args.dp > 0 else max(world // args.mp, 1)
+    if dp * args.mp != world:
+        raise ValueError(f"--dp {dp} x --mp {args.mp} needs {dp * args.mp} processes; the job has "
+                         f"world size {world} (one process a GPU: launch with torchrun and "
+                         "--distributed)")
+    if not dist.is_initialized():
+        return None
+    from streamformer_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(dp, args.mp)
+
+
 def train(args, train_ds, eval_ds, mtc):
     """Train on ``train_ds`` (a ``MultiTaskDataset``) with the task config
     ``mtc``; returns the ``TrainState``. On SIGTERM it saves a mid-epoch
     checkpoint at the next update boundary and returns; a later call with
-    the same ``output_dir`` resumes from it."""
+    the same ``output_dir`` resumes from it. Inside a process group (see
+    ``main``) every process calls it and trains its part of the mesh."""
     check_supported(args)
     import torch
 
@@ -126,16 +153,26 @@ def train(args, train_ds, eval_ds, mtc):
     from streamformer_tpu_torch.models.encoder import resolve_device
     from streamformer_tpu_torch.models.multitask import MultitaskModel
     from streamformer_tpu_torch.models.text_encoder import SiglipTextConfig
+    from streamformer_tpu_torch.parallel import mesh as mesh_lib
+    from streamformer_tpu_torch.parallel.sharding import shard_model
     from streamformer_tpu_torch.train import checkpoint as ckpt_lib
     from streamformer_tpu_torch.train import metrics as metrics_lib
     from streamformer_tpu_torch.train import optim
     from streamformer_tpu_torch.train.trainer import MultitaskTrainer, TrainState
 
+    mesh = _mesh(args)
+    dp, data_rank = mesh_lib.dim_size(mesh, "data"), mesh_lib.dim_rank(mesh, "data")
+    main_process = mesh_lib.is_main_process()
+    say = print if main_process else (lambda *a, **k: None)
     dev = resolve_device(args.device)
-    os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
-    print(f"train samples: {len(train_ds)} tasks: {list(mtc)} device: {dev}")
+    if dev.type == "cuda" and mesh is not None:
+        dev = torch.device("cuda", torch.cuda.current_device())  # init_distributed's card
+    if main_process:
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
+    say(f"train samples: {len(train_ds)} tasks: {list(mtc)} device: {dev}"
+        + (f" mesh: data={dp} model={args.mp}" if mesh is not None else ""))
 
     cfg = StreamformerConfig(
         num_frames=args.num_frames, image_size=args.input_size, hidden_size=args.hidden_size,
@@ -143,7 +180,7 @@ def train(args, train_ds, eval_ds, mtc):
         intermediate_size=args.intermediate_size,
         enable_causal_temporal=args.enable_causal_temporal,
         add_lora_spatial=args.add_lora_spatial, dtype="bfloat16" if args.bf16 else "float32",
-        remat=args.remat)
+        remat=args.remat, shard_patches=args.shard_patches and args.mp > 1)
     text_cfg = SiglipTextConfig(hidden_size=args.hidden_size, num_hidden_layers=args.text_layers,
                                 num_attention_heads=args.num_heads,
                                 intermediate_size=args.intermediate_size)
@@ -154,14 +191,15 @@ def train(args, train_ds, eval_ds, mtc):
         backbone = from_pretrained(args.model_path, cfg.replace(dtype="float32"), device=dev)
         model.backbone.load_state_dict(backbone.state_dict())
         del backbone
-        print(f"loaded backbone from {args.model_path}")
+        say(f"loaded backbone from {args.model_path}")
     model.prepare_for_multi_tasks()
+    shard_model(model, mesh)  # before the optimizer, which then holds the shards' moments
 
-    # the linear lr scaling rule over the total batch (one replica)
-    total_bs = args.batch_size * args.update_freq
+    # the linear lr scaling rule over the total batch, every data rank's
+    total_bs = args.batch_size * args.update_freq * dp
     lr = optim.scale_lr(args.lr, total_bs, args.num_sample)
     sampler = DistributedBatchTaskUniqueSampler(train_ds.task_specs(), batch_size=args.batch_size,
-                                                num_replicas=1, rank=0, seed=args.seed)
+                                                num_replicas=dp, rank=data_rank, seed=args.seed)
     steps_per_epoch = max(len(sampler) // args.update_freq, 1)
     lr_sched = optim.cosine_lr_schedule(lr, args.min_lr, args.epochs, steps_per_epoch,
                                         warmup_epochs=args.warmup_epochs,
@@ -180,7 +218,7 @@ def train(args, train_ds, eval_ds, mtc):
         wd_schedule=wd_sched if args.weight_decay_end else None, betas=tuple(args.opt_betas),
         eps=args.opt_eps, clip_grad=args.clip_grad, layer_decay=args.layer_decay,
         num_layers=cfg.num_hidden_layers, trainable_mask=trainable, opt_name=args.opt)
-    trainer = MultitaskTrainer(model, tx, update_freq=args.update_freq)
+    trainer = MultitaskTrainer(model, tx, update_freq=args.update_freq, mesh=mesh)
 
     start_epoch, start_micro = 0, 0
     if args.auto_resume:
@@ -189,10 +227,10 @@ def train(args, train_ds, eval_ds, mtc):
             start_micro = meta["micro"]
             if start_micro > 0:  # a mid-epoch (preemption) checkpoint: replay its epoch
                 start_epoch = meta["epoch"]
-                print(f"resumed mid-epoch {start_epoch} at micro-batch {start_micro}")
+                say(f"resumed mid-epoch {start_epoch} at micro-batch {start_micro}")
             else:
                 start_epoch = meta["epoch"] + 1
-                print(f"resumed from epoch {start_epoch - 1}")
+                say(f"resumed from epoch {start_epoch - 1}")
     state = TrainState.create(model, tx)
 
     # preemption: on SIGTERM finish the update in flight, save a mid-epoch
@@ -209,7 +247,7 @@ def train(args, train_ds, eval_ds, mtc):
     except ValueError:
         pass  # not the main thread (embedded use): no handler, still trains
 
-    log_writer = _log_writer(args)
+    log_writer = _log_writer(args) if main_process else None
     profile_dir = os.path.join(args.log_dir or os.path.join(args.output_dir, "tb"), "profile")
     try:
         for epoch in range(start_epoch, args.epochs):
@@ -223,8 +261,9 @@ def train(args, train_ds, eval_ds, mtc):
             t0 = time.time()
             state, stats = trainer.train_one_epoch(
                 state, iter(loader), epoch, gen, log_writer=log_writer, lr_schedule=lr_sched,
-                profile_steps=args.profile_steps if epoch == start_epoch else 0,
-                profile_dir=profile_dir, should_stop=lambda: stop_requested["flag"],
+                profile_steps=args.profile_steps if epoch == start_epoch and main_process else 0,
+                profile_dir=profile_dir,
+                should_stop=lambda: mesh_lib.any_rank(stop_requested["flag"]),
                 start_micro=epoch_micro)
             stats["epoch_time"] = time.time() - t0
             loader.close()
@@ -232,8 +271,8 @@ def train(args, train_ds, eval_ds, mtc):
                 micro_done = int(stats["preempted_at_micro"])
                 ckpt_lib.save_checkpoint(args.output_dir, epoch, model, tx, step=state.step,
                                          keep_every=args.save_ckpt_freq, micro=micro_done)
-                print(f"preempted: saved epoch {epoch} at micro-batch {micro_done}; "
-                      "exiting for restart")
+                say(f"preempted: saved epoch {epoch} at micro-batch {micro_done}; "
+                    "exiting for restart")
                 return state
             metrics_lib.write_log_line(args.output_dir,
                                        {"epoch": epoch, **{k: float(v) for k, v in stats.items()}})
@@ -242,20 +281,30 @@ def train(args, train_ds, eval_ds, mtc):
             ckpt_lib.save_checkpoint(args.output_dir, epoch, model, tx, step=state.step,
                                      keep_every=args.save_ckpt_freq, block=False)
         ckpt_lib.wait_for_checkpoints()
+        mesh_lib.barrier()  # the last save is committed before any process returns
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
         if log_writer is not None:
             log_writer.flush()
-    print("done")
+    say("done")
     return state
 
 
 def main(argv=None):
     args = get_args(argv)
     check_supported(args)
-    train_ds, eval_ds, mtc = build_datasets(args)
-    train(args, train_ds, eval_ds, mtc)
+    from streamformer_tpu_torch.parallel import mesh as mesh_lib
+
+    if args.distributed:
+        mesh_lib.init_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                                  device=args.device)
+    try:
+        train_ds, eval_ds, mtc = build_datasets(args)
+        train(args, train_ds, eval_ds, mtc)
+    finally:
+        if args.distributed:
+            mesh_lib.shutdown()
 
 
 if __name__ == "__main__":

@@ -219,6 +219,9 @@ def test_vis_head_ignores_unlabelled_samples_and_masked_classes():
 
 
 def test_single_process_forms_and_the_refused_group():
+    """The single-process forms against JAX's, and the same forms over a
+    process group of one rank (gloo, in this process): a group is no longer
+    refused; its multi-rank forms are tests/test_torch_parallel.py's."""
     rng = _rng(13)
     img, txt = (torch.from_numpy(_unit(_f(rng, 4, D))) for _ in range(2))
     scale, bias = torch.tensor(10.0), torch.tensor(-2.0)
@@ -234,8 +237,21 @@ def test_single_process_forms_and_the_refused_group():
                                                 jnp.asarray(-2.0), negative_only=True)
     np.testing.assert_allclose(neg.item(), float(ref_neg), atol=1e-5, rtol=0)
     assert contrastive.all_gather_features(img) is img and contrastive.axis_rank() == 0
-    for call in (lambda: contrastive.siglip_ring_loss(img, txt, scale, bias, group="data"),
-                 lambda: contrastive.all_gather_features(img, group="data"),
-                 lambda: contrastive.axis_rank(group="data")):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            call()
+    import torch.distributed as dist
+
+    from _torch_dist_worker import free_port
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        assert contrastive.siglip_ring_loss(img, txt, scale, bias, group).item() == got.item()
+        assert contrastive.all_gather_features(img, group) is img
+        assert contrastive.axis_rank(group) == 0
+        pooler = torch.from_numpy(_f(rng, 4, T, D))
+        labels = torch.from_numpy(rng.integers(0, 2, (4, T)).astype(np.float32))
+        alone = heads.grounding_contrastive_head(pooler, txt, labels, scale, bias)[0]
+        assert heads.grounding_contrastive_head(pooler, txt, labels, scale, bias,
+                                                group=group)[0].item() == alone.item()
+    finally:
+        dist.destroy_process_group()

@@ -361,10 +361,17 @@ def test_cli_trains_one_epoch_on_the_cpu(metadata, tmp_path, capsys, hash_tokeni
     assert "done" in capsys.readouterr().out
 
 
-def test_cli_refuses_what_it_cannot_run(metadata):
-    for extra in (["--dp", "2"], ["--mp", "2"], ["--distributed"], ["--shard_patches"]):
-        with pytest.raises(NotImplementedError, match="item 14"):
+def test_cli_refuses_what_it_cannot_run(metadata, monkeypatch):
+    """Validation is item 19's; a mesh needs its processes (one a GPU): in
+    one process --dp or --mp past 1 is refused, and --distributed without a
+    job to join (tests/test_torch_dist_cli.py runs it on two ranks)."""
+    for extra in (["--dp", "2"], ["--mp", "2"], ["--mp", "2", "--shard_patches"]):
+        with pytest.raises(ValueError, match="world size 1"):
             run.main(_argv(metadata, "unused", 1) + extra)
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        run.main(_argv(metadata, "unused", 1) + ["--distributed"])
     with pytest.raises(NotImplementedError, match="item 19"):
         run.main(_argv(metadata, "unused", 1) + ["--eval_freq", "1"])
 

@@ -316,8 +316,10 @@ def test_encode_texts_reads_the_current_text_tower():
 
 
 def test_a_mesh_is_refused_and_stats_are_averages():
+    """A mesh that is not a DeviceMesh of dims ("data", "model") is refused
+    (the multi-process trainer: tests/test_torch_dist_train.py)."""
     trainer, state, _ = _trainer()
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         MultitaskTrainer(trainer.model, trainer.tx, mesh=object())
     rng = np.random.default_rng(8)
     batches = [("Kinetics", _class_batch(rng)), ("CharadesSTA", _grounding_batch(rng))]
