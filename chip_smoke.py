@@ -144,9 +144,34 @@ Phases, each fatal on failure:
     gradient sync (the bucketed all-reduce of the fp32 buffer); then B, C,
     H and I at the rank shape of model parallelism 2 (6 heads of 64, the
     packed qkv (8, 16, 196, 1152)) against their plain versions, bf16 and
-    fp32, timed beside ``scaled_dot_product_attention``.
+    fp32, timed beside ``scaled_dot_product_attention``;
+25. a small fp32 language model on the card against the same on the CPU:
+    the forward, lockstep and ragged with a cache (an append clamped at the
+    capacity edge), on int8 and int4 KV caches and with int8 weights (the
+    ``lm_head`` too), logits within 1e-4; ``DecodeEngine``'s greedy tokens
+    equal on both devices; a small ``LlavaQwenModel`` (SMALL_CONFIG's
+    tower, B and C on the card) with equal prompt embeddings and answers;
+26. the LM at Qwen2.5-7B's widths (152,064 vocab, 3,584 hidden, 18,944
+    MLP, 28 layers, 28 query and 4 KV heads of 128, bf16, seeded random
+    weights drawn on the card) under ``DecodeEngine`` at 8 slots and
+    capacity 1,024: 16 requests of 64-448 prompt ids and 32-64 new tokens
+    in bursts; each request's tokens held to one B=1 forward over its prompt
+    and tokens (a position must match where the lone top-1/top-2 margin
+    exceeds the largest logit difference between the two); 4-step ticks
+    equal to 1-step ticks; int8 and int4 KV within pooled-logit cosine
+    0.999 and 0.995 of the bf16 engine; the scores' fp32 product timed
+    against a cast of the cache; decode ms a tick, tokens/s, device busy and
+    launches a step at 8 and 32 slots, beside the bound (the weights' bytes
+    over 3.35 TB/s); prefill ms by bucket; after phase 27, the same with int8
+    weights and the int8 ``lm_head`` (cosine 0.99) and the peak memory;
+27. VideoQA: ``LlavaQwenModel`` of phase 4's tower (non-streaming, 16 frames
+    of 224x224), the projector (768 -> 3,584 -> 3,584) and phase 26's LM;
+    ``VideoQAServer`` on 127.0.0.1 with two concurrent clients posting
+    ``/qa``, their tokens equal to the in-process engine's on the same
+    spliced prompts, each request's round trip; then ``generate`` on a
+    streaming linear tower (C=16) through kernel E.
 
-Eleven paths are main paths: the lockstep encode (the launch counters are
+Twelve paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
@@ -157,7 +182,9 @@ stream of phase 19), the ring chunks (zeroed before each chunk of phase
 22), and kernel L's own entry point, which no model path calls (zeroed
 before phase 21's forward and gradient step), and the training entry point
 (zeroed before phase 23's uninterrupted run, read after it), and the mesh
-trainer (zeroed before phase 24's warm-up, read after its timed epoch).
+trainer (zeroed before phase 24's warm-up, read after its timed epoch),
+and VideoQA (zeroed before phase 27's server run, read after it: B and C L
+times an encode; then before the streaming tower's ``generate``: E).
 Every kernel must have run on its path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
@@ -282,6 +309,36 @@ ENTRY = dict(batch=8, epochs=2, update_freq=2, clips_per_task=16, height=256, wi
              aug_batches=3, siglip_frames=8, text_layers=12)
 GRAD_CARD_VS_CPU_TOL = 1e-4  # of a leaf's largest gradient magnitude; fp32, summation order only
 REMAT_LOSS_TOL = 1e-2  # relative: the recompute repeats the forward; bf16 rounding at most
+# phases 25-27: the VideoQA serving path. The LM at Qwen2.5-7B's widths
+# (Qwen/Qwen2.5-7B-Instruct config.json, as the JAX bench builds it), seeded
+# random weights drawn on the card; the small fp32 LM of phase 25
+LM_7B = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944, num_hidden_layers=28,
+             num_attention_heads=28, num_key_value_heads=4, max_position_embeddings=32768,
+             rope_theta=1e6, rms_norm_eps=1e-6, tie_word_embeddings=False, attention_bias=True,
+             dtype="bfloat16")
+LM_SMALL = dict(vocab_size=96, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                num_attention_heads=8, num_key_value_heads=2, rope_theta=10000.0,
+                tie_word_embeddings=False, dtype="float32")
+# phase 26's traffic: 16 requests of 64-448 prompt ids (the JAX bench's range)
+# and 32-64 new tokens, opened in bursts of 8, 4 and 4 a burst_ticks apart, so
+# that slots recycle; then steady decode at 8 and 32 slots
+DECODE = dict(slots=8, wide_slots=32, capacity=1024, requests=16, min_prompt=64, max_prompt=448,
+              min_new=32, max_new=64, buckets=(64, 128, 256, 512), bursts=(8, 4, 4),
+              burst_ticks=16, timed_ticks=24, profiled_ticks=4)
+# the JAX tests' gates of the quantized LM (tests/test_lm_serving.py:319-440),
+# pooled-logit cosine to the float LM: int8 KV INT8_CACHE_COS, int4 KV and int8
+# weights these; held at the depth those tests set them at, two layers (at the
+# 7B widths, with all 28 random layers, the errors of either quantization
+# compound: the cosines are reported). int4's gate is reported only: the
+# reference's int4 KV, which the port reproduces code for code, does not
+# reach it at head_dim 128 (ROADMAP section 3)
+INT4_CACHE_COS, INT8_WEIGHTS_LM_COS, JAX_GATE_LAYERS = 0.995, 0.99, 2
+# the greedy check is void when the engine's logits sit so far from the lone
+# forward's that no margin exceeds the gap: at least this share of positions
+# must be decided by it
+GREEDY_DECIDED_MIN = 0.1
+# phase 27: two questions on 16 frames each, a prompt of 24 + <image> + 16 ids
+VQA = dict(frames=16, system=24, question=16, max_new=16, capacity=128, buckets=(32, 64))
 DEVICE = "cuda"
 
 
@@ -2227,6 +2284,450 @@ def main():
         del qkv, g, q, k, v, gr, got, ref, qs, ks, vs, out, gs, qh, kh, vh
     torch.cuda.empty_cache()
 
+    # ---- 25. a small fp32 LM and LlavaQwenModel on the card against the same on the CPU
+    import copy
+
+    from streamformer_tpu_torch.downstream import videoqa as VQ
+    from streamformer_tpu_torch.downstream.vision_tower import TimesformerVisionTower
+    from streamformer_tpu_torch.lm_serving import DecodeEngine
+    from streamformer_tpu_torch.models import language_model as LM
+    from streamformer_tpu_torch.ops import quant
+    from streamformer_tpu_torch.server import VideoQAServer
+
+    t_lm = time.perf_counter()
+    lm_cfg = LM.LMConfig(**LM_SMALL)
+    cpu_lm = LM.LanguageModel(lm_cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card_lm = LM.LanguageModel(lm_cfg, device=dev)
+    card_lm.load_state_dict(cpu_lm.state_dict())
+    q_cpu, q_card = (quant.quantize_lm(copy.deepcopy(m_), min_elements=0)
+                     for m_ in (cpu_lm, card_lm))
+    srng = np.random.default_rng(25)
+    emb_s = torch.from_numpy(srng.standard_normal((3, 7, lm_cfg.hidden_size)).astype(np.float32))
+    step_s = torch.from_numpy(srng.standard_normal((3, 1, lm_cfg.hidden_size)).astype(np.float32))
+    worst_lm = {}
+    for case, (m_cpu, m_card, cd, ragged) in {
+            "lockstep": (cpu_lm, card_lm, None, False), "ragged": (cpu_lm, card_lm, None, True),
+            "int8 KV": (cpu_lm, card_lm, "int8", True), "int4 KV": (cpu_lm, card_lm, "int4", True),
+            "int8 weights": (q_cpu, q_card, None, True)}.items():
+        outs = []
+        for m_ in (m_cpu, m_card):
+            c_ = LM.init_cache(lm_cfg, 3, 16, per_stream_len=ragged, cache_dtype=cd,
+                               device=m_.device)
+            o1, c_ = LM.forward(m_, emb_s.to(m_.device), cache=c_)
+            if ragged:  # depths 7, 3 and 16 (an append clamped at the capacity edge)
+                c_["len"] = torch.tensor([7, 3, 16], device=m_.device)
+            o2, c_ = LM.forward(m_, step_s.to(m_.device), cache=c_)
+            outs.append(torch.cat([o1["logits"], o2["logits"]], 1))
+        worst_lm[case] = max_err(outs[0], outs[1])
+        if not worst_lm[case] <= CARD_VS_CPU_TOL:
+            fail(f"small LM {case}: card vs CPU logits max-abs {worst_lm[case]}")
+    prompts_s = [srng.integers(0, lm_cfg.vocab_size, (n,)) for n in (3, 11, 20, 5, 8, 2)]
+    engine_toks = []
+    for m_ in (cpu_lm, card_lm):
+        eng = DecodeEngine(m_, slots=3, capacity=32, max_new_tokens=6, prefill_buckets=(4, 8))
+        sids = [eng.open_tokens(p) for p in prompts_s]
+        eng.run_until_idle()
+        engine_toks.append([eng.poll(s_)[0] for s_ in sids])
+    if engine_toks[0] != engine_toks[1]:
+        fail(f"small LM engine tokens differ: card {engine_toks[1]}, CPU {engine_toks[0]}")
+    # the small LlavaQwenModel: SMALL_CONFIG's tower (B and C on the card), the projector, the LM
+    scfg = StreamformerConfig(**SMALL_CONFIG)
+    s_cpu = encoder.StreamformerEncoder(scfg, device="cpu",
+                                        generator=torch.Generator().manual_seed(3))
+    open_gates(s_cpu, 3)
+    s_card = encoder.StreamformerEncoder(scfg, device=dev)
+    s_card.load_state_dict(s_cpu.state_dict())
+    p_cpu = VQ.init_mm_projector(scfg.hidden_size, lm_cfg.hidden_size, device="cpu",
+                                 generator=torch.Generator().manual_seed(4))
+    p_card = VQ.init_mm_projector(scfg.hidden_size, lm_cfg.hidden_size, device=dev)
+    p_card.load_state_dict(p_cpu.state_dict())
+    vq_px = torch.from_numpy(srng.standard_normal(
+        (1, scfg.num_frames, 3, scfg.image_size, scfg.image_size)).astype(np.float32))
+    vq_ids = np.array([3, VQ.IMAGE_TOKEN_INDEX, 9, 12, 40])
+    vq_out = []
+    for enc_, proj_, lm_ in ((s_cpu, p_cpu, cpu_lm), (s_card, p_card, card_lm)):
+        vqm = VQ.LlavaQwenModel(TimesformerVisionTower(enc_, streaming_mode=False), lm_, proj_)
+        vq_out.append((vqm.prompt_embeds(vq_ids, vq_px), vqm.generate(vq_ids, vq_px, 6)))
+    vq_err = max_err(vq_out[0][0], vq_out[1][0])
+    if not vq_err <= CARD_VS_CPU_TOL or not np.array_equal(vq_out[0][1], vq_out[1][1]):
+        fail(f"small LlavaQwenModel card vs CPU: prompt embeds {vq_err}, tokens "
+             f"{vq_out[1][1].tolist()} vs {vq_out[0][1].tolist()}")
+    print(f"small fp32 LM ({LM_SMALL['num_hidden_layers']} layers, {lm_cfg.hidden_size} hidden, "
+          f"GQA {lm_cfg.num_attention_heads}/{lm_cfg.num_key_value_heads}) card vs CPU logits "
+          f"max-abs {worst_lm} (<= {CARD_VS_CPU_TOL}); engine tokens equal on both devices "
+          f"({sum(map(len, engine_toks[1]))} tokens, 6 requests over 3 slots); small "
+          f"LlavaQwenModel prompt embeds max-abs {vq_err}, generate {vq_out[1][1].tolist()} on "
+          f"both ({time.perf_counter() - t_lm:.1f} s)")
+    del cpu_lm, card_lm, q_cpu, q_card, s_cpu, s_card, p_cpu, p_card, vq_out
+
+    # ---- 26. the Qwen2.5-7B-width LM at bf16 under DecodeEngine
+    t26 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg7 = LM.LMConfig(**LM_7B)
+    t0 = time.perf_counter()
+    lm7 = LM.LanguageModel(cfg7, device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p_.numel() for p_ in lm7.parameters())
+    # the bound of a decode step: every weight a step reads (all but the
+    # embedding table, of which a step gathers S rows) once over the HBM rate
+    weight_bytes = sum(p_.numel() * p_.element_size() for n_, p_ in lm7.named_parameters()
+                       if "embed_tokens" not in n_)
+    drng = np.random.default_rng(26)
+    plens = drng.integers(DECODE["min_prompt"], DECODE["max_prompt"] + 1, DECODE["requests"])
+    budgets = drng.integers(DECODE["min_new"], DECODE["max_new"] + 1, DECODE["requests"])
+    d_prompts = [drng.integers(0, cfg7.vocab_size, (int(n_),)) for n_ in plens]
+
+    def spy(eng):
+        """Record the logits of every draw by (sid, n): the engine's _select
+        sees them; tokens are drawn as before."""
+        rows, orig = [], eng._select
+
+        def select(logits, sids, counts):
+            act = (eng._active_dev if sids is eng._sids_dev
+                   else torch.ones(1, dtype=torch.bool, device=dev))
+            rows.append((logits.clone(), sids.clone(), counts.clone(), act.clone()))
+            return orig(logits, sids, counts)
+
+        eng._select = select
+        return rows
+
+    def keyed(rows):
+        out = {}
+        for logits, sids, counts, act in rows:
+            for i_, (s_, n_, a_) in enumerate(zip(sids.tolist(), counts.tolist(), act.tolist())):
+                if a_:
+                    out[(s_, n_)] = logits[i_]
+        return out
+
+    def serve(m_, **kw):
+        """The traffic in bursts (slots recycle): tokens and the logits of
+        each draw, by request."""
+        eng = DecodeEngine(m_, slots=DECODE["slots"], capacity=DECODE["capacity"],
+                           prefill_buckets=DECODE["buckets"], **kw)
+        rows = spy(eng)
+        sids, nxt = [], 0
+        for burst in DECODE["bursts"]:
+            for _ in range(burst):
+                sids.append(eng.open_tokens(d_prompts[nxt], max_new_tokens=int(budgets[nxt])))
+                nxt += 1
+            for _ in range(DECODE["burst_ticks"]):
+                eng.tick()
+        eng.run_until_idle()
+        toks = [eng.poll(s_)[0] for s_ in sids]
+        torch.cuda.synchronize()
+        return toks, keyed(rows), eng
+
+    t0 = time.perf_counter()
+    toks7, logits7, eng7 = serve(lm7)
+    serve_s = time.perf_counter() - t0
+    if [len(t_) for t_ in toks7] != budgets.tolist():
+        fail(f"7B engine: token counts {[len(t_) for t_ in toks7]}, budgets {budgets.tolist()}")
+    def greedy_check(m_, toks, logits, label, cache_dtype=None):
+        """Each request against one B=1 forward over its prompt and tokens
+        (through a cache of ``cache_dtype`` when the engine's is quantized,
+        none when it is float). A position is decided where the lone
+        top-1/top-2 margin exceeds the largest |logit difference| between
+        the two; every decided position must match. The float engine must
+        have GREEDY_DECIDED_MIN of its positions decided; a quantized one's
+        share is reported (a code on a rounding edge of another GEMM shape
+        takes a whole step, int4's a seventh of the absmax, and 28 random
+        layers amplify it)."""
+        deltas, margins, agree = [], [], []
+        for r_, (ids_, t_) in enumerate(zip(d_prompts, toks)):
+            seq = torch.tensor(np.concatenate([ids_, t_[:-1]]), device=dev)[None]
+            c_ = (None if cache_dtype is None else
+                  LM.init_cache(m_.cfg, 1, seq.shape[1], cache_dtype=cache_dtype, device=dev))
+            lone_out, _ = LM.forward(m_, LM.embed_tokens(m_, seq), cache=c_)
+            lone = lone_out["logits"][0, len(ids_) - 1:]
+            mine = torch.stack([logits[(r_, n_)] for n_ in range(len(t_))])
+            deltas.append((mine - lone).abs().amax(-1))
+            top2 = lone.topk(2, -1).values
+            margins.append(top2[:, 0] - top2[:, 1])
+            agree.append(lone.argmax(-1) == torch.tensor(t_, device=dev))
+            del lone_out, lone, mine, c_
+        deltas, margins, agree = (torch.cat(x_).cpu() for x_ in (deltas, margins, agree))
+        delta_max = deltas.max().item()
+        decided = margins > delta_max
+        if not bool(agree[decided].all()):
+            fail(f"7B engine, {label}: {int((~agree[decided]).sum())} decided positions differ "
+                 f"from the lone forward (largest |dlogit| {delta_max})")
+        result = (round(delta_max, 4), round(decided.float().mean().item(), 3),
+                  round(agree.float().mean().item(), 3), len(agree))
+        print(f"greedy check {label} (largest |dlogit| to the lone forward, share of positions "
+              f"decided, share equal, positions): {result}")
+        if label == "bf16" and decided.float().mean().item() < GREEDY_DECIDED_MIN:
+            fail(f"7B engine, {label}: only {decided.float().mean().item():.3f} of the positions "
+                 f"decided (largest |dlogit| {delta_max}): the engine's logits are not the lone "
+                 "forward's")
+        return result
+
+    greedy = {"bf16": greedy_check(lm7, toks7, logits7, "bf16")}
+    # k-step ticks
+    toks_k4, _, eng_k4 = serve(lm7, decode_steps_per_tick=4)
+    if toks_k4 != toks7 or not eng_k4.stats["decode_by_k"].get(4):
+        fail(f"7B engine: decode_steps_per_tick=4 tokens differ from k=1 "
+             f"({eng_k4.stats['decode_by_k']})")
+
+    def pooled_cosine(ref, other):
+        """Cosine of the pooled logits of the draws whose earlier tokens
+        agree between two engines' runs of the traffic; the share of tokens
+        equal."""
+        (toks_r, logits_r), (toks_o, logits_o) = ref[:2], other[:2]
+        a_, b_, same, total = [], [], 0, 0
+        for r_, (t_ref, t_o) in enumerate(zip(toks_r, toks_o)):
+            for n_ in range(min(len(t_ref), len(t_o))):
+                a_.append(logits_r[(r_, n_)])
+                b_.append(logits_o[(r_, n_)])
+                if t_ref[n_] != t_o[n_]:
+                    break
+            same += sum(x_ == y_ for x_, y_ in zip(t_ref, t_o))
+            total += len(t_ref)
+        a_, b_ = torch.stack(a_).double().ravel(), torch.stack(b_).double().ravel()
+        return round((a_ @ b_ / (a_.norm() * b_.norm())).item(), 6), round(same / total, 3)
+
+    class depth_cut:
+        """The LM's first n layers, at its widths (the depth the JAX tests set
+        their gates at), for the length of a with-block."""
+
+        def __init__(self, m_, n_):
+            self.m_, self.n_ = m_, n_
+
+        def __enter__(self):
+            self.saved = self.m_.cfg, self.m_.model.layers
+            self.m_.cfg = self.m_.cfg.replace(num_hidden_layers=self.n_)
+            self.m_.model.layers = self.saved[1][:self.n_]
+
+        def __exit__(self, *exc):
+            self.m_.cfg, self.m_.model.layers = self.saved
+
+    # quantized KV: at full depth each engine's tokens against its own lone
+    # forward, and the pooled-logit cosine to the bf16 engine (reported); the
+    # JAX tests' gates at their depth, two layers
+    quality = {}
+    for cd in ("int8", "int4"):
+        run_q = serve(lm7, cache_dtype=cd)
+        greedy[f"{cd} KV"] = greedy_check(lm7, run_q[0], run_q[1], f"{cd} KV", cd)
+        quality[f"{cd} KV"] = {"28 layers": pooled_cosine((toks7, logits7), run_q)}
+        del run_q
+    with depth_cut(lm7, JAX_GATE_LAYERS):
+        ref2 = serve(lm7)[:2]
+        # the same check at two layers: how much of the gap 28 random layers amplify
+        greedy[f"bf16, {JAX_GATE_LAYERS} layers"] = greedy_check(
+            lm7, ref2[0], ref2[1], f"bf16, {JAX_GATE_LAYERS} layers")
+        for cd in ("int8", "int4"):
+            quality[f"{cd} KV"][f"{JAX_GATE_LAYERS} layers"] = pooled_cosine(
+                ref2, serve(lm7, cache_dtype=cd))
+    print(f"quantized KV, pooled-logit cosine and token share to bf16: {quality}")
+    cos8 = quality["int8 KV"][f"{JAX_GATE_LAYERS} layers"][0]
+    if not cos8 > INT8_CACHE_COS:
+        fail(f"7B widths, {JAX_GATE_LAYERS} layers, int8 KV: pooled-logit cosine {cos8} to the "
+             f"bf16 engine (gate {INT8_CACHE_COS})")
+    torch.cuda.synchronize()
+
+    # the scores' product: fp32 accumulators out of a bf16 product (out_dtype)
+    # against the cache copied to fp32 first, one layer's kv-heads at 8 slots
+    qs_ = torch.randn(DECODE["slots"], cfg7.num_attention_heads // cfg7.num_key_value_heads,
+                      cfg7.head_dim, device=dev, dtype=torch.bfloat16)
+    ks_ = torch.randn(DECODE["slots"], DECODE["capacity"], cfg7.num_key_value_heads * cfg7.head_dim,
+                      device=dev, dtype=torch.bfloat16)
+    heads_ = [ks_[:, :, g_ * cfg7.head_dim:(g_ + 1) * cfg7.head_dim].transpose(1, 2)
+              for g_ in range(cfg7.num_key_value_heads)]
+    score_ms = {
+        "out_dtype": time_ms(lambda: [LM._scores(qs_, k_) for k_ in heads_]),
+        "cast to fp32": time_ms(lambda: [torch.bmm(qs_.float(), k_.float()) for k_ in heads_]),
+        "bf16 scores": time_ms(lambda: [torch.bmm(qs_, k_) for k_ in heads_])}
+    del qs_, ks_, heads_
+
+    def decode_rate(m_, slots, label):
+        """ms a tick and tokens/s of `slots` active streams at steady state,
+        and a profiled window: device busy ms and launches a step."""
+        eng = DecodeEngine(m_, slots=slots, capacity=DECODE["capacity"],
+                           prefill_buckets=DECODE["buckets"],
+                           max_new_tokens=DECODE["capacity"])
+        for i_ in range(slots):
+            eng.open_tokens(d_prompts[i_ % len(d_prompts)])
+        while eng._pending or eng._inflight is not None:
+            eng.tick()
+        for _ in range(4):
+            eng.tick()
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        for _ in range(DECODE["timed_ticks"]):
+            eng.tick()
+        torch.cuda.synchronize()
+        tick_s = (time.perf_counter() - t0_) / DECODE["timed_ticks"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(DECODE["profiled_ticks"]):
+                eng.tick()
+            torch.cuda.synchronize()
+        rows_ = device_rows(prof)
+        busy = sum(e_.device_time_total for e_ in rows_) / DECODE["profiled_ticks"] / 1e3
+        launches_ = sum(e_.count for e_ in rows_) / DECODE["profiled_ticks"]
+        top = sorted(rows_, key=lambda e_: -e_.device_time_total)[:4]
+        kv_bytes = sum(2 * cfg7.num_hidden_layers * int(n_) * cfg7.num_key_value_heads
+                       * cfg7.head_dim * 2 for n_ in eng._host_len[:slots])
+        wb = sum(p_.numel() * p_.element_size() for n_, p_ in m_.named_parameters()
+                 if "embed_tokens" not in n_) + sum(
+            b_.numel() * b_.element_size() for n_, b_ in m_.named_buffers()
+            if n_.endswith(("weight", "weight_scale")))
+        bound = (wb + kv_bytes) / HBM_BYTES_PER_S * 1e3
+        print(f"decode {label} ({smi}), {slots} slots, capacity {DECODE['capacity']}, cache "
+              f"lengths {int(eng._host_len[:slots].min())}-{int(eng._host_len[:slots].max())}: "
+              f"{tick_s * 1e3:.3f} ms a tick, {slots / tick_s:.1f} tokens/s; device busy "
+              f"{busy:.3f} ms a step ({busy / (tick_s * 1e3) * 100:.1f} % of the tick), "
+              f"{launches_:.0f} launches a step; bound {bound:.3f} ms (weights "
+              f"{wb / 2**30:.2f} GiB + the KV read {kv_bytes / 2**20:.1f} MiB over 3.35 TB/s); "
+              "top: " + ", ".join(f"{e_.key[:32]} {e_.device_time_total / DECODE['profiled_ticks'] / 1e3:.3f}"
+                                  for e_ in top))
+        del eng
+        return tick_s, busy, launches_, bound
+
+    rates = {("bf16", s_): decode_rate(lm7, s_, "bf16")
+             for s_ in (DECODE["slots"], DECODE["wide_slots"])}
+    peng = DecodeEngine(lm7, slots=1, capacity=DECODE["capacity"],
+                        prefill_buckets=DECODE["buckets"])
+    prefill_rate = {}
+    for lb in DECODE["buckets"]:
+        ids_ = torch.from_numpy(drng.integers(0, cfg7.vocab_size, (1, lb))).to(dev)
+        ms_ = time_ms(lambda: peng._prefill_chunk(ids_, True, 0, 0, lb, 0), iters=5)
+        prefill_rate[lb] = (ms_, lb / ms_ * 1e3)
+    del peng
+    print(f"Qwen2.5-7B-width LM ({smi}): {n_params / 1e9:.3f} B parameters drawn on the card in "
+          f"{build_s:.2f} s; {DECODE['requests']} requests of {plens.min()}-{plens.max()} prompt "
+          f"ids and {budgets.min()}-{budgets.max()} new tokens over {DECODE['slots']} slots in "
+          f"{serve_s:.2f} s ({eng7.stats['admits']} admits, {eng7.stats['decode_steps']} decode "
+          f"steps, prefill chunks {eng7.stats['prefill_chunks']}); greedy checks (largest "
+          f"|dlogit| to the lone forward, share of positions decided, share equal, positions) "
+          f"{greedy}; k=4 ticks equal k=1 ({eng_k4.stats['decode_by_k']}); pooled-logit cosine "
+          f"and token share to bf16 {quality} (the JAX gates at {JAX_GATE_LAYERS} layers: int8 > "
+          f"{INT8_CACHE_COS}; int4's {INT4_CACHE_COS}, not met by the reference's int4 at "
+          f"head_dim 128, ROADMAP section 3); scores ms a layer (4 kv-heads, 8 slots, C={DECODE['capacity']}) "
+          f"{ {k_: round(v_, 4) for k_, v_ in score_ms.items()} }; prefill ms and tokens/s by "
+          f"bucket { {k_: (round(a_, 3), round(b_, 1)) for k_, (a_, b_) in prefill_rate.items()} }")
+    del eng7, eng_k4
+
+    # ---- 27. VideoQA: the flagship tower, the projector, the 7B LM; VideoQAServer over HTTP
+    t27 = time.perf_counter()
+    vtower = TimesformerVisionTower(model, streaming_mode=False)
+    vproj = VQ.init_mm_projector(cfg.hidden_size, cfg7.hidden_size, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(27))
+    vqa = VQ.LlavaQwenModel(vtower, lm7, vproj)
+    vrng = np.random.default_rng(27)
+    qa_frames = [vrng.standard_normal((VQA["frames"], 3, cfg.image_size, cfg.image_size))
+                 .astype(np.float32) for _ in range(2)]
+    qa_ids = [np.concatenate([vrng.integers(0, cfg7.vocab_size, (VQA["system"],)),
+                              [VQ.IMAGE_TOKEN_INDEX],
+                              vrng.integers(0, cfg7.vocab_size, (VQA["question"],))])
+              for _ in range(2)]
+    qa_kw = dict(slots=2, capacity=VQA["capacity"], max_new_tokens=VQA["max_new"],
+                 prefill_buckets=VQA["buckets"])
+    srv = VideoQAServer(vqa, port=0, **qa_kw).start()
+
+    def qa_request(method, path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}", data=data,
+                                     method=method, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    answers, round_trip, qa_errors = {}, {}, []
+
+    def qa_client(i):
+        try:
+            t0_ = time.perf_counter()
+            rid = qa_request("POST", "/qa", {
+                "prompt_ids": qa_ids[i].tolist(),
+                "frames_b64": base64.b64encode(qa_frames[i].tobytes()).decode(),
+                "shape": list(qa_frames[i].shape)})["rid"]
+            toks, deadline = [], time.time() + 300
+            while time.time() < deadline:
+                r = qa_request("GET", f"/qa/{rid}/tokens")
+                toks += r["tokens"]
+                if r["done"]:
+                    answers[i], round_trip[i] = toks, time.perf_counter() - t0_
+                    return
+                time.sleep(0.005)
+            qa_errors.append(f"client {i}: request {rid} never finished")
+        except Exception as e:  # reported below: the phase fails
+            qa_errors.append(f"client {i}: {e!r}")
+
+    try:
+        ops.reset_launches()
+        clients = [threading.Thread(target=qa_client, args=(i,)) for i in range(2)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        torch.cuda.synchronize()
+        vqa_launches = dict(ops.LAUNCHES)
+    finally:
+        srv.stop()
+    if qa_errors or len(answers) != 2:
+        fail(f"VideoQA server: {qa_errors or answers.keys()}")
+    want = {**zeros, "spatial_flat": 2 * L, "temporal_fullclip": 2 * L}
+    if vqa_launches != want:
+        fail(f"VideoQA server launches {vqa_launches}, not {want} (B and C L times an encode)")
+    # the in-process engine on the same spliced prompts
+    q_eng = DecodeEngine(lm7, **qa_kw)
+    q_sids = [q_eng.open(vqa.prompt_embeds(qa_ids[i], torch.from_numpy(qa_frames[i])[None]))
+              for i in range(2)]
+    q_eng.run_until_idle()
+    in_process = [q_eng.poll(s_)[0] for s_ in q_sids]
+    if [answers[0], answers[1]] != in_process:
+        fail(f"VideoQA server tokens {answers} differ from the in-process engine's {in_process}")
+    # generate on a streaming linear tower (C=16): the frames through kernel E
+    stower = TimesformerVisionTower(model, cfg=cfg.replace(cache_mode="linear",
+                                                           cache_capacity=VQA["frames"],
+                                                           streaming_mode=True))
+    svqa = VQ.LlavaQwenModel(stower, lm7, vproj)
+    ops.reset_launches()
+    s_answer = svqa.generate(qa_ids[0], torch.from_numpy(qa_frames[0])[None],
+                             max_new_tokens=VQA["max_new"])
+    torch.cuda.synchronize()
+    stream_launches = dict(ops.LAUNCHES)
+    if not stream_launches["temporal_append_pm_ragged"] or s_answer.shape != (1, VQA["max_new"]):
+        fail(f"streaming-tower generate: launches {stream_launches}, answer {s_answer.shape}")
+    add(vqa_launches, stream_launches)
+    print(f"VideoQA ({smi}): flagship tower (non-streaming, {VQA['frames']} frames of "
+          f"{cfg.image_size}^2), projector {cfg.hidden_size}->{cfg7.hidden_size}, the 7B LM; "
+          f"VideoQAServer, 2 clients at once: tokens equal the in-process engine's "
+          f"({[len(a_) for a_ in in_process]} tokens, spliced prompts of "
+          f"{[len(i_) - 1 + VQA['frames'] for i_ in qa_ids]}); round trip "
+          f"{[round(round_trip[i] * 1e3, 1) for i in range(2)]} ms; server launches "
+          f"{ {k_: v_ for k_, v_ in vqa_launches.items() if v_} } with the streaming linear "
+          f"tower's generate (E {stream_launches['temporal_append_pm_ragged']}); its answer "
+          f"{'equals' if s_answer[0].tolist() == in_process[0] else 'differs from'} the "
+          f"full-clip tower's ({time.perf_counter() - t27:.1f} s)")
+    del q_eng, stower, svqa, vtower, vqa
+
+    # ---- 26 again, int8 weights with the int8 lm_head
+    quant.quantize_lm(lm7)
+    torch.cuda.empty_cache()
+    if not isinstance(lm7.lm_head, quant.Int8Linear):
+        fail("quantize_lm left the 7B lm_head float")
+    run8 = serve(lm7)
+    greedy["int8 weights"] = greedy_check(lm7, run8[0], run8[1], "int8 weights")
+    quality["int8 weights"] = {"28 layers": pooled_cosine((toks7, logits7), run8)}
+    del run8
+    with depth_cut(lm7, JAX_GATE_LAYERS):
+        quality["int8 weights"][f"{JAX_GATE_LAYERS} layers"] = pooled_cosine(ref2, serve(lm7))
+    cos8 = quality["int8 weights"][f"{JAX_GATE_LAYERS} layers"][0]
+    if not cos8 > INT8_WEIGHTS_LM_COS:
+        fail(f"7B widths, {JAX_GATE_LAYERS} layers, int8 weights: pooled-logit cosine {cos8} "
+             f"(gate {INT8_WEIGHTS_LM_COS})")
+    rates.update({("int8", s_): decode_rate(lm7, s_, "int8 weights")
+                  for s_ in (DECODE["slots"], DECODE["wide_slots"])})
+    print(f"7B int8 weights with the int8 lm_head ({smi}): greedy check "
+          f"{greedy['int8 weights']}; pooled-logit cosine and token share to bf16 "
+          f"{quality['int8 weights']} (the JAX gate at {JAX_GATE_LAYERS} layers: > "
+          f"{INT8_WEIGHTS_LM_COS}); peak memory of phases 26-27 "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phases 25-27 "
+          f"{time.perf_counter() - t_lm:.1f} s")
+    del lm7, logits7, ref2, vproj
+    torch.cuda.empty_cache()
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -2246,7 +2747,7 @@ def main():
         count = sum(path[name] for path in  # encode, engine, their int8 runs, training, then
                     (launches, engine_launches, int8_launches, int8_engine_launches,  # the later
                      train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'
-                     l_launches, entry_launches, dist_launches))
+                     l_launches, entry_launches, dist_launches, vqa_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             device_ms=row["device_ms"], plain_ms=row["plain_ms"],

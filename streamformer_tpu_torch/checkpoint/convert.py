@@ -19,7 +19,11 @@ quantized at the same threshold (``quant.quantize_encoder``).
 holds, and ``multitask_from_jax`` the whole ``MultitaskModel`` tree
 (``backbone``, ``text``, ``logit_scale``, ``logit_bias``) to the state dict
 of the port's ``MultitaskModel``, so both packages train from the same
-weights. The maps are linear (transposes, reshapes, concatenations and
+weights. ``lm_params_from_jax`` maps the JAX language model's tree (float,
+or int8 from ``quantize_encoder_params``: ``kernel_q`` leaves and the
+untied head's ``lm_head_q`` / ``lm_head_scale``) to the HF names of
+``models.language_model.LanguageModel``, and ``projector_params_from_jax``
+the VideoQA projector to ``downstream.videoqa.MMProjector``. The maps are linear (transposes, reshapes, concatenations and
 renames), so they carry a JAX gradient tree to the port's names as well.
 """
 
@@ -149,3 +153,44 @@ def multitask_from_jax(params: Mapping[str, Any], cfg: StreamformerConfig) -> Di
     sd["logit_scale"] = torch.tensor(_a(params["logit_scale"]).reshape(()))
     sd["logit_bias"] = torch.tensor(_a(params["logit_bias"]).reshape(()))
     return sd
+
+
+def lm_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX language-model parameter tree (numpy leaves) -> the state dict of
+    ``LanguageModel`` (fp32, or int8 codes with fp32 scales for the dense
+    layers and head of a quantized tree; load that into a model quantized at
+    the same threshold, ``quant.quantize_lm``)."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def dense(name, p):
+        if "kernel_q" in p:
+            sd[name + ".weight"] = _q(p)
+            sd[name + ".weight_scale"] = _a(p["kernel_scale"])
+        else:
+            sd[name + ".weight"] = _t(p["kernel"])
+        if "bias" in p:
+            sd[name + ".bias"] = _a(p["bias"])
+
+    sd["model.embed_tokens.weight"] = _a(params["embed_tokens"])
+    for i, layer in enumerate(params["layers"]):
+        lp = f"model.layers.{i}."
+        sd[lp + "input_layernorm.weight"] = _a(layer["input_layernorm"])
+        sd[lp + "post_attention_layernorm.weight"] = _a(layer["post_attention_layernorm"])
+        for key in "qkvo":
+            dense(lp + f"self_attn.{key}_proj", layer["attn"][key])
+        for key in ("gate", "up", "down"):
+            dense(lp + f"mlp.{key}_proj", layer["mlp"][key])
+    sd["model.norm.weight"] = _a(params["norm"])
+    if "lm_head_q" in params:
+        sd["lm_head.weight"] = _q({"kernel_q": params["lm_head_q"]})
+        sd["lm_head.weight_scale"] = _a(params["lm_head_scale"])
+    elif "lm_head" in params:
+        sd["lm_head.weight"] = _t(params["lm_head"])
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def projector_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``mlp2x_gelu`` projector tree -> ``MMProjector``'s state dict."""
+    return {f"{fc}.{leaf}": torch.tensor(_t(params[fc]["kernel"]) if leaf == "weight"
+                                         else _a(params[fc]["bias"]))
+            for fc in ("fc1", "fc2") for leaf in ("weight", "bias")}

@@ -15,11 +15,12 @@ path; nothing here has a backward.
 * ``int8_dense``: quantize x per row, s8 x s8 -> s32 product, ``fp32 * xs *
   w_scale``, cast to x's dtype, add the bias in that dtype, add the LoRA
   delta unquantized: the JAX package's order, step for step.
-* ``quantize_encoder``: swap every large dense layer of a
-  ``StreamformerEncoder`` for an ``Int8Linear``, as
-  ``quantize_encoder_params`` walks the JAX tree.
+* ``quantize_encoder`` / ``quantize_lm``: swap every large dense layer of a
+  ``StreamformerEncoder`` or a ``LanguageModel`` (its untied ``lm_head``
+  too) for an ``Int8Linear``, as ``quantize_encoder_params`` walks the JAX
+  tree.
 * ``quantize_kv4`` / ``dequantize_kv4``: int4 over the head dim, two codes a
-  byte.
+  byte (the LM's ``cache_dtype="int4"``).
 
 Every division by a constant divides by a device tensor: on the card
 ``x / 127.0`` with a Python divisor is a multiply by the reciprocal, one fp32
@@ -158,12 +159,7 @@ def quantize_encoder(model: nn.Module, min_elements: Optional[int] = None) -> nn
     fp32 tree; codes can then differ by one. Load a quantized JAX tree with
     ``checkpoint.params_from_jax`` (after quantizing at the same threshold)
     to take its codes as they are."""
-    limit = MIN_KERNEL_ELEMENTS if min_elements is None else min_elements
-    for parent in list(model.modules()):
-        for name, child in list(parent.named_children()):
-            if (isinstance(child, nn.Linear) and not name.endswith(("_lora_a", "_lora_b"))
-                    and child.weight.numel() >= limit):
-                setattr(parent, name, Int8Linear.from_linear(child))
+    limit = _quantize_linears(model, min_elements)
     attn = model.head.attention
     d = attn.in_proj_weight.shape[1]
     if attn.in_proj_weight.dtype != torch.int8 and d * d >= limit:
@@ -171,6 +167,31 @@ def quantize_encoder(model: nn.Module, min_elements: Optional[int] = None) -> nn
         del attn.in_proj_weight
         attn.register_buffer("in_proj_weight", codes)
         attn.register_buffer("in_proj_weight_scale", scale)
+    return model
+
+
+def _quantize_linears(model: nn.Module, min_elements: Optional[int]) -> int:
+    """Swap, in place, every ``nn.Linear`` but a LoRA factor with at least
+    ``min_elements`` weight elements for an ``Int8Linear``; returns the
+    threshold used."""
+    limit = MIN_KERNEL_ELEMENTS if min_elements is None else min_elements
+    for parent in list(model.modules()):
+        for name, child in list(parent.named_children()):
+            if (isinstance(child, nn.Linear) and not name.endswith(("_lora_a", "_lora_b"))
+                    and child.weight.numel() >= limit):
+                setattr(parent, name, Int8Linear.from_linear(child))
+    return limit
+
+
+@torch.no_grad()
+def quantize_lm(model: nn.Module, min_elements: Optional[int] = None) -> nn.Module:
+    """Quantize, IN PLACE, the dense layers of a ``LanguageModel`` as the JAX
+    package's ``quantize_encoder_params`` walks its LM tree: every attention
+    q/k/v/o and SwiGLU gate/up/down with at least ``min_elements`` weight
+    elements, and the untied ``lm_head`` (the largest decode product; the
+    JAX tree's ``lm_head_q`` / ``lm_head_scale``). The embedding table, a
+    tied head and the norms stay float. Returns the model."""
+    _quantize_linears(model, min_elements)
     return model
 
 

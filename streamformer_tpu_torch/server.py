@@ -1,15 +1,17 @@
-"""HTTP front end over the PyTorch serving engine.
+"""HTTP front ends over the PyTorch serving engines.
 
-Port of the ``StreamingServer`` half of the JAX package's ``server.py``: a
-stdlib ``ThreadingHTTPServer`` over ``serving.StreamingEngine``. Request
-handlers run on the server's thread pool, but every engine call, and so all
-device work, runs on ONE actor thread through a command queue. The actor
-ticks the engine whenever ``engine.has_work()`` says a tick would make
-progress, and otherwise blocks on the queue, so an idle server burns no
-cycles. The engine's tick runs under ``torch.no_grad()`` on that thread
-(grad mode is thread-local, so a caller's ``no_grad`` does not reach it).
+Port of the JAX package's ``server.py``: stdlib ``ThreadingHTTPServer``s
+over ``serving.StreamingEngine`` (streaming encode) and
+``lm_serving.DecodeEngine`` (generation; ``VideoQAServer`` runs the vision
+tower and the splice in front of it). Request handlers run on the server's
+thread pool, but every engine call, and so all device work, runs on ONE
+actor thread through a command queue. The actor ticks the engine whenever
+``engine.has_work()`` says a tick would make progress, and otherwise blocks
+on the queue, so an idle server burns no cycles. The engine's tick runs
+under ``torch.no_grad()`` on that thread (grad mode is thread-local, so a
+caller's ``no_grad`` does not reach it).
 
-Routes (frames are base64 of raw float32 or uint8 (t, C, H, W)):
+StreamingServer routes (frames are base64 of raw float32 or uint8 (t, C, H, W)):
 
     POST /streams                      -> {"sid": int}
     POST /streams/<sid>/frames  {"frames_b64", "shape", "dtype"} -> {"ok"}
@@ -17,10 +19,22 @@ Routes (frames are base64 of raw float32 or uint8 (t, C, H, W)):
     GET  /streams/<sid>/features       -> {"features": [[...]], "done"}
     GET  /healthz                      -> {"ok", "slots", occupancy}
 
-Features are drained incrementally (the ``poll`` contract): each GET
-returns what was produced since the previous one. Errors: an engine
-rejection (bad input, overflow, unknown stream) is a 400 with the message;
-a dead engine actor is a 503 on every route; an unknown route is a 404.
+DecodeServer routes (prompt embeddings as base64 of raw float32 (L, D); build
+them with ``LlavaQwenModel.prompt_embeds`` for a vision-spliced prompt):
+
+    POST /requests  {"embeds_b64", "shape", "dtype"?, "max_new_tokens"?}
+                                       -> {"rid": int}
+    GET  /requests/<rid>/tokens        -> {"tokens": [...], "done"}
+    GET  /healthz                      -> {"ok", "slots", occupancy}
+
+VideoQAServer routes: ``POST /qa`` (``prompt_ids``, ``frames_b64``,
+``shape``, ``dtype``?, ``max_new_tokens``?) and ``GET /qa/<rid>/tokens``.
+
+Features and tokens are drained incrementally (the ``poll`` contract): each
+GET returns what was produced since the previous one. Errors: an engine
+rejection (bad input, overflow, unknown stream or request) is a 400 with the
+message; a dead engine actor is a 503 on every route; an unknown route is a
+404.
 """
 
 from __future__ import annotations
@@ -33,11 +47,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
+from streamformer_tpu_torch.lm_serving import DecodeEngine
 from streamformer_tpu_torch.models.encoder import StreamformerEncoder
 from streamformer_tpu_torch.serving import StreamingEngine
 
-__all__ = ["StreamingServer"]
+__all__ = ["StreamingServer", "DecodeServer", "VideoQAServer"]
 
 
 class _EngineActor:
@@ -269,3 +285,110 @@ class StreamingServer(_HTTPServerBase):
                 self._guarded(run)
 
         return self._start_http(Handler)
+
+
+class DecodeServer(_HTTPServerBase):
+    """Serve generation (``lm_serving.DecodeEngine`` over a
+    ``LanguageModel``) over HTTP, on the same one-actor design as
+    ``StreamingServer``."""
+
+    _PREFIX = "requests"
+
+    def __init__(self, model, host: str = "127.0.0.1", port: int = 0, **engine_kw):
+        super().__init__(host, port)
+        self._engine = DecodeEngine(model, **engine_kw)
+
+    @staticmethod
+    def _op_open(e, emb, max_new):
+        return e.open(emb, max_new_tokens=max_new)
+
+    @staticmethod
+    def _op_poll(e, rid):
+        return e.poll(rid)
+
+    @staticmethod
+    def _op_stats(e):
+        return {"slots_occupied": sum(s is not None for s in e._slot_sid),
+                "pending": len(e._pending)}
+
+    def _post_open(self, body: dict) -> int:
+        """Parse a submission on the HTTP thread and admit it on the actor;
+        device work belongs in the actor op. Subclasses override."""
+        raw = base64.b64decode(body["embeds_b64"])
+        emb = np.frombuffer(raw, dtype=np.dtype(body.get("dtype", "float32"))).reshape(body["shape"])
+        return self._actor.call(self._op_open, emb, body.get("max_new_tokens"))
+
+    def start(self):
+        self._actor = _EngineActor(self._engine, self._engine.has_work)
+        server = self
+
+        class Handler(_JSONHandler):
+            def do_POST(self):
+                parts = [p for p in self.path.split("/") if p]
+
+                def run():
+                    if parts == [server._PREFIX]:
+                        return self._json(200, {"rid": server._post_open(self._body())})
+                    return None  # 404
+
+                self._guarded(run)
+
+            def do_GET(self):
+                parts = [p for p in self.path.split("/") if p]
+
+                def run():
+                    if parts == ["healthz"]:
+                        return self._json(200, server._healthz_payload(server._engine.slots,
+                                                                       server._op_stats))
+                    if len(parts) == 3 and parts[0] == server._PREFIX and parts[2] == "tokens":
+                        try:
+                            rid = int(parts[1])
+                        except ValueError:  # a non-numeric id is a 404
+                            return None
+                        toks, done = server._actor.call(server._op_poll, rid)
+                        return self._json(200, {"tokens": [int(t) for t in toks],
+                                                "done": bool(done)})
+                    return None  # 404
+
+                self._guarded(run)
+
+        return self._start_http(Handler)
+
+
+class VideoQAServer(DecodeServer):
+    """VideoQA as a service: video frames and a question in, tokens out.
+
+    ``prompt_ids`` are the tokenizer's ids with ``IMAGE_TOKEN_INDEX``
+    placeholders; frames are base64 of raw float32 (T, C, H, W), already
+    preprocessed. The server runs the vision tower, the projector and the
+    splice (``LlavaQwenModel.prompt_embeds``) and admits the request into
+    the ``DecodeEngine``. All device work, the frames' upload and the
+    tower's encode included, runs in the actor op on the one engine thread.
+
+    The tower must not stream: a streaming tower holds one session's
+    context, which independent concurrent requests would share (and a
+    linear-cache tower would refuse all traffic once its capacity filled)."""
+
+    _PREFIX = "qa"
+
+    def __init__(self, model, host: str = "127.0.0.1", port: int = 0, **engine_kw):
+        if getattr(model.tower, "streaming_mode", False):
+            raise ValueError(
+                "VideoQAServer requires a non-streaming tower "
+                "(TimesformerVisionTower(..., streaming_mode=False)): streaming towers hold "
+                "per-session context that would leak across independent HTTP requests"
+            )
+        _HTTPServerBase.__init__(self, host, port)
+        self._model = model  # downstream.videoqa.LlavaQwenModel
+        self._engine = DecodeEngine(model.lm, **engine_kw)
+
+    def _op_ask(self, e, prompt_ids, frames, max_new):
+        emb = self._model.prompt_embeds(prompt_ids, torch.from_numpy(frames.copy())[None])
+        return e.open(emb, max_new_tokens=max_new)
+
+    def _post_open(self, body: dict) -> int:
+        raw = base64.b64decode(body["frames_b64"])
+        frames = np.frombuffer(raw, dtype=np.dtype(body.get("dtype", "float32"))).reshape(
+            body["shape"])
+        ids = np.asarray(body["prompt_ids"], np.int64)
+        return self._actor.call(self._op_ask, ids, frames, body.get("max_new_tokens"))

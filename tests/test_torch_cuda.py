@@ -1221,3 +1221,83 @@ def test_loader_feeds_the_trainer_on_the_card_from_pinned_memory():
     assert state.step == 2 and np.isfinite(stats["loss"])
     for name in ("spatial_flat", "temporal_fullclip", "spatial_flat_bwd", "temporal_fullclip_bwd"):
         assert ops.LAUNCHES[name] == 4 * cfg.num_hidden_layers, (name, dict(ops.LAUNCHES))
+
+
+# ---- the language model and its engine (VideoQA's serving path): the card
+# against the CPU at a small fp32 config. Tolerances: 1e-4 (fp32, summation
+# order only); greedy tokens exactly.
+
+from streamformer_tpu_torch.lm_serving import DecodeEngine  # noqa: E402
+from streamformer_tpu_torch.models import language_model as LM  # noqa: E402
+from streamformer_tpu_torch.ops import quant  # noqa: E402
+
+LM_SMALL = LM.LMConfig(vocab_size=96, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                       num_attention_heads=8, num_key_value_heads=2, rope_theta=10000.0,
+                       tie_word_embeddings=False, dtype="float32")
+
+
+def _lm_pair(quantize=False):
+    cpu = LM.LanguageModel(LM_SMALL, device="cpu", generator=torch.Generator().manual_seed(0))
+    if quantize:
+        quant.quantize_lm(cpu, min_elements=0)
+    card = LM.LanguageModel(LM_SMALL, device="cuda")
+    if quantize:
+        quant.quantize_lm(card, min_elements=0)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+@pytest.mark.parametrize("case", ["lockstep", "ragged", "int8_kv", "int4_kv", "int8_weights"])
+def test_lm_forward_on_the_card_matches_the_cpu(case):
+    """A prefill of 7 then a ragged step at depths 7, 3 and 0 (the last an
+    append clamped at the capacity edge: length 16 of 16)."""
+    cpu, card = _lm_pair(quantize=case == "int8_weights")
+    cd = {"int8_kv": "int8", "int4_kv": "int4"}.get(case)
+    emb = _randn((3, 7, 64), torch.float32, 1).cpu()
+    step = _randn((3, 1, 64), torch.float32, 2).cpu()
+    outs = []
+    for m in (cpu, card):
+        dev = m.device
+        c = LM.init_cache(LM_SMALL, 3, 16, per_stream_len=case != "lockstep", cache_dtype=cd,
+                          device=dev)
+        o1, c = LM.forward(m, emb.to(dev), cache=c)
+        if case != "lockstep":
+            c["len"] = torch.tensor([7, 3, 16], device=dev)
+        o2, c = LM.forward(m, step.to(dev), cache=c)
+        outs.append((o1["logits"].cpu(), o2["logits"].cpu(), c["layers"][1]["v"].float().cpu()))
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_lm_scores_keep_fp32_accumulators_on_the_card():
+    """A bf16 cache's scores come out of the product in fp32 (``out_dtype``),
+    equal to the fp32 product of the bf16 values within fp32 summation
+    order, not rounded to bf16."""
+    q = _randn((4, 7, 128), torch.bfloat16, 3)
+    k = _randn((4, 64, 128), torch.bfloat16, 4)
+    s = LM._scores(q, k.transpose(1, 2))
+    ref = torch.bmm(q.float(), k.float().transpose(1, 2))
+    assert s.dtype == torch.float32 and (s - ref).abs().max().item() <= 1e-4
+    assert (s - s.bfloat16().float()).abs().max().item() > 0
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(decode_steps_per_tick=4),
+                                dict(cache_dtype="int8"), dict(temperature=0.8, top_p=0.9)],
+                         ids=["greedy", "k4", "int8_kv", "sampled"])
+def test_decode_engine_on_the_card_matches_the_cpu(kw):
+    """6 requests of 3-20 tokens over 3 slots, chunked prefill (buckets 4 and
+    8), slot recycling: the same tokens on both devices (sampled too: the
+    draws are a hash of (seed, sid, n), and fp32 logits agree far inside
+    the Gumbel gaps at this size)."""
+    cpu, card = _lm_pair()
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 96, (n,)) for n in (3, 11, 20, 5, 8, 2)]
+    outs = []
+    for m in (cpu, card):
+        eng = DecodeEngine(m, slots=3, capacity=32, max_new_tokens=6, prefill_buckets=(4, 8),
+                           seed=3, **kw)
+        sids = [eng.open_tokens(p) for p in prompts]
+        eng.run_until_idle()
+        outs.append([eng.poll(s) for s in sids])
+    assert outs[0] == outs[1]
+    assert all(done and len(t) == 6 for t, done in outs[1])
