@@ -169,9 +169,34 @@ Phases, each fatal on failure:
     ``VideoQAServer`` on 127.0.0.1 with two concurrent clients posting
     ``/qa``, their tokens equal to the in-process engine's on the same
     spliced prompts, each request's round trip; then ``generate`` on a
-    streaming linear tower (C=16) through kernel E.
+    streaming linear tower (C=16) through kernel E;
+28. VideoQA training (``downstream.videoqa``, ``videoqa_run``): a small fp32
+    ``VideoQAModel`` (SMALL_CONFIG's tower, LM_SMALL) on the card against
+    the same on the CPU, two steps each of stages 1, 2 and 3 and of DPO,
+    losses, DPO metrics and every parameter within 1e-4, frozen parts bit
+    for bit; stage 3 at full width (the flagship tower, bf16 over fp32
+    masters; the projector 768 -> 896; the LM at Qwen2.5-0.5B's widths,
+    151,936 vocab, 896 hidden, 24 layers, 14 / 2 heads of 64, tied; max_len
+    256): 12 steps on one repeated seeded sample, finite and falling losses,
+    B, C, H and I L times a step, ms per step, samples/s, device busy and
+    launches a step (a 4-step profile), the peak memory; DPO at those
+    widths (reward accuracy rising on a repeated pair, B and C 2L times a
+    step, H and I L); stage 1 at Qwen2.5-7B widths (phase 26's LM redrawn
+    from its seed, and phase 4's tower, both frozen: bit for bit unchanged,
+    B and C only); ``videoqa_run.train`` on in-memory clips (an epoch of
+    stage 3 and its checkpoint), then ``--eval --ckpt``: the checkpoint
+    restored into a fresh model bit for bit, answers written through the
+    ``DecodeEngine`` (E on the streaming tower, a two-turn row re-opened);
+29. action recognition (``downstream.ar``, ``ar_run``): a small fp32 step
+    (mixup, EMA, layer decay) on the card against the CPU within 1e-4;
+    ``ar_run.train`` on in-memory uint8 clips at the CLI's defaults (the
+    flagship encoder, bf16, 400 classes, batch 16 of 16 frames of 224^2,
+    mixup 0.8, cutmix 1.0, smoothing 0.1, EMA 0.9999, layer decay 0.75): 8
+    steps, B, C, H and I L times each, validation of the model and its
+    EMA, the multi-view test of 4 segments x 3 crops and a checkpoint;
+    clips/s, ms per step and the peak memory.
 
-Twelve paths are main paths: the lockstep encode (the launch counters are
+Fourteen paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
@@ -184,8 +209,13 @@ before phase 21's forward and gradient step), and the training entry point
 (zeroed before phase 23's uninterrupted run, read after it), and the mesh
 trainer (zeroed before phase 24's warm-up, read after its timed epoch),
 and VideoQA (zeroed before phase 27's server run, read after it: B and C L
-times an encode; then before the streaming tower's ``generate``: E).
-Every kernel must have run on its path.
+times an encode; then before the streaming tower's ``generate``: E), and
+VideoQA training (zeroed before phase 28's timed stage-3 steps and read
+after the profiled ones; zeroed before the timed DPO steps, the timed
+stage-1 steps, ``videoqa_run.train`` and ``run_eval``, each read after
+it), and AR fine-tuning (zeroed before phase 29's ``ar_run.train``, read
+after it and around each of its steps). Every kernel must have run on its
+path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -339,6 +369,31 @@ INT4_CACHE_COS, INT8_WEIGHTS_LM_COS, JAX_GATE_LAYERS = 0.995, 0.99, 2
 GREEDY_DECIDED_MIN = 0.1
 # phase 27: two questions on 16 frames each, a prompt of 24 + <image> + 16 ids
 VQA = dict(frames=16, system=24, question=16, max_new=16, capacity=128, buckets=(32, 64))
+# phases 28-29: the downstream training paths. VideoQA stages 2-3 and DPO at
+# Qwen2.5-0.5B's published widths (Qwen/Qwen2.5-0.5B-Instruct config.json; the
+# JAX CLI's defaults): 7B widths need optimizer state sharded over cards
+LM_05B = dict(vocab_size=151936, hidden_size=896, intermediate_size=4864, num_hidden_layers=24,
+              num_attention_heads=14, num_key_value_heads=2, max_position_embeddings=32768,
+              rope_theta=1e6, rms_norm_eps=1e-6, tie_word_embeddings=True, attention_bias=True,
+              dtype="bfloat16")
+# one sample: 24 system ids, <image> (16 frame tokens), 16 question ids, a
+# 32-id answer (the labels), padded to max_len; steps, the timed and the
+# profiled among them; DPO steps; stage 1 at 7B widths; the CLI's rows
+VQA_TRAIN = dict(max_len=256, system=24, question=16, answer=32, steps=12, warmup=4, timed=4,
+                 profiled=4, dpo_steps=6, dpo_timed=4, s1_steps=6, s1_timed=4, cli_rows=4,
+                 cli_new=8)
+# the small fp32 VideoQA model of phase 28a: SMALL_CONFIG's tower, LM_SMALL
+TRAIN_VS_CPU_TOL = 1e-4  # losses, DPO metrics and parameters, fp32: summation order only
+# each step's gradients of a trained part, card vs CPU, relative to the part's
+# largest: at lrs of 2e-5 and 2e-6 a parameter moves too little for the
+# parameters' check to see a wrong gradient (the tower's through H and I)
+TRAIN_GRAD_RTOL = 1e-4
+# phase 29: action recognition on Kinetics-400's classes at the CLI's defaults
+# (batch 16, 16 frames of 224^2), 8 steps from 16 distinct in-memory clips of
+# 256x320 uint8 frames; validation on one batch; the final test on 2 clips of
+# 4 segments x 3 crops
+AR = dict(classes=400, batch=16, steps=8, clips=16, height=256, width=320, val_clips=16,
+          test_clips=2, segments=4, crops=3, lr=2e-4, small_classes=10, small_batch=4)
 DEVICE = "cuda"
 
 
@@ -2728,6 +2783,469 @@ def main():
     del lm7, logits7, ref2, vproj
     torch.cuda.empty_cache()
 
+    # ---- 28. VideoQA training: stages 1-3 and DPO (downstream.videoqa, videoqa_run)
+    from streamformer_tpu_torch.downstream import videoqa_run
+
+    vt = VQA_TRAIN
+    t28 = time.perf_counter()
+    bcih = ("spatial_flat", "temporal_fullclip", "temporal_fullclip_bwd", "spatial_flat_bwd")
+
+    def vqa_model(tower_cfg, lm_cfg, device, seed):
+        """A trainable tower (gates opened), projector and LM from seeds."""
+        tw = encoder.StreamformerEncoder(tower_cfg, device=device, trainable=True,
+                                         generator=torch.Generator().manual_seed(seed))
+        open_gates(tw, seed)
+        lm_ = LM.LanguageModel(lm_cfg, device=device, trainable=True,
+                               generator=torch.Generator(device=device).manual_seed(seed + 1))
+        pj = VQ.init_mm_projector(tower_cfg.hidden_size, lm_cfg.hidden_size, device=device,
+                                  generator=torch.Generator(device=device).manual_seed(seed + 2))
+        return VQ.VideoQAModel(tw, pj, lm_)
+
+    def vqa_rows(vocab, seed):
+        """A prompt (system ids, <image>, question ids) and two answers."""
+        r_ = np.random.default_rng(seed)
+        prompt = np.concatenate([r_.integers(3, vocab, vt["system"]), [VQ.IMAGE_TOKEN_INDEX],
+                                 r_.integers(3, vocab, vt["question"])])
+        return prompt, r_.integers(3, vocab, vt["answer"]), r_.integers(3, vocab, vt["answer"])
+
+    def vqa_batch(prompt, answer, frames, device):
+        ids = np.concatenate([prompt, answer])
+        labels = np.where(np.arange(len(ids)) >= len(prompt), ids, -100)
+        return VQ.make_batch(ids, labels, frames, vt["max_len"], device=device)
+
+    def pixels(tower_cfg, seed, device):
+        g_ = torch.Generator().manual_seed(seed)
+        return torch.randn(1, tower_cfg.num_frames, 3, tower_cfg.image_size, tower_cfg.image_size,
+                           generator=g_).to(device)
+
+    def dpo_batch(px, prompt, chosen, rejected, frames, device):
+        return {"pixel_values": px, "chosen": vqa_batch(prompt, chosen, frames, device),
+                "rejected": vqa_batch(prompt, rejected, frames, device)}
+
+    def recorded_grads(opt_, m_):
+        """Wrap ``opt_.step`` to keep each step's gradients of the trained
+        parameters, copied to the host as the step starts (the clip then
+        scales them in place)."""
+        kept, inner = [], opt_.step
+
+        def step_():
+            kept.append({k_: (torch.zeros_like(p_) if p_.grad is None else p_.grad).detach().to(
+                "cpu", copy=True) for k_, p_ in m_.named_parameters() if p_.requires_grad})
+            inner()
+
+        opt_.step = step_
+        return kept
+
+    # 28a. a small fp32 model on the card against the same on the CPU: two
+    # steps each of stages 1, 2 and 3 and of DPO; the losses, the metrics and
+    # the parameters after them, and each step's gradients part by part
+    scfg = StreamformerConfig(**SMALL_CONFIG)
+    slm = LM.LMConfig(**LM_SMALL)
+    init_sd = vqa_model(scfg, slm, "cpu", 28).state_dict()
+    s_prompt, s_chosen, s_rejected = vqa_rows(slm.vocab_size, 28)
+    worst28, grad28 = {}, {}
+    for case in ("stage 1", "stage 2", "stage 3", "dpo"):
+        runs, grads28 = [], []
+        for device in ("cpu", dev):
+            m_ = vqa_model(scfg, slm, device, 28)
+            m_.load_state_dict(init_sd)
+            px = pixels(scfg, 28, device)
+            if case == "dpo":
+                opt_, st_ = VQ.make_videoqa_dpo_step(m_, VQ.reference_copy(m_), stage=3,
+                                                     beta=0.5, gamma=0.1)
+                grads28.append(recorded_grads(opt_, m_))
+                b_dpo = dpo_batch(px, s_prompt, s_chosen, s_rejected, scfg.num_frames, device)
+                outs = [st_(b_dpo) for _ in range(2)]
+                vals = [float(lo) for lo, _ in outs] + [float(v_) for _, m2 in outs
+                                                        for v_ in m2.values()]
+            else:
+                opt_, st_ = VQ.make_videoqa_train_step(m_, int(case[-1]))
+                grads28.append(recorded_grads(opt_, m_))
+                b_sft = vqa_batch(s_prompt, s_chosen, scfg.num_frames, device)
+                b_sft["pixel_values"] = px
+                vals = [float(st_(b_sft)) for _ in range(2)]
+            sd_ = {k_: v_.detach().cpu() for k_, v_ in m_.state_dict().items()}
+            if case != "dpo":  # frozen parts bit for bit
+                frozen = [p_ for p_ in ("tower", "lm") if (p_ == "tower" and case != "stage 3")
+                          or (p_ == "lm" and case == "stage 1")]
+                moved = [k_ for k_ in sd_ if k_.split(".")[0] in frozen
+                         and not torch.equal(sd_[k_], init_sd[k_])]
+                if moved:
+                    fail(f"small VideoQA {case} on {device}: frozen parameters moved: {moved[:3]}")
+            runs.append((np.array(vals), sd_))
+        err_vals = float(np.abs(runs[0][0] - runs[1][0]).max())
+        err_params = max(max_err(runs[0][1][k_], runs[1][1][k_]) for k_ in runs[0][1])
+        worst28[case] = (err_vals, err_params)
+        if not max(err_vals, err_params) <= TRAIN_VS_CPU_TOL:
+            fail(f"small VideoQA {case}: card vs CPU losses/metrics {err_vals}, parameters "
+                 f"{err_params} (> {TRAIN_VS_CPU_TOL})")
+        rel = {}
+        for g_cpu, g_dev in zip(*grads28):
+            if g_cpu.keys() != g_dev.keys():
+                fail(f"small VideoQA {case}: card and CPU trained different parameters")
+            for part in sorted({k_.split(".")[0] for k_ in g_cpu}):
+                names = [k_ for k_ in g_cpu if k_.split(".")[0] == part]
+                scale = max(float(g_cpu[k_].abs().max()) for k_ in names)
+                err = max(max_err(g_cpu[k_], g_dev[k_]) for k_ in names) / max(scale, 1e-30)
+                rel[part] = max(rel.get(part, 0.0), err)
+        grad28[case] = rel
+        if len(grads28[0]) != 2 or not max(rel.values()) <= TRAIN_GRAD_RTOL:
+            fail(f"small VideoQA {case}: card vs CPU gradients a part, relative to the "
+                 f"part's largest: {rel} (> {TRAIN_GRAD_RTOL})")
+    print(f"small fp32 VideoQA training, card vs CPU after two steps (losses and DPO metrics, "
+          f"every parameter): {worst28} (<= {TRAIN_VS_CPU_TOL}); each step's gradients a "
+          f"trained part, relative to its largest: {grad28} (<= {TRAIN_GRAD_RTOL}); frozen "
+          f"parts bit for bit")
+    del init_sd, runs, m_, grads28
+
+    # 28b. stage 3 at full width: the flagship tower, the projector, the LM at
+    # Qwen2.5-0.5B's widths, bf16 over fp32 masters
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fcfg = StreamformerConfig(**FLAGSHIP_CONFIG)
+    lm05 = LM.LMConfig(**LM_05B)
+    vqm = vqa_model(fcfg, lm05, dev, 280)
+    n_lm = sum(p_.numel() for p_ in vqm.lm.parameters())
+    f_prompt, f_chosen, f_rejected = vqa_rows(lm05.vocab_size, 281)
+    f_px = pixels(fcfg, 281, dev)
+    f_batch = vqa_batch(f_prompt, f_chosen, fcfg.num_frames, dev)
+    f_batch["pixel_values"] = f_px
+    _, step3 = VQ.make_videoqa_train_step(vqm, 3)
+    losses3 = [step3(f_batch) for _ in range(vt["warmup"])]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    losses3 += [step3(f_batch) for _ in range(vt["timed"])]
+    torch.cuda.synchronize()
+    s3_ms = (time.perf_counter() - t0) / vt["timed"] * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        losses3 += [step3(f_batch) for _ in range(vt["profiled"])]
+        torch.cuda.synchronize()
+    s3_launches = dict(ops.LAUNCHES)
+    n3 = vt["timed"] + vt["profiled"]
+    rows3 = device_rows(prof)
+    s3_busy = sum(e.device_time_total for e in rows3) / vt["profiled"] / 1e3
+    s3_ops = sum(e.count for e in rows3) / vt["profiled"]
+    s3_peak = torch.cuda.max_memory_allocated() / 2**30
+    losses3 = [float(x_) for x_ in losses3]
+    want = {**zeros, **{k_: L * n3 for k_ in bcih}}
+    if s3_launches != want:
+        fail(f"VideoQA stage 3: launches {s3_launches} over {n3} steps, not {want}")
+    if not (np.isfinite(losses3).all() and losses3[-1] < losses3[0]):
+        fail(f"VideoQA stage 3 at full width: losses {losses3} not finite and falling")
+    print(f"VideoQA stage 3 ({smi}): flagship tower (bf16 over fp32 masters, "
+          f"{fcfg.num_frames} frames of {fcfg.image_size}^2), projector {fcfg.hidden_size}->{lm05.hidden_size}, the LM at "
+          f"Qwen2.5-0.5B widths ({n_lm / 1e6:.1f} M parameters, {lm05.num_hidden_layers} layers), "
+          f"max_len {vt['max_len']}: {s3_ms:.2f} ms per step, {1e3 / s3_ms:.2f} samples/s; device "
+          f"busy {s3_busy:.2f} ms a step ({100 * s3_busy / s3_ms:.1f} %), {s3_ops:.0f} launches a "
+          f"step; peak {s3_peak:.2f} GiB; losses {[round(x_, 4) for x_ in losses3]}; launches "
+          f"{ {k_: v_ // n3 for k_, v_ in s3_launches.items() if v_} } a step")
+    for e in sorted(rows3, key=lambda e: -e.device_time_total)[:8]:
+        print(f"  {e.device_time_total / vt['profiled'] / 1e3:8.4f} ms/step  "
+              f"x{e.count / vt['profiled']:<6.1f} {e.key[:90]}")
+
+    # 28c. DPO at the same widths, the reference a frozen copy of 28b's model
+    _, dstep = VQ.make_videoqa_dpo_step(vqm, VQ.reference_copy(vqm), stage=3)
+    d_batch = dpo_batch(f_px, f_prompt, f_chosen, f_rejected, fcfg.num_frames, dev)
+    d_metrics = []
+    for i_ in range(vt["dpo_steps"]):
+        if i_ == vt["dpo_steps"] - vt["dpo_timed"]:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+        d_metrics.append(dstep(d_batch))
+    torch.cuda.synchronize()
+    dpo_ms = (time.perf_counter() - t0) / vt["dpo_timed"] * 1e3
+    dpo_launches = dict(ops.LAUNCHES)
+    dpo_peak = torch.cuda.max_memory_allocated() / 2**30
+    accs = [float(m2["reward_accuracy"]) for _, m2 in d_metrics]
+    margins = [float(m2["reward_margin"]) for _, m2 in d_metrics]
+    want = {**zeros, "spatial_flat": 2 * L * vt["dpo_timed"],
+            "temporal_fullclip": 2 * L * vt["dpo_timed"],
+            "temporal_fullclip_bwd": L * vt["dpo_timed"], "spatial_flat_bwd": L * vt["dpo_timed"]}
+    if dpo_launches != want:
+        fail(f"VideoQA DPO: launches {dpo_launches}, not {want} (B and C 2L a step: the policy "
+             "and the reference; H and I L)")
+    if not (accs[-1] == 1.0 and margins[-1] > margins[0]):
+        fail(f"VideoQA DPO: reward accuracy {accs}, margins {margins}: not rising")
+    print(f"VideoQA DPO ({smi}), 28b's widths: {dpo_ms:.2f} ms per step, {1e3 / dpo_ms:.2f} "
+          f"pairs/s; reward accuracy {accs}, margin {[round(x_, 4) for x_ in margins]}; peak "
+          f"{dpo_peak:.2f} GiB; launches "
+          f"{ {k_: v_ // vt['dpo_timed'] for k_, v_ in dpo_launches.items() if v_} } a step")
+    del vqm, dstep, step3, d_batch, f_batch, d_metrics, prof, rows3
+    torch.cuda.empty_cache()
+
+    # 28d. stage 1 at Qwen2.5-7B widths: phase 26's LM (redrawn from its seed)
+    # and phase 4's tower, frozen, bf16; only the projector moves
+    lm7 = LM.LanguageModel(cfg7, device=dev, generator=torch.Generator(device=dev).manual_seed(7))
+    p7 = VQ.init_mm_projector(cfg.hidden_size, cfg7.hidden_size, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(282))
+    s1m = VQ.VideoQAModel(model, p7, lm7)
+    frozen_copy = {k_: v_.clone() for k_, v_ in s1m.state_dict().items()
+                   if not k_.startswith("projector.")}
+    copy_bytes = sum(v_.numel() * v_.element_size() for v_ in frozen_copy.values())
+    proj_before = p7.fc1.weight.detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    _, step1 = VQ.make_videoqa_train_step(s1m, 1)
+    s_prompt7, s_answer7, _ = vqa_rows(cfg7.vocab_size, 283)
+    b7 = vqa_batch(s_prompt7, s_answer7, cfg.num_frames, dev)
+    b7["pixel_values"] = pixels(cfg, 283, dev)
+    losses1 = []
+    for i_ in range(vt["s1_steps"]):
+        if i_ == vt["s1_steps"] - vt["s1_timed"]:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+        losses1.append(step1(b7))
+    torch.cuda.synchronize()
+    s1_ms = (time.perf_counter() - t0) / vt["s1_timed"] * 1e3
+    s1_launches = dict(ops.LAUNCHES)
+    s1_peak = (torch.cuda.max_memory_allocated() - copy_bytes) / 2**30
+    losses1 = [float(x_) for x_ in losses1]
+    want = {**zeros, "spatial_flat": L * vt["s1_timed"], "temporal_fullclip": L * vt["s1_timed"]}
+    if s1_launches != want:
+        fail(f"VideoQA stage 1 at 7B widths: launches {s1_launches}, not {want} (B and C only)")
+    moved = [k_ for k_, v_ in s1m.state_dict().items()
+             if k_ in frozen_copy and not torch.equal(v_, frozen_copy[k_])]
+    if moved or torch.equal(p7.fc1.weight, proj_before) or not np.isfinite(losses1).all():
+        fail(f"VideoQA stage 1 at 7B widths: frozen parameters moved {moved[:3]}, or the "
+             f"projector did not; losses {losses1}")
+    print(f"VideoQA stage 1 ({smi}): phase 4's tower and the Qwen2.5-7B-width LM frozen (bf16), "
+          f"projector {cfg.hidden_size}->{cfg7.hidden_size}->{cfg7.hidden_size} trained: "
+          f"{s1_ms:.2f} ms per step, {1e3 / s1_ms:.2f} samples/s; peak {s1_peak:.2f} GiB (less "
+          f"the {copy_bytes / 2**30:.2f} GiB comparison copy); the tower and the LM bit for bit "
+          f"unchanged; losses {[round(x_, 4) for x_ in losses1]}; launches "
+          f"{ {k_: v_ // vt['s1_timed'] for k_, v_ in s1_launches.items() if v_} } a step")
+    del lm7, p7, s1m, frozen_copy, step1, b7
+    torch.cuda.empty_cache()
+
+    # 28e. the CLI's training function on in-memory clips: an epoch of stage 3
+    # at 28b's widths and a checkpoint; then --eval --ckpt restoring it into a
+    # fresh model and answering through the DecodeEngine on the streaming tower
+    work28 = tempfile.mkdtemp(prefix="videoqa-", dir=os.path.join(root, "build"))
+    try:
+        cli = ["--data", "in-memory", "--output_dir", work28, "--stage", "3", "--bf16",
+               "--eval_samples", "0", "--seed", "28", "--max_len", str(vt["max_len"]),
+               "--num_frames", str(fcfg.num_frames), "--input_size", str(fcfg.image_size)]
+        vargs = videoqa_run.get_args(cli)
+        if (vargs.lm_vocab, vargs.lm_hidden, vargs.lm_layers) != (
+                lm05.vocab_size, lm05.hidden_size, lm05.num_hidden_layers):
+            fail("videoqa_run's LM defaults are not Qwen2.5-0.5B's widths")
+        vm = videoqa_run.build_model(vargs)
+        tok = videoqa_run.load_tokenizer(vargs, vargs.lm_vocab)
+        wrng = np.random.default_rng(284)
+        words = "the a dog cat runs jumps red blue left right over under".split()
+
+        def text(n):
+            return " ".join(wrng.choice(words, n))
+
+        cli_rows = [{"video": f"clip{i}", "conversations": [
+            {"from": "human", "value": "<image>\n" + text(12)},
+            {"from": "gpt", "value": text(20)}]} for i in range(vt["cli_rows"])]
+        clips = {f"clip{i}": pixels(fcfg, 285 + i, dev) for i in range(vt["cli_rows"])}
+
+        def load_video(path, mode="train"):
+            return clips[path]
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hist = videoqa_run.train(vargs, cli_rows, load_video, vm, tok)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = dict(ops.LAUNCHES)
+        want = {**zeros, **{k_: L * vt["cli_rows"] for k_ in bcih}}
+        if cli_launches != want or not np.isfinite(hist[0]["loss"]):
+            fail(f"videoqa_run.train: launches {cli_launches} (want {want}), stats {hist}")
+        if ckpt_lib.latest_checkpoint(work28) != 0:
+            fail("videoqa_run.train wrote no checkpoint-0")
+        eargs = videoqa_run.get_args(cli + ["--eval", "--ckpt", work28, "--answers_file",
+                                            os.path.join(work28, "answers.jsonl"),
+                                            "--max_new_tokens", str(vt["cli_new"]),
+                                            "--engine_slots", "2"])
+        fresh = videoqa_run.build_model(eargs, serving=True)  # as main() builds it for --eval
+        t0 = time.perf_counter()
+        if (ckpt_lib.auto_resume(eargs.ckpt, fresh) or {}).get("epoch") != 0:
+            fail("--eval --ckpt restored no checkpoint")
+        restore_s = time.perf_counter() - t0
+        # the serving modules hold the masters cast once to their dtypes
+        trained = vm.state_dict()
+        differ = [k_ for k_, v_ in fresh.state_dict().items()
+                  if not torch.equal(v_, trained[k_].to(v_.dtype))]
+        if differ or fresh.lm.model.embed_tokens.weight.dtype != torch.bfloat16:
+            fail(f"the restored serving model is not the trained one cast: {differ[:3]}")
+        del vm, trained
+        torch.cuda.empty_cache()
+        questions = [
+            {"video": "clip0", "sample_id": "q0", "conversations": [
+                {"from": "human", "value": text(10)}, {"from": "gpt", "value": text(6)},
+                {"from": "human", "value": text(8)}, {"from": "gpt", "value": text(6)}]},
+            {"video": "clip1", "sample_id": "q1", "conversations": [
+                {"from": "human", "value": text(10)}]}]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        answers_file = videoqa_run.run_eval(eargs, fresh, tok, questions, load_video)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_launches = dict(ops.LAUNCHES)
+        with open(answers_file) as f_:
+            answered = [json.loads(ln_) for ln_ in f_]
+        if (sorted((a_["sample_id"], a_["gt_response"] is not None) for a_ in answered)
+                != [("q0", True), ("q0", True), ("q1", False)]
+                or not all(1 <= len(a_["pred_token_ids"]) <= vt["cli_new"] for a_ in answered)
+                or not eval_launches["temporal_append_pm_ragged"]):
+            fail(f"videoqa_run --eval: answers {answered}, launches {eval_launches}")
+        ckpt_gib = sum(os.path.getsize(os.path.join(dp_, f_)) for dp_, _, fs_ in
+                       os.walk(os.path.join(work28, "checkpoint-0")) for f_ in fs_) / 2**30
+        print(f"videoqa_run ({smi}): train() an epoch of {vt['cli_rows']} stage-3 steps at 28b's "
+              f"widths from in-memory clips in {cli_s:.2f} s (loss {hist[0]['loss']:.4f}, the "
+              f"checkpoint of {ckpt_gib:.2f} GiB written inside it); --eval --ckpt: restored in "
+              f"{restore_s:.2f} s, the trained masters cast once to the serving dtypes; "
+              f"{len(answered)} answers (a two-turn row and a one-turn row) through the DecodeEngine in {eval_s:.2f} s; "
+              f"launches: training { {k_: v_ for k_, v_ in cli_launches.items() if v_} }, "
+              f"eval { {k_: v_ for k_, v_ in eval_launches.items() if v_} } (E on the streaming "
+              f"tower)")
+        del fresh, clips
+    finally:
+        shutil.rmtree(work28, ignore_errors=True)
+    torch.cuda.empty_cache()
+    vqa_train_launches = {k_: s3_launches[k_] + dpo_launches[k_] + s1_launches[k_]
+                          + cli_launches[k_] + eval_launches[k_] for k_ in zeros}
+    print(f"phase 28: {time.perf_counter() - t28:.1f} s")
+
+    # ---- 29. action recognition: downstream.ar and ar_run at batch 16
+    from streamformer_tpu_torch.downstream import ar as AR_mod
+    from streamformer_tpu_torch.downstream import ar_run
+
+    t29 = time.perf_counter()
+    # 29a. a small fp32 step on the card against the CPU: mixup, EMA, layer decay
+    acfg = StreamformerConfig(**SMALL_CONFIG)
+    arng = np.random.default_rng(29)
+    a_px = torch.from_numpy(arng.standard_normal(
+        (AR["small_batch"], acfg.num_frames, 3, acfg.image_size, acfg.image_size)).astype(np.float32))
+    a_y = torch.from_numpy(arng.integers(0, AR["small_classes"], AR["small_batch"]))
+    a_runs = []
+    for device in ("cpu", dev):
+        am = AR_mod.ARModel(
+            encoder.StreamformerEncoder(acfg, device=device, trainable=True,
+                                        generator=torch.Generator().manual_seed(29)),
+            AR_mod.init_classifier(acfg, AR["small_classes"], device=device,
+                                   generator=torch.Generator().manual_seed(30)))
+        open_gates(am.backbone, 29)
+        a_opt = optim.create_optimizer(am, optim.cosine_lr_schedule(1e-3, 1e-6, 1, 2),
+                                       weight_decay=0.05, clip_grad=5.0, layer_decay=0.75,
+                                       num_layers=acfg.num_hidden_layers)
+        a_ema = AR_mod.init_ema(am)
+        a_step = AR_mod.make_train_step(am, a_opt, AR["small_classes"], ema=a_ema, ema_decay=0.9)
+        a_losses = [float(a_step(a_px, a_y, collate.seed_of(29, i_))) for i_ in range(2)]
+        a_runs.append((np.array(a_losses),
+                       {k_: v_.detach().cpu() for k_, v_ in am.state_dict().items()},
+                       {k_: v_.detach().cpu() for k_, v_ in a_ema.state_dict().items()}))
+    a_err = (float(np.abs(a_runs[0][0] - a_runs[1][0]).max()),
+             max(max_err(a_runs[0][1][k_], a_runs[1][1][k_]) for k_ in a_runs[0][1]),
+             max(max_err(a_runs[0][2][k_], a_runs[1][2][k_]) for k_ in a_runs[0][2]))
+    if not max(a_err) <= TRAIN_VS_CPU_TOL:
+        fail(f"small AR step card vs CPU: losses, parameters, EMA max-abs {a_err}")
+    print(f"small fp32 AR training (mixup, EMA, layer decay), card vs CPU after two steps: "
+          f"losses, parameters, EMA max-abs {a_err} (<= {TRAIN_VS_CPU_TOL})")
+    del a_runs, am, a_opt, a_ema, a_step
+
+    # 29b. ar_run.train at the CLI's defaults on in-memory clips
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    crng = np.random.default_rng(290)
+    pool = [crng.integers(0, 256, (FLAGSHIP["frames"], AR["height"], AR["width"], 3),
+                          dtype=np.uint8) for _ in range(AR["clips"])]
+    views = AR["segments"] * AR["crops"]
+
+    class Clips:
+        """In-memory clips in the datasets' item schema; in test mode each
+        of a clip's views a crop at its own offset."""
+
+        def __init__(self, n, test=False):
+            self.n, self.test = n, test
+
+        def __len__(self):
+            return self.n * (views if self.test else 1)
+
+        def __getitem__(self, i):
+            vid, view = divmod(i, views) if self.test else (i, 0)
+            frames = pool[vid % len(pool)]
+            item = {"label": (37 * vid) % AR["classes"]}
+            if self.test:
+                x0 = (view % AR["crops"]) * (AR["width"] - AR["height"]) // (AR["crops"] - 1)
+                frames = frames[:, :, x0:x0 + AR["height"]]
+                item["sample_idx"] = vid
+            return {"task_input": {"frames": frames, **item}}
+
+    work29 = tempfile.mkdtemp(prefix="ar-", dir=os.path.join(root, "build"))
+    orig_make = AR_mod.make_train_step
+    step_ms, step_launches = [], []
+
+    def timed_make(*a_, **k_):
+        """make_train_step whose steps are timed (the card synchronised
+        around each) and their launches counted."""
+        inner = orig_make(*a_, **k_)
+
+        def timed_step(px, labels, seed):
+            torch.cuda.synchronize()
+            before = dict(ops.LAUNCHES)
+            t_ = time.perf_counter()
+            loss_ = inner(px, labels, seed)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t_) * 1e3)
+            step_launches.append({k2: ops.LAUNCHES[k2] - before[k2] for k2 in before})
+            return loss_
+
+        return timed_step
+
+    try:
+        aargs = ar_run.get_args([
+            "--anno_train", "in-memory", "--num_classes", str(AR["classes"]), "--bf16",
+            "--epochs", "1", "--layer_decay", "0.75", "--model_ema", "--num_workers", "4",
+            "--output_dir", work29, "--seed", "29", "--test_num_segment", str(AR["segments"]),
+            "--test_num_crop", str(AR["crops"])])
+        if (aargs.batch_size, aargs.mixup, aargs.cutmix, aargs.smoothing,
+                aargs.model_ema_decay) != (AR["batch"], 0.8, 1.0, 0.1, 0.9999):
+            fail("ar_run's defaults are not the reference recipe's")
+        AR_mod.make_train_step = timed_make
+        ar_model = ar_run.build_model(aargs)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ar_res = ar_run.train(aargs, Clips(AR["batch"] * AR["steps"]), Clips(AR["val_clips"]),
+                              Clips(AR["test_clips"], test=True), model=ar_model)
+        torch.cuda.synchronize()
+        ar_s = time.perf_counter() - t0
+        ar_launches = dict(ops.LAUNCHES)
+        ar_peak = torch.cuda.max_memory_allocated() / 2**30
+        stats29 = ar_res["history"][0]
+        if len(step_ms) != AR["steps"] or any(
+                sl_ != {**zeros, **{k_: L for k_ in bcih}} for sl_ in step_launches):
+            fail(f"ar_run.train: {len(step_ms)} steps, launches a step {step_launches}")
+        if not (np.isfinite(stats29["loss"]) and {"top1", "top5", "top1_ema"} <= stats29.keys()
+                and ar_res["final_test"] is not None and ckpt_lib.latest_checkpoint(work29) == 0):
+            fail(f"ar_run.train: stats {stats29}, final test {ar_res['final_test']}")
+    finally:
+        AR_mod.make_train_step = orig_make
+        shutil.rmtree(work29, ignore_errors=True)
+    steady = statistics.median(step_ms[1:])
+    print(f"AR fine-tuning ({smi}): ar_run.train on the flagship encoder (bf16 over fp32 masters), "
+          f"{AR['classes']} classes, batch {AR['batch']}, {FLAGSHIP['frames']} frames of "
+          f"{aargs.input_size}^2, mixup 0.8 / cutmix 1.0 / smoothing 0.1, EMA 0.9999, layer decay "
+          f"0.75: {AR['steps']} steps {[round(x_, 2) for x_ in step_ms]} ms (synchronised); "
+          f"steady {steady:.2f} ms per step, {AR['batch'] * 1e3 / steady:.2f} clips/s; the epoch "
+          f"with the loader {stats29['epoch_time']:.2f} s "
+          f"({AR['batch'] * AR['steps'] / stats29['epoch_time']:.2f} clips/s); loss "
+          f"{stats29['loss']:.4f}; validation "
+          f"{ {k_: stats29[k_] for k_ in ('top1', 'top5', 'top1_ema')} }; "
+          f"final test ({AR['test_clips']} clips x {AR['segments']} segments x {AR['crops']} "
+          f"crops) {ar_res['final_test']}; peak {ar_peak:.2f} GiB; launches a step "
+          f"{ {k_: v_ for k_, v_ in step_launches[0].items() if v_} }, in all "
+          f"{ {k_: v_ for k_, v_ in ar_launches.items() if v_} } ({ar_s:.1f} s)")
+    del ar_model, pool
+    torch.cuda.empty_cache()
+    print(f"phase 29: {time.perf_counter() - t29:.1f} s")
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -2747,7 +3265,8 @@ def main():
         count = sum(path[name] for path in  # encode, engine, their int8 runs, training, then
                     (launches, engine_launches, int8_launches, int8_engine_launches,  # the later
                      train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'
-                     l_launches, entry_launches, dist_launches, vqa_launches))
+                     l_launches, entry_launches, dist_launches, vqa_launches,
+                     vqa_train_launches, ar_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             device_ms=row["device_ms"], plain_ms=row["plain_ms"],

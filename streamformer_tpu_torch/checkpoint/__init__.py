@@ -1,6 +1,7 @@
 """Checkpoint loading for the port: HF-style directories and JAX parameter trees."""
 
 from streamformer_tpu_torch.checkpoint.convert import (
+    classifier_params_from_jax,
     lm_params_from_jax,
     multitask_from_jax,
     params_from_jax,
@@ -9,5 +10,5 @@ from streamformer_tpu_torch.checkpoint.convert import (
 )
 from streamformer_tpu_torch.checkpoint.hf_import import from_pretrained
 
-__all__ = ["from_pretrained", "lm_params_from_jax", "multitask_from_jax", "params_from_jax",
+__all__ = ["classifier_params_from_jax", "from_pretrained", "lm_params_from_jax", "multitask_from_jax", "params_from_jax",
            "projector_params_from_jax", "text_params_from_jax"]

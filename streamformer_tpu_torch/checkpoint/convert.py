@@ -23,7 +23,9 @@ weights. ``lm_params_from_jax`` maps the JAX language model's tree (float,
 or int8 from ``quantize_encoder_params``: ``kernel_q`` leaves and the
 untied head's ``lm_head_q`` / ``lm_head_scale``) to the HF names of
 ``models.language_model.LanguageModel``, and ``projector_params_from_jax``
-the VideoQA projector to ``downstream.videoqa.MMProjector``. The maps are linear (transposes, reshapes, concatenations and
+the VideoQA projector to ``downstream.videoqa.MMProjector``;
+``classifier_params_from_jax`` the action-recognition head to
+``downstream.ar.ClassifierHead``. The maps are linear (transposes, reshapes, concatenations and
 renames), so they carry a JAX gradient tree to the port's names as well.
 """
 
@@ -194,3 +196,12 @@ def projector_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
     return {f"{fc}.{leaf}": torch.tensor(_t(params[fc]["kernel"]) if leaf == "weight"
                                          else _a(params[fc]["bias"]))
             for fc in ("fc1", "fc2") for leaf in ("weight", "bias")}
+
+
+def classifier_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX action-recognition head ``{fc_norm, classifier}`` (kernel (D,
+    C)) -> ``downstream.ar.ClassifierHead``'s state dict."""
+    return {"fc_norm.weight": torch.tensor(_a(params["fc_norm"]["scale"])),
+            "fc_norm.bias": torch.tensor(_a(params["fc_norm"]["bias"])),
+            "classifier.weight": torch.tensor(_t(params["classifier"]["kernel"])),
+            "classifier.bias": torch.tensor(_a(params["classifier"]["bias"]))}

@@ -14,15 +14,26 @@ rebuild of the reference LLaVA-NeXT fork's ``llava_arch.py``):
   ``LanguageModel``): the vision tower (``downstream.vision_tower``; a
   streaming tower keeps its temporal cache across calls), one token per
   frame (``frame_mean``), the projector, the splice and the LM;
-* multiple-choice scoring by option log-likelihood (VideoMME-style).
+* multiple-choice scoring by option log-likelihood (VideoMME-style);
+* training: ``VideoQAModel`` holds the tower, the projector and the LM in
+  one module (one optimizer, one checkpoint); ``stage_policy`` (the
+  reference's three stages), ``make_videoqa_train_step`` (the LM loss over
+  the spliced sequence) and ``make_videoqa_dpo_step`` (sigmoid DPO against a
+  frozen reference copy, plus an SFT term on the chosen answer).
 
-The stage policies, the training steps and DPO come with VideoQA training.
+The optimizer is optax's ``multi_transform`` of the JAX package, number for
+number: each trained part is clipped by its own global norm (1.0) and steps
+AdamW at its stage's lr (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on
+every parameter); a frozen part takes no step and runs without grad (the
+tower under ``torch.no_grad`` in stages 1-2; in stage 1 the gradient still
+flows through the frozen LM into the projector).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 
 from streamformer_tpu_torch.models import encoder
 from streamformer_tpu_torch.models import language_model as LM
+from streamformer_tpu_torch.train import optim
 
 IMAGE_TOKEN_INDEX = -200  # the reference llava constant
 
@@ -284,3 +296,183 @@ def evaluate_multiple_choice(model: LlavaQwenModel, rows) -> Dict[str, float]:
                                               row["pixel_values"]))
         correct += int(int(np.argmax(scores)) == int(row["answer"]))
     return {"accuracy": correct / max(len(rows), 1), "n": len(rows)}
+
+
+def stage_policy(stage: int) -> Dict[str, Any]:
+    """Trainable parts and their lrs a stage (the reference's
+    ``scripts/train/stage{1,2,3}*.sh``): 1 trains the projector (1e-3);
+    2 the projector and the LM (2e-5); 3 also the tower, at 2e-6."""
+    if stage == 1:
+        return {"train": {"projector"}, "lr": {"projector": 1e-3}}
+    if stage == 2:
+        return {"train": {"projector", "lm"}, "lr": {"projector": 2e-5, "lm": 2e-5}}
+    return {"train": {"projector", "lm", "vision_tower"},
+            "lr": {"projector": 2e-5, "lm": 2e-5, "vision_tower": 2e-6}}
+
+
+# the module's parts under the policy's names
+PARTS = {"tower": "vision_tower", "projector": "projector", "lm": "lm"}
+ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default, on every leaf
+CLIP_GRAD = 1.0  # each part's global-norm clip, the JAX steps' clip_grad default
+
+
+class VideoQAModel(nn.Module):
+    """The trained model: ``tower`` (a ``StreamformerEncoder``), ``projector``
+    and ``lm`` under one module, so that one optimizer and
+    ``train.checkpoint.save_checkpoint`` see all three. Build the tower and
+    the LM with ``trainable=True`` to train them (fp32 masters under the
+    compute dtype)."""
+
+    def __init__(self, tower: encoder.StreamformerEncoder, projector: MMProjector,
+                 lm: LM.LanguageModel):
+        super().__init__()
+        self.tower, self.projector, self.lm = tower, projector, lm
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm.device
+
+
+def reference_copy(model: VideoQAModel) -> VideoQAModel:
+    """A frozen copy of ``model``'s current weights: DPO's reference policy."""
+    return copy.deepcopy(model).requires_grad_(False)
+
+
+def make_optimizer(model: VideoQAModel, stage: int) -> optim.ScheduledOptimizer:
+    """Set each part's ``requires_grad`` by the stage and return AdamW over
+    the trained parts, one parameter group a part at its lr, each clipped
+    by its own norm (optax's ``multi_transform`` of ``clip_by_global_norm``
+    and ``adamw`` a part, ``set_to_zero`` for the frozen ones)."""
+    pol = stage_policy(stage)
+    groups = []
+    for part, name in PARTS.items():
+        module = getattr(model, part)
+        trained = name in pol["train"]
+        module.requires_grad_(trained)
+        if trained:
+            groups.append(dict(params=list(module.parameters()), lr_scale=pol["lr"][name],
+                               decayed=True, weight_decay=0.0,
+                               base_weight_decay=ADAMW_WEIGHT_DECAY))
+    inner = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    return optim.ScheduledOptimizer(inner, lambda count: 1.0, None, CLIP_GRAD,
+                                    decoupled_sgd_decay=False, clip_each_group=True)
+
+
+def make_batch(input_ids: np.ndarray, labels: Optional[np.ndarray], num_image_tokens: int,
+               max_len: int, device=None) -> Dict[str, torch.Tensor]:
+    """One row's training fields as (1, ...) tensors on ``device``: the
+    splice plan (``build_splice_plan``), and ``text_ids``, the ids with each
+    placeholder replaced by 0."""
+    ids = np.asarray(input_ids, np.int64)
+    plan = build_splice_plan(ids, num_image_tokens, max_len, labels)
+    plan["text_ids"] = np.where(ids == IMAGE_TOKEN_INDEX, 0, ids)
+    return {k: torch.from_numpy(v)[None].to(device) for k, v in plan.items()}
+
+
+def encode_for_training(model: VideoQAModel, pixel_values: torch.Tensor) -> torch.Tensor:
+    """(B, T, C, H, W) -> (B, T, lm_dim) fp32: the full clip's patch features
+    averaged over each frame's patches, through the projector. The tower
+    records no graph unless it trains."""
+    tower = model.tower
+    with torch.set_grad_enabled(torch.is_grad_enabled() and any(
+            p.requires_grad for p in tower.parameters())):
+        feats = encoder.model_forward(tower, pixel_values.to(tower.device))["last_hidden_state"]
+        feats = feats.mean(dim=2)
+    return mm_projector(model.projector, feats)
+
+
+def _logits_and_labels(model: VideoQAModel, img: torch.Tensor, sub: Dict[str, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LM's fp32 logits over one spliced response, and its labels with
+    the padding at -100."""
+    text = LM.embed_tokens(model.lm, sub["text_ids"])
+    embeds = apply_splice_plan(sub, text, img.to(text.device))
+    out, _ = LM.forward(model.lm, embeds, attention_mask=sub["attention_mask"].long())
+    lab = torch.where(sub["attention_mask"], sub["labels"], torch.full_like(sub["labels"], -100))
+    return out["logits"], lab
+
+
+def videoqa_loss(model: VideoQAModel, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The LM loss of the spliced sequence (``pixel_values``, ``text_ids``,
+    the splice plan, ``attention_mask`` and ``labels``)."""
+    img = encode_for_training(model, batch["pixel_values"])
+    return LM.lm_loss(*_logits_and_labels(model, img, batch))
+
+
+def make_videoqa_train_step(model: VideoQAModel, stage: int):
+    """The stage-wise training step: returns (optimizer, step); ``step(batch)``
+    updates ``model`` in place and returns the loss (a 0-d tensor on the
+    device)."""
+    opt = make_optimizer(model, stage)
+
+    def step(batch):
+        opt.zero_grad()
+        loss = videoqa_loss(model, batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return opt, step
+
+
+def sequence_logps(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(B,) summed next-token log-probabilities over the label tokens (-100
+    ignored): trl's ``get_batch_logps`` with ``average_log_prob=False``."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].to(logits.device)
+    valid = shift_labels != -100
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    tok = torch.log_softmax(shift_logits, dim=-1).gather(-1, safe[..., None])[..., 0]
+    return (tok * valid).sum(-1)
+
+
+def dpo_loss(policy_chosen_lp: torch.Tensor, policy_rejected_lp: torch.Tensor,
+             ref_chosen_lp: torch.Tensor, ref_rejected_lp: torch.Tensor, beta: float = 0.1,
+             label_smoothing: float = 0.0):
+    """Sigmoid DPO (trl's ``loss_type='sigmoid'``, the LLaVA DPO recipe's):
+    per-pair losses and the chosen and rejected rewards."""
+    logits = (policy_chosen_lp - policy_rejected_lp) - (ref_chosen_lp - ref_rejected_lp)
+    losses = (-F.logsigmoid(beta * logits) * (1 - label_smoothing)
+              - F.logsigmoid(-beta * logits) * label_smoothing)
+    chosen = beta * (policy_chosen_lp - ref_chosen_lp)
+    rejected = beta * (policy_rejected_lp - ref_rejected_lp)
+    return losses, chosen, rejected
+
+
+def make_videoqa_dpo_step(model: VideoQAModel, ref_model: VideoQAModel, stage: int = 3,
+                          beta: float = 0.1, dpo_alpha: float = 1.0, gamma: float = 1.0):
+    """The DPO step (the reference's ``train_dpo.py`` over trl's
+    ``DPOTrainer``): ``loss = dpo_alpha * mean(-logsigmoid(beta * delta)) +
+    gamma * CE(chosen)``, the baseline log-ratios from ``ref_model`` (a
+    ``reference_copy``, run without grad). Trainability and lrs follow
+    ``stage_policy(stage)``. Batches: ``{"pixel_values", "chosen": sub,
+    "rejected": sub}``, each sub a ``make_batch`` of its response. Returns
+    (optimizer, step); ``step(batch)`` returns (loss, metrics) as 0-d
+    tensors: ``rewards_chosen``, ``rewards_rejected``, ``reward_margin``,
+    ``reward_accuracy`` and ``sft_loss``."""
+    opt = make_optimizer(model, stage)
+
+    def pair_logps(m, img, batch):
+        logits_c, lab_c = _logits_and_labels(m, img, batch["chosen"])
+        rejected = sequence_logps(*_logits_and_labels(m, img, batch["rejected"]))
+        return sequence_logps(logits_c, lab_c), rejected, logits_c, lab_c
+
+    def step(batch):
+        opt.zero_grad()
+        with torch.no_grad():
+            rc, rr, _, _ = pair_logps(ref_model, encode_for_training(
+                ref_model, batch["pixel_values"]), batch)
+        pc, pr, logits_c, lab_c = pair_logps(model, encode_for_training(
+            model, batch["pixel_values"]), batch)
+        losses, cr, rj = dpo_loss(pc, pr, rc, rr, beta)
+        sft = LM.lm_loss(logits_c, lab_c)
+        loss = dpo_alpha * losses.mean() + gamma * sft
+        loss.backward()
+        opt.step()
+        cr, rj = cr.detach(), rj.detach()
+        metrics = {"rewards_chosen": cr.mean(), "rewards_rejected": rj.mean(),
+                   "reward_margin": (cr - rj).mean(), "reward_accuracy": (cr > rj).float().mean(),
+                   "sft_loss": sft.detach()}
+        return loss.detach(), metrics
+
+    return opt, step

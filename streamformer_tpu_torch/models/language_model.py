@@ -12,7 +12,9 @@ fixed-capacity KV cache for decoding, with one length for all rows
 state dict loads through ``convert_hf_state_dict`` as it is. Matmul weights,
 biases and the embedding table are kept in the compute dtype (the JAX
 package casts its fp32 tree at each use, which rounds the same way); the
-RMS-norm weights stay fp32, as the JAX package applies them in fp32. The
+RMS-norm weights stay fp32, as the JAX package applies them in fp32.
+``trainable=True`` keeps every parameter as an fp32 master that requires
+grad, cast to the compute dtype at each use (VideoQA training). The
 functions below take the module where the JAX package takes its parameter
 tree. The LM runs no custom kernel: its products are ``F.linear`` and
 ``torch.bmm``.
@@ -103,12 +105,16 @@ class LanguageModel(nn.Module):
     package's ``init_params`` draws them (normal 0.02 for matrices and the
     embedding table, zero biases, unit norms) from ``generator``, on the
     generator's device; a generator on the card draws a 7B model there
-    without a host copy. No parameter requires grad (the serving LM)."""
+    without a host copy. By default no parameter requires grad and the
+    weights are in the compute dtype (the serving LM); ``trainable=True``
+    gives fp32 master parameters that require grad."""
 
-    def __init__(self, cfg: LMConfig, *, device=None, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: LMConfig, *, device=None, generator: Optional[torch.Generator] = None,
+                 trainable: bool = False):
         super().__init__()
         dev = encoder.resolve_device(device)
-        dt = encoder.compute_dtype(cfg)
+        encoder.compute_dtype(cfg)  # refuses a dtype the port does not run
+        dt = torch.float32 if trainable else encoder.compute_dtype(cfg)
         self.cfg = cfg
         d = cfg.hidden_size
         self.model = encoder._container(
@@ -129,7 +135,7 @@ class LanguageModel(nn.Module):
                     p.zero_()
                 elif p.ndim == 2:
                     p.normal_(0.0, 0.02, generator=generator)
-        self.requires_grad_(False)
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -173,14 +179,36 @@ def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
     return y
 
 
+class _Scores(torch.autograd.Function):
+    """The card's ``torch.bmm(q, k_t, out_dtype=torch.float32)`` with a
+    backward (the overload has none): the fp32 score gradient goes through
+    two fp32 products, and each input gradient is rounded once to its
+    input's dtype. Training's q and k_t are one sequence's, not a cache."""
+
+    @staticmethod
+    def forward(ctx, q, k_t):
+        ctx.save_for_backward(q, k_t)
+        return torch.bmm(q, k_t, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k_t = ctx.saved_tensors
+        dq = torch.bmm(g, k_t.float().transpose(1, 2)).to(q.dtype)
+        dk_t = torch.bmm(q.float().transpose(1, 2), g).to(k_t.dtype)
+        return dq, dk_t
+
+
 def _scores(q: torch.Tensor, k_t: torch.Tensor) -> torch.Tensor:
     """fp32 ``q @ k_t`` over batched matrices, the JAX einsum's
     ``preferred_element_type=float32``. On the card a bf16 product writes its
     fp32 accumulators as they are (``out_dtype``), so the cache is read in
-    its own dtype, never copied to fp32; the CPU has no such overload."""
+    its own dtype, never copied to fp32; the CPU has no such overload. When
+    a gradient is asked for, ``_Scores`` gives that product a backward."""
     if q.dtype == torch.float32:
         return torch.bmm(q, k_t)
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k_t.requires_grad):
+            return _Scores.apply(q, k_t)
         return torch.bmm(q, k_t, out_dtype=torch.float32)
     return torch.bmm(q.float(), k_t.float())
 

@@ -189,19 +189,22 @@ class ScheduledOptimizer:
     """A ``torch.optim`` optimizer driven by schedules of the update count.
 
     ``step()`` clips the gradients of its parameters by their global norm
-    (if asked), sets every group's lr and weight decay from the schedules at
+    (if asked; ``clip_each_group`` clips each parameter group by its own
+    norm, as a clip inside each branch of optax's ``multi_transform``
+    does), sets every group's lr and weight decay from the schedules at
     ``count``, steps the inner optimizer and adds one to ``count``. A
     parameter without a gradient is stepped with a zero gradient, as optax
     steps every leaf."""
 
     def __init__(self, inner: torch.optim.Optimizer, lr_schedule: Schedule,
                  wd_schedule: Optional[Schedule], clip_grad: Optional[float],
-                 decoupled_sgd_decay: bool):
+                 decoupled_sgd_decay: bool, clip_each_group: bool = False):
         self.inner = inner
         self.lr_schedule = lr_schedule
         self.wd_schedule = wd_schedule
         self.clip_grad = clip_grad
         self._sgd_decay = decoupled_sgd_decay
+        self.clip_each_group = clip_each_group
         self.count = 0
 
     @property
@@ -221,12 +224,13 @@ class ScheduledOptimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.clip_grad is not None and params:
-            grads = [p.grad for p in params]
-            norm = sharding.grad_norm(params)  # a sharded leaf counted over its model group
-            # optax: g if norm < max_norm else g / norm * max_norm; on the device
-            divisor = torch.where(norm < self.clip_grad, torch.ones_like(norm),
-                                  norm / self.clip_grad)
-            torch._foreach_div_(grads, divisor)
+            for ps in ([g["params"] for g in self.inner.param_groups] if self.clip_each_group
+                       else [params]):
+                norm = sharding.grad_norm(ps)  # a sharded leaf counted over its model group
+                # optax: g if norm < max_norm else g / norm * max_norm; on the device
+                divisor = torch.where(norm < self.clip_grad, torch.ones_like(norm),
+                                      norm / self.clip_grad)
+                torch._foreach_div_([p.grad for p in ps], divisor)
         lr = self.lr_schedule(self.count)
         for group in self.inner.param_groups:
             group["lr"] = lr * group["lr_scale"]

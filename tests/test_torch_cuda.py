@@ -1281,6 +1281,32 @@ def test_lm_scores_keep_fp32_accumulators_on_the_card():
     assert (s - s.bfloat16().float()).abs().max().item() > 0
 
 
+def test_bmm_out_dtype_has_no_backward_of_its_own():
+    """Why ``_Scores`` exists: the card's ``torch.bmm(..., out_dtype=float32)``
+    on bf16 inputs records no derivative. When this fails, torch has gained
+    one and ``_Scores`` can go."""
+    q = _randn((2, 3, 64), torch.bfloat16, 8).requires_grad_(True)
+    k_t = _randn((2, 64, 5), torch.bfloat16, 9).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="not implemented"):
+        torch.bmm(q, k_t, out_dtype=torch.float32).sum().backward()
+
+
+def test_lm_scores_backward_on_the_card():
+    """The card's fp32-out bf16 score product has no backward of its own;
+    ``_Scores`` gives it one: q's and k's gradients equal the fp32 product's
+    gradients of the same bf16 values, each rounded once to bf16."""
+    q = _randn((4, 7, 64), torch.bfloat16, 5).requires_grad_(True)
+    k_t = _randn((4, 64, 33), torch.bfloat16, 6).requires_grad_(True)
+    g = _randn((4, 7, 33), torch.float32, 7)
+    LM._scores(q, k_t).backward(g)
+    qf, kf = (x.detach().float().requires_grad_(True) for x in (q, k_t))
+    torch.bmm(qf, kf).backward(g)
+    for got, ref in ((q.grad, qf.grad), (k_t.grad, kf.grad)):
+        # one rounding to bf16: within half an ulp, 2**-8 relative
+        assert got.dtype == torch.bfloat16
+        assert ((got.float() - ref).abs() <= ref.abs() * 2.0**-8 + 1e-30).all()
+
+
 @pytest.mark.parametrize("kw", [dict(), dict(decode_steps_per_tick=4),
                                 dict(cache_dtype="int8"), dict(temperature=0.8, top_p=0.9)],
                          ids=["greedy", "k4", "int8_kv", "sampled"])

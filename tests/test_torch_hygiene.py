@@ -136,3 +136,47 @@ def test_data_path_imports_without_decoders_or_parsers():
         "assert run.get_args(['--metadata', 'm.yaml', '--device', 'cpu']).device == 'cpu'\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_downstream_training_runs_without_jax_optax_or_transformers():
+    """The VideoQA and action-recognition CLIs' training functions, handed
+    in-memory clips, with ``jax``, ``optax``, ``transformers``, ``cv2`` and
+    ``tensorboardX`` blocked from import: a stage-1 epoch, a DPO epoch, the
+    greedy samples and an AR epoch with mixup, the EMA and validation on the
+    CPU."""
+    code = (
+        "import os, sys, tempfile\n"
+        "for name in ('jax', 'optax', 'orbax', 'transformers', 'tensorboardX', 'cv2',"
+        " 'streamformer_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "from streamformer_tpu_torch.downstream import ar_run, videoqa_run\n"
+        "out = tempfile.mkdtemp()\n"
+        "tiny = ['--hidden_size', '32', '--num_layers', '1', '--num_heads', '4',"
+        " '--intermediate_size', '64', '--input_size', '32', '--num_frames', '2',"
+        " '--device', 'cpu']\n"
+        "lm = ['--lm_hidden', '32', '--lm_layers', '1', '--lm_heads', '4', '--lm_kv_heads', '2',"
+        " '--lm_intermediate', '64', '--lm_vocab', '64', '--max_len', '16']\n"
+        "clip = lambda path, mode='train': torch.zeros(1, 2, 3, 32, 32)\n"
+        "sft = [{'video': 'a', 'conversations': [{'from': 'human', 'value': '<image> what'},"
+        " {'from': 'gpt', 'value': 'this'}]}]\n"
+        "dpo = [{'video': 'a', 'prompt': '<image> what', 'chosen': 'a', 'rejected': 'b'}]\n"
+        "for rows, extra in ((sft, ['--stage', '1']), (dpo, ['--stage', '3', '--dpo'])):\n"
+        "    args = videoqa_run.get_args(['--data', 'x', '--output_dir', out] + extra + tiny + lm)\n"
+        "    model = videoqa_run.build_model(args)\n"
+        "    tok = videoqa_run.load_tokenizer(args, args.lm_vocab)\n"
+        "    hist = videoqa_run.train(args, rows, clip, model, tok)\n"
+        "    assert np.isfinite(hist[0]['loss'])\n"
+        "assert len(videoqa_run.greedy_samples(args, model, tok, rows, clip)) == 1\n"
+        "class Clips:\n"
+        "    def __len__(self):\n"
+        "        return 4\n"
+        "    def __getitem__(self, i):\n"
+        "        return {'task_input': {'frames': np.full((2, 40, 40, 3), 50 * i, np.uint8),"
+        " 'label': i % 2}}\n"
+        "args = ar_run.get_args(['--anno_train', 'x', '--num_classes', '2', '--batch_size', '2',"
+        " '--epochs', '1', '--model_ema', '--num_workers', '1', '--output_dir', out] + tiny)\n"
+        "res = ar_run.train(args, Clips(), Clips())\n"
+        "assert np.isfinite(res['history'][0]['loss']) and 'top1_ema' in res['history'][0]\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
