@@ -194,9 +194,41 @@ Phases, each fatal on failure:
     mixup 0.8, cutmix 1.0, smoothing 0.1, EMA 0.9999, layer decay 0.75): 8
     steps, B, C, H and I L times each, validation of the model and its
     EMA, the multi-view test of 4 segments x 3 crops and a checkpoint;
-    clips/s, ms per step and the peak memory.
+    clips/s, ms per step and the peak memory;
+30. online action detection (``extract.oad``, ``downstream.oad_lstr``,
+    ``oad_data``, ``oad_run``): two seeded uint8 clips of 600 frames
+    (240x320, 25 s at 24 fps) through the streaming extractor a frame a call
+    on phase 4's encoder (ring C=16; A and B L times a frame), frames/s, the
+    features and one-hot targets written as ``PerFrameDataset`` reads them;
+    one A call (R=196 past the ring's wrap) and one B call (R=1) of that run
+    held to their plain versions on the same inputs;
+    ``oad_run.train`` at LSTR's THUMOS-14 settings (768 -> 1024, 8 heads,
+    22 classes, long memory 512 at rate 4, work 32, 8 groups) with the CLI's
+    batch 16, lr 7e-5 and weight decay 5e-5: 12 steps (finite, falling),
+    validation (mAP, mcAP) and a checkpoint, ms per step, windows/s, device
+    busy and launches a step (a 4-step profile), the peak memory; MAT (48
+    future, 8 anticipation) two steps; ``LSTRStream`` over 256 frames, ms a
+    frame that recomputes the compressed memory and a frame that reuses it,
+    its last logits within 2e-3 of ``forward`` on the data layer's window; a
+    small fp32 LSTR, two steps on the card against the CPU;
+31. OVIS (``ops.msdeform_attn``, ``models.adapter``, ``downstream.segmentor``,
+    ``ctvis_plugin``, ``ovis_run``, ``eval.ytvis``): a small fp32 adapter and
+    segmentor on the card against the CPU (the FPN, logits, masks and
+    embeddings within 1e-4, the mask logits within 1e-4 of max(1, their
+    largest), one step's loss within 1e-4, its gradients within 1e-4 of a
+    leaf's largest); ``ovis_run.train`` at the CLI's defaults (the flagship
+    backbone frozen in fp32, 2 frames of 224^2, the adapter's 4 blocks, the
+    segmentor's 100 queries and 40 classes at hidden 256, the CTVIS loss) on
+    8 seeded clips of 3 instances: B and C L times a step (the backbone runs
+    once for the matching and the loss forwards), H and I never; ms per
+    step, clips/s, the peak memory; a 3-step profile (device busy, launches
+    a step) and MSDeformAttn's device time, its calls of a step replayed
+    alone; one C call (the packed (1, 2, 196, 2304) qkv) and one B call
+    (R=2) of a step held to their plain versions at the fp32 limit;
+    ``run_inference`` on two in-memory videos of 6 frames through
+    ``HungarianTracker``, results JSON and ``evaluate_ytvis``'s AP.
 
-Fourteen paths are main paths: the lockstep encode (the launch counters are
+Sixteen paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
@@ -214,8 +246,11 @@ VideoQA training (zeroed before phase 28's timed stage-3 steps and read
 after the profiled ones; zeroed before the timed DPO steps, the timed
 stage-1 steps, ``videoqa_run.train`` and ``run_eval``, each read after
 it), and AR fine-tuning (zeroed before phase 29's ``ar_run.train``, read
-after it and around each of its steps). Every kernel must have run on its
-path.
+after it and around each of its steps), and online action detection
+(zeroed before each clip's extraction in phase 30, read after it), and
+OVIS (zeroed before phase 31's ``ovis_run.train``, read after it and around
+each of its steps, and before its ``run_inference``, read after it). Every
+kernel must have run on its path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -394,6 +429,31 @@ TRAIN_GRAD_RTOL = 1e-4
 # 4 segments x 3 crops
 AR = dict(classes=400, batch=16, steps=8, clips=16, height=256, width=320, val_clips=16,
           test_clips=2, segments=4, crops=3, lr=2e-4, small_classes=10, small_batch=4)
+# phase 30: online action detection. Extraction: two seeded uint8 clips of 25 s
+# at 24 fps (240x320) through the streaming extractor a frame a call (A and B
+# L times a frame); LSTR at THUMOS-14's settings (the LSTRConfig defaults:
+# long memory 512 at rate 4, work 32) with the CLI's batch 16, lr 7e-5 and
+# weight decay 5e-5; 12 steps, a 4-step profile; MAT (48 future, 8
+# anticipation) 2 steps; the stream over 256 frames; a small fp32 LSTR card vs CPU
+OAD_RUN = dict(clips=2, frames=600, height=240, width=320, classes=22, batch=16, steps=12,
+               profiled=4, mat_steps=2, future=48, anticipation=8, stream_frames=256,
+               small=dict(visual_size=64, d_model=64, num_heads=4, dim_feedforward=128,
+                          num_classes=5, long_memory_num_samples=16, work_memory_num_samples=8,
+                          enc_queries_0=4, enc_queries_1=8, groups=4))
+STREAM_VS_FORWARD_TOL = 2e-3  # the stream's last logits vs forward on its window, fp32
+# phase 31: OVIS at the CLI's defaults (the flagship backbone frozen in fp32,
+# 224^2, 2 frames, the adapter's 4 blocks of 12 deformable heads, the
+# segmentor's defaults at hidden 256: 100 queries, 40 YouTube-VIS 2019
+# classes, 3 + 9 layers; AdamW 1e-4, weight decay 0.05): 8 steps on seeded
+# clips of 3 instances, a 3-step profile; inference on two 6-frame videos;
+# a small fp32 adapter and segmentor card vs CPU
+OVIS = dict(steps=8, profiled=3, instances=3, classes=40, videos=2, video_frames=6,
+            video_height=180, video_width=320,
+            small_flags=["--hidden_size", "64", "--num_layers", "2", "--num_heads", "4",
+                         "--intermediate_size", "128", "--input_size", "64"],
+            small_seg=dict(hidden_dim=64, num_queries=8, num_classes=5, nheads=4,
+                           dim_feedforward=64, enc_layers=1, dec_layers=3, mask_dim=64,
+                           in_dim=64))
 DEVICE = "cuda"
 
 
@@ -3246,6 +3306,552 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 29: {time.perf_counter() - t29:.1f} s")
 
+    # ---- 30. online action detection: extraction, LSTR/MAT training, the stream
+    from streamformer_tpu_torch.downstream import oad_data
+    from streamformer_tpu_torch.downstream import oad_lstr
+    from streamformer_tpu_torch.downstream import oad_run
+
+    t30 = time.perf_counter()
+    oa = OAD_RUN
+    # 30a. extraction: A and B L times a frame, features and one-hot targets on disk
+    work30 = tempfile.mkdtemp(prefix="oad-", dir=os.path.join(root, "build"))
+    for sub in ("rgb", "target"):
+        os.makedirs(os.path.join(work30, sub))
+    xrng = np.random.default_rng(300)
+    names30 = [f"video_{i_}" for i_ in range(oa["clips"])]
+    oad_launches = dict(zeros)
+    ext_s = 0.0
+    feats30 = {}
+    # the first clip's A and B calls of a middle layer at frame 2C+1 (the ring
+    # past its wrap) are kept, to hold them to their plain versions after the run
+    held30, calls30 = {}, {"a": 0, "b": 0}
+    pick30 = L * (2 * cap + 1) + L // 2
+    orig30 = {"a": ops.temporal_decode_pm, "b": ops.spatial_flat}
+
+    def keep30(key, args):
+        if calls30[key] == pick30:
+            held30[key] = [x_.detach().clone() if torch.is_tensor(x_) else x_ for x_ in args]
+        calls30[key] += 1
+        return orig30[key](*args)
+
+    for name in names30:
+        clip = xrng.integers(0, 256, (oa["frames"], oa["height"], oa["width"], 3), dtype=np.uint8)
+        px30 = oad.preprocess_frames(clip, cfg.image_size)
+        if name == names30[0]:
+            ops.temporal_decode_pm = lambda *a_: keep30("a", a_)
+            ops.spatial_flat = lambda *a_: keep30("b", a_)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            f30 = oad.extract_features_streaming(model, px30, chunk=1)
+        finally:
+            ops.temporal_decode_pm, ops.spatial_flat = orig30["a"], orig30["b"]
+        ext_s += time.perf_counter() - t0
+        run = dict(ops.LAUNCHES)
+        if run != {**zeros, "temporal_decode_pm": L * oa["frames"], "spatial_flat": L * oa["frames"]}:
+            fail(f"OAD extraction a frame a call: launches {run} over {oa['frames']} frames")
+        if f30.shape != (oa["frames"], d_) or not np.isfinite(f30).all():
+            fail(f"OAD extraction gave {f30.shape}, finite {np.isfinite(f30).all()}")
+        add(oad_launches, run)
+        # per-frame labels in segments of 24-96 frames, class 0 the background
+        labels = np.zeros(oa["frames"], np.int64)
+        pos = 0
+        while pos < oa["frames"]:
+            span = int(xrng.integers(24, 97))
+            labels[pos:pos + span] = 0 if xrng.uniform() < 0.5 else int(xrng.integers(1, oa["classes"]))
+            pos += span
+        np.save(os.path.join(work30, "rgb", name + ".npy"), f30)
+        np.save(os.path.join(work30, "target", name + ".npy"),
+                np.eye(oa["classes"], dtype=np.float32)[labels])
+        feats30[name] = f30
+        del px30, clip
+    ext_fps = oa["clips"] * oa["frames"] / ext_s
+    print(f"OAD extraction ({smi}): {oa['clips']} clips of {oa['frames']} uint8 frames "
+          f"{oa['height']}x{oa['width']} (25 s at 24 fps), phase 4's encoder (ring "
+          f"C={cap}) a frame a call: {ext_fps:.1f} frames/s; launches a frame "
+          f"{ {k_: v_ // (oa['clips'] * oa['frames']) for k_, v_ in oad_launches.items() if v_} }")
+    # A and B at the extraction's shapes (R = 196 rows of one stream; one frame's
+    # 196 patches), on the inputs of the main path's calls, against their plain versions
+    if set(held30) != {"a", "b"}:
+        fail(f"OAD extraction: {calls30} calls of A and B, none captured at call {pick30}")
+    q, kn, vn, kc, vc, ln, hh = held30["a"]
+    dn, elt = str(q.dtype).split(".")[1], q.element_size()
+    r, c_, length = q.shape[0], kc.shape[0], int(ln)
+    k_ref, v_ref = kc.clone(), vc.clone()
+    ref = ops.temporal_decode_pm_plain(q, kn, vn, k_ref, v_ref, ln, hh)
+    got = ops.temporal_decode_pm(q, kn, vn, kc, vc, ln, hh)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, k_ref) and torch.equal(vc, v_ref)):
+        fail("temporal_decode_pm on OAD extraction's call: appended cache planes differ")
+    n_read = min(length, c_) - (1 if length >= c_ else 0)
+    window = (torch.arange(c_, device=dev) <= length).view(1, c_)
+    q4 = q.view(r, hh, 1, d_ // hh)
+    k4, v4 = (x_.view(c_, r, hh, d_ // hh).permute(1, 2, 0, 3) for x_ in (kc, vc))
+    record("temporal_decode_pm", f"OAD extraction ring R={r} C={c_} len={length}", dn,
+           max_err(got, ref), lambda: ops.temporal_decode_pm(q, kn, vn, kc, vc, ln, hh),
+           lambda: ops.temporal_decode_pm_plain(q, kn, vn, kc, vc, ln, hh),
+           lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
+           elt * r * d_ * (3 + 1 + 2 * n_read + 2), 4 * r * d_ * (n_read + 1))
+    q, k, v, hh = held30["b"]
+    r, n30 = q.shape[:2]
+    qh, kh, vh = (x_.view(r, n30, hh, d_ // hh).transpose(1, 2) for x_ in (q, k, v))
+    record("spatial_flat", f"OAD extraction R={r} N={n30}", dn,
+           max_err(ops.spatial_flat(q, k, v, hh), ops.spatial_flat_plain(q, k, v, hh)),
+           lambda: ops.spatial_flat(q, k, v, hh), lambda: ops.spatial_flat_plain(q, k, v, hh),
+           lambda: F.scaled_dot_product_attention(qh, kh, vh),
+           4 * elt * r * n30 * d_, 4 * r * n30 * n30 * d_)
+    del held30, q, kn, vn, kc, vc, k_ref, v_ref, ref, got, k, v, q4, k4, v4, qh, kh, vh
+
+    # 30b. oad_run.train at LSTR's THUMOS-14 settings, then batch inference and a checkpoint
+    with open(os.path.join(work30, "train.txt"), "w") as f_:
+        f_.write("\n".join(names30) + "\n")
+    with open(os.path.join(work30, "val.txt"), "w") as f_:
+        f_.write(names30[-1] + "\n")
+    oargs = oad_run.get_args([
+        "--feature_root", os.path.join(work30, "rgb"), "--target_root",
+        os.path.join(work30, "target"), "--train_list", os.path.join(work30, "train.txt"),
+        "--val_list", os.path.join(work30, "val.txt"), "--num_classes", str(oa["classes"]),
+        "--long_memory_num_samples", "512", "--epochs", "1", "--steps_per_epoch",
+        str(oa["steps"]), "--output_dir", os.path.join(work30, "out"), "--seed", "30"])
+    lcfg = oad_run.config_of(oargs)
+    if (lcfg != oad_lstr.LSTRConfig(num_classes=oa["classes"]) or oargs.batch_size != oa["batch"]
+            or (oargs.lr, oargs.weight_decay, oargs.long_sample_rate) != (7e-5, 5e-5, 4)):
+        fail(f"OAD settings {lcfg}, batch {oargs.batch_size}, lr {oargs.lr}: not LSTR's THUMOS-14")
+    train30, val30 = oad_run.build_datasets(oargs, lcfg)
+    lstr = oad_lstr.LSTR(lcfg, generator=torch.Generator().manual_seed(30))
+    n_lstr = sum(p_.numel() for p_ in lstr.parameters())
+    orig_oad_make = oad_data.make_train_step
+    oad_ms, oad_losses, oad_steps = [], [], []
+
+    def timed_oad_make(*a_, **k_):
+        """make_train_step whose steps are timed, the card synchronised
+        around each; the step is kept for the profile."""
+        inner = orig_oad_make(*a_, **k_)
+        oad_steps.append(inner)
+
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            loss_ = inner(batch)
+            torch.cuda.synchronize()
+            oad_ms.append((time.perf_counter() - t_) * 1e3)
+            oad_losses.append(float(loss_))
+            return loss_
+
+        return timed_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held30 = torch.cuda.memory_allocated()
+    oad_data.make_train_step = timed_oad_make
+    try:
+        t0 = time.perf_counter()
+        hist30 = oad_run.train(oargs, train30, val30, model=lstr)
+        oad_train_s = time.perf_counter() - t0
+    finally:
+        oad_data.make_train_step = orig_oad_make
+    oad_peak = (torch.cuda.max_memory_allocated() - held30) / 2**30
+    stats30 = hist30[0]
+    if not (len(oad_losses) == oa["steps"] and np.isfinite(oad_losses).all()
+            and np.mean(oad_losses[-3:]) < np.mean(oad_losses[:3])):
+        fail(f"LSTR training: losses {oad_losses} not finite and falling")
+    if not ({"mAP", "mcAP"} <= stats30.keys() and 0 <= stats30["mAP"] <= 100
+            and ckpt_lib.latest_checkpoint(oargs.output_dir) == 0):
+        fail(f"LSTR validation and checkpoint: stats {stats30}")
+    pbatches = list(train30.batches(oa["batch"], np.random.default_rng(31)))[:oa["profiled"]]
+    pbatches = [oad_data.to_device(b_x, dev) for b_x in pbatches]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b_x in pbatches:
+            oad_steps[0](b_x)
+        torch.cuda.synchronize()
+    rows30 = device_rows(prof)
+    if not rows30:
+        fail("the LSTR profile read no device time")
+    oad_busy = sum(e.device_time_total for e in rows30) / oa["profiled"] / 1e3
+    oad_ops = sum(e.count for e in rows30) / oa["profiled"]
+    steady30 = statistics.median(oad_ms[1:])
+    print(f"LSTR training ({smi}): THUMOS-14 settings ({n_lstr / 1e6:.1f} M parameters; visual "
+          f"768, d_model 1024, 8 heads, long 512 at rate 4, work 32, 8 groups), batch "
+          f"{oa['batch']}, AdamW 7e-5 / 5e-5: {oa['steps']} steps "
+          f"{[round(x_, 2) for x_ in oad_ms]} ms (synchronised, host batches in the loop); steady "
+          f"{steady30:.2f} ms per step, {oa['batch'] * 1e3 / steady30:.1f} windows/s; device busy "
+          f"{oad_busy:.2f} ms a step on device batches ({100 * oad_busy / steady30:.1f} % of the "
+          f"step), {oad_ops:.0f} launches a step; peak {oad_peak:.2f} GiB above what earlier phases "
+          f"hold; losses "
+          f"{[round(x_, 4) for x_ in oad_losses]}; validation on {len(val30)} windows mAP "
+          f"{stats30['mAP']:.2f} mcAP {stats30['mcAP']:.2f}; the epoch {oad_train_s:.1f} s")
+    for e in sorted(rows30, key=lambda e: -e.device_time_total)[:6]:
+        print(f"  {e.device_time_total / oa['profiled'] / 1e3:8.4f} ms/step  "
+              f"x{e.count / oa['profiled']:<6.1f} {e.key[:90]}")
+
+    # 30c. MAT: the future/CCI branch and anticipation queries, two steps
+    mcfg = oad_lstr.LSTRConfig(num_classes=oa["classes"], future_num_samples=oa["future"],
+                               anticipation_num_samples=oa["anticipation"])
+    mat = oad_lstr.LSTR(mcfg, generator=torch.Generator().manual_seed(32))
+    mat_step = orig_oad_make(mat, oad_data.make_optimizer(mat, 7e-5, 5e-5))
+    mat_losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b_x in pbatches[:oa["mat_steps"]]:
+        mat_losses.append(float(mat_step(b_x)))
+    mat_ms = (time.perf_counter() - t0) / oa["mat_steps"] * 1e3
+    with torch.no_grad():
+        mout = oad_lstr.forward(mat, pbatches[0]["features"], memory_mask=pbatches[0]["memory_mask"])
+    if not (np.isfinite(mat_losses).all() and mout["logits"].shape[1] == 32 + oa["anticipation"]
+            and mout["future_logits"].shape[1] == mcfg.fut_queries):
+        fail(f"MAT: losses {mat_losses}, logits {tuple(mout['logits'].shape)}")
+    print(f"MAT (future {oa['future']}, anticipation {oa['anticipation']}, 2 CCI rounds): losses "
+          f"{[round(x_, 4) for x_ in mat_losses]}, {mat_ms:.2f} ms a step; logits "
+          f"{tuple(mout['logits'].shape)}, future {tuple(mout['future_logits'].shape)}")
+    del mat, mat_step, mout
+
+    # 30d. LSTRStream over 256 frames of 30a's features
+    stream = oad_lstr.LSTRStream(lstr, long_sample_rate=oargs.long_sample_rate)
+    sfeat = feats30[names30[0]][:oa["stream_frames"]]
+    recompute_ms, reuse_ms = [], []
+    for fr in sfeat:
+        torch.cuda.synchronize()
+        ts_ = time.perf_counter()
+        last = stream.step(fr)
+        torch.cuda.synchronize()
+        (recompute_ms if stream.recomputed else reuse_ms).append((time.perf_counter() - ts_) * 1e3)
+    window = train30[train30.samples.index((0, oa["stream_frames"]))]
+    with torch.no_grad():
+        want = oad_lstr.forward(lstr, torch.from_numpy(window["features"][None]).to(dev),
+                                memory_mask=torch.from_numpy(window["memory_mask"][None]).to(dev))
+    s_err = max_err(last, want["logits"][0, lcfg.work_memory_num_samples - 1])
+    if not s_err <= STREAM_VS_FORWARD_TOL:
+        fail(f"LSTRStream after {oa['stream_frames']} frames: {s_err} from forward on its window")
+    print(f"LSTRStream ({smi}) over {oa['stream_frames']} frames (fp32, THUMOS-14 widths): "
+          f"{statistics.median(recompute_ms):.3f} ms a frame that recomputes the compressed memory "
+          f"({len(recompute_ms)} frames), {statistics.median(reuse_ms):.3f} ms a frame that reuses it "
+          f"({len(reuse_ms)}), {1e3 * len(sfeat) / (sum(recompute_ms) + sum(reuse_ms)):.1f} frames/s "
+          f"(synchronised a frame); last logits {s_err} from forward on the data layer's window "
+          f"(<= {STREAM_VS_FORWARD_TOL})")
+    del stream, lstr, train30, val30, pbatches
+
+    # 30e. a small fp32 LSTR: two steps on the card against the CPU
+    def grad_rel(cpu_grads, dev_grads):
+        """The worst leaf's card-vs-CPU gradient error against max(the leaf's
+        largest, 1e-2 of the largest of all), phase 15's rule: a leaf whose
+        gradient is zero in exact arithmetic (an attention key's bias) holds
+        summation noise only."""
+        top = max(float(g_.abs().max()) for g_ in cpu_grads.values())
+        return max(max_err(cpu_grads[k_], dev_grads[k_])
+                   / max(float(cpu_grads[k_].abs().max()), 1e-2 * top) for k_ in cpu_grads)
+
+    scfg = oad_lstr.LSTRConfig(**oa["small"])
+    srng = np.random.default_rng(33)
+    ln_, lw_ = scfg.long_memory_num_samples, scfg.work_memory_num_samples
+    sbatches = [{"features": srng.standard_normal((4, ln_ + lw_, scfg.visual_size)).astype(np.float32),
+                 "memory_mask": srng.uniform(size=(4, ln_)) > 0.3,
+                 "targets": np.eye(scfg.num_classes, dtype=np.float32)[
+                     srng.integers(0, scfg.num_classes, (4, lw_))]} for _ in range(2)]
+    sruns = []
+    for device in ("cpu", dev):
+        sm_ = oad_lstr.LSTR(scfg, device=device, generator=torch.Generator().manual_seed(34))
+        sopt = oad_data.make_optimizer(sm_, 1e-3, 5e-5)
+        grads_ = []
+        inner_ = sopt.step
+
+        def rec_step(m_=sm_, g_=grads_, i_=inner_):
+            g_.append({k_: p_.grad.detach().cpu().clone() for k_, p_ in m_.named_parameters()})
+            i_()
+
+        sopt.step = rec_step
+        sstep = orig_oad_make(sm_, sopt)
+        sruns.append(([float(sstep(b_x)) for b_x in sbatches], grads_))
+    l_err = float(np.abs(np.subtract(sruns[0][0], sruns[1][0])).max())
+    g_rel = max(grad_rel(gc, gd) for gc, gd in zip(sruns[0][1], sruns[1][1]))
+    if not (l_err <= TRAIN_VS_CPU_TOL and g_rel <= GRAD_CARD_VS_CPU_TOL):
+        fail(f"small LSTR card vs CPU: losses {l_err}, gradients {g_rel} of a leaf's largest")
+    print(f"small fp32 LSTR (MAT off), two steps, card vs CPU: losses max-abs {l_err} "
+          f"(<= {TRAIN_VS_CPU_TOL}), gradients {g_rel} of a leaf's largest, at least 1e-2 of "
+          f"the largest of all (<= {GRAD_CARD_VS_CPU_TOL})")
+    shutil.rmtree(work30, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 30: {time.perf_counter() - t30:.1f} s")
+
+    # ---- 31. OVIS: the adapter and segmentor on the frozen flagship backbone
+    from streamformer_tpu_torch.downstream import ovis_run
+    from streamformer_tpu_torch.downstream import segmentor as SEG
+    from streamformer_tpu_torch.eval import ytvis as ytvis_port
+    from streamformer_tpu_torch.models import adapter as ADP
+    from streamformer_tpu_torch.ops import msdeform_attn as MSDA
+
+    t31 = time.perf_counter()
+    ov = OVIS
+    vrng = np.random.default_rng(310)
+
+    def vis_clip(size, frames, classes):
+        """A seeded clip of ``ov['instances']`` rectangles that drift a
+        little from frame to frame, each a class index into
+        ``selected_classes``."""
+        px_ = vrng.integers(0, 256, (frames, size, size, 3), dtype=np.uint8)
+        mt_ = np.full((frames, size, size), -1, np.int64)
+        for c_ in range(ov["instances"]):
+            y0, x0 = vrng.integers(0, size // 2, 2)
+            hh, ww = vrng.integers(size // 8, size // 2, 2)
+            for t_i in range(frames):
+                dy, dx = vrng.integers(-size // 32, size // 32 + 1, 2)
+                mt_[t_i, max(y0 + dy, 0):y0 + dy + hh, max(x0 + dx, 0):x0 + dx + ww] = c_
+        return {"frames": px_, "mask_target": mt_,
+                "selected_classes": vrng.choice(classes, ov["instances"], replace=False)}
+
+    # 31d first, while the card is empty: a small fp32 adapter and segmentor, card vs CPU
+    sargs = ovis_run.get_args(["--anno", "in-memory", "--num_classes", "5", "--num_queries", "8",
+                               "--output_dir", os.path.join(root, "build", "ovis-small"),
+                               *ov["small_flags"]])
+    s_seg = SEG.SegmentorConfig(**ov["small_seg"])
+    s_clip = vis_clip(64, 2, 5)
+    s_runs = []
+    for device in ("cpu", dev):
+        base = ovis_run.build_model(sargs, device=device)  # its backbone and adapter
+        open_gates(base.backbone, 31)
+        sm31 = ovis_run.OVISModel(base.backbone, torch.nn.ModuleDict({
+            "adapter": base.params["adapter"],
+            "segmentor": SEG.Segmentor(s_seg, device=device,
+                                       generator=torch.Generator().manual_seed(31))}), s_seg, {})
+        spx = ovis_run.to_pixels(s_clip["frames"], device)
+        with torch.no_grad():
+            fpn_ = ADP.adapter_forward(sm31.params["adapter"], sm31.backbone, spx)
+            out_ = sm31.forward(spx)
+        sopt = ovis_run.make_optimizer(sm31.params, 1e-4, 0.05)
+        inner_ = sopt.step
+        grads_ = {}
+
+        def rec31(m_=sm31, g_=grads_, i_=inner_):
+            g_.update({k_: p_.grad.detach().cpu().clone() for k_, p_ in m_.params.named_parameters()})
+            i_()
+
+        sopt.step = rec31
+        sloss = float(ovis_run.train_step(sm31, sopt, s_clip))
+        s_runs.append(({k_: v_.cpu() for k_, v_ in fpn_.items()},
+                       {k_: out_[k_].cpu() for k_ in ("pred_logits", "pred_masks", "embeddings")},
+                       sloss, grads_))
+    # the FPN, logits and embeddings are held max-abs; the mask logits, a
+    # product of the decoder's embeddings with the per-pixel features over
+    # hidden_dim channels, reach tens, and are held against max(1, their largest)
+    errs31 = {k_: max_err(s_runs[0][i_][k_], s_runs[1][i_][k_])
+              for i_ in (0, 1) for k_ in s_runs[0][i_]}
+    mask_top = float(s_runs[0][1]["pred_masks"].abs().max())
+    o_err = max(e_ for k_, e_ in errs31.items() if k_ != "pred_masks")
+    m_err = errs31["pred_masks"] / max(1.0, mask_top)
+    ol_err = abs(s_runs[0][2] - s_runs[1][2])
+    og_rel = grad_rel(s_runs[0][3], s_runs[1][3])
+    if not (o_err <= TRAIN_VS_CPU_TOL and m_err <= TRAIN_VS_CPU_TOL and ol_err <= TRAIN_VS_CPU_TOL
+            and og_rel <= GRAD_CARD_VS_CPU_TOL):
+        fail(f"small OVIS card vs CPU: max-abs {errs31}, masks {m_err} of {mask_top}, loss "
+             f"{ol_err}, gradients {og_rel}")
+    print(f"small fp32 adapter and segmentor, card vs CPU: FPN, logits and embeddings max-abs "
+          f"{o_err} ({ {k_: e_ for k_, e_ in errs31.items()} }); masks {errs31['pred_masks']} "
+          f"max-abs, {m_err} of max(1, their largest {mask_top:.3f}); one step's loss {ol_err} "
+          f"(all <= {TRAIN_VS_CPU_TOL}), gradients {og_rel} of a leaf's largest, at least 1e-2 of "
+          f"the largest of all (<= {GRAD_CARD_VS_CPU_TOL})")
+    del s_runs, sm31, base
+
+    # 31a. ovis_run.train at the CLI's defaults on in-memory clips
+    work31 = tempfile.mkdtemp(prefix="ovis-", dir=os.path.join(root, "build"))
+    vargs = ovis_run.get_args(["--anno", "in-memory", "--num_classes", str(ov["classes"]),
+                               "--epochs", "1", "--steps_per_epoch", str(ov["steps"]),
+                               "--output_dir", work31, "--seed", "31"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held31 = torch.cuda.memory_allocated()
+    ovm = ovis_run.build_model(vargs)
+    open_gates(ovm.backbone, 32)
+    scfg31 = ovm.seg_cfg
+    if ((ovm.backbone.cfg.hidden_size, ovm.backbone.cfg.num_hidden_layers, vargs.input_size,
+         vargs.num_frames, vargs.lr, vargs.weight_decay) != (768, 12, 224, 2, 1e-4, 0.05)
+            or (scfg31.hidden_dim, scfg31.num_queries, scfg31.num_classes, scfg31.enc_layers,
+                scfg31.dec_layers) != (256, 100, ov["classes"], 3, 9)
+            or ovm.params["adapter"].interaction_indexes != ADP.INTERACTION_INDEXES):
+        fail(f"OVIS settings are not the CLI's defaults: {vargs}, {scfg31}")
+    n_ovis = sum(p_.numel() for p_ in ovm.params.parameters())
+    L31 = ovm.backbone.cfg.num_hidden_layers
+    clips31 = [vis_clip(vargs.input_size, vargs.num_frames, ov["classes"])
+               for _ in range(ov["steps"])]
+    orig_train_step = ovis_run.train_step
+    ov_ms, ov_launch = [], []
+
+    def timed_train_step(*a_, **k_):
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        t_ = time.perf_counter()
+        loss_ = orig_train_step(*a_, **k_)
+        torch.cuda.synchronize()
+        ov_ms.append((time.perf_counter() - t_) * 1e3)
+        ov_launch.append({k2: ops.LAUNCHES[k2] - before[k2] for k2 in before})
+        return loss_
+
+    ovis_run.train_step = timed_train_step
+    try:
+        ops.reset_launches()
+        _, hist31 = ovis_run.train(vargs, clips31, ovm)
+        ovis_launches = dict(ops.LAUNCHES)
+    finally:
+        ovis_run.train_step = orig_train_step
+    ov_peak = (torch.cuda.max_memory_allocated() - held31) / 2**30
+    want31 = {**zeros, "spatial_flat": L31, "temporal_fullclip": L31}
+    if len(ov_ms) != ov["steps"] or any(sl_ != want31 for sl_ in ov_launch):
+        fail(f"ovis_run.train: {len(ov_ms)} steps, launches a step {ov_launch} (want {want31})")
+    if not (np.isfinite(hist31[0]["loss"]) and ckpt_lib.latest_checkpoint(work31) == 0):
+        fail(f"ovis_run.train: stats {hist31}")
+    steady31 = statistics.median(ov_ms[1:])
+
+    # 31b. a 3-step profile; MSDeformAttn's device time, its calls replayed
+    # alone at the step's shapes (forward and backward as the step runs them).
+    # The same step keeps the inputs of a middle layer's B and C calls.
+    captured = []
+    orig_msda = (ADP.ms_deform_attn, SEG.ms_deform_attn)
+    held31, calls31 = {}, {"b": 0, "c": 0}
+    orig31 = {"b": ops.spatial_flat, "c": ops.temporal_fullclip_qkv}
+
+    def keep31(key, args):
+        if calls31[key] == L31 // 2:
+            held31[key] = [x_.detach().clone() if torch.is_tensor(x_) else x_ for x_ in args]
+        calls31[key] += 1
+        return orig31[key](*args)
+
+    def capturing(module, query, ref, value, shapes):
+        captured.append((module, query.detach(), ref, value.detach(), list(shapes),
+                         torch.is_grad_enabled()))
+        return MSDA.ms_deform_attn(module, query, ref, value, shapes)
+
+    ADP.ms_deform_attn = SEG.ms_deform_attn = capturing
+    ops.spatial_flat = lambda *a_: keep31("b", a_)
+    ops.temporal_fullclip_qkv = lambda *a_: keep31("c", a_)
+    popt = ovis_run.make_optimizer(ovm.params, vargs.lr, vargs.weight_decay)
+    try:
+        orig_train_step(ovm, popt, clips31[0])
+    finally:
+        ADP.ms_deform_attn, SEG.ms_deform_attn = orig_msda
+        ops.spatial_flat, ops.temporal_fullclip_qkv = orig31["b"], orig31["c"]
+    torch.cuda.synchronize()
+    # B and C at the OVIS backbone's shapes (fp32, 2 frames), on the inputs of
+    # the step's calls, against their plain versions
+    if set(held31) != {"b", "c"}:
+        fail(f"OVIS step: {calls31} calls of B and C, none captured at call {L31 // 2}")
+    qkv, hh = held31["c"]
+    b31, tf31, n31, d31 = qkv.shape[0], qkv.shape[1], qkv.shape[2], qkv.shape[3] // 3
+    dn, elt = str(qkv.dtype).split(".")[1], qkv.element_size()
+    qh, kh, vh = (x_.reshape(b31, tf31, n31, hh, d31 // hh).permute(0, 2, 3, 1, 4)
+                  for x_ in qkv.split(d31, dim=-1))
+    record("temporal_fullclip", f"OVIS backbone qkv {tuple(qkv.shape)} H={hh}", dn,
+           max_err(ops.temporal_fullclip_qkv(qkv, hh), ops.temporal_fullclip_qkv_plain(qkv, hh)),
+           lambda: ops.temporal_fullclip_qkv(qkv, hh),
+           lambda: ops.temporal_fullclip_qkv_plain(qkv, hh),
+           lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+           4 * elt * b31 * tf31 * n31 * d31, 2 * tf31 * (tf31 + 1) * b31 * n31 * d31)
+    q, k, v, hh = held31["b"]
+    r, n31 = q.shape[:2]
+    qh, kh, vh = (x_.view(r, n31, hh, d31 // hh).transpose(1, 2) for x_ in (q, k, v))
+    record("spatial_flat", f"OVIS backbone R={r} N={n31}", dn,
+           max_err(ops.spatial_flat(q, k, v, hh), ops.spatial_flat_plain(q, k, v, hh)),
+           lambda: ops.spatial_flat(q, k, v, hh), lambda: ops.spatial_flat_plain(q, k, v, hh),
+           lambda: F.scaled_dot_product_attention(qh, kh, vh),
+           4 * elt * r * n31 * d31, 4 * r * n31 * n31 * d31)
+    del held31, qkv, q, k, v, qh, kh, vh
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for c_ in clips31[1:1 + ov["profiled"]]:
+            orig_train_step(ovm, popt, c_)
+        torch.cuda.synchronize()
+    rows31 = device_rows(prof)
+    if not rows31:
+        fail("the OVIS profile read no device time")
+    ov_busy = sum(e.device_time_total for e in rows31) / ov["profiled"] / 1e3
+    ov_ops = sum(e.count for e in rows31) / ov["profiled"]
+    gs_ms = sum(e.device_time_total for e in rows31 if "grid_sampler" in e.key) / ov["profiled"] / 1e3
+
+    def replay():
+        for module, q_, r_, v_, shp, grad in captured:
+            if grad:
+                q_ = q_.clone().requires_grad_()
+                v_ = v_.clone().requires_grad_()
+                MSDA.ms_deform_attn(module, q_, r_, v_, shp).sum().backward()
+            else:
+                with torch.no_grad():
+                    MSDA.ms_deform_attn(module, q_, r_, v_, shp)
+
+    msda_ms = time_ms(replay, iters=5)  # the calls' wall time alone: host launches too
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+    msda_dev = sum(e.device_time_total for e in device_rows(prof)) / 1e3
+    ovm.params.zero_grad()
+    n_msda = (sum(1 for c_ in captured if not c_[5]), sum(1 for c_ in captured if c_[5]))
+    print(f"OVIS training ({smi}): ovis_run.train at the CLI's defaults (the flagship backbone "
+          f"frozen, fp32, {vargs.num_frames} frames of {vargs.input_size}^2; adapter and segmentor "
+          f"{n_ovis / 1e6:.1f} M parameters, {scfg31.num_queries} queries, {scfg31.num_classes} "
+          f"classes; AdamW 1e-4 / 0.05), {ov['instances']} instances a clip: {ov['steps']} steps "
+          f"{[round(x_, 1) for x_ in ov_ms]} ms (synchronised); steady {steady31:.2f} ms per step, "
+          f"{1e3 / steady31:.2f} clips/s; loss {hist31[0]['loss']:.4f}; peak {ov_peak:.2f} GiB above "
+          f"what earlier phases hold (the model included); "
+          f"launches a step {ov_launch[0]}; the profile: device busy {ov_busy:.2f} ms a step "
+          f"({100 * ov_busy / steady31:.1f} % of the step), {ov_ops:.0f} launches a step")
+    print(f"MSDeformAttn ({smi}): {n_msda[0]} calls without a graph and {n_msda[1]} with one a "
+          f"step, replayed alone: device time {msda_dev:.3f} ms ({100 * msda_dev / ov_busy:.1f} % "
+          f"of the step's device busy time), wall {msda_ms:.2f} ms (events, L2 flushed first; "
+          f"{100 * msda_ms / steady31:.1f} % of the step); its grid_sampler kernels in the step's "
+          f"profile {gs_ms:.3f} ms a step ({100 * gs_ms / ov_busy:.1f} % of busy)")
+    for e in sorted(rows31, key=lambda e: -e.device_time_total)[:8]:
+        print(f"  {e.device_time_total / ov['profiled'] / 1e3:8.4f} ms/step  "
+              f"x{e.count / ov['profiled']:<6.1f} {e.key[:90]}")
+    del captured, popt
+
+    # 31c. run_inference on two in-memory videos through HungarianTracker, scored
+    iargs = ovis_run.get_args(["--anno", "in-memory", "--num_classes", str(ov["classes"]),
+                               "--output_dir", work31, "--num_frames", str(ov["video_frames"]),
+                               "--tracker", "HungarianTracker"])
+    frames31, videos31, annos31 = {}, {}, {}
+    vh, vw = ov["video_height"], ov["video_width"]
+    for vid in range(1, ov["videos"] + 1):
+        names = []
+        for f_i in range(ov["video_frames"]):
+            name = f"v{vid}/{f_i:03d}.jpg"
+            frames31[name] = vrng.integers(0, 256, (vargs.input_size, vargs.input_size, 3),
+                                           dtype=np.uint8)
+            names.append(name)
+        videos31[vid] = {"id": vid, "file_names": names, "height": vh, "width": vw}
+        mask = np.zeros((vh, vw), bool)
+        mask[vh // 4:vh // 2, vw // 4:vw // 2] = True
+        annos31[vid] = [{"video_id": vid, "category_id": vid,
+                         "segmentations": [ytvis_port.mask_to_rle(mask)] * ov["video_frames"]}]
+
+    class Videos:
+        """In-memory videos in VISDataset's schema (ids, videos, annos)."""
+        ids = sorted(videos31)
+        videos = videos31
+        annos = annos31
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    line31 = ovis_run.run_inference(iargs, ovm,
+                                    load_frame=lambda path: frames31[path],
+                                    ds=Videos())
+    torch.cuda.synchronize()
+    inf_s = time.perf_counter() - t0
+    inf_launches = dict(ops.LAUNCHES)
+    add(ovis_launches, inf_launches)
+    n_frames31 = ov["videos"] * ov["video_frames"]
+    with open(os.path.join(work31, "results.json")) as f_:
+        rows_json = json.load(f_)
+    if (inf_launches != {**zeros, "spatial_flat": L31 * n_frames31,
+                         "temporal_fullclip": L31 * n_frames31}
+            or line31["num_videos"] != ov["videos"] or "AP" not in line31
+            or not all(len(r_["segmentations"]) == ov["video_frames"] for r_ in rows_json)):
+        fail(f"OVIS inference: {line31}, launches {inf_launches}")
+    print(f"OVIS inference ({smi}): {ov['videos']} videos of {ov['video_frames']} frames, "
+          f"HungarianTracker, {len(rows_json)} tracks in results.json; YTVIS "
+          f"{ {k_: round(v_, 4) for k_, v_ in line31.items() if k_ not in ('tracker', 'num_videos')} }; "
+          f"{1e3 * inf_s / n_frames31:.1f} ms a frame; launches {inf_launches}")
+    shutil.rmtree(work31, ignore_errors=True)
+    del ovm, clips31
+    torch.cuda.empty_cache()
+    print(f"phase 31: {time.perf_counter() - t31:.1f} s")
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -3266,7 +3872,7 @@ def main():
                     (launches, engine_launches, int8_launches, int8_engine_launches,  # the later
                      train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'
                      l_launches, entry_launches, dist_launches, vqa_launches,
-                     vqa_train_launches, ar_launches))
+                     vqa_train_launches, ar_launches, oad_launches, ovis_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             device_ms=row["device_ms"], plain_ms=row["plain_ms"],

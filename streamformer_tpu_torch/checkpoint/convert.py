@@ -25,13 +25,20 @@ untied head's ``lm_head_q`` / ``lm_head_scale``) to the HF names of
 ``models.language_model.LanguageModel``, and ``projector_params_from_jax``
 the VideoQA projector to ``downstream.videoqa.MMProjector``;
 ``classifier_params_from_jax`` the action-recognition head to
-``downstream.ar.ClassifierHead``. The maps are linear (transposes, reshapes, concatenations and
+``downstream.ar.ClassifierHead``. ``lstr_params_from_jax``,
+``adapter_params_from_jax`` and ``segmentor_params_from_jax`` map the OAD
+detector's, the ViT-Adapter's and the Mask2Former segmentor's trees, whose
+port modules keep the JAX keys as names: dense kernels (in, out) become
+``nn.Linear`` weights (out, in), HWIO conv kernels (a depthwise (kh, kw, 1,
+C) one too) OIHW, the adapter's transposed-conv kernel torch's (in, out,
+kh, kw) flipped in space (``jax.lax.conv_transpose`` does not flip its
+kernel, ``F.conv_transpose2d`` does), norms' ``scale`` ``weight``. The maps are linear (transposes, reshapes, concatenations and
 renames), so they carry a JAX gradient tree to the port's names as well.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -205,3 +212,58 @@ def classifier_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Ten
             "fc_norm.bias": torch.tensor(_a(params["fc_norm"]["bias"])),
             "classifier.weight": torch.tensor(_t(params["classifier"]["kernel"])),
             "classifier.bias": torch.tensor(_a(params["classifier"]["bias"]))}
+
+
+def _tree_sd(tree: Any, prefix: str = "", rename: Optional[Mapping[str, str]] = None
+             ) -> Dict[str, np.ndarray]:
+    """A JAX tree of dicts and lists -> dotted port names: a dense or 1x1
+    conv ``{kernel, bias}`` -> ``.weight`` / ``.bias`` (transposed), a norm
+    ``{scale, bias}`` -> ``.weight`` / ``.bias``, a bare HWIO kernel ->
+    ``.weight`` OIHW, any other leaf as it is. ``rename`` maps JAX keys to
+    port names."""
+    sd: Dict[str, np.ndarray] = {}
+    if isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            sd.update(_tree_sd(v, f"{prefix}{i}.", rename))
+    elif isinstance(tree, Mapping) and "kernel" in tree:
+        k = np.asarray(tree["kernel"], np.float32)
+        sd[prefix + "weight"] = _t(k) if k.ndim == 2 else np.ascontiguousarray(k.transpose(3, 2, 0, 1))
+        if "bias" in tree:
+            sd[prefix + "bias"] = _a(tree["bias"])
+    elif isinstance(tree, Mapping) and "scale" in tree:
+        sd[prefix + "weight"] = _a(tree["scale"])
+        sd[prefix + "bias"] = _a(tree["bias"])
+    elif isinstance(tree, Mapping):
+        for k, v in tree.items():
+            sd.update(_tree_sd(v, f"{prefix}{(rename or {}).get(k, k)}.", rename))
+    else:
+        leaf = np.asarray(tree, np.float32)
+        name = prefix[:-1]
+        if leaf.ndim == 4:
+            sd[name + ".weight"] = np.ascontiguousarray(leaf.transpose(3, 2, 0, 1))
+        else:
+            sd[name] = _a(leaf)
+    return sd
+
+
+def lstr_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX LSTR/MAT tree (``oad_lstr.init_params``), or a gradient tree
+    of it, -> the state dict of ``downstream.oad_lstr.LSTR``."""
+    return {k: torch.tensor(v) for k, v in _tree_sd(params).items()}
+
+
+def adapter_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ViT-Adapter tree (``adapter.init_adapter_params``), or a
+    gradient tree of it, -> the state dict of ``models.adapter.Adapter``."""
+    sd = _tree_sd({k: v for k, v in params.items() if k != "up"})
+    up = np.asarray(params["up"]["kernel"], np.float32)  # (kh, kw, in, out), unflipped
+    sd["up.weight"] = np.ascontiguousarray(up.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+    sd["up.bias"] = _a(params["up"]["bias"])
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def segmentor_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX segmentor tree (``segmentor.init_segmentor``), or a gradient
+    tree of it, -> the state dict of ``downstream.segmentor.Segmentor``."""
+    sd = _tree_sd(params, rename={"self": "self_attn", "cross": "cross_attn"})
+    return {k: torch.tensor(v) for k, v in sd.items()}

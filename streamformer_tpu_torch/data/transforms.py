@@ -33,6 +33,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Sequence, Tuple
 
+import numpy as np
 import torch
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
@@ -47,6 +48,16 @@ def host_to(v, device, dtype=None) -> torch.Tensor:
     on ``device``, copied without a stream synchronisation: a blocking copy
     to the card waits for all the work queued before it."""
     return torch.as_tensor(v, dtype=dtype).to(device, non_blocking=True)
+
+
+def pinned_to(array, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: staged in pinned memory for
+    the card, so the copy is truly asynchronous; on the CPU it shares the
+    array's memory."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 def to_float(clip: torch.Tensor) -> torch.Tensor:

@@ -63,6 +63,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from streamformer_tpu_torch.config import StreamformerConfig
+from streamformer_tpu_torch.data.transforms import resize
 from streamformer_tpu_torch.ops import attention as ops
 from streamformer_tpu_torch.ops import quant
 from streamformer_tpu_torch.parallel import sharding
@@ -444,6 +445,21 @@ def time_embeddings_for_positions(
     return table[pos.clamp(0, table.shape[0] - 1)]
 
 
+def interpolate_pos_embeddings(pos_emb: torch.Tensor, h_patches: int, w_patches: int
+                               ) -> torch.Tensor:
+    """The (..., N, D) grid of position embeddings resized to h_patches x
+    w_patches for another resolution than the trained one: Keys cubic
+    (a = -0.5) with antialiasing on a downscale, ``jax.image.resize``'s
+    "cubic" (the reference's bicubic ``F.interpolate`` with antialias), in
+    fp32; the table itself at the trained size."""
+    n, d = pos_emb.shape[-2:]
+    m = int(round(n**0.5))
+    if (h_patches, w_patches) == (m, m):
+        return pos_emb
+    grid = resize(pos_emb.reshape(m, m, d).float(), (h_patches, w_patches), "bicubic")
+    return grid.reshape(*pos_emb.shape[:-2], h_patches * w_patches, d).to(pos_emb.dtype)
+
+
 def embed(
     model: StreamformerEncoder,
     pixel_values: torch.Tensor,
@@ -467,11 +483,6 @@ def embed(
     if h % ps or w % ps:
         raise ValueError(f"frame size {h}x{w} is not a multiple of the patch size {ps}")
     hp, wp = h // ps, w // ps
-    if (hp, wp) != (cfg.patches_per_side, cfg.patches_per_side):
-        raise NotImplementedError(
-            f"resolution {h}x{w} differs from the trained {cfg.image_size}: "
-            "position-embedding resize (ROADMAP slice 1, item 3a)"
-        )
     n, d = hp * wp, cfg.hidden_size
     emb = model.embeddings
     x = pixel_values.to(device=model.device, dtype=dt)
@@ -479,7 +490,7 @@ def embed(
     x = x.reshape(b * t, n, c * ps * ps)
     proj = emb.patch_embeddings.projection
     x = F.linear(x, proj.weight.to(dt).reshape(d, c * ps * ps), proj.bias.to(dt))
-    x = x.reshape(b, t, n, d) + emb.position_embeddings.to(dt)
+    x = x.reshape(b, t, n, d) + interpolate_pos_embeddings(emb.position_embeddings, hp, wp).to(dt)
     x = dropout(x, cfg.hidden_dropout_prob, generator, deterministic, site=0)
     total = total_frames if total_frames is not None else t
     temb = time_embeddings_for_positions(emb.time_embeddings[0], start_pos, t, total).to(dt)

@@ -252,6 +252,17 @@ class ScheduledOptimizer:
         self.count = int(state["count"])
 
 
+def adamw_every_leaf(params: Named, lr: float, weight_decay: float) -> ScheduledOptimizer:
+    """``optax.adamw(lr, weight_decay=weight_decay)``: AdamW (b1 0.9, b2
+    0.999, eps 1e-8) at a constant lr over every parameter of ``params``,
+    the decay on every one of them, no clip."""
+    inner = torch.optim.AdamW([dict(params=list(_named(params).values()), lr_scale=1.0,
+                                    decayed=True, weight_decay=0.0,
+                                    base_weight_decay=weight_decay)],
+                              lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    return ScheduledOptimizer(inner, lambda count: lr, None, None, decoupled_sgd_decay=False)
+
+
 def create_optimizer(
     params: Named,
     lr_schedule: Schedule,

@@ -172,7 +172,7 @@ def test_gelu_follows_the_dtype():
 
 
 def test_out_of_slice_features_raise():
-    _, _, cfg, model = _pair()
+    jcfg, params, cfg, model = _pair()
     with pytest.raises(NotImplementedError):  # 33 frames in one call: past kernel E's 32
         model.stream(torch.zeros(1, 33, 3, 48, 48), model.init_cache(1))
     ring = encoder.StreamformerEncoder(cfg.replace(cache_mode="ring"), device="cpu")
@@ -184,8 +184,13 @@ def test_out_of_slice_features_raise():
     with pytest.raises(NotImplementedError):  # the row-major layout is lockstep only
         encoder.init_cache(cfg.replace(cache_layout="row_major"), 1, per_stream_len=True,
                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 2, 3, 64, 64))
+    # another resolution than the trained one no longer raises: the position
+    # table is resized as the JAX package resizes it (item 3a)
+    px = np.random.default_rng(5).standard_normal((1, 2, 3, 64, 64)).astype(np.float32)
+    got = model(torch.from_numpy(px))["last_hidden_state"]
+    want = jax_encoder.model_forward(params, jnp.asarray(px), jcfg)["last_hidden_state"]
+    assert got.shape == want.shape == (1, 2, 16, cfg.hidden_size)
+    assert _max_err(got, want) <= ATOL
     with pytest.raises(NotImplementedError):
         encoder.StreamformerEncoder(cfg.replace(enable_causal_temporal=False), device="cpu")
 

@@ -180,3 +180,41 @@ def test_downstream_training_runs_without_jax_optax_or_transformers():
         "assert np.isfinite(res['history'][0]['loss']) and 'top1_ema' in res['history'][0]\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_oad_and_ovis_train_without_jax_optax_or_cv2():
+    """The OAD and OVIS CLIs' training functions on the CPU with ``jax``,
+    ``optax``, ``cv2`` and ``tensorboardX`` blocked from import: an OAD
+    epoch of one step on feature dumps written here, and one OVIS step on
+    an in-memory clip."""
+    code = (
+        "import os, sys, tempfile\n"
+        "for name in ('jax', 'optax', 'orbax', 'tensorboardX', 'cv2', 'streamformer_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from streamformer_tpu_torch.downstream import oad_run, ovis_run\n"
+        "root = tempfile.mkdtemp()\n"
+        "for sub in ('feat', 'tgt'):\n"
+        "    os.makedirs(os.path.join(root, sub))\n"
+        "rng = np.random.default_rng(0)\n"
+        "np.save(os.path.join(root, 'feat', 'v.npy'), rng.standard_normal((24, 8)).astype(np.float32))\n"
+        "np.save(os.path.join(root, 'tgt', 'v.npy'), np.eye(3, dtype=np.float32)[rng.integers(0, 3, 24)])\n"
+        "open(os.path.join(root, 'list.txt'), 'w').write('v\\n')\n"
+        "args = oad_run.get_args(['--feature_root', os.path.join(root, 'feat'), '--target_root',"
+        " os.path.join(root, 'tgt'), '--train_list', os.path.join(root, 'list.txt'),"
+        " '--num_classes', '3', '--feature_dim', '8', '--hidden', '16', '--long_memory_num_samples',"
+        " '8', '--work_memory_num_samples', '4', '--batch_size', '4', '--epochs', '1',"
+        " '--steps_per_epoch', '1', '--output_dir', os.path.join(root, 'oad'), '--device', 'cpu'])\n"
+        "hist = oad_run.train(args, *oad_run.build_datasets(args, oad_run.config_of(args)))\n"
+        "assert np.isfinite(hist[0]['loss'])\n"
+        "args = ovis_run.get_args(['--anno', 'x', '--num_classes', '3', '--num_queries', '4',"
+        " '--hidden_size', '32', '--num_layers', '1', '--num_heads', '4', '--intermediate_size',"
+        " '64', '--input_size', '32', '--epochs', '1', '--output_dir', os.path.join(root, 'ovis'),"
+        " '--device', 'cpu'])\n"
+        "mt = np.full((2, 32, 32), -1); mt[:, 4:20, 4:20] = 0\n"
+        "clip = {'frames': np.zeros((2, 32, 32, 3), np.uint8), 'mask_target': mt,"
+        " 'selected_classes': np.array([2])}\n"
+        "_, hist = ovis_run.train(args, [clip])\n"
+        "assert np.isfinite(hist[0]['loss'])\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
