@@ -37,7 +37,9 @@ Phases, each fatal on failure:
 6. a ring stream of 2C frames (C=8), kernel A held against its plain
    version on the ring's cache;
 7. streaming frames/s at batch 8 at steady state (ring, capacity 16), and
-   the device time by kernel over a profiled window;
+   the device time by kernel over a profiled window; the host ms a step
+   with every kernel entry calling its ``torch.library`` op against the
+   launcher called directly, in turns (the ops' dispatch cost);
 8. the serving engine (``serving.StreamingEngine``, ragged cache, kernels D
    and E) on the flagship model of phase 4: 8 slots, 12 streams of 4-16
    frames fed in bursts (holds and slot recycling), each stream's pooled
@@ -48,7 +50,8 @@ Phases, each fatal on failure:
    (uint8, base64), close and read their features, held to the engine's;
 10. engine frames/s at 8 slots at steady state in both tick modes, and the
     device busy time per tick over a profiled window, the float throughput
-    tick's beside the earlier design's (``EARLIER_THROUGHPUT_TICK``);
+    tick's beside the earlier design's (``EARLIER_THROUGHPUT_TICK``); the
+    latency tick's ms through the ops against the launcher, in turns;
 11. kernels F and G (the int8 cache) against their plain versions at the
     flagship shapes, bf16 and fp32, linear and ring (F also linear at
     capacity 64), codes and scale columns equal, timed beside one
@@ -130,9 +133,12 @@ Phases, each fatal on failure:
     ``--model_path``, 2 epochs of 6 micro-steps at batch 8, ``update_freq=2``,
     the loader in train mode (RandAugment m7 n4, resized crop, flip,
     normalize, erasing on the card): B, C, H and I L times a micro-step,
-    clips/s with the loader in the loop beside phase 17's; a SIGTERM after
-    the second update of epoch 1, then a fresh call resuming from the
-    mid-epoch checkpoint, equal to the uninterrupted run bit for bit; the
+    clips/s with the loader in the loop beside phase 17's; ``--eval_freq 1``
+    over an in-memory eval union (classification, retrieval, grounding):
+    the eval metrics in log.txt, the eval seconds an epoch, B and C L times
+    an eval batch; a SIGTERM after the second update of epoch 1 of a run
+    without ``--eval_freq``, then a fresh call resuming from the mid-epoch
+    checkpoint, equal to the validating uninterrupted run bit for bit; the
     time ``save_checkpoint`` takes to return with ``block=True`` and
     ``block=False``, and the checkpoint's bytes on disk;
 24. distribution: ``parallel.mesh.init_distributed`` (NCCL, world size 1;
@@ -226,9 +232,22 @@ Phases, each fatal on failure:
     alone; one C call (the packed (1, 2, 196, 2304) qkv) and one B call
     (R=2) of a step held to their plain versions at the fp32 limit;
     ``run_inference`` on two in-memory videos of 6 frames through
-    ``HungarianTracker``, results JSON and ``evaluate_ytvis``'s AP.
+    ``HungarianTracker``, results JSON and ``evaluate_ytvis``'s AP;
+32. deployment at the flagship (bf16, phase 4's weights): ``save_pretrained``
+    then ``from_pretrained`` bit for bit, with the write's seconds and
+    bytes; ``torch.export`` artifacts (``streamformer_tpu_torch.export``),
+    each written to a file and loaded back, run against the live calls: the
+    full clip at batch 8 x 16 frames (B, C), the streaming step at batch 8
+    on the ring C=16, t=1 (A, B), the ragged append at t=8 on the linear
+    C=16 (E, B), the ragged int8-cache step (G, B): outputs held to the live
+    calls (bit for bit expected), each kernel launched inside the program L
+    times a call, the median ms a call exported against live, export
+    seconds, artifact bytes and the copies of the cache in the graph; and
+    the LM decode artifact at Qwen2.5-7B widths, two layers, 8 slots, run by
+    ``DecodeEngine`` in place of its live step, with the live engine's
+    greedy tokens.
 
-Sixteen paths are main paths: the lockstep encode (the launch counters are
+Seventeen paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
@@ -249,8 +268,9 @@ it), and AR fine-tuning (zeroed before phase 29's ``ar_run.train``, read
 after it and around each of its steps), and online action detection
 (zeroed before each clip's extraction in phase 30, read after it), and
 OVIS (zeroed before phase 31's ``ovis_run.train``, read after it and around
-each of its steps, and before its ``run_inference``, read after it). Every
-kernel must have run on its path.
+each of its steps, and before its ``run_inference``, read after it), and
+the exported programs (zeroed before each call of phase 32's artifacts,
+read after it). Every kernel must have run on its path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -371,7 +391,7 @@ KERNEL_SYMBOLS = {
 SIGLIP_TEXT = dict(vocab=32000, positions=64)
 ENTRY = dict(batch=8, epochs=2, update_freq=2, clips_per_task=16, height=256, width=340,
              lr=1e-3, preempt_after_update=2, classes=10, vis_classes=5, mask_size=56,
-             aug_batches=3, siglip_frames=8, text_layers=12)
+             aug_batches=3, siglip_frames=8, text_layers=12, eval_clips=8)
 GRAD_CARD_VS_CPU_TOL = 1e-4  # of a leaf's largest gradient magnitude; fp32, summation order only
 REMAT_LOSS_TOL = 1e-2  # relative: the recompute repeats the forward; bf16 rounding at most
 # phases 25-27: the VideoQA serving path. The LM at Qwen2.5-7B's widths
@@ -403,6 +423,8 @@ INT4_CACHE_COS, INT8_WEIGHTS_LM_COS, JAX_GATE_LAYERS = 0.995, 0.99, 2
 # must be decided by it
 GREEDY_DECIDED_MIN = 0.1
 # phase 27: two questions on 16 frames each, a prompt of 24 + <image> + 16 ids
+# phase 32: the LM decode artifact's engine run (phase 26's widths, two layers)
+LM_EXPORT = dict(slots=8, capacity=128, requests=12, new=16)
 VQA = dict(frames=16, system=24, question=16, max_new=16, capacity=128, buckets=(32, 64))
 # phases 28-29: the downstream training paths. VideoQA stages 2-3 and DPO at
 # Qwen2.5-0.5B's published widths (Qwen/Qwen2.5-0.5B-Instruct config.json; the
@@ -861,6 +883,33 @@ def main():
     step_s = (time.perf_counter() - t0) / steps
     print(f"streaming encode ({smi}): {b_ / step_s:.1f} frames/s at batch {b_}, "
           f"{step_s * 1e3:.3f} ms/step (ring cache C={cap}, steady state, bf16)")
+    # the torch.library ops' dispatch cost: the same steps with every entry
+    # calling its op (as a traced program does), in turns direct, op, op, direct
+    real_via_op = ops._via_op
+
+    def host_ms(run, via_op, reps):
+        ops._via_op = (lambda: True) if via_op else real_via_op
+        try:
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0_) * 1e3 / reps
+        finally:
+            ops._via_op = real_via_op
+
+    def dispatch_turns(run, reps):
+        got = {False: [], True: []}
+        for via_op in (False, True, True, False):
+            got[via_op].append(host_ms(run, via_op, reps))
+        return got[False], got[True]
+
+    direct7, via7 = dispatch_turns(lambda: encoder.streaming_forward(model, frame, cache), steps)
+    print(f"ops' dispatch, streaming step ({smi}): {steps} steps a turn, direct, op, op, direct: "
+          f"{direct7[0]:.3f}, {via7[0]:.3f}, {via7[1]:.3f}, {direct7[1]:.3f} ms/step (host clock): "
+          f"through the ops {statistics.mean(via7) - statistics.mean(direct7):+.3f} ms/step, "
+          f"spread of the direct turns {abs(direct7[0] - direct7[1]):.3f} ms")
     window = 8
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1065,6 +1114,23 @@ def main():
                       f"x{e.count / p_ticks:<6.1f} {e.key[:90]}")
 
     engine_rates(model, "")
+
+    def engine_tick_ms():
+        sec, ticks, _ = engine_run(1, THROUGHPUT_STREAMS)
+        return sec * 1e3 / ticks
+
+    got10 = {False: [], True: []}
+    for via_op in (False, True, True, False):
+        ops._via_op = (lambda: True) if via_op else real_via_op
+        try:
+            got10[via_op].append(engine_tick_ms())
+        finally:
+            ops._via_op = real_via_op
+    direct10, via10 = got10[False], got10[True]
+    print(f"ops' dispatch, engine latency tick ({smi}): direct, op, op, direct: "
+          f"{direct10[0]:.3f}, {via10[0]:.3f}, {via10[1]:.3f}, {direct10[1]:.3f} ms/tick: through "
+          f"the ops {statistics.mean(via10) - statistics.mean(direct10):+.3f} ms/tick, spread of "
+          f"the direct turns {abs(direct10[0] - direct10[1]):.3f} ms")
 
     # ---- 11. kernels F and G (int8 cache) against their plain versions
     from streamformer_tpu_torch.ops import quant
@@ -2101,14 +2167,41 @@ def main():
                      lambda i: {"mask_target": masks[i], "dataset": "ytvis",
                                 "selected_classes": np.arange(en["vis_classes"])}),
         ])
+        # the eval union (--eval_freq 1): a classification, a retrieval and a
+        # grounding task, one eval batch each
+        ne = en["eval_clips"]
+        eval_frames = drng.integers(0, 256, (3 * ne, nf, en["height"], en["width"], 3),
+                                    dtype=np.uint8)
+
+        class EvalTask:
+            def __init__(self, task_name, first, task_input):
+                self.task_name, self.first, self.task_input = task_name, first, task_input
+
+            def __len__(self):
+                return ne
+
+            def __getitem__(self, i):
+                return {"task_name": self.task_name,
+                        "task_input": {"frames": eval_frames[self.first + i],
+                                       **self.task_input(i)}}
+
+        eval_ds = MultiTaskDataset([
+            EvalTask("Kinetics", 0, lambda i: {"label": np.int64(i % en["classes"])}),
+            EvalTask("TaskRetrieval", ne, lambda i: {"caption": f"clip {i} shows event {i * 7}"}),
+            EvalTask("CharadesSTA", 2 * ne,
+                     lambda i: {"caption": f"a person does thing {i}",
+                                "meta": {"times": np.arange(nf) * 0.5,
+                                         "gt": (0.5 * (i % 4), 0.5 * (i % 4) + 3.0)}}),
+        ])
+        eval_batches = 3 * -(-ne // 8)  # evaluate_multitask's batches of 8, a task each
         mtc = {"Kinetics": {"label2id": {f"action {i}": i for i in range(en["classes"])}},
                "CharadesSTA": {"label2id": None},
                "YoutubeVIS": {"label2id": {"ytvis": {f"object {i}": i
                                                      for i in range(en["vis_classes"])}}}}
         micro_per_epoch = 3 * n_clips // en["batch"]
 
-        def entry_args(out):
-            return train_run.get_args([
+        def entry_args(out, extra=()):
+            return train_run.get_args([*extra,
                 "--metadata", "(in memory)", "--output_dir", out, "--model_path", backbone_dir,
                 "--batch_size", str(en["batch"]), "--epochs", str(en["epochs"]),
                 "--update_freq", str(en["update_freq"]), "--lr", str(en["lr"]),
@@ -2148,28 +2241,71 @@ def main():
                                       for e in top))
         del aug_batch, aug_out
 
-        # 23c. the full run, uninterrupted
+        # 23c. the full run, uninterrupted, validating after each epoch
+        # (--eval_freq 1); the eval's launches and seconds are read around
+        # evaluate_multitask, which train() imports when it is called
         print("training entry point: the card's machine has no cv2, so train_run.train gets a "
               "MultiTaskDataset of in-memory clips instead of build_datasets' metadata reader")
-        args_a = entry_args(os.path.join(work, "whole"))
+        from streamformer_tpu_torch.eval import validate as validate_mod
+
+        real_evaluate = validate_mod.evaluate_multitask
+        evals = []
+
+        def timed_evaluate(*a, **k):
+            torch.cuda.synchronize()
+            before, t_ev = dict(ops.LAUNCHES), time.perf_counter()
+            res = real_evaluate(*a, **k)
+            torch.cuda.synchronize()
+            evals.append((time.perf_counter() - t_ev,
+                          {n: ops.LAUNCHES[n] - before[n] for n in before}, res))
+            return res
+
+        args_a = entry_args(os.path.join(work, "whole"), ["--eval_freq", "1"])
         torch.cuda.synchronize()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        state_a = train_run.train(args_a, train_ds, None, mtc)
-        torch.cuda.synchronize()
+        validate_mod.evaluate_multitask = timed_evaluate
+        try:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            state_a = train_run.train(args_a, train_ds, eval_ds, mtc)
+            torch.cuda.synchronize()
+        finally:
+            validate_mod.evaluate_multitask = real_evaluate
         entry_s = time.perf_counter() - t0
         entry_launches = dict(ops.LAUNCHES)
         micro_total = en["epochs"] * micro_per_epoch
+        eval_launches = {**zeros, "spatial_flat": L * eval_batches,
+                         "temporal_fullclip": L * eval_batches}
+        if len(evals) != en["epochs"] or any(e[1] != eval_launches for e in evals):
+            fail(f"--eval_freq 1: {len(evals)} evals over {en['epochs']} epochs, launches "
+                 f"{[e[1] for e in evals]}, not B and C L={L} times each of {eval_batches} "
+                 "eval batches")
         want = {**zeros, **dict.fromkeys(("spatial_flat", "temporal_fullclip", "spatial_flat_bwd",
                                           "temporal_fullclip_bwd"), L * micro_total)}
+        for kernel in ("spatial_flat", "temporal_fullclip"):
+            want[kernel] += en["epochs"] * L * eval_batches
         if entry_launches != want:
-            fail(f"training entry launches {entry_launches} over {micro_total} micro-steps (L={L})")
+            fail(f"training entry launches {entry_launches} over {micro_total} micro-steps and "
+                 f"{en['epochs']} evals (L={L})")
         with open(os.path.join(args_a.output_dir, "log.txt")) as f:
-            log_lines = [json.loads(line) for line in f]
+            all_lines = [json.loads(line) for line in f]
+        log_lines = [r for r in all_lines if "loss" in r]
+        eval_lines = [r for r in all_lines if "loss" not in r]
         updates = micro_total // en["update_freq"]
         if state_a.step != updates or [r["epoch"] for r in log_lines] != [0, 1] or \
                 not all(np.isfinite(r["loss"]) for r in log_lines):
             fail(f"training entry: {state_a.step} updates, log {log_lines}")
+        eval_keys = {"eval_Kinetics_top1", "eval_Kinetics_top5", "eval_TaskRetrieval_v2t_R@1",
+                     "eval_TaskRetrieval_t2v_R@1", "eval_CharadesSTA_mIoU"}
+        if [r["epoch"] for r in eval_lines] != [0, 1] or \
+                not all(eval_keys <= set(r) and all(np.isfinite(v) for v in r.values())
+                        for r in eval_lines):
+            fail(f"--eval_freq 1: log.txt's eval lines {eval_lines}")
+        print(f"validation ({smi}): --eval_freq 1 over an in-memory eval union of {ne} clips each "
+              f"of Kinetics, TaskRetrieval and CharadesSTA ({eval_batches} batches of 8 at "
+              f"{nf}x{cfg.image_size}^2, bf16): {[round(e[0], 3) for e in evals]} s an epoch's "
+              f"eval; B and C {L} times an eval batch ({evals[0][1]['spatial_flat']} and "
+              f"{evals[0][1]['temporal_fullclip']} an eval); metrics by epoch "
+              f"{[{k: round(v, 3) for k, v in r.items()} for r in eval_lines]}")
         if sorted(x for x in os.listdir(args_a.output_dir) if x.startswith("checkpoint")) != \
                 ["checkpoint-0", "checkpoint-1"]:
             fail(f"training entry checkpoints {os.listdir(args_a.output_dir)}")
@@ -2243,7 +2379,8 @@ def main():
         print(f"preemption ({smi}): SIGTERM after update {en['preempt_after_update']} of epoch 1 -> "
               f"mid-epoch checkpoint (epoch, micro, step) {cut_at}; a fresh call resumed from it: "
               f"parameters ({len(want_state)} tensors), AdamW moments and update count "
-              f"({want_count}) equal to the uninterrupted run's bit for bit; launches of both calls "
+              f"({want_count}) equal to the uninterrupted run's (which validated after each "
+              f"epoch) bit for bit; launches of both calls "
               f"{resumed_launches}")
         del want_state, want_opt, got_state, got_opt
 
@@ -3852,6 +3989,197 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 31: {time.perf_counter() - t31:.1f} s")
 
+    # ---- 32. deployment: the HF checkpoint writer and torch.export artifacts
+    # of the encoder's programs and the LM decode step, at the flagship
+    t32 = time.perf_counter()
+    from streamformer_tpu_torch import export as EX
+    from streamformer_tpu_torch.checkpoint import save_pretrained
+
+    torch.cuda.empty_cache()
+    work32 = tempfile.mkdtemp(prefix="export-", dir=os.path.join(root, "build"))
+    export_launches = dict(zeros)
+    try:
+        # 32a. save_pretrained, then from_pretrained: bit for bit
+        hf_dir = os.path.join(work32, "hf")
+        t0 = time.perf_counter()
+        hf_bytes = save_pretrained(hf_dir, model, cfg)
+        hf_s = time.perf_counter() - t0
+        back = from_pretrained(hf_dir)
+        back_sd = back.state_dict()
+        diff = [k for k, v in model.state_dict().items() if not torch.equal(back_sd[k], v)]
+        if diff or back.device.type != dev.type:
+            fail(f"save_pretrained -> from_pretrained: {len(diff)} tensors differ ({diff[:4]})")
+        print(f"save_pretrained ({smi}): the flagship encoder as config.json and "
+              f"model.safetensors (fp32, reference names, no safetensors package): {hf_bytes} "
+              f"bytes in {hf_s:.2f} s; from_pretrained gives back all {len(model.state_dict())} "
+              "tensors bit for bit")
+        del back
+
+        def graph_copies(prog):
+            """Clones and copies in a program's graph (a mutated input that
+            export functionalized); lifted constants are not copies."""
+            return [str(n_.target) for n_ in prog.module.graph.nodes if n_.op == "call_function"
+                    and any(w_ in str(n_.target)
+                            for w_ in ("clone", "copy_", "auto_functionalized"))]
+
+        def exported(kind, make, tag):
+            """Export to a file, load it back; (program, export s, bytes)."""
+            path = os.path.join(work32, f"{tag}.pt2")
+            t0_ = time.perf_counter()
+            make(path)
+            ex_s = time.perf_counter() - t0_
+            prog = EX.load_exported(path)
+            if prog.metadata["kind"] != kind or prog.metadata["device_type"] != "cuda":
+                fail(f"{tag}: artifact metadata {prog.metadata['kind']}, "
+                     f"{prog.metadata['device_type']}")
+            return prog, ex_s, os.path.getsize(path)
+
+        def hold(tag, got, want):
+            """Exported against live: bit for bit expected (the same kernels in
+            the same order); else within the kernels' bf16 gate."""
+            errs = [max_err(got[k_], want[k_]) for k_ in ("last_hidden_state", "pooler_output")]
+            if max(errs) > TOL["bfloat16"]:
+                fail(f"{tag}: exported against live max-abs {errs}")
+            return all(torch.equal(got[k_], want[k_]) for k_ in ("last_hidden_state",
+                                                               "pooler_output")), max(errs)
+
+        def report(tag, prog, ex_s, nbytes, equal, err, runs, launches_, live_ms, exp_ms):
+            copies = graph_copies(prog)
+            print(f"export {tag} ({smi}): export {ex_s:.2f} s, artifact {nbytes} bytes (no "
+                  f"weights), loaded from its file; outputs against the live calls over {runs} "
+                  f"calls: {'bit for bit' if equal else f'max-abs {err}'}; launches inside the "
+                  f"program {({k_: v_ for k_, v_ in launches_.items() if v_})}; median ms a call "
+                  f"exported {exp_ms:.3f} against live {live_ms:.3f}; copies of the cache in the "
+                  f"graph: {len(copies)} {copies[:4]}")
+
+        params = model.state_dict()
+        # an artifact takes frames in the compute dtype (static shapes and
+        # dtypes); the live calls cast them to it first
+        vid = video.to(encoder.compute_dtype(cfg))
+
+        # 32b. the full clip at batch 8 x 16 frames: B and C
+        prog, ex_s, nbytes = exported("full_clip", lambda path_: EX.export_full_clip(
+            cfg, b_, t_, path=path_), "full_clip")
+        ops.reset_launches()
+        got = prog(params, vid)
+        torch.cuda.synchronize()
+        fc_launches = dict(ops.LAUNCHES)
+        add(export_launches, fc_launches)
+        want = encoder.model_forward(model, vid)
+        equal, err = hold("full clip", got, want)
+        if fc_launches != {**zeros, "spatial_flat": L, "temporal_fullclip": L}:
+            fail(f"exported full clip launches {fc_launches}")
+        report(f"full clip B={b_} T={t_}", prog, ex_s, nbytes, equal, err, 1, fc_launches,
+               time_ms(lambda: encoder.model_forward(model, vid), iters=5),
+               time_ms(lambda: prog(params, vid), iters=5))
+        del prog, got, want
+
+        def stream_case(tag, kind_cfg, t_new, calls, ragged, counted):
+            """The exported step against the live one, each on its own cache,
+            ``calls`` calls of t_new frames of ``vid`` (frame i % T); the
+            kernel ``counted`` and B must run L times a call inside the
+            program (t_new = 1 for A and G; E takes the t_new frames at once)."""
+            prog_, ex_s_, nbytes_ = exported(
+                "streaming_step", lambda path_: EX.export_streaming_step(
+                    kind_cfg, b_, t_new, per_stream_len=ragged, path=path_), tag)
+            c_live = encoder.init_cache(kind_cfg, b_, per_stream_len=ragged)
+            c_exp = encoder.init_cache(kind_cfg, b_, per_stream_len=ragged)
+            equal_, err_, launched = True, 0.0, dict(zeros)
+            for i_ in range(calls):
+                x_ = vid[:, [(i_ * t_new + j_) % t_ for j_ in range(t_new)]]
+                if ragged and i_ * t_new % kind_cfg.cache_capacity == 0:  # the linear cache full
+                    done_ = torch.ones(b_, dtype=torch.bool, device=dev)
+                    encoder.reset_streams(c_live, done_)
+                    encoder.reset_streams(c_exp, done_)
+                live_, c_live = encoder.streaming_forward(model, x_, c_live, cfg=kind_cfg)
+                ops.reset_launches()
+                got_, c_exp = prog_(params, x_, c_exp)
+                torch.cuda.synchronize()
+                add(launched, ops.LAUNCHES)
+                eq_, e_ = hold(tag, got_, live_)
+                equal_, err_ = equal_ and eq_, max(err_, e_)
+            if launched != {**zeros, counted: L * calls, "spatial_flat": L * calls}:
+                fail(f"exported {tag}: launches {launched} over {calls} calls")
+            if not torch.equal(c_live["len"], c_exp["len"]):
+                fail(f"exported {tag}: lengths {c_exp['len'].tolist()} vs {c_live['len'].tolist()}")
+            add(export_launches, launched)
+            x_ = vid[:, :t_new]
+
+            def live_call():
+                if ragged:
+                    encoder.reset_streams(c_live, torch.ones(b_, dtype=torch.bool, device=dev))
+                encoder.streaming_forward(model, x_, c_live, cfg=kind_cfg)
+
+            def exp_call():
+                if ragged:
+                    encoder.reset_streams(c_exp, torch.ones(b_, dtype=torch.bool, device=dev))
+                prog_(params, x_, c_exp)
+
+            report(tag, prog_, ex_s_, nbytes_, equal_, err_, calls, launched,
+                   time_ms(live_call, iters=9), time_ms(exp_call, iters=9))
+
+        # 32c. the streaming step at batch 8 on the ring, C=16, t=1: A and B
+        stream_case(f"streaming step B={b_} ring C={cap} t=1", cfg.replace(cache_mode="ring"), 1,
+                    cap + 4, False, "temporal_decode_pm")
+        # 32d. the ragged append at t=8 on the linear cache, C=16: E and B
+        stream_case(f"ragged append B={b_} linear C={cap} t={E_T}", cfg, E_T, 2 * cap // E_T,
+                    True, "temporal_append_pm_ragged")
+        # 32e. the ragged int8-cache step, t=1: G and B
+        stream_case(f"ragged int8-cache step B={b_} linear C={cap} t=1",
+                    cfg.replace(cache_dtype="int8"), 1, 6, True,
+                    "temporal_decode_pm_int8_ragged")
+
+        # 32f. the LM decode step at Qwen2.5-7B widths, two layers, 8 slots,
+        # run by DecodeEngine in place of its live step: the same greedy tokens
+        cfg7x = LM.LMConfig(**{**LM_7B, "num_hidden_layers": 2})
+        lm7x = LM.LanguageModel(cfg7x, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(32))
+        lm_cap = LM_EXPORT["capacity"]
+        prog, ex_s, nbytes = exported("lm_decode", lambda path_: EX.export_lm_decode(
+            cfg7x, LM_EXPORT["slots"], lm_cap, path=path_), "lm_decode")
+        lm_params = lm7x.state_dict()
+        erng = np.random.default_rng(32)
+        e_prompts = [erng.integers(0, cfg7x.vocab_size, (int(n_),))
+                     for n_ in erng.integers(16, 64, LM_EXPORT["requests"])]
+
+        def lm_serve(exported_step):
+            eng = DecodeEngine(lm7x, slots=LM_EXPORT["slots"], capacity=lm_cap,
+                               prefill_buckets=(64,), max_new_tokens=LM_EXPORT["new"])
+            if exported_step:
+                def step(toks):
+                    ntok, eng._cache = prog(lm_params, toks, eng._cache, eng._active_dev)
+                    eng._counts_dev += eng._active_dev.long()
+                    return ntok.long()
+
+                eng._decode_step = step
+            sids = [eng.open_tokens(p_) for p_ in e_prompts]
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            ticks = eng.run_until_idle()
+            toks = [eng.poll(s_)[0] for s_ in sids]
+            torch.cuda.synchronize()
+            return toks, (time.perf_counter() - t0_) * 1e3 / ticks
+
+        live_toks, _ = lm_serve(False)
+        exp_toks, _ = lm_serve(True)
+        live_toks, live_tick = lm_serve(False)
+        exp_toks2, exp_tick = lm_serve(True)
+        if exp_toks != live_toks or exp_toks2 != live_toks or \
+                any(len(t_) != LM_EXPORT["new"] for t_ in live_toks):
+            fail(f"LM decode artifact: tokens differ from DecodeEngine's ({exp_toks[:2]} vs "
+                 f"{live_toks[:2]})")
+        print(f"export LM decode ({smi}): Qwen2.5-7B widths, 2 layers, bf16, {LM_EXPORT['slots']} "
+              f"slots, capacity {lm_cap}: export {ex_s:.2f} s, artifact {nbytes} bytes (no "
+              f"weights); DecodeEngine with the artifact as its decode step gives the live "
+              f"engine's greedy tokens ({LM_EXPORT['requests']} requests of {LM_EXPORT['new']} "
+              f"tokens, slots recycled); ms a tick exported {exp_tick:.3f} against live "
+              f"{live_tick:.3f}; copies of the cache in the graph: {len(graph_copies(prog))}")
+        del prog, lm7x, lm_params
+    finally:
+        shutil.rmtree(work32, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 32: {time.perf_counter() - t32:.1f} s")
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -3872,7 +4200,8 @@ def main():
                     (launches, engine_launches, int8_launches, int8_engine_launches,  # the later
                      train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'
                      l_launches, entry_launches, dist_launches, vqa_launches,
-                     vqa_train_launches, ar_launches, oad_launches, ovis_launches))
+                     vqa_train_launches, ar_launches, oad_launches, ovis_launches,
+                     export_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             device_ms=row["device_ms"], plain_ms=row["plain_ms"],

@@ -6,7 +6,8 @@ Reads a local HF-style directory: ``config.json`` plus the weights as
 names are the reference checkpoint's; a leading ``timesformer.`` (the
 multitask wrapper), ``model.timesformer.`` or ``backbone.`` prefix is
 detected and stripped, and keys the encoder does not own (task heads) are
-ignored.
+ignored. A ``.safetensors`` file is read without the ``safetensors`` package
+(``hf_export.read_safetensors``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Optional
 
 import torch
 
+from streamformer_tpu_torch.checkpoint.hf_export import read_safetensors
 from streamformer_tpu_torch.config import StreamformerConfig
 from streamformer_tpu_torch.models.encoder import StreamformerEncoder
 
@@ -27,9 +29,7 @@ _PREFIXES = ("timesformer.", "model.timesformer.", "backbone.")
 def load_checkpoint_file(path: str) -> Dict[str, torch.Tensor]:
     """One .safetensors / .bin / .pth file -> state dict of CPU tensors."""
     if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
-
-        return dict(load_file(path))
+        return read_safetensors(path)
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and isinstance(obj.get("model"), dict):
         obj = obj["model"]  # the reference trainer's checkpoints

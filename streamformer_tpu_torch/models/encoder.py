@@ -97,10 +97,18 @@ def resolve_device(device=None) -> torch.device:
 # --------------------------------------------------------------------------
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in ``dtype``: t itself when it already is, as ``t.to(dtype)`` gives
+    it eagerly, but without recording a cast in a traced program
+    (``torch.export`` records ``to`` and a metadata check for each call)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float) -> torch.Tensor:
     """LayerNorm over the last axis, computed in fp32, cast back."""
-    y = F.layer_norm(x.float(), x.shape[-1:], ln.weight.float(), ln.bias.float(), eps)
-    return y.to(x.dtype)
+    f32 = torch.float32
+    y = F.layer_norm(cast(x, f32), x.shape[-1:], cast(ln.weight, f32), cast(ln.bias, f32), eps)
+    return cast(y, x.dtype)
 
 
 def dense(
@@ -112,11 +120,11 @@ def dense(
     if isinstance(lin, quant.Int8Linear):
         return quant.int8_dense(x, lin, lora)
     dt = x.dtype
-    bias = None if lin.bias is None else lin.bias.to(dt)
-    y = F.linear(x, lin.weight.to(dt), bias)
+    bias = None if lin.bias is None else cast(lin.bias, dt)
+    y = F.linear(x, cast(lin.weight, dt), bias)
     if lora is not None:
         a, b = lora
-        y = y + F.linear(F.linear(x, a.weight.to(dt)), b.weight.to(dt))
+        y = y + F.linear(F.linear(x, cast(a.weight, dt)), cast(b.weight, dt))
     return y
 
 
@@ -489,11 +497,11 @@ def embed(
     x = x.reshape(b * t, c, hp, ps, wp, ps).permute(0, 2, 4, 1, 3, 5)
     x = x.reshape(b * t, n, c * ps * ps)
     proj = emb.patch_embeddings.projection
-    x = F.linear(x, proj.weight.to(dt).reshape(d, c * ps * ps), proj.bias.to(dt))
-    x = x.reshape(b, t, n, d) + interpolate_pos_embeddings(emb.position_embeddings, hp, wp).to(dt)
+    x = F.linear(x, cast(proj.weight, dt).reshape(d, c * ps * ps), cast(proj.bias, dt))
+    x = x.reshape(b, t, n, d) + cast(interpolate_pos_embeddings(emb.position_embeddings, hp, wp), dt)
     x = dropout(x, cfg.hidden_dropout_prob, generator, deterministic, site=0)
     total = total_frames if total_frames is not None else t
-    temb = time_embeddings_for_positions(emb.time_embeddings[0], start_pos, t, total).to(dt)
+    temb = cast(time_embeddings_for_positions(emb.time_embeddings[0], start_pos, t, total), dt)
     # (T, D) for a shared start, (B, T, D) for per-stream starts
     x = x + (temb[None, :, None, :] if temb.ndim == 2 else temb[:, :, None, :])
     return dropout(x, cfg.hidden_dropout_prob, generator, deterministic, site=1)
@@ -526,12 +534,12 @@ def _output(ctx: torch.Tensor, lin: nn.Linear, lora, parallel, sharded: bool,
     if parallel is None:
         return dense(ctx, lin, lora)
     dt = ctx.dtype
-    y = F.linear(ctx, lin.weight.to(dt))
+    y = F.linear(ctx, cast(lin.weight, dt))
     if lora is not None:
         a, b = lora
-        y = y + F.linear(F.linear(ctx, a.weight.to(dt)), b.weight.to(dt))
+        y = y + F.linear(F.linear(ctx, cast(a.weight, dt)), cast(b.weight, dt))
     y = sharding.region_out(y, parallel, sharded, patches)
-    return y if lin.bias is None else y + lin.bias.to(dt)
+    return y if lin.bias is None else y + cast(lin.bias, dt)
 
 
 def spatial_attention(x: torch.Tensor, attn: nn.Module, cfg: StreamformerConfig,
@@ -857,7 +865,7 @@ def layer_forward(
         t_ln, layer.temporal_attention, cfg, cache_kv=cache_kv, cache_len=cache_len,
         new_valid=new_valid, attend_cap=attend_cap, parallel=parallel,
     )
-    gate = torch.tanh(layer.temporal_attention_gating.float()).to(x.dtype)
+    gate = cast(torch.tanh(cast(layer.temporal_attention_gating, torch.float32)), x.dtype)
     x = x + gate * dense(dp(t_attn, 0), layer.temporal_dense)
     x = x + dp(spatial_attention(layer_norm(x, layer.layernorm_before, eps), layer.attention, cfg,
                                  parallel), 1)
@@ -895,7 +903,7 @@ def map_pool(x: torch.Tensor, head: nn.Module, cfg: StreamformerConfig,
     dh = cfg.head_dim
     dt = x.dtype
     attn = head.attention
-    probe = head.probe.reshape(1, d).to(dt)
+    probe = cast(head.probe.reshape(1, d), dt)
     sharded = parallel is not None and _col_sharded(attn.in_proj_weight, 3 * d)
     if attn.in_proj_weight.dtype == torch.int8:
         h = cfg.num_attention_heads
@@ -904,8 +912,8 @@ def map_pool(x: torch.Tensor, head: nn.Module, cfg: StreamformerConfig,
         k, v = quant.int8_linear(x, w[d:], w_s[d:], bias[d:]).split(d, dim=-1)
         k, v = k.reshape(b, t, n, h, dh), v.reshape(b, t, n, h, dh)
     else:
-        w_q, w_k, w_v = attn.in_proj_weight.to(dt).chunk(3)
-        b_q, b_k, b_v = attn.in_proj_bias.to(dt).chunk(3)
+        w_q, w_k, w_v = cast(attn.in_proj_weight, dt).chunk(3)
+        b_q, b_k, b_v = cast(attn.in_proj_bias, dt).chunk(3)
         h = w_q.shape[0] // dh  # this rank's heads
         xin = _enter(x, parallel, sharded, False)
         q = F.linear(probe, w_q, b_q).reshape(h, dh)

@@ -99,6 +99,12 @@ class _Layer(nn.Module):
                               down_proj=_linear(m, d, False, dt, device))
 
 
+def rope_inverse_frequencies(cfg: LMConfig) -> torch.Tensor:
+    """The rotary inverse frequencies (head_dim / 2,), fp32, on the host."""
+    exps = torch.arange(0, cfg.head_dim, 2, dtype=torch.float32) / cfg.head_dim
+    return 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32), exps)
+
+
 class LanguageModel(nn.Module):
     """The LM's parameters under the HF names. ``LanguageModel(cfg)`` lives on
     ``cuda``; ``device="cpu"`` runs on the CPU. Weights are drawn as the JAX
@@ -126,9 +132,7 @@ class LanguageModel(nn.Module):
             self.lm_head = _linear(d, cfg.vocab_size, False, dt, dev)
         # the rotary inverse frequencies, fp32, computed on the host once (a
         # host scalar sent to the card each step would synchronise the stream)
-        exps = torch.arange(0, cfg.head_dim, 2, dtype=torch.float32) / cfg.head_dim
-        inv = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32), exps)
-        self.register_buffer("rope_inv", inv.to(dev), persistent=False)
+        self.register_buffer("rope_inv", rope_inverse_frequencies(cfg).to(dev), persistent=False)
         with torch.no_grad():
             for name, p in self.named_parameters():
                 if name.endswith("bias"):
@@ -148,9 +152,9 @@ class LanguageModel(nn.Module):
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    x32 = x.float()
+    x32 = encoder.cast(x, torch.float32)
     x32 = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
-    return (x32 * w).to(x.dtype)
+    return encoder.cast(x32 * w, x.dtype)
 
 
 def _rope_angles(positions: torch.Tensor, inv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -173,9 +177,9 @@ def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
     int8 weights are its 2x lever)."""
     if isinstance(lin, quant.Int8Linear):
         return quant.int8_linear(x, lin.weight, lin.weight_scale, lin.bias)
-    y = F.linear(x, lin.weight.to(x.dtype))
+    y = F.linear(x, encoder.cast(lin.weight, x.dtype))
     if lin.bias is not None:
-        y = y + lin.bias.to(x.dtype)
+        y = y + encoder.cast(lin.bias, x.dtype)
     return y
 
 
@@ -373,10 +377,10 @@ def lm_logits(model: LanguageModel, x: torch.Tensor) -> torch.Tensor:
     """The vocab head over final-norm hidden states (..., D) -> fp32 (..., V):
     tied to the embedding table, the untied ``lm_head``, or its int8 form."""
     if model.cfg.tie_word_embeddings:
-        return F.linear(x, model.model.embed_tokens.weight.to(x.dtype)).float()
+        return F.linear(x, encoder.cast(model.model.embed_tokens.weight, x.dtype)).float()
     if isinstance(model.lm_head, quant.Int8Linear):
         return _dense(x, model.lm_head).float()
-    return F.linear(x, model.lm_head.weight.to(x.dtype)).float()
+    return F.linear(x, encoder.cast(model.lm_head.weight, x.dtype)).float()
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

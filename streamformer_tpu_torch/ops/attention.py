@@ -45,13 +45,24 @@ recomputes the probabilities in ``spatial_flat_bwd`` / ``temporal_fullclip_bwd``
 goes through ``SpatialAttention``, whose backward is autograd of its plain
 version, as the JAX package's is the einsum VJP. The streaming kernels have
 no backward, as in the JAX package, and raise when asked for one.
+
+Each forward entry is also a ``torch.library`` op, ``streamformer::<name>``
+(``OPS``), so that ``torch.export`` can trace a program through it: the op
+has a fake (shape) implementation, names the caches it writes in place in
+its schema, and its CPU and CUDA implementation is the entry itself, which
+takes the plain version for CPU tensors and launches the kernel for CUDA
+ones, counting the launch. An entry calls its op only while it is traced
+(``torch.compiler.is_compiling()``, which holds under ``torch.export``);
+eager calls go straight to the entry's body, so the streaming step pays no
+dispatcher cost. Both paths run the same kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+import re
+from typing import Callable, Dict
 
 import torch
 
@@ -171,6 +182,51 @@ def append_frame_cap(capacity: int) -> int:
     return 0
 
 
+def _via_op() -> bool:
+    """Whether an entry calls its ``torch.library`` op: while a program is
+    traced (``torch.export``, ``torch.compile``), whose fake tensors have no
+    data for the checks and launches of the entry's body."""
+    return torch.compiler.is_compiling()
+
+
+OPS: Dict[str, object] = {}  # name -> the registered op (torch.library.custom_op)
+
+
+def _entry(name: str, schema: str, fake: Callable):
+    """Register the decorated function as the op ``streamformer::<name>``
+    with ``schema`` (its written arguments marked ``Tensor(a!)``) and the
+    shape function ``fake``; return the entry that calls the op while
+    traced and the function itself otherwise."""
+
+    def wrap(fn):
+        mutated = tuple(re.findall(r"Tensor\([a-z]!\) (\w+)", schema))
+        op = torch.library.custom_op(f"streamformer::{name}", fn, mutates_args=mutated,
+                                     device_types=("cpu", "cuda"), schema=schema)
+        op.register_fake(fake)
+        OPS[name] = op
+
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            if _via_op():
+                return op(*args, **kwargs)
+            return fn(*args, **kwargs)
+
+        return entry
+
+    return wrap
+
+
+def _like(x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """The fake output of an op whose output has its first input's shape."""
+    return x.new_empty(x.shape)
+
+
+def _packed_out(qkv: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """The fake output of a packed entry: (B, T, N, D) of a (B, T, N, 3D) qkv."""
+    b, t, n, d3 = qkv.shape
+    return qkv.new_empty(b, t, n, d3 // 3)
+
+
 def _launch(name: str, symbol: str, argtypes, device: torch.device, *args,
             library: str = "") -> None:
     """Launch C entry ``symbol`` of library ``library`` (default: ``name``)
@@ -197,6 +253,9 @@ def temporal_decode_pm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_h
     )
 
 
+@_entry("temporal_decode_pm",
+        "(Tensor q, Tensor k_new, Tensor v_new, Tensor(a!) k_cache, Tensor(b!) v_cache, "
+        "Tensor cache_len, int num_heads) -> Tensor", _like)
 def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     """t=1 causal attention of the new frame against the pos-major cache.
 
@@ -287,6 +346,9 @@ def temporal_decode_rm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_h
                                     v_cache.transpose(0, 1), cache_len, num_heads)
 
 
+@_entry("temporal_decode_rm",
+        "(Tensor q, Tensor k_new, Tensor v_new, Tensor(a!) k_cache, Tensor(b!) v_cache, "
+        "Tensor cache_len, int num_heads) -> Tensor", _like)
 def temporal_decode_rm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     """t=1 causal attention of the new frame against the row-major cache,
     with its K/V written in place.
@@ -348,6 +410,9 @@ def temporal_decode_rm_readonly_plain(q, k, v, k_scale, v_scale, cache_len, num_
     return torch.einsum("rhc,rchd->rhd", p, v.float().view(r, c, h, dh)).reshape(r, d).to(q.dtype)
 
 
+@_entry("temporal_decode_rm_readonly",
+        "(Tensor q, Tensor k, Tensor v, Tensor? k_scale, Tensor? v_scale, "
+        "Tensor cache_len, int num_heads) -> Tensor", _like)
 def temporal_decode_rm_readonly(q, k, v, k_scale, v_scale, cache_len, num_heads):
     """Read-only t=1 decode against the row-major cache, float or int8.
 
@@ -447,6 +512,9 @@ def temporal_decode_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, row
     return out
 
 
+@_entry("temporal_decode_pm_ragged",
+        "(Tensor q, Tensor k_new, Tensor v_new, Tensor(a!) k_cache, Tensor(b!) v_cache, "
+        "Tensor lens, int rows_per_stream, int num_heads) -> Tensor", _like)
 def temporal_decode_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream,
                               num_heads):
     """``temporal_decode_pm`` for a batch of streams, each at its own position.
@@ -568,6 +636,9 @@ def _append_kernel(operands, k_cache, v_cache, lens, valid, rows_per_stream, bat
     )
 
 
+@_entry("temporal_append_pm_ragged",
+        "(Tensor q, Tensor k_new, Tensor v_new, Tensor(a!) k_cache, Tensor(b!) v_cache, "
+        "Tensor lens, Tensor valid, int rows_per_stream, int num_heads) -> Tensor", _like)
 def temporal_append_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, valid, rows_per_stream,
                               num_heads):
     """Append t new frames per stream to the linear pos-major cache and
@@ -617,6 +688,9 @@ def temporal_append_pm_qkv_plain(qkv, k_cache, v_cache, lens, valid, rows_per_st
     return ctx.reshape(t, b, n, -1).transpose(0, 1).contiguous()
 
 
+@_entry("temporal_append_pm_qkv",
+        "(Tensor qkv, Tensor(a!) k_cache, Tensor(b!) v_cache, Tensor lens, Tensor valid, "
+        "int rows_per_stream, int num_heads) -> Tensor", _packed_out)
 def temporal_append_pm_qkv(qkv, k_cache, v_cache, lens, valid, rows_per_stream, num_heads):
     """``temporal_append_pm_ragged`` on the encoder's own layout.
 
@@ -746,6 +820,10 @@ def _launch_int8(name, symbol, q, k_new, v_new, k_new_scale, v_new_scale, k_cach
     return out
 
 
+@_entry("temporal_decode_pm_int8",
+        "(Tensor q, Tensor k_new, Tensor v_new, Tensor k_new_scale, Tensor v_new_scale, "
+        "Tensor(a!) k_cache, Tensor(b!) v_cache, Tensor(c!) k_scale, Tensor(d!) v_scale, "
+        "Tensor cache_len, int num_heads) -> Tensor", _like)
 def temporal_decode_pm_int8(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache,
                             k_scale, v_scale, cache_len, num_heads):
     """``temporal_decode_pm`` on the int8 cache, with the new frame quantized.
@@ -776,6 +854,10 @@ def temporal_decode_pm_int8(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, 
                         None, num_heads)
 
 
+@_entry("temporal_decode_pm_int8_ragged",
+        "(Tensor q, Tensor k_new, Tensor v_new, Tensor k_new_scale, Tensor v_new_scale, "
+        "Tensor(a!) k_cache, Tensor(b!) v_cache, Tensor(c!) k_scale, Tensor(d!) v_scale, "
+        "Tensor lens, int rows_per_stream, int num_heads) -> Tensor", _like)
 def temporal_decode_pm_int8_ragged(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache,
                                    k_scale, v_scale, lens, rows_per_stream, num_heads):
     """``temporal_decode_pm_int8`` for a batch of streams, each at its own
@@ -868,6 +950,8 @@ def _spatial_shape(name: str, q, *others) -> None:
         )
 
 
+@_entry("spatial_flat",
+        "(Tensor q, Tensor k, Tensor v, int num_heads) -> Tensor", _like)
 def _spatial_flat_forward(q, k, v, num_heads):
     """Kernel B on the card, its plain version on the CPU; no autograd."""
     _spatial_shape("spatial_flat", q, k, v)
@@ -965,6 +1049,8 @@ def spatial_attention_plain(q, k, v):
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+@_entry("spatial_attention",
+        "(Tensor q, Tensor k, Tensor v) -> Tensor", _like)
 def _spatial_attention_forward(q, k, v):
     """Kernel L on the card, its plain version on the CPU; no autograd."""
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -1100,6 +1186,8 @@ def _fullclip_kernel(name: str, symbol: str, operands, batch: int, n: int, t: in
             batch, n, t, d, num_heads, (d // num_heads) ** -0.5, code)
 
 
+@_entry("temporal_fullclip",
+        "(Tensor q, Tensor k, Tensor v, int num_heads) -> Tensor", _like)
 def _temporal_fullclip_forward(q, k, v, num_heads):
     """Kernel C on the card, its plain version on the CPU; no autograd."""
     _temporal_shape("temporal_fullclip", q, k, v)
@@ -1219,6 +1307,8 @@ def _packed_check(name: str, qkv, num_heads, **more) -> torch.device:
     return device
 
 
+@_entry("temporal_fullclip_qkv",
+        "(Tensor qkv, int num_heads) -> Tensor", _packed_out)
 def _temporal_fullclip_qkv_forward(qkv, num_heads):
     """Kernel C on the card, its plain version on the CPU; no autograd."""
     device = _packed_check("temporal_fullclip_qkv", qkv, num_heads)

@@ -47,7 +47,11 @@ _DIVISORS: Dict[Tuple[float, torch.device], torch.Tensor] = {}
 
 def _divisor(value: float, device: torch.device) -> torch.Tensor:
     """``value`` as a 0-d fp32 tensor on ``device``, so that dividing by it is
-    a true division on the card too."""
+    a true division on the card too. A traced program (``torch.export``)
+    fills one on the device at each call: the table holds real tensors only,
+    and a lifted constant would be copied at each call."""
+    if torch.compiler.is_compiling():
+        return torch.full((), value, dtype=torch.float32, device=device)
     key = (value, device)
     if key not in _DIVISORS:
         _DIVISORS[key] = torch.tensor(value, dtype=torch.float32, device=device)

@@ -22,8 +22,15 @@ on a ``(data, model)`` mesh of ``--dp`` x ``--mp`` ranks (``--dp`` 0: the
 world over ``--mp``): ``--batch_size`` is a data rank's, the sampler gives
 each data rank its rank-strided rows, the model is sharded over ``--mp``
 (``--shard_patches``: sequence parallel too), and rank 0 alone logs and
-writes checkpoints. Validation (``--eval_freq``) is ROADMAP item 19: it
-raises ``NotImplementedError``.
+writes checkpoints.
+
+``--eval_freq N`` validates every N epochs, after the epoch's checkpoint is
+started, on the metadata's eval union (``eval.validate.evaluate_multitask``:
+classification, retrieval and grounding tasks), printing and logging
+``eval_<task>_<metric>`` to ``log.txt``. Under ``--distributed`` with
+``--mp`` > 1 every rank runs the eval forward (the sharded model's
+collectives need them all); rank 0 alone prints and logs. The eval draws
+nothing: the next epoch trains as it would without it, bit for bit.
 """
 
 from __future__ import annotations
@@ -94,12 +101,6 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_supported(args) -> None:
-    if args.eval_freq > 0:
-        raise NotImplementedError("validation during training (--eval_freq) comes with "
-                                  "eval/validate.py, ROADMAP item 19")
-
-
 def build_datasets(args):
     """(train union, eval union or None, multi_task_config) from
     ``--metadata``."""
@@ -142,14 +143,16 @@ def train(args, train_ds, eval_ds, mtc):
     ``mtc``; returns the ``TrainState``. On SIGTERM it saves a mid-epoch
     checkpoint at the next update boundary and returns; a later call with
     the same ``output_dir`` resumes from it. Inside a process group (see
-    ``main``) every process calls it and trains its part of the mesh."""
-    check_supported(args)
+    ``main``) every process calls it and trains its part of the mesh.
+    ``eval_ds`` (a ``MultiTaskDataset`` or None) is what ``--eval_freq``
+    validates on."""
     import torch
 
     from streamformer_tpu_torch.checkpoint.hf_import import from_pretrained
     from streamformer_tpu_torch.config import StreamformerConfig
     from streamformer_tpu_torch.data.collate import MultitaskLoader, seed_of
     from streamformer_tpu_torch.data.samplers import DistributedBatchTaskUniqueSampler
+    from streamformer_tpu_torch.eval.validate import evaluate_multitask
     from streamformer_tpu_torch.models.encoder import resolve_device
     from streamformer_tpu_torch.models.multitask import MultitaskModel
     from streamformer_tpu_torch.models.text_encoder import SiglipTextConfig
@@ -280,6 +283,14 @@ def train(args, train_ds, eval_ds, mtc):
             # save above blocks (durable before the exit)
             ckpt_lib.save_checkpoint(args.output_dir, epoch, model, tx, step=state.step,
                                      keep_every=args.save_ckpt_freq, block=False)
+            # a sharded model's forward is collective: every rank evaluates
+            evaluates = mesh is None or args.mp > 1 or main_process
+            if args.eval_freq and eval_ds and (epoch + 1) % args.eval_freq == 0 and evaluates:
+                ev = evaluate_multitask(model, eval_ds, crop_size=args.input_size)
+                flat = {f"eval_{t}_{k}": float(v) for t, m in ev.items() for k, v in m.items()}
+                say(f"epoch {epoch} eval:", flat)
+                if main_process:
+                    metrics_lib.write_log_line(args.output_dir, {"epoch": epoch, **flat})
         ckpt_lib.wait_for_checkpoints()
         mesh_lib.barrier()  # the last save is committed before any process returns
     finally:
@@ -293,7 +304,6 @@ def train(args, train_ds, eval_ds, mtc):
 
 def main(argv=None):
     args = get_args(argv)
-    check_supported(args)
     from streamformer_tpu_torch.parallel import mesh as mesh_lib
 
     if args.distributed:

@@ -1327,3 +1327,43 @@ def test_decode_engine_on_the_card_matches_the_cpu(kw):
         outs.append([eng.poll(s) for s in sids])
     assert outs[0] == outs[1]
     assert all(done and len(t) == 6 for t, done in outs[1])
+
+
+# --------------------------------------------------------------------------
+# The forward entries as torch.library ops (streamformer::<name>) on the card
+# --------------------------------------------------------------------------
+
+
+def _op_cases():
+    from test_torch_library_ops import ENTRIES
+
+    return sorted(ENTRIES)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", _op_cases())
+def test_op_equals_the_launcher_bit_for_bit(name, dtype):
+    """The op's CUDA implementation launches the same kernel as the entry
+    called directly: equal outputs and cache writes, one launch each."""
+    from test_torch_library_ops import ENTRIES, op_inputs
+
+    direct, via_op = op_inputs(name, "cuda", dtype), op_inputs(name, "cuda", dtype)
+    counted = {"temporal_append_pm_qkv": "temporal_append_pm_ragged",
+               "temporal_fullclip_qkv": "temporal_fullclip"}.get(name, name)
+    before = ops.LAUNCHES[counted]
+    want = getattr(ops, ENTRIES[name])(*direct)
+    got = ops.OPS[name](*via_op)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[counted] == before + 2
+    assert torch.equal(got, want)
+    for a, b in zip(direct, via_op):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", _op_cases())
+def test_opcheck_on_the_card(name):
+    from test_torch_library_ops import op_inputs
+
+    result = torch.library.opcheck(ops.OPS[name], op_inputs(name, "cuda", torch.bfloat16))
+    assert set(result.values()) == {"SUCCESS"}, result

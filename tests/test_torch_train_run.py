@@ -362,9 +362,9 @@ def test_cli_trains_one_epoch_on_the_cpu(metadata, tmp_path, capsys, hash_tokeni
 
 
 def test_cli_refuses_what_it_cannot_run(metadata, monkeypatch):
-    """Validation is item 19's; a mesh needs its processes (one a GPU): in
-    one process --dp or --mp past 1 is refused, and --distributed without a
-    job to join (tests/test_torch_dist_cli.py runs it on two ranks)."""
+    """A mesh needs its processes (one a GPU): in one process --dp or --mp
+    past 1 is refused, and --distributed without a job to join
+    (tests/test_torch_dist_cli.py runs it on two ranks)."""
     for extra in (["--dp", "2"], ["--mp", "2"], ["--mp", "2", "--shard_patches"]):
         with pytest.raises(ValueError, match="world size 1"):
             run.main(_argv(metadata, "unused", 1) + extra)
@@ -372,8 +372,6 @@ def test_cli_refuses_what_it_cannot_run(metadata, monkeypatch):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(RuntimeError, match="torchrun"):
         run.main(_argv(metadata, "unused", 1) + ["--distributed"])
-    with pytest.raises(NotImplementedError, match="item 19"):
-        run.main(_argv(metadata, "unused", 1) + ["--eval_freq", "1"])
 
 
 def test_sigterm_mid_epoch_then_resume_equals_an_uninterrupted_run(metadata, tmp_path,
