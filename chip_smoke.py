@@ -245,9 +245,26 @@ Phases, each fatal on failure:
     seconds, artifact bytes and the copies of the cache in the graph; and
     the LM decode artifact at Qwen2.5-7B widths, two layers, 8 slots, run by
     ``DecodeEngine`` in place of its live step, with the live engine's
-    greedy tokens.
+    greedy tokens;
+33. the shapes and attention types past the first slices, at the flagship
+    width (bf16), each sub-phase's launches held to its path and every
+    kernel it launched held to its plain version on inputs captured from
+    the path (B with L on the same, L bit-equal to B): (a) ``ar_run.train``
+    at ``--input_size 384 --num_frames 16``, batch 4, 4 steps on in-memory
+    clips of 416x480 (B and I at R=64, N=576, kernel rows), ms a step and
+    the peak memory; (b) ``model_forward`` at 2 x 64 frames and the backward
+    of its pooled sum (C and H at R=392, T=64, kernel rows), then a 64-frame
+    linear stream (capacity 64, kernel A) against the clip within phase 5's
+    gates, and the frames bit for bit; (c) ``enable_causal_temporal=False``
+    through ``from_pretrained``: the full clip and its backward at 2 x 16
+    frames (C and H without the mask, kernel rows at R=1568), 4 frames
+    streamed at t=1 bit-equal to the causal model's stream; (d)
+    ``joint_space_time`` at 1 x 8 frames, forward and backward (B and I at
+    R=1, N=1568, kernel rows, and B's block count); (e) ``space_only`` at 2
+    x 16 frames, the full clip and the frames streamed at t=1. The phase
+    must take at most 60 s.
 
-Seventeen paths are main paths: the lockstep encode (the launch counters are
+Eighteen paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
@@ -270,7 +287,8 @@ after it and around each of its steps), and online action detection
 OVIS (zeroed before phase 31's ``ovis_run.train``, read after it and around
 each of its steps, and before its ``run_inference``, read after it), and
 the exported programs (zeroed before each call of phase 32's artifacts,
-read after it). Every kernel must have run on its path.
+read after it), and the shapes and attention types (zeroed before each
+run of phase 33, read after it). Every kernel must have run on its path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -377,11 +395,13 @@ KERNEL_SYMBOLS = {
     "temporal_append_pm_ragged": ("temporal_append_pm_kernel",),
     "temporal_decode_pm_int8": ("temporal_decode_pm_int8_kernel",),
     "temporal_decode_pm_int8_ragged": ("temporal_decode_pm_int8_kernel",),
-    "spatial_flat": ("spatial_flat_tc_kernel", "spatial_flat_kernel"),
-    "spatial_attention": ("spatial_flat_tc_kernel", "spatial_flat_kernel"),
-    "temporal_fullclip": ("temporal_fullclip_kernel",),
-    "temporal_fullclip_bwd": ("temporal_fullclip_bwd_kernel",),
-    "spatial_flat_bwd": ("spatial_flat_bwd",),
+    "spatial_flat": ("spatial_flat_tc_kernel", "spatial_flat_kernel", "tiled::forward_kernel"),
+    "spatial_attention": ("spatial_flat_tc_kernel", "spatial_flat_kernel",
+                          "tiled::forward_kernel"),
+    "temporal_fullclip": ("temporal_fullclip_kernel", "tiled::forward_kernel"),
+    "temporal_fullclip_bwd": ("temporal_fullclip_bwd_kernel", "tiled::dq_kernel",
+                              "tiled::dkv_kernel"),
+    "spatial_flat_bwd": ("spatial_flat_bwd", "tiled::dq_kernel", "tiled::dkv_kernel"),
     "temporal_decode_rm_readonly": ("temporal_decode_rm_kernel",),
 }
 # phase 23: the training entry point. SigLIP-base's text tower (the vision
@@ -476,6 +496,15 @@ OVIS = dict(steps=8, profiled=3, instances=3, classes=40, videos=2, video_frames
             small_seg=dict(hidden_dim=64, num_queries=8, num_classes=5, nheads=4,
                            dim_feedforward=64, enc_layers=1, dec_layers=3, mask_dim=64,
                            in_dim=64))
+# phase 33: the shapes and attention types past the first slices, at the
+# flagship width: AR fine-tuning at 384^2 (SigLIP's 384 checkpoint: 576
+# patches a frame) on in-memory clips of 416x480; 64 frames; non-causal;
+# joint space-time at 8 frames (1568 tokens); space-only at 16; the phase's
+# budget on the card
+SHAPES = dict(ar_size=384, ar_frames=16, ar_batch=4, ar_steps=4, ar_height=416, ar_width=480,
+              long_frames=64, long_batch=2, nc_batch=2, nc_stream=4, joint_frames=8,
+              joint_batch=1, space_frames=16, space_batch=2, tiled_frames=300, tiled_rows=64,
+              tiled_patches=576, budget_s=60)
 DEVICE = "cuda"
 
 
@@ -3871,7 +3900,7 @@ def main():
     # the step's calls, against their plain versions
     if set(held31) != {"b", "c"}:
         fail(f"OVIS step: {calls31} calls of B and C, none captured at call {L31 // 2}")
-    qkv, hh = held31["c"]
+    qkv, hh = held31["c"][:2]  # the encoder also passes its causal flag (True)
     b31, tf31, n31, d31 = qkv.shape[0], qkv.shape[1], qkv.shape[2], qkv.shape[3] // 3
     dn, elt = str(qkv.dtype).split(".")[1], qkv.element_size()
     qh, kh, vh = (x_.reshape(b31, tf31, n31, hh, d31 // hh).permute(0, 2, 3, 1, 4)
@@ -4180,6 +4209,414 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 32: {time.perf_counter() - t32:.1f} s")
 
+    # ---- 33. shapes and attention types past the first slices, at the flagship width
+    t33 = time.perf_counter()
+    captured = {}
+    patched = {}
+
+    def capture(fn_name, key):
+        """Wrap ops.<fn_name> so that its first call's arguments (tensors
+        cloned) are kept under ``key``; the wrapper's launches still count."""
+        orig = patched.setdefault(fn_name, getattr(ops, fn_name))
+
+        def wrapped(*a_, **k_):
+            if key not in captured:
+                captured[key] = tuple(x_.detach().clone() if torch.is_tensor(x_) else x_
+                                      for x_ in a_)
+            return orig(*a_, **k_)
+
+        setattr(ops, fn_name, wrapped)
+
+    def restore():
+        for fn_name, orig in patched.items():
+            setattr(ops, fn_name, orig)
+        patched.clear()
+
+    def capture_all(tag):
+        capture("_spatial_flat_forward", ("B", tag))
+        capture("spatial_flat_bwd", ("I", tag))
+        capture("_temporal_fullclip_qkv_forward", ("C", tag))
+        capture("temporal_fullclip_qkv_bwd", ("H", tag))
+
+    def sdpa_rows(x, heads):  # (R, L, D) -> (R, H, L, dh)
+        return x.view(x.shape[0], x.shape[1], heads, -1).transpose(1, 2)
+
+    def check_b(tag, shape_tag=None):
+        """B on its captured inputs against its plain version, L (B's body
+        on head-split strides) on the same against its own and bit-equal to
+        B; a kernel row when ``shape_tag`` names one."""
+        q, k, v, h = captured[("B", tag)]
+        r, n, d = q.shape
+        dn = str(q.dtype).split(".")[1]
+        out = ops.spatial_flat(q, k, v, h)
+        err = max_err(out, ops.spatial_flat_plain(q, k, v, h))
+        if not err <= TOL[dn]:
+            fail(f"spatial_flat {tag} R={r} N={n} {dn}: max-abs error {err}")
+        split = [sdpa_rows(x, h).contiguous() for x in (q, k, v)]
+        out_l = ops.spatial_attention(*split)
+        err_l = max_err(out_l, ops.spatial_attention_plain(*split))
+        if not (err_l <= TOL[dn] and torch.equal(out_l.transpose(1, 2).reshape(r, n, d), out)):
+            fail(f"spatial_attention {tag} N={n} {dn}: max-abs error {err_l}, or not bit-equal "
+                 f"to B")
+        if shape_tag:
+            qh, kh, vh = (sdpa_rows(x, h) for x in (q, k, v))
+            nbytes, flops = 4 * q.element_size() * r * n * d, 4 * r * n * n * d
+            record("spatial_flat", shape_tag, dn, err, lambda: ops.spatial_flat(q, k, v, h),
+                   lambda: ops.spatial_flat_plain(q, k, v, h),
+                   lambda: F.scaled_dot_product_attention(qh, kh, vh), nbytes, flops)
+            record("spatial_attention", shape_tag, dn, err_l,
+                   lambda: ops.spatial_attention(*split),
+                   lambda: ops.spatial_attention_plain(*split),
+                   lambda: F.scaled_dot_product_attention(*split), nbytes, flops)
+        return err, err_l
+
+    def unit_grad(shape, dtype, plain):
+        """A randn output gradient of ``shape``, scaled so that the smallest
+        peak of the plain version's gradients (``plain(g)``) is 1 (the
+        backward is linear in g; the path's own gradients are too small for
+        the limit to see them); returns it and those gradients."""
+        g = torch.randn(shape, device=dev, generator=gen)
+        peak = min(x.float().abs().max().item() for x in plain(g.to(dtype)))
+        g = (g / peak).to(dtype)
+        return g, plain(g)
+
+    def grads_check(name, got, ref, dtype_name="bfloat16"):
+        """Each gradient held to TOL times max(1, its own peak), which a
+        zeroed one (a peak of at least 1 away) cannot meet; returns the worst
+        error and the largest limit."""
+        errs = [max_err(a, b) for a, b in zip(got, ref)]
+        lims = [TOL[dtype_name] * max(1.0, b.float().abs().max().item()) for b in ref]
+        peaks = [b.float().abs().max().item() for b in ref]
+        if not all(e_ <= l_ < p_ for e_, l_, p_ in zip(errs, lims, peaks)):
+            fail(f"{name}: max-abs errors {errs}, limits {lims}, gradient peaks {peaks}")
+        return max(errs), max(lims)
+
+    def check_i(tag, shape_tag=None):
+        q, k, v, g, h = captured[("I", tag)]
+        r, n, d = q.shape
+        dn = str(q.dtype).split(".")[1]
+        g, ref = unit_grad(g.shape, g.dtype, lambda g_: ops.spatial_flat_bwd_plain(q, k, v, g_, h))
+        err, lim = grads_check(f"spatial_flat_bwd {tag} R={r} N={n} {dn}",
+                               ops.spatial_flat_bwd(q, k, v, g, h), ref, dn)
+        if shape_tag:
+            qh, kh, vh = (sdpa_rows(x, h).detach().requires_grad_() for x in (q, k, v))
+            gh = sdpa_rows(g, h)
+            out = F.scaled_dot_product_attention(qh, kh, vh)
+            record("spatial_flat_bwd", shape_tag, dn, err,
+                   lambda: ops.spatial_flat_bwd(q, k, v, g, h),
+                   lambda: ops.spatial_flat_bwd_plain(q, k, v, g, h),
+                   lambda: torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True),
+                   7 * q.element_size() * r * n * d, 10 * r * n * n * d, tol=lim)
+        return err
+
+    def packed_rows(qkv):  # (B, T, N, 3D) -> three (B*N, T, D) views
+        b, t, n, d3 = qkv.shape
+        return [x.transpose(1, 2).reshape(b * n, t, d3 // 3) for x in ops._thirds(qkv)]
+
+    def check_ch(tag, shape_tag=None, repeat=1):
+        """C and H on their captured (B, T, N, 3D) inputs (batch repeated
+        ``repeat`` times) against their plain versions."""
+        qkv, h, causal = (captured[("C", tag)] + (True,))[:3]
+        qkv_h, g, h_h, causal_h = (captured[("H", tag)] + (True,))[:4]
+        if repeat > 1:
+            qkv, qkv_h = (x.repeat(repeat, 1, 1, 1) for x in (qkv, qkv_h))
+        b, t, n, d3 = qkv.shape
+        r, d = b * n, d3 // 3
+        err = max_err(ops.temporal_fullclip_qkv(qkv, h, causal),
+                      ops.temporal_fullclip_qkv_plain(qkv, h, causal))
+        if not err <= TOL["bfloat16"]:
+            fail(f"temporal_fullclip {tag} R={r} T={t}: max-abs error {err}")
+        g, ref = unit_grad((b, t, n, d), g.dtype, lambda g_: ops._thirds(
+            ops.temporal_fullclip_qkv_bwd_plain(qkv_h, g_, h_h, causal_h)))
+        err_h, lim = grads_check(f"temporal_fullclip_bwd {tag} R={r} T={t}", ops._thirds(
+            ops.temporal_fullclip_qkv_bwd(qkv_h, g, h_h, causal_h)), ref)
+        if shape_tag:
+            qh, kh, vh = (sdpa_rows(x, h) for x in packed_rows(qkv))
+            record("temporal_fullclip", shape_tag, "bfloat16", err,
+                   lambda: ops.temporal_fullclip_qkv(qkv, h, causal),
+                   lambda: ops.temporal_fullclip_qkv_plain(qkv, h, causal),
+                   lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal),
+                   4 * 2 * r * t * d, (2 * t * (t + 1) if causal else 4 * t * t) * r * d)
+            qg, kg, vg = (sdpa_rows(x, h).detach().requires_grad_() for x in packed_rows(qkv_h))
+            gh = sdpa_rows(g.transpose(1, 2).reshape(r, t, d), h)
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal_h)
+            record("temporal_fullclip_bwd", shape_tag, "bfloat16", err_h,
+                   lambda: ops.temporal_fullclip_qkv_bwd(qkv_h, g, h_h, causal_h),
+                   lambda: ops.temporal_fullclip_qkv_bwd_plain(qkv_h, g, h_h, causal_h),
+                   lambda: torch.autograd.grad(out, (qg, kg, vg), gh, retain_graph=True),
+                   7 * 2 * r * t * d, (5 * t * (t + 1) if causal_h else 10 * t * t) * r * d,
+                   tol=lim)
+        return err, err_h
+
+    def fwd_bwd(m, x, tag, want):
+        """The full clip, then the backward of its pooled output's sum into
+        the frames (kernels H and I behind C and B); launches held to
+        ``want``."""
+        capture_all(tag)
+        ops.reset_launches()
+        try:
+            px = x.detach().clone().requires_grad_()
+            out = encoder.model_forward(m, px)
+            out["pooler_output"].float().sum().backward()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        got = dict(ops.LAUNCHES)
+        if got != {**zeros, **want}:
+            fail(f"{tag}: full clip and backward launches {got}, not {want}")
+        if not (finite(out) and torch.isfinite(px.grad).all()):
+            fail(f"{tag}: outputs or gradient not finite")
+        return {k_: v_.detach() for k_, v_ in out.items()}, got
+
+    def stream_vs(m, x, full_out, tag, want, **kw):
+        """x streamed a frame a call on a linear cache of x's length, each
+        frame held to the full clip within the streaming gates; launches
+        held to ``want``; returns the worst errors and the bit-equal frames."""
+        cfg_s = m.cfg.replace(cache_mode="linear")
+        cache_s = encoder.init_cache(cfg_s, x.shape[0], capacity=x.shape[1], device=dev)
+        ops.reset_launches()
+        wh = wp = 0.0
+        same = 0
+        outs = []
+        for i in range(x.shape[1]):
+            o_, cache_s = encoder.streaming_forward(m, x[:, i:i + 1], cache_s, cfg=cfg_s, **kw)
+            outs.append(o_)
+            eh = max_err(o_["last_hidden_state"], full_out["last_hidden_state"][:, i:i + 1])
+            ep = max_err(o_["pooler_output"], full_out["pooler_output"][:, i:i + 1])
+            wh, wp = max(wh, eh), max(wp, ep)
+            same += int(torch.equal(o_["last_hidden_state"],
+                                    full_out["last_hidden_state"][:, i:i + 1]))
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        if got != {**zeros, **want}:
+            fail(f"{tag} stream: launches {got}, not {want}")
+        if not (wh <= STREAM_TOL_HIDDEN and wp <= STREAM_TOL_POOLED):
+            fail(f"{tag} stream: hidden err {wh} (<= {STREAM_TOL_HIDDEN}), pooled err {wp} "
+                 f"(<= {STREAM_TOL_POOLED})")
+        return wh, wp, same, outs, got
+
+    shapes_launches = dict(zeros)
+    bc = {"spatial_flat": L, "temporal_fullclip": L}
+    bcih = {**bc, "temporal_fullclip_bwd": L, "spatial_flat_bwd": L}
+
+    # 33a. ar_run.train at 384^2 (576 patches a frame), 16 frames, batch 4
+    t_a = time.perf_counter()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    srng = np.random.default_rng(33)
+    s_pool = [srng.integers(0, 256, (SHAPES["ar_frames"], SHAPES["ar_height"], SHAPES["ar_width"],
+                                     3), dtype=np.uint8) for _ in range(SHAPES["ar_batch"])]
+
+    class SClips:
+        def __len__(self):
+            return SHAPES["ar_batch"] * SHAPES["ar_steps"]
+
+        def __getitem__(self, i):
+            return {"task_input": {"frames": s_pool[i % len(s_pool)], "label": (37 * i) % 400}}
+
+    work33 = tempfile.mkdtemp(prefix="shapes-", dir=os.path.join(root, "build"))
+    step_ms.clear()  # phase 29's timed steps, read again here
+    step_launches.clear()
+    try:
+        sargs = ar_run.get_args([
+            "--anno_train", "in-memory", "--num_classes", "400", "--bf16", "--epochs", "1",
+            "--batch_size", str(SHAPES["ar_batch"]), "--input_size", str(SHAPES["ar_size"]),
+            "--num_frames", str(SHAPES["ar_frames"]), "--num_workers", "2",
+            "--output_dir", work33, "--seed", "33"])
+        AR_mod.make_train_step = timed_make
+        s_model = ar_run.build_model(sargs)
+        capture_all("384")
+        ops.reset_launches()
+        s_res = ar_run.train(sargs, SClips(), model=s_model)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        AR_mod.make_train_step = orig_make
+        shutil.rmtree(work33, ignore_errors=True)
+    add(shapes_launches, ops.LAUNCHES)
+    s_peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    if len(step_ms) != SHAPES["ar_steps"] or any(sl_ != {**zeros, **bcih} for sl_ in step_launches):
+        fail(f"33a: {len(step_ms)} steps, launches a step {step_launches}")
+    if not np.isfinite(s_res["history"][0]["loss"]):
+        fail(f"33a: loss {s_res['history'][0]['loss']}")
+    n384 = (SHAPES["ar_size"] // 16) ** 2
+    r384 = SHAPES["ar_batch"] * SHAPES["ar_frames"]
+    del s_model
+    torch.cuda.empty_cache()
+    eb, el = check_b("384", f"R={r384} N={n384}")
+    ei = check_i("384", f"R={r384} N={n384}")
+    ec, eh_ = check_ch("384")
+    print(f"33a ({smi}): ar_run.train at {SHAPES['ar_size']}^2 ({n384} patches), "
+          f"{SHAPES['ar_frames']} frames, batch {SHAPES['ar_batch']}, bf16 over fp32 masters: "
+          f"{SHAPES['ar_steps']} steps {[round(x_, 2) for x_ in step_ms]} ms (synchronised), "
+          f"steady {statistics.median(step_ms[1:]):.2f} ms a step; loss "
+          f"{s_res['history'][0]['loss']:.4f}; "
+          f"peak {s_peak:.2f} GiB above the earlier phases' {base_mem / 2**30:.2f}; launches a "
+          f"step { {k_: v_ for k_, v_ in step_launches[0].items() if v_} }; on the captured inputs "
+          f"B {eb}, L {el} (bit-equal to B), I {ei}, C {ec}, H {eh_} max-abs against the plain "
+          f"versions ({time.perf_counter() - t_a:.1f} s)")
+
+    # 33b. 64 frames: the full clip and its backward (C and H at T=64), then
+    # a 64-frame linear stream (capacity 64, kernel A) against it
+    t_b = time.perf_counter()
+    long_x = torch.randn(SHAPES["long_batch"], SHAPES["long_frames"], 3, cfg.image_size,
+                         cfg.image_size, device=dev, generator=gen).to(torch.bfloat16)
+    tl_ = SHAPES["long_frames"]
+    long_out, got = fwd_bwd(model, long_x, "64f", bcih)
+    add(shapes_launches, got)
+    rl_ = SHAPES["long_batch"] * n_
+    ec, eh_ = check_ch("64f", f"qkv R={rl_} T={tl_}")
+    wh, wp, same, _, got = stream_vs(model, long_x, long_out, "64f",
+                                     {"temporal_decode_pm": L * tl_, "spatial_flat": L * tl_},
+                                     total_frames_hint=tl_)
+    add(shapes_launches, got)
+    print(f"33b ({smi}): model_forward at B={SHAPES['long_batch']} x {tl_} frames of "
+          f"{cfg.image_size}^2 and "
+          f"the backward of its pooled sum: finite, B C H I {L} times each; C {ec} and H {eh_} "
+          f"max-abs against the plain versions on the captured (B, T, N, 3D) inputs; a "
+          f"{tl_}-frame linear stream (C={tl_}, A and B {L} times a frame) against the clip: "
+          f"hidden {wh}, pooled {wp}; {same} of {tl_} frames bit for bit "
+          f"({time.perf_counter() - t_b:.1f} s)")
+    del long_x, long_out
+
+    # 33c. non-causal temporal attention: from_pretrained with the flag off,
+    # the full clip and its backward (C and H without the mask), then 4
+    # frames streamed at t=1 (the decode kernels; one new frame sees what a
+    # causal one sees: bit-equal to the causal model's stream)
+    t_c = time.perf_counter()
+    nc = from_pretrained(ckpt, cfg.replace(enable_causal_temporal=False))
+    nc_x = video[:SHAPES["nc_batch"]]
+    nc_out, got = fwd_bwd(nc, nc_x, "noncausal", bcih)
+    add(shapes_launches, got)
+    causal_out = encoder.model_forward(model, nc_x)
+    moved = max_err(nc_out["pooler_output"], causal_out["pooler_output"])
+    ec, eh_ = check_ch("noncausal", f"qkv R={b_ * n_} T={t_} non-causal",
+                       repeat=b_ // SHAPES["nc_batch"])
+    ts_ = SHAPES["nc_stream"]
+    cfg_lin = cfg.replace(cache_mode="linear")
+    c_nc = encoder.init_cache(cfg_lin, SHAPES["nc_batch"], device=dev)
+    c_c = encoder.init_cache(cfg_lin, SHAPES["nc_batch"], device=dev)
+    ops.reset_launches()
+    nc_equal = True
+    for i in range(ts_):
+        o_nc, c_nc = encoder.streaming_forward(nc, nc_x[:, i:i + 1], c_nc, cfg=cfg_lin.replace(
+            enable_causal_temporal=False))
+        o_c, c_c = encoder.streaming_forward(model, nc_x[:, i:i + 1], c_c, cfg=cfg_lin)
+        nc_equal = nc_equal and all(torch.equal(o_nc[k_], o_c[k_]) for k_ in o_c)
+        if not finite(o_nc):
+            fail(f"33c: stream frame {i} not finite")
+    torch.cuda.synchronize()
+    got = dict(ops.LAUNCHES)
+    if got != {**zeros, "temporal_decode_pm": 2 * L * ts_, "spatial_flat": 2 * L * ts_}:
+        fail(f"33c stream: launches {got}")
+    if not nc_equal:
+        fail("33c: the non-causal t=1 stream differs from the causal one")
+    add(shapes_launches, got)
+    print(f"33c ({smi}): enable_causal_temporal=False through from_pretrained, B="
+          f"{SHAPES['nc_batch']} x {t_} frames: the full clip and its backward finite, B C H I "
+          f"{L} times each, its pooled output {moved} from the causal model's; C {ec} and H "
+          f"{eh_} max-abs against the plain versions (captured inputs, batch repeated to "
+          f"R={b_ * n_}); {ts_} frames streamed at t=1 bit-equal to the causal model's stream "
+          f"({time.perf_counter() - t_c:.1f} s)")
+    del nc, nc_out, causal_out, c_nc, c_c
+
+    # 33d. joint space-time attention: T x N = 1568 tokens a clip, kernels B
+    # and I at R=1
+    t_d = time.perf_counter()
+    jt = from_pretrained(ckpt, cfg.replace(attention_type="joint_space_time"))
+    if hasattr(jt.encoder.layer[0], "temporal_attention"):
+        fail("33d: a joint_space_time layer holds a temporal block")
+    j_x = video[:SHAPES["joint_batch"], :SHAPES["joint_frames"]]
+    j_out, got = fwd_bwd(jt, j_x, "joint", {"spatial_flat": L, "spatial_flat_bwd": L})
+    add(shapes_launches, got)
+    nj = SHAPES["joint_frames"] * n_
+    eb, el = check_b("joint", f"R={SHAPES['joint_batch']} N={nj}")
+    ei = check_i("joint", f"R={SHAPES['joint_batch']} N={nj}")
+    qj = captured[("B", "joint")][0]
+    jblocks = qj.shape[0] * h_ * -(-nj // ops._spatial_chunks(dev, qj.shape[0], nj, h_,
+                                                             torch.bfloat16))
+    print(f"33d ({smi}): joint_space_time through from_pretrained, B={SHAPES['joint_batch']} x "
+          f"{SHAPES['joint_frames']} frames ({nj} tokens a clip): the full clip and its backward "
+          f"finite, B and I {L} times each; B {eb}, L {el} (bit-equal to B), I {ei} max-abs "
+          f"against the plain versions; B's launch {jblocks} blocks, at {nj} and at "
+          f"{2 * nj} tokens "
+          f"{h_ * -(-2 * nj // ops._spatial_chunks(dev, 1, 2 * nj, h_, torch.bfloat16))} "
+          f"({time.perf_counter() - t_d:.1f} s)")
+    del jt, j_out
+
+    # 33e. space-only attention: frames independent, no time table; the full
+    # clip, then the frames streamed at t=1 (B only)
+    t_e = time.perf_counter()
+    so = from_pretrained(ckpt, cfg.replace(attention_type="space_only"))
+    s_x = video[:SHAPES["space_batch"], :SHAPES["space_frames"]]
+    ops.reset_launches()
+    so_out = encoder.model_forward(so, s_x)
+    torch.cuda.synchronize()
+    got = dict(ops.LAUNCHES)
+    if got != {**zeros, "spatial_flat": L} or not finite(so_out):
+        fail(f"33e: full-clip launches {got}, or outputs not finite")
+    add(shapes_launches, got)
+    wh, wp, same, _, got = stream_vs(so, s_x, so_out, "space_only",
+                                     {"spatial_flat": L * SHAPES["space_frames"]})
+    add(shapes_launches, got)
+    print(f"33e ({smi}): space_only through from_pretrained, B={SHAPES['space_batch']} x "
+          f"{SHAPES['space_frames']} frames: the full clip finite, B {L} times; streamed at t=1 "
+          f"(B {L} times a frame, the cache unused): hidden {wh}, pooled {wp} from the clip, "
+          f"{same} of {SHAPES['space_frames']} frames bit for bit "
+          f"({time.perf_counter() - t_e:.1f} s)")
+    del so, so_out
+
+    # 33f. csrc/tiled.cuh at the flagship heads, on seeded inputs (no path
+    # of this script runs these shapes): C and H past one head's whole-row
+    # plan (bf16, B=1 x T frames of 196 patches); fp32 B, L and I past 256
+    # keys (R=64, N=576); and fp32 B, L and I at R=128 N=196 on each of
+    # their two bodies, the per-lane one the wrapper picks and tiled.cuh
+    # forced, timed in the same run
+    t_f = time.perf_counter()
+    tt = SHAPES["tiled_frames"]
+    bf16 = ops._DTYPE_CODES[torch.bfloat16]
+    if any(ops._body_smem(k_, f"sf_{k_}", tt, d_, h_, bf16, 1)
+           for k_ in ("temporal_fullclip", "temporal_fullclip_bwd")):
+        fail(f"33f: C or H at T={tt} would not take tiled.cuh")
+    qkv = randn(1, tt, n_, 3 * d_, dtype=torch.bfloat16)
+    captured[("C", "tiled")] = (qkv, h_)
+    captured[("H", "tiled")] = (qkv, qkv[..., :d_], h_)
+    ec, eh_ = check_ch("tiled", f"qkv R={n_} T={tt} tiled.cuh")
+    rt, nt = SHAPES["tiled_rows"], SHAPES["tiled_patches"]
+    if ops._body_smem("spatial_flat", "sf_spatial_flat", nt, d_, h_,
+                      ops._DTYPE_CODES[torch.float32]):
+        fail(f"33f: fp32 B at N={nt} would not take tiled.cuh")
+    lane = {}
+    for tag, r32, n32 in (("tiled32", rt, nt), ("lane32", b_ * t_, n_)):
+        qkv32 = [randn(r32, n32, d_, dtype=torch.float32) for _ in range(4)]
+        captured[("B", tag)] = (*qkv32[:3], h_)
+        captured[("I", tag)] = (*qkv32, h_)
+    eb, el = check_b("tiled32", f"R={rt} N={nt} tiled.cuh")
+    ei = check_i("tiled32", f"R={rt} N={nt} tiled.cuh")
+    lane["per-lane"] = (check_b("lane32", f"R={b_ * t_} N={n_} per-lane"),
+                        check_i("lane32", f"R={b_ * t_} N={n_} per-lane"))
+    ops._body_smem, body_smem = (lambda *a_: 0), ops._body_smem
+    try:
+        lane["tiled.cuh"] = (check_b("lane32", f"R={b_ * t_} N={n_} tiled.cuh"),
+                             check_i("lane32", f"R={b_ * t_} N={n_} tiled.cuh"))
+    finally:
+        ops._body_smem = body_smem
+    dev_of = {body: [results[(k_, f"R={b_ * t_} N={n_} {body}", "float32")]["device_ms"]
+                     for k_ in ("spatial_flat", "spatial_attention", "spatial_flat_bwd")]
+              for body in lane}
+    print(f"33f ({smi}): tiled.cuh: C {ec} and H {eh_} max-abs at qkv R={n_} T={tt}; fp32 B {eb}, "
+          f"L {el}, I {ei} at R={rt} N={nt}; fp32 B, L, I device ms at R={b_ * t_} N={n_}: "
+          f"per-lane {dev_of['per-lane']}, tiled.cuh {dev_of['tiled.cuh']} (errors "
+          f"{lane}) ({time.perf_counter() - t_f:.1f} s)")
+    del qkv
+    captured.clear()
+    torch.cuda.empty_cache()
+    s33 = time.perf_counter() - t33
+    print(f"phase 33: {s33:.1f} s")
+    if s33 > SHAPES["budget_s"]:
+        fail(f"phase 33 took {s33:.1f} s, past its {SHAPES['budget_s']} s")
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -4201,7 +4638,7 @@ def main():
                      train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'
                      l_launches, entry_launches, dist_launches, vqa_launches,
                      vqa_train_launches, ar_launches, oad_launches, ovis_launches,
-                     export_launches))
+                     export_launches, shapes_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             device_ms=row["device_ms"], plain_ms=row["plain_ms"],

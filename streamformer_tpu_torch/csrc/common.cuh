@@ -292,6 +292,23 @@ __device__ __forceinline__ void stage2_tc(__nv_bfloat16* as, __nv_bfloat16* bs,
   cp_async_commit();
 }
 
+// stage2_tc for one operand: rows [0, npad) of a's head slice into as.
+__device__ __forceinline__ void stage1_tc(__nv_bfloat16* as, const __nv_bfloat16* __restrict__ a,
+                                          long base, int tok, int n, int npad, int dh,
+                                          int stride) {
+  const int nc = (dh + 15) / 16 * 2;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < npad * nc; i += blockDim.x) {
+    const int r = i / nc, c = i % nc;
+    __nv_bfloat16* ad = as + r * stride + c * 8;
+    if (r < n && c * 8 < dh)
+      cp_async16(ad, a + base + static_cast<long>(r) * tok + c * 8);
+    else
+      *reinterpret_cast<uint4*>(ad) = zero;
+  }
+  cp_async_commit();
+}
+
 // A fragments of rows [r0, r0 + 16) of a head slice, straight from device
 // memory (zeros past n and past dh): a[kk] is the fragment of dh step kk.
 template <int DT>
@@ -421,7 +438,33 @@ __device__ __forceinline__ void scores16(float (&s)[2][4], const unsigned (&qa)[
 // tile) and g + 8 (values 2, 3) over the n keys, in one pass over 16-key
 // steps: mc = -c m, with m the row's largest score, and inv = 1 / sum of
 // 2^(c s + mc). Each lane keeps a running max and sum of its own columns,
-// rescaled when its max grows; the quad then combines them.
+// rescaled when its max grows (stats_step, one 16-key step); the quad then
+// combines them (stats_finish). A body that streams its keys through shared
+// memory in stages calls the two itself, in the same order.
+__device__ __forceinline__ void stats_step(float (&mx)[2], float (&sum)[2], const float (&s)[2][4],
+                                           float c) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(mx[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                        fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+    const float b = mn == -INFINITY ? 0.f : -mn * c;  // no key of this lane yet: 0
+    sum[r] = sum[r] * ex2(fmaf(mx[r], c, b)) + ex2(fmaf(s[0][2 * r], c, b)) +
+             ex2(fmaf(s[0][2 * r + 1], c, b)) + ex2(fmaf(s[1][2 * r], c, b)) +
+             ex2(fmaf(s[1][2 * r + 1], c, b));
+    mx[r] = mn;
+  }
+}
+
+__device__ __forceinline__ void stats_finish(float (&mc)[2], float (&inv)[2],
+                                             const float (&mx)[2], const float (&sum)[2],
+                                             float c) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mc[r] = -quad_max(mx[r]) * c;
+    inv[r] = __fdiv_rn(1.f, quad_sum(sum[r] * ex2(fmaf(mx[r], c, mc[r]))));
+  }
+}
+
 template <int DT>
 __device__ __forceinline__ void softmax_stats(float (&mc)[2], float (&inv)[2],
                                               const unsigned (&qa)[DT][4],
@@ -433,22 +476,9 @@ __device__ __forceinline__ void softmax_stats(float (&mc)[2], float (&inv)[2],
   for (int t = 0; t < nkt; ++t) {
     float s[2][4];
     scores16<DT>(s, qa, ks, t, n, ndt, stride, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(mx[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
-                                          fmaxf(s[1][2 * r], s[1][2 * r + 1])));
-      const float b = mn == -INFINITY ? 0.f : -mn * c;  // no key of this lane yet: 0
-      sum[r] = sum[r] * ex2(fmaf(mx[r], c, b)) + ex2(fmaf(s[0][2 * r], c, b)) +
-               ex2(fmaf(s[0][2 * r + 1], c, b)) + ex2(fmaf(s[1][2 * r], c, b)) +
-               ex2(fmaf(s[1][2 * r + 1], c, b));
-      mx[r] = mn;
-    }
+    stats_step(mx, sum, s, c);
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mc[r] = -quad_max(mx[r]) * c;
-    inv[r] = __fdiv_rn(1.f, quad_sum(sum[r] * ex2(fmaf(mx[r], c, mc[r]))));
-  }
+  stats_finish(mc, inv, mx, sum, c);
 }
 
 // Normalised probabilities from the statistics: 2^(c s + mc) inv, fp32.

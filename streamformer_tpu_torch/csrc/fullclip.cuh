@@ -25,10 +25,12 @@
 //   (R, T, D) rows. Every input byte is read from device memory once.
 // - Eight consumer warps compute from shared memory with all their lanes:
 //   the scores as one task per (head, query, group of four keys), a table
-//   of the causal (query, group) pairs standing in for the triangle, so a
-//   task computes at most three keys past its query (a group's tail, whose
-//   sums are discarded); the softmax one thread per (head,
-//   query); the products one thread per (two frames, head, 8 elements), so
+//   of the causal (query, group) pairs standing in for the triangle (of
+//   every pair when the attention is not causal), so a task computes at
+//   most three keys past its query (a group's tail, whose sums are
+//   discarded); the softmax one thread per (head, query), straight-line
+//   code up to 32 frames and a loop past them; the products one thread per
+//   (two frames, head, 8 elements), so
 //   that each staged chunk feeds two frames' sums, and neighbouring lanes
 //   read neighbouring 16-byte chunks of a staged frame and write
 //   neighbouring chunks of the output. A staged frame row is
@@ -43,6 +45,13 @@
 // over the keys in order; one multiply by the reciprocal of the sum. Only
 // independent chains run in parallel, and masked keys are skipped (a masked
 // key's term is fmaf(0, v, acc) == acc).
+//
+// A clip of any length T takes this pipeline while one head's item fits a
+// block (`plan`: the heads an item drop as T grows; one head fits up to
+// T = 149 for C and 110 for H at heads of 64 in bf16, 66 and 49 at heads of
+// 128 in fp32); past that C and H run tiled.cuh,
+// which keeps this order of arithmetic, on the CUDA cores with both sides
+// tiled. kMaxT bounds kernel E's new frames (temporal_append_pm.cu) only.
 #pragma once
 
 #include <initializer_list>
@@ -54,7 +63,7 @@ namespace fullclip {
 constexpr int kConsumers = 256;            // eight consumer warps
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
 constexpr int kStages = 2;                 // of the ring
-constexpr int kMaxT = 32;                  // frames a row
+constexpr int kMaxT = 32;                  // E's new frames; C's straight-line softmax
 constexpr int kKeyGroup = 4;               // keys one score task takes
 constexpr int kMaxSmem = 232448;           // dynamic shared memory a block may use on sm_90
 // Shared memory of a block that leaves room for a second on the SM: the
@@ -67,10 +76,15 @@ struct Operand {
   long long sb, st, sn;
 };
 
+// Operand o of a C entry's arguments: ptrs[o], strides[3 o .. 3 o + 2].
+inline Operand operand(const void* const* ptrs, const long long* strides, int o) {
+  return {const_cast<void*>(ptrs[o]), strides[3 * o], strides[3 * o + 1], strides[3 * o + 2]};
+}
+
 // Shared memory of a block: two stages of `ops` operands, each T frame rows
 // of `row_bytes` (hg * dh elements, padded); then (hg, T, T + 1) fp32
 // scores and, for H, as many dp values; the reciprocals of the sums
-// (hg, T); the causal (query, key group) table; the barriers.
+// (hg, T); the (query, key group) table, causal or whole; the barriers.
 struct Plan {
   int hg, groups, row_bytes, op_bytes, stage_bytes, n_tri, ss;
   int scores, dps, inv, tri, full, empty, total;
@@ -78,25 +92,29 @@ struct Plan {
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
-// Score tasks a head: the (query t, key group g) pairs with 4g <= t.
-__host__ __device__ inline int causal_groups(int t_len) {
+// Score tasks a head: the (query t, key group g) pairs with 4g <= t, or
+// every pair (4g < T) when the attention is not causal.
+__host__ __device__ inline int score_groups(int t_len, bool causal) {
+  if (!causal) return t_len * ((t_len + kKeyGroup - 1) / kKeyGroup);
   int n = 0;
   for (int t = 0; t < t_len; ++t) n += t / kKeyGroup + 1;
   return n;
 }
 
-inline Plan plan_for(int hg, int heads, int t_len, int dh, int elt, int ops, bool dp) {
+inline Plan plan_for(int hg, int heads, int t_len, int dh, int elt, int ops, bool dp,
+                     bool causal) {
   Plan p;
   p.hg = hg;
   p.groups = heads / hg;
   p.row_bytes = round16(hg * dh * elt) + 16;
   p.op_bytes = t_len * p.row_bytes;
   p.stage_bytes = ops * p.op_bytes;
-  p.n_tri = causal_groups(t_len);
+  p.n_tri = score_groups(t_len, causal);
   p.ss = t_len + 1;
-  // each score region is followed by kMaxT floats that a softmax row may
-  // read past its last row (and discard)
-  const int scores = round16(4 * (hg * t_len * p.ss + kMaxT));
+  // each score region is followed by max(kMaxT, T) floats that a softmax
+  // row, or the missing second query of a pair, may read past its last row
+  // (and discard)
+  const int scores = round16(4 * (hg * t_len * p.ss + (t_len > kMaxT ? t_len : kMaxT)));
   p.scores = kStages * p.stage_bytes;
   p.dps = p.scores + scores;
   p.inv = p.dps + (dp ? scores : 0);
@@ -109,14 +127,14 @@ inline Plan plan_for(int hg, int heads, int t_len, int dh, int elt, int ops, boo
 
 // The most heads an item (a divisor of `heads`) whose block fits
 // kPairBudget, else kMaxSmem; hg == 0 when not even one head fits.
-inline Plan plan(int heads, int t_len, int dh, int elt, int ops, bool dp) {
+inline Plan plan(int heads, int t_len, int dh, int elt, int ops, bool dp, bool causal) {
   for (int limit : {kPairBudget, kMaxSmem})
     for (int hg = heads; hg >= 1; --hg)
       if (heads % hg == 0) {
-        const Plan p = plan_for(hg, heads, t_len, dh, elt, ops, dp);
+        const Plan p = plan_for(hg, heads, t_len, dh, elt, ops, dp, causal);
         if (p.total <= limit) return p;
       }
-  Plan none = plan_for(1, heads, t_len, dh, elt, ops, dp);
+  Plan none = plan_for(1, heads, t_len, dh, elt, ops, dp, causal);
   none.hg = 0;
   return none;
 }
@@ -126,7 +144,7 @@ struct Args {
   Operand in[kOps];  // q, k, v (and g)
   Operand out[3];    // out (C), or dq, dk, dv (H)
   Plan p;
-  int items, n, t_len, dh;
+  int items, n, t_len, dh, causal;
   float scale;
 };
 
@@ -142,9 +160,10 @@ __device__ __forceinline__ long long at(const Operand& o, int row, int n, int t,
   return b * o.sb + static_cast<long long>(t) * o.st + (row - b * n) * o.sn + col;
 }
 
-// Block set-up, by thread 0: the barriers and the causal table (entry
-// t << 8 | g, in query order). Every thread then meets at __syncthreads.
-__device__ __forceinline__ void setup(unsigned char* smem, const Plan& p, int t_len) {
+// Block set-up, by thread 0: the barriers and the score table (entry
+// t << 8 | g, in query order; 4g <= t when causal). Every thread then meets
+// at __syncthreads.
+__device__ __forceinline__ void setup(unsigned char* smem, const Plan& p, int t_len, bool causal) {
   if (threadIdx.x == 0) {
     unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + p.full);
     unsigned long long* empty = reinterpret_cast<unsigned long long*>(smem + p.empty);
@@ -155,7 +174,7 @@ __device__ __forceinline__ void setup(unsigned char* smem, const Plan& p, int t_
     mbar_init_fence();
     int* tri = reinterpret_cast<int*>(smem + p.tri);
     for (int t = 0, i = 0; t < t_len; ++t)
-      for (int g = 0; g * kKeyGroup <= t; ++g) tri[i++] = t << 8 | g;
+      for (int g = 0; g * kKeyGroup <= (causal ? t : t_len - 1); ++g) tri[i++] = t << 8 | g;
   }
   __syncthreads();
 }
@@ -233,6 +252,20 @@ __device__ __forceinline__ float exps(const float* sr, int t, float (&x)[N]) {
   for (int j = 0; j < N; ++j) {
     x[j] = expf(__fsub_rn(x[j], mx[0]));
     sum = __fadd_rn(sum, x[j]);
+  }
+  return sum;
+}
+
+// The same for a row of any length: the exps of keys 0 .. lim - 1 in place,
+// their sum in key order returned (the max first, exact in any order).
+__device__ __forceinline__ float exps_loop(float* sr, int lim) {
+  float mx = -INFINITY;
+  for (int j = 0; j < lim; ++j) mx = fmaxf(mx, sr[j]);
+  float sum = 0.f;
+  for (int j = 0; j < lim; ++j) {
+    const float x = expf(__fsub_rn(sr[j], mx));
+    sr[j] = x;
+    sum = __fadd_rn(sum, x);
   }
   return sum;
 }

@@ -21,8 +21,9 @@
 //
 // bf16 body (spatial_flat_tc_kernel), on the tensor cores. One block per
 // (row, head, chunk of at most 208 queries: the whole row at N=196), one
-// warp per 16-query tile of the chunk, two blocks an SM. The head's K and V
-// (N x dh) go to shared memory with cp.async, rows zero-padded to a multiple
+// warp per 16-query tile of the chunk, two blocks an SM. Up to 256 keys,
+// the head's K and V (N x dh) go to shared memory with cp.async once, rows
+// zero-padded to a multiple
 // of 16 keys (padded keys must hold zeros: they get probability 0, and
 // 0 x NaN from stale memory would be NaN) and dh zero-padded to 16, each row
 // then padded to an odd number of 16-byte units so that ldmatrix is free of
@@ -46,6 +47,16 @@
 // head-split strides) is bit-equal to B. A template bounds dh
 // (16-wide steps) so that narrow heads hold fewer registers.
 //
+// Past 256 keys (a 384x384 frame has 576 patches, joint space-time
+// attention 1568 at 8 frames) K and V stream through the same shared
+// memory in stages of 256 keys: pass 1 stages K stage by stage for the
+// statistics, pass 2 stages K and V again for S and PV. Each 16-key step
+// computes what it computes with the whole row staged, in the same order,
+// so the softmax stays exact and two-pass (no rescaled output), and a
+// query's bits do not depend on the staging either. The wrapper then splits
+// a row's queries over more blocks when R x H x chunks would leave the SMs
+// idle (one frame of joint attention: 12 (row, head) pairs).
+//
 // fp32 body (spatial_flat_kernel), on the CUDA cores: TF32 could not hold
 // the 2e-5 fp32 gate, so fp32 keeps exact FMAs. One block per (row, head,
 // query chunk): the head's K and V slices (N x dh) are staged in shared
@@ -57,7 +68,13 @@
 // of the output times a power-of-two number of key groups, reduced with
 // shuffles at the end. The wrapper splits the queries of a row into chunks
 // only when R*H blocks alone would leave SMs idle (the streaming step).
+// Past 256 keys, or past a block's shared memory (heads of 128 past 200
+// keys), fp32 runs tiled.cuh: both sides tiled, exact softmax, C's order of
+// arithmetic. The wrapper chooses, as for C, H and I: the smem entry
+// returns 0 where only tiled.cuh takes the shape, and the launch entry
+// takes `tiled`.
 #include "common.cuh"
+#include "tiled.cuh"
 
 namespace {
 
@@ -245,7 +262,14 @@ constexpr int kTcMaxWarps = 13;
 
 // DT: most 16-wide dh steps (dh <= 16 DT); the runtime count ndt is at most
 // DT. The key steps are a rolled loop, so the body stays small.
-template <int DT>
+// Keys a stage holds: the whole row up to 256 (one staging), else stages
+// of 256.
+constexpr int kTcStageKeys = 256;
+
+// kStaged: the keys in stages (npad past kTcStageKeys), a template parameter
+// so that the one-staging kernel compiles to the code it had before stages
+// existed (a runtime branch cost it 3 % on the H100: tools/decode_timing.py).
+template <int DT, bool kStaged>
 __global__ void __launch_bounds__(kTcMaxWarps * 32, DT <= 4 ? 2 : 1)
 spatial_flat_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out, int n, int dh,
@@ -254,8 +278,9 @@ spatial_flat_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   const int nkt = (n + 15) / 16, ndt = (dh + 15) / 16;
   const int npad = nkt * 16;
-  bf16* ks = reinterpret_cast<bf16*>(smem);  // npad x stride
-  bf16* vs = ks + npad * stride;             // npad x stride
+  const int rows = kStaged ? kTcStageKeys : npad;  // staged keys
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // rows x stride
+  bf16* vs = ks + rows * stride;             // rows x stride
 
   const int rh = blockIdx.x / chunks, chunk = blockIdx.x % chunks;
   const long base = static_cast<long>(rh / heads) * row_elems + (rh % heads) * head_elems;
@@ -263,12 +288,56 @@ spatial_flat_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warps = blockDim.x >> 5;
   const float c2 = scale * kLog2e;
 
-  stage2_tc(ks, vs, k, v, base, tok, n, npad, dh, stride);
+  if constexpr (!kStaged) stage2_tc(ks, vs, k, v, base, tok, n, npad, dh, stride);
   const int q_begin = chunk * q_per_block;
   const int q_end = min(n, q_begin + q_per_block);
   int q0 = q_begin + warp * 16;
   unsigned qa[DT][4];
   load_frags<DT>(qa, q, base, tok, q0, n, dh, lane);  // overlaps the staging copies
+  if constexpr (kStaged) {
+    // K and V in stages: every warp takes one 16-query tile (q_per_block is
+    // warps x 16) and joins every stage, with queries or not
+    const bool on = q0 < q_end;
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+    for (int k0 = 0; k0 < npad; k0 += rows) {
+      const int nr = min(rows, npad - k0);
+      __syncthreads();  // the stage's readers are done
+      stage1_tc(ks, k, base + static_cast<long>(k0) * tok, tok, n - k0, nr, dh, stride);
+      cp_async_wait_all();
+      __syncthreads();
+      if (on) {
+#pragma unroll 2
+        for (int t = 0; t < nr / 16; ++t) {
+          float s[2][4];
+          scores16<DT>(s, qa, ks, t, n - k0, ndt, stride, lane);
+          stats_step(mx, sum, s, c2);
+        }
+      }
+    }
+    float mc[2], inv[2];
+    stats_finish(mc, inv, mx, sum, c2);
+    float o[2 * DT][4];
+    zero_tiles<DT>(o);
+    for (int k0 = 0; k0 < npad; k0 += rows) {
+      const int nr = min(rows, npad - k0);
+      __syncthreads();
+      stage2_tc(ks, vs, k, v, base + static_cast<long>(k0) * tok, tok, n - k0, nr, dh, stride);
+      cp_async_wait_all();
+      __syncthreads();
+      if (on) {
+        for (int t = 0; t < nr / 16; ++t) {
+          float s[2][4], p[2][4];
+          scores16<DT>(s, qa, ks, t, n - k0, ndt, stride, lane);
+          probs16(p, s, mc, inv, c2);
+          unsigned w[4];
+          pack_frag(w, p);
+          weights_times_cols<DT>(o, w, vs, t, ndt, stride, lane);
+        }
+      }
+    }
+    if (on) store_tiles<DT>(out, o, base, tok, q0, q_end, dh, ndt, lane);
+    return;
+  }
   cp_async_wait_all();
   __syncthreads();
 
@@ -292,9 +361,9 @@ spatial_flat_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K and V, 16 * ceil(n / 16) rows each.
+// K and V, 16 * ceil(n / 16) rows each, at most a stage's.
 inline int tc_smem_bytes(int n, int dh) {
-  return 2 * ((n + 15) / 16 * 16) * tc_row_stride(dh) * 2;
+  return 2 * min((n + 15) / 16 * 16, kTcStageKeys) * tc_row_stride(dh) * 2;
 }
 
 template <int DT>
@@ -302,13 +371,15 @@ int launch_tc_body(const void* q, const void* k, const void* v, void* out, int r
                    int dh, int heads, long row_elems, long head_elems, int tok, int q_per_block,
                    float scale, cudaStream_t stream) {
   const int smem = tc_smem_bytes(n, dh);
-  cudaError_t err = cudaFuncSetAttribute(spatial_flat_tc_kernel<DT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = (n + 15) / 16 * 16 > kTcStageKeys ? spatial_flat_tc_kernel<DT, true>
+                                                       : spatial_flat_tc_kernel<DT, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int chunks = (n + q_per_block - 1) / q_per_block;
   const dim3 grid(static_cast<unsigned>(rows) * heads * chunks);
   // one warp for each 16-query tile of a chunk
-  spatial_flat_tc_kernel<DT><<<grid, q_per_block / 16 * 32, smem, stream>>>(
+  kernel<<<grid, q_per_block / 16 * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), n, dh, heads, row_elems, head_elems, tok, q_per_block, chunks,
       tc_row_stride(dh), scale);
@@ -319,7 +390,7 @@ int launch_tc_body(const void* q, const void* k, const void* v, void* out, int r
 // chunk is rounded up to whole 16-query tiles, at most kTcMaxWarps of them.
 int launch_tc(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
               int heads, bool head_split, int q_per_block, float scale, cudaStream_t stream) {
-  if (n > 256 || dh > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || dh > 128) return static_cast<int>(cudaErrorInvalidValue);
   const long d = static_cast<long>(heads) * dh;
   const long row_elems = n * d;
   const long head_elems = head_split ? static_cast<long>(n) * dh : dh;
@@ -335,33 +406,70 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int rows, 
                            scale, stream);
 }
 
+// Whether the per-lane fp32 body takes n keys: kMaxKpl keys a lane, and
+// the head's K and V within a block's shared memory.
+inline bool fp32_fits(int n, int dh) {
+  return n <= 32 * kMaxKpl && smem_bytes(n, dh, 4) <= fullclip::kMaxSmem;
+}
+
+// tiled.cuh's forward: B's rows are (R, N, D) with heads as column slices,
+// L's (R, H, N, dh) as R * H rows of one head.
+int launch_tiled(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
+                 int heads, bool head_split, float scale, cudaStream_t stream) {
+  const long long d = static_cast<long long>(heads) * dh;
+  const long long row = head_split ? static_cast<long long>(n) * dh : n * d;
+  const long long tok = head_split ? dh : d;
+  tiled::Args a{};
+  a.q = {const_cast<void*>(q), row, tok, 0};
+  a.k = {const_cast<void*>(k), row, tok, 0};
+  a.v = {const_cast<void*>(v), row, tok, 0};
+  a.o0 = {out, row, tok, 0};
+  a.n = 1;
+  a.len = n;
+  a.dh = dh;
+  a.heads = head_split ? 1 : heads;
+  a.causal = 0;
+  a.scale = scale;
+  return tiled::forward<T>(head_split ? rows * heads : rows, a, stream);
+}
+
 int dispatch(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
-             int heads, bool head_split, int q_per_block, float scale, int dtype, void* stream) {
+             int heads, bool head_split, int q_per_block, float scale, int tiled, int dtype,
+             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == SF_BFLOAT16)
+  if (dtype == SF_BFLOAT16 && !tiled)
     return launch_tc(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale, st);
-  if (dtype == SF_FLOAT32)
+  if (dtype == SF_FLOAT32 && tiled)
+    return launch_tiled(q, k, v, out, rows, n, dh, heads, head_split, scale, st);
+  if (dtype == SF_FLOAT32 && fp32_fits(n, dh))
     return launch(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// Shared memory a block of the whole-head body needs (bf16: any n); 0 where
+// only tiled.cuh takes the shape (fp32 past fp32_fits), and the wrapper
+// then passes tiled = 1.
 extern "C" int sf_spatial_flat_smem_bytes(int n, int d, int heads, int dtype) {
-  return dtype == SF_BFLOAT16 ? tc_smem_bytes(n, d / heads) : smem_bytes(n, d / heads, 4);
+  const int dh = d / heads;
+  if (dtype == SF_BFLOAT16) return tc_smem_bytes(n, dh);
+  return fp32_fits(n, dh) ? smem_bytes(n, dh, 4) : 0;
 }
 
-// B: q, k, v, out (R, N, D)
+// B: q, k, v, out (R, N, D). tiled: 1 runs tiled.cuh (fp32 only), 0 the
+// whole-head body.
 extern "C" int sf_spatial_flat(const void* q, const void* k, const void* v, void* out, int rows,
-                               int n, int d, int heads, int q_per_block, float scale, int dtype,
-                               void* stream) {
-  return dispatch(q, k, v, out, rows, n, d / heads, heads, false, q_per_block, scale, dtype,
-                  stream);
+                               int n, int d, int heads, int q_per_block, float scale, int tiled,
+                               int dtype, void* stream) {
+  return dispatch(q, k, v, out, rows, n, d / heads, heads, false, q_per_block, scale, tiled,
+                  dtype, stream);
 }
 
-// L: q, k, v, out (R, H, N, dh)
+// L: q, k, v, out (R, H, N, dh); tiled as for B.
 extern "C" int sf_spatial_heads(const void* q, const void* k, const void* v, void* out, int rows,
                                 int heads, int n, int dh, int q_per_block, float scale,
-                                int dtype, void* stream) {
-  return dispatch(q, k, v, out, rows, n, dh, heads, true, q_per_block, scale, dtype, stream);
+                                int tiled, int dtype, void* stream) {
+  return dispatch(q, k, v, out, rows, n, dh, heads, true, q_per_block, scale, tiled, dtype,
+                  stream);
 }

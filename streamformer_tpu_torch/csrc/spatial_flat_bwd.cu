@@ -48,6 +48,17 @@
 // No global scratch and no atomics: every output element is summed by one
 // lane in a fixed order, so two runs give the same bits.
 //
+// Past 256 keys the head no longer fits one block: the two phases become
+// two launches over tiles (spatial_flat_bwd_dq_tc_kernel, then
+// spatial_flat_bwd_dkv_tc_kernel), eight warps a block. The query side takes
+// 128 queries a block and streams K and V through shared memory in stages
+// of 256 keys, once for the statistics and twice more for delta and dq; it
+// writes (-c m, 1/sum, delta) to an fp32 scratch in device memory, three a
+// query. The key side takes 128 keys a block and streams Q, G and those
+// statistics in stages of 256 queries. Each 16-step runs the whole-row
+// body's arithmetic in the same order, sums stay in one lane each, and no
+// atomics: two runs give the same bits.
+//
 // fp32 body, on the CUDA cores (TF32 could not hold the 2e-5 fp32 gate): two
 // kernels of the forward's fp32 shape (spatial_flat.cu), launched back to
 // back by one C entry:
@@ -65,8 +76,11 @@
 //      dk = ds^T q and dv = p^T g over the queries with shuffles.
 //
 // Every output element is owned by one lane and summed in a fixed order, so
-// this body too repeats bit for bit; it computes s and dp twice.
+// this body too repeats bit for bit; it computes s and dp twice. Past 256
+// keys, or past a block's shared memory (heads of 128 past 190 keys), fp32
+// runs tiled.cuh's backward (two launches, the same statistics between).
 #include "common.cuh"
+#include "tiled.cuh"
 
 namespace {
 
@@ -486,11 +500,210 @@ spatial_flat_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
-// Two staged operands (16 * ceil(n / 16) rows each) and the statistics
-// (three fp32 a query).
-inline int tc_smem_bytes(int n, int dh) {
+// ---- bf16 past 256 keys: the two phases as two tiled launches
+
+constexpr int kTiledWarps = 8;    // warps a block: 128 queries (keys) an item
+constexpr int kTcStage = 256;     // keys (queries) a stage
+constexpr int kTcMaxN = 256;      // past this, the tiled launches
+
+// The query side: dq, and (-c m, 1/sum, delta) of each query to stats
+// ((rows * heads, 3, n) fp32).
+template <int DT>
+__global__ void __launch_bounds__(kTiledWarps * 32)
+spatial_flat_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ g,
+                              bf16* __restrict__ dq, float* __restrict__ stats, int n, int d,
+                              int heads, int stride, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dh = d / heads, ndt = (dh + 15) / 16;
   const int npad = (n + 15) / 16 * 16;
+  bf16* xs = reinterpret_cast<bf16*>(smem);  // kTcStage x stride: K
+  bf16* ys = xs + kTcStage * stride;         // kTcStage x stride: V
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, c = lane & 3;
+  const float c2 = scale * kLog2e;
+  const int chunks = (n + kTiledWarps * 16 - 1) / (kTiledWarps * 16);
+  const int rh = blockIdx.x / chunks;
+  const int q0 = (blockIdx.x - rh * chunks) * kTiledWarps * 16 + warp * 16;
+  const long base = static_cast<long>(rh / heads) * n * d + (rh % heads) * dh;
+  const bool on = q0 < n;
+  unsigned qa[DT][4], ga[DT][4];
+  load_frags<DT>(qa, q, base, d, q0, n, dh, lane);
+  load_frags<DT>(ga, g, base, d, q0, n, dh, lane);
+
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  for (int k0 = 0; k0 < npad; k0 += kTcStage) {
+    const int nr = min(kTcStage, npad - k0);
+    __syncthreads();
+    stage1_tc(xs, k, base + static_cast<long>(k0) * d, d, n - k0, nr, dh, stride);
+    cp_async_wait_all();
+    __syncthreads();
+    if (on) {
+#pragma unroll 2
+      for (int t = 0; t < nr / 16; ++t) {
+        float s[2][4];
+        scores16<DT>(s, qa, xs, t, n - k0, ndt, stride, lane);
+        stats_step(mx, sum, s, c2);
+      }
+    }
+  }
+  float mc[2], inv[2];
+  stats_finish(mc, inv, mx, sum, c2);
+  // delta = sum_j dp p, with the fp32 p; then dq = ds K
+  float delta[2] = {0.f, 0.f};
+  float acc[2 * DT][4];
+  zero_tiles<DT>(acc);
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    if (sweep == 1) {
+      delta[0] = quad_sum(delta[0]);
+      delta[1] = quad_sum(delta[1]);
+    }
+    for (int k0 = 0; k0 < npad; k0 += kTcStage) {
+      const int nr = min(kTcStage, npad - k0);
+      __syncthreads();
+      stage2_tc(xs, ys, k, v, base + static_cast<long>(k0) * d, d, n - k0, nr, dh, stride);
+      cp_async_wait_all();
+      __syncthreads();
+      if (!on) continue;
+      for (int t = 0; t < nr / 16; ++t) {
+        float s[2][4], p[2][4], dp[2][4];
+        scores16<DT>(s, qa, xs, t, n - k0, ndt, stride, lane);
+        probs16(p, s, mc, inv, c2);
+        frags_times_rows<DT>(dp, ga, ys, t, ndt, stride, lane);
+        if (sweep == 0) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) delta[e >> 1] = fmaf(p[h][e], dp[h][e], delta[e >> 1]);
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              p[h][e] = __fmul_rn(__fmul_rn(p[h][e], __fsub_rn(dp[h][e], delta[e >> 1])), scale);
+          unsigned w[4];
+          pack_frag(w, p);
+          weights_times_cols<DT>(acc, w, xs, t, ndt, stride, lane);
+        }
+      }
+    }
+  }
+  if (!on) return;
+  store_tiles<DT>(dq, acc, base, d, q0, n, dh, ndt, lane);
+  if (c == 0) {
+    float* st = stats + static_cast<long>(rh) * 3 * n;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + gq + 8 * r;
+      if (i < n) {
+        st[i] = mc[r];
+        st[n + i] = inv[r];
+        st[2 * n + i] = delta[r];
+      }
+    }
+  }
+}
+
+// The key side: dk = ds^T Q and dv = P^T G, the statistics from stats.
+template <int DT>
+__global__ void __launch_bounds__(kTiledWarps * 32)
+spatial_flat_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const bf16* __restrict__ g,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               const float* __restrict__ stats, int n, int d, int heads,
+                               int stride, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dh = d / heads, ndt = (dh + 15) / 16;
+  const int npad = (n + 15) / 16 * 16;
+  bf16* xs = reinterpret_cast<bf16*>(smem);                      // kTcStage x stride: Q
+  bf16* ys = xs + kTcStage * stride;                             // kTcStage x stride: G
+  float* st = reinterpret_cast<float*>(ys + kTcStage * stride);  // 3 x kTcStage
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = lane & 3;
+  const float c2 = scale * kLog2e;
+  const int chunks = (n + kTiledWarps * 16 - 1) / (kTiledWarps * 16);
+  const int rh = blockIdx.x / chunks;
+  const int k0 = (blockIdx.x - rh * chunks) * kTiledWarps * 16 + warp * 16;
+  const long base = static_cast<long>(rh / heads) * n * d + (rh % heads) * dh;
+  const float* stat = stats + static_cast<long>(rh) * 3 * n;
+  const bool on = k0 < n;
+  unsigned ka[DT][4], va[DT][4];
+  load_frags<DT>(ka, k, base, d, k0, n, dh, lane);
+  load_frags<DT>(va, v, base, d, k0, n, dh, lane);
+  float dka[2 * DT][4], dva[2 * DT][4];
+  zero_tiles<DT>(dka);
+  zero_tiles<DT>(dva);
+  for (int q0 = 0; q0 < npad; q0 += kTcStage) {
+    const int nr = min(kTcStage, npad - q0), nq = n - q0;
+    __syncthreads();
+    stage2_tc(xs, ys, q, g, base + static_cast<long>(q0) * d, d, nq, nr, dh, stride);
+    for (int i = threadIdx.x; i < 3 * kTcStage; i += blockDim.x) {
+      const int s = i / kTcStage, r = i - s * kTcStage;
+      st[i] = r < nq ? stat[s * n + q0 + r] : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (!on) continue;
+    for (int t = 0; t < nr / 16; ++t) {
+      // rows: the warp's 16 keys; columns: queries 16 t .. 16 t + 15 of the stage
+      float sT[2][4], dpT[2][4];
+      frags_times_rows<DT>(sT, ka, xs, t, ndt, stride, lane);
+      frags_times_rows<DT>(dpT, va, ys, t, ndt, stride, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = t * 16 + h * 8 + 2 * c + (e & 1);  // the query, in the stage
+          const float pf = i < nq ? ex2(fmaf(sT[h][e], c2, st[i])) * st[kTcStage + i] : 0.f;
+          dpT[h][e] =
+              __fmul_rn(__fmul_rn(pf, __fsub_rn(dpT[h][e], st[2 * kTcStage + i])), scale);
+          sT[h][e] = pf;
+        }
+      }
+      unsigned wds[4], wp[4];
+      pack_frag(wds, dpT);
+      pack_frag(wp, sT);
+      weights_times_cols<DT>(dka, wds, xs, t, ndt, stride, lane);
+      weights_times_cols<DT>(dva, wp, ys, t, ndt, stride, lane);
+    }
+  }
+  if (!on) return;
+  store_tiles<DT>(dk, dka, base, d, k0, n, dh, ndt, lane);
+  store_tiles<DT>(dv, dva, base, d, k0, n, dh, ndt, lane);
+}
+
+// Two staged operands (16 * ceil(n / 16) rows each, at most a stage's) and
+// the statistics (three fp32 a query of a stage).
+inline int tc_smem_bytes(int n, int dh) {
+  const int npad = min((n + 15) / 16 * 16, kTcStage);
   return 2 * npad * tc_row_stride(dh) * 2 + 3 * npad * 4;
+}
+
+template <int DT>
+int launch_tc_tiled(const void* q, const void* k, const void* v, const void* g, void* dq,
+                    void* dk, void* dv, void* stats, int rows, int n, int d, int heads,
+                    float scale, cudaStream_t stream) {
+  const int smem = tc_smem_bytes(n, d / heads);
+  cudaError_t err = cudaFuncSetAttribute(spatial_flat_bwd_dq_tc_kernel<DT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(spatial_flat_bwd_dkv_tc_kernel<DT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = (n + kTiledWarps * 16 - 1) / (kTiledWarps * 16);
+  const unsigned grid = static_cast<unsigned>(rows) * heads * chunks;
+  const int stride = tc_row_stride(d / heads);
+  spatial_flat_bwd_dq_tc_kernel<DT><<<grid, kTiledWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<bf16*>(dq), static_cast<float*>(stats), n, d,
+      heads, stride, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  spatial_flat_bwd_dkv_tc_kernel<DT><<<grid, kTiledWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<const float*>(stats), n, d, heads, stride, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DT>
@@ -510,31 +723,80 @@ int launch_tc_body(const void* q, const void* k, const void* v, const void* g, v
 }
 
 int launch_tc(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-              void* dv, int rows, int n, int d, int heads, float scale, cudaStream_t stream) {
+              void* dv, void* stats, int rows, int n, int d, int heads, float scale,
+              cudaStream_t stream) {
   const int dh = d / heads;
-  if (n > 256 || dh > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || dh > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > kTcMaxN) {
+    if (!stats) return static_cast<int>(cudaErrorInvalidValue);
+    if (dh <= 32)
+      return launch_tc_tiled<2>(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, scale, stream);
+    if (dh <= 64)
+      return launch_tc_tiled<4>(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, scale, stream);
+    return launch_tc_tiled<8>(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, scale, stream);
+  }
   if (dh <= 32) return launch_tc_body<2>(q, k, v, g, dq, dk, dv, rows, n, d, heads, scale, stream);
   if (dh <= 64) return launch_tc_body<4>(q, k, v, g, dq, dk, dv, rows, n, d, heads, scale, stream);
   return launch_tc_body<8>(q, k, v, g, dq, dk, dv, rows, n, d, heads, scale, stream);
 }
 
-}  // namespace
-
-extern "C" int sf_spatial_flat_bwd_smem_bytes(int n, int d, int heads, int dtype) {
-  return dtype == SF_BFLOAT16 ? tc_smem_bytes(n, d / heads) : smem_bytes(n, d / heads, 4);
+// Whether the per-lane fp32 body takes n keys: kMaxKpl columns a lane, and
+// its staged operands within a block's shared memory.
+inline bool fp32_fits(int n, int dh) {
+  return n <= 32 * kMaxKpl && smem_bytes(n, dh, 4) <= fullclip::kMaxSmem;
 }
 
-// stats (fp32 only, else unused): fp32 scratch of rows * heads * 3 * n
-// elements, written by the query side and read by the key side. per_block:
-// the fp32 body's rows a block takes; the bf16 body takes a whole head.
+// tiled.cuh's backward on (R, N, D) rows, heads as column slices.
+int launch_tiled(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
+                 void* dv, void* stats, int rows, int n, int d, int heads, float scale,
+                 cudaStream_t stream) {
+  const long long row = static_cast<long long>(n) * d;
+  tiled::Args a{};
+  a.q = {const_cast<void*>(q), row, d, 0};
+  a.k = {const_cast<void*>(k), row, d, 0};
+  a.v = {const_cast<void*>(v), row, d, 0};
+  a.g = {const_cast<void*>(g), row, d, 0};
+  a.stats = static_cast<float*>(stats);
+  a.n = 1;
+  a.len = n;
+  a.dh = d / heads;
+  a.heads = heads;
+  a.causal = 0;
+  a.scale = scale;
+  tiled::Args dkv = a;
+  a.o0 = {dq, row, d, 0};
+  dkv.o0 = {dk, row, d, 0};
+  dkv.o1 = {dv, row, d, 0};
+  return tiled::backward<T>(rows, a, dkv, stream);
+}
+
+}  // namespace
+
+// Shared memory a block of the whole-head body needs (bf16: any n); 0 where
+// only tiled.cuh takes the shape (fp32 past fp32_fits), and the wrapper
+// then passes tiled = 1.
+extern "C" int sf_spatial_flat_bwd_smem_bytes(int n, int d, int heads, int dtype) {
+  const int dh = d / heads;
+  if (dtype == SF_BFLOAT16) return tc_smem_bytes(n, dh);
+  return fp32_fits(n, dh) ? smem_bytes(n, dh, 4) : 0;
+}
+
+// stats: fp32 scratch of rows * heads * 3 * n elements, written by the
+// query side and read by the key side: fp32 at any n, bf16 past 256 keys
+// (else unused; the one-block bf16 body keeps them in shared memory).
+// per_block: the fp32 body's rows a block takes; the bf16 body takes a
+// whole head, or 128 queries (keys) an item past 256. tiled: 1 runs
+// tiled.cuh (fp32 only), 0 the whole-head body.
 extern "C" int sf_spatial_flat_bwd(const void* q, const void* k, const void* v, const void* g,
                                    void* dq, void* dk, void* dv, void* stats, int rows, int n,
-                                   int d, int heads, int per_block, float scale, int dtype,
-                                   void* stream) {
+                                   int d, int heads, int per_block, float scale, int tiled,
+                                   int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == SF_BFLOAT16)
-    return launch_tc(q, k, v, g, dq, dk, dv, rows, n, d, heads, scale, st);
-  if (dtype == SF_FLOAT32)
+  if (dtype == SF_BFLOAT16 && !tiled)
+    return launch_tc(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, scale, st);
+  if (dtype == SF_FLOAT32 && tiled)
+    return launch_tiled(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, scale, st);
+  if (dtype == SF_FLOAT32 && fp32_fits(n, d / heads))
     return launch(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, per_block, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
-// Backward of the causal softmax attention over the T <= 32 frames of each
-// (b, n) row of a full clip: dq, dk, dv from q, k, v and the output
+// Backward of the softmax attention over the T frames of each (b, n) row of
+// a full clip, causal or not: dq, dk, dv from q, k, v and the output
 // gradient g, heads as dh-wide slices of D.
 //
 // Replaces: streamformer_tpu/ops/attention.py _fullclip_temporal_bwd_pallas
@@ -9,7 +9,7 @@
 // the three gradients are rounded to the input type once, when they are
 // written:
 //
-//   p      = softmax(q k^T * scale, causal)        dv[j] = sum_t p[t][j] g[t]
+//   p      = softmax(q k^T * scale, mask)          dv[j] = sum_t p[t][j] g[t]
 //   dp     = g v^T                                  ds    = p (dp - delta) scale
 //   delta  = sum_j p[t][j] dp[t][j]                 dq[t] = sum_j ds[t][j] k[j]
 //                                                   dk[j] = sum_t ds[t][j] q[t]
@@ -22,7 +22,10 @@
 // The scores and the softmax repeat temporal_fullclip.cu's order of
 // arithmetic, so p here is the forward's p bit for bit; every sum runs in a
 // fixed order inside one thread, with no atomics, so two runs give the same
-// bits.
+// bits. Any T: the whole-row pipeline below while one head's item fits a
+// block, else tiled.cuh (two launches, the query side writing each query's
+// max, 1/sum and delta to fp32 scratch for the key side), in the same
+// order of arithmetic and so with the same bits.
 //
 // Bound on the H100: bytes (seven T x dh slices a (row, head) moved once
 // against a few operations per byte at T = 16). The pipeline (fullclip.cuh)
@@ -33,8 +36,10 @@
 // thread per (two frames x0 and x0 + 1, head, 8 elements) computing dq[x]
 // over keys j <= x and dk[x], dv[x] over queries t >= x: T + 2 steps,
 // whatever x0, each staged chunk loaded once for the two frames (which
-// halves the shared-memory reads and bf16 conversions a product).
+// halves the shared-memory reads and bf16 conversions a product); without
+// the mask, over all T keys and all T queries.
 #include "fullclip.cuh"
+#include "tiled.cuh"
 
 namespace {
 
@@ -45,33 +50,51 @@ using fullclip::kKeyGroup;
 using fullclip::kStages;
 using fullclip::kThreads;
 
-// One (head, query t) row: the forward's p in place of the scores, then
-// delta = sum_j p dp (in key order) and ds in place of dp (keys 0..t).
+// One (head, query) row: the forward's p in place of the scores, then
+// delta = sum_j p dp (in key order) and ds in place of dp (keys 0..last).
+// N: the straight-line width (T <= N), or 0 for a loop.
 template <int N>
-__device__ __forceinline__ void softmax_grad_row(float* pr, float* dr, int t, float scale) {
-  float x[N];
-  const float inv = __fdiv_rn(1.f, fullclip::exps<N>(pr, t, x));
-  float dp[N];
+__device__ __forceinline__ void softmax_grad_row(float* pr, float* dr, int last, float scale) {
+  if constexpr (N == 0) {
+    const float inv = __fdiv_rn(1.f, fullclip::exps_loop(pr, last + 1));
+    float delta = 0.f;
+    for (int j = 0; j <= last; ++j) {
+      pr[j] = __fmul_rn(pr[j], inv);
+      delta = fmaf(pr[j], dr[j], delta);
+    }
+    for (int j = 0; j <= last; ++j)
+      dr[j] = __fmul_rn(__fmul_rn(pr[j], __fsub_rn(dr[j], delta)), scale);
+    return;
+  }
+  constexpr int M = N > 0 ? N : 1;
+  const int t = last;
+  float x[M];
+  const float inv = __fdiv_rn(1.f, fullclip::exps<M>(pr, t, x));
+  float dp[M];
   float delta = 0.f;
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
+  for (int j = 0; j < M; ++j) {
     x[j] = __fmul_rn(x[j], inv);  // 0 past t
     dp[j] = j <= t ? dr[j] : 0.f;
     delta = fmaf(x[j], dp[j], delta);
   }
 #pragma unroll
-  for (int j = 0; j < N; ++j)
+  for (int j = 0; j < M; ++j)
     if (j <= t) {
       pr[j] = x[j];
       dr[j] = __fmul_rn(__fmul_rn(x[j], __fsub_rn(dp[j], delta)), scale);
     }
 }
 
-template <typename T>
+// kCausal: the mask; kLong: T past kMaxT (the loop softmax). Both are
+// template parameters, so that the causal kernel of a short clip compiles to
+// the code it had before either existed (runtime flags there cost it 12 %,
+// then 3 %, on the H100: tools/decode_timing.py against the parent).
+template <typename T, bool kCausal, bool kLong>
 __global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_bwd_kernel(const Args<4> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const fullclip::Plan& p = a.p;
-  fullclip::setup(smem, p, a.t_len);
+  fullclip::setup(smem, p, a.t_len, kCausal);
   const int tid = threadIdx.x;
   if (tid >= kConsumers) {  // the producer warp
     fullclip::produce<T>(smem, a);
@@ -93,11 +116,11 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_bwd_kernel(cons
     const T* vs = ks + p.op_bytes / sizeof(T);
     const T* gs = vs + p.op_bytes / sizeof(T);
 
-    // scores and dp: a task per (head, query t, group of keys <= t)
+    // scores and dp: a task per (head, query t, group of visible keys)
     for (int w = tid; w < hg * p.n_tri; w += kConsumers) {
       const int h = w / p.n_tri, e = tri[w - h * p.n_tri];
       const int t = e >> 8, j0 = (e & 255) * kKeyGroup;
-      const int nk = min(kKeyGroup, t + 1 - j0);
+      const int nk = min(kKeyGroup, (kCausal ? t + 1 : t_len) - j0);
       const int qo = t * rs + h * dh, ko = j0 * rs + h * dh;
       float sc[kKeyGroup], dp[kKeyGroup];
       fullclip::dot_group(qs + qo, ks + ko, rs, nk, dh, sc);
@@ -115,10 +138,13 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_bwd_kernel(cons
 
     // the forward's softmax, then delta and ds: a thread per (head, query)
     for (int w = tid; w < hg * t_len; w += kConsumers) {
-      if (t_len <= 16)
-        softmax_grad_row<16>(ps + w * ss, dps + w * ss, w % t_len, a.scale);
+      const int last = kCausal ? w % t_len : t_len - 1;
+      if constexpr (kLong)
+        softmax_grad_row<0>(ps + w * ss, dps + w * ss, last, a.scale);
+      else if (t_len <= 16)
+        softmax_grad_row<16>(ps + w * ss, dps + w * ss, last, a.scale);
       else
-        softmax_grad_row<fullclip::kMaxT>(ps + w * ss, dps + w * ss, w % t_len, a.scale);
+        softmax_grad_row<fullclip::kMaxT>(ps + w * ss, dps + w * ss, last, a.scale);
     }
     consumers_sync();
 
@@ -134,6 +160,35 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_bwd_kernel(cons
 #pragma unroll
         for (int e = 0; e < 8; ++e) aq[f][e] = ak[f][e] = av[f][e] = 0.f;
       const float* ds0 = dps + (h * t_len + x0) * ss;  // query x0's row; x0 + 1's follows
+      const bool two = x0 + 1 < t_len;
+      if constexpr (!kCausal) {  // every key, then every query, in order
+#pragma unroll 2
+        for (int j = 0; j < t_len; ++j) {
+          float kf[8];
+          load8(ks + j * rs + c, kf);
+          const float d0 = ds0[j], d1 = ds0[ss + j];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            aq[0][e] = fmaf(d0, kf[e], aq[0][e]);
+            aq[1][e] = fmaf(d1, kf[e], aq[1][e]);
+          }
+        }
+#pragma unroll 2
+        for (int t = 0; t < t_len; ++t) {
+          float qf[8], gf[8];
+          load8(qs + t * rs + c, qf);
+          load8(gs + t * rs + c, gf);
+          const int tx = (h * t_len + t) * ss + x0;
+          const float d0 = dps[tx], p0 = ps[tx], d1 = dps[tx + 1], p1 = ps[tx + 1];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            ak[0][e] = fmaf(d0, qf[e], ak[0][e]);
+            av[0][e] = fmaf(p0, gf[e], av[0][e]);
+            ak[1][e] = fmaf(d1, qf[e], ak[1][e]);
+            av[1][e] = fmaf(p1, gf[e], av[1][e]);
+          }
+        }
+      } else {
 #pragma unroll 2
       for (int j = 0; j <= x0; ++j) {
         float kf[8];
@@ -145,7 +200,6 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_bwd_kernel(cons
           aq[1][e] = fmaf(d1, kf[e], aq[1][e]);
         }
       }
-      const bool two = x0 + 1 < t_len;
       {
         float kf[8], qf[8], gf[8];
         if (two) {
@@ -178,6 +232,7 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_bwd_kernel(cons
           av[1][e] = fmaf(p1, gf[e], av[1][e]);
         }
       }
+      }
 #pragma unroll
       for (int f = 0; f < 2; ++f) {
         if (f == 0 || two) {
@@ -194,51 +249,87 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_bwd_kernel(cons
   }
 }
 
+// tiled.cuh's backward on the same operands: the query side (dq), then the
+// key side (dk, dv), with stats between them.
+template <typename T>
+int launch_tiled(const void* const* ptrs, const long long* strides, int batch, int n, int t_len,
+                 int d, int heads, float scale, int causal, float* stats, cudaStream_t stream) {
+  tiled::Args a{};
+  a.q = fullclip::operand(ptrs, strides, 0);
+  a.k = fullclip::operand(ptrs, strides, 1);
+  a.v = fullclip::operand(ptrs, strides, 2);
+  a.g = fullclip::operand(ptrs, strides, 3);
+  a.stats = stats;
+  a.n = n;
+  a.len = t_len;
+  a.dh = d / heads;
+  a.heads = heads;
+  a.causal = causal;
+  a.scale = scale;
+  tiled::Args dkv = a;
+  a.o0 = fullclip::operand(ptrs, strides, 4);
+  dkv.o0 = fullclip::operand(ptrs, strides, 5);
+  dkv.o1 = fullclip::operand(ptrs, strides, 6);
+  return tiled::backward<T>(batch * n, a, dkv, stream);
+}
+
 template <typename T>
 int launch(const void* const* ptrs, const long long* strides, int batch, int n, int t_len, int d,
-           int heads, float scale, cudaStream_t stream) {
+           int heads, float scale, int causal, int tiled, float* stats, cudaStream_t stream) {
   const int dh = d / heads;
-  const fullclip::Plan p = fullclip::plan(heads, t_len, dh, sizeof(T), 4, true);
-  if (p.hg < 1 || t_len < 1 || t_len > fullclip::kMaxT || dh % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (t_len < 1 || dh % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiled)
+    return launch_tiled<T>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, stats, stream);
+  const fullclip::Plan p = fullclip::plan(heads, t_len, dh, sizeof(T), 4, true, causal);
+  if (p.hg < 1) return static_cast<int>(cudaErrorInvalidValue);
   Args<4> a;
-  for (int o = 0; o < 7; ++o) {
-    fullclip::Operand& x = o < 4 ? a.in[o] : a.out[o - 4];
-    x = {const_cast<void*>(ptrs[o]), strides[3 * o], strides[3 * o + 1], strides[3 * o + 2]};
-  }
+  for (int o = 0; o < 7; ++o)
+    (o < 4 ? a.in[o] : a.out[o - 4]) = fullclip::operand(ptrs, strides, o);
   a.p = p;
   a.items = batch * n * p.groups;
   a.n = n;
   a.t_len = t_len;
   a.dh = dh;
+  a.causal = causal;
   a.scale = scale;
+  const bool long_clip = t_len > fullclip::kMaxT;
+  const auto kernel = causal ? (long_clip ? temporal_fullclip_bwd_kernel<T, true, true>
+                                          : temporal_fullclip_bwd_kernel<T, true, false>)
+                             : (long_clip ? temporal_fullclip_bwd_kernel<T, false, true>
+                                          : temporal_fullclip_bwd_kernel<T, false, false>);
   int blocks = 0;
-  const cudaError_t err =
-      persistent_grid(temporal_fullclip_bwd_kernel<T>, kThreads, p.total, a.items, &blocks);
+  const cudaError_t err = persistent_grid(kernel, kThreads, p.total, a.items, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  temporal_fullclip_bwd_kernel<T><<<blocks, kThreads, p.total, stream>>>(a);
+  kernel<<<blocks, kThreads, p.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared memory a block needs (the wrapper refuses shapes past a block's
-// most); 0 when not even one head fits.
-extern "C" int sf_temporal_fullclip_bwd_smem_bytes(int t_len, int d, int heads, int dtype) {
+// Shared memory a block of the whole-row pipeline needs; 0 when not even
+// one head fits (the wrapper then asks for the tiled body).
+extern "C" int sf_temporal_fullclip_bwd_smem_bytes(int t_len, int d, int heads, int dtype,
+                                                   int causal) {
   const fullclip::Plan p =
-      fullclip::plan(heads, t_len, d / heads, dtype == SF_BFLOAT16 ? 2 : 4, 4, true);
+      fullclip::plan(heads, t_len, d / heads, dtype == SF_BFLOAT16 ? 2 : 4, 4, true, causal);
   return p.hg ? p.total : 0;
 }
 
 // ptrs: q, k, v, g, dq, dk, dv; strides: their (b, t, n) element strides,
-// three each.
+// three each. causal: 0 lets every query see every frame. tiled: 1 runs
+// tiled.cuh (which gives the same bits), 0 the whole-row pipeline. stats:
+// for tiled.cuh, fp32 scratch of batch * n * heads * 3 * t_len elements
+// (else unused).
 extern "C" int sf_temporal_fullclip_bwd(const void* const* ptrs, const long long* strides,
                                         int batch, int n, int t_len, int d, int heads, float scale,
-                                        int dtype, void* stream) {
+                                        int causal, int tiled, void* stats, int dtype,
+                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sp = static_cast<float*>(stats);
   if (dtype == SF_BFLOAT16)
-    return launch<__nv_bfloat16>(ptrs, strides, batch, n, t_len, d, heads, scale, st);
+    return launch<__nv_bfloat16>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, tiled,
+                                 sp, st);
   if (dtype == SF_FLOAT32)
-    return launch<float>(ptrs, strides, batch, n, t_len, d, heads, scale, st);
+    return launch<float>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, tiled, sp, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -304,7 +304,10 @@ def _attention(cfg: StreamformerConfig, dt: torch.dtype, lora: bool) -> nn.Modul
 
 
 class _Layer(nn.Module):
-    """One divided space-time block (reference TimesformerLayerSigLIP)."""
+    """One block (reference TimesformerLayerSigLIP): divided space-time
+    attention, or for ``space_only`` and ``joint_space_time`` the spatial
+    block alone, without the temporal one, as the JAX package's
+    ``init_layer_params`` builds them."""
 
     def __init__(self, cfg: StreamformerConfig, dt: torch.dtype):
         super().__init__()
@@ -314,10 +317,11 @@ class _Layer(nn.Module):
         self.attention = _attention(cfg, dt, cfg.add_lora_spatial)
         self.intermediate = _container(dense=nn.Linear(d, m, dtype=dt))
         self.output = _container(dense=nn.Linear(m, d, dtype=dt))
-        self.temporal_layernorm = nn.LayerNorm(d, eps=eps)
-        self.temporal_attention = _attention(cfg, dt, lora=False)
-        self.temporal_dense = nn.Linear(d, d, dtype=dt)
-        self.temporal_attention_gating = nn.Parameter(torch.zeros(()))
+        if cfg.attention_type == "divided_space_time":
+            self.temporal_layernorm = nn.LayerNorm(d, eps=eps)
+            self.temporal_attention = _attention(cfg, dt, lora=False)
+            self.temporal_dense = nn.Linear(d, d, dtype=dt)
+            self.temporal_attention_gating = nn.Parameter(torch.zeros(()))
 
 
 class StreamformerEncoder(nn.Module):
@@ -412,17 +416,13 @@ class StreamformerEncoder(nn.Module):
         return streaming_forward(self, frames, cache, new_valid=new_valid)
 
 
+ATTENTION_TYPES = ("divided_space_time", "space_only", "joint_space_time")
+
+
 def _check_supported(cfg: StreamformerConfig) -> None:
     compute_dtype(cfg)
-    if cfg.attention_type != "divided_space_time":
-        raise NotImplementedError(
-            f"attention_type {cfg.attention_type!r}: the port runs divided space-time "
-            "(ROADMAP slice 1, item 3a)"
-        )
-    if not cfg.enable_causal_temporal:
-        raise NotImplementedError(
-            "non-causal temporal attention (ROADMAP slice 1, item 3a)"
-        )
+    if cfg.attention_type not in ATTENTION_TYPES:
+        raise ValueError(f"attention_type {cfg.attention_type!r}: one of {ATTENTION_TYPES}")
 
 
 # --------------------------------------------------------------------------
@@ -483,7 +483,9 @@ def embed(
     flattened in (C, ph, pw) order as the conv weight is. In training mode
     (a ``generator`` and not ``deterministic``) hidden dropout follows the
     position embeddings and again the time embeddings, as in the JAX
-    package."""
+    package. ``space_only`` adds no time embeddings (nor their dropout): its
+    frames are independent, as in the JAX package, which keeps the table in
+    its tree all the same (so does this module, for a strict load)."""
     cfg = model.cfg
     dt = compute_dtype(cfg)
     b, t, c, h, w = pixel_values.shape
@@ -500,6 +502,8 @@ def embed(
     x = F.linear(x, cast(proj.weight, dt).reshape(d, c * ps * ps), cast(proj.bias, dt))
     x = x.reshape(b, t, n, d) + cast(interpolate_pos_embeddings(emb.position_embeddings, hp, wp), dt)
     x = dropout(x, cfg.hidden_dropout_prob, generator, deterministic, site=0)
+    if cfg.attention_type == "space_only":
+        return x
     total = total_frames if total_frames is not None else t
     temb = cast(time_embeddings_for_positions(emb.time_embeddings[0], start_pos, t, total), dt)
     # (T, D) for a shared start, (B, T, D) for per-stream starts
@@ -576,11 +580,13 @@ def temporal_attention(
     attend_cap: Optional[int] = None,
     parallel=None,
 ) -> torch.Tensor:
-    """Causal attention over the frames T, batched over (B, N); x: (B, T, N, D).
+    """Attention over the frames T, batched over (B, N); x: (B, T, N, D).
+    Causal unless ``cfg.enable_causal_temporal`` is False.
 
     Full clip (``cache_kv`` None): ``ops.temporal_fullclip_qkv`` on the
     (B, T, N, 3D) output of the qkv projection as it is, query t attending
-    frames 0..t; its gradient is one (B, T, N, 3D) tensor. Under tensor
+    frames 0..t (every frame when not causal); its gradient is one (B, T,
+    N, 3D) tensor. Under tensor
     parallelism (``parallel``) the projection holds this rank's heads, the
     kernel reads its (B, T, N, 3D / mp) output in place at the local head
     count, and the output projection is row-parallel; streaming is one
@@ -614,17 +620,27 @@ def temporal_attention(
     The row-major cache (``cfg.cache_layout == "row_major"``) takes
     ``_row_major_attend``; ``attend_cap`` bounds the keys its einsum paths
     read, as the JAX package's capacity bucketing does.
+
+    Not causal, one new frame sees what a causal one sees (the cache and
+    itself), so t = 1 runs the kernels above; t >= 2 raises (ROADMAP item
+    3b).
     """
+    causal = cfg.enable_causal_temporal
     if cache_kv is None:  # C (and H) read qkv and write ctx in place: no copies around them
         patches = parallel is not None and parallel.shard_patches
         qkv_w = attn.attention.qkv.weight
         sharded = parallel is not None and _col_sharded(qkv_w, 3 * cfg.hidden_size)
         qkv = dense(_enter(x, parallel, sharded, patches), attn.attention.qkv)
-        ctx = ops.temporal_fullclip_qkv(qkv, qkv.shape[-1] // (3 * cfg.head_dim))
+        ctx = ops.temporal_fullclip_qkv(qkv, qkv.shape[-1] // (3 * cfg.head_dim), causal)
         return _output(ctx, attn.output.dense, None, parallel, sharded, patches)
     if parallel is not None:
         raise NotImplementedError("streaming a tensor-parallel encoder (ROADMAP item 14b)")
     b, t, n, d = x.shape
+    if not causal and t >= 2:
+        raise NotImplementedError(
+            "non-causal streaming of more than one new frame a call (ROADMAP slice 1, "
+            "item 3b); stream one frame a call"
+        )
     h = cfg.num_attention_heads
     qkv = dense(x, attn.attention.qkv)  # (B, T, N, 3D)
     ragged = cache_len.ndim == 1
@@ -835,10 +851,14 @@ def layer_forward(
     site: int = 0,
     parallel=None,
 ) -> torch.Tensor:
-    """One divided space-time block on (B, T, N, D): temporal LN ->
-    causal temporal attention -> ``temporal_dense`` -> residual scaled by
+    """One block on (B, T, N, D). Divided space-time: temporal LN ->
+    temporal attention -> ``temporal_dense`` -> residual scaled by
     tanh(gate); LN -> spatial attention -> residual; LN -> MLP -> residual.
-    With ``cache_kv`` the layer's cache is updated in place.
+    With ``cache_kv`` the layer's cache is updated in place. ``space_only``
+    and ``joint_space_time`` have no temporal block: LN -> attention over
+    each frame's N patches, or over all T x N tokens of the clip (of the
+    new frames when streaming; the cache is not used) -> residual; then the
+    MLP, as the JAX package's branches do.
 
     In training mode stochastic depth falls where the JAX package puts it
     (on the temporal attention's output before ``temporal_dense``, on the
@@ -860,15 +880,29 @@ def layer_forward(
     def dp(y, k):
         return drop_path(y, drop_path_rate, generator, deterministic, site=site + k)
 
-    t_ln = layer_norm(x, layer.temporal_layernorm, eps)
-    t_attn = temporal_attention(
-        t_ln, layer.temporal_attention, cfg, cache_kv=cache_kv, cache_len=cache_len,
-        new_valid=new_valid, attend_cap=attend_cap, parallel=parallel,
-    )
-    gate = cast(torch.tanh(cast(layer.temporal_attention_gating, torch.float32)), x.dtype)
-    x = x + gate * dense(dp(t_attn, 0), layer.temporal_dense)
-    x = x + dp(spatial_attention(layer_norm(x, layer.layernorm_before, eps), layer.attention, cfg,
-                                 parallel), 1)
+    if cfg.attention_type == "divided_space_time":
+        t_ln = layer_norm(x, layer.temporal_layernorm, eps)
+        t_attn = temporal_attention(
+            t_ln, layer.temporal_attention, cfg, cache_kv=cache_kv, cache_len=cache_len,
+            new_valid=new_valid, attend_cap=attend_cap, parallel=parallel,
+        )
+        gate = cast(torch.tanh(cast(layer.temporal_attention_gating, torch.float32)), x.dtype)
+        x = x + gate * dense(dp(t_attn, 0), layer.temporal_dense)
+        s_attn = spatial_attention(layer_norm(x, layer.layernorm_before, eps), layer.attention,
+                                   cfg, parallel)
+    elif parallel is not None:
+        raise NotImplementedError(
+            f"attention_type {cfg.attention_type!r} under tensor parallelism (ROADMAP item 14b)"
+        )
+    else:
+        s_ln = layer_norm(x, layer.layernorm_before, eps)
+        if cfg.attention_type == "joint_space_time":
+            b, t, n, d = s_ln.shape
+            s_attn = spatial_attention(s_ln.reshape(b, 1, t * n, d), layer.attention,
+                                       cfg).reshape(b, t, n, d)
+        else:
+            s_attn = spatial_attention(s_ln, layer.attention, cfg)
+    x = x + dp(s_attn, 1)
     fc1, fc2 = layer.intermediate.dense, layer.output.dense
     sharded = parallel is not None and _col_sharded(fc1.weight, cfg.intermediate_size)
     m = gelu(dense(_enter(layer_norm(x, layer.layernorm_after, eps), parallel, sharded, patches),
@@ -958,8 +992,8 @@ def model_forward(
     generator=None,
     deterministic: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """Full-clip forward. pixel_values: (B, T, C, H, W), T <= 32, moved to
-    the model's device. Returns ``last_hidden_state`` (B, T, N, D) and
+    """Full-clip forward. pixel_values: (B, T, C, H, W), any T and any frame
+    size that is a multiple of the patch size, moved to the model's device. Returns ``last_hidden_state`` (B, T, N, D) and
     ``pooler_output`` (B, T, D).
 
     Differentiable: a graph is recorded when grad mode is on and a parameter

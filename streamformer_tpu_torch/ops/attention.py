@@ -610,7 +610,7 @@ def _append_checks(name, t, r, d, k_cache, v_cache, lens, valid, rows_per_stream
     _check_lengths(name, device, lens=lens, valid=valid)
     if not 1 <= t <= APPEND_MAX_FRAMES:
         raise NotImplementedError(f"{name}: {t} new frames; a call takes 1 to "
-                                  f"{APPEND_MAX_FRAMES} (ROADMAP slice 1, item 3a)")
+                                  f"{APPEND_MAX_FRAMES} (ROADMAP slice 1, item 3b)")
     c, dh = k_cache.shape[0], d // num_heads
     smem = _append_min_smem(t, c, dh, k_cache.element_size())
     if smem > _MAX_SMEM:
@@ -932,22 +932,33 @@ def _sm_count(device: torch.device) -> int:
 def _spatial_chunks(device: torch.device, r: int, n: int, num_heads: int,
                     dtype: torch.dtype) -> int:
     """Rows of one (row, head) a block takes. bf16 (tensor cores, one warp
-    per 16 rows): ``_TC_ROWS``. fp32: the N rows are split only when R*H
-    blocks alone would leave SMs idle (the streaming step)."""
-    if dtype == torch.bfloat16:
-        return min(n, _TC_ROWS)
+    per 16 rows): ``_TC_ROWS``, and past ``_TC_ROWS`` patches as many
+    16-row tiles as give the card two blocks an SM (joint space-time
+    attention of one clip has a dozen (row, head) pairs). fp32: the N rows
+    are split only when R*H blocks alone would leave SMs idle (the
+    streaming step)."""
     sms = _sm_count(device)
+    if dtype == torch.bfloat16:
+        if n <= _TC_ROWS:
+            return n
+        chunks = -(-2 * sms // (r * num_heads))
+        return max(16, min(_TC_ROWS, _round16(-(-n // chunks))))
     chunks = max(1, min(-(-n // 16), -(-4 * sms // (r * num_heads))))
     return -(-n // chunks)
+
+
+@functools.lru_cache(maxsize=None)
+def _body_smem(library: str, symbol: str, *shape: int) -> int:
+    """Shared memory a block of B's, L's, I's, C's or H's whole-row body
+    takes at this shape, from the C entry ``{symbol}_smem_bytes``; 0 where
+    only csrc/tiled.cuh takes the shape. Each wrapper launches with
+    ``tiled`` = 1 exactly where this is 0."""
+    return build.function(library, f"{symbol}_smem_bytes", (_I,) * len(shape))(*shape)
 
 
 def _spatial_shape(name: str, q, *others) -> None:
     if q.ndim != 3 or any(t.shape != q.shape for t in others):
         raise ValueError(f"{name}: all operands must share one (R, N, D) shape")
-    if q.shape[1] > 256:
-        raise NotImplementedError(
-            f"{name}: more than 256 patches per frame (ROADMAP slice 1, item 3a)"
-        )
 
 
 @_entry("spatial_flat",
@@ -961,17 +972,15 @@ def _spatial_flat_forward(q, k, v, num_heads):
         return spatial_flat_plain(q, k, v, num_heads)
     _cuda_ready("spatial_flat", q, k, v)
     code = _DTYPE_CODES[q.dtype]
-    smem = build.function("spatial_flat", "sf_spatial_flat_smem_bytes", (_I, _I, _I, _I))(
-        n, d, num_heads, code
-    )
+    smem = _body_smem("spatial_flat", "sf_spatial_flat", n, d, num_heads, code)
     if smem > _MAX_SMEM:
         raise ValueError(f"spatial_flat: needs {smem} bytes of shared memory per block")
     out = torch.empty_like(q)
     _launch(
-        "spatial_flat", "sf_spatial_flat", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        "spatial_flat", "sf_spatial_flat", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
         device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         r, n, d, num_heads, _spatial_chunks(device, r, n, num_heads, q.dtype),
-        (d // num_heads) ** -0.5, code,
+        (d // num_heads) ** -0.5, int(not smem), code,
     )
     return out
 
@@ -987,21 +996,22 @@ def spatial_flat_bwd(q, k, v, g, num_heads):
         return spatial_flat_bwd_plain(q, k, v, g, num_heads)
     _cuda_ready("spatial_flat_bwd", q, k, v, g)
     code = _DTYPE_CODES[q.dtype]
-    smem = build.function("spatial_flat_bwd", "sf_spatial_flat_bwd_smem_bytes",
-                          (_I, _I, _I, _I))(n, d, num_heads, code)
+    smem = _body_smem("spatial_flat_bwd", "sf_spatial_flat_bwd", n, d, num_heads, code)
     if smem > _MAX_SMEM:
         raise ValueError(f"spatial_flat_bwd: needs {smem} bytes of shared memory per block")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    # fp32 (two kernels): per (row, head, query) the softmax's max and 1/sum,
-    # and delta; the bf16 kernel keeps them in shared memory
+    # two launches (fp32, and bf16 past 256 patches): per (row, head, query)
+    # the softmax's statistics and delta; the one-block bf16 kernel keeps
+    # them in shared memory
     stats = (torch.empty(r * num_heads * 3 * n, dtype=torch.float32, device=device)
-             if q.dtype == torch.float32 else None)
+             if q.dtype == torch.float32 or n > 256 else None)
     _launch(
         "spatial_flat_bwd", "sf_spatial_flat_bwd",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P), device,
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P), device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), None if stats is None else stats.data_ptr(), r, n, d, num_heads,
-        _spatial_chunks(device, r, n, num_heads, q.dtype), (d // num_heads) ** -0.5, code,
+        _spatial_chunks(device, r, n, num_heads, q.dtype), (d // num_heads) ** -0.5,
+        int(not smem), code,
     )
     return dq, dk, dv
 
@@ -1028,8 +1038,9 @@ def spatial_flat(q, k, v, num_heads):
     """Non-causal softmax attention over N patches per row.
 
     q, k, v: (R, N, D), rows are (b, t) pairs. Returns (R, N, D) in q's
-    dtype. N is at most 256 (224x224 at patch 16 gives 196). Differentiable
-    in q, k, v (``SpatialFlat``)."""
+    dtype. Any N (224x224 at patch 16 gives 196, 384x384 576, joint
+    space-time attention over 8 such frames 1568). Differentiable in q, k,
+    v (``SpatialFlat``)."""
     if _wants_grad(q, k, v):
         return SpatialFlat.apply(q, k, v, num_heads)
     return _spatial_flat_forward(q, k, v, num_heads)
@@ -1056,25 +1067,20 @@ def _spatial_attention_forward(q, k, v):
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("spatial_attention: all operands must share one (R, H, N, dh) shape")
     r, h, n, dh = q.shape
-    if n > 256:
-        raise NotImplementedError(
-            "spatial_attention: more than 256 patches per frame (ROADMAP slice 1, item 3a)"
-        )
     device = _check("spatial_attention", h, h * dh, q=q, k=k, v=v)
     if device.type == "cpu":
         return spatial_attention_plain(q, k, v)
     _cuda_ready("spatial_attention", q, k, v)
     code = _DTYPE_CODES[q.dtype]
-    smem = build.function("spatial_flat", "sf_spatial_flat_smem_bytes", (_I, _I, _I, _I))(
-        n, h * dh, h, code
-    )
+    smem = _body_smem("spatial_flat", "sf_spatial_flat", n, h * dh, h, code)
     if smem > _MAX_SMEM:
         raise ValueError(f"spatial_attention: needs {smem} bytes of shared memory per block")
     out = torch.empty_like(q)
     _launch(
-        "spatial_attention", "sf_spatial_heads", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        "spatial_attention", "sf_spatial_heads",
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
         device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        r, h, n, dh, _spatial_chunks(device, r, n, h, q.dtype), dh**-0.5, code,
+        r, h, n, dh, _spatial_chunks(device, r, n, h, q.dtype), dh**-0.5, int(not smem), code,
         library="spatial_flat",
     )
     return out
@@ -1101,7 +1107,7 @@ class SpatialAttention(torch.autograd.Function):
 def spatial_attention(q, k, v):
     """Non-causal softmax attention over N patches for each (row, head).
 
-    q, k, v: (R, H, N, dh), N at most 256. Returns (R, H, N, dh) in q's
+    q, k, v: (R, H, N, dh), any N. Returns (R, H, N, dh) in q's
     dtype. Differentiable in q, k, v (``SpatialAttention``). The encoder
     does not call it (it runs ``spatial_flat`` on flat rows), as the JAX
     package's encoder does not call ``fused_spatial_attention``."""
@@ -1111,32 +1117,38 @@ def spatial_attention(q, k, v):
 
 
 # ---------------------------------------------------------------------------
-# C and H. causal temporal attention over a full clip
+# C and H. temporal attention over a full clip, causal or not
 # ---------------------------------------------------------------------------
 
 
-def _causal(t: int, device: torch.device) -> torch.Tensor:
-    return torch.ones(t, t, dtype=torch.bool, device=device).tril()
+def _masked(s: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scores (..., T, T) with the keys after each query at -inf when
+    ``causal``."""
+    if not causal:
+        return s
+    t = s.shape[-1]
+    return s.masked_fill(~torch.ones(t, t, dtype=torch.bool, device=s.device).tril(),
+                         float("-inf"))
 
 
-def temporal_fullclip_plain(q, k, v, num_heads):
+def temporal_fullclip_plain(q, k, v, num_heads, causal=True):
     """Plain version of ``temporal_fullclip``: fp32 throughout, output
     rounded to the input dtype."""
-    t, dh = q.shape[1], q.shape[-1] // num_heads
+    dh = q.shape[-1] // num_heads
     s = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2)) * dh**-0.5
-    p = torch.softmax(s.masked_fill(~_causal(t, q.device), float("-inf")), dim=-1)
+    p = torch.softmax(_masked(s, causal), dim=-1)
     return _unheads(torch.matmul(p, _heads(v, num_heads)), q.dtype)
 
 
-def temporal_fullclip_bwd_plain(q, k, v, g, num_heads):
+def temporal_fullclip_bwd_plain(q, k, v, g, num_heads, causal=True):
     """Plain version of ``temporal_fullclip_bwd``: (dq, dk, dv) of
     ``temporal_fullclip`` for the output gradient g, the probabilities
     recomputed, fp32 throughout, each gradient rounded to the input dtype."""
     dt = q.dtype
-    t, scale = q.shape[1], (q.shape[-1] // num_heads) ** -0.5
+    scale = (q.shape[-1] // num_heads) ** -0.5
     qh, kh, vh, gh = (_heads(a, num_heads) for a in (q, k, v, g))
     s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
-    p = torch.softmax(s.masked_fill(~_causal(t, q.device), float("-inf")), dim=-1)
+    p = torch.softmax(_masked(s, causal), dim=-1)
     dp = torch.matmul(gh, vh.transpose(-1, -2))
     delta = (dp * p).sum(-1, keepdim=True)
     ds = p * (dp - delta) * scale  # masked keys: p == 0 -> ds == 0
@@ -1149,10 +1161,6 @@ def temporal_fullclip_bwd_plain(q, k, v, g, num_heads):
 def _temporal_shape(name: str, q, *others) -> None:
     if q.ndim != 3 or any(t.shape != q.shape for t in others):
         raise ValueError(f"{name}: all operands must share one (R, T, D) shape")
-    if q.shape[1] > 32:
-        raise NotImplementedError(
-            f"{name}: clips longer than 32 frames (ROADMAP slice 1, item 3a)"
-        )
 
 
 def _frame_strides(x: torch.Tensor):
@@ -1161,48 +1169,47 @@ def _frame_strides(x: torch.Tensor):
     return tuple(x.stride()[:3]) if x.ndim == 4 else (x.stride(0), x.stride(1), 0)
 
 
-@functools.lru_cache(maxsize=None)
-def _fullclip_smem(name: str, symbol: str, t: int, d: int, num_heads: int, code: int) -> int:
-    """Shared memory a block of C or H takes at this shape (0: none fits)."""
-    return build.function(name, f"{symbol}_smem_bytes", (_I, _I, _I, _I))(t, d, num_heads, code)
-
-
 def _fullclip_kernel(name: str, symbol: str, operands, batch: int, n: int, t: int, d: int,
-                     num_heads: int):
+                     num_heads: int, causal: bool):
     """Launch C or H on operands read and written in place: each a (tensor,
     column) pair, the D-wide slice from ``column`` on of a (B, T, N, D')
     tensor or of (R, T, D) rows, whose last axis is contiguous; count it
-    under ``name``."""
+    under ``name``. The whole-row pipeline runs while one head's item fits a
+    block, the tiled body (any T, the same bits) past it."""
     first = operands[0][0]
     code = _DTYPE_CODES[first.dtype]
-    smem = _fullclip_smem(name, symbol, t, d, num_heads, code)
-    if not 0 < smem <= _MAX_SMEM:
-        raise ValueError(f"{name}: one (row, head) of T={t}, D={d}, {num_heads} heads does not "
-                         "fit a block's shared memory")
+    tiled = not _body_smem(name, symbol, t, d, num_heads, code, int(causal))
     ptrs = (_P * len(operands))(*(x.data_ptr() + col * x.element_size() for x, col in operands))
     strides = (ctypes.c_longlong * (3 * len(operands)))(
         *(s for x, _ in operands for s in _frame_strides(x)))
-    _launch(name, symbol, (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P), first.device, ptrs, strides,
-            batch, n, t, d, num_heads, (d // num_heads) ** -0.5, code)
+    args = [batch, n, t, d, num_heads, (d // num_heads) ** -0.5, int(causal), int(tiled)]
+    if name == "temporal_fullclip":
+        argtypes = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P)
+    else:  # H's tiled body keeps each query's statistics between its two launches
+        argtypes = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _P)
+        stats = (torch.empty(batch * n * num_heads * 3 * t, dtype=torch.float32,
+                             device=first.device) if tiled else None)
+        args.append(None if stats is None else stats.data_ptr())
+    _launch(name, symbol, argtypes, first.device, ptrs, strides, *args, code)
 
 
 @_entry("temporal_fullclip",
-        "(Tensor q, Tensor k, Tensor v, int num_heads) -> Tensor", _like)
-def _temporal_fullclip_forward(q, k, v, num_heads):
+        "(Tensor q, Tensor k, Tensor v, int num_heads, bool causal=True) -> Tensor", _like)
+def _temporal_fullclip_forward(q, k, v, num_heads, causal=True):
     """Kernel C on the card, its plain version on the CPU; no autograd."""
     _temporal_shape("temporal_fullclip", q, k, v)
     r, t, d = q.shape
     device = _check("temporal_fullclip", num_heads, d, q=q, k=k, v=v)
     if device.type == "cpu":
-        return temporal_fullclip_plain(q, k, v, num_heads)
+        return temporal_fullclip_plain(q, k, v, num_heads, causal)
     _cuda_ready("temporal_fullclip", q, k, v)
     out = torch.empty_like(q)
     _fullclip_kernel("temporal_fullclip", "sf_temporal_fullclip",
-                     [(x, 0) for x in (q, k, v, out)], r, 1, t, d, num_heads)
+                     [(x, 0) for x in (q, k, v, out)], r, 1, t, d, num_heads, causal)
     return out
 
 
-def temporal_fullclip_bwd(q, k, v, g, num_heads):
+def temporal_fullclip_bwd(q, k, v, g, num_heads, causal=True):
     """Gradients of ``temporal_fullclip``: (dq, dk, dv), each (R, T, D) in
     q's dtype, from the inputs and the output gradient g (R, T, D). Nothing
     of the forward is needed but q, k, v: the probabilities are recomputed."""
@@ -1210,11 +1217,11 @@ def temporal_fullclip_bwd(q, k, v, g, num_heads):
     r, t, d = q.shape
     device = _check("temporal_fullclip_bwd", num_heads, d, q=q, k=k, v=v, g=g)
     if device.type == "cpu":
-        return temporal_fullclip_bwd_plain(q, k, v, g, num_heads)
+        return temporal_fullclip_bwd_plain(q, k, v, g, num_heads, causal)
     _cuda_ready("temporal_fullclip_bwd", q, k, v, g)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     _fullclip_kernel("temporal_fullclip_bwd", "sf_temporal_fullclip_bwd",
-                     [(x, 0) for x in (q, k, v, g, dq, dk, dv)], r, 1, t, d, num_heads)
+                     [(x, 0) for x in (q, k, v, g, dq, dk, dv)], r, 1, t, d, num_heads, causal)
     return dq, dk, dv
 
 
@@ -1223,28 +1230,28 @@ class TemporalFullclip(torch.autograd.Function):
     backward kernel H (their plain versions on the CPU). Saves q, k, v only."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads):
+    def forward(ctx, q, k, v, num_heads, causal=True):
         ctx.save_for_backward(q, k, v)
-        ctx.num_heads = num_heads
-        return _temporal_fullclip_forward(q, k, v, num_heads)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        return _temporal_fullclip_forward(q, k, v, num_heads, causal)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = temporal_fullclip_bwd(q, k, v, g.contiguous(), ctx.num_heads)
-        return dq, dk, dv, None
+        dq, dk, dv = temporal_fullclip_bwd(q, k, v, g.contiguous(), ctx.num_heads, ctx.causal)
+        return dq, dk, dv, None, None
 
 
-def temporal_fullclip(q, k, v, num_heads):
-    """Causal attention over the T <= 32 frames of each row.
+def temporal_fullclip(q, k, v, num_heads, causal=True):
+    """Attention over the T frames of each row, any T.
 
-    q, k, v: (R, T, D), rows are (b, n) pairs; query t attends keys 0..t.
-    Returns (R, T, D) in q's dtype. Differentiable in q, k, v
-    (``TemporalFullclip``)."""
+    q, k, v: (R, T, D), rows are (b, n) pairs; query t attends keys 0..t
+    (``causal``), or every key. Returns (R, T, D) in q's dtype.
+    Differentiable in q, k, v (``TemporalFullclip``)."""
     if _wants_grad(q, k, v):
-        return TemporalFullclip.apply(q, k, v, num_heads)
-    return _temporal_fullclip_forward(q, k, v, num_heads)
+        return TemporalFullclip.apply(q, k, v, num_heads, causal)
+    return _temporal_fullclip_forward(q, k, v, num_heads, causal)
 
 
 # The packed entry: the encoder's own layout, read and written in place.
@@ -1269,26 +1276,26 @@ def _unpacked(rows: torch.Tensor, b: int, n: int) -> torch.Tensor:
     return rows.reshape(b, n, t, d).transpose(1, 2)
 
 
-def temporal_fullclip_qkv_plain(qkv, num_heads):
+def temporal_fullclip_qkv_plain(qkv, num_heads, causal=True):
     """Plain version of ``temporal_fullclip_qkv``: the slices and transposes
     of the JAX encoder around ``temporal_fullclip_plain``."""
     b, _, n, _ = qkv.shape
     rows = (_packed_rows(x) for x in _thirds(qkv))
-    return _unpacked(temporal_fullclip_plain(*rows, num_heads), b, n).contiguous()
+    return _unpacked(temporal_fullclip_plain(*rows, num_heads, causal), b, n).contiguous()
 
 
-def temporal_fullclip_qkv_bwd_plain(qkv, g, num_heads):
+def temporal_fullclip_qkv_bwd_plain(qkv, g, num_heads, causal=True):
     """Plain version of ``temporal_fullclip_qkv_bwd``: ``temporal_fullclip_bwd_plain``
     on the transposed slices, its three gradients put back side by side."""
     b, _, n, _ = qkv.shape
     grads = temporal_fullclip_bwd_plain(*(_packed_rows(x) for x in _thirds(qkv)),
-                                        _packed_rows(g), num_heads)
+                                        _packed_rows(g), num_heads, causal)
     return torch.cat([_unpacked(x, b, n) for x in grads], -1)
 
 
 def _packed_check(name: str, qkv, num_heads, **more) -> torch.device:
     """What the packed entries require: a (B, T, N, 3D) qkv (and a (B, T,
-    N, D) g), T <= 32, and layouts the bulk copies take: D contiguous,
+    N, D) g), and layouts the bulk copies take: D contiguous,
     strides and data 16-byte aligned. Raises on anything else, on the CPU
     as on the card: there is no fallback to a copy."""
     if qkv.ndim != 4 or qkv.shape[-1] % 3:
@@ -1297,10 +1304,6 @@ def _packed_check(name: str, qkv, num_heads, **more) -> torch.device:
     for key, x in more.items():
         if x.shape != (b, t, n, d3 // 3):
             raise ValueError(f"{name}: {key} must be (B, T, N, D) = {(b, t, n, d3 // 3)}")
-    if t > 32:
-        raise NotImplementedError(
-            f"{name}: clips longer than 32 frames (ROADMAP slice 1, item 3a)"
-        )
     device = _check(name, num_heads, d3 // 3, strided=True, qkv=qkv, **more)
     if device.type == "cuda":
         _cuda_ready(name, qkv, *more.values())
@@ -1308,33 +1311,35 @@ def _packed_check(name: str, qkv, num_heads, **more) -> torch.device:
 
 
 @_entry("temporal_fullclip_qkv",
-        "(Tensor qkv, int num_heads) -> Tensor", _packed_out)
-def _temporal_fullclip_qkv_forward(qkv, num_heads):
+        "(Tensor qkv, int num_heads, bool causal=True) -> Tensor", _packed_out)
+def _temporal_fullclip_qkv_forward(qkv, num_heads, causal=True):
     """Kernel C on the card, its plain version on the CPU; no autograd."""
     device = _packed_check("temporal_fullclip_qkv", qkv, num_heads)
     if device.type == "cpu":
-        return temporal_fullclip_qkv_plain(qkv, num_heads)
+        return temporal_fullclip_qkv_plain(qkv, num_heads, causal)
     b, t, n, d3 = qkv.shape
     d = d3 // 3
     out = qkv.new_empty(b, t, n, d)
     _fullclip_kernel("temporal_fullclip", "sf_temporal_fullclip",
-                     [(qkv, 0), (qkv, d), (qkv, 2 * d), (out, 0)], b, n, t, d, num_heads)
+                     [(qkv, 0), (qkv, d), (qkv, 2 * d), (out, 0)], b, n, t, d, num_heads,
+                     causal)
     return out
 
 
-def temporal_fullclip_qkv_bwd(qkv, g, num_heads):
+def temporal_fullclip_qkv_bwd(qkv, g, num_heads, causal=True):
     """Gradient of ``temporal_fullclip_qkv``: one (B, T, N, 3D) tensor, dq,
     dk and dv side by side as q, k and v are in ``qkv``, written in place by
     kernel H from qkv and the output gradient g (B, T, N, D)."""
     device = _packed_check("temporal_fullclip_qkv_bwd", qkv, num_heads, g=g)
     if device.type == "cpu":
-        return temporal_fullclip_qkv_bwd_plain(qkv, g, num_heads)
+        return temporal_fullclip_qkv_bwd_plain(qkv, g, num_heads, causal)
     b, t, n, d3 = qkv.shape
     d = d3 // 3
     grad = qkv.new_empty(qkv.shape)
     thirds = [(qkv, 0), (qkv, d), (qkv, 2 * d)]
     _fullclip_kernel("temporal_fullclip_bwd", "sf_temporal_fullclip_bwd",
-                     [*thirds, (g, 0), *((grad, col) for _, col in thirds)], b, n, t, d, num_heads)
+                     [*thirds, (g, 0), *((grad, col) for _, col in thirds)], b, n, t, d, num_heads,
+                     causal)
     return grad
 
 
@@ -1344,19 +1349,19 @@ class TemporalFullclipQKV(torch.autograd.Function):
     the CPU). Saves qkv only."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads):
+    def forward(ctx, qkv, num_heads, causal=True):
         ctx.save_for_backward(qkv)
-        ctx.num_heads = num_heads
-        return _temporal_fullclip_qkv_forward(qkv, num_heads)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        return _temporal_fullclip_qkv_forward(qkv, num_heads, causal)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
-        return temporal_fullclip_qkv_bwd(qkv, g, ctx.num_heads), None
+        return temporal_fullclip_qkv_bwd(qkv, g, ctx.num_heads, ctx.causal), None, None
 
 
-def temporal_fullclip_qkv(qkv, num_heads):
+def temporal_fullclip_qkv(qkv, num_heads, causal=True):
     """``temporal_fullclip`` on the encoder's own layout.
 
     qkv: (B, T, N, 3D), the output of the qkv projection: q, k, v are its
@@ -1366,7 +1371,8 @@ def temporal_fullclip_qkv(qkv, num_heads):
     sliced, transposed or copied around them; the gradient is one (B, T, N,
     3D) tensor. Differentiable in qkv (``TemporalFullclipQKV``). The D axis
     must be contiguous, and the data and the other strides 16-byte aligned
-    (the output of a linear layer is); the output gradient too."""
+    (the output of a linear layer is); the output gradient too. Any T;
+    ``causal=False`` lets every frame attend every frame."""
     if _wants_grad(qkv):
-        return TemporalFullclipQKV.apply(qkv, num_heads)
-    return _temporal_fullclip_qkv_forward(qkv, num_heads)
+        return TemporalFullclipQKV.apply(qkv, num_heads, causal)
+    return _temporal_fullclip_qkv_forward(qkv, num_heads, causal)

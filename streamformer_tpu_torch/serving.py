@@ -364,7 +364,8 @@ class StreamingEngine:
                 raise NotImplementedError(
                     f"throughput mode on a linear cache of capacity "
                     f"{self.cfg.cache_capacity}: not one frame of kernel E's plan fits a "
-                    f"block's shared memory at this capacity (ops.append_frame_cap)"
+                    f"block's shared memory at this capacity (ops.append_frame_cap; "
+                    f"ROADMAP slice 1, item 3b)"
                 )
             self._send_flags(b"append" + admit.tobytes() + navail.tobytes(), admit, navail)
             pooled = self._step_append(k, self._admit_dev, self._count_dev)

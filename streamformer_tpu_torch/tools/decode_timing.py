@@ -1,6 +1,6 @@
 """Times of the t=1 decode kernels (A, D, J, F, G, and the read-only K), of
-the full-clip kernels C and H, of the multi-frame append E, and of the
-lockstep streaming step, on the card.
+the full-clip kernels C and H, of the multi-frame append E, of the spatial
+kernels B, L and I, and of the lockstep streaming step, on the card.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -12,7 +12,7 @@ one signature across the port's slices); each checkout builds its own
 kernels under its own ``build/``. Two checkouts timed in one call, in the
 order a, b, b, a, compare on one card. ``--kernels C,H --no-streaming``
 times the full-clip kernels alone, ``--kernels E,Eqkv,K,Kf`` the append and
-the read-only decode.
+the read-only decode, ``--kernels B,L,I`` the spatial kernels.
 
 It prints one JSON object a line, each tagged with ``--label``:
 
@@ -34,7 +34,9 @@ It prints one JSON object a line, each tagged with ``--label``:
   capacity 64, some valid partially) on (t, R, D) rows, and ``Eqkv`` the
   packed entry on the same frames as an (8, 8, 196, 2304) qkv, where the
   checkout has it; K reads an int8 cache with (R, C, H) scales, ``Kf`` a
-  float one, at length C-1. A checkout whose E refuses capacity 64 prints
+  float one, at length C-1. B, L and I run on the full clip's (128, 196,
+  768) rows (L head-split) and carry the same extra keys (SDPA, or its
+  backward for I). A checkout whose E refuses capacity 64 prints
   ``"refused"`` for that row;
 - a streaming row: the flagship encoder (bf16, seeded random weights, batch
   8, ring cache C=16) over 32 steady steps, three times: frames/s and
@@ -63,9 +65,12 @@ SYMBOLS = {"A": "temporal_decode_pm_kernel", "D": "temporal_decode_pm_kernel",
            "H": "temporal_fullclip_bwd_kernel", "Cqkv": "temporal_fullclip_kernel",
            "Hqkv": "temporal_fullclip_bwd_kernel", "E": "temporal_append_pm_kernel",
            "Eqkv": "temporal_append_pm_kernel", "K": "temporal_decode_rm_kernel",
-           "Kf": "temporal_decode_rm_kernel"}
+           "Kf": "temporal_decode_rm_kernel", "B": "spatial_flat",
+           "L": "spatial_flat", "I": "spatial_flat_bwd"}
 FULLCLIP = ("C", "H", "Cqkv", "Hqkv")
-WITH_YARDSTICKS = FULLCLIP + ("E", "Eqkv", "K", "Kf")
+SPATIAL = ("B", "L", "I")
+WITH_YARDSTICKS = FULLCLIP + SPATIAL + ("E", "Eqkv", "K", "Kf")
+CLIP_ROWS, PATCHES = 128, 196  # B, L, I: the full clip's 8 x 16 rows of 196 patches
 # E: a throughput tick's lens by capacity, and valid (chip_smoke.py's E_LENS, E_VALID)
 E_LENS = {16: [0, 1, 5, 8, 8, 12, 15, 16], 64: [0, 9, 20, 33, 40, 51, 60, 64]}
 E_VALID, E_T = [8, 0, 8, 8, 3, 4, 1, 0], 8
@@ -110,6 +115,34 @@ def fullclip_operands(kernel: str, dtype: torch.dtype, seed: int):
                 lambda: ops.temporal_fullclip_qkv_plain(qkv, HEADS), None, nbytes)
     return (lambda: ops.temporal_fullclip_qkv_bwd(qkv, gp, HEADS),
             lambda: ops.temporal_fullclip_qkv_bwd_plain(qkv, gp, HEADS), None, nbytes)
+
+
+def spatial_operands(kernel: str, dtype: torch.dtype, seed: int):
+    """B, L (head-split) or I on the full clip's (128, 196, 768) rows: the
+    wrapper's call, its plain version's, one scaled_dot_product_attention
+    call's (its backward for I), and the bytes moved once."""
+    rng = np.random.default_rng(seed)
+    d = HEADS * DH
+
+    def card(shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(DEVICE, dtype)
+
+    q, k, v, g = (card((CLIP_ROWS, PATCHES, d)) for _ in range(4))
+    nbytes = (7 if kernel == "I" else 4) * CLIP_ROWS * PATCHES * d * q.element_size()
+    heads = [x.view(CLIP_ROWS, PATCHES, HEADS, DH).transpose(1, 2) for x in (q, k, v, g)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kernel == "B":
+        return (lambda: ops.spatial_flat(q, k, v, HEADS),
+                lambda: ops.spatial_flat_plain(q, k, v, HEADS), lambda: sdpa(*heads[:3]), nbytes)
+    if kernel == "L":
+        split = [x.contiguous() for x in heads[:3]]
+        return (lambda: ops.spatial_attention(*split),
+                lambda: ops.spatial_attention_plain(*split), lambda: sdpa(*split), nbytes)
+    sdpa_in = [x.detach().requires_grad_() for x in heads[:3]]
+    sdpa_out = sdpa(*sdpa_in)
+    return (lambda: ops.spatial_flat_bwd(q, k, v, g, HEADS),
+            lambda: ops.spatial_flat_bwd_plain(q, k, v, g, HEADS),
+            lambda: torch.autograd.grad(sdpa_out, sdpa_in, heads[3], retain_graph=True), nbytes)
 
 
 def append_operands(kernel: str, dtype: torch.dtype, cap: int, seed: int):
@@ -234,6 +267,8 @@ def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor) -
     if kernel in WITH_YARDSTICKS:
         if kernel in FULLCLIP:
             fn, plain, sdpa, nbytes = fullclip_operands(kernel, dtype, seed=FRAMES)
+        elif kernel in SPATIAL:
+            fn, plain, sdpa, nbytes = spatial_operands(kernel, dtype, seed=PATCHES)
         elif kernel.startswith("E"):
             fn, plain, sdpa, nbytes = append_operands(kernel, dtype, cap, seed=cap)
         else:
@@ -323,7 +358,7 @@ def main() -> None:
         if entry and not hasattr(ops, entry):
             continue  # a checkout from before the packed entry
         for dtype in (torch.bfloat16, torch.float32):
-            for cap in ((FRAMES,) if kernel in FULLCLIP else (16, 64)):
+            for cap in ((FRAMES,) if kernel in FULLCLIP + SPATIAL else (16, 64)):
                 row = kernel_row(kernel, dtype, cap, flush)
                 print(json.dumps({"label": args.label, **row}), flush=True)
     if not args.no_streaming:

@@ -84,7 +84,8 @@ def test_spatial_flat_matches_plain(dtype, rows, n, heads, dh):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,n,heads,dh", [(128, 196, 12, 64), (16, 33, 3, 40)])
+@pytest.mark.parametrize("rows,n,heads,dh", [(128, 196, 12, 64), (16, 33, 3, 40),
+                                             (16, 324, 2, 64)])
 def test_spatial_flat_is_batch_invariant(dtype, rows, n, heads, dh, monkeypatch):
     """A query's output bits depend on its (row, head) operands only: B on
     all rows equals B on each 8-row slice, and B under every query-chunk
@@ -149,7 +150,8 @@ def test_temporal_fullclip_matches_plain(dtype, rows, t, heads, dh):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,t,heads,dh", [(1568, 16, 12, 64), (10, 32, 2, 128), (6, 5, 3, 8)])
+@pytest.mark.parametrize("rows,t,heads,dh", [(1568, 16, 12, 64), (10, 32, 2, 128), (6, 5, 3, 8),
+                                             (56, 48, 4, 64)])
 def test_streamed_frames_equal_the_full_clip_bitwise(dtype, rows, t, heads, dh):
     """Kernel A on a linear cache holding frames 0..i-1 gives, bit for bit,
     kernel C's output for frame i: the two share one order of arithmetic."""
@@ -163,6 +165,84 @@ def test_streamed_frames_equal_the_full_clip_bitwise(dtype, rows, t, heads, dh):
         got = ops.temporal_decode_pm(q[:, i].contiguous(), k[:, i].contiguous(),
                                      v[:, i].contiguous(), k_cache, v_cache, cache_len, heads)
         assert torch.equal(got, full[:, i]), i
+
+
+# ---------------------------------------------------------------------------
+# Past the first slices' shapes: B, L and I past 256 patches (and fp32 heads
+# of 128 past a block's shared memory), C and H past 32 frames and without
+# the causal mask
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,dh", [(257, 64), (324, 64), (576, 64), (1568, 64), (257, 128),
+                                  (324, 128), (576, 128), (1568, 128), (196, 128)])
+def test_spatial_kernels_at_any_n_match_plain(dtype, n, dh):
+    """B, L and I against their plain versions; L equals B bit for bit, and
+    I repeats bit for bit (no atomics), with keys staged or tiled."""
+    rows, heads = 2, 2
+    d = heads * dh
+    q, k, v, g = (_randn((rows, n, d), dtype, s) for s in (41, 42, 43, 44))
+    before = dict(ops.LAUNCHES)
+    out = ops.spatial_flat(q, k, v, heads)
+    split = [x.view(rows, n, heads, dh).transpose(1, 2).contiguous() for x in (q, k, v)]
+    out_l = ops.spatial_attention(*split)
+    grads = ops.spatial_flat_bwd(q, k, v, g, heads)
+    again = ops.spatial_flat_bwd(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["spatial_flat"] == before["spatial_flat"] + 1
+    assert ops.LAUNCHES["spatial_attention"] == before["spatial_attention"] + 1
+    assert ops.LAUNCHES["spatial_flat_bwd"] == before["spatial_flat_bwd"] + 2
+    ref = ops.spatial_flat_plain(q, k, v, heads)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(out_l.transpose(1, 2).reshape(rows, n, d), out)
+    _grad_close(grads, ops.spatial_flat_bwd_plain(q, k, v, g, heads), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("t", [33, 48, 64, 128, 300])
+def test_fullclip_kernels_at_any_t_match_plain(dtype, causal, t, monkeypatch):
+    """C and H against their plain versions, causal or not; H repeats bit for
+    bit; and the tiled body (csrc/tiled.cuh, which runs past the whole-row
+    plan) equals the whole-row pipeline bit for bit where both run."""
+    rows, heads, dh = 6, 2, 64
+    d = heads * dh
+    q, k, v, g = (_randn((rows, t, d), dtype, s) for s in (51, 52, 53, 54))
+    before = dict(ops.LAUNCHES)
+    out = ops.temporal_fullclip(q, k, v, heads, causal)
+    grads = ops.temporal_fullclip_bwd(q, k, v, g, heads, causal)
+    again = ops.temporal_fullclip_bwd(q, k, v, g, heads, causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_fullclip"] == before["temporal_fullclip"] + 1
+    assert ops.LAUNCHES["temporal_fullclip_bwd"] == before["temporal_fullclip_bwd"] + 2
+    ref = ops.temporal_fullclip_plain(q, k, v, heads, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    _grad_close(grads, ops.temporal_fullclip_bwd_plain(q, k, v, g, heads, causal), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    monkeypatch.setattr(ops, "_body_smem", lambda *a: 0)  # the tiled body at every T
+    assert torch.equal(ops.temporal_fullclip(q, k, v, heads, causal), out)
+    tiled = ops.temporal_fullclip_bwd(q, k, v, g, heads, causal)
+    assert all(torch.equal(a, b) for a, b in zip(tiled, grads))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_packed_fullclip_without_the_mask_equals_the_row_entry(dtype):
+    """The encoder's packed entry at 64 frames, not causal: C and H in place
+    on the (B, T, N, 3D) qkv equal the (R, T, D) entry bit for bit."""
+    b, t, n, heads, dh = 2, 64, 5, 4, 32
+    d = heads * dh
+    qkv = _randn((b, t, n, 3 * d), dtype, 61)
+    g = _randn((b, t, n, d), dtype, 62)
+    rows = [x.transpose(1, 2).reshape(b * n, t, d).contiguous()
+            for x in (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], g)]
+    out = ops.temporal_fullclip_qkv(qkv, heads, False)
+    ref = ops.temporal_fullclip(*rows[:3], heads, False)
+    assert torch.equal(out, ref.reshape(b, n, t, d).transpose(1, 2))
+    grad = ops.temporal_fullclip_qkv_bwd(qkv, g, heads, False)
+    for i, x in enumerate(ops.temporal_fullclip_bwd(*rows, heads, False)):
+        assert torch.equal(grad[..., i * d:(i + 1) * d], x.reshape(b, n, t, d).transpose(1, 2))
 
 
 def test_wrappers_raise_instead_of_falling_back():

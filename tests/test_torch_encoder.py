@@ -191,8 +191,14 @@ def test_out_of_slice_features_raise():
     want = jax_encoder.model_forward(params, jnp.asarray(px), jcfg)["last_hidden_state"]
     assert got.shape == want.shape == (1, 2, 16, cfg.hidden_size)
     assert _max_err(got, want) <= ATOL
-    with pytest.raises(NotImplementedError):
-        encoder.StreamformerEncoder(cfg.replace(enable_causal_temporal=False), device="cpu")
+    # non-causal temporal attention, refused by the first slices: the full
+    # clip matches the JAX package's
+    ncfg, ncparams, _, nc_model = _pair(enable_causal_temporal=False)
+    px = _video(1, 3)
+    got = nc_model(torch.from_numpy(px))["last_hidden_state"]
+    want = _jax_forward(ncfg)(jax.tree.map(jnp.asarray, ncparams),
+                              jnp.asarray(px))["last_hidden_state"]
+    assert _max_err(got, want) <= ATOL
 
 
 def test_asking_for_the_card_without_one_raises(monkeypatch):

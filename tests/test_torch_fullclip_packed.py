@@ -131,8 +131,8 @@ def _offset(shape, elements, dtype=torch.float32):
     [
         (lambda: ops.temporal_fullclip_qkv(torch.zeros(2, 4, 3, 47), 2), ValueError),  # 3D
         (lambda: ops.temporal_fullclip_qkv(torch.zeros(8, 4, 96), 2), ValueError),  # not 4-D
-        (lambda: ops.temporal_fullclip_qkv(torch.zeros(2, 33, 3, 96), 2),
-         NotImplementedError),  # T = 33 > 32
+        # T = 33, past the first slices' 32 frames: runs, as the row entry
+        (lambda: _packed_vs_rows(33), None),
         (lambda: ops.temporal_fullclip_qkv(torch.zeros(2, 4, 3, 96), 3), ValueError),  # D % H
         (lambda: ops.temporal_fullclip_qkv(torch.zeros(2, 4, 3, 96), 8), ValueError),  # dh = 4
         (lambda: ops.temporal_fullclip_qkv(torch.zeros(2, 4, 3, 96).double(), 2), TypeError),
@@ -163,8 +163,27 @@ def _offset(shape, elements, dtype=torch.float32):
     ],
 )
 def test_packed_entries_reject_what_the_kernels_do_not_take(call, error):
+    if error is None:  # a shape an earlier slice refused
+        got, want = call()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL["float32"], rtol=0)
+        return
     with pytest.raises(error):
         call()
+
+
+def _packed_vs_rows(t, h=2, dh=16):
+    """The packed entry and the JAX package's einsum reference on the
+    encoder's transposed slices of a (2, t, 3, 3D) qkv."""
+    qkv = _randn((2, t, 3, 3 * h * dh), 4)
+    d = h * dh
+
+    def rows(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(6, t, d))
+
+    ref = A.fullclip_temporal_reference(rows(qkv[..., :d]), rows(qkv[..., d:2 * d]),
+                                        rows(qkv[..., 2 * d:]), h)
+    want = np.asarray(ref).reshape(2, 3, t, d).transpose(0, 2, 1, 3)
+    return ops.temporal_fullclip_qkv(torch.from_numpy(qkv), h), want
 
 
 def test_packed_entry_launches_nothing_on_the_cpu_and_builds_no_graph_without_grad():

@@ -76,8 +76,10 @@ def test_temporal_decode_pm_matches_pallas(r, c, h, dh, length):
 
 # (rows, N, heads, dh): the card tests' small shapes (tests/test_torch_cuda.py),
 # so that the plain version the card holds the kernel to is itself held to
-# the Pallas kernel there; N of 9, 33, 49 and 256, dh of 16, 24, 40 and 64
-SPATIAL_SHAPES = [(3, 9, 4, 24), (4, 33, 3, 40), (5, 49, 2, 16), (2, 256, 2, 64)]
+# the Pallas kernel there; N of 9, 33, 49, 256 and 324 (a 288x288 frame, past
+# the 256 keys of one staging), dh of 16, 24, 32, 40 and 64
+SPATIAL_SHAPES = [(3, 9, 4, 24), (4, 33, 3, 40), (5, 49, 2, 16), (2, 256, 2, 64),
+                  (1, 324, 2, 32)]
 
 
 @pytest.mark.parametrize("r,n,h,dh", SPATIAL_SHAPES)
@@ -204,10 +206,11 @@ def test_plain_versions_launch_nothing():
         (lambda x: ops.spatial_flat(x, x, x, 3), ValueError),  # D % H
         (lambda x: ops.spatial_flat(x, x, x, 8), ValueError),  # dh = 4
         (lambda x: ops.spatial_flat(x, x, x[:, :4], 2), ValueError),
-        (lambda x: ops.temporal_fullclip(x.repeat(1, 7, 1), x.repeat(1, 7, 1), x.repeat(1, 7, 1), 2),
-         NotImplementedError),  # T = 35 > 32
-        (lambda x: ops.spatial_flat(x.repeat(1, 52, 1), x.repeat(1, 52, 1), x.repeat(1, 52, 1), 2),
-         NotImplementedError),  # N = 260 > 256
+        # past the caps of the first slices these run, and match the JAX package
+        (lambda x: _vs_jax(ops.temporal_fullclip, A.fullclip_temporal_reference,
+                           x.repeat(1, 7, 1), 2), None),  # T = 35 > 32
+        (lambda x: _vs_jax(ops.spatial_flat, A.fused_spatial_flat, x.repeat(1, 52, 1), 2),
+         None),  # N = 260 > 256
         (lambda x: ops.temporal_decode_pm(x[0], x[0], x[0], x, x, torch.tensor(1), 2), TypeError),
         (lambda x: ops.temporal_decode_pm(x[0], x[0], x[0], x[:, :4], x[:, :4],
                                           torch.tensor(1, dtype=torch.int32), 2), ValueError),
@@ -239,8 +242,20 @@ def test_plain_versions_launch_nothing():
     ],
 )
 def test_wrappers_reject_what_the_kernels_do_not_take(call, error):
+    x = torch.randn(2, 5, 32)
+    if error is None:  # a shape an earlier slice refused
+        got, want = call(x)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+        return
     with pytest.raises(error):
-        call(torch.randn(2, 5, 32))
+        call(x)
+
+
+def _vs_jax(port, jax_fn, x, num_heads):
+    """The port's and the JAX package's attention on the same operands."""
+    q, k, v = x, x.roll(1, 1), x.flip(1)
+    return port(q, k, v, num_heads), jax_fn(*(jnp.asarray(a.numpy()) for a in (q, k, v)),
+                                            num_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -363,9 +378,8 @@ def test_wrappers_without_grad_build_no_graph():
     [
         (lambda: ops.spatial_flat_bwd(torch.zeros(2, 9, 32), torch.zeros(2, 9, 32),
                                       torch.zeros(2, 9, 32), torch.zeros(2, 8, 32), 4), ValueError),
-        (lambda: ops.temporal_fullclip_bwd(torch.zeros(2, 35, 32), torch.zeros(2, 35, 32),
-                                           torch.zeros(2, 35, 32), torch.zeros(2, 35, 32), 4),
-         NotImplementedError),  # T = 35 > 32
+        # past the first slices' 32 frames this runs, and matches jax.vjp
+        (lambda: _bwd_vs_jax_vjp(35), None),  # T = 35
         (lambda: ops.spatial_flat_bwd(torch.zeros(2, 9, 32), torch.zeros(2, 9, 32),
                                       torch.zeros(2, 9, 32),
                                       torch.zeros(2, 9, 32, dtype=torch.bfloat16), 4), TypeError),
@@ -375,5 +389,19 @@ def test_wrappers_without_grad_build_no_graph():
     ],
 )
 def test_backward_wrappers_check_their_inputs(call, error):
+    if error is None:  # a shape an earlier slice refused
+        got, want = call()
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=0, err_msg=name)
+        return
     with pytest.raises(error):
         call()
+
+
+def _bwd_vs_jax_vjp(t, h=4, dh=8):
+    """The port's temporal backward and jax.vjp of the JAX einsum reference
+    on (2, t, h * dh) operands."""
+    q, k, v, g = (_randn((2, t, h * dh), 60 + i) for i in range(4))
+    _, vjp = jax.vjp(lambda a, b, c: A.fullclip_temporal_reference(a, b, c, h),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    return ops.temporal_fullclip_bwd(_t(q), _t(k), _t(v), _t(g), h), vjp(jnp.asarray(g))
