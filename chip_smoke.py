@@ -262,9 +262,29 @@ Phases, each fatal on failure:
     ``joint_space_time`` at 1 x 8 frames, forward and backward (B and I at
     R=1, N=1568, kernel rows, and B's block count); (e) ``space_only`` at 2
     x 16 frames, the full clip and the frames streamed at t=1. The phase
+    must take at most 60 s;
+34. the streaming remainders, at the flagship width: (a) kernel rows of E
+    without the mask (R=1568 C=16 t=8), at 64 frames causal and not (R=392
+    C=64, the tiled body), past its whole-table plan (R=196 C=4096 t=16) and
+    at t=1 on a capacity of 60000 (R=8), its ring mode (R=1568 C=8 t=4 and
+    t=12), E's tiled body forced at the flagship (and bit-equal to the whole
+    table: causal, non-causal, ring, a mixed cache), A, D and J with fp32
+    queries on a bf16 cache and bf16 queries on an fp32 cache (that one
+    bit-equal to the bf16 cache), each within 2e-2 / 2e-5 of its plain
+    version; (b) a 16-frame non-causal chunk into an empty cache bit-equal
+    to the non-causal full clip, and on an int8 cache (F a query) within
+    the JAX package's int8 gate of it (pooled cosine above 0.999); (c) one causal call of 64 frames (phase
+    33b's config) against its clip within phase 5's gates, with the frames
+    bit for bit; (d) the bf16 model on an fp32 cache bit-equal to the bf16
+    cache, the fp32 model on a bf16 cache within 0.078 / 0.008 of its full
+    clip and its t=1 stream bit-equal to its E chunks; (e) the engine on a
+    mixed cache (t=1 steps, D; ticks of 4 frames, E chunks) within 0.008 of
+    lone streams, and int8
+    partial appends (``new_valid``, G a frame) bit-equal to the t=1 G stream
+    on the valid frames. Each run's launches held to its path. The phase
     must take at most 60 s.
 
-Eighteen paths are main paths: the lockstep encode (the launch counters are
+Nineteen paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
@@ -288,7 +308,9 @@ OVIS (zeroed before phase 31's ``ovis_run.train``, read after it and around
 each of its steps, and before its ``run_inference``, read after it), and
 the exported programs (zeroed before each call of phase 32's artifacts,
 read after it), and the shapes and attention types (zeroed before each
-run of phase 33, read after it). Every kernel must have run on its path.
+run of phase 33, read after it), and the streaming remainders (zeroed
+before each run of phase 34b-e, read after it). Every kernel must have run
+on its path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -392,7 +414,7 @@ KERNEL_SYMBOLS = {
     "temporal_decode_pm": ("temporal_decode_pm_kernel",),
     "temporal_decode_pm_ragged": ("temporal_decode_pm_kernel",),
     "temporal_decode_rm": ("temporal_decode_pm_kernel",),
-    "temporal_append_pm_ragged": ("temporal_append_pm_kernel",),
+    "temporal_append_pm_ragged": ("temporal_append_pm_kernel", "temporal_append_pm_tiled_kernel"),
     "temporal_decode_pm_int8": ("temporal_decode_pm_int8_kernel",),
     "temporal_decode_pm_int8_ragged": ("temporal_decode_pm_int8_kernel",),
     "spatial_flat": ("spatial_flat_tc_kernel", "spatial_flat_kernel", "tiled::forward_kernel"),
@@ -505,6 +527,14 @@ SHAPES = dict(ar_size=384, ar_frames=16, ar_batch=4, ar_steps=4, ar_height=416, 
               long_frames=64, long_batch=2, nc_batch=2, nc_stream=4, joint_frames=8,
               joint_batch=1, space_frames=16, space_batch=2, tiled_frames=300, tiled_rows=64,
               tiled_patches=576, budget_s=60)
+# phase 34: the streaming remainders. E past its whole-table plan (a capacity of
+# 4096 at 16 frames), at t=1 on a capacity of 60000 (past A's plan too); the
+# fp32 model on a bf16 cache at batch 2; the engine on a mixed cache (slots,
+# each stream's frames from the flagship video, ticks of 1 and of 4 frames); int8 partial appends of 3
+# frames at batch 4, new_valid a call; the phase's budget on the card
+REST = dict(plan_cap=4096, plan_t=16, long_cap=60000, mixed_batch=2, engine_slots=2,
+            engine_frames=(6, 4, 8, 5), engine_tick=4, int8_valid=([1, 3, 2, 3], [3, 0, 2, 1]),
+            budget_s=60)
 DEVICE = "cuda"
 
 
@@ -4617,6 +4647,396 @@ def main():
     if s33 > SHAPES["budget_s"]:
         fail(f"phase 33 took {s33:.1f} s, past its {SHAPES['budget_s']} s")
 
+    # ---- 34. the streaming remainders: E without the mask, past 32 frames and
+    # past its plan, its ring mode; A, D, J and E on a cache of the other
+    # float type; int8 partial appends (kernel G a frame)
+    t34 = time.perf_counter()
+    rest_launches = dict(zeros)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    dname = {bf16: "bfloat16", fp32: "float32"}
+    keys34 = ("last_hidden_state", "pooler_output")
+
+    def e_visible(lens_rows, c_, t, causal, ring):
+        """(R, 1, t, C + t): the keys E's queries see, as its plain version."""
+        ti = torch.arange(t, device=dev)
+        slot = torch.arange(c_, device=dev)
+        if ring:
+            kpos = slot + c_ * torch.div(lens_rows[:, None] - 1 - slot, c_, rounding_mode="floor")
+            old = (kpos >= 0) & (kpos > lens_rows[:, None] + t - 1 - c_)
+            new = (ti > t - 1 - c_).expand(t, t)
+        else:
+            old = slot < lens_rows[:, None]
+            new = (ti[None] <= ti[:, None]) if causal else torch.ones(t, t, dtype=torch.bool,
+                                                                      device=dev)
+        return torch.cat([old[:, None].expand(-1, t, c_),
+                          new.expand(len(lens_rows), t, t)], -1)[:, None]
+
+    def e_case(t, per_stream, lens, valid, c_, dtype, kv, seed):
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        rows_ = per_stream * len(lens)
+
+        def draw(*shape, to):  # bf16 values in either type
+            return torch.randn(*shape, device=dev, generator=g_).to(bf16).to(to)
+
+        q = draw(t, rows_, d_, to=dtype)
+        kn, vn = draw(t, rows_, d_, to=kv), draw(t, rows_, d_, to=kv)
+        kc, vc = draw(c_, rows_, d_, to=kv), draw(c_, rows_, d_, to=kv)
+        return (q, kn, vn, kc, vc, torch.tensor(lens, dtype=torch.int32, device=dev),
+                torch.tensor(valid, dtype=torch.int32, device=dev))
+
+    def e_row(tag, t, per_stream, lens, valid, c_, causal=True, ring=False, dtype=bf16, kv=None,
+              seed=34, row=True):
+        """E's (t, R, D) entry against its plain version on the same operands
+        (appended planes equal), a kernel row with its bound and one SDPA
+        call on the same function; returns the output and planes."""
+        kv = kv or dtype
+        q, kn, vn, kc, vc, lens_t, valid_t = e_case(t, per_stream, lens, valid, c_, dtype, kv,
+                                                     seed)
+        k_ref, v_ref = kc.clone(), vc.clone()
+        ref = ops.temporal_append_pm_ragged_plain(q, kn, vn, k_ref, v_ref, lens_t, valid_t,
+                                                  per_stream, h_, causal, ring)
+        got = ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens_t, valid_t, per_stream, h_,
+                                            causal, ring)
+        torch.cuda.synchronize()
+        if not (torch.equal(kc, k_ref) and torch.equal(vc, v_ref)):
+            fail(f"E {tag}: appended planes differ from the plain version's")
+        err, nbytes, flops = 0.0, 0, 0
+        eq, ekv = torch.finfo(dtype).bits // 8, torch.finfo(kv).bits // 8
+        for i, (length, nv) in enumerate(zip(lens, valid)):
+            sl = slice(i * per_stream, (i + 1) * per_stream)
+            if ring:
+                n_new = min(t, c_)
+                n_old, written, nv = max(0, min(length, c_ - t)), n_new, t
+                seen = t * (n_old + n_new)
+            else:
+                n_new, n_old = t, min(length, c_)
+                seen = t * n_old + (t * (t + 1) // 2 if causal else t * t)
+                written = min(n_old + nv, c_) - n_old
+            if nv:
+                err = max(err, max_err(got[:nv, sl], ref[:nv, sl]))
+            nbytes += per_stream * d_ * (2 * eq * t + 2 * ekv * (n_new + n_old + written))
+            flops += 4 * per_stream * d_ * seen
+        if row:
+            r_ = per_stream * len(lens)
+            q4 = q.view(t, r_, h_, dh).permute(1, 2, 0, 3)
+            k4, v4 = (torch.cat([c0, n0]).to(dtype).view(c_ + t, r_, h_, dh).permute(1, 2, 0, 3)
+                      for c0, n0 in ((kc, kn), (vc, vn)))
+            mask = e_visible(lens_t.long().repeat_interleave(per_stream), c_, t, causal, ring)
+            record("temporal_append_pm_ragged", tag, dname[dtype], err,
+                   lambda: ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens_t, valid_t,
+                                                         per_stream, h_, causal, ring),
+                   lambda: ops.temporal_append_pm_ragged_plain(q, kn, vn, kc, vc, lens_t, valid_t,
+                                                               per_stream, h_, causal, ring),
+                   lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask),
+                   nbytes, flops, tol=TOL[dname[dtype]])
+            del q4, k4, v4, mask
+        elif not err <= TOL[dname[dtype]]:
+            fail(f"E {tag}: max-abs error {err}")
+        return got, kc, vc
+
+    # 34a. kernel rows: E without the mask, at 64 frames (tiled, causal and
+    # not), past the plan (tiled), at t=1 on a capacity of 60000 (tiled), its
+    # ring at t=4 and t=12 (> C); tiled bit-equal to the whole table
+    ta = time.perf_counter()
+    rf = b_ * n_
+    e_row(f"non-causal R={rf} C={cap} t={E_T}", E_T, n_, E_LENS, E_VALID, cap, causal=False)
+    for causal in (True, False):
+        e_row(f"{'causal' if causal else 'non-causal'} R={2 * n_} C=64 t=64 tiled", 64, n_,
+              [0, 0], [64, 64], 64, causal=causal)
+    e_row(f"R={n_} C={REST['plan_cap']} t={REST['plan_t']} past the plan", REST["plan_t"], n_,
+          [REST["plan_cap"] - REST["plan_t"]], [REST["plan_t"]], REST["plan_cap"])
+    e_row(f"R=8 C={REST['long_cap']} t=1", 1, 8, [REST["long_cap"] - 1], [1], REST["long_cap"])
+    for t in CHUNKS:
+        e_row(f"ring R={rf} C={RING_CAPACITY} t={t}", t, rf, [3 * RING_CAPACITY + 5], [0],
+              RING_CAPACITY, causal=False, ring=True)
+    for body in ("whole", "tiled"):
+        if body == "tiled":
+            ops._body_smem, body_smem34 = (lambda *a_: 0), ops._body_smem
+        try:
+            bits34 = [e_row(f"R={rf} C={cap} t={E_T} tiled.cuh forced", E_T, n_, E_LENS, E_VALID,
+                            cap, seed=341, row=body == "tiled"),
+                      e_row("", E_T, n_, E_LENS, E_VALID, cap, causal=False, seed=342, row=False),
+                      e_row("", 12, rf, [37], [0], RING_CAPACITY, causal=False, ring=True,
+                            seed=343, row=False),
+                      e_row("", E_T, n_, E_LENS, E_VALID, cap, dtype=fp32, kv=bf16, seed=344,
+                            row=False)]
+        finally:
+            if body == "tiled":
+                ops._body_smem = body_smem34
+        if body == "whole":
+            whole34 = bits34
+    same34 = [all(torch.equal(a_, b__) for a_, b__ in zip(w_, t__))
+              for w_, t__ in zip(whole34, bits34)]
+    if not all(same34):
+        fail(f"34a: tiled E differs from the whole-table E (causal, non-causal, ring, mixed): "
+             f"{same34}")
+    del whole34, bits34
+    # A, D and J on a cache of the other float type (bf16 values in both)
+    for dtype, kv in ((fp32, bf16), (bf16, fp32)):
+        g_ = torch.Generator(device=dev).manual_seed(345)
+
+        def draw(*shape, to):
+            return torch.randn(*shape, device=dev, generator=g_).to(bf16).to(to)
+
+        q, kn, vn = draw(rf, d_, to=dtype), draw(rf, d_, to=kv), draw(rf, d_, to=kv)
+        kc, vc = draw(cap, rf, d_, to=kv), draw(cap, rf, d_, to=kv)
+        eq, ekv = torch.finfo(dtype).bits // 8, torch.finfo(kv).bits // 8
+        q4 = q.view(rf, h_, 1, dh)
+        k4, v4 = (c0.to(dtype).view(cap, rf, h_, dh).permute(1, 2, 0, 3) for c0 in (kc, vc))
+        tag = f"mixed {dname[dtype]} q {dname[kv]} cache R={rf} C={cap}"
+        for kernel_name, lens in (("temporal_decode_pm", [cap - 1]),
+                                  ("temporal_decode_pm_ragged", D_LENS["linear"]),
+                                  ("temporal_decode_rm", [cap - 1])):
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            per = rf // len(lens)
+            if kernel_name == "temporal_decode_pm_ragged":
+                fn, plain = ops.temporal_decode_pm_ragged, ops.temporal_decode_pm_ragged_plain
+                args = lambda k_, v_: (q, kn, vn, k_, v_, ln, per, h_)  # noqa: E731
+                planes = (kc, vc)
+            elif kernel_name == "temporal_decode_pm":
+                fn, plain = ops.temporal_decode_pm, ops.temporal_decode_pm_plain
+                args = lambda k_, v_: (q, kn, vn, k_, v_, ln.reshape(()), h_)  # noqa: E731
+                planes = (kc, vc)
+            else:
+                fn, plain = ops.temporal_decode_rm, ops.temporal_decode_rm_plain
+                args = lambda k_, v_: (q, kn, vn, k_, v_, ln.reshape(()), h_)  # noqa: E731
+                planes = tuple(c0.transpose(0, 1).contiguous() for c0 in (kc, vc))
+            refs = [p_.clone() for p_ in planes]
+            ref = plain(*args(*refs))
+            gots = [p_.clone() for p_ in planes]
+            got = fn(*args(*gots))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a_, b__) for a_, b__ in zip(gots, refs)):
+                fail(f"{kernel_name} {tag}: appended planes differ")
+            if kv == fp32:  # bf16 values in the fp32 cache: the bf16 cache's bits
+                a16 = list(args(*(p_.to(bf16) for p_ in planes)))
+                a16[1], a16[2] = kn.to(bf16), vn.to(bf16)
+                if not torch.equal(fn(*a16), got):
+                    fail(f"{kernel_name} {tag}: differs from the bf16 cache's bits")
+            n_read = sum(min(x_, cap - 1) for x_ in lens) * per
+            window = (torch.arange(cap, device=dev)[None]
+                      <= ln.long().repeat_interleave(per)[:, None]).view(rf, 1, 1, cap)
+            record(kernel_name, tag + f" len={lens if len(lens) > 1 else lens[0]}", dname[dtype],
+                   max_err(got, ref), (lambda f_=fn, a_=args(*planes): f_(*a_)),
+                   (lambda f_=plain, a_=args(*planes): f_(*a_)),
+                   lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
+                   rf * d_ * (2 * eq + 4 * ekv) + 2 * ekv * d_ * n_read,
+                   4 * d_ * (n_read + rf))
+        del q, kn, vn, kc, vc, q4, k4, v4
+    torch.cuda.empty_cache()
+    print(f"34a ({smi}): E without the mask, at 64 frames, past the plan, at C="
+          f"{REST['long_cap']}, its ring at t={CHUNKS}; tiled bit-equal to the whole table "
+          f"(causal, non-causal, ring, mixed); A, D, J on mixed caches (the fp32 cache of bf16 "
+          f"values bit-equal to the bf16 cache) ({time.perf_counter() - ta:.1f} s)")
+
+    def run34(tag, fn, want):
+        """fn() with the launch counts zeroed before and read after, held
+        to ``want`` (and B L times a call where the model runs)."""
+        ops.reset_launches()
+        out_ = fn()
+        torch.cuda.synchronize()
+        got_ = dict(ops.LAUNCHES)
+        if got_ != {**zeros, **want}:
+            fail(f"34 {tag}: launches {got_}, not {want}")
+        add(rest_launches, got_)
+        return out_
+
+    def stream34(m, x, calls, cfg_s, cache_s, **kw):
+        outs_, lo_ = [], 0
+        for t in calls:
+            o_, cache_s = encoder.streaming_forward(m, x[:, lo_:lo_ + t], cache_s, cfg=cfg_s,
+                                                    **kw)
+            outs_.append(o_)
+            lo_ += t
+        return {k_: torch.cat([o_[k_] for o_ in outs_], 1) for k_ in keys34}, cache_s
+
+    def state_copy(cfg_m):
+        m = encoder.StreamformerEncoder(cfg_m, device=dev)
+        m.load_state_dict(model.state_dict())
+        return m
+
+    cfg_lin = cfg.replace(cache_mode="linear")
+    # 34b. a 16-frame non-causal chunk into an empty cache: the non-causal
+    # full clip (phase 33c's) bit for bit, E = C without the mask
+    tb = time.perf_counter()
+    nc34 = state_copy(cfg.replace(enable_causal_temporal=False))
+    nc_x = video[:SHAPES["nc_batch"]]
+    nc_full = encoder.model_forward(nc34, nc_x)
+    nc_cfg = cfg_lin.replace(enable_causal_temporal=False)
+    nc_chunk = run34("non-causal chunk", lambda: encoder.streaming_forward(
+        nc34, nc_x, encoder.init_cache(nc_cfg, SHAPES["nc_batch"], device=dev), cfg=nc_cfg)[0],
+        {"temporal_append_pm_ragged": L, "spatial_flat": L})
+    nc_same = all(torch.equal(nc_chunk[k_], nc_full[k_]) for k_ in keys34)
+    if not nc_same:
+        fail(f"34b: the non-causal chunk differs from the non-causal full clip: hidden "
+             f"{max_err(nc_chunk['last_hidden_state'], nc_full['last_hidden_state'])}")
+    # the same chunk on an int8 cache: F a query, each at the last frame's
+    # position after the frames before it are written; held to the full clip
+    # by the JAX package's int8 gate (pooled cosine)
+    nc8_cfg = nc_cfg.replace(cache_dtype="int8")
+    nc8 = run34("non-causal int8 chunk", lambda: encoder.streaming_forward(
+        nc34, nc_x, encoder.init_cache(nc8_cfg, SHAPES["nc_batch"], device=dev), cfg=nc8_cfg)[0],
+        {"temporal_decode_pm_int8": t_ * L, "spatial_flat": L})
+    nc8_cos = cosine(nc8["pooler_output"], nc_full["pooler_output"])
+    if not (nc8_cos > INT8_CACHE_COS and finite(nc8)):
+        fail(f"34b: the non-causal int8 chunk: pooled cosine {nc8_cos} to the non-causal full "
+             f"clip (> {INT8_CACHE_COS})")
+    del nc34, nc_full, nc_chunk, nc8
+    # 34c. 64 frames in one causal call (E's tiled body) on phase 33b's config
+    tl_ = SHAPES["long_frames"]
+    long34 = torch.randn(SHAPES["long_batch"], tl_, 3, cfg.image_size, cfg.image_size,
+                         device=dev, generator=gen).to(bf16)
+    long_full = encoder.model_forward(model, long34)
+    long_call = run34("64-frame call", lambda: encoder.streaming_forward(
+        model, long34, encoder.init_cache(cfg_lin, SHAPES["long_batch"], capacity=tl_,
+                                          device=dev), cfg=cfg_lin)[0],
+        {"temporal_append_pm_ragged": L, "spatial_flat": L})
+    lh = max_err(long_call["last_hidden_state"], long_full["last_hidden_state"])
+    lp = max_err(long_call["pooler_output"], long_full["pooler_output"])
+    long_same = sum(int(torch.equal(long_call["last_hidden_state"][:, i],
+                                    long_full["last_hidden_state"][:, i])) for i in range(tl_))
+    if not (lh <= STREAM_TOL_HIDDEN and lp <= STREAM_TOL_POOLED):
+        fail(f"34c: the 64-frame call against its clip: hidden {lh}, pooled {lp}")
+    del long34, long_full, long_call
+    print(f"34b-c ({smi}): a {t_}-frame non-causal chunk into an empty cache bit-equal to the "
+          f"non-causal full clip (E and B {L} times), on an int8 cache pooled cosine {nc8_cos} "
+          f"to it (F {t_ * L} times); one causal call of {tl_} frames (E's tiled "
+          f"body) against the clip: hidden {lh}, pooled {lp}, {long_same} of {tl_} frames bit "
+          f"for bit ({time.perf_counter() - tb:.1f} s)")
+
+    # 34d. mixed caches on the flagship: the bf16 model on an fp32 cache
+    # against the bf16 cache (t=1, then a chunk: A 4L, E L); the fp32 model on
+    # a bf16 cache against its full clip, its t=1 stream against E's chunks
+    td = time.perf_counter()
+    x34 = video[:, :8]
+    mixed_runs = {}
+    for cache_dtype in (None, "float32"):
+        cfg_m = cfg_lin.replace(cache_dtype=cache_dtype)
+        mixed_runs[cache_dtype] = run34(f"bf16 model, {cache_dtype} cache", lambda: stream34(
+            model, x34, [1, 1, 1, 1, 4], cfg_m, encoder.init_cache(cfg_m, b_, device=dev))[0],
+            {"temporal_decode_pm": 4 * L, "temporal_append_pm_ragged": L, "spatial_flat": 5 * L})
+    bf_same = all(torch.equal(mixed_runs[None][k_], mixed_runs["float32"][k_]) for k_ in keys34)
+    if not bf_same:
+        fail("34d: the bf16 model on an fp32 cache differs from the bf16 cache")
+    del mixed_runs
+    cfg32 = cfg_lin.replace(dtype="float32", cache_dtype="bfloat16")
+    m32 = state_copy(cfg32)
+    x32 = video[:REST["mixed_batch"], :8].float()
+    full32 = encoder.model_forward(m32, x32)
+    t1_32, _ = run34("fp32 model, bf16 cache, t=1", lambda: stream34(
+        m32, x32, [1] * 8, cfg32, encoder.init_cache(cfg32, REST["mixed_batch"], device=dev)),
+        {"temporal_decode_pm": 8 * L, "spatial_flat": 8 * L})
+    ch_32, _ = run34("fp32 model, bf16 cache, chunks", lambda: stream34(
+        m32, x32, [3, 5], cfg32, encoder.init_cache(cfg32, REST["mixed_batch"], device=dev)),
+        {"temporal_append_pm_ragged": 2 * L, "spatial_flat": 2 * L})
+    mh = max_err(t1_32["last_hidden_state"], full32["last_hidden_state"])
+    mp = max_err(t1_32["pooler_output"], full32["pooler_output"])
+    m_same = sum(int(torch.equal(t1_32["last_hidden_state"][:, i],
+                                 ch_32["last_hidden_state"][:, i])) for i in range(8))
+    if not (mh <= STREAM_TOL_HIDDEN and mp <= STREAM_TOL_POOLED):
+        fail(f"34d: the fp32 model on a bf16 cache against its full clip: hidden {mh}, pooled {mp}")
+    if m_same != 8:
+        fail(f"34d: the fp32 model's t=1 stream on a bf16 cache equals its E chunks in {m_same} "
+             f"of 8 frames, not all: max-abs "
+             f"{max_err(t1_32['last_hidden_state'], ch_32['last_hidden_state'])}")
+    del m32, full32, t1_32, ch_32
+    print(f"34d ({smi}): the bf16 model on an fp32 cache bit-equal to the bf16 cache (t=1 and a "
+          f"chunk); the fp32 model on a bf16 cache against its full clip hidden {mh}, pooled {mp}; "
+          f"its t=1 stream bit-equal to its E chunks [3, 5] in {m_same} of 8 frames "
+          f"({time.perf_counter() - td:.1f} s)")
+
+    # 34e. the engine on a mixed cache (the bf16 model, an fp32 cache: t=1
+    # steps, D; ticks of several frames, E chunks), each stream against a
+    # lone B=1 stream on the same cache; int8 partial appends (G a frame)
+    # against the t=1 G stream
+    te = time.perf_counter()
+    mixed34 = state_copy(cfg.replace(cache_dtype="float32"))
+    eng = StreamingEngine(mixed34, slots=REST["engine_slots"], mode="linear")
+    clips34 = [video[i, :n].float().cpu().numpy() for i, n in enumerate(REST["engine_frames"])]
+
+    def serve34(frames):
+        sids_ = []
+        for clip in clips34:
+            sid_ = eng.open()
+            eng.feed(sid_, clip)
+            eng.close(sid_)
+            sids_.append(sid_)
+        eng.run_until_idle(frames=frames)
+        return [eng.poll(sid_)[0] for sid_ in sids_]
+
+    eng_ticks, feats34 = {}, {}
+    for frames34, kernel34 in ((1, "temporal_decode_pm_ragged"),
+                               (REST["engine_tick"], "temporal_append_pm_ragged")):
+        steps34 = eng.forwards
+        ops.reset_launches()
+        feats34[frames34] = serve34(frames34)
+        torch.cuda.synchronize()
+        eng_launch = dict(ops.LAUNCHES)
+        eng_ticks[frames34] = ticks34 = eng.forwards - steps34
+        if eng_launch != {**zeros, kernel34: L * ticks34, "spatial_flat": L * ticks34}:
+            fail(f"34e: engine launches {eng_launch} over {ticks34} calls of ticks of "
+                 f"{frames34} frames")
+        add(rest_launches, eng_launch)
+    eng_err = 0.0
+    cfg_e = mixed34.cfg.replace(cache_mode="linear")
+    for i, clip in enumerate(clips34):
+        lone, _ = stream34(mixed34, torch.from_numpy(clip)[None].to(dev, bf16), [1] * len(clip),
+                           cfg_e, encoder.init_cache(cfg_e, 1, device=dev))
+        for feats in feats34.values():
+            eng_err = max(eng_err, float(np.abs(feats[i] - lone["pooler_output"][0].float().cpu()
+                                                .numpy()).max()))
+    if not eng_err <= STREAM_TOL_POOLED:
+        fail(f"34e: engine streams on a mixed cache {eng_err} from lone streams")
+    del eng, mixed34
+    nv34 = REST["int8_valid"]
+    cfg8 = cfg_lin.replace(cache_dtype="int8")
+    b8 = len(nv34[0])
+    x8 = video[:b8, :3 * len(nv34)]
+    c8 = encoder.init_cache(cfg8, b8, per_stream_len=True, device=dev)
+    part = []
+    for i, valid in enumerate(nv34):
+        vt = torch.tensor(valid, dtype=torch.int32, device=dev)
+        o_ = run34(f"int8 new_valid {valid}", lambda: encoder.streaming_forward(
+            model, x8[:, 3 * i:3 * i + 3], c8, cfg=cfg8, new_valid=vt)[0],
+            {"temporal_decode_pm_int8_ragged": 3 * L, "spatial_flat": L})
+        part.append(o_)
+    ref8 = encoder.init_cache(cfg8, b8, per_stream_len=True, device=dev)
+    ops.reset_launches()
+    i8_err, i8_same, i8_n = 0.0, 0, 0
+    for i, valid in enumerate(nv34):
+        for ti in range(3):
+            active = torch.tensor([ti < v_ for v_ in valid], device=dev)
+            o_, _ = encoder.streaming_forward(model, x8[:, 3 * i + ti:3 * i + ti + 1], ref8,
+                                              cfg=cfg8)
+            ref8["len"].sub_((~active).to(torch.int32))
+            for bi, v_ in enumerate(valid):
+                if ti < v_:
+                    a_ = part[i]["last_hidden_state"][bi, ti]
+                    b_ref = o_["last_hidden_state"][bi, 0]
+                    i8_err = max(i8_err, max_err(part[i]["pooler_output"][bi, ti],
+                                                 o_["pooler_output"][bi, 0]))
+                    i8_same += int(torch.equal(a_, b_ref))
+                    i8_n += 1
+    torch.cuda.synchronize()
+    if c8["len"].tolist() != ref8["len"].tolist():
+        fail(f"34e: int8 new_valid lengths {c8['len'].tolist()}, the t=1 stream's "
+             f"{ref8['len'].tolist()}")
+    if i8_same != i8_n:
+        fail(f"34e: int8 new_valid equals the t=1 G stream in {i8_same} of {i8_n} valid frames "
+             f"(pooled max-abs {i8_err})")
+    del c8, ref8, part
+    torch.cuda.empty_cache()
+    print(f"34e ({smi}): the engine on a mixed cache ({len(clips34)} streams, "
+          f"{REST['engine_slots']} slots; {eng_ticks[1]} t=1 steps, D {L} times a step; ticks "
+          f"of {REST['engine_tick']} frames, {eng_ticks[REST['engine_tick']]} E chunks, E {L} "
+          f"times a chunk): {eng_err} pooled from lone streams; int8 new_valid {nv34} (G {L} times a frame): {i8_same} of "
+          f"{i8_n} valid frames bit-equal to the t=1 G stream, lengths equal "
+          f"({time.perf_counter() - te:.1f} s)")
+    s34 = time.perf_counter() - t34
+    print(f"phase 34: {s34:.1f} s")
+    if s34 > REST["budget_s"]:
+        fail(f"phase 34 took {s34:.1f} s, past its {REST['budget_s']} s")
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -4638,7 +5058,7 @@ def main():
                      train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'
                      l_launches, entry_launches, dist_launches, vqa_launches,
                      vqa_train_launches, ar_launches, oad_launches, ovis_launches,
-                     export_launches, shapes_launches))
+                     export_launches, shapes_launches, rest_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             device_ms=row["device_ms"], plain_ms=row["plain_ms"],

@@ -51,7 +51,8 @@
 // T = 149 for C and 110 for H at heads of 64 in bf16, 66 and 49 at heads of
 // 128 in fp32); past that C and H run tiled.cuh,
 // which keeps this order of arithmetic, on the CUDA cores with both sides
-// tiled. kMaxT bounds kernel E's new frames (temporal_append_pm.cu) only.
+// tiled. kMaxT bounds the new frames of kernel E's whole-table body
+// (temporal_append_pm.cu) only; past it E runs tiled.cuh too.
 #pragma once
 
 #include <initializer_list>
@@ -63,7 +64,7 @@ namespace fullclip {
 constexpr int kConsumers = 256;            // eight consumer warps
 constexpr int kThreads = kConsumers + 32;  // and the producer warp
 constexpr int kStages = 2;                 // of the ring
-constexpr int kMaxT = 32;                  // E's new frames; C's straight-line softmax
+constexpr int kMaxT = 32;                  // E's whole-table frames; C's straight-line softmax
 constexpr int kKeyGroup = 4;               // keys one score task takes
 constexpr int kMaxSmem = 232448;           // dynamic shared memory a block may use on sm_90
 // Shared memory of a block that leaves room for a second on the SM: the
@@ -209,11 +210,12 @@ __device__ __forceinline__ void produce(unsigned char* smem, const Args<kOps>& a
 // for the group's keys. x holds the query rows, y the key rows (rows `rs`
 // elements apart), acc the group's sums. The slots past nk repeat the last
 // key (their sums are discarded), so the code has no branch, and two chunks
-// are in flight at once.
-template <typename T>
-__device__ __forceinline__ void dot_group(const T* x, const T* y, int rs, int nk, int dh,
+// are in flight at once. The two operands may differ in type (E's queries
+// in the compute type, its keys in the cache's).
+template <typename TX, typename TY>
+__device__ __forceinline__ void dot_group(const TX* x, const TY* y, int rs, int nk, int dh,
                                           float (&acc)[kKeyGroup]) {
-  const T* yk[kKeyGroup];
+  const TY* yk[kKeyGroup];
 #pragma unroll
   for (int kk = 0; kk < kKeyGroup; ++kk) {
     acc[kk] = 0.f;

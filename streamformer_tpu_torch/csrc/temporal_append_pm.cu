@@ -1,21 +1,38 @@
 // t new frames per stream appended to the position-major KV cache in one
-// pass: causal attention of each new frame over its stream's cached prefix
-// and the new frames up to itself, then the stream's first `valid` new
-// frames written into the cache (kernel E).
+// pass: attention of each new frame over its stream's cached prefix and the
+// new frames (causal: up to itself), then the new frames written into the
+// cache (kernel E).
 //
 // Replaces: streamformer_tpu/ops/attention.py fused_temporal_append_pm_ragged
-// (kernel body _pm_append_multi_kernel). Same contract: heads are dh-wide
-// slices of D; the caches are (C, R, D); row r belongs to stream b = r /
-// rows_per_stream, whose lens[b] positions are held in slots 0..lens[b]-1
-// (the linear cache: no wrap-around). Query ti of stream b is the frame at
-// position lens[b] + ti and attends cache slots < lens[b] and new frames
-// 0..ti. New frames ti < valid[b] are then written at slot lens[b] + ti; a
-// frame that would land at a slot >= C is dropped. Outputs for ti >=
-// valid[b] are computed but unspecified. lens and valid are device int32
-// vectors, so a call never waits for the host. The caller keeps lens +
-// valid <= C (a host-side check in the serving engine). The TPU kernel's
-// bound on t is a VMEM artefact; here a call takes up to 32 new frames (C's
-// kMaxT) on any capacity whose plan fits a block's shared memory.
+// (kernel body _pm_append_multi_kernel), and the JAX encoder's einsum paths
+// that serve what that kernel does not (non-causal appends, more frames, any
+// capacity, a cache in another float type, the ring's non-causal chunks:
+// streamformer_tpu/models/encoder.py _streaming_attend_pos_major,
+// _ragged_attend_einsum, _ring_attend_pos_major). Same contract: heads are
+// dh-wide slices of D; the caches are (C, R, D); row r belongs to stream b =
+// r / rows_per_stream, whose lens[b] positions are held in the cache.
+//
+// - Linear (ring = 0): slots 0..lens[b]-1 hold the positions. Query ti of
+//   stream b is the frame at position lens[b] + ti and attends cache slots
+//   < lens[b] and new frames 0..ti (causal), or all t new frames. New frames
+//   ti < valid[b] are then written at slot lens[b] + ti; a frame that would
+//   land at a slot >= C is dropped. Outputs for ti >= valid[b] are computed
+//   but unspecified. The caller keeps lens + valid <= C (a host-side check
+//   in the serving engine).
+// - Ring (ring = 1, not causal past one frame): slot s holds the newest
+//   position p = s mod C below lens[b]. Every query sees the window of the
+//   C positions ending at lens[b] + t - 1: old positions p > lens[b] + t - 1
+//   - C (and p >= 0), then new frames j > t - 1 - C. The last min(t, C) new
+//   frames are written at slot (lens[b] + j) mod C: exactly the slots of the
+//   positions that leave the window, which no query of the call reads, so
+//   reads and writes are disjoint as on the linear cache. valid is ignored.
+//   At t = 1 this is kernel A's ring step, which the encoder runs here
+//   where A's plan does not fit the capacity.
+//
+// lens and valid are device int32 vectors, so a call never waits for the
+// host. q and out are in the compute type T; k_new, v_new and the caches in
+// the cache's type KV (float or bfloat16 either way: the caller rounds the
+// new frames to KV, as the JAX package writes them before it attends them).
 //
 // q, k_new, v_new and out are read and written in place, each a base
 // pointer and element strides over (b, t, n), D contiguous, as C's operands
@@ -23,21 +40,30 @@
 // the qkv projection as it is and takes ctx as a contiguous (B, t, N, D);
 // the (t, R, D) entry is the same kernel at N = 1. Row r is b * N + n.
 //
-// This is temporal_fullclip.cu with a cached prefix in front of the new
-// frames: a (row, head)'s key sequence is cache slots 0..len-1, then the t
-// new frames. The arithmetic is the full clip's and kernel A's step for
-// step: each score one sequential fp32 FMA chain over dh in element order,
-// then times the scale; the max, expf(s - max), a sequential sum in key
-// order, PV one sequential FMA chain in key order, one multiply by the
-// reciprocal of the sum. Only independent chains run in parallel, on the
-// CUDA cores. So a stream fed in chunks through this kernel reproduces the
-// full clip bit for bit, as A does.
+// Two bodies, one order of arithmetic:
+//
+// - The whole-table body (up to kMaxT = 32 new frames, while `plan` fits a
+//   block): temporal_fullclip.cu with a cached prefix in front of the new
+//   frames. A (row, head)'s key sequence is the cached slots, oldest first,
+//   then the new frames.
+// - Past that, tiled.cuh's `attend` on the same key sequence: any t, any
+//   capacity (a thread block an item of (row, head, 32 queries); the
+//   cached keys staged from their slots, the new ones from their frames).
+//
+// Both take C's and kernel A's arithmetic step for step: each score one
+// sequential fp32 FMA chain over dh in element order, then times the
+// scale; the max, expf(s - max), a sequential sum in key order, PV one
+// sequential FMA chain in key order, one multiply by the reciprocal of the
+// sum. Masked keys are skipped, never weighted by zero. So the two bodies
+// give the same bits, and a stream fed in chunks through this kernel
+// reproduces the full clip bit for bit, as A does.
 //
 // Bound on the H100: bytes. Per (row, head) the work is about (len + t) * t
 // * dh FMAs on (2 len + 4 t) * dh elements, a few operations per byte. At
 // the flagship shape (t = 8, 8 streams of 196 rows, D = 768, bf16) the call
 // moves 2 sum(len) + 4 t B + 2 sum(valid) planes of 196 x 768 x 2 bytes.
-// The design is fullclip.cuh's pipeline with the keys streamed in chunks:
+// The whole-table body is fullclip.cuh's pipeline with the keys streamed in
+// chunks:
 //
 // - A persistent grid of 288-thread blocks; a work item is one row and a
 //   group of `hg` of its heads (`plan`: the most heads whose block leaves
@@ -52,15 +78,17 @@
 // - Eight consumer warps compute from shared memory with all their lanes:
 //   the scores as one task per (head, query, group of four keys), queries
 //   fastest (eight queries' rows in eight bank groups, the keys a
-//   broadcast), causal pairs only; the (head, query, key) scores stay in
-//   shared memory; the softmax a thread per (head, query); PV a thread per
-//   (two queries, head, 8 elements), each staged V chunk feeding both
-//   queries' sums, which wait in shared memory between chunks.
-// - The appended rows are written from the staged K and V chunks (a new
-//   frame's key index is its slot), so k_new and v_new are read once.
-//   Reads (slots < len) and writes (slots >= len) are disjoint, and each
-//   item writes only its own columns.
+//   broadcast), causal pairs only when causal; the (head, query, key)
+//   scores stay in shared memory; the softmax a thread per (head, query);
+//   PV a thread per (two queries, head, 8 elements), each staged V chunk
+//   feeding both queries' sums, which wait in shared memory between chunks.
+// - The appended rows are written from the staged K and V chunks, so k_new
+//   and v_new are read once; each item writes only its own columns.
+//
+// The tiled body is slow (tiled.cuh: no register blocking, the scores
+// computed twice); it serves the shapes the whole-table plan cannot hold.
 #include "fullclip.cuh"
+#include "tiled.cuh"
 
 namespace {
 
@@ -72,32 +100,34 @@ using fullclip::kThreads;
 using fullclip::Operand;
 using fullclip::round16;
 
-constexpr int kMaxT = fullclip::kMaxT;  // new frames a call
+constexpr int kMaxT = fullclip::kMaxT;  // new frames the whole-table body takes
 constexpr int kMinChunk = 8;            // keys a stage holds before a block gives up its pair
 
 // Shared memory of a block: two stages of `chunk` key rows of `row_bytes`
-// (hg * dh elements, padded by 16 bytes so that rows of neighbouring
-// queries or keys fall in distinct bank groups); the query buffer, a
-// 16-byte header (the item's len and valid) and t query rows; the (hg, t,
-// ss) fp32 scores; the (hg, t, dh) PV sums when the keys take more than one
-// chunk; the reciprocals of the sums (hg, t); the barriers (full and empty
-// a stage, then the query buffer's).
+// (hg * dh cache-type elements, padded by 16 bytes so that rows of
+// neighbouring keys fall in distinct bank groups); the query buffer, a
+// 16-byte header (the item's len and valid) and t query rows of
+// `q_row_bytes` (compute-type elements, padded alike); the (hg, t, ss) fp32
+// scores; the (hg, t, dh) PV sums when the keys take more than one chunk;
+// the reciprocals of the sums (hg, t); the barriers (full and empty a
+// stage, then the query buffer's).
 struct Plan {
-  int hg, groups, chunk, row_bytes, stage_bytes, ss;
+  int hg, groups, chunk, row_bytes, q_row_bytes, stage_bytes, ss;
   int q, scores, acc, inv, full, empty, qfull, qempty, total;
 };
 
-Plan plan_for(int hg, int chunk, int heads, int t_len, int cap, int dh, int elt) {
+Plan plan_for(int hg, int chunk, int heads, int t_len, int cap, int dh, int elt, int q_elt) {
   Plan p;
   const int keys = cap + t_len;
   p.hg = hg;
   p.groups = heads / hg;
   p.chunk = chunk;
   p.row_bytes = round16(hg * dh * elt) + 16;
+  p.q_row_bytes = round16(hg * dh * q_elt) + 16;
   p.stage_bytes = chunk * p.row_bytes;
   p.ss = keys | 1;  // odd: a thread per (head, query) row reads distinct banks
   p.q = kStages * p.stage_bytes;
-  p.scores = p.q + 16 + t_len * p.row_bytes;
+  p.scores = p.q + 16 + t_len * p.q_row_bytes;
   p.acc = p.scores + round16(4 * hg * t_len * p.ss);
   p.inv = p.acc + (chunk < keys ? round16(4 * hg * t_len * dh) : 0);
   p.full = p.inv + round16(4 * hg * t_len);
@@ -108,40 +138,75 @@ Plan plan_for(int hg, int chunk, int heads, int t_len, int cap, int dh, int elt)
   return p;
 }
 
-// The plan of a launch: under the pair budget, then under a block's most,
-// the most heads an item with the whole key sequence in one stage, else
-// with chunks of at least kMinChunk keys, else of any size; hg == 0 when
-// not even one head in chunks of one key fits (the wrapper's
-// _append_min_smem repeats that last plan's bytes).
-Plan plan(int heads, int t_len, int cap, int dh, int elt) {
+// The plan of a whole-table launch: under the pair budget, then under a
+// block's most, the most heads an item with the whole key sequence in one
+// stage, else with chunks of at least kMinChunk keys, else of any size;
+// hg == 0 when not even one head in chunks of one key fits, or past kMaxT
+// frames (the wrapper's _append_min_smem repeats that last plan's bytes).
+// The key count C + t bounds the ring's too (at most C).
+Plan plan(int heads, int t_len, int cap, int dh, int elt, int q_elt) {
   const int keys = cap + t_len;
-  for (int limit : {fullclip::kPairBudget, fullclip::kMaxSmem})
-    for (int least : {keys, keys < kMinChunk ? keys : kMinChunk, 1})
-      for (int hg = heads; hg >= 1; --hg) {
-        if (heads % hg) continue;
-        const Plan whole = plan_for(hg, keys, heads, t_len, cap, dh, elt);
-        if (whole.total <= limit) return whole;
-        const Plan one = plan_for(hg, 1, heads, t_len, cap, dh, elt);  // its fixed part
-        const int chunk = (limit - (one.total - one.stage_bytes * kStages)) /
-                          (kStages * one.row_bytes);
-        if (chunk >= least && chunk >= 1) return plan_for(hg, chunk, heads, t_len, cap, dh, elt);
-      }
-  Plan none = plan_for(1, 1, heads, t_len, cap, dh, elt);
+  if (t_len <= kMaxT)
+    for (int limit : {fullclip::kPairBudget, fullclip::kMaxSmem})
+      for (int least : {keys, keys < kMinChunk ? keys : kMinChunk, 1})
+        for (int hg = heads; hg >= 1; --hg) {
+          if (heads % hg) continue;
+          const Plan whole = plan_for(hg, keys, heads, t_len, cap, dh, elt, q_elt);
+          if (whole.total <= limit) return whole;
+          const Plan one = plan_for(hg, 1, heads, t_len, cap, dh, elt, q_elt);  // its fixed part
+          const int chunk = (limit - (one.total - one.stage_bytes * kStages)) /
+                            (kStages * one.row_bytes);
+          if (chunk >= least && chunk >= 1)
+            return plan_for(hg, chunk, heads, t_len, cap, dh, elt, q_elt);
+        }
+  Plan none = plan_for(1, 1, heads, t_len, cap, dh, elt, q_elt);
   none.hg = 0;
   return none;
 }
 
 struct Args {
-  Operand q, k_new, v_new, out;
-  void* k_cache;  // (C, R, D)
+  Operand q, k_new, v_new, out;  // q, out: T; k_new, v_new: KV
+  void* k_cache;  // (C, R, D) of KV
   void* v_cache;
   const int* lens;  // one per stream
   const int* valid;
   int rows_per_stream;
   Plan p;
-  int items, rows, n, t_len, cap, d, dh;
+  int items, rows, n, t_len, cap, d, dh, heads, causal, ring;
   float scale;
 };
+
+// An item's key sequence: n_old cached slots from slot0 on (mod C), oldest
+// first, then new frames f0 .. t - 1; n_write of those new frames (from
+// f0 on) are written, frame f at slot_of(f).
+struct Keys {
+  int len, n_old, slot0, f0, n_keys, n_write;
+};
+
+__device__ __forceinline__ Keys keys_of(const Args& a, int len, int nv) {
+  Keys k;
+  k.len = len;
+  if (a.ring) {  // the window of the C positions ending at len + t - 1
+    const int n_new = min(a.t_len, a.cap);
+    k.n_old = max(0, min(len, a.cap - a.t_len));
+    k.slot0 = (len - k.n_old) % a.cap;
+    k.f0 = a.t_len - n_new;
+    k.n_keys = k.n_old + n_new;
+    k.n_write = n_new;
+  } else {
+    k.n_old = min(len, a.cap);
+    k.slot0 = 0;
+    k.f0 = 0;
+    k.n_keys = k.n_old + a.t_len;
+    k.n_write = min(k.n_old + nv, a.cap) - k.n_old;
+  }
+  return k;
+}
+
+// The slot new frame f is written at.
+__device__ __forceinline__ int slot_of(const Args& a, const Keys& k, int f) {
+  return a.ring ? (k.len + f) % a.cap : k.n_old + f;
+}
 
 template <typename T>
 __device__ __forceinline__ const T* frame(const Operand& o, int row, int n, int t, int col) {
@@ -149,16 +214,29 @@ __device__ __forceinline__ const T* frame(const Operand& o, int row, int n, int 
 }
 
 // Row `row`'s slot `slot` of a cache, from column `col`.
-template <typename T>
-__device__ __forceinline__ T* slot_row(void* cache, const Args& a, int slot, int row, int col) {
-  return static_cast<T*>(cache) + (static_cast<long long>(slot) * a.rows + row) * a.d + col;
+template <typename KV>
+__device__ __forceinline__ KV* slot_row(void* cache, const Args& a, int slot, int row, int col) {
+  return static_cast<KV*>(cache) + (static_cast<long long>(slot) * a.rows + row) * a.d + col;
+}
+
+// Key i's row of K (kv 0) or V (kv 1), from column col: a cached slot, or
+// a new frame.
+template <typename KV>
+__device__ __forceinline__ const KV* key_row(const Args& a, const Keys& k, int kv, int i, int row,
+                                             int col) {
+  if (i < k.n_old) {
+    int s = k.slot0 + i;
+    if (s >= a.cap) s -= a.cap;
+    return slot_row<KV>(kv ? a.v_cache : a.k_cache, a, s, row, col);
+  }
+  return frame<KV>(kv ? a.v_new : a.k_new, row, a.n, k.f0 + i - k.n_old, col);
 }
 
 // The producer warp: item after item, the query rows into the query buffer
 // (with the item's len and valid in its header), then chunks of K spans and
 // of V spans into the stages; the lanes share the copies. Lane i holds the
 // len and valid of the item 32 items ahead's i-th, loaded once for 32 items.
-template <typename T>
+template <typename T, typename KV>
 __device__ __forceinline__ void produce(unsigned char* smem, const Args& a) {
   const Plan& p = a.p;
   const int lane = threadIdx.x & 31;
@@ -166,7 +244,8 @@ __device__ __forceinline__ void produce(unsigned char* smem, const Args& a) {
   unsigned long long* empty = reinterpret_cast<unsigned long long*>(smem + p.empty);
   unsigned long long* qfull = reinterpret_cast<unsigned long long*>(smem + p.qfull);
   unsigned long long* qempty = reinterpret_cast<unsigned long long*>(smem + p.qempty);
-  const int span = p.hg * a.dh * static_cast<int>(sizeof(T));
+  const int span = p.hg * a.dh * static_cast<int>(sizeof(KV));
+  const int q_span = p.hg * a.dh * static_cast<int>(sizeof(T));
   int g = 0, lens = 0, valid = 0;
   for (int item = blockIdx.x, k = 0; item < a.items; item += gridDim.x, ++k) {
     if (k % 32 == 0) {
@@ -179,41 +258,37 @@ __device__ __forceinline__ void produce(unsigned char* smem, const Args& a) {
     const int len = __shfl_sync(0xffffffffu, lens, k % 32);
     const int nv = __shfl_sync(0xffffffffu, valid, k % 32);
     const int row = item / p.groups, col = (item - row * p.groups) * p.hg * a.dh;
-    const int n_old = min(len, a.cap), n_keys = n_old + a.t_len;
-    const int nck = (n_keys + p.chunk - 1) / p.chunk;
+    const Keys ks = keys_of(a, len, nv);
+    const int nck = (ks.n_keys + p.chunk - 1) / p.chunk;
 
     mbar_wait(qempty, (k & 1) ^ 1);
     if (lane == 0) {
       int* hdr = reinterpret_cast<int*>(smem + p.q);
       hdr[0] = len;
       hdr[1] = nv;
-      mbar_expect_tx(qfull, a.t_len * span);
+      mbar_expect_tx(qfull, a.t_len * q_span);
     }
     __syncwarp();
     for (int ti = lane; ti < a.t_len; ti += 32)
-      bulk_copy_g2s(smem + p.q + 16 + ti * p.row_bytes, frame<T>(a.q, row, a.n, ti, col), span,
-                    qfull);
+      bulk_copy_g2s(smem + p.q + 16 + ti * p.q_row_bytes, frame<T>(a.q, row, a.n, ti, col),
+                    q_span, qfull);
 
     for (int j = 0; j < 2 * nck; ++j, ++g) {
       const int kv = j >= nck;
-      const int k0 = (j - kv * nck) * p.chunk, cnt = min(p.chunk, n_keys - k0);
+      const int k0 = (j - kv * nck) * p.chunk, cnt = min(p.chunk, ks.n_keys - k0);
       unsigned long long* bar = full + g % kStages;
       mbar_wait(empty + g % kStages, ((g / kStages) & 1) ^ 1);
       if (lane == 0) mbar_expect_tx(bar, cnt * span);
       __syncwarp();
       unsigned char* st = smem + (g % kStages) * p.stage_bytes;
-      for (int i = lane; i < cnt; i += 32) {
-        const int key = k0 + i;
-        const T* src = key < n_old
-                           ? slot_row<T>(kv ? a.v_cache : a.k_cache, a, key, row, col)
-                           : frame<T>(kv ? a.v_new : a.k_new, row, a.n, key - n_old, col);
-        bulk_copy_g2s(st + i * p.row_bytes, src, span, bar);
-      }
+      for (int i = lane; i < cnt; i += 32)
+        bulk_copy_g2s(st + i * p.row_bytes, key_row<KV>(a, ks, kv, k0 + i, row, col), span, bar);
     }
   }
 }
 
-template <typename T>
+// kCausal: the mask (query ti sees keys <= n_old + ti), else every key.
+template <typename T, typename KV, bool kCausal>
 __global__ void __launch_bounds__(kThreads, 2) temporal_append_pm_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan& p = a.p;
@@ -233,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_append_pm_kernel(const A
   }
   __syncthreads();
   if (tid >= kConsumers) {  // the producer warp
-    produce<T>(smem, a);
+    produce<T, KV>(smem, a);
     return;
   }
 
@@ -243,33 +318,33 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_append_pm_kernel(const A
   const int* hdr = reinterpret_cast<const int*>(smem + p.q);
   const T* qs = reinterpret_cast<const T*>(smem + p.q + 16);
   const int t_len = a.t_len, dh = a.dh, hg = p.hg, ss = p.ss, nc = dh / 8;
-  const int rs = p.row_bytes / static_cast<int>(sizeof(T));  // elements between staged rows
-  const int units = hg * dh * static_cast<int>(sizeof(T)) / 16;  // 16-byte units of a span
+  const int rs = p.row_bytes / static_cast<int>(sizeof(KV));  // elements between staged keys
+  const int qrs = p.q_row_bytes / static_cast<int>(sizeof(T));  // and staged queries
+  const int units = hg * dh * static_cast<int>(sizeof(KV)) / 16;  // 16-byte units of a span
   int g = 0;
   for (int item = blockIdx.x, k = 0; item < a.items; item += gridDim.x, ++k) {
     const int row = item / p.groups, col = (item - row * p.groups) * hg * dh;
     mbar_wait(qfull, k & 1);
-    const int len = hdr[0], nv = hdr[1];
-    const int n_old = min(len, a.cap), n_keys = n_old + t_len;
+    const Keys ks = keys_of(a, hdr[0], hdr[1]);
+    const int n_old = ks.n_old, n_keys = ks.n_keys;
     const int nck = (n_keys + p.chunk - 1) / p.chunk;
-    const int n_append = min(n_old + nv, a.cap) - n_old;  // new frames written: slots n_old..
     for (int j = 0; j < 2 * nck; ++j, ++g) {
       const int kv = j >= nck;
       const int k0 = (j - kv * nck) * p.chunk, cnt = min(p.chunk, n_keys - k0);
       mbar_wait(full + g % kStages, (g / kStages) & 1);
-      const T* buf = reinterpret_cast<const T*>(smem + (g % kStages) * p.stage_bytes);
+      const KV* buf = reinterpret_cast<const KV*>(smem + (g % kStages) * p.stage_bytes);
 
       if (!kv) {
         // scores: a task per (head, group of keys, query ti), queries fastest;
-        // query ti attends keys <= n_old + ti
+        // query ti attends keys <= n_old + ti (causal) or every key
         const int groups = (cnt + kKeyGroup - 1) / kKeyGroup, per_h = groups * t_len;
         for (int w = tid; w < hg * per_h; w += kConsumers) {
           const int h = w / per_h, r = w - h * per_h, gi = r / t_len, ti = r - gi * t_len;
-          const int j0 = k0 + gi * kKeyGroup, last = n_old + ti;
+          const int j0 = k0 + gi * kKeyGroup, last = kCausal ? n_old + ti : n_keys - 1;
           if (j0 > last) continue;
           const int nk = min(kKeyGroup, min(k0 + cnt, last + 1) - j0);
           float acc[kKeyGroup];
-          fullclip::dot_group(qs + ti * rs + h * dh, buf + (j0 - k0) * rs + h * dh, rs, nk, dh,
+          fullclip::dot_group(qs + ti * qrs + h * dh, buf + (j0 - k0) * rs + h * dh, rs, nk, dh,
                               acc);
           float* to = scores + (h * t_len + ti) * ss + j0;
 #pragma unroll
@@ -298,7 +373,8 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_append_pm_kernel(const A
               load8(sums + f * dh, acc[f]);
             }
           }
-          const int end = min(k0 + cnt, n_old + t0 + 1);  // keys of both queries
+          // keys of both queries (causal: t0's; t0 + 1's last one below)
+          const int end = kCausal ? min(k0 + cnt, n_old + t0 + 1) : k0 + cnt;
 #pragma unroll 4
           for (int jj = k0; jj < end; ++jj) {
             float vf[8];
@@ -311,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_append_pm_kernel(const A
             }
           }
           const int extra = n_old + t0 + 1;  // query t0 + 1's own frame
-          if (two && extra >= k0 && extra < k0 + cnt) {
+          if (kCausal && two && extra >= k0 && extra < k0 + cnt) {
             float vf[8];
             load8(buf + (extra - k0) * rs + c, vf);
             const float a1 = p1[extra];
@@ -334,12 +410,13 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_append_pm_kernel(const A
         }
       }
 
-      // the chunk's new frames that are appended: key index = slot
-      const int a0 = max(k0, n_old), a1 = min(k0 + cnt, n_old + n_append);
+      // the chunk's new frames that are written, from the staged rows
+      const int a0 = max(k0, n_old), a1 = min(k0 + cnt, n_old + ks.n_write);
       for (int w = tid; w < (a1 - a0) * units; w += kConsumers) {
         const int i = a0 + w / units, u = w - (w / units) * units;
-        reinterpret_cast<uint4*>(slot_row<T>(kv ? a.v_cache : a.k_cache, a, i, row, col))[u] =
-            reinterpret_cast<const uint4*>(buf + (i - k0) * rs)[u];
+        KV* to = slot_row<KV>(kv ? a.v_cache : a.k_cache, a,
+                              slot_of(a, ks, ks.f0 + i - n_old), row, col);
+        reinterpret_cast<uint4*>(to)[u] = reinterpret_cast<const uint4*>(buf + (i - k0) * rs)[u];
       }
 
       if (!kv && j == nck - 1) {  // every score in: the queries' buffer is free, then the softmax
@@ -347,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_append_pm_kernel(const A
         if (tid == 0) mbar_arrive(qempty);
         for (int w = tid; w < hg * t_len; w += kConsumers) {  // a thread per (head, query)
           float* sr = scores + w * ss;
-          const int n = n_old + w % t_len + 1;
+          const int n = kCausal ? n_old + w % t_len + 1 : n_keys;
           float m = -INFINITY;
           for (int jj = 0; jj < n; ++jj) m = fmaxf(m, sr[jj]);
           float sum = 0.f;
@@ -365,67 +442,136 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_append_pm_kernel(const A
   }
 }
 
-template <typename T>
+// Keys k0 .. k0 + nk - 1 of K (kv 0) or V (kv 1), columns col .. col + dh
+// - 1, as kTile fp32 rows of dh + 1 (tiled.cuh's staging), zeros past nk.
+template <typename KV>
+__device__ __forceinline__ void stage_keys(float* dst, const Args& a, const Keys& ks, int kv,
+                                           int k0, int nk, int row, int col) {
+  const int dh = a.dh;
+  for (int i = threadIdx.x; i < tiled::kTile * dh; i += tiled::kThreads) {
+    const int r = i / dh, e = i - r * dh;
+    dst[r * (dh + 1) + e] = r < nk ? to_f32(key_row<KV>(a, ks, kv, k0 + r, row, col)[e]) : 0.f;
+  }
+}
+
+// The tiled body: a block an item of (row, head, kTile queries), tiled.cuh's
+// `attend` over the item's key sequence; the block of an item's first query
+// tile also writes its head's slice of the appended rows (reads and writes
+// are disjoint, so the order among blocks does not matter).
+template <typename T, typename KV>
+__global__ void __launch_bounds__(tiled::kThreads) temporal_append_pm_tiled_kernel(const Args a) {
+  extern __shared__ __align__(16) float sm[];
+  const int dh = a.dh, nc = dh / 8, tiles = (a.t_len + tiled::kTile - 1) / tiled::kTile;
+  const int rh = blockIdx.x / tiles, row = rh / a.heads, col = (rh - row * a.heads) * dh;
+  const int t0 = (blockIdx.x - rh * tiles) * tiled::kTile, nt = min(tiled::kTile, a.t_len - t0);
+  const int stream = row / a.rows_per_stream;
+  const Keys ks = keys_of(a, a.lens[stream], a.valid[stream]);
+  tiled::load_rows<T>(sm, a.q, a.n, row, t0, nt, col, dh);
+  tiled::attend(
+      sm, dh, t0, nt, ks.n_keys, a.causal, ks.n_old, a.scale,
+      [&](float* dst, int k0, int nk) { stage_keys<KV>(dst, a, ks, 0, k0, nk, row, col); },
+      [&](float* dst, int k0, int nk) { stage_keys<KV>(dst, a, ks, 1, k0, nk, row, col); },
+      [&](int i, int c, const float* v) {
+        store8(static_cast<T*>(a.out.p) + fullclip::at(a.out, row, a.n, t0 + i, col + c), v);
+      });
+  if (t0 == 0)
+    for (int w = threadIdx.x; w < 2 * ks.n_write * nc; w += tiled::kThreads) {
+      const int kv = w / (ks.n_write * nc), r = w - kv * ks.n_write * nc;
+      const int f = ks.f0 + r / nc, c = r % nc * 8;
+      copy8(slot_row<KV>(kv ? a.v_cache : a.k_cache, a, slot_of(a, ks, f), row, col + c),
+            frame<KV>(kv ? a.v_new : a.k_new, row, a.n, f, col + c));
+    }
+}
+
+template <typename T, typename KV>
 int launch(const void* const* ptrs, const long long* strides, void* k_cache, void* v_cache,
            const void* lens, const void* valid, int rows_per_stream, int batch, int n,
-           int t_len, int cap, int d, int heads, float scale, cudaStream_t stream) {
+           int t_len, int cap, int d, int heads, float scale, int causal, int ring, int tiled_body,
+           cudaStream_t stream) {
   const int dh = d / heads;
-  const Plan p = plan(heads, t_len, cap, dh, sizeof(T));
-  if (p.hg < 1 || t_len < 1 || t_len > kMaxT || dh % 8)
+  if (t_len < 1 || dh % 8 || dh > 128 || (ring && causal && t_len > 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   Operand* ops[4] = {&a.q, &a.k_new, &a.v_new, &a.out};
-  for (int o = 0; o < 4; ++o)
-    *ops[o] = {const_cast<void*>(ptrs[o]), strides[3 * o], strides[3 * o + 1],
-               strides[3 * o + 2]};
+  for (int o = 0; o < 4; ++o) *ops[o] = fullclip::operand(ptrs, strides, o);
   a.k_cache = k_cache;
   a.v_cache = v_cache;
   a.lens = static_cast<const int*>(lens);
   a.valid = static_cast<const int*>(valid);
   a.rows_per_stream = rows_per_stream;
-  a.p = p;
   a.rows = batch * n;
-  a.items = a.rows * p.groups;
   a.n = n;
   a.t_len = t_len;
   a.cap = cap;
   a.d = d;
   a.dh = dh;
+  a.heads = heads;
+  a.causal = causal;
+  a.ring = ring;
   a.scale = scale;
+  if (tiled_body) {
+    const unsigned grid = static_cast<unsigned>(a.rows) * heads *
+                          ((t_len + tiled::kTile - 1) / tiled::kTile);
+    return tiled::launch_grid(temporal_append_pm_tiled_kernel<T, KV>, tiled::forward_smem(dh),
+                              grid, a, stream);
+  }
+  a.p = plan(heads, t_len, cap, dh, sizeof(KV), sizeof(T));
+  if (a.p.hg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  a.items = a.rows * a.p.groups;
+  auto kernel = causal ? temporal_append_pm_kernel<T, KV, true>
+                       : temporal_append_pm_kernel<T, KV, false>;
   int blocks = 0;
-  const cudaError_t err =
-      persistent_grid(temporal_append_pm_kernel<T>, kThreads, p.total, a.items, &blocks);
+  const cudaError_t err = persistent_grid(kernel, kThreads, a.p.total, a.items, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  temporal_append_pm_kernel<T><<<blocks, kThreads, p.total, stream>>>(a);
+  kernel<<<blocks, kThreads, a.p.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+int elt(int dtype) { return dtype == SF_BFLOAT16 ? 2 : 4; }
+
 }  // namespace
 
-// Shared memory of the plan a launch takes (0 when none fits), and its heads
-// an item and keys a stage.
+// The whole-table plan of a launch with queries and caches of one dtype:
+// its shared memory (0 when none fits), heads an item and keys a stage.
 extern "C" int sf_temporal_append_pm_plan(int t_len, int capacity, int d, int heads, int dtype,
                                           int* hg, int* chunk) {
-  const Plan p = plan(heads, t_len, capacity, d / heads, dtype == SF_BFLOAT16 ? 2 : 4);
+  const Plan p = plan(heads, t_len, capacity, d / heads, elt(dtype), elt(dtype));
   *hg = p.hg;
   *chunk = p.chunk;
   return p.hg ? p.total : 0;
 }
 
+// Shared memory a block of the whole-table body needs, queries of dtype and
+// caches of kv_dtype; 0 where only the tiled body takes the shape (past
+// kMaxT frames, or no plan fits).
+extern "C" int sf_temporal_append_pm_smem_bytes(int t_len, int capacity, int d, int heads,
+                                                int dtype, int kv_dtype) {
+  const Plan p = plan(heads, t_len, capacity, d / heads, elt(kv_dtype), elt(dtype));
+  return p.hg ? p.total : 0;
+}
+
 // ptrs: q, k_new, v_new, out; strides: their (b, t, n) element strides,
 // three each; the caches (C, batch * n, D) contiguous; lens and valid one
-// int32 per stream of rows_per_stream rows.
+// int32 per stream of rows_per_stream rows. q and out of dtype, k_new, v_new
+// and the caches of kv_dtype. causal: 0 lets every query see every key;
+// ring: the ring's window (not causal past one frame); tiled: 1 runs the
+// tiled body (the same bits), 0 the whole-table one.
 extern "C" int sf_temporal_append_pm(const void* const* ptrs, const long long* strides,
                                      void* k_cache, void* v_cache, const void* lens,
                                      const void* valid, int rows_per_stream, int batch, int n,
                                      int t_len, int capacity, int d, int heads, float scale,
-                                     int dtype, void* stream) {
+                                     int causal, int ring, int tiled, int dtype, int kv_dtype,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == SF_BFLOAT16)
-    return launch<__nv_bfloat16>(ptrs, strides, k_cache, v_cache, lens, valid, rows_per_stream,
-                                 batch, n, t_len, capacity, d, heads, scale, st);
-  if (dtype == SF_FLOAT32)
-    return launch<float>(ptrs, strides, k_cache, v_cache, lens, valid, rows_per_stream, batch,
-                         n, t_len, capacity, d, heads, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define SF_APPEND(T, KV)                                                                      \
+  return launch<T, KV>(ptrs, strides, k_cache, v_cache, lens, valid, rows_per_stream, batch, n, \
+                       t_len, capacity, d, heads, scale, causal, ring, tiled, st)
+  const bool q16 = dtype == SF_BFLOAT16, kv16 = kv_dtype == SF_BFLOAT16;
+  if ((!q16 && dtype != SF_FLOAT32) || (!kv16 && kv_dtype != SF_FLOAT32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (q16 && kv16) SF_APPEND(__nv_bfloat16, __nv_bfloat16);
+  if (q16) SF_APPEND(__nv_bfloat16, float);
+  if (kv16) SF_APPEND(float, __nv_bfloat16);
+  SF_APPEND(float, float);
+#undef SF_APPEND
 }

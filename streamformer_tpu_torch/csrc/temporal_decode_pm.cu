@@ -22,6 +22,11 @@
 // never spans two streams; here each block looks up its own row's length,
 // so rows are not padded.
 //
+// q and the output are in the compute type, k_new, v_new and the caches in
+// the cache's (float or bfloat16 either way: a cache in another type than
+// the compute type, the new frame rounded to it by the caller as the JAX
+// package rounds it, `kn.astype(cache dtype)`); the arithmetic is fp32.
+//
 // Keys are taken in position order, oldest first and the new frame last,
 // with the arithmetic of temporal_fullclip.cu step for step (decode_row.cuh
 // states it), so on the linear cache a streamed frame's attention output
@@ -43,62 +48,70 @@
 
 namespace {
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(decode::kThreads)
-temporal_decode_pm_kernel(const decode::Args<T, T> a) {
-  decode::decode_rows<T, T>(a);
+temporal_decode_pm_kernel(const decode::Args<T, KV> a) {
+  decode::decode_rows<T, KV>(a);
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
            const void* lens, int rows_per_stream, void* out, int rows, int capacity, int d,
            int heads, long slot_stride, long row_stride, float scale, cudaStream_t stream) {
-  decode::Args<T, T> a{static_cast<const T*>(q), static_cast<const T*>(k_new),
-                       static_cast<const T*>(v_new), nullptr, nullptr,
-                       static_cast<T*>(k_cache), static_cast<T*>(v_cache), nullptr, nullptr,
-                       static_cast<const int*>(lens), rows_per_stream, static_cast<T*>(out),
-                       rows, capacity, d, heads, slot_stride, row_stride, scale};
-  const decode::Plan plan = decode::plan(d, heads, capacity, sizeof(T), sizeof(T), false);
+  decode::Args<T, KV> a{static_cast<const T*>(q), static_cast<const KV*>(k_new),
+                        static_cast<const KV*>(v_new), nullptr, nullptr,
+                        static_cast<KV*>(k_cache), static_cast<KV*>(v_cache), nullptr, nullptr,
+                        static_cast<const int*>(lens), rows_per_stream, static_cast<T*>(out),
+                        rows, capacity, d, heads, slot_stride, row_stride, scale};
+  const decode::Plan plan = decode::plan(d, heads, capacity, sizeof(KV), sizeof(T), false);
   int blocks = 0;
-  const cudaError_t err =
-      persistent_grid(temporal_decode_pm_kernel<T>, decode::kThreads, plan.total, rows, &blocks);
+  const cudaError_t err = persistent_grid(temporal_decode_pm_kernel<T, KV>, decode::kThreads,
+                                          plan.total, rows, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  temporal_decode_pm_kernel<T><<<blocks, decode::kThreads, plan.total, stream>>>(a);
+  temporal_decode_pm_kernel<T, KV><<<blocks, decode::kThreads, plan.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// row_major: the caches are (R, C, D), else (C, R, D)
+int elt(int dtype) { return dtype == SF_FLOAT32 ? 4 : 2; }
+
+// row_major: the caches are (R, C, D), else (C, R, D). q and out of dtype,
+// k_new, v_new and the caches of kv_dtype.
 int dispatch(const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
              const void* lens, int rows_per_stream, void* out, int rows, int capacity, int d,
-             int heads, bool row_major, float scale, int dtype, void* stream) {
+             int heads, bool row_major, float scale, int dtype, int kv_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long slot_stride = row_major ? d : static_cast<long>(rows) * d;
   const long row_stride = row_major ? static_cast<long>(capacity) * d : d;
-  if (dtype == SF_BFLOAT16)
-    return launch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out,
-                                 rows, capacity, d, heads, slot_stride, row_stride, scale, st);
-  if (dtype == SF_FLOAT32)
-    return launch<float>(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out, rows,
-                         capacity, d, heads, slot_stride, row_stride, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define SF_DECODE(T, KV)                                                                      \
+  return launch<T, KV>(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out, rows,   \
+                       capacity, d, heads, slot_stride, row_stride, scale, st)
+  const bool q16 = dtype == SF_BFLOAT16, kv16 = kv_dtype == SF_BFLOAT16;
+  if ((!q16 && dtype != SF_FLOAT32) || (!kv16 && kv_dtype != SF_FLOAT32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (q16 && kv16) SF_DECODE(__nv_bfloat16, __nv_bfloat16);
+  if (q16) SF_DECODE(__nv_bfloat16, float);
+  if (kv16) SF_DECODE(float, __nv_bfloat16);
+  SF_DECODE(float, float);
+#undef SF_DECODE
 }
 
 }  // namespace
 
-// Shared memory a block needs at width d, heads and capacity, for dtype (the
-// same on the row-major and the pos-major cache).
-extern "C" int sf_temporal_decode_pm_smem_bytes(int d, int heads, int capacity, int dtype) {
-  const int elt = dtype == SF_FLOAT32 ? 4 : 2;
-  return decode::plan(d, heads, capacity, elt, elt, false).total;
+// Shared memory a block needs at width d, heads and capacity, for queries
+// of dtype and a cache of kv_dtype (the same on the row-major and the
+// pos-major cache).
+extern "C" int sf_temporal_decode_pm_smem_bytes(int d, int heads, int capacity, int dtype,
+                                                int kv_dtype) {
+  return decode::plan(d, heads, capacity, elt(kv_dtype), elt(dtype), false).total;
 }
 
 // A: one stream, len a single device int32
 extern "C" int sf_temporal_decode_pm(const void* q, const void* k_new, const void* v_new,
                                      void* k_cache, void* v_cache, const void* len, void* out,
                                      int rows, int capacity, int d, int heads, float scale,
-                                     int dtype, void* stream) {
+                                     int dtype, int kv_dtype, void* stream) {
   return dispatch(q, k_new, v_new, k_cache, v_cache, len, rows, out, rows, capacity, d, heads,
-                  false, scale, dtype, stream);
+                  false, scale, dtype, kv_dtype, stream);
 }
 
 // D: rows / rows_per_stream streams, lens a device int32 vector of that length
@@ -106,16 +119,16 @@ extern "C" int sf_temporal_decode_pm_ragged(const void* q, const void* k_new, co
                                             void* k_cache, void* v_cache, const void* lens,
                                             int rows_per_stream, void* out, int rows,
                                             int capacity, int d, int heads, float scale,
-                                            int dtype, void* stream) {
+                                            int dtype, int kv_dtype, void* stream) {
   return dispatch(q, k_new, v_new, k_cache, v_cache, lens, rows_per_stream, out, rows, capacity,
-                  d, heads, false, scale, dtype, stream);
+                  d, heads, false, scale, dtype, kv_dtype, stream);
 }
 
 // J: one stream on the row-major (R, C, D) caches, len a single device int32
 extern "C" int sf_temporal_decode_rm(const void* q, const void* k_new, const void* v_new,
                                      void* k_cache, void* v_cache, const void* len, void* out,
                                      int rows, int capacity, int d, int heads, float scale,
-                                     int dtype, void* stream) {
+                                     int dtype, int kv_dtype, void* stream) {
   return dispatch(q, k_new, v_new, k_cache, v_cache, len, rows, out, rows, capacity, d, heads,
-                  true, scale, dtype, stream);
+                  true, scale, dtype, kv_dtype, stream);
 }

@@ -3,7 +3,9 @@
 // block's shared memory. C and H (temporal_fullclip*.cu) take it once one
 // head's (T x T) scores and its T frames no longer fit fullclip.cuh's plan;
 // the fp32 bodies of B, L and I (spatial_flat*.cu) once N passes 256 keys a
-// lane or the block's shared memory.
+// lane or the block's shared memory; E (temporal_append_pm.cu) past 32 new
+// frames or its whole-table plan, on `attend` with the cached prefix in
+// front of the new frames.
 //
 // Operands are fullclip.cuh's: a base pointer and element strides over
 // (b, t, n), D contiguous, row = b * n + n'; the sequence runs along t (the
@@ -108,20 +110,26 @@ __device__ __forceinline__ bool visible(const Args& a, int qpos, int kpos) {
 
 // ---- forward: out = softmax(q k^T scale) v
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
-  extern __shared__ __align__(16) float sm[];
-  const int dh = a.dh, ld = dh + 1, nc = dh / 8;
+// The forward of one item: its nt queries (rows t0 .. t0 + nt - 1), staged
+// in fp32 at the start of `sm` (forward_smem) by the caller, against keys
+// 0 .. n_keys - 1, which load_k(dst, k0, nk) and load_v(dst, k0, nk) stage
+// as kTile fp32 rows of dh + 1 (zeros past nk). Causal: query t0 + i sees
+// keys <= t0 + i + off (off: the keys in front of the first query's own,
+// E's cached prefix; 0 for C). store(i, c, acc) takes query i's eight
+// outputs from column c.
+template <typename LoadK, typename LoadV, typename Store>
+__device__ __forceinline__ void attend(float* sm, int dh, int t0, int nt, int n_keys, bool causal,
+                                       int off, float scale, LoadK load_k, LoadV load_v,
+                                       Store store) {
+  const int ld = dh + 1, nc = dh / 8;
   float* qs = sm;                  // kTile x ld
   float* ks = qs + kTile * ld;     // kTile x ld
   float* vs = ks + kTile * ld;     // kTile x ld
   float* sc = vs + kTile * ld;     // kTile x kLd
   float* mx = sc + kTile * kLd;    // kTile
   float* sum = mx + kTile;         // kTile
-  const Item it = item_of(a);
   const int tid = threadIdx.x;
-  const int kend = a.causal ? it.t0 + it.nt : a.len;  // keys the tile sees
-  load_rows<T>(qs, a.q, a.n, it.row, it.t0, it.nt, it.col, dh);
+  const int kend = causal ? min(n_keys, t0 + nt + off) : n_keys;  // keys the tile sees
   if (tid < kTile) {
     mx[tid] = -INFINITY;
     sum[tid] = 0.f;
@@ -130,15 +138,15 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
   for (int k0 = 0; k0 < kend; k0 += kTile) {
     const int nk = min(kTile, kend - k0);
     __syncthreads();
-    load_rows<T>(ks, a.k, a.n, it.row, k0, nk, it.col, dh);
+    load_k(ks, k0, nk);
     __syncthreads();
     for (int w = tid; w < kTile * kTile; w += kThreads) {
       const int i = w / kTile, j = w - i * kTile;
-      const bool on = i < it.nt && j < nk && visible(a, it.t0 + i, k0 + j);
-      sc[i * kLd + j] = on ? __fmul_rn(dot(qs + i * ld, ks + j * ld, dh), a.scale) : -INFINITY;
+      const bool on = i < nt && j < nk && (!causal || k0 + j <= t0 + i + off);
+      sc[i * kLd + j] = on ? __fmul_rn(dot(qs + i * ld, ks + j * ld, dh), scale) : -INFINITY;
     }
     __syncthreads();
-    if (tid < it.nt) {
+    if (tid < nt) {
       float m = mx[tid];
       for (int j = 0; j < nk; ++j) m = fmaxf(m, sc[tid * kLd + j]);
       mx[tid] = m;
@@ -153,17 +161,17 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
   for (int k0 = 0; k0 < kend; k0 += kTile) {
     const int nk = min(kTile, kend - k0);
     __syncthreads();
-    load_rows<T>(ks, a.k, a.n, it.row, k0, nk, it.col, dh);
-    load_rows<T>(vs, a.v, a.n, it.row, k0, nk, it.col, dh);
+    load_k(ks, k0, nk);
+    load_v(vs, k0, nk);
     __syncthreads();
     for (int w = tid; w < kTile * kTile; w += kThreads) {
       const int i = w / kTile, j = w - i * kTile;
-      const bool on = i < it.nt && j < nk && visible(a, it.t0 + i, k0 + j);
+      const bool on = i < nt && j < nk && (!causal || k0 + j <= t0 + i + off);
       sc[i * kLd + j] =
-          on ? expf(__fsub_rn(__fmul_rn(dot(qs + i * ld, ks + j * ld, dh), a.scale), mx[i])) : 0.f;
+          on ? expf(__fsub_rn(__fmul_rn(dot(qs + i * ld, ks + j * ld, dh), scale), mx[i])) : 0.f;
     }
     __syncthreads();
-    if (tid < it.nt) {
+    if (tid < nt) {
       float s = sum[tid];
       for (int j = 0; j < nk; ++j) s = __fadd_rn(s, sc[tid * kLd + j]);
       sum[tid] = s;
@@ -172,8 +180,8 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
     for (int f = 0; f < 2; ++f) {
       const int w = tid + f * kThreads;
       const int i = w / nc, c = (w - i * nc) * 8;
-      if (i < it.nt) {
-        const int jn = a.causal ? min(nk, it.t0 + i - k0 + 1) : nk;
+      if (i < nt) {
+        const int jn = causal ? min(nk, t0 + i + off - k0 + 1) : nk;
         for (int j = 0; j < jn; ++j) {
           const float p = sc[i * kLd + j];
 #pragma unroll
@@ -187,13 +195,28 @@ __global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
   for (int f = 0; f < 2; ++f) {
     const int w = tid + f * kThreads;
     const int i = w / nc, c = (w - i * nc) * 8;
-    if (i < it.nt) {
+    if (i < nt) {
       const float inv = __fdiv_rn(1.f, sum[i]);
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[f][e] = __fmul_rn(acc[f][e], inv);
-      store_row8<T>(a.o0, a.n, it.row, it.t0 + i, it.col + c, acc[f]);
+      store(i, c, acc[f]);
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) forward_kernel(const Args a) {
+  extern __shared__ __align__(16) float sm[];
+  const int dh = a.dh;
+  const Item it = item_of(a);
+  load_rows<T>(sm, a.q, a.n, it.row, it.t0, it.nt, it.col, dh);
+  attend(
+      sm, dh, it.t0, it.nt, a.len, a.causal, 0, a.scale,
+      [&](float* dst, int k0, int nk) { load_rows<T>(dst, a.k, a.n, it.row, k0, nk, it.col, dh); },
+      [&](float* dst, int k0, int nk) { load_rows<T>(dst, a.v, a.n, it.row, k0, nk, it.col, dh); },
+      [&](int i, int c, const float* v) {
+        store_row8<T>(a.o0, a.n, it.row, it.t0 + i, it.col + c, v);
+      });
 }
 
 // ---- backward, query side: dq, and each query's max, 1/sum and delta
@@ -385,13 +408,21 @@ inline unsigned grid(int rows, const Args& a) {
 inline int forward_smem(int dh) { return smem_bytes(dh, 3 * kTile, 1, 2); }
 inline int backward_smem(int dh) { return smem_bytes(dh, 4 * kTile, 2, 3); }  // either side
 
-template <typename Kernel>
-inline int launch_one(Kernel kernel, int smem, int rows, const Args& a, cudaStream_t stream) {
+// A launch of `grid` blocks of kThreads with `smem` bytes of dynamic shared
+// memory (the attribute set first: past 48 KB a launch needs it).
+template <typename Kernel, typename KArgs>
+inline int launch_grid(Kernel kernel, int smem, unsigned grid, const KArgs& a,
+                       cudaStream_t stream) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid(rows, a), kThreads, smem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+inline int launch_one(Kernel kernel, int smem, int rows, const Args& a, cudaStream_t stream) {
+  return launch_grid(kernel, smem, grid(rows, a), a, stream);
 }
 
 // out (a.o0) = attention of a.q, a.k, a.v; rows: the operands' rows (b * n).

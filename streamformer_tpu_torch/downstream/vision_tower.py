@@ -78,10 +78,12 @@ class TimesformerVisionTower:
         return T.to_model_input(T.normalize(x))
 
     def _chunk(self) -> int:
-        """Frames per call on the linear cache: what one kernel-E call takes
-        at this capacity, and at most ``num_frames``; 1 (kernel D) where not
-        one frame of E's plan fits (capacities in the tens of thousands)."""
-        return max(1, min(ops.append_frame_cap(self.cfg.cache_capacity), self.cfg.num_frames))
+        """Frames per call on the linear cache: what kernel E's whole-table
+        body takes at this capacity, and at most ``num_frames``; ``num_frames``
+        (E's tiled body) where not one frame of that plan fits (capacities in
+        the tens of thousands), as the serving engine chunks."""
+        fast = ops.append_frame_cap(self.cfg.cache_capacity)
+        return min(fast or self.cfg.num_frames, self.cfg.num_frames)
 
     @torch.no_grad()
     def forward(self, pixel_values) -> torch.Tensor:

@@ -595,35 +595,39 @@ def temporal_attention(
     Streaming: the new frames attend the cache and their K/V are written IN
     PLACE into ``cache_kv["k"]`` and ``cache_kv["v"]``; ``cache_len`` (one
     length, or (B,) per stream for the ragged cache) is not advanced here.
-    On the pos-major cache:
+    Not causal, every new frame of a call sees every other (and the cache),
+    as in the JAX package. On the pos-major float cache:
 
     - t = 1 without ``new_valid``: ``ops.temporal_decode_pm`` (one length)
       or ``ops.temporal_decode_pm_ragged`` (per stream), appending at slot
-      ``len % C``. The same call serves the linear cache and the ring.
-    - t >= 2 on the ring (lockstep only, as in the JAX package): one t=1
-      decode per new frame, frame ti at position len + ti, so query p sees
+      ``len % C``; the same call serves the linear cache and the ring. Past
+      the capacity their plan takes (``ops.decode_fits``), kernel E at t = 1
+      (``ring`` on the ring).
+    - t >= 2 on the ring, causal (lockstep only, as in the JAX package): one
+      t=1 step per new frame, frame ti at position len + ti, so query p sees
       positions (p - C, p] and of t > C frames only the last C stay, the
       function of the JAX package's ``_ring_attend_pos_major``.
-    - t >= 2 on the linear cache, or ``new_valid`` given:
-      ``ops.temporal_append_pm_qkv`` (kernel E on the (B, T, N, 3D) qkv as
-      it is, up to 32 frames a call). Stream b appends its first
-      ``new_valid[b]`` frames (all t by default) at slots len[b] + ti; a
-      lockstep cache is one stream of all B*N rows.
+    - Otherwise (the linear cache, lockstep or ragged, t >= 2 or
+      ``new_valid``; the ring not causal, lockstep only):
+      ``ops.temporal_append_pm_qkv``, kernel E on the (B, T, N, 3D) qkv as it
+      is, any t. Stream b appends its first ``new_valid[b]`` frames (all t by
+      default) at slots len[b] + ti; a lockstep cache is one stream of all
+      B*N rows. On the ring every query sees the window of the C positions
+      ending at the call's last frame, and the last min(t, C) frames are
+      written.
+
+    A float cache in another dtype than the compute dtype (a mixed cache)
+    takes the new frames' K/V rounded to its dtype, as the JAX package writes
+    them before it attends them; every kernel reads it in fp32.
 
     An int8 cache (``"k_scale"`` in ``cache_kv``) runs kernel F (one
-    length) or G (per stream) for each new frame, frame ti at position
-    len + ti: the new frame's K/V rows are quantized, attended dequantized
-    and appended with their scales, the function of the JAX package's
-    einsum path, which quantizes first and attends the dequantized view.
-    ``new_valid`` on an int8 cache raises.
+    length) or G (per stream): see ``_attend_int8``.
 
     The row-major cache (``cfg.cache_layout == "row_major"``) takes
     ``_row_major_attend``; ``attend_cap`` bounds the keys its einsum paths
     read, as the JAX package's capacity bucketing does.
 
-    Not causal, one new frame sees what a causal one sees (the cache and
-    itself), so t = 1 runs the kernels above; t >= 2 raises (ROADMAP item
-    3b).
+    ``new_valid`` is causal only, and linear only, as in the JAX package.
     """
     causal = cfg.enable_causal_temporal
     if cache_kv is None:  # C (and H) read qkv and write ctx in place: no copies around them
@@ -636,11 +640,6 @@ def temporal_attention(
     if parallel is not None:
         raise NotImplementedError("streaming a tensor-parallel encoder (ROADMAP item 14b)")
     b, t, n, d = x.shape
-    if not causal and t >= 2:
-        raise NotImplementedError(
-            "non-causal streaming of more than one new frame a call (ROADMAP slice 1, "
-            "item 3b); stream one frame a call"
-        )
     h = cfg.num_attention_heads
     qkv = dense(x, attn.attention.qkv)  # (B, T, N, 3D)
     ragged = cache_len.ndim == 1
@@ -654,60 +653,121 @@ def temporal_attention(
             )
         return dense(_row_major_attend(qkv, cache_kv, cache_len, cfg, attend_cap),
                      attn.output.dense)
-    quantized = "k_scale" in cache_kv
     ring = cfg.cache_mode == "ring"
-    if quantized and new_valid is not None:
-        raise NotImplementedError(
-            "partial appends (new_valid) on an int8 cache (ROADMAP slice 3, item 9b)"
-        )
-    if ring and new_valid is not None:
-        raise ValueError("new_valid holds are illegal in ring mode (a wrap-around dummy write "
-                         "would evict in-window history)")
-    if t == 1 and new_valid is None:
-        def rows1(i):  # (B, 1, N, D) slice -> (B*N, D)
-            return qkv[..., i * d:(i + 1) * d].reshape(b * n, d).contiguous()
-
-        if quantized:
-            ctx = _decode_int8(rows1(0), rows1(1), rows1(2), cache_kv, cache_len, n, h)
-        elif ragged:
-            ctx = ops.temporal_decode_pm_ragged(
-                rows1(0), rows1(1), rows1(2), cache_kv["k"], cache_kv["v"], cache_len, n, h
-            )
-        else:
-            ctx = ops.temporal_decode_pm(
-                rows1(0), rows1(1), rows1(2), cache_kv["k"], cache_kv["v"], cache_len, h
-            )
-        return dense(ctx.reshape(b, 1, n, d), attn.output.dense)
-    if ring and ragged:
+    if new_valid is not None:
+        if ring:
+            raise ValueError("new_valid holds are illegal in ring mode (a wrap-around dummy "
+                             "write would evict in-window history)")
+        if not causal:
+            raise ValueError("new_valid (partial multi-frame appends) is causal-only, as in the "
+                             "JAX package")
+    if ring and ragged and t >= 2:
         raise NotImplementedError(
             "ragged (per-stream) lengths reach the ring cache only through the t=1 decode "
             "(whose slot-mod write and mask handle them); multi-frame ring appends are "
             "lockstep-only"
         )
-    if quantized or ring:
-        def frame(i, ti):  # frame ti of slice i -> (B*N, D)
-            return qkv[:, ti, :, i * d:(i + 1) * d].reshape(b * n, d).contiguous()
-
-        def decode(ti):  # frame ti at position len + ti
-            lens = cache_len + ti if ti else cache_len
-            if quantized:
-                return _decode_int8(frame(0, ti), frame(1, ti), frame(2, ti), cache_kv, lens, n, h)
-            return ops.temporal_decode_pm(frame(0, ti), frame(1, ti), frame(2, ti),
-                                          cache_kv["k"], cache_kv["v"], lens, h)
-
-        ctx = torch.stack([decode(ti) for ti in range(t)])
-        return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
-
+    if "k_scale" in cache_kv:
+        return dense(_attend_int8(qkv, cache_kv, cache_len, new_valid, causal, h),
+                     attn.output.dense)
     if ragged:
         lens, per_stream = cache_len, n
     else:  # lockstep: one stream of all B*N rows
         lens, per_stream = cache_len.reshape(1), b * n
-    if new_valid is None:
-        new_valid = torch.full(lens.shape, t, dtype=torch.int32, device=lens.device)
+    kv_dt = cache_kv["k"].dtype
+    fits = ops.decode_fits(d, h, cache_kv["k"].shape[0], qkv.dtype, kv_dt, qkv.device)
+
+    def append(qkv_, length, valid=None):
+        """Kernel E on qkv_ (B, t', N, 3D) at ``length``, its K/V rounded to
+        the cache's dtype first where that differs. One frame sees what a
+        causal one sees, so t' = 1 takes the mask, which the ring allows."""
+        kv = None if kv_dt == qkv.dtype else qkv_[..., d:].to(kv_dt)
+        if valid is None:
+            valid = torch.full(length.shape, qkv_.shape[1], dtype=torch.int32,
+                               device=length.device)
+        return ops.temporal_append_pm_qkv(qkv_, cache_kv["k"], cache_kv["v"], length, valid,
+                                          per_stream, h, causal or qkv_.shape[1] == 1, ring, kv)
+
+    def decode(ti, length):  # frame ti at position ``length`` -> (B*N, D)
+        if not fits:
+            return append(qkv[:, ti:ti + 1], length).reshape(b * n, d)
+
+        def rows(i):  # frame ti of slice i -> (B*N, D); K and V in the cache's dtype
+            x_ = qkv[:, ti, :, i * d:(i + 1) * d].reshape(b * n, d)
+            return (x_ if i == 0 else x_.to(kv_dt)).contiguous()
+
+        if ragged:
+            return ops.temporal_decode_pm_ragged(rows(0), rows(1), rows(2), cache_kv["k"],
+                                                 cache_kv["v"], length, n, h)
+        return ops.temporal_decode_pm(rows(0), rows(1), rows(2), cache_kv["k"], cache_kv["v"],
+                                      length.reshape(()), h)
+
+    if t == 1 and new_valid is None:
+        return dense(decode(0, lens).reshape(b, 1, n, d), attn.output.dense)
+    if ring and causal:
+        ctx = torch.stack([decode(ti, lens + ti if ti else lens) for ti in range(t)])
+        return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
     # E reads q, k, v from qkv and writes ctx (B, T, N, D) in place: no copies around it
-    ctx = ops.temporal_append_pm_qkv(qkv, cache_kv["k"], cache_kv["v"], lens, new_valid,
-                                     per_stream, h)
-    return dense(ctx, attn.output.dense)
+    return dense(append(qkv, lens, new_valid), attn.output.dense)
+
+
+def _attend_int8(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
+                 new_valid: Optional[torch.Tensor], causal: bool, h: int) -> torch.Tensor:
+    """Streaming temporal attention on the pos-major int8 cache: qkv (B, T,
+    N, 3D) -> ctx (B, T, N, D), one kernel F (one length) or G (per stream)
+    call a new frame, each quantizing the frame's K/V rows, attending them
+    dequantized and appending the codes and scales in place
+    (``_decode_int8``), the function of the JAX package's einsum path, which
+    quantizes first and attends the dequantized view.
+
+    - Causal: frame ti at position len + ti, so query ti sees the cache and
+      frames 0..ti; on the ring the window of the C positions ending at it.
+    - Not causal: frames max(0, t - C) .. t - 2 are quantized and written at
+      slots (len + ti) % C first, then every query is decoded at position
+      len + t - 1 against the last frame: each sees the cache and all t
+      frames (on the ring, the window ending at the last frame; the slots
+      written first are those of positions leaving it).
+    - ``new_valid`` (ragged, causal): frame ti at position len + min(ti,
+      valid), so a stream past its valid frames is held, its dummy frame
+      written at slot (len + valid) % C and rolled back, as the serving
+      engine rolls back a held step. That slot's codes and scales are saved
+      before the frames and restored after them: it lies past the stream's
+      valid prefix, or wraps to slot 0 when len + valid == C, where the
+      restore keeps position 0. Outputs past valid are unspecified.
+    """
+    b, t, n, d3 = qkv.shape
+    d = d3 // 3
+    cap = cache["k"].shape[0]
+    r = b * n
+
+    def frame(i, ti):  # frame ti of slice i -> (B*N, D)
+        return qkv[:, ti, :, i * d:(i + 1) * d].reshape(r, d).contiguous()
+
+    def decode(ti, length):
+        return _decode_int8(frame(0, ti), frame(1, ti), frame(2, ti), cache, length, n, h)
+
+    if causal and new_valid is None:
+        return torch.stack([decode(ti, cache_len + ti if ti else cache_len)
+                            for ti in range(t)]).reshape(t, b, n, d).transpose(0, 1)
+    rows = torch.arange(r, device=qkv.device)
+    per_row = cache_len.repeat_interleave(n) if cache_len.ndim == 1 else cache_len
+    planes = ("k", "v", "k_scale", "v_scale")
+    if not causal:
+        for ti in range(max(0, t - cap), t - 1):
+            slot = ((per_row + ti) % cap).long().expand(r)
+            for key, i in (("k", 1), ("v", 2)):
+                codes, scale = quantize_kv(frame(i, ti))
+                cache[key][slot, rows], cache[f"{key}_scale"][slot, rows] = codes, scale
+        last = cache_len + (t - 1)
+        ctx = [_decode_int8(frame(0, ti), frame(1, t - 1), frame(2, t - 1), cache, last, n, h)
+               for ti in range(t)]
+        return torch.stack(ctx).reshape(t, b, n, d).transpose(0, 1)
+    hold = ((cache_len + new_valid) % cap).long().repeat_interleave(n)  # (R,)
+    saved = [cache[key][hold, rows].clone() for key in planes]
+    ctx = [decode(ti, cache_len + torch.clamp(new_valid, max=ti)) for ti in range(t)]
+    for key, x in zip(planes, saved):
+        cache[key][hold, rows] = x
+    return torch.stack(ctx).reshape(t, b, n, d).transpose(0, 1)
 
 
 def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
@@ -747,13 +807,15 @@ def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_l
     dt = qkv.dtype
     cap = cache["k"].shape[2]
     quantized = "k_scale" in cache
+    causal = cfg.enable_causal_temporal
 
     def flat(a):  # (B, N, C, X) -> the (B*N, C, X) view, shared with the cache
         return a.view(b * n, cap, a.shape[-1])
 
     if t == 1 and not quantized:
-        def rows1(i):  # (B, 1, N, D) slice -> (B*N, D)
-            return qkv[..., i * d:(i + 1) * d].reshape(b * n, d).contiguous()
+        def rows1(i):  # (B, 1, N, D) slice -> (B*N, D); K and V in the cache's dtype
+            x = qkv[..., i * d:(i + 1) * d].reshape(b * n, d)
+            return (x if i == 0 else x.to(cache["k"].dtype)).contiguous()
 
         ctx = ops.temporal_decode_rm(rows1(0), rows1(1), rows1(2), flat(cache["k"]),
                                      flat(cache["v"]), cache_len, h)
@@ -784,12 +846,17 @@ def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_l
     if cfg.cache_mode == "ring":
         s_old = torch.einsum("bqnhd,bnkhd->bnhqk", qf, full_kv("k")) * scale
         s_new = torch.einsum("bqnhd,bknhd->bnhqk", qf, k.float()) * scale
-        qpos = cache_len + steps[:, None]  # (t, 1)
+        # query len + ti's window: the C positions ending at it (causal), or
+        # at the call's last frame, len + t - 1
+        qpos = cache_len + (steps[:, None] if causal else t - 1)  # (t, 1) or ()
         slot = torch.arange(cap, device=qkv.device)[None]  # (1, C)
         # slot s holds the newest position p = s (mod C) below len; unwritten slots give p < 0
         kpos_old = slot + cap * torch.div(cache_len - 1 - slot, cap, rounding_mode="floor")
-        ok_old = (kpos_old >= 0) & (kpos_old > qpos - cap)  # (t, C)
-        ok_new = (steps[None] <= steps[:, None]) & (steps[None] > steps[:, None] - cap)  # (t, t)
+        ok_old = ((kpos_old >= 0) & (kpos_old > qpos - cap)).expand(t, cap)  # (t, C)
+        if causal:
+            ok_new = (steps[None] <= steps[:, None]) & (steps[None] > steps[:, None] - cap)
+        else:
+            ok_new = (steps[None] > t - 1 - cap).expand(t, t)  # (t, t)
         scores = torch.cat([s_old.masked_fill(~ok_old, float("-inf")),
                             s_new.masked_fill(~ok_new, float("-inf"))], dim=-1)
         probs = torch.softmax(scores, dim=-1)
@@ -811,7 +878,11 @@ def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_l
         return ctx.reshape(b, 1, n, d)
     limit = cap if attend_cap is None else min(attend_cap, cap)
     scores = torch.einsum("bqnhd,bnkhd->bnhqk", qf, full_kv("k", limit)) * scale
-    visible = torch.arange(limit, device=qkv.device)[None] <= cache_len + steps[:, None]
+    pos = torch.arange(limit, device=qkv.device)[None]
+    if causal:
+        visible = pos <= cache_len + steps[:, None]
+    else:
+        visible = (pos < cache_len + t).expand(t, limit)
     probs = torch.softmax(scores.masked_fill(~visible, float("-inf")), dim=-1)
     ctx = torch.einsum("bnhqk,bnkhd->bqnhd", probs, full_kv("v", limit))
     return ctx.to(dt).reshape(b, t, n, d)
@@ -1052,13 +1123,15 @@ def init_cache(
     ``cfg.cache_layout == "pos_major"``, row-major (batch, N, C, D) for
     "row_major".
 
-    The cache is kept in the compute dtype, or in int8 when ``dtype`` (else
-    ``cfg.cache_dtype``) says "int8": then each layer also holds fp32
+    The cache is kept in ``dtype`` (else ``cfg.cache_dtype``, else the
+    compute dtype): float32 or bfloat16, which may differ from the compute
+    dtype (a mixed cache: the new frames are rounded to it as they are
+    written, and read back in fp32 by the kernels), or int8: then each layer
+    also holds fp32
     ``k_scale`` and ``v_scale``, of shape (C, batch*N) on the pos-major
     layout, the scale of each (position slot, row), so that an append writes
     one contiguous row; of shape (batch, N, C, H) on the row-major layout,
-    one per (row, position, head), as the JAX package keeps them. A float
-    cache in another dtype than the compute dtype raises.
+    one per (row, position, head), as the JAX package keeps them.
 
     ``len`` is () with every stream in lockstep, or (batch,) with
     ``per_stream_len``: the ragged cache of continuous batching, each stream
@@ -1070,14 +1143,10 @@ def init_cache(
     row_major = cfg.cache_layout == "row_major"
     if per_stream_len and row_major:
         raise NotImplementedError("per-stream lengths are a pos_major-layout feature")
-    dt = compute_dtype(cfg)
     name = dtype if dtype is not None else (cfg.cache_dtype or cfg.dtype)
     cache_dt = {"int8": torch.int8, **_DTYPES}.get(name, name) if isinstance(name, str) else name
-    if cache_dt not in (dt, torch.int8):
-        raise NotImplementedError(
-            f"cache dtype {name}: a float cache is kept in the compute dtype {dt} "
-            "(mixed caches: ROADMAP slice 3, item 9a)"
-        )
+    if cache_dt not in (torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"cache dtype {name}: float32, bfloat16 or int8")
     dev = resolve_device(device)
     n = num_patches if num_patches is not None else cfg.num_patches
     cap = capacity if capacity is not None else cfg.cache_capacity
@@ -1136,12 +1205,14 @@ def streaming_forward(
     Ragged cache (``init_cache(per_stream_len=True)``): each stream b starts
     at its own position len[b] (time embeddings, masks, appends), so row b
     equals a lone stream at that position. ``new_valid`` (B,) int32 in
-    [0, T], ragged cache only: stream b appends only its first new_valid[b]
-    frames and its ``len`` advances by new_valid[b]; output columns past it
-    are unspecified. Without it every ``len`` advances by T. ``new_valid``
-    needs the linear cache; T >= 2 on the ring needs the lockstep cache (one
-    t=1 decode per frame). An int8 cache takes T >= 2 as one int8 decode per
-    frame and refuses ``new_valid``. The row-major layout is lockstep only.
+    [0, T], ragged cache only, causal only: stream b appends only its first
+    new_valid[b] frames and its ``len`` advances by new_valid[b]; output
+    columns past it are unspecified. Without it every ``len`` advances by T.
+    ``new_valid`` needs the linear cache; T >= 2 on the ring needs the
+    lockstep cache. Any T, causal or not, on a float cache of the compute
+    dtype or the other one (any capacity on the pos-major layout), or int8
+    (``temporal_attention`` names the kernels). The row-major layout is
+    lockstep only.
 
     ``total_frames_hint`` is the sequence length used for time-embedding
     interpolation; by default ``cfg.num_frames`` (as the JAX package's code

@@ -27,7 +27,8 @@ raises: there is no fallback. Each launch adds one to ``LAUNCHES[name]``;
 nothing else does. Heads are dh-wide slices of the flat D axis
 (``spatial_attention`` takes them split, (R, H, N, dh)), dh a multiple of 8
 and at most 128; inputs are float32 or bfloat16 and contiguous (the int8
-kernels take int8 codes and fp32 scales beside a float or bfloat16 query).
+kernels take int8 codes and fp32 scales beside a float or bfloat16 query;
+A, D, J and E take a float cache in another dtype than the query's).
 C, H and E read their operands in place through strides: the packed entries
 ``temporal_fullclip_qkv``, ``temporal_fullclip_qkv_bwd`` and
 ``temporal_append_pm_qkv`` take the (B, T, N, 3D) output of the qkv
@@ -83,8 +84,9 @@ LAUNCHES: Dict[str, int] = {
     "spatial_attention": 0,
 }
 
-# New frames one call of kernel E takes at most (C's kMaxT), on any capacity
-# whose plan fits a block's shared memory (``append_frame_cap``).
+# New frames kernel E's whole-table body takes at most (C's kMaxT), on any
+# capacity whose plan fits a block's shared memory (``append_frame_cap``);
+# past either a call runs the tiled body.
 APPEND_MAX_FRAMES = 32
 
 # Queries a block of the bf16 spatial kernels (B, L) takes: thirteen warps
@@ -138,6 +140,17 @@ def _check(name: str, num_heads: int, d: int, strided: bool = False,
     return first.device
 
 
+def _check_decode(name: str, num_heads: int, d: int, q, k_new, v_new, k_cache,
+                  v_cache) -> torch.device:
+    """``_check`` for A, D and J: q in the compute dtype, k_new, v_new and
+    the caches in the cache's (float32 or bfloat16 either way)."""
+    device = _check(name, num_heads, d, q=q)
+    if _check(name, num_heads, d, k_new=k_new, v_new=v_new, k_cache=k_cache,
+              v_cache=v_cache) != device:
+        raise ValueError(f"{name}: the caches are on {k_cache.device}, not {device}")
+    return device
+
+
 def _cuda_ready(name: str, *tensors: torch.Tensor) -> None:
     """What a launch needs beyond ``_check``: aligned pointers, and no
     autograd graph to record into (the full-clip wrappers reach this under
@@ -160,22 +173,28 @@ def _round16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def _append_min_smem(t: int, capacity: int, head_dim: int, itemsize: int) -> int:
-    """Shared memory of kernel E's smallest plan (csrc/temporal_append_pm.cu,
-    ``plan_for(1, 1, ...)``): one head an item, one key a stage. A call fits
-    when this does; the kernel then takes the largest plan that fits."""
+def _append_min_smem(t: int, capacity: int, head_dim: int, itemsize: int,
+                     q_itemsize: int = 0) -> int:
+    """Shared memory of kernel E's smallest whole-table plan
+    (csrc/temporal_append_pm.cu, ``plan_for(1, 1, ...)``): one head an item,
+    one key a stage, keys of ``itemsize`` bytes, queries of ``q_itemsize``
+    (default the same). The whole-table body takes a call when this fits;
+    it then takes the largest plan that fits."""
     row = _round16(head_dim * itemsize) + 16  # a staged span, padded
+    q_row = _round16(head_dim * (q_itemsize or itemsize)) + 16
     keys = capacity + t
-    return (2 * row + 16 + t * row + _round16(4 * t * (keys | 1))
+    return (2 * row + 16 + t * q_row + _round16(4 * t * (keys | 1))
             + (_round16(4 * t * head_dim) if keys > 1 else 0) + _round16(4 * t) + 48)
 
 
 def append_frame_cap(capacity: int) -> int:
-    """Most new frames one call of kernel E (``temporal_append_pm_ragged``,
-    ``temporal_append_pm_qkv``) takes on a cache of ``capacity`` slots, at
-    every width the kernels take (the plan of the widest, heads of 128 in
-    fp32): at most ``APPEND_MAX_FRAMES``, as many as the plan fits in a
-    block's shared memory; 0 when not even one does."""
+    """Most new frames kernel E's whole-table body takes in one call on a
+    cache of ``capacity`` slots, at every width the kernels take (the plan
+    of the widest, heads of 128 in fp32): at most ``APPEND_MAX_FRAMES``, as
+    many as the plan fits in a block's shared memory; 0 when not even one
+    does. A call of more frames runs E's tiled body, which takes any t and
+    any capacity, much slower: the serving engine and the vision tower
+    chunk their appends by this."""
     for t in range(APPEND_MAX_FRAMES, 0, -1):
         if _append_min_smem(t, capacity, 128, 4) <= _MAX_SMEM:
             return t
@@ -268,6 +287,9 @@ def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     len % C, which it then overwrites in place (``k_cache[len % C] =
     k_new``, the same for v). With len < C this is the linear cache; past C
     the same call is the ring's sliding window over the last C frames.
+    k_new, v_new and the caches share one dtype, float32 or bfloat16, which
+    may differ from q's (a mixed cache: the caller rounds the new frame to
+    the cache's dtype, as the JAX package does); the arithmetic is fp32.
     Returns the attention output (R, D) in q's dtype. The kernel takes the
     keys in position order with ``temporal_fullclip``'s arithmetic, so on
     the card a linear stream reproduces the full clip bit for bit.
@@ -282,8 +304,7 @@ def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
         raise ValueError("temporal_decode_pm: k_new and v_new must have q's shape (R, D)")
     if cache_len.numel() != 1 or cache_len.dtype != torch.int32:
         raise TypeError("temporal_decode_pm: cache_len must be one int32 element")
-    device = _check("temporal_decode_pm", num_heads, d, q=q, k_new=k_new, v_new=v_new,
-                    k_cache=k_cache, v_cache=v_cache)
+    device = _check_decode("temporal_decode_pm", num_heads, d, q, k_new, v_new, k_cache, v_cache)
     _check_lengths("temporal_decode_pm", device, cache_len=cache_len)
     if device.type == "cpu":
         return temporal_decode_pm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads)
@@ -292,10 +313,11 @@ def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     out = torch.empty_like(q)
     _launch(
         "temporal_decode_pm", "sf_temporal_decode_pm",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), device,
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P), device,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
         r, k_cache.shape[0], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[k_cache.dtype],
     )
     return out
 
@@ -308,13 +330,25 @@ def _check_lengths(name: str, device: torch.device, **lengths: torch.Tensor) -> 
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+def decode_fits(d: int, num_heads: int, capacity: int, dtype: torch.dtype,
+                kv_dtype: torch.dtype, device: torch.device) -> bool:
+    """Whether A, D and J take a cache of ``capacity`` slots at this width
+    on ``device`` (their (heads, C) scores in a block's shared memory: up to
+    about C = 3,800 at the flagship; the plain versions take any). Past it
+    the encoder runs a new frame through kernel E
+    (``temporal_append_pm_qkv`` at t = 1), which takes any capacity."""
+    if device.type != "cuda":
+        return True
+    return _body_smem("temporal_decode_pm", "sf_temporal_decode_pm", d, num_heads, capacity,
+                      _DTYPE_CODES[dtype], _DTYPE_CODES[kv_dtype]) <= _MAX_SMEM
+
+
 def _decode_ready(name, q, k_new, v_new, k_cache, v_cache, num_heads, capacity) -> None:
     """What a launch of A, D or J needs: aligned pointers, and the shared
     memory the capacity asks for."""
     _cuda_ready(name, q, k_new, v_new, k_cache, v_cache)
-    smem = build.function("temporal_decode_pm", "sf_temporal_decode_pm_smem_bytes",
-                          (_I, _I, _I, _I))(q.shape[-1], num_heads, capacity,
-                                            _DTYPE_CODES[q.dtype])
+    smem = _body_smem("temporal_decode_pm", "sf_temporal_decode_pm", q.shape[-1], num_heads,
+                      capacity, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype])
     if smem > _MAX_SMEM:
         raise ValueError(f"{name}: capacity {capacity} needs {smem} bytes "
                          "of shared memory per block")
@@ -360,7 +394,8 @@ def temporal_decode_rm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     linear cache (cache_len < C) the new frame attends positions
     < cache_len and itself; past C (the ring) it attends the C - 1 newest
     earlier frames and itself; then ``k_cache[:, cache_len % C] = k_new``
-    (the same for v). Any capacity. Returns (R, D) in q's dtype. The kernel
+    (the same for v). A mixed cache as for A. Returns (R, D) in q's dtype.
+    The kernel
     is A's on row-major strides, the same order of arithmetic, so on the
     card a row-major stream equals the pos-major one bit for bit."""
     r, d = q.shape
@@ -374,8 +409,7 @@ def temporal_decode_rm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
         raise ValueError("temporal_decode_rm: k_new and v_new must have q's shape (R, D)")
     if cache_len.numel() != 1 or cache_len.dtype != torch.int32:
         raise TypeError("temporal_decode_rm: cache_len must be one int32 element")
-    device = _check("temporal_decode_rm", num_heads, d, q=q, k_new=k_new, v_new=v_new,
-                    k_cache=k_cache, v_cache=v_cache)
+    device = _check_decode("temporal_decode_rm", num_heads, d, q, k_new, v_new, k_cache, v_cache)
     _check_lengths("temporal_decode_rm", device, cache_len=cache_len)
     if device.type == "cpu":
         return temporal_decode_rm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads)
@@ -384,11 +418,11 @@ def temporal_decode_rm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     out = torch.empty_like(q)
     _launch(
         "temporal_decode_rm", "sf_temporal_decode_rm",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), device,
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P), device,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
         r, k_cache.shape[1], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
-        library="temporal_decode_pm",
+        _DTYPE_CODES[k_cache.dtype], library="temporal_decode_pm",
     )
     return out
 
@@ -524,7 +558,8 @@ def temporal_decode_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, rows_per_
     B * rows_per_stream == R, the position each stream's new frame takes; it
     is read on the device and not changed. Each stream attends, appends at
     slot ``lens[b] % C`` and excludes that slot, as A does for one length, so
-    the call serves the linear cache and the ring. Rows are not padded per
+    the call serves the linear cache and the ring; a mixed cache as for A.
+    Rows are not padded per
     stream. A ragged row's output equals, bit for bit on the card, A's for a
     lone stream at the same position (one kernel source)."""
     r, d = q.shape
@@ -536,8 +571,8 @@ def temporal_decode_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, rows_per_
     if k_new.shape != q.shape or v_new.shape != q.shape:
         raise ValueError("temporal_decode_pm_ragged: k_new and v_new must have q's shape (R, D)")
     _stream_lengths("temporal_decode_pm_ragged", lens, r, rows_per_stream)
-    device = _check("temporal_decode_pm_ragged", num_heads, d, q=q, k_new=k_new, v_new=v_new,
-                    k_cache=k_cache, v_cache=v_cache)
+    device = _check_decode("temporal_decode_pm_ragged", num_heads, d, q, k_new, v_new, k_cache,
+                           v_cache)
     _check_lengths("temporal_decode_pm_ragged", device, lens=lens)
     if device.type == "cpu":
         return temporal_decode_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens,
@@ -547,22 +582,22 @@ def temporal_decode_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, rows_per_
     out = torch.empty_like(q)
     _launch(
         "temporal_decode_pm_ragged", "sf_temporal_decode_pm_ragged",
-        (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P), device,
+        (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _P), device,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), lens.data_ptr(), rows_per_stream, out.data_ptr(),
         r, k_cache.shape[0], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
-        library="temporal_decode_pm",
+        _DTYPE_CODES[k_cache.dtype], library="temporal_decode_pm",
     )
     return out
 
 
 # ---------------------------------------------------------------------------
-# E. t new frames per stream: the throughput-mode append on the linear cache
+# E. t new frames per stream: multi-frame appends, the linear cache and the ring
 # ---------------------------------------------------------------------------
 
 
 def temporal_append_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, valid,
-                                    rows_per_stream, num_heads):
+                                    rows_per_stream, num_heads, causal=True, ring=False):
     """Plain version of ``temporal_append_pm_ragged``: the same function, same
     in-place cache update. fp32 throughout, output rounded to q's dtype."""
     t, r, d = q.shape
@@ -570,7 +605,6 @@ def temporal_append_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, val
     h = num_heads
     dh = d // h
     length = lens.long().repeat_interleave(rows_per_stream)  # (R,)
-    n_valid = valid.long().repeat_interleave(rows_per_stream)
 
     def heads(a):  # (n, R, D) -> (R, H, n, dh)
         return a.float().view(a.shape[0], r, h, dh).permute(1, 2, 0, 3)
@@ -579,127 +613,167 @@ def temporal_append_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, val
     vals = torch.cat([heads(v_cache), heads(v_new)], dim=2)
     s = torch.matmul(heads(q), keys.transpose(-1, -2)) * dh**-0.5  # (R, H, t, C + t)
     ti = torch.arange(t, device=q.device)
-    old = torch.arange(c, device=q.device)[None, None, :] < length[:, None, None]  # (R, 1, C)
-    new = (ti[None, :] <= ti[:, None]).expand(r, t, t)  # query ti sees new frames 0..ti
-    mask = torch.cat([old.expand(r, t, c), new], dim=-1)  # (R, t, C + t)
+    slot = torch.arange(c, device=q.device)
+    if ring:  # the window of the C positions ending at len + t - 1, for every query
+        kpos = slot + c * torch.div(length[:, None] - 1 - slot, c, rounding_mode="floor")
+        old = (kpos >= 0) & (kpos > length[:, None] + t - 1 - c)  # (R, C)
+        new = (ti > t - 1 - c).expand(t, t)
+    else:
+        old = slot < length[:, None]  # (R, C)
+        new = ti[None, :] <= ti[:, None] if causal else torch.ones(t, t, dtype=torch.bool,
+                                                                   device=q.device)
+    mask = torch.cat([old[:, None].expand(r, t, c), new.expand(r, t, t)], dim=-1)  # (R, t, C + t)
     p = torch.softmax(s.masked_fill(~mask[:, None], float("-inf")), dim=-1)
     out = torch.matmul(p, vals).permute(2, 0, 1, 3).reshape(t, r, d).to(q.dtype)
-    slot = length[None, :] + ti[:, None]  # (t, R)
-    write = (ti[:, None] < n_valid[None, :]) & (slot < c)
-    frame, row = write.nonzero(as_tuple=True)
-    k_cache[slot[frame, row], row] = k_new[frame, row]
-    v_cache[slot[frame, row], row] = v_new[frame, row]
+    if ring:  # the last min(t, C) frames, after every read
+        keep = ti[t - min(t, c):]
+        frame, row = keep.repeat_interleave(r), torch.arange(r, device=q.device).repeat(len(keep))
+        where = (length[row] + frame) % c
+    else:
+        where = length[None, :] + ti[:, None]  # (t, R)
+        n_valid = valid.long().repeat_interleave(rows_per_stream)
+        frame, row = ((ti[:, None] < n_valid[None, :]) & (where < c)).nonzero(as_tuple=True)
+        where = where[frame, row]
+    k_cache[where, row] = k_new[frame, row]
+    v_cache[where, row] = v_new[frame, row]
     return out
 
 
-def _append_checks(name, t, r, d, k_cache, v_cache, lens, valid, rows_per_stream, num_heads,
-                   dtype, device) -> None:
+def _append_checks(name, t, r, d, k_cache, v_cache, lens, valid, rows_per_stream, kv_dtype,
+                   device, causal, ring) -> None:
     """What kernel E requires beyond its new frames' layout: (C, R, D)
-    caches of their dtype, contiguous, on their device; (B,) int32 lens and
-    valid; 1 <= t <= ``APPEND_MAX_FRAMES``; a plan that fits a block's shared
-    memory (``_append_min_smem``). Raises on anything else, on the CPU as on
-    the card."""
+    caches of the new frames' dtype, contiguous, on their device; (B,)
+    int32 lens and valid; t >= 1; a ring append not causal past one frame.
+    Raises on anything else, on the CPU as on the card."""
     if k_cache.ndim != 3 or k_cache.shape[1:] != (r, d) or v_cache.shape != k_cache.shape:
         raise ValueError(f"{name}: caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)} do not "
                          f"match {r} rows of D={d} as (C, R, D)")
     for key, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.dtype != dtype or x.device != device or not x.is_contiguous():
-            raise ValueError(f"{name}: {key} must be a contiguous {dtype} tensor on {device}, "
-                             f"got {x.dtype} on {x.device}")
+        if x.dtype != kv_dtype or x.device != device or not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous {kv_dtype} tensor on {device} "
+                             f"(the new frames' k and v rounded to the cache's dtype), got "
+                             f"{x.dtype} on {x.device}")
     _stream_lengths(name, lens, r, rows_per_stream, valid=valid)
     _check_lengths(name, device, lens=lens, valid=valid)
-    if not 1 <= t <= APPEND_MAX_FRAMES:
-        raise NotImplementedError(f"{name}: {t} new frames; a call takes 1 to "
-                                  f"{APPEND_MAX_FRAMES} (ROADMAP slice 1, item 3b)")
-    c, dh = k_cache.shape[0], d // num_heads
-    smem = _append_min_smem(t, c, dh, k_cache.element_size())
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: capacity {c} with {t} new frames needs {smem} bytes of shared "
-                         f"memory per block even at one head of {dh} and one key a stage "
-                         f"(at most {_MAX_SMEM})")
+    if t < 1:
+        raise NotImplementedError(f"{name}: {t} new frames; a call takes at least one")
+    if ring and causal and t > 1:
+        raise ValueError(f"{name}: the ring append is not causal past one frame (the encoder "
+                         "runs a causal ring as one t=1 decode a frame)")
 
 
 def _append_kernel(operands, k_cache, v_cache, lens, valid, rows_per_stream, batch, n, t, d,
-                   num_heads) -> None:
+                   num_heads, causal, ring, dtype) -> None:
     """Launch kernel E on q, k_new, v_new and out read and written in place,
-    each a (tensor, column, (b, t, n) element strides) triple; count it under
-    ``temporal_append_pm_ragged``."""
+    each a (tensor, column, (b, t, n) element strides) triple; q and out of
+    ``dtype``. The whole-table body where its plan fits (``_body_smem``),
+    else the tiled one; count it under ``temporal_append_pm_ragged``."""
+    code, kv_code = _DTYPE_CODES[dtype], _DTYPE_CODES[k_cache.dtype]
+    cap = k_cache.shape[0]
+    smem = _body_smem("temporal_append_pm", "sf_temporal_append_pm", t, cap, d, num_heads, code,
+                      kv_code)
     ptrs = (_P * 4)(*(x.data_ptr() + col * x.element_size() for x, col, _ in operands))
     strides = (ctypes.c_longlong * 12)(*(s for _, _, st in operands for s in st))
     _launch(
         "temporal_append_pm_ragged", "sf_temporal_append_pm",
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P), k_cache.device,
-        ptrs, strides, k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        valid.data_ptr(), rows_per_stream, batch, n, t, k_cache.shape[0], d, num_heads,
-        (d // num_heads) ** -0.5, _DTYPE_CODES[k_cache.dtype],
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
+        k_cache.device, ptrs, strides, k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+        valid.data_ptr(), rows_per_stream, batch, n, t, cap, d, num_heads,
+        (d // num_heads) ** -0.5, int(causal), int(ring), int(not smem), code, kv_code,
         library="temporal_append_pm",
     )
 
 
 @_entry("temporal_append_pm_ragged",
         "(Tensor q, Tensor k_new, Tensor v_new, Tensor(a!) k_cache, Tensor(b!) v_cache, "
-        "Tensor lens, Tensor valid, int rows_per_stream, int num_heads) -> Tensor", _like)
+        "Tensor lens, Tensor valid, int rows_per_stream, int num_heads, bool causal=True, "
+        "bool ring=False) -> Tensor", _like)
 def temporal_append_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, valid, rows_per_stream,
-                              num_heads):
-    """Append t new frames per stream to the linear pos-major cache and
-    attend them, causally, in one call.
+                              num_heads, causal=True, ring=False):
+    """Append t new frames per stream to the pos-major cache and attend them
+    in one call.
 
     q, k_new, v_new: (t, R, D), new frame ti of row r at [ti, r]. k_cache,
     v_cache: (C, R, D); row r belongs to stream ``r // rows_per_stream``.
-    lens, valid: (B,) int32 on the same device, B * rows_per_stream == R:
-    stream b holds lens[b] positions and appends its first valid[b] new
-    frames at slots lens[b] + ti (a slot past C is dropped). Query ti of
-    stream b attends cache slots < lens[b] and new frames 0..ti; outputs for
-    ti >= valid[b] are unspecified. lens and valid are read on the device and
-    not changed; the caller keeps lens + valid <= C (the linear contract,
-    checked by the serving engine on its host mirrors, never here, as that
-    would wait on the device). A call takes up to ``APPEND_MAX_FRAMES`` new
-    frames on any capacity whose plan fits (``append_frame_cap``). q, k_new
-    and v_new are read in place: their D axis contiguous, their data and
-    other strides 16-byte aligned. Returns (t, R, D) in q's dtype. On the
-    card a stream fed through this call in chunks reproduces the full clip
-    bit for bit (``temporal_fullclip``'s arithmetic)."""
+    lens, valid: (B,) int32 on the same device, B * rows_per_stream == R.
+
+    Linear cache (``ring`` False): stream b holds lens[b] positions in slots
+    0..lens[b]-1 and appends its first valid[b] new frames at slots lens[b]
+    + ti (a slot past C is dropped). Query ti of stream b attends cache
+    slots < lens[b] and new frames 0..ti (``causal``), or all t new frames;
+    outputs for ti >= valid[b] are unspecified. The caller keeps lens + valid
+    <= C (the linear contract, checked by the serving engine on its host
+    mirrors, never here, as that would wait on the device).
+
+    Ring (``ring`` True, not causal past one frame): slot s holds the newest
+    position p = s mod C below lens[b]; every query attends the C positions
+    ending at lens[b] + t - 1 (old positions p > lens[b] + t - 1 - C, new
+    frames j > t - 1 - C), and the last min(t, C) frames are then written at
+    slots (lens[b] + j) % C; valid is not read. The JAX package's
+    ``_ring_attend_pos_major`` with ``causal=False``; at t = 1 it is kernel
+    A's ring step.
+
+    lens and valid are read on the device and not changed. Any t and any
+    capacity: up to ``APPEND_MAX_FRAMES`` frames where the whole-table plan
+    fits (``append_frame_cap``), else the tiled body, with the same bits.
+    k_new, v_new and the caches share one dtype, which may differ from q's
+    (a mixed cache: the new frames rounded to the cache's dtype by the
+    caller). q, k_new and v_new are read in place: their D axis contiguous,
+    their data and other strides 16-byte aligned. Returns (t, R, D) in q's
+    dtype. On the card a stream fed through this call in chunks reproduces
+    the full clip bit for bit (``temporal_fullclip``'s arithmetic)."""
     name = "temporal_append_pm_ragged"
     if q.ndim != 3 or k_new.shape != q.shape or v_new.shape != q.shape:
         raise ValueError(f"{name}: q, k_new, v_new must share one (t, R, D) shape")
     t, r, d = q.shape
-    device = _check(name, num_heads, d, strided=True, q=q, k_new=k_new, v_new=v_new)
-    _append_checks(name, t, r, d, k_cache, v_cache, lens, valid, rows_per_stream, num_heads,
-                   q.dtype, device)
+    device = _check(name, num_heads, d, strided=True, q=q)
+    if _check(name, num_heads, d, strided=True, k_new=k_new, v_new=v_new) != device:
+        raise ValueError(f"{name}: k_new is on {k_new.device}, not {device}")
+    _append_checks(name, t, r, d, k_cache, v_cache, lens, valid, rows_per_stream, k_new.dtype,
+                   device, causal, ring)
     if device.type == "cpu":
         return temporal_append_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens, valid,
-                                               rows_per_stream, num_heads)
+                                               rows_per_stream, num_heads, causal, ring)
     _cuda_ready(name, q, k_new, v_new, k_cache, v_cache)
     out = q.new_empty(q.shape)
     # row r of (t, R, D) is (b, n) = (r, 0): strides (R axis, t axis, none)
     _append_kernel([(x, 0, (x.stride(1), x.stride(0), 0)) for x in (q, k_new, v_new, out)],
-                   k_cache, v_cache, lens, valid, rows_per_stream, r, 1, t, d, num_heads)
+                   k_cache, v_cache, lens, valid, rows_per_stream, r, 1, t, d, num_heads, causal,
+                   ring, q.dtype)
     return out
 
 
 def temporal_append_pm_qkv_plain(qkv, k_cache, v_cache, lens, valid, rows_per_stream,
-                                 num_heads):
+                                 num_heads, causal=True, ring=False, kv=None):
     """Plain version of ``temporal_append_pm_qkv``: the JAX encoder's slices
-    and transposes of qkv around ``temporal_append_pm_ragged_plain``."""
+    and transposes of qkv (and kv) around ``temporal_append_pm_ragged_plain``."""
     b, t, n, d3 = qkv.shape
-    rows = (x.transpose(0, 1).reshape(t, b * n, d3 // 3) for x in _thirds(qkv))
+    d = d3 // 3
+    parts = _thirds(qkv)
+    if kv is not None:
+        parts = (parts[0], kv[..., :d], kv[..., d:])
+    rows = (x.transpose(0, 1).reshape(t, b * n, d) for x in parts)
     ctx = temporal_append_pm_ragged_plain(*rows, k_cache, v_cache, lens, valid, rows_per_stream,
-                                          num_heads)
+                                          num_heads, causal, ring)
     return ctx.reshape(t, b, n, -1).transpose(0, 1).contiguous()
 
 
 @_entry("temporal_append_pm_qkv",
         "(Tensor qkv, Tensor(a!) k_cache, Tensor(b!) v_cache, Tensor lens, Tensor valid, "
-        "int rows_per_stream, int num_heads) -> Tensor", _packed_out)
-def temporal_append_pm_qkv(qkv, k_cache, v_cache, lens, valid, rows_per_stream, num_heads):
+        "int rows_per_stream, int num_heads, bool causal=True, bool ring=False, "
+        "Tensor? kv=None) -> Tensor", _packed_out)
+def temporal_append_pm_qkv(qkv, k_cache, v_cache, lens, valid, rows_per_stream, num_heads,
+                           causal=True, ring=False, kv=None):
     """``temporal_append_pm_ragged`` on the encoder's own layout.
 
     qkv: (B, t, N, 3D), the output of the qkv projection: q, k_new and v_new
     are its three D-wide slices, row b * N + n of the caches (C, B*N, D) is
-    (b, n). lens, valid and rows_per_stream as for
+    (b, n). lens, valid, rows_per_stream, ``causal`` and ``ring`` as for
     ``temporal_append_pm_ragged`` (lockstep: one stream of B*N rows; ragged:
-    one stream per b, rows_per_stream = N). Returns the contiguous (B, t, N,
-    D) context in qkv's dtype, which the output projection takes as it is.
+    one stream per b, rows_per_stream = N). A cache in another dtype than
+    qkv's takes ``kv``, (B, t, N, 2D): the new frames' k and v rounded to the
+    cache's dtype, read in their place. Returns the contiguous (B, t, N, D)
+    context in qkv's dtype, which the output projection takes as it is.
     Kernel E reads the slices and writes the context in place, so nothing is
     sliced, transposed or copied around it; it counts under
     ``temporal_append_pm_ragged``. The D axis must be contiguous, and the data
@@ -709,16 +783,25 @@ def temporal_append_pm_qkv(qkv, k_cache, v_cache, lens, valid, rows_per_stream, 
     device = _packed_check(name, qkv, num_heads)
     b, t, n, d3 = qkv.shape
     d = d3 // 3
-    _append_checks(name, t, b * n, d, k_cache, v_cache, lens, valid, rows_per_stream, num_heads,
-                   qkv.dtype, device)
+    kv_dtype = qkv.dtype
+    if kv is not None:
+        if kv.shape != (b, t, n, 2 * d):
+            raise ValueError(f"{name}: kv must be (B, t, N, 2D) = {(b, t, n, 2 * d)}, not "
+                             f"{tuple(kv.shape)}")
+        if _check(name, 2 * num_heads, 2 * d, strided=True, kv=kv) != device:
+            raise ValueError(f"{name}: kv is on {kv.device}, not {device}")
+        kv_dtype = kv.dtype
+    _append_checks(name, t, b * n, d, k_cache, v_cache, lens, valid, rows_per_stream, kv_dtype,
+                   device, causal, ring)
     if device.type == "cpu":
         return temporal_append_pm_qkv_plain(qkv, k_cache, v_cache, lens, valid, rows_per_stream,
-                                            num_heads)
-    _cuda_ready(name, k_cache, v_cache)
+                                            num_heads, causal, ring, kv)
+    _cuda_ready(name, k_cache, v_cache, *(() if kv is None else (kv,)))
     out = qkv.new_empty(b, t, n, d)
-    _append_kernel([(x, col, tuple(x.stride()[:3]))
-                    for x, col in ((qkv, 0), (qkv, d), (qkv, 2 * d), (out, 0))],
-                   k_cache, v_cache, lens, valid, rows_per_stream, b, n, t, d, num_heads)
+    new = ((qkv, d), (qkv, 2 * d)) if kv is None else ((kv, 0), (kv, d))
+    _append_kernel([(x, col, tuple(x.stride()[:3])) for x, col in ((qkv, 0), *new, (out, 0))],
+                   k_cache, v_cache, lens, valid, rows_per_stream, b, n, t, d, num_heads, causal,
+                   ring, qkv.dtype)
     return out
 
 
@@ -949,10 +1032,11 @@ def _spatial_chunks(device: torch.device, r: int, n: int, num_heads: int,
 
 @functools.lru_cache(maxsize=None)
 def _body_smem(library: str, symbol: str, *shape: int) -> int:
-    """Shared memory a block of B's, L's, I's, C's or H's whole-row body
-    takes at this shape, from the C entry ``{symbol}_smem_bytes``; 0 where
-    only csrc/tiled.cuh takes the shape. Each wrapper launches with
-    ``tiled`` = 1 exactly where this is 0."""
+    """Shared memory a block of B's, L's, I's, C's, H's or E's whole-row
+    body, or of the decode bodies (A, D, J), takes at this shape, from the
+    C entry ``{symbol}_smem_bytes``; 0 where only csrc/tiled.cuh takes the
+    shape. Each wrapper launches with ``tiled`` = 1 exactly where this is
+    0."""
     return build.function(library, f"{symbol}_smem_bytes", (_I,) * len(shape))(*shape)
 
 

@@ -14,7 +14,9 @@ Semantics, as in the JAX package:
 * ``tick()`` advances every occupied slot that has a frame by one frame
   (latency mode: kernel D on the card). ``tick(frames=k)`` advances each
   slot by up to k of its own frames (throughput mode: kernel E, one call per
-  chunk of ``ops.append_frame_cap(C)`` frames, linear cache only). On an
+  chunk of ``ops.append_frame_cap(C)`` frames, or of ``num_frames`` where
+  not one frame of E's whole-table plan fits, linear cache only; a mixed
+  float cache too, whose chunks equal its t=1 steps bit for bit). On an
   int8 cache, and on the ring, it is t=1 steps (kernel G, or D), as the JAX
   engine's scan, but only as many as the fullest slot has frames (the scan
   runs k to bound its compiles; an eager step has none to bound); step i
@@ -194,11 +196,14 @@ class StreamingEngine:
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
     def _chunk(self) -> int:
-        """Frames per kernel-E call: what one call takes at this capacity,
-        and at most ``cfg.num_frames``, since ``streaming_forward`` stretches
-        the time-embedding table over a call of more frames than the trained
-        ones, and a chunk's frames must take their positions' own rows."""
-        return min(ops.append_frame_cap(self.cfg.cache_capacity), self.cfg.num_frames)
+        """Frames per kernel-E call: what E's whole-table body takes at this
+        capacity (its tiled body, which takes any, where not one frame's
+        plan fits), and at most ``cfg.num_frames``, since
+        ``streaming_forward`` stretches the time-embedding table over a call
+        of more frames than the trained ones, and a chunk's frames must take
+        their positions' own rows."""
+        fast = ops.append_frame_cap(self.cfg.cache_capacity)
+        return min(fast or self.cfg.num_frames, self.cfg.num_frames)
 
     @torch.no_grad()
     def _stage_frames(self, s: int, q: deque) -> int:
@@ -360,13 +365,6 @@ class StreamingEngine:
                      for i in range(k)]
             pooled = steps[0] if k == 1 else torch.cat(steps, dim=1)
         else:
-            if self._chunk() < 1:
-                raise NotImplementedError(
-                    f"throughput mode on a linear cache of capacity "
-                    f"{self.cfg.cache_capacity}: not one frame of kernel E's plan fits a "
-                    f"block's shared memory at this capacity (ops.append_frame_cap; "
-                    f"ROADMAP slice 1, item 3b)"
-                )
             self._send_flags(b"append" + admit.tobytes() + navail.tobytes(), admit, navail)
             pooled = self._step_append(k, self._admit_dev, self._count_dev)
         for s in range(self.slots):

@@ -41,12 +41,26 @@ It prints one JSON object a line, each tagged with ``--label``:
 - a streaming row: the flagship encoder (bf16, seeded random weights, batch
   8, ring cache C=16) over 32 steady steps, three times: frames/s and
   ms/step by the host's clock.
+
+Every kernel row also carries ``device_launches``, ``device_ms_min`` and
+``device_ms_max``: the launches the profile recorded and the shortest and
+longest of them. ``--mixed`` times A, D and J on the mixed pairs instead
+(fp32 queries on a bf16 cache and bf16 queries on an fp32 cache; the row's
+``cache_dtype`` says which) with their ``bound_ms``: the bytes each
+function moves (queries, new rows and outputs once, the cached rows below
+each length once, the appended rows once) at 3.35 TB/s. ``--repeat N``
+prints each kernel row N times. ``--engine`` adds engine rows: the serving
+engine on the flagship encoder (bf16, 8 slots, linear cache C=16, a bf16
+and an fp32 cache), each slot fed 16 frames, drained by ticks of 1 frame
+(t=1 steps) and of 8 frames (kernel E's chunks), three times each:
+frames/s by the host's clock.
 """
 
 import argparse
 import json
 import statistics
 import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -232,10 +246,13 @@ def events_ms(fn, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def operands(kernel: str, dtype: torch.dtype, cap: int, seed: int):
-    """A no-argument call of the kernel's wrapper on seeded operands."""
+def operands(kernel: str, dtype: torch.dtype, cap: int, seed: int,
+             kv_dtype: Optional[torch.dtype] = None):
+    """A no-argument call of the kernel's wrapper on seeded operands; A, D
+    and J's new rows and cache in ``kv_dtype`` (default ``dtype``)."""
     rng = np.random.default_rng(seed)
     d = HEADS * DH
+    kv_dtype = kv_dtype or dtype
 
     def card(x, dt):
         return torch.from_numpy(np.ascontiguousarray(x)).to(DEVICE, dt)
@@ -252,9 +269,9 @@ def operands(kernel: str, dtype: torch.dtype, cap: int, seed: int):
         if ragged:
             return lambda: ops.temporal_decode_pm_int8_ragged(*args, PER_STREAM, HEADS)
         return lambda: ops.temporal_decode_pm_int8(*args, HEADS)
-    new = [card(rng.standard_normal((ROWS, d), np.float32), dtype) for _ in range(2)]
+    new = [card(rng.standard_normal((ROWS, d), np.float32), kv_dtype) for _ in range(2)]
     shape = (ROWS, cap, d) if kernel == "J" else (cap, ROWS, d)
-    caches = [card(rng.standard_normal(shape, np.float32), dtype) for _ in range(2)]
+    caches = [card(rng.standard_normal(shape, np.float32), kv_dtype) for _ in range(2)]
     if kernel == "J":
         return lambda: ops.temporal_decode_rm(q, *new, *caches, lens, HEADS)
     if ragged:
@@ -262,8 +279,23 @@ def operands(kernel: str, dtype: torch.dtype, cap: int, seed: int):
     return lambda: ops.temporal_decode_pm(q, *new, *caches, lens, HEADS)
 
 
-def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor) -> dict:
+def decode_bytes(kernel: str, dtype: torch.dtype, kv_dtype: torch.dtype, cap: int) -> int:
+    """Bytes A, D or J moves: the queries and outputs, the new K/V rows read
+    and appended, and the cached rows below each length (A and J at C-1, D
+    at ``D_LENS``)."""
+    eq, ekv = torch.finfo(dtype).bits // 8, torch.finfo(kv_dtype).bits // 8
+    d = HEADS * DH
+    lens = D_LENS[cap] if kernel == "D" else [cap - 1]
+    read = sum(min(x, cap - 1) for x in lens) * (ROWS // len(lens))
+    return ROWS * d * (2 * eq + 4 * ekv) + 2 * ekv * d * read
+
+
+def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor,
+               kv_dtype: Optional[torch.dtype] = None) -> dict:
     extra = {}
+    if kv_dtype is not None:
+        extra = {"cache_dtype": str(kv_dtype).split(".")[-1],
+                 "bound_ms": decode_bytes(kernel, dtype, kv_dtype, cap) / HBM_BYTES_PER_S * 1e3}
     if kernel in WITH_YARDSTICKS:
         if kernel in FULLCLIP:
             fn, plain, sdpa, nbytes = fullclip_operands(kernel, dtype, seed=FRAMES)
@@ -282,7 +314,7 @@ def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor) -
                  "sdpa_ms": None if sdpa is None else events_ms(sdpa, flush),
                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     else:
-        fn = operands(kernel, dtype, cap, seed=cap)
+        fn = operands(kernel, dtype, cap, seed=cap, kv_dtype=kv_dtype)
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -306,6 +338,9 @@ def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor) -
     else:
         raise SystemExit(f"decode_timing: no device time for {SYMBOLS[kernel]}")
     device_ms = sum(e.device_time_total / e.count for e in rows) / 1e3
+    launches = [e.device_time_total / 1e3 for e in prof.events()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and SYMBOLS[kernel] in e.name]
     call_ms = statistics.median(s.elapsed_time(e) for s, e in calls)
     n = 200
     t0 = time.perf_counter()
@@ -314,7 +349,9 @@ def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor) -
     host_us = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
     return {"kernel": kernel, "dtype": str(dtype).split(".")[-1], "capacity": cap,
-            "device_ms": device_ms, "call_ms": call_ms, "host_us": host_us, **extra}
+            "device_ms": device_ms, "call_ms": call_ms, "host_us": host_us,
+            "device_launches": len(launches), "device_ms_min": min(launches, default=None),
+            "device_ms_max": max(launches, default=None), **extra}
 
 
 def streaming_row() -> dict:
@@ -342,25 +379,73 @@ def streaming_row() -> dict:
     return {"streaming_frames_per_s": rates, "ms_per_step": [batch * 1e3 / r for r in rates]}
 
 
+def engine_rows() -> List[dict]:
+    """The serving engine on the flagship encoder, a bf16 and an fp32 cache,
+    drained by ticks of 1 and of 8 frames (see the module's docstring)."""
+    from streamformer_tpu_torch.serving import StreamingEngine
+
+    base = StreamformerConfig(dtype="bfloat16", cache_capacity=16, cache_mode="linear")
+    weights = encoder.StreamformerEncoder(base, device="cpu",
+                                          generator=torch.Generator().manual_seed(0)).state_dict()
+    slots, frames = 8, 16
+    clips = np.random.default_rng(0).standard_normal(
+        (slots, frames, 3, base.image_size, base.image_size)).astype(np.float32)
+    rows = []
+    for cache_dtype in (None, "float32"):
+        model = encoder.StreamformerEncoder(base.replace(cache_dtype=cache_dtype), device="cuda")
+        model.load_state_dict(weights)
+        eng = StreamingEngine(model, slots=slots, mode="linear")
+        rates = {1: [], 8: []}
+        for _ in range(4):  # the first round warms up and is dropped
+            for tick in (1, 8):
+                for clip in clips:
+                    sid = eng.open()
+                    eng.feed(sid, clip)
+                    eng.close(sid)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.run_until_idle(frames=tick)
+                torch.cuda.synchronize()
+                rates[tick].append(slots * frames / (time.perf_counter() - t0))
+        rows.append({"engine_cache_dtype": cache_dtype or "bfloat16",
+                     "tick1_frames_per_s": rates[1][1:], "tick8_frames_per_s": rates[8][1:]})
+        del eng, model
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default="this checkout")
     parser.add_argument("--no-streaming", action="store_true", help="kernel rows only")
     parser.add_argument("--kernels", default="A,D,J,F,G,C,H,Cqkv,Hqkv",
                         help="comma-separated, of " + ", ".join(SYMBOLS))
+    parser.add_argument("--mixed", action="store_true",
+                        help="A, D and J on the mixed pairs (fp32 q, bf16 cache; bf16 q, fp32 "
+                             "cache)")
+    parser.add_argument("--repeat", type=int, default=1, help="times to print each kernel row")
+    parser.add_argument("--engine", action="store_true", help="add the engine's tick rows")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_timing: needs a CUDA device")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    pairs = ([(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)] if args.mixed
+             else [(torch.bfloat16, None), (torch.float32, None)])
     for kernel in args.kernels.split(","):
         entry = {"Cqkv": "temporal_fullclip_qkv", "Hqkv": "temporal_fullclip_qkv",
                  "Eqkv": "temporal_append_pm_qkv"}.get(kernel)
         if entry and not hasattr(ops, entry):
             continue  # a checkout from before the packed entry
-        for dtype in (torch.bfloat16, torch.float32):
+        if args.mixed and kernel not in ("A", "D", "J"):
+            raise SystemExit(f"decode_timing: --mixed times A, D and J, not {kernel}")
+        for dtype, kv_dtype in pairs:
             for cap in ((FRAMES,) if kernel in FULLCLIP + SPATIAL else (16, 64)):
-                row = kernel_row(kernel, dtype, cap, flush)
-                print(json.dumps({"label": args.label, **row}), flush=True)
+                for _ in range(args.repeat):
+                    row = kernel_row(kernel, dtype, cap, flush, kv_dtype)
+                    print(json.dumps({"label": args.label, **row}), flush=True)
+    if args.engine:
+        for row in engine_rows():
+            print(json.dumps({"label": args.label, **row}), flush=True)
     if not args.no_streaming:
         print(json.dumps({"label": args.label, **streaming_row()}), flush=True)
 

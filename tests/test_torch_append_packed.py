@@ -45,6 +45,16 @@ RUNS = [(dt, case) for case in CASES
         .get(case, ("float32",))]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randn(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
@@ -142,19 +152,29 @@ def test_aligned_strided_rows_are_taken_as_they_are():
 
 def test_the_frame_cap_is_what_the_plan_takes():
     """At a capacity where the plan's scores bound the frames, a call of
-    ``append_frame_cap`` frames runs and one more is refused, with the bytes
-    in the message."""
+    ``append_frame_cap`` frames fits the whole-table plan and one more does
+    not (``_append_min_smem``): that call runs too (the tiled body on the
+    card), and both equal the same frames appended one call a frame."""
     c, h, dh = 2000, 1, 128  # fp32 heads of 128: the widest plan
     t = ops.append_frame_cap(c)
     assert 0 < t < ops.APPEND_MAX_FRAMES
-    caches = [torch.zeros(c, B * N, h * dh) for _ in range(2)]
-    lens, valid = torch.zeros(B, dtype=torch.int32), torch.ones(B, dtype=torch.int32)
-    ok = ops.temporal_append_pm_qkv(torch.from_numpy(_randn((B, t, N, 3 * h * dh), 12)), *caches,
-                                    lens, valid, N, h)
-    assert ok.shape == (B, t, N, h * dh) and torch.isfinite(ok).all()
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        ops.temporal_append_pm_qkv(torch.zeros(B, t + 1, N, 3 * h * dh), *caches, lens, valid, N,
-                                   h)
+    assert ops._append_min_smem(t, c, dh, 4) <= ops._MAX_SMEM < ops._append_min_smem(t + 1, c,
+                                                                                     dh, 4)
+    qkv = torch.from_numpy(_randn((B, t + 1, N, 3 * h * dh), 12))
+    lens = torch.tensor([5, 0], dtype=torch.int32)
+    for frames in (t, t + 1):
+        caches = [torch.zeros(c, B * N, h * dh) for _ in range(2)]
+        caches[0][:5], caches[1][:5] = (torch.from_numpy(_randn((5, B * N, h * dh), s))
+                                        for s in (13, 14))
+        steps = [x.clone() for x in caches]
+        valid = torch.full((B,), frames, dtype=torch.int32)
+        got = ops.temporal_append_pm_qkv(qkv[:, :frames], *caches, lens, valid, N, h)
+        one = torch.ones(B, dtype=torch.int32)
+        want = torch.cat([ops.temporal_append_pm_qkv(qkv[:, i:i + 1], *steps, lens + i, one, N, h)
+                          for i in range(frames)], dim=1)
+        assert got.shape == (B, frames, N, h * dh)
+        assert (got - want).abs().max().item() <= TOL["float32"], frames
+        assert torch.equal(caches[0], steps[0]) and torch.equal(caches[1], steps[1])
 
 
 def _offset(shape, elements, dtype=torch.float32):
@@ -194,8 +214,7 @@ _LENS = torch.zeros(B, dtype=torch.int32)
         # another width, dtype or layout
         (lambda: ops.temporal_append_pm_qkv(torch.zeros(B * 3, N, 96), *_caches(), _LENS, _LENS,
                                             N, 2), ValueError),
-        (lambda: ops.temporal_append_pm_qkv(torch.zeros(B, 33, N, 96), *_caches(), _LENS, _LENS,
-                                            N, 2), NotImplementedError),
+        (lambda: _packed_vs_jax(33), None),  # 33 new frames: past E's whole table, matches JAX
         (lambda: ops.temporal_append_pm_qkv(torch.zeros(B, 3, N, 96), *_caches(d=16), _LENS,
                                             _LENS, N, 2), ValueError),
         (lambda: ops.temporal_append_pm_qkv(torch.zeros(B, 3, N, 96),
@@ -209,12 +228,43 @@ _LENS = torch.zeros(B, dtype=torch.int32)
                                             _LENS, N, 2), TypeError),
         (lambda: ops.temporal_append_pm_qkv(torch.zeros(B, 3, N, 96), *_caches(), _LENS,
                                             _LENS[:1], N, 2), TypeError),
-        # a plan that does not fit: capacity 4000 at t = 32 (the scores alone
-        # take 4 * 32 * 4033 bytes)
-        (lambda: ops.temporal_append_pm_qkv(torch.zeros(B, 32, N, 48), *_caches(c=4000, d=16),
-                                            _LENS, _LENS, N, 2), ValueError),
+        # a whole-table plan that does not fit: capacity 4000 at t = 32 (the
+        # scores alone take 4 * 32 * 4033 bytes): the tiled body on the card,
+        # matches JAX
+        (lambda: _packed_vs_jax(32, capacity=4000), None),
     ],
 )
 def test_packed_entry_rejects_what_the_kernel_does_not_take(call, error):
+    if error is None:  # a shape an earlier slice refused
+        got, want = call()
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL["float32"], rtol=0)
+        return
     with pytest.raises(error):
         call()
+
+
+def _packed_vs_jax(t, capacity=0):
+    """The packed entry on t new frames of two ragged streams at lens 3 and
+    0 (capacity t + 3 by default, every frame valid), against the JAX package's einsum
+    full clip over each stream's cached prefix and new frames, its last t
+    outputs: what the append computes (the Pallas kernel in interpret mode
+    takes half a minute at t = 33)."""
+    h, d = 2, 16
+    qkv = torch.from_numpy(_randn((B, t, N, 3 * d), 21))
+    caches = [torch.from_numpy(_randn((capacity or t + 3, B * N, d), s)) for s in (22, 23)]
+    prefix = [c.clone() for c in caches]
+    lens = [3, 0]
+    got = ops.temporal_append_pm_qkv(qkv, *caches, torch.tensor(lens, dtype=torch.int32),
+                                     torch.tensor([t, t], dtype=torch.int32), N, h)
+    want = []
+    for b, length in enumerate(lens):
+        rows = slice(b * N, (b + 1) * N)
+
+        def seq(i, cache):  # the clip's (N, length + t, d) key sequence of slice i
+            new = qkv[b, :, :, i * d:(i + 1) * d]  # (t, N, d)
+            return jnp.asarray(torch.cat([cache[:length, rows], new]).transpose(0, 1).numpy())
+
+        out = A.fullclip_temporal_reference(seq(0, prefix[0]), seq(1, prefix[0]),
+                                            seq(2, prefix[1]), h)
+        want.append(np.asarray(out)[:, length:].transpose(1, 0, 2))  # (t, N, d)
+    return got, np.stack(want)

@@ -1151,6 +1151,292 @@ def test_append_walks_many_items_a_block(dtype):
 
 
 # ---------------------------------------------------------------------------
+# the streaming remainders: E without the mask, at any t and capacity, its
+# ring mode; A, D, J and E on a cache of the other float type
+# ---------------------------------------------------------------------------
+
+MIXED_PAIRS = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+MIXED_IDS = ["fp32q-bf16kv", "bf16q-fp32kv"]
+
+
+def _append_call(dtype, kv_dtype, t, per_stream, lens, valid, cap, heads, dh, seed, causal=True,
+                 ring=False):
+    """E's (t, R, D) entry against its plain version on the same operands
+    (q of dtype, new frames and caches of kv_dtype): the outputs where
+    valid (all of them on the ring), and the appended planes equal; returns
+    the kernel's output and planes."""
+    d = heads * dh
+    rows = per_stream * len(lens)
+    q = _randn((t, rows, d), dtype, seed)
+    kn, vn = (_randn((t, rows, d), kv_dtype, seed + s) for s in (1, 2))
+    gen = torch.Generator("cuda").manual_seed(seed)  # capacities up to 60000: drawn on the card
+    caches = [torch.randn(cap, rows, d, generator=gen, device="cuda").to(kv_dtype)
+              for _ in range(2)]
+    lens_t, valid_t = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (lens, valid))
+    ref_caches = [c.clone() for c in caches]
+    ref = ops.temporal_append_pm_ragged_plain(q, kn, vn, *ref_caches, lens_t, valid_t,
+                                              per_stream, heads, causal, ring)
+    before = ops.LAUNCHES["temporal_append_pm_ragged"]
+    got = ops.temporal_append_pm_ragged(q, kn, vn, *caches, lens_t, valid_t, per_stream, heads,
+                                        causal, ring)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["temporal_append_pm_ragged"] == before + 1
+    for mine, theirs in zip(caches, ref_caches):
+        assert torch.equal(mine, theirs)
+    for b, n in enumerate(valid):
+        sl = slice(b * per_stream, (b + 1) * per_stream)
+        n = t if ring else n
+        if n:
+            assert (got[:n, sl].float() - ref[:n, sl].float()).abs().max().item() <= TOL[dtype]
+    return got, caches
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_stream,lens,valid,t,cap,heads,dh", [
+    (196, [0, 1, 5, 8, 8, 12, 15, 16], [8, 0, 8, 8, 3, 4, 1, 0], 8, 16, 12, 64),  # flagship
+    (1568, [0], [16], 16, 16, 12, 64),
+    (7, [0, 2, 4], [3, 3, 3], 3, 8, 4, 24),
+    (9, [30, 0], [2, 2], 2, 32, 3, 128),
+])
+def test_append_without_the_mask_matches_plain(dtype, per_stream, lens, valid, t, cap, heads,
+                                               dh):
+    _append_call(dtype, dtype, t, per_stream, lens, valid, cap, heads, dh, 201, causal=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_stream,lens,t,cap", [
+    (1568, [5], 4, 8), (1568, [37], 12, 8), (50, [0, 3, 8, 21], 4, 8), (50, [2, 9], 12, 8),
+    (13, [70, 64], 64, 64), (13, [0, 1], 1, 8), (13, [9, 30], 1, 8),
+])
+def test_append_ring_matches_plain(dtype, per_stream, lens, t, cap):
+    """The ring mode: every query sees the window of the C positions ending
+    at the call's last frame; the last min(t, C) frames written."""
+    _append_call(dtype, dtype, t, per_stream, lens, [0] * len(lens), cap, 12, 64, 211,
+                 causal=t == 1, ring=True)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_stream,lens,valid,t,cap,heads,dh", [
+    (20, [0, 9], [33, 20], 33, 48, 12, 64),
+    (20, [0], [64], 64, 64, 12, 64),
+    (49, [4080], [16], 16, 4096, 12, 64),
+    (8, [59000], [1], 1, 60000, 2, 64),
+    (6, [100, 0], [40, 40], 40, 160, 2, 128),
+])
+def test_append_at_any_t_and_capacity_matches_plain(dtype, per_stream, lens, valid, t, cap,
+                                                    heads, dh, causal):
+    """Past 32 frames or the whole-table plan: the tiled body."""
+    if ops._body_smem("temporal_append_pm", "sf_temporal_append_pm", t, cap, heads * dh, heads,
+                      ops._DTYPE_CODES[dtype], ops._DTYPE_CODES[dtype]):
+        pytest.fail("this shape would take the whole-table body")
+    _append_call(dtype, dtype, t, per_stream, lens, valid, cap, heads, dh, 221, causal=causal)
+
+
+@pytest.mark.parametrize("pair", MIXED_PAIRS, ids=MIXED_IDS)
+@pytest.mark.parametrize("case", ["causal", "full", "ring", "tiled"])
+def test_append_takes_mixed_caches(pair, case):
+    dtype, kv = pair
+    if case == "ring":
+        _append_call(dtype, kv, 4, 196, [13], [0], 8, 12, 64, 231, causal=False, ring=True)
+    elif case == "tiled":
+        _append_call(dtype, kv, 40, 20, [0, 9], [40, 30], 64, 12, 64, 231)
+    else:
+        _append_call(dtype, kv, 8, 196, [0, 1, 5, 8], [8, 0, 8, 3], 16, 12, 64, 231,
+                     causal=case == "causal")
+
+
+@pytest.mark.parametrize("pair", MIXED_PAIRS + [(d, d) for d in DTYPES],
+                         ids=MIXED_IDS + ["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["causal", "full", "ring", "ring_t1", "mixed_lens"])
+def test_tiled_append_equals_the_whole_table_bitwise(pair, case, monkeypatch):
+    """Where both bodies take a shape they give the same bits (outputs and
+    planes): ``ops._body_smem`` patched to 0 forces the tiled one."""
+    dtype, kv = pair
+    kw = {"causal": dict(t=8, per_stream=196, lens=[0, 5, 12, 16], valid=[8, 8, 4, 0], cap=24),
+          "full": dict(t=8, per_stream=196, lens=[0, 5, 12, 16], valid=[8, 8, 4, 0], cap=24,
+                       causal=False),
+          "ring": dict(t=12, per_stream=196, lens=[37], valid=[0], cap=8, causal=False,
+                       ring=True),
+          "ring_t1": dict(t=1, per_stream=196, lens=[3, 40], valid=[0, 0], cap=16, ring=True),
+          "mixed_lens": dict(t=32, per_stream=20, lens=[0, 100, 223], valid=[32, 32, 1],
+                             cap=256)}[case]
+    whole = _append_call(dtype, kv, heads=12, dh=64, seed=241, **kw)
+    monkeypatch.setattr(ops, "_body_smem", lambda *a: 0)
+    tiled = _append_call(dtype, kv, heads=12, dh=64, seed=241, **kw)
+    assert torch.equal(whole[0], tiled[0])
+    for a, b in zip(whole[1], tiled[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["A", "D", "J"])
+@pytest.mark.parametrize("pair", MIXED_PAIRS, ids=MIXED_IDS)
+@pytest.mark.parametrize("mode", ["linear", "ring"])
+def test_decode_kernels_take_mixed_caches(kernel, pair, mode):
+    """A, D and J with queries of one float type and caches of the other:
+    against their plain versions, the appended planes equal; the fp32 cache
+    under bf16 queries (holding bf16 values) bit-equal to the bf16 cache."""
+    dtype, kv = pair
+    rows, cap, heads, dh = 1568, 16, 12, 64
+    d = heads * dh
+    lens = [15] if mode == "linear" else [37]
+    if kernel == "D":
+        lens = [0, 1, 5, 9, 14, 15, 15, 15] if mode == "linear" else [16, 17, 23, 31, 40, 41,
+                                                                          50, 63]
+    per_stream = rows // len(lens)
+    q = _randn((rows, d), dtype, 251)
+    kn, vn = (_randn((rows, d), torch.bfloat16, s).to(kv) for s in (252, 253))
+    caches = [_randn((cap, rows, d), torch.bfloat16, s).to(kv) for s in (254, 255)]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+    def run(fn, cs, new):
+        if kernel == "A":
+            return fn(q, *new, *cs, lens_t.reshape(()), heads)
+        if kernel == "D":
+            return fn(q, *new, *cs, lens_t, per_stream, heads)
+        rm = [c.transpose(0, 1).contiguous() for c in cs]
+        out = fn(q, *new, *rm, lens_t.reshape(()), heads)
+        for c, r in zip(cs, rm):
+            c.copy_(r.transpose(0, 1))
+        return out
+
+    kern, plain = {"A": (ops.temporal_decode_pm, ops.temporal_decode_pm_plain),
+                   "D": (ops.temporal_decode_pm_ragged, ops.temporal_decode_pm_ragged_plain),
+                   "J": (ops.temporal_decode_rm, ops.temporal_decode_rm_plain)}[kernel]
+    ref_caches = [c.clone() for c in caches]
+    ref = run(plain, ref_caches, (kn, vn))
+    got = run(kern, caches, (kn, vn))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for mine, theirs in zip(caches, ref_caches):
+        assert torch.equal(mine, theirs)
+    if kv == torch.float32:  # bf16 values in an fp32 cache: the bf16 cache's bits
+        same = [_randn((cap, rows, d), torch.bfloat16, s) for s in (254, 255)]
+        assert torch.equal(run(kern, same, (kn.bfloat16(), vn.bfloat16())), got)
+
+
+@pytest.mark.parametrize("pair", MIXED_PAIRS, ids=MIXED_IDS)
+@pytest.mark.parametrize("chunks", [[16], [8, 8], [3, 5, 1, 7]])
+def test_mixed_t1_stream_equals_chunked_appends_bitwise(pair, chunks):
+    """On a cache of the other float type A = C no longer holds (the full
+    clip attends unrounded keys); a t=1 stream through A equals, bit for
+    bit, E fed the same frames in chunks on the same mixed cache."""
+    dtype, kv = pair
+    rows, heads, dh = 1568, 12, 64
+    t = sum(chunks)
+    d = heads * dh
+    q = _randn((t, rows, d), dtype, 261)
+    kn, vn = (_randn((t, rows, d), kv, s) for s in (262, 263))
+    planes = [torch.zeros(t, rows, d, dtype=kv, device="cuda") for _ in range(4)]
+    steps = [ops.temporal_decode_pm(q[i], kn[i], vn[i], *planes[:2],
+                                    torch.tensor(i, dtype=torch.int32, device="cuda"), heads)
+             for i in range(t)]
+    start = 0
+    for n in chunks:
+        lens = torch.tensor([start], dtype=torch.int32, device="cuda")
+        valid = torch.tensor([n], dtype=torch.int32, device="cuda")
+        got = ops.temporal_append_pm_ragged(q[start:start + n], kn[start:start + n],
+                                            vn[start:start + n], *planes[2:], lens, valid, rows,
+                                            heads)
+        assert torch.equal(got, torch.stack(steps[start:start + n])), start
+        start += n
+    assert torch.equal(planes[0], planes[2]) and torch.equal(planes[1], planes[3])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_non_causal_chunk_equals_the_non_causal_full_clip_bitwise(dtype):
+    """A non-causal 16-frame append into an empty cache is the non-causal
+    full clip of those frames: E = C bit for bit without the mask too."""
+    rows, t, heads, dh = 1568, 16, 12, 64
+    d = heads * dh
+    q, k, v = (_randn((rows, t, d), dtype, s) for s in (271, 272, 273))
+    full = ops.temporal_fullclip(q, k, v, heads, False)
+    caches = [torch.zeros(t, rows, d, dtype=dtype, device="cuda") for _ in range(2)]
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = ops.temporal_append_pm_ragged(*(x.transpose(0, 1).contiguous() for x in (q, k, v)),
+                                        *caches, zero, zero + t, rows, heads, False)
+    assert torch.equal(got, full.transpose(0, 1))
+
+
+def _small_encoder(dtype, **kw):
+    from streamformer_tpu_torch.config import StreamformerConfig
+    from streamformer_tpu_torch.models import encoder
+
+    cfg = StreamformerConfig(image_size=32, num_frames=8, hidden_size=96, num_hidden_layers=2,
+                             num_attention_heads=4, intermediate_size=192, dtype=dtype, **kw)
+    model = encoder.StreamformerEncoder(cfg, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in model.encoder.layer:
+            layer.temporal_attention_gating.fill_(0.5)
+        emb = model.embeddings.time_embeddings
+        emb.copy_(0.02 * torch.randn(emb.shape, generator=torch.Generator().manual_seed(1)))
+    return model
+
+
+def _frames(b, t, seed, dtype):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((b, t, 3, 32, 32)).astype(np.float32)).to(
+        "cuda", dtype)
+
+
+def test_streaming_remainders_launch_the_kernels():
+    """The encoder's new streaming paths on the card launch E, A, D, J, F
+    or G and never a plain version: non-causal chunks (linear, ring; on the
+    int8 cache F or G a query), 40 frames a call, a mixed cache (t=1 and
+    chunks), int8 partial appends; each against the same call on the CPU
+    (the plain versions)."""
+    from streamformer_tpu_torch.models import encoder
+
+    cases = [
+        ("non-causal linear", dict(enable_causal_temporal=False), {}, [3, 3], None,
+         {"temporal_append_pm_ragged": 2}),
+        ("non-causal ring", dict(enable_causal_temporal=False, cache_mode="ring",
+                                 cache_capacity=4), {}, [3, 3, 6], None,
+         {"temporal_append_pm_ragged": 3}),
+        ("40 frames", dict(cache_capacity=48), {}, [1, 40], None,
+         {"temporal_decode_pm": 1, "temporal_append_pm_ragged": 1}),
+        ("mixed", dict(cache_dtype="bfloat16"), {}, [1, 3], None,
+         {"temporal_decode_pm": 1, "temporal_append_pm_ragged": 1}),
+        ("int8 new_valid", dict(cache_dtype="int8", cache_capacity=8), dict(per_stream_len=True),
+         [3, 3], [[1, 3], [3, 2]], {"temporal_decode_pm_int8_ragged": 6}),
+        ("non-causal int8 linear", dict(enable_causal_temporal=False, cache_dtype="int8",
+                                        cache_capacity=8), {}, [3, 3], None,
+         {"temporal_decode_pm_int8": 6}),
+        ("non-causal int8 ragged", dict(enable_causal_temporal=False, cache_dtype="int8",
+                                        cache_capacity=8), dict(per_stream_len=True), [3, 3], None,
+         {"temporal_decode_pm_int8_ragged": 6}),
+        ("non-causal int8 ring", dict(enable_causal_temporal=False, cache_dtype="int8",
+                                      cache_mode="ring", cache_capacity=4), {}, [3, 6], None,
+         {"temporal_decode_pm_int8": 9}),
+    ]
+    for name, kw, cache_kw, calls, valid, want in cases:
+        model = _small_encoder("float32", **kw)
+        cpu = encoder.StreamformerEncoder(model.cfg, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        px = _frames(2, sum(calls), 281, torch.float32)
+        cache = model.init_cache(2, **cache_kw)
+        cache_cpu = cpu.init_cache(2, **cache_kw)
+        ops.reset_launches()
+        lo = 0
+        for i, t in enumerate(calls):
+            nv = None if valid is None else torch.tensor(valid[i], dtype=torch.int32)
+            got, cache = model.stream(px[:, lo:lo + t], cache,
+                                      None if nv is None else nv.cuda())
+            ref, cache_cpu = cpu.stream(px[:, lo:lo + t].cpu(), cache_cpu, nv)
+            for b in range(2):
+                v = t if nv is None else int(nv[b])
+                err = (got["pooler_output"][b, :v].cpu() - ref["pooler_output"][b, :v]).abs()
+                assert err.max().item() <= 1e-4, (name, i, b)
+            lo += t
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        layers = model.cfg.num_hidden_layers
+        assert launches.pop("spatial_flat") == layers * len(calls), name
+        assert launches == {k: v * layers for k, v in want.items()}, (name, launches)
+
+
+# ---------------------------------------------------------------------------
 # the data path on the card: the augmentations' applies and the loader
 # ---------------------------------------------------------------------------
 

@@ -34,6 +34,16 @@ SMALL = dict(
 ATOL = 1e-3
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _max_err(a, b):
     return float(np.max(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32))))
 
@@ -172,15 +182,37 @@ def test_gelu_follows_the_dtype():
 
 
 def test_out_of_slice_features_raise():
+    """What the port refuses as the JAX package does (a ragged ring of
+    several frames a call, a ragged row-major cache), and what earlier
+    slices refused and now matches the JAX package: 33 frames in one call
+    (kernel E past its whole-table plan, the time table stretched to 33),
+    a float cache in another dtype than the compute dtype."""
     jcfg, params, cfg, model = _pair()
-    with pytest.raises(NotImplementedError):  # 33 frames in one call: past kernel E's 32
-        model.stream(torch.zeros(1, 33, 3, 48, 48), model.init_cache(1))
+    jparams = jax.tree.map(jnp.asarray, params)
+    px = _video(1, 33)
+    jstep = jax.jit(lambda p, f, c: jax_encoder.streaming_forward(p, f, c, jcfg))
+    jcache = jax_encoder.init_cache(jcfg.replace(cache_capacity=40), batch=1)
+    cache = model.init_cache(1, capacity=40)
+    for lo, hi in ((0, 33),):  # 33 frames in one call
+        ref, jcache = jstep(jparams, jnp.asarray(px[:, lo:hi]), jcache)
+        got, cache = model.stream(torch.from_numpy(px[:, lo:hi]), cache)
+        for key in ("last_hidden_state", "pooler_output"):
+            assert _max_err(got[key], ref[key]) <= ATOL, (lo, key)
     ring = encoder.StreamformerEncoder(cfg.replace(cache_mode="ring"), device="cpu")
     with pytest.raises(NotImplementedError):  # a ragged ring takes one frame per call
         ring.stream(torch.zeros(1, 2, 3, 48, 48), ring.init_cache(1, capacity=8,
                                                                   per_stream_len=True))
-    with pytest.raises(NotImplementedError, match="mixed caches"):  # a float cache of another dtype
-        encoder.init_cache(cfg.replace(cache_dtype="bfloat16"), 1, device="cpu")
+    mcfg, jmcfg = cfg.replace(cache_dtype="bfloat16"), jcfg.replace(cache_dtype="bfloat16")
+    mixed = encoder.StreamformerEncoder(mcfg, device="cpu")
+    mixed.load_state_dict(model.state_dict())
+    jmstep = jax.jit(lambda p, f, c: jax_encoder.streaming_forward(p, f, c, jmcfg))
+    jcache, cache = jax_encoder.init_cache(jmcfg, batch=1), mixed.init_cache(1)
+    assert cache["layers"][0]["v"].dtype == torch.bfloat16
+    for lo, hi in ((0, 3),):  # a float cache of another dtype
+        ref, jcache = jmstep(jparams, jnp.asarray(px[:, lo:hi]), jcache)
+        got, cache = mixed.stream(torch.from_numpy(px[:, lo:hi]), cache)
+        for key in ("last_hidden_state", "pooler_output"):
+            assert _max_err(got[key], ref[key]) <= ATOL, (lo, key)
     with pytest.raises(NotImplementedError):  # the row-major layout is lockstep only
         encoder.init_cache(cfg.replace(cache_layout="row_major"), 1, per_stream_len=True,
                            device="cpu")

@@ -31,6 +31,16 @@ from test_torch_encoder import ATOL, _max_err, _pair
 PIX_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _frames(t, h, w, seed):
     return np.random.default_rng(seed).integers(0, 256, (t, h, w, 3), dtype=np.uint8)
 

@@ -27,6 +27,16 @@ SHAPES = [(1, 2, 16), (5, 3, 8), (16, 2, 16), (16, 3, 8)]
 
 
 @pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
 def _interpret(monkeypatch):
     from jax.experimental import pallas as pl
 

@@ -53,6 +53,16 @@ CODE_SHARE = 0.999  # int8 weights: share of activation codes equal to the JAX p
 INT8_WEIGHTS_POOLED = 2.5e-3
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _int8_pair(**overrides):
     return _pair(cache_dtype="int8", **overrides)
 
@@ -327,19 +337,52 @@ def test_int8_weights_with_int8_ring_cache():
 
 
 def test_int8_refusals():
-    """What an int8 cache still refuses: partial appends (``new_valid``) and
-    multi-frame appends to a ragged ring; and a float cache in another dtype
-    than the compute dtype."""
-    _, _, cfg, model = _int8_pair(cache_capacity=8)
-    x = torch.zeros(2, 2, 3, 48, 48)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        model.stream(x, model.init_cache(2, per_stream_len=True),
-                     new_valid=torch.tensor([1, 2], dtype=torch.int32))
+    """What an int8 cache still refuses: multi-frame appends to a ragged
+    ring, as the JAX package does. Partial appends (``new_valid``, item 9b)
+    on the ragged int8 cache, refused before, now match the JAX package:
+    the valid frames' outputs, the lengths, the codes and scales below len +
+    valid. A float cache in another dtype than the compute dtype (item 9a),
+    refused before, streams as the JAX package's does."""
+    jcfg, params, cfg, model = _int8_pair(cache_capacity=8)
+    jparams = jax.tree.map(jnp.asarray, params)
+    px = _video(2, 5, seed=17)
+    jstep = jax.jit(lambda p, f, c, v: jax_encoder.streaming_forward(p, f, c, jcfg, new_valid=v))
+    jcache = jax_encoder.init_cache(jcfg, batch=2, per_stream_len=True)
+    cache = model.init_cache(2, per_stream_len=True)
+    for lo, hi, valid in ((0, 3, [2, 1]), (2, 5, [1, 3])):
+        ref, jcache = jstep(jparams, jnp.asarray(px[:, lo:hi]), jcache,
+                            jnp.asarray(valid, jnp.int32))
+        got, cache = model.stream(torch.from_numpy(px[:, lo:hi]), cache,
+                                  new_valid=torch.tensor(valid, dtype=torch.int32))
+        for bi, v in enumerate(valid):
+            for key in ("last_hidden_state", "pooler_output"):
+                assert _max_err(got[key][bi, :v], ref[key][bi, :v]) <= VS_JAX, (lo, bi, key)
+    lens = [3, 4]
+    assert cache["len"].tolist() == np.asarray(jcache["len"]).tolist() == lens
+    n, n_pad = 9, jcache["layers"][0]["k"].shape[1] // 2
+    for mine, theirs in zip(cache["layers"], jcache["layers"]):
+        for bi, u in enumerate(lens):
+            for key in ("k", "v"):
+                _codes_close(mine[key][:u, bi * n:(bi + 1) * n],
+                             np.asarray(theirs[key])[:u, bi * n_pad:bi * n_pad + n])
+                np.testing.assert_allclose(
+                    mine[f"{key}_scale"][:u, bi * n:(bi + 1) * n].numpy(),
+                    np.asarray(theirs[f"{key}_scale"])[bi * n_pad:bi * n_pad + n, :u].T,
+                    rtol=1e-5, atol=0)
     ring = encoder.StreamformerEncoder(cfg.replace(cache_mode="ring"), device="cpu")
     with pytest.raises(NotImplementedError, match="ring"):
-        ring.stream(x, ring.init_cache(2, per_stream_len=True))
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        encoder.init_cache(cfg.replace(cache_dtype="bfloat16"), 1, device="cpu")
+        ring.stream(torch.zeros(2, 2, 3, 48, 48), ring.init_cache(2, per_stream_len=True))
+    mcfg, jmcfg = cfg.replace(cache_dtype="bfloat16"), jcfg.replace(cache_dtype="bfloat16")
+    mixed = encoder.StreamformerEncoder(mcfg, device="cpu")
+    mixed.load_state_dict(model.state_dict())
+    jmstep = jax.jit(lambda p, f, c: jax_encoder.streaming_forward(p, f, c, jmcfg))
+    jcache, cache = jax_encoder.init_cache(jmcfg, batch=2), mixed.init_cache(2)
+    assert cache["layers"][0]["k"].dtype == torch.bfloat16
+    for lo, hi in ((0, 1), (1, 4)):
+        ref, jcache = jmstep(jparams, jnp.asarray(px[:, lo:hi]), jcache)
+        got, cache = mixed.stream(torch.from_numpy(px[:, lo:hi]), cache)
+        for key in ("last_hidden_state", "pooler_output"):
+            assert _max_err(got[key], ref[key]) <= 1e-3, (lo, key)
 
 
 # ---------------------------------------------------------------------------

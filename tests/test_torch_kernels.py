@@ -20,6 +20,16 @@ ATOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
 def _interpret(monkeypatch):
     from jax.experimental import pallas as pl
 
@@ -155,11 +165,14 @@ def test_temporal_append_pm_ragged_matches_pallas(t, lens, valid):
 
 
 def test_append_frame_cap():
-    """Kernel E takes up to 32 new frames (C's kMaxT) on any capacity whose
-    plan fits a block's shared memory: 32 at the capacities the engine and
-    the tower run (16, 64, 256), fewer where only the plan's scores bound
-    it, none where not even one frame's fits. The answer holds at every
-    width (the plan of heads of 128 in fp32)."""
+    """Kernel E's whole-table body takes up to 32 new frames (C's kMaxT) on
+    any capacity whose plan fits a block's shared memory: 32 at the
+    capacities the engine and the tower run (16, 64, 256), fewer where only
+    the plan's scores bound it, none where not even one frame's fits. The
+    answer holds at every width (the plan of heads of 128 in fp32). Past it
+    a call runs the tiled body: at capacity 60000, where the whole table
+    takes no frame, a call of one frame runs and matches the Pallas kernel
+    (the plain version here; the card tests hold the tiled body to it)."""
     assert ops.append_frame_cap(16) == 32
     assert ops.append_frame_cap(31) == 32 and ops.append_frame_cap(32) == 32
     assert ops.append_frame_cap(64) == 32 and ops.append_frame_cap(256) == 32
@@ -169,6 +182,21 @@ def test_append_frame_cap():
         t = ops.append_frame_cap(c)
         assert ops._append_min_smem(t, c, 128, 4) <= ops._MAX_SMEM
         assert t == 32 or ops._append_min_smem(t + 1, c, 128, 4) > ops._MAX_SMEM
+    c, r, d = 60000, 8, 16
+    q, kn, vn = (_randn((1, r, d), s) for s in (51, 52, 53))
+    kc = np.zeros((c, r, d), np.float32)
+    kc[:5] = _randn((5, r, d), 54)
+    vc = np.zeros((c, r, d), np.float32)
+    vc[:5] = _randn((5, r, d), 55)
+    lens, valid = np.asarray([5], np.int32), np.asarray([1], np.int32)
+    ref, k_ref, v_ref = A.fused_temporal_append_pm_ragged(
+        *(jnp.asarray(a) for a in (q, kn, vn, kc[:8], vc[:8], lens, valid)), 8, num_heads=2)
+    k_got, v_got = _t(kc), _t(vc)
+    got = ops.temporal_append_pm_ragged(_t(q), _t(kn), _t(vn), k_got, v_got, _t(lens),
+                                        _t(valid), r, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(k_got[:8].numpy(), np.asarray(k_ref))
+    np.testing.assert_array_equal(v_got[:8].numpy(), np.asarray(v_ref))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -230,11 +258,7 @@ def test_plain_versions_launch_nothing():
                                                  torch.zeros(5, dtype=torch.int32),
                                                  torch.zeros((5, 1), dtype=torch.int32), 1, 2),
          TypeError),  # valid of the wrong shape
-        (lambda x: ops.temporal_append_pm_ragged(
-            x[:1].expand(33, 5, 32).contiguous(), x[:1].expand(33, 5, 32).contiguous(),
-            x[:1].expand(33, 5, 32).contiguous(), x, x, torch.zeros(5, dtype=torch.int32),
-            torch.zeros(5, dtype=torch.int32), 1, 2),
-         NotImplementedError),  # 33 new frames > the 32 a call takes
+        (lambda x: _append_vs_jax(x, 33), None),  # 33 new frames, past the 32 E's whole table takes
         (lambda x: ops.temporal_append_pm_ragged(
             x[:0], x[:0], x[:0], x.repeat(16, 1, 1), x.repeat(16, 1, 1),
             torch.zeros(5, dtype=torch.int32), torch.zeros(5, dtype=torch.int32), 1, 2),
@@ -249,6 +273,33 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call, error):
         return
     with pytest.raises(error):
         call(x)
+
+
+def _append_vs_jax(x, t):
+    """E's (t, R, D) entry on t new frames of two streams of 8 rows at lens
+    3 and 0, every frame valid, on a cache of t + 3 slots, against the JAX
+    package's einsum full clip over each stream's cached prefix and new
+    frames (its last t outputs: what the causal append computes; the Pallas
+    kernel in interpret mode takes half a minute at t = 33)."""
+    q = x.reshape(-1, 32).repeat(-(-t * 16 // 10), 1)[:t * 16].reshape(t, 16, 32)
+    k, v = q.roll(1, 0), q.flip(0)
+    lens = [3, 0]
+    caches = [torch.from_numpy(_randn((t + 3, 16, 32), s)) for s in (41, 42)]
+    prefix = [c.clone() for c in caches]
+    got = ops.temporal_append_pm_ragged(q, k, v, *caches, torch.tensor(lens, dtype=torch.int32),
+                                        torch.tensor([t, t], dtype=torch.int32), 8, 2)
+    want = []
+    for s_, length in enumerate(lens):
+        rows = slice(8 * s_, 8 * s_ + 8)
+
+        def seq(new, cache):  # the stream's (8, length + t, 32) key sequence
+            return jnp.asarray(torch.cat([cache[:length, rows], new[:, rows]]).transpose(0, 1)
+                               .numpy())
+
+        out = A.fullclip_temporal_reference(seq(q, prefix[0]), seq(k, prefix[0]),
+                                            seq(v, prefix[1]), 2)
+        want.append(np.asarray(out)[:, length:].transpose(1, 0, 2))
+    return got, np.concatenate(want, axis=1)
 
 
 def _vs_jax(port, jax_fn, x, num_heads):

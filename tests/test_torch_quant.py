@@ -38,6 +38,16 @@ KERNEL_ATOL = 1e-5
 DENSE_ATOL = 1e-6
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randn(shape, seed, scale=1.0):
     return (scale * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
 

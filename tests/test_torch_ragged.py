@@ -21,6 +21,16 @@ from streamformer_tpu_torch.models import encoder
 from test_torch_encoder import ATOL, _max_err, _pair, _video
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jit_step(jcfg):
     return jax.jit(lambda p, f, c, nv: jax_encoder.streaming_forward(p, f, c, jcfg, new_valid=nv))
 

@@ -22,6 +22,16 @@ from test_torch_encoder import ATOL, _max_err, _pair, _video
 CAP = 4
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("chunks", [[2, 2, 2, 2], [CAP + 3, 3], [1, 2, CAP + 3]],
                          ids=["t2", "t_past_C", "mixed"])
 def test_ring_chunks_match_jax(chunks):

@@ -30,6 +30,16 @@ KERNEL_TOL = 2e-5
 VS_JAX_INT8 = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     """Run the JAX package's Pallas kernels in interpret mode on the CPU."""

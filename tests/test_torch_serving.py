@@ -31,6 +31,16 @@ VS_JAX, VS_LONE = 1e-4, 1e-5
 MEAN, STD = (0.481, 0.457, 0.408), (0.268, 0.261, 0.275)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jcfg = JaxConfig(use_pallas=False, **SMALL)
@@ -209,8 +219,10 @@ def test_engine_close_unadmitted_then_poll(pair):
 
 def test_engine_refusals(pair):
     """A starved open ring stream is an error (the ring cannot hold); a float
-    feed into uint8 staging, a mesh and a float cache in another dtype than
-    the compute dtype are refused."""
+    feed into uint8 staging and a mesh are refused. A float cache in another
+    dtype than the compute dtype, refused before, now serves, through
+    kernel E's chunks as a cache of the compute dtype does: its streams
+    equal lone streams on the same cache."""
     _, _, model = pair
     eng = StreamingEngine(model, slots=1, mode="ring")
     sid = eng.open()
@@ -230,8 +242,14 @@ def test_engine_refusals(pair):
     with pytest.raises(NotImplementedError, match="item 14"):
         StreamingEngine(model, slots=2, mesh=object())
     mixed = encoder.StreamformerEncoder(model.cfg.replace(cache_dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        StreamingEngine(mixed, slots=2)
+    mixed.load_state_dict(model.state_dict())
+    eng = StreamingEngine(mixed, slots=2, mode="linear")
+    assert eng._cache["layers"][0]["k"].dtype == torch.bfloat16
+    clips = _clips(9, [3, 2])
+    got = _serve(eng, clips, frames=2)
+    assert eng.forwards == 2  # E chunks of up to 2 frames, one a tick
+    for feats, clip in zip(got, clips):
+        np.testing.assert_allclose(feats, lone_stream(mixed, clip), atol=VS_LONE, rtol=0)
 
 
 def test_engine_staging_wraps_and_overflows(pair):

@@ -152,9 +152,11 @@ def test_non_causal_streaming_one_frame_a_call_matches_jax(mode):
 
 
 def test_non_causal_streaming_of_several_frames_raises():
+    """Refused before (item 3b); now kernel E without the mask (its plain
+    version here): three frames a call on the linear cache, each seeing the
+    cache and all three, as the JAX package's einsum path."""
     jcfg, params, cfg, model = _pair(enable_causal_temporal=False)
-    with pytest.raises(NotImplementedError, match="3b"):
-        model.stream(torch.zeros(1, 2, 3, 32, 32), model.init_cache(1, capacity=8))
+    _stream_both(jcfg, params, cfg, model, _video(2, 6, 32, seed=6), 3)
 
 
 @pytest.mark.parametrize("step_frames", [1, 3])

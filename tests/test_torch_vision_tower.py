@@ -24,6 +24,16 @@ from streamformer_tpu_torch.ops import attention as ops
 from test_torch_encoder import ATOL, _max_err, _pair, _video
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _towers(context_length=16, **overrides):
     jcfg, params, cfg, model = _pair(streaming_mode=True, **overrides)
     jax_tower = JaxTower(jcfg, jax.tree.map(jnp.asarray, params), context_length=context_length)
