@@ -235,7 +235,8 @@ Phases, each fatal on failure:
     ``HungarianTracker``, results JSON and ``evaluate_ytvis``'s AP;
 32. deployment at the flagship (bf16, phase 4's weights): ``save_pretrained``
     then ``from_pretrained`` bit for bit, with the write's seconds and
-    bytes; ``torch.export`` artifacts (``streamformer_tpu_torch.export``),
+    bytes; ``torch.export`` artifacts (``streamformer_tpu_torch.export``) of
+    the flagship's first ``EXPORT_LAYERS`` layers (a depth cut),
     each written to a file and loaded back, run against the live calls: the
     full clip at batch 8 x 16 frames (B, C), the streaming step at batch 8
     on the ring C=16, t=1 (A, B), the ragged append at t=8 on the linear
@@ -282,9 +283,24 @@ Phases, each fatal on failure:
     lone streams, and int8
     partial appends (``new_valid``, G a frame) bit-equal to the t=1 G stream
     on the valid frames. Each run's launches held to its path. The phase
-    must take at most 60 s.
+    must take at most 60 s;
+35. serving over several GPUs: (a) kernel rows of A, D, E, F and G at the
+    rank shape of model parallelism 2 (6 heads of 64, R=1568, C=16, bf16),
+    each within 2e-2 of its plain version, its cache writes equal; (b) the
+    flagship streamed tensor parallel by two processes on this card over
+    gloo (``tools.tp_stream``: a ring cache of C=16 at batch 8, 16 frames, a
+    float and an int8 cache, each rank's cache at D / 2), each rank's pooled
+    output within 0.008 of this process's stream (int8: cosine above
+    0.999), A (or F) and B L times a frame on each rank; then over an NCCL
+    mesh of world size 1: (c) ``StreamingEngine(mesh=)`` on phase 8's bursts
+    as uint8 frames, latency and throughput ticks, bit for bit the
+    one-process engine's, D (or E) and B L times a tick; (d)
+    ``DecodeEngine(mesh=)`` at Qwen2.5-7B's widths, two layers, the
+    one-process engine's greedy tokens; (e) ``export_sharded_forward`` of
+    the flagship's first ``EXPORT_LAYERS`` layers, loaded on the mesh's
+    groups, bit for bit the live full clip, B and C inside it.
 
-Nineteen paths are main paths: the lockstep encode (the launch counters are
+Twenty paths are main paths: the lockstep encode (the launch counters are
 zeroed just before phase 4's forward and read after phase 5), the serving
 engine (zeroed before each engine run of phase 8, read after it), lockstep
 int8 serving (zeroed before each stream of phase 12), the int8 engine
@@ -309,8 +325,10 @@ each of its steps, and before its ``run_inference``, read after it), and
 the exported programs (zeroed before each call of phase 32's artifacts,
 read after it), and the shapes and attention types (zeroed before each
 run of phase 33, read after it), and the streaming remainders (zeroed
-before each run of phase 34b-e, read after it). Every kernel must have run
-on its path.
+before each run of phase 34b-e, read after it), and serving over several
+GPUs (each rank of phase 35b zeroes before its stream and reads after it;
+zeroed before each mesh engine run of 35c and the sharded program's call
+of 35e, read after it). Every kernel must have run on its path.
 The last two lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
@@ -467,6 +485,8 @@ GREEDY_DECIDED_MIN = 0.1
 # phase 27: two questions on 16 frames each, a prompt of 24 + <image> + 16 ids
 # phase 32: the LM decode artifact's engine run (phase 26's widths, two layers)
 LM_EXPORT = dict(slots=8, capacity=128, requests=12, new=16)
+PROFILE_TRIES = 6  # profiles of a kernel's calls before its device time counts as missing
+EXPORT_LAYERS = 2  # phase 32's encoder programs: a depth cut of the flagship (PERF.md section 4)
 VQA = dict(frames=16, system=24, question=16, max_new=16, capacity=128, buckets=(32, 64))
 # phases 28-29: the downstream training paths. VideoQA stages 2-3 and DPO at
 # Qwen2.5-0.5B's published widths (Qwen/Qwen2.5-0.5B-Instruct config.json; the
@@ -626,19 +646,27 @@ def main():
         iters calls, L2 flushed before each, as time_ms times them (whose
         events also hold the wrapper's host work). Each kernel's mean over
         the launches the profile recorded (late in a run it may miss some,
-        or, now and then, all: a profile without the kernel's rows is taken
-        again, twice at most), summed over the kernels a call runs."""
+        or, now and then, all, three profiles in a row once: a profile
+        without the kernel's rows is taken again, PROFILE_TRIES profiles at
+        most; each such profile prints what it did record, for the cause,
+        an open question in PERF.md), summed over the kernels a call runs."""
         fn()
-        for _ in range(3):
+        for k in range(PROFILE_TRIES):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
                     flush.zero_()
                     fn()
                 torch.cuda.synchronize()
-            rows = [e for e in device_rows(prof) if any(sym in e.key for sym in symbols)]
+            on_card = device_rows(prof)
+            rows = [e for e in on_card if any(sym in e.key for sym in symbols)]
             if rows:
                 return sum(e.device_time_total / e.count for e in rows) / 1e3
-        fail(f"no device time matched {symbols} in three profiles: a kernel symbol was renamed")
+            print(f"device_ms: profile {k + 1} of {PROFILE_TRIES} holds no row of {symbols}: "
+                  f"{len(on_card)} device rows ({sum(e.count for e in on_card)} events: "
+                  f"{sorted(e.key for e in on_card)[:4]}), "
+                  f"{sum(e.count for e in prof.key_averages())} events in all")
+        fail(f"no device time matched {symbols} in {PROFILE_TRIES} profiles: a kernel symbol was "
+             "renamed")
 
     def bound(nbytes, flops, dtype_name):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
@@ -4111,32 +4139,40 @@ def main():
                   f"exported {exp_ms:.3f} against live {live_ms:.3f}; copies of the cache in the "
                   f"graph: {len(copies)} {copies[:4]}")
 
-        params = model.state_dict()
+        # the programs are exported and run at a depth cut to EXPORT_LAYERS
+        # (the flagship's first layers): every kernel still runs in each,
+        # L32 times a call; the export's seconds are the depth's
+        cfg32 = cfg.replace(num_hidden_layers=EXPORT_LAYERS)
+        L32 = cfg32.num_hidden_layers
+        model32 = encoder.StreamformerEncoder(cfg32, device=dev)
+        model32.load_state_dict({k_: v_ for k_, v_ in model.state_dict().items()
+                                 if k_ in model32.state_dict()})
+        params = model32.state_dict()
         # an artifact takes frames in the compute dtype (static shapes and
         # dtypes); the live calls cast them to it first
-        vid = video.to(encoder.compute_dtype(cfg))
+        vid = video.to(encoder.compute_dtype(cfg32))
 
         # 32b. the full clip at batch 8 x 16 frames: B and C
         prog, ex_s, nbytes = exported("full_clip", lambda path_: EX.export_full_clip(
-            cfg, b_, t_, path=path_), "full_clip")
+            cfg32, b_, t_, path=path_), "full_clip")
         ops.reset_launches()
         got = prog(params, vid)
         torch.cuda.synchronize()
         fc_launches = dict(ops.LAUNCHES)
         add(export_launches, fc_launches)
-        want = encoder.model_forward(model, vid)
+        want = encoder.model_forward(model32, vid)
         equal, err = hold("full clip", got, want)
-        if fc_launches != {**zeros, "spatial_flat": L, "temporal_fullclip": L}:
+        if fc_launches != {**zeros, "spatial_flat": L32, "temporal_fullclip": L32}:
             fail(f"exported full clip launches {fc_launches}")
         report(f"full clip B={b_} T={t_}", prog, ex_s, nbytes, equal, err, 1, fc_launches,
-               time_ms(lambda: encoder.model_forward(model, vid), iters=5),
+               time_ms(lambda: encoder.model_forward(model32, vid), iters=5),
                time_ms(lambda: prog(params, vid), iters=5))
         del prog, got, want
 
         def stream_case(tag, kind_cfg, t_new, calls, ragged, counted):
             """The exported step against the live one, each on its own cache,
             ``calls`` calls of t_new frames of ``vid`` (frame i % T); the
-            kernel ``counted`` and B must run L times a call inside the
+            kernel ``counted`` and B must run L32 times a call inside the
             program (t_new = 1 for A and G; E takes the t_new frames at once)."""
             prog_, ex_s_, nbytes_ = exported(
                 "streaming_step", lambda path_: EX.export_streaming_step(
@@ -4150,14 +4186,14 @@ def main():
                     done_ = torch.ones(b_, dtype=torch.bool, device=dev)
                     encoder.reset_streams(c_live, done_)
                     encoder.reset_streams(c_exp, done_)
-                live_, c_live = encoder.streaming_forward(model, x_, c_live, cfg=kind_cfg)
+                live_, c_live = encoder.streaming_forward(model32, x_, c_live, cfg=kind_cfg)
                 ops.reset_launches()
                 got_, c_exp = prog_(params, x_, c_exp)
                 torch.cuda.synchronize()
                 add(launched, ops.LAUNCHES)
                 eq_, e_ = hold(tag, got_, live_)
                 equal_, err_ = equal_ and eq_, max(err_, e_)
-            if launched != {**zeros, counted: L * calls, "spatial_flat": L * calls}:
+            if launched != {**zeros, counted: L32 * calls, "spatial_flat": L32 * calls}:
                 fail(f"exported {tag}: launches {launched} over {calls} calls")
             if not torch.equal(c_live["len"], c_exp["len"]):
                 fail(f"exported {tag}: lengths {c_exp['len'].tolist()} vs {c_live['len'].tolist()}")
@@ -4167,7 +4203,7 @@ def main():
             def live_call():
                 if ragged:
                     encoder.reset_streams(c_live, torch.ones(b_, dtype=torch.bool, device=dev))
-                encoder.streaming_forward(model, x_, c_live, cfg=kind_cfg)
+                encoder.streaming_forward(model32, x_, c_live, cfg=kind_cfg)
 
             def exp_call():
                 if ragged:
@@ -4178,14 +4214,14 @@ def main():
                    time_ms(live_call, iters=9), time_ms(exp_call, iters=9))
 
         # 32c. the streaming step at batch 8 on the ring, C=16, t=1: A and B
-        stream_case(f"streaming step B={b_} ring C={cap} t=1", cfg.replace(cache_mode="ring"), 1,
+        stream_case(f"streaming step B={b_} ring C={cap} t=1", cfg32.replace(cache_mode="ring"), 1,
                     cap + 4, False, "temporal_decode_pm")
         # 32d. the ragged append at t=8 on the linear cache, C=16: E and B
-        stream_case(f"ragged append B={b_} linear C={cap} t={E_T}", cfg, E_T, 2 * cap // E_T,
+        stream_case(f"ragged append B={b_} linear C={cap} t={E_T}", cfg32, E_T, 2 * cap // E_T,
                     True, "temporal_append_pm_ragged")
         # 32e. the ragged int8-cache step, t=1: G and B
         stream_case(f"ragged int8-cache step B={b_} linear C={cap} t=1",
-                    cfg.replace(cache_dtype="int8"), 1, 6, True,
+                    cfg32.replace(cache_dtype="int8"), 1, 6, True,
                     "temporal_decode_pm_int8_ragged")
 
         # 32f. the LM decode step at Qwen2.5-7B widths, two layers, 8 slots,
@@ -4233,7 +4269,7 @@ def main():
               f"engine's greedy tokens ({LM_EXPORT['requests']} requests of {LM_EXPORT['new']} "
               f"tokens, slots recycled); ms a tick exported {exp_tick:.3f} against live "
               f"{live_tick:.3f}; copies of the cache in the graph: {len(graph_copies(prog))}")
-        del prog, lm7x, lm_params
+        del prog, lm7x, lm_params, model32
     finally:
         shutil.rmtree(work32, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5037,6 +5073,286 @@ def main():
     if s34 > REST["budget_s"]:
         fail(f"phase 34 took {s34:.1f} s, past its {REST['budget_s']} s")
 
+    # ---- 35. serving over several GPUs: A, D, E, F and G at the rank shape of model
+    # parallelism 2; the flagship streamed tensor parallel by two ranks on this card
+    # over gloo; the engines over an NCCL mesh of world size 1; the sharded export
+    t35 = time.perf_counter()
+    from streamformer_tpu_torch.tools import tp_stream
+
+    serve_launches = dict(zeros)
+    h_r, d_r, r = h_ // 2, d_ // 2, b_ * n_
+    bf, elt = torch.bfloat16, 2
+    # 35a. A, D, E, F and G at one rank's shape (6 heads of 64, R=1568, C=16, bf16)
+    q, kn, vn = (randn(r, d_r, dtype=bf) for _ in range(3))
+    kc, vc = randn(cap, r, d_r, dtype=bf), randn(cap, r, d_r, dtype=bf)
+    ln = torch.tensor(cap - 1, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(D_LENS["linear"], dtype=torch.int32, device=dev)
+    q4 = q.view(r, h_r, 1, dh)
+    k4, v4 = (x.view(cap, r, h_r, dh).permute(1, 2, 0, 3) for x in (kc, vc))
+    tag = f"mp=2 rank H={h_r}"
+
+    def same_planes(name, planes, refs):
+        if not all(torch.equal(a_, b_ref) for a_, b_ref in zip(planes, refs)):
+            fail(f"35a {name} {tag}: the written cache planes differ from the plain version's")
+
+    refs = [kc.clone(), vc.clone()]
+    ref = ops.temporal_decode_pm_plain(q, kn, vn, *refs, ln, h_r)
+    got = ops.temporal_decode_pm(q, kn, vn, kc, vc, ln, h_r)
+    torch.cuda.synchronize()
+    same_planes("A", (kc, vc), refs)
+    n_read = cap - 1
+    record("temporal_decode_pm", f"{tag} linear R={r} C={cap} len={cap - 1}", "bfloat16",
+           max_err(got, ref), lambda: ops.temporal_decode_pm(q, kn, vn, kc, vc, ln, h_r),
+           lambda: ops.temporal_decode_pm_plain(q, kn, vn, kc, vc, ln, h_r),
+           lambda: F.scaled_dot_product_attention(q4, k4, v4),
+           elt * r * d_r * (3 + 1 + 2 * n_read + 2), 4 * r * d_r * (n_read + 1))
+    refs = [kc.clone(), vc.clone()]
+    ref = ops.temporal_decode_pm_ragged_plain(q, kn, vn, *refs, lens_t, n_, h_r)
+    got = ops.temporal_decode_pm_ragged(q, kn, vn, kc, vc, lens_t, n_, h_r)
+    torch.cuda.synchronize()
+    same_planes("D", (kc, vc), refs)
+    n_read = sum(min(x, cap - 1) for x in D_LENS["linear"])
+    rows_len = lens_t.long().repeat_interleave(n_)
+    window = (torch.arange(cap, device=dev)[None] <= rows_len[:, None]).view(r, 1, 1, cap)
+    record("temporal_decode_pm_ragged", f"{tag} linear R={r} C={cap} lens={D_LENS['linear']}",
+           "bfloat16", max_err(got, ref),
+           lambda: ops.temporal_decode_pm_ragged(q, kn, vn, kc, vc, lens_t, n_, h_r),
+           lambda: ops.temporal_decode_pm_ragged_plain(q, kn, vn, kc, vc, lens_t, n_, h_r),
+           lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
+           elt * d_r * (6 * r + 2 * n_ * n_read), 4 * d_r * n_ * (n_read + b_))
+    # E: the packed entry on a (B, t, N, 3D / 2) qkv, the engine's throughput chunk
+    e_lens = torch.tensor(E_LENS, dtype=torch.int32, device=dev)
+    e_valid = torch.tensor(E_VALID, dtype=torch.int32, device=dev)
+    qkv = randn(b_, E_T, n_, 3 * d_r, dtype=bf)
+    refs = [kc.clone(), vc.clone()]
+    ref = ops.temporal_append_pm_qkv_plain(qkv, *refs, e_lens, e_valid, n_, h_r)
+    got = ops.temporal_append_pm_qkv(qkv, kc, vc, e_lens, e_valid, n_, h_r)
+    torch.cuda.synchronize()
+    same_planes("E", (kc, vc), refs)
+    err = max(max_err(got[i, :v], ref[i, :v]) for i, v in enumerate(E_VALID) if v)
+    qe, ke, ve = (x.reshape(b_, E_T, n_, h_r, dh).permute(0, 2, 3, 1, 4).reshape(r, h_r, E_T, dh)
+                  for x in qkv.split(d_r, dim=-1))
+    ti = torch.arange(E_T, device=dev)
+    e_rows = e_lens.long().repeat_interleave(n_)
+    old = (torch.arange(cap, device=dev)[None, None] < e_rows[:, None, None]).expand(r, E_T, cap)
+    e_mask = torch.cat([old, (ti[None] <= ti[:, None]).expand(r, E_T, E_T)], -1)[:, None]
+    ke = torch.cat([k4, ke], 2)
+    ve = torch.cat([v4, ve], 2)
+    n_old = sum(min(x, cap) for x in E_LENS)
+    record("temporal_append_pm_ragged", f"{tag} qkv R={r} C={cap} t={E_T}", "bfloat16", err,
+           lambda: ops.temporal_append_pm_qkv(qkv, kc, vc, e_lens, e_valid, n_, h_r),
+           lambda: ops.temporal_append_pm_qkv_plain(qkv, kc, vc, e_lens, e_valid, n_, h_r),
+           lambda: F.scaled_dot_product_attention(qe, ke, ve, attn_mask=e_mask),
+           elt * n_ * d_r * (2 * n_old + 4 * E_T * b_ + 2 * sum(E_VALID)),
+           4 * d_r * n_ * (E_T * n_old + b_ * E_T * (E_T + 1) // 2))
+    del qkv, qe, ke, ve, e_mask, old
+    # F and G: the int8 cache of one rank's heads (the row scales the whole D's:
+    # MAX-reduced over the model group in the encoder; here one rank's operands)
+    new = (*encoder.quantize_kv(randn(r, d_r, dtype=bf)), *encoder.quantize_kv(randn(r, d_r, dtype=bf)))
+    new = (new[0], new[2], new[1], new[3])
+    codes = torch.randint(-127, 128, (2, cap, r, d_r), dtype=torch.int8, device=dev, generator=gen)
+    scales = 0.005 + 0.025 * torch.rand(2, cap, r, device=dev, generator=gen)
+    cache8 = [codes[0].clone(), codes[1].clone(), scales[0].clone(), scales[1].clone()]
+    kd, vd = ((c_.float() * s_[..., None]).to(bf) for c_, s_ in ((cache8[0], cache8[2]),
+                                                                (cache8[1], cache8[3])))
+    k8, v8 = (x.view(cap, r, h_r, dh).permute(1, 2, 0, 3) for x in (kd, vd))
+
+    def int8_bytes(rows_read):
+        return elt * r * d_r * 2 + 2 * r * d_r * 2 + 4 * r * 2 * 2 + rows_read * (2 * d_r + 2 * 4)
+
+    refs = [c_.clone() for c_ in cache8]
+    ref = ops.temporal_decode_pm_int8_plain(q, *new, *refs, ln, h_r)
+    got = ops.temporal_decode_pm_int8(q, *new, *cache8, ln, h_r)
+    torch.cuda.synchronize()
+    same_planes("F", cache8, refs)
+    record("temporal_decode_pm_int8", f"{tag} linear R={r} C={cap} len={cap - 1}", "bfloat16",
+           max_err(got, ref), lambda: ops.temporal_decode_pm_int8(q, *new, *cache8, ln, h_r),
+           lambda: ops.temporal_decode_pm_int8_plain(q, *new, *cache8, ln, h_r),
+           lambda: F.scaled_dot_product_attention(q4, k8, v8),
+           int8_bytes(r * (cap - 1)), 4 * r * d_r * cap)
+    refs = [c_.clone() for c_ in cache8]
+    ref = ops.temporal_decode_pm_int8_ragged_plain(q, *new, *refs, lens_t, n_, h_r)
+    got = ops.temporal_decode_pm_int8_ragged(q, *new, *cache8, lens_t, n_, h_r)
+    torch.cuda.synchronize()
+    same_planes("G", cache8, refs)
+    record("temporal_decode_pm_int8_ragged", f"{tag} linear R={r} C={cap} lens={D_LENS['linear']}",
+           "bfloat16", max_err(got, ref),
+           lambda: ops.temporal_decode_pm_int8_ragged(q, *new, *cache8, lens_t, n_, h_r),
+           lambda: ops.temporal_decode_pm_int8_ragged_plain(q, *new, *cache8, lens_t, n_, h_r),
+           lambda: F.scaled_dot_product_attention(q4, k8, v8, attn_mask=window),
+           int8_bytes(n_ * n_read), 4 * d_r * n_ * (n_read + b_))
+    del q, kn, vn, kc, vc, q4, k4, v4, new, codes, scales, cache8, kd, vd, k8, v8, refs
+    torch.cuda.empty_cache()
+    print(f"35a ({smi}): A, D, E, F and G at the mp=2 rank shape ({h_r} heads of {dh}, R={r}, "
+          f"C={cap}, bf16) within {TOL['bfloat16']} of their plain versions, the cache writes "
+          "equal (kernel rows above)")
+
+    # 35b. the flagship streamed tensor parallel (mp = 2) by two processes on this
+    # card over gloo (NCCL takes one rank a GPU), ring C=16, batch 8, 16 frames, on
+    # a float and an int8 cache, each rank held to this process's stream
+    # (the same two ranks first serve 35c's streams over a (2, 1) mesh, held below to
+    # the one-process engine; the export over (1, 2) on two ranks of the card is
+    # tests/test_torch_cuda.py's, at a small width: here it would cost ~40 s)
+    rng35 = np.random.default_rng(35)
+    lens35 = [int(x) for x in rng35.integers(ENGINE["min_frames"], ENGINE["max_frames"] + 1,
+                                             ENGINE["streams"])]
+    raw35 = [rng35.integers(0, 256, (n, 3, img, img), dtype=np.uint8) for n in lens35]
+    tick_frames35 = (1, ENGINE["frames"])
+    work35 = tempfile.mkdtemp(prefix="serve-", dir=os.path.join(root, "build"))
+    try:
+        tb0 = time.perf_counter()
+        torch.save(video.cpu(), os.path.join(work35, "video.pt"))
+        torch.save({"clips": raw35, "slots": ENGINE["slots"], "tick_frames": tick_frames35,
+                    "burst_ticks": ENGINE["burst_ticks"], "export_layers": 0},
+                   os.path.join(work35, "serve.pt"))
+        ranks35 = tp_stream.launch(2, ckpt, os.path.join(work35, "video.pt"), work35,
+                                   capacity=cap, cache_dtypes=("float", "int8"),
+                                   serve=os.path.join(work35, "serve.pt"))
+        tb_s = time.perf_counter() - tb0
+        served35 = [res.pop("serve") for res in ranks35]
+        ones = tp_stream.reference(model, video, cap, ("float", "int8"))
+        for name, kernel in (("float", "temporal_decode_pm"), ("int8", "temporal_decode_pm_int8")):
+            one, one_s = ones[name]
+            for rk, res in enumerate(ranks35):
+                got = res[name]
+                want = {**zeros, kernel: L * t_, "spatial_flat": L * t_}
+                if got["launches"] != want or got["width"] != d_r:
+                    fail(f"35b rank {rk} {name}: launches {got['launches']}, cache width "
+                         f"{got['width']} (want {want}, {d_r})")
+                add(serve_launches, got["launches"])
+                # the int8 ranks too are held at the float gate: their codes and row
+                # scales are the one-process cache's (the row absmax MAX-reduced over
+                # the model group), which a scale of the rank's half row would break
+                e_, cos_ = max_err(got["pooled"], one), cosine(got["pooled"], one)
+                if not (e_ <= STREAM_TOL_POOLED and (name == "float" or cos_ > INT8_CACHE_COS)):
+                    fail(f"35b rank {rk} {name}: pooled max-abs {e_} (> {STREAM_TOL_POOLED}) or "
+                         f"cosine {cos_} (<= {INT8_CACHE_COS}) from one process's stream")
+                gate = f"pooled max-abs {e_} (<= {STREAM_TOL_POOLED})" + (
+                    "" if name == "float" else f", cosine {cos_} (> {INT8_CACHE_COS})")
+                print(f"35b ({smi}): rank {rk} of 2 (gloo, one card), {name} ring cache C={cap} "
+                      f"of width {got['width']}, {t_} frames at batch {b_} in "
+                      f"{got['seconds']:.3f} s (one process {one_s:.3f} s): {gate} against one "
+                      f"process; launches "
+                      f"{ {k_: v_ for k_, v_ in got['launches'].items() if v_} }")
+        print(f"35b: two ranks started, served, streamed and joined in {tb_s:.1f} s")
+    finally:
+        shutil.rmtree(work35, ignore_errors=True)
+
+    # 35c-e over an NCCL mesh of world size 1 (the card's machine has one GPU)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh_lib.init_distributed(f"localhost:{port}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"35c: the process group runs {dist.get_backend()}, not nccl")
+        mesh35 = mesh_lib.make_mesh(1, 1)
+        # 35c. StreamingEngine over the mesh: bursts as phase 8's (12 streams of 4-16
+        # uint8 frames), both tick modes, bit for bit the one-process engine's; then
+        # 35b's two ranks' engine over (2, 1), 4 slots a rank, against it
+        for frames in tick_frames35:
+            out35 = {}
+            for tag35, msh in (("mesh", mesh35), ("one", None)):
+                eng = StreamingEngine(model, slots=ENGINE["slots"], mode="linear",
+                                      stage_dtype="uint8", mesh=msh)
+                ops.reset_launches()
+                try:
+                    out35[tag35] = tp_stream.engine_run(eng, raw35, frames, ENGINE["burst_ticks"])
+                except RuntimeError as e:
+                    fail(f"35c: {e}")
+                torch.cuda.synchronize()
+                if tag35 == "mesh":
+                    run = dict(ops.LAUNCHES)
+            feats, ticks = out35["mesh"]
+            kernel = "temporal_decode_pm_ragged" if frames == 1 else "temporal_append_pm_ragged"
+            if run != {**zeros, kernel: L * ticks, "spatial_flat": L * ticks}:
+                fail(f"35c engine over the mesh, ticks of {frames}: launches {run} over {ticks} "
+                     "ticks")
+            add(serve_launches, run)
+            if out35["one"][1] != ticks or not all(
+                    np.array_equal(a_, b_ref) for a_, b_ref in zip(feats, out35["one"][0])):
+                fail(f"35c engine over the mesh, ticks of {frames}: differs from the one-process "
+                     "engine")
+            print(f"35c ({smi}): StreamingEngine(mesh=) over NCCL (world size 1), "
+                  f"{ENGINE['slots']} slots, {len(raw35)} uint8 streams of {lens35} frames, ticks "
+                  f"of {frames}: "
+                  f"{ticks} ticks bit for bit the one-process engine's; launches "
+                  f"{ {k_: v_ for k_, v_ in run.items() if v_} }")
+            for rk, got in enumerate(served35):
+                got = got["engine"][frames]
+                e_ = max(float(np.abs(a_ - b_ref).max()) if a_.shape == b_ref.shape else
+                         float("inf") for a_, b_ref in zip(got["feats"], out35["one"][0]))
+                if got["ticks"] != ticks or not e_ <= STREAM_TOL_POOLED or \
+                        got["launches"][kernel] == 0 or got["local_slots"] != ENGINE["slots"] // 2:
+                    fail(f"35c rank {rk} of 2 over (2, 1), ticks of {frames}: {got['ticks']} ticks "
+                         f"(want {ticks}), pooled max-abs {e_} (> {STREAM_TOL_POOLED}?), "
+                         f"{got['local_slots']} local slots, launches {got['launches']}")
+                add(serve_launches, got["launches"])
+                print(f"35c ({smi}): rank {rk} of 2 (gloo, one card) over a (2, 1) mesh, "
+                      f"{got['local_slots']} of {ENGINE['slots']} slots, ticks of {frames}: "
+                      f"{got['ticks']} ticks, pooled max-abs {e_} (<= {STREAM_TOL_POOLED}) from "
+                      f"the one-process engine; launches "
+                      f"{ {k_: v_ for k_, v_ in got['launches'].items() if v_} }")
+        del eng, out35, feats
+        # 35d. DecodeEngine over the mesh at Qwen2.5-7B widths, two layers (a depth
+        # cut): the one-process engine's greedy tokens
+        cfg7m = LM.LMConfig(**{**LM_7B, "num_hidden_layers": 2})
+        lm7m = LM.LanguageModel(cfg7m, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(35))
+        prng = np.random.default_rng(35)
+        p35 = [prng.integers(0, cfg7m.vocab_size, (int(n_p),))
+               for n_p in prng.integers(16, 64, LM_EXPORT["requests"])]
+        toks35 = []
+        for msh in (mesh35, None):
+            eng = DecodeEngine(lm7m, slots=LM_EXPORT["slots"], capacity=LM_EXPORT["capacity"],
+                               prefill_buckets=(64,), max_new_tokens=LM_EXPORT["new"], mesh=msh)
+            sids = [eng.open_tokens(p_) for p_ in p35]
+            eng.run_until_idle()
+            toks35.append([eng.poll(s_)[0] for s_ in sids])
+        if toks35[0] != toks35[1] or any(len(t_) != LM_EXPORT["new"] for t_ in toks35[0]):
+            fail(f"35d DecodeEngine over the mesh: tokens {toks35[0][:2]} differ from the "
+                 f"one-process engine's {toks35[1][:2]}")
+        print(f"35d ({smi}): DecodeEngine(mesh=) over NCCL (world size 1), Qwen2.5-7B widths, 2 "
+              f"layers, bf16, {LM_EXPORT['slots']} slots, {len(p35)} requests of "
+              f"{LM_EXPORT['new']} tokens: the one-process engine's greedy tokens")
+        del lm7m, eng
+        torch.cuda.empty_cache()
+        # 35e. export_sharded_forward over the mesh, the flagship's first EXPORT_LAYERS
+        # layers: the loaded program is the live (tensor-parallel) full clip, bit for bit
+        from streamformer_tpu_torch.parallel import sharding
+
+        cfg35 = cfg.replace(num_hidden_layers=EXPORT_LAYERS)
+        model35 = encoder.StreamformerEncoder(cfg35, device=dev)
+        model35.load_state_dict({k_: v_ for k_, v_ in model.state_dict().items()
+                                 if k_ in model35.state_dict()})
+        sharding.shard_encoder(model35, mesh35.get_group("model"))
+        te0 = time.perf_counter()
+        blob = EX.export_sharded_forward(cfg35, b_, mesh35, t_)
+        ex_s = time.perf_counter() - te0
+        prog = EX.load_exported(blob, mesh=mesh35)
+        vid35 = video.to(bf)
+        ops.reset_launches()
+        got = prog(model35.state_dict(), vid35)
+        torch.cuda.synchronize()
+        run = dict(ops.LAUNCHES)
+        want = encoder.model_forward(model35, vid35)
+        if run != {**zeros, "spatial_flat": EXPORT_LAYERS, "temporal_fullclip": EXPORT_LAYERS}:
+            fail(f"35e: launches inside the sharded program {run}")
+        add(serve_launches, run)
+        if not all(torch.equal(got[k_], want[k_]) for k_ in ("last_hidden_state",
+                                                           "pooler_output")):
+            fail("35e: the sharded program differs from the live full clip: max-abs "
+                 f"{max_err(got['pooler_output'], want['pooler_output'])}")
+        print(f"35e ({smi}): export_sharded_forward over a (1, 1) NCCL mesh, {EXPORT_LAYERS} "
+              f"layers, batch {b_} x {t_} frames: export {ex_s:.2f} s, {len(blob)} bytes, mesh "
+              f"{prog.metadata['mesh']}; loaded with the mesh's groups, bit for bit the live full "
+              f"clip; launches { {k_: v_ for k_, v_ in run.items() if v_} }")
+        del prog, got, want, model35, blob, served35
+    finally:
+        mesh_lib.shutdown()
+    torch.cuda.empty_cache()
+    print(f"phase 35: {time.perf_counter() - t35:.1f} s")
+
     # ---- summary
     main_shape = {"temporal_decode_pm": f"linear R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_pm_ragged": f"linear R={b_ * n_} C={cap} lens={D_LENS['linear']}",
@@ -5058,7 +5374,7 @@ def main():
                      train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'
                      l_launches, entry_launches, dist_launches, vqa_launches,
                      vqa_train_launches, ar_launches, oad_launches, ovis_launches,
-                     export_launches, shapes_launches, rest_launches))
+                     export_launches, shapes_launches, rest_launches, serve_launches))
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=count, max_abs_err=row["max_abs_err"], ms=row["ms"],
                             device_ms=row["device_ms"], plain_ms=row["plain_ms"],

@@ -9,6 +9,8 @@ side. The artifact is a ``torch.export`` program written by
 - ``export_streaming_step``: ``(params, frames, cache) -> (outputs, new_cache)``
 - ``export_full_clip``: ``(params, pixel_values) -> outputs``
 - ``export_lm_decode``: ``(params, toks, cache, active) -> (next_tokens, new_cache)``
+- ``export_sharded_forward``: ``(rank's params, rank's rows) -> outputs``, one
+  SPMD program over a (data, model) mesh
 
 ``params`` is the port's state dict (``model.state_dict()``, or that of a
 model quantized by ``ops.quant``); the artifact holds no weights: the
@@ -223,13 +225,64 @@ def export_lm_decode(lm_cfg, slots: int, capacity: int, *, quantized_weights: bo
                    params, info, path)
 
 
+def _group_names(mesh) -> Dict[str, str]:
+    """The process-group name of each of ``mesh``'s dims on this rank."""
+    return {name: mesh.get_group(name).group_name for name in mesh.mesh_dim_names}
+
+
 def export_sharded_forward(cfg, batch: int, mesh, num_frames: Optional[int] = None, *,
                            path: Optional[str] = None) -> bytes:
-    """The tensor-parallel full clip as one artifact: not in the port yet."""
-    raise NotImplementedError(
-        "export_sharded_forward: a program sharded over several GPUs waits for the multi-GPU "
-        "engine design, ROADMAP item 14b"
-    )
+    """The full clip over a ``(data, model)`` mesh (``parallel.mesh.
+    make_mesh``) as one SPMD artifact, called by every rank of the mesh.
+
+    Data parallelism over ``data`` (batch rows), tensor parallelism over
+    ``model`` (``parallel.sharding.shard_encoder``'s rules), outputs
+    replicated, as the JAX package's artifact partitions them. Signature
+    ``(params, pixel_values (batch / data, T, 3, H, W)) -> {"last_hidden_state":
+    (batch, T, N, D), "pooler_output": (batch, T, D)}``: ``params`` is this
+    rank's ``state_dict()`` of the model cut by ``shard_encoder`` over the
+    mesh's model group, ``pixel_values`` this rank's rows of the batch (data
+    rank i holds rows i * batch / data ..), and every rank gets the whole
+    batch's outputs (gathered over ``data``). The params are inputs, so one
+    program serves every rank: its collectives name the process groups, and
+    ``load_exported(..., mesh=)`` binds them to the loading rank's. The
+    metadata records the mesh's shape; a mesh of another shape is refused at
+    load. ``cfg.shard_patches`` exports the sequence-parallel trunk. Every
+    rank returns the artifact's bytes; rank 0 of the job writes ``path``."""
+    import torch.distributed as dist
+
+    from streamformer_tpu_torch.models import encoder
+    from streamformer_tpu_torch.parallel import mesh as mesh_lib
+    from streamformer_tpu_torch.parallel import sharding
+
+    shape = {name: mesh_lib.dim_size(mesh, name) for name in ("data", "model")}
+    if mesh is None or shape["data"] * shape["model"] != mesh.size():
+        raise ValueError("export_sharded_forward needs the (data, model) mesh of "
+                         f"parallel.mesh.make_mesh, not {mesh}")
+    if batch % shape["data"]:
+        raise ValueError(f"batch {batch} does not divide over data={shape['data']}")
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t = num_frames if num_frames is not None else cfg.num_frames
+    model = _meta_encoder(cfg, False)
+    sharding.shard_encoder(model, mesh.get_group("model"), cfg.shard_patches)
+    params = _empty_like_meta(model.state_dict(), dev)
+    px = torch.empty(batch // shape["data"], t, cfg.num_channels, cfg.image_size,
+                     cfg.image_size, dtype=encoder.compute_dtype(cfg), device=dev)
+    data_group = mesh.get_group("data") if shape["data"] > 1 else None
+
+    def forward(m, x):
+        out = encoder.model_forward(m, x)
+        if data_group is None:
+            return out
+        return {k: sharding.all_gather(v, data_group) for k, v in out.items()}
+
+    info = {"batch": batch, "num_frames": t, "config": cfg.to_dict(), "mesh": shape,
+            "groups": _group_names(mesh)}
+    write = path if dist.get_rank() == 0 else None
+    return _export(_Program(model, forward), (params, px), dev, "sharded_forward", params, info,
+                   write)
 
 
 class ExportedProgram:
@@ -255,10 +308,37 @@ class ExportedProgram:
         return self.module({k: params[k] for k in self._keys}, *args)
 
 
-def load_exported(blob_or_path, *, device=None) -> ExportedProgram:
+def _bind_groups(ep, meta: Dict[str, Any], mesh) -> None:
+    """Point a sharded program's collectives at this rank's process groups
+    (``mesh``'s), in place: the exporting rank's group names are replaced
+    by the loading rank's, dim by dim. A mesh of another shape is refused."""
+    import torch.distributed as dist
+
+    from streamformer_tpu_torch.parallel import mesh as mesh_lib
+
+    want = meta["mesh"]
+    if mesh is None or not dist.is_initialized():
+        raise ValueError(f"a program sharded over a (data, model) mesh of {want}: load it on "
+                         "every rank with load_exported(..., mesh=make_mesh(...))")
+    got = {name: mesh_lib.dim_size(mesh, name) for name in want}
+    if got != want or dist.get_world_size() != want["data"] * want["model"]:
+        raise ValueError(f"the program was exported for a mesh of {want}; this group is "
+                         f"{got} of {dist.get_world_size()} processes: re-export it for this mesh")
+    rename = {meta["groups"][name]: g for name, g in _group_names(mesh).items()
+              if name in meta["groups"]}
+    for node in ep.graph.nodes:
+        if node.op == "call_function" and "c10d_functional" in str(node.target):
+            node.args = tuple(rename.get(a, a) if isinstance(a, str) else a for a in node.args)
+    ep.graph_module.recompile()
+
+
+def load_exported(blob_or_path, *, device=None, mesh=None) -> ExportedProgram:
     """Load an artifact from its bytes or a file, to run on ``device`` (the
     card unless named). Raises ``ValueError`` when the artifact was written
-    for another cache layout (re-export it) or another device type."""
+    for another cache layout (re-export it) or another device type. A
+    sharded program (``export_sharded_forward``) is loaded by every rank of
+    a ``mesh`` of the shape it was exported for, whose process groups its
+    collectives then use; another shape is refused."""
     if isinstance(blob_or_path, (bytes, bytearray)):
         source = io.BytesIO(blob_or_path)
     else:
@@ -277,6 +357,8 @@ def load_exported(blob_or_path, *, device=None) -> ExportedProgram:
     if meta["device_type"] != want:
         raise ValueError(f"the artifact was exported for {meta['device_type']}, not {want}: "
                          "re-export it for this device (a program is never moved)")
+    if meta["kind"] == "sharded_forward":
+        _bind_groups(ep, meta, mesh)
     return ExportedProgram(ep.module(), meta)
 
 

@@ -41,6 +41,18 @@ which torch cannot reproduce; here each uniform is a counter-based hash of
 ``encoder.Draws``). So a request's tokens are reproducible and independent
 of its slot and of the tick schedule, and follow the truncated tempered
 softmax; they are not the JAX engine's tokens.
+
+Over a device mesh (``mesh=``, JAX ``lm_serving.py``'s data-parallel slots)
+the engine is SPMD, as under ``torchrun``: every rank makes the same calls
+and keeps the same host tables over all ``slots``, while the slot axis of
+the KV cache, ``len`` and the per-slot operands is cut over ``mesh_axis``
+(each rank holds a contiguous share, prefills the requests granted to it
+and decodes its slots). The LM is taken as given: replicated, as the JAX
+engine places it, or cut by ``parallel.sharding.shard_lm`` over the mesh's
+``model`` dim (its step is then the tensor-parallel forward, its cache the
+rank's kv-heads, and greedy and Gumbel-max picks reduce over the vocab
+shards). A drain gathers every rank's tokens over the mesh axis, so every
+rank delivers the same tokens and finishes the same requests.
 """
 
 from __future__ import annotations
@@ -51,22 +63,28 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from streamformer_tpu_torch.models import encoder
 from streamformer_tpu_torch.models import language_model as LM
+from streamformer_tpu_torch.parallel import mesh as mesh_lib
+from streamformer_tpu_torch.parallel import sharding
 
 __all__ = ["DecodeEngine"]
 
 
 def gumbel_uniforms(seed: int, sids: torch.Tensor, counts: torch.Tensor,
-                    vocab: int) -> torch.Tensor:
+                    vocab: int, start: int = 0) -> torch.Tensor:
     """(S, V) fp32 uniforms in (0, 1) on steps of 2**-24, a hash of (seed,
-    sid, n, vocab index) for each row's (sid, n): the same on any device, in
-    any batch."""
+    sid, n, vocab index) for each row's (sid, n) and the vocab indices
+    start .. start + V - 1 (a vocab shard's): the same on any device, in any
+    batch, on any shard."""
     m32, mix = encoder._M32, encoder._mix32
     key = mix(mix(seed & m32) ^ ((seed >> 32) & m32))
     row = mix(((sids.long() * 0x2545F491) & m32) ^ key)
     row = mix(((counts.long() * 0x9E3779B9) & m32) ^ row)  # (S,)
-    elem = (torch.arange(vocab, dtype=torch.int64, device=sids.device) * 0x85EBCA6B) & m32
+    elem = (torch.arange(start, start + vocab, dtype=torch.int64, device=sids.device)
+            * 0x85EBCA6B) & m32
     bits = mix((row[:, None] + elem[None]) & m32)
     return ((bits >> 8).float() + 0.5) * 2.0**-24
 
@@ -100,7 +118,9 @@ class DecodeEngine:
     output trimmed at the first EOS, at most ``eos_interval - 1`` wasted
     steps a stream), 1 checks every token. ``cache_dtype``: None, "int8" or
     "int4" (``language_model.init_cache``). ``decode_steps_per_tick=k``
-    runs k decode steps a tick; it needs the sync-free path."""
+    runs k decode steps a tick; it needs the sync-free path. ``mesh`` (a
+    ``DeviceMesh``) cuts the slots over its ``mesh_axis``: ``slots`` must
+    divide over it."""
 
     def __init__(
         self,
@@ -121,11 +141,9 @@ class DecodeEngine:
         prefill_chunks_per_tick: Optional[int] = 1,
         decode_steps_per_tick: int = 1,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a decode engine sharded over a device mesh (axis {mesh_axis!r}): one engine "
-                "process a GPU behind a router, ROADMAP item 14b"
-            )
+        # this rank's slots: [lo, lo + local) of the mesh axis's share
+        self._lo, self._local, self._group = mesh_lib.slot_share(mesh, mesh_axis, slots)
+        self._share = slice(self._lo, self._lo + self._local)
         self.model = model
         self.cfg = model.cfg
         self._dev = model.device
@@ -149,8 +167,10 @@ class DecodeEngine:
         if self.decode_steps_per_tick > 1 and not self._sync_free:
             raise ValueError("decode_steps_per_tick > 1 needs the sync-free path "
                              "(eos_interval > 1 or no eos_token_id)")
-        self._cache = LM.init_cache(self.cfg, slots, capacity, per_stream_len=True,
-                                    cache_dtype=cache_dtype, device=self._dev)
+        local = self._local
+        self._cache = LM.init_cache(self.cfg, local, capacity, per_stream_len=True,
+                                    cache_dtype=cache_dtype, device=self._dev,
+                                    kv_heads=LM.local_kv_heads(model))
         # host bookkeeping, with mirrors of each slot's cache length and
         # count of drawn tokens, so that a tick never reads the device
         self._slot_sid: List[Optional[int]] = [None] * slots
@@ -164,15 +184,15 @@ class DecodeEngine:
         self._done: set = set()
         self._budget: Dict[int, int] = {}
         self._next_sid = 0
-        self._last_tok_dev = torch.zeros(slots, dtype=torch.int64, device=self._dev)
-        # device copies of the per-slot operands, sent again only when the
-        # slot map changes; the counts advance on the device
+        self._last_tok_dev = torch.zeros(local, dtype=torch.int64, device=self._dev)
+        # device copies of this rank's per-slot operands, sent again only when
+        # the slot map changes; the counts advance on the device
         self._occupancy: Tuple[Optional[int], ...] = tuple([None] * slots)
-        self._active_dev = torch.zeros(slots, dtype=torch.bool, device=self._dev)
-        self._sids_dev = torch.zeros(slots, dtype=torch.int64, device=self._dev)
-        self._counts_dev = torch.zeros(slots, dtype=torch.int64, device=self._dev)
-        # drawn tokens not yet on the host: ((k, S) tokens, slot -> sid map)
-        # a tick, or ((1,) token, sid) a completed admission
+        self._active_dev = torch.zeros(local, dtype=torch.bool, device=self._dev)
+        self._sids_dev = torch.zeros(local, dtype=torch.int64, device=self._dev)
+        self._counts_dev = torch.zeros(local, dtype=torch.int64, device=self._dev)
+        # drawn tokens not yet on the host: ((k, S_local) tokens, slot -> sid
+        # map) a tick, or ((1,) token, (sid, slot)) a completed admission
         self._stash: List[Tuple[torch.Tensor, object]] = []
         self._stash_limit = 512
         self._ticks_since_drain = 0
@@ -184,21 +204,29 @@ class DecodeEngine:
     def _select(self, logits: torch.Tensor, sids: torch.Tensor,
                 counts: torch.Tensor) -> torch.Tensor:
         """(S, V) logits -> (S,) tokens: argmax, or a Gumbel-max draw keyed
-        by (seed, sid, n)."""
+        by (seed, sid, n). Logits of a vocab-sharded head are this rank's
+        slice (``lm_logits(..., gather=False)``): the pick is reduced over
+        the shards, each uniform keyed by its global vocab index, so the
+        tokens are the unsharded engine's; top-k and top-p gather the whole
+        vocab first."""
+        par, offset = LM.vocab_shard(self.model)
+        if par is not None and self.temperature > 0.0 and (self.top_k or self.top_p):
+            logits, par, offset = sharding.all_gather(logits, par.group, dim=-1), None, 0
         if self.temperature <= 0.0:
-            return logits.argmax(-1)
+            return sharding.sharded_argmax(logits, par, offset)
         lg = truncate_logits(logits, self.temperature, self.top_k, self.top_p)
-        u = gumbel_uniforms(self.seed, sids, counts, lg.shape[-1])
-        return (lg - torch.log(-torch.log(u))).argmax(-1)
+        u = gumbel_uniforms(self.seed, sids, counts, lg.shape[-1], offset)
+        return sharding.sharded_argmax(lg - torch.log(-torch.log(u)), par, offset)
 
     def _decode_step(self, toks: torch.Tensor) -> torch.Tensor:
         """One ragged step of every slot: (S,) tokens in, (S,) drawn tokens
         out; idle slots' rows are rolled back, active slots' counts advance."""
         emb = LM.embed_tokens(self.model, toks)[:, None]
-        out, cache = LM.forward(self.model, emb, cache=self._cache)
+        out, cache = LM.forward(self.model, emb, cache=self._cache, logits=False)
         cache["len"] = torch.where(self._active_dev, cache["len"], cache["len"] - 1)
         self._cache = cache
-        ntok = self._select(out["logits"][:, -1], self._sids_dev, self._counts_dev)
+        logits = LM.lm_logits(self.model, out["last_hidden_state"][:, -1], gather=False)
+        ntok = self._select(logits, self._sids_dev, self._counts_dev)
         self._counts_dev += self._active_dev.long()
         return ntok
 
@@ -207,7 +235,11 @@ class DecodeEngine:
         """One prefill chunk of a slot: its row with ``lb`` rows of zero
         headroom, the chunk appended at ``pos0``, the first ``capacity`` rows
         written back, ``len[slot] = pos0 + true_lc``; returns the (1,) token
-        drawn from hidden row ``true_lc - 1`` (draw n = 0)."""
+        drawn from hidden row ``true_lc - 1`` (draw n = 0). A slot of another
+        rank's share: nothing runs here, and the token is a placeholder 0."""
+        if not self._lo <= slot < self._lo + self._local:
+            return torch.zeros(1, dtype=torch.int64, device=self._dev)
+        slot -= self._lo
         emb = LM.embed_tokens(self.model, payload) if tokens else payload  # (1, lb, D)
         lb, cap = emb.shape[1], self.capacity
         view = {"layers": [{name: torch.cat([plane[slot:slot + 1],
@@ -218,7 +250,8 @@ class DecodeEngine:
         out, view = LM.forward(self.model, emb, cache=view, logits=False)
         h = out["last_hidden_state"][:, true_lc - 1]  # (1, D)
         sid_t = torch.full((1,), sid, dtype=torch.int64, device=self._dev)
-        tok = self._select(LM.lm_logits(self.model, h), sid_t, torch.zeros_like(sid_t))
+        tok = self._select(LM.lm_logits(self.model, h, gather=False), sid_t,
+                           torch.zeros_like(sid_t))
         for big, small in zip(self._cache["layers"], view["layers"]):
             for name, plane in big.items():
                 plane[slot:slot + 1].copy_(small[name][:, :cap])
@@ -342,10 +375,10 @@ class DecodeEngine:
             self.stats["admits"] += 1
             finished += 1
             if self._sync_free:
-                self._stash.append((tok, sid))
+                self._stash.append((tok, (sid, s)))
                 self._bookkeep(s)
             else:
-                t = int(tok[0])  # the EOS check needs the value: sync here
+                t = int(self._gather(tok)[s // self._local, 0])  # the EOS check: sync here
                 self._last_tok[s] = t
                 self._emit(s, t)
         return finished
@@ -374,19 +407,32 @@ class DecodeEngine:
             return
         self._ticks_since_drain = 0
         entries, self._stash = self._stash, []
-        flat = torch.cat([e[0].reshape(-1) for e in entries]).cpu().numpy()
+        ranks = self._gather(torch.cat([e[0].reshape(-1) for e in entries]))
         off = 0
         for arr, m in entries:
             n = arr.numel()
-            v = flat[off:off + n]
-            off += n
-            if isinstance(m, int):  # an admission's token: m is the sid
-                self._deliver(m, int(v[0]))
-            else:  # a tick's (k, S) tokens; m maps slot -> sid (None: idle)
-                for r in range(n // self.slots):
+            if isinstance(m, tuple):  # an admission's token, on the rank of its slot
+                sid, slot = m
+                self._deliver(sid, int(ranks[slot // self._local, off]))
+            else:  # a tick's (k, S) tokens, each rank's share; m maps slot -> sid
+                k = n // self._local
+                v = ranks[:, off:off + n].reshape(-1, k, self._local).transpose(1, 0, 2)
+                v = v.reshape(k, self.slots)
+                for r in range(k):
                     for s, sid in enumerate(m):
                         if sid is not None:
-                            self._deliver(sid, int(v[r * self.slots + s]))
+                            self._deliver(sid, int(v[r, s]))
+            off += n
+
+    def _gather(self, flat: torch.Tensor) -> np.ndarray:
+        """Every rank's ``flat`` (1-D, the same length on every rank) over
+        the mesh axis, as rows in rank order on the host; (1, L) in one
+        process."""
+        if self._group is None:
+            return flat.cpu().numpy()[None]
+        nccl = dist.get_backend(self._group) == "nccl"
+        out = sharding.all_gather((flat if nccl else flat.cpu())[None], self._group)
+        return out.cpu().numpy()
 
     def _deliver(self, sid: int, tok: int) -> None:
         """Append one drained token to its stream, finishing it at EOS; tokens
@@ -435,15 +481,15 @@ class DecodeEngine:
             active = np.zeros(self.slots, bool)
             active[active_slots] = True
             sids = np.asarray([sid if sid is not None else 0 for sid in self._slot_sid], np.int64)
-            self._active_dev = self._upload(active)
-            self._sids_dev = self._upload(sids)
-            self._counts_dev = self._upload(self._host_gen.copy())
-        toks = self._last_tok_dev if self._sync_free else self._upload(self._last_tok)
+            self._active_dev = self._upload(active[self._share])
+            self._sids_dev = self._upload(sids[self._share])
+            self._counts_dev = self._upload(self._host_gen[self._share].copy())
+        toks = self._last_tok_dev if self._sync_free else self._upload(self._last_tok[self._share])
         seq = []
         for _ in range(k):
             toks = self._decode_step(toks)
             seq.append(toks)
-        seq = torch.stack(seq)  # (k, S)
+        seq = torch.stack(seq)  # (k, S_local)
         self.stats["decode_dispatches"] += 1
         self.stats["decode_steps"] += k
         self.stats["decode_by_k"][k] = self.stats["decode_by_k"].get(k, 0) + 1
@@ -462,7 +508,7 @@ class DecodeEngine:
                         and self._ticks_since_drain >= self.eos_interval)):
                 self._drain_stash()
         else:
-            row = seq[-1].cpu().numpy()
+            row = self._gather(seq[-1]).reshape(-1)  # every slot's token
             for s in active_slots:
                 self._host_len[s] += 1
                 self._host_gen[s] += 1

@@ -49,8 +49,9 @@ package.
 
 Tensor and sequence parallelism (``parallel.sharding.shard_encoder``): the
 encoder holds its model group's shard of the attention and MLP blocks, and
-the full-clip forward and backward call the group's collectives
-(``model.parallel``); the kernels run at the local head count.
+the full-clip forward and backward and the streaming step call the group's
+collectives (``model.parallel``); the kernels run at the local head count,
+and a streaming cache holds the rank's heads.
 """
 
 from __future__ import annotations
@@ -409,7 +410,7 @@ class StreamformerEncoder(nn.Module):
     def init_cache(self, batch: int, capacity: Optional[int] = None,
                    per_stream_len: bool = False) -> Cache:
         return init_cache(self.cfg, batch, capacity=capacity, per_stream_len=per_stream_len,
-                          device=self.device)
+                          device=self.device, shards=cache_shards(self))
 
     def stream(self, frames: torch.Tensor, cache: Cache,
                new_valid: Optional[torch.Tensor] = None) -> Tuple[Dict[str, torch.Tensor], Cache]:
@@ -533,17 +534,18 @@ def _output(ctx: torch.Tensor, lin: nn.Linear, lora, parallel, sharded: bool,
             patches: bool) -> torch.Tensor:
     """A block's closing product. In one process ``dense``; under tensor
     parallelism the row-parallel product of this rank's columns, its
-    partial sums reduced over the model group (``sharding.region_out``),
-    the bias added once after the reduction."""
+    partial sums (``sharding.partial_product``: fp32 where no gradient is
+    recorded) reduced over the model group (``sharding.region_out``), the
+    bias added once after the reduction, then rounded to ctx's dtype."""
     if parallel is None:
         return dense(ctx, lin, lora)
     dt = ctx.dtype
-    y = F.linear(ctx, cast(lin.weight, dt))
+    y = sharding.partial_product(ctx, cast(lin.weight, dt))  # fp32 when serving
     if lora is not None:
         a, b = lora
-        y = y + F.linear(F.linear(ctx, cast(a.weight, dt)), cast(b.weight, dt))
+        y = y + F.linear(F.linear(ctx, cast(a.weight, dt)), cast(b.weight, dt)).to(y.dtype)
     y = sharding.region_out(y, parallel, sharded, patches)
-    return y if lin.bias is None else y + cast(lin.bias, dt)
+    return cast(y if lin.bias is None else y + cast(lin.bias, y.dtype), dt)
 
 
 def spatial_attention(x: torch.Tensor, attn: nn.Module, cfg: StreamformerConfig,
@@ -588,9 +590,9 @@ def temporal_attention(
     frames 0..t (every frame when not causal); its gradient is one (B, T,
     N, 3D) tensor. Under tensor
     parallelism (``parallel``) the projection holds this rank's heads, the
-    kernel reads its (B, T, N, 3D / mp) output in place at the local head
-    count, and the output projection is row-parallel; streaming is one
-    process's.
+    kernels read its (B, T, N, 3D / mp) output at the local head count, the
+    cache holds those heads (``init_cache(shards=mp)``), and the output
+    projection is row-parallel; every path below runs so.
 
     Streaming: the new frames attend the cache and their K/V are written IN
     PLACE into ``cache_kv["k"]`` and ``cache_kv["v"]``; ``cache_len`` (one
@@ -630,18 +632,20 @@ def temporal_attention(
     ``new_valid`` is causal only, and linear only, as in the JAX package.
     """
     causal = cfg.enable_causal_temporal
-    if cache_kv is None:  # C (and H) read qkv and write ctx in place: no copies around them
-        patches = parallel is not None and parallel.shard_patches
-        qkv_w = attn.attention.qkv.weight
-        sharded = parallel is not None and _col_sharded(qkv_w, 3 * cfg.hidden_size)
-        qkv = dense(_enter(x, parallel, sharded, patches), attn.attention.qkv)
-        ctx = ops.temporal_fullclip_qkv(qkv, qkv.shape[-1] // (3 * cfg.head_dim), causal)
+    patches = parallel is not None and parallel.shard_patches
+    sharded = parallel is not None and _col_sharded(attn.attention.qkv.weight,
+                                                     3 * cfg.hidden_size)
+    # (B, T, N, 3D / mp): this rank's heads under tensor parallelism
+    qkv = dense(_enter(x, parallel, sharded, patches), attn.attention.qkv)
+
+    def out(ctx):
         return _output(ctx, attn.output.dense, None, parallel, sharded, patches)
-    if parallel is not None:
-        raise NotImplementedError("streaming a tensor-parallel encoder (ROADMAP item 14b)")
-    b, t, n, d = x.shape
-    h = cfg.num_attention_heads
-    qkv = dense(x, attn.attention.qkv)  # (B, T, N, 3D)
+
+    if cache_kv is None:  # C (and H) read qkv and write ctx in place: no copies around them
+        return out(ops.temporal_fullclip_qkv(qkv, qkv.shape[-1] // (3 * cfg.head_dim), causal))
+    b, t, n, d3 = qkv.shape
+    d = d3 // 3
+    h = d // cfg.head_dim
     ragged = cache_len.ndim == 1
     if cfg.cache_layout == "row_major":
         if new_valid is not None:
@@ -651,8 +655,7 @@ def temporal_attention(
                 "ragged (per-stream) lengths are a pos_major-layout feature; the row-major "
                 "compatibility layout is lockstep-only"
             )
-        return dense(_row_major_attend(qkv, cache_kv, cache_len, cfg, attend_cap),
-                     attn.output.dense)
+        return out(_row_major_attend(qkv, cache_kv, cache_len, cfg, attend_cap))
     ring = cfg.cache_mode == "ring"
     if new_valid is not None:
         if ring:
@@ -668,8 +671,8 @@ def temporal_attention(
             "lockstep-only"
         )
     if "k_scale" in cache_kv:
-        return dense(_attend_int8(qkv, cache_kv, cache_len, new_valid, causal, h),
-                     attn.output.dense)
+        return out(_attend_int8(qkv, cache_kv, cache_len, new_valid, causal, h,
+                                parallel if sharded else None))
     if ragged:
         lens, per_stream = cache_len, n
     else:  # lockstep: one stream of all B*N rows
@@ -703,16 +706,17 @@ def temporal_attention(
                                       length.reshape(()), h)
 
     if t == 1 and new_valid is None:
-        return dense(decode(0, lens).reshape(b, 1, n, d), attn.output.dense)
+        return out(decode(0, lens).reshape(b, 1, n, d))
     if ring and causal:
         ctx = torch.stack([decode(ti, lens + ti if ti else lens) for ti in range(t)])
-        return dense(ctx.reshape(t, b, n, d).transpose(0, 1), attn.output.dense)
+        return out(ctx.reshape(t, b, n, d).transpose(0, 1))
     # E reads q, k, v from qkv and writes ctx (B, T, N, D) in place: no copies around it
-    return dense(append(qkv, lens, new_valid), attn.output.dense)
+    return out(append(qkv, lens, new_valid))
 
 
 def _attend_int8(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
-                 new_valid: Optional[torch.Tensor], causal: bool, h: int) -> torch.Tensor:
+                 new_valid: Optional[torch.Tensor], causal: bool, h: int,
+                 parallel=None) -> torch.Tensor:
     """Streaming temporal attention on the pos-major int8 cache: qkv (B, T,
     N, 3D) -> ctx (B, T, N, D), one kernel F (one length) or G (per stream)
     call a new frame, each quantizing the frame's K/V rows, attending them
@@ -734,6 +738,10 @@ def _attend_int8(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_len: t
       before the frames and restored after them: it lies past the stream's
       valid prefix, or wraps to slot 0 when len + valid == C, where the
       restore keeps position 0. Outputs past valid are unspecified.
+
+    Under tensor parallelism (``parallel``: qkv holds this rank's heads) a
+    row's scale is its whole D's: the absmax is MAX-reduced over the model
+    group before the codes are taken (``sharding.quantize_rows``).
     """
     b, t, n, d3 = qkv.shape
     d = d3 // 3
@@ -744,7 +752,8 @@ def _attend_int8(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_len: t
         return qkv[:, ti, :, i * d:(i + 1) * d].reshape(r, d).contiguous()
 
     def decode(ti, length):
-        return _decode_int8(frame(0, ti), frame(1, ti), frame(2, ti), cache, length, n, h)
+        return _decode_int8(frame(0, ti), frame(1, ti), frame(2, ti), cache, length, n, h,
+                            parallel)
 
     if causal and new_valid is None:
         return torch.stack([decode(ti, cache_len + ti if ti else cache_len)
@@ -756,11 +765,11 @@ def _attend_int8(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_len: t
         for ti in range(max(0, t - cap), t - 1):
             slot = ((per_row + ti) % cap).long().expand(r)
             for key, i in (("k", 1), ("v", 2)):
-                codes, scale = quantize_kv(frame(i, ti))
+                codes, scale = sharding.quantize_rows(frame(i, ti), parallel)
                 cache[key][slot, rows], cache[f"{key}_scale"][slot, rows] = codes, scale
         last = cache_len + (t - 1)
-        ctx = [_decode_int8(frame(0, ti), frame(1, t - 1), frame(2, t - 1), cache, last, n, h)
-               for ti in range(t)]
+        ctx = [_decode_int8(frame(0, ti), frame(1, t - 1), frame(2, t - 1), cache, last, n, h,
+                            parallel) for ti in range(t)]
         return torch.stack(ctx).reshape(t, b, n, d).transpose(0, 1)
     hold = ((cache_len + new_valid) % cap).long().repeat_interleave(n)  # (R,)
     saved = [cache[key][hold, rows].clone() for key in planes]
@@ -802,8 +811,8 @@ def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_l
     A on the card (ROADMAP section 3), and in fp32 changes nothing."""
     b, t, n, d3 = qkv.shape
     d = d3 // 3
-    h = cfg.num_attention_heads
-    dh = d // h
+    h = d // cfg.head_dim  # this rank's heads under tensor parallelism
+    dh = cfg.head_dim
     dt = qkv.dtype
     cap = cache["k"].shape[2]
     quantized = "k_scale" in cache
@@ -888,13 +897,14 @@ def _row_major_attend(qkv: torch.Tensor, cache: Dict[str, torch.Tensor], cache_l
     return ctx.to(dt).reshape(b, t, n, d)
 
 
-def _decode_int8(q, k_new, v_new, cache_kv, lens, rows_per_stream, h):
+def _decode_int8(q, k_new, v_new, cache_kv, lens, rows_per_stream, h, parallel=None):
     """One new frame (R, D) on the int8 cache: its K/V rows are quantized
     over the whole D (``quantize_kv``, as the JAX package does before its
-    int8 kernels), then kernel F (one length) or G (per stream) attends and
-    appends the codes and the scales in place."""
-    kq, ks = quantize_kv(k_new)
-    vq, vs = quantize_kv(v_new)
+    int8 kernels; over the model group's whole D under tensor parallelism),
+    then kernel F (one length) or G (per stream) attends and appends the
+    codes and the scales in place."""
+    kq, ks = sharding.quantize_rows(k_new, parallel)
+    vq, vs = sharding.quantize_rows(v_new, parallel)
     planes = (cache_kv["k"], cache_kv["v"], cache_kv["k_scale"], cache_kv["v_scale"])
     if lens.ndim == 1:
         return ops.temporal_decode_pm_int8_ragged(q, kq, vq, ks, vs, *planes, lens,
@@ -961,18 +971,18 @@ def layer_forward(
         x = x + gate * dense(dp(t_attn, 0), layer.temporal_dense)
         s_attn = spatial_attention(layer_norm(x, layer.layernorm_before, eps), layer.attention,
                                    cfg, parallel)
-    elif parallel is not None:
-        raise NotImplementedError(
-            f"attention_type {cfg.attention_type!r} under tensor parallelism (ROADMAP item 14b)"
-        )
     else:
+        # a joint block attends all T x N tokens as one frame; under sequence
+        # parallelism its gather concatenates the ranks' token sets, which
+        # attention over every token does not see, and its reduce-scatter
+        # hands each rank its own tokens back
         s_ln = layer_norm(x, layer.layernorm_before, eps)
         if cfg.attention_type == "joint_space_time":
             b, t, n, d = s_ln.shape
             s_attn = spatial_attention(s_ln.reshape(b, 1, t * n, d), layer.attention,
-                                       cfg).reshape(b, t, n, d)
+                                       cfg, parallel).reshape(b, t, n, d)
         else:
-            s_attn = spatial_attention(s_ln, layer.attention, cfg)
+            s_attn = spatial_attention(s_ln, layer.attention, cfg, parallel)
     x = x + dp(s_attn, 1)
     fc1, fc2 = layer.intermediate.dense, layer.output.dense
     sharded = parallel is not None and _col_sharded(fc1.weight, cfg.intermediate_size)
@@ -1108,6 +1118,17 @@ def auto_cache_mode(cfg: StreamformerConfig) -> str:
     return "ring" if cfg.cache_layout == "pos_major" else "linear"
 
 
+def cache_shards(model: StreamformerEncoder) -> int:
+    """The parts a cache plane's D is cut into for ``model``: the model
+    group's size when its temporal attention is cut by heads
+    (``sharding.shard_encoder``), else 1."""
+    par = model.parallel
+    if par is None or model.cfg.attention_type != "divided_space_time":
+        return 1
+    qkv = model.encoder.layer[0].temporal_attention.attention.qkv.weight
+    return par.size if _col_sharded(qkv, 3 * model.cfg.hidden_size) else 1
+
+
 def init_cache(
     cfg: StreamformerConfig,
     batch: int,
@@ -1117,6 +1138,7 @@ def init_cache(
     dtype=None,
     per_stream_len: bool = False,
     device=None,
+    shards: int = 1,
 ) -> Cache:
     """Preallocated temporal KV cache: ``{"layers": [{"k", "v"}, ...],
     "len": int32 tensor}``, zeros. K/V are pos-major (C, batch*N, D) for
@@ -1137,7 +1159,13 @@ def init_cache(
     ``per_stream_len``: the ragged cache of continuous batching, each stream
     at its own position (see ``reset_streams``), pos-major only. Rows are
     not padded per stream. ``capacity`` defaults to ``cfg.cache_capacity``;
-    the cache lives on ``cuda`` unless ``device`` names another device."""
+    the cache lives on ``cuda`` unless ``device`` names another device.
+
+    ``shards`` cuts D (and the row-major scales' heads) into that many
+    parts: the cache of one rank of a model cut by
+    ``parallel.sharding.shard_encoder``, which holds the rank's heads
+    (``cache_shards(model)``; ``model.init_cache`` passes it). The int8
+    scales stay one per (position, row) over the whole D."""
     if cfg.cache_layout not in ("pos_major", "row_major"):
         raise ValueError(f"cache layout {cfg.cache_layout!r}: 'pos_major' or 'row_major'")
     row_major = cfg.cache_layout == "row_major"
@@ -1150,11 +1178,14 @@ def init_cache(
     dev = resolve_device(device)
     n = num_patches if num_patches is not None else cfg.num_patches
     cap = capacity if capacity is not None else cfg.cache_capacity
+    if cfg.num_attention_heads % shards:
+        raise ValueError(f"{cfg.num_attention_heads} heads do not divide into {shards} shards")
+    width = cfg.hidden_size // shards
     if row_major:
-        shape = (batch, n, cap, cfg.hidden_size)
-        scale_shape = (batch, n, cap, cfg.num_attention_heads)
+        shape = (batch, n, cap, width)
+        scale_shape = (batch, n, cap, cfg.num_attention_heads // shards)
     else:
-        shape = (cap, batch * n, cfg.hidden_size)
+        shape = (cap, batch * n, width)
         scale_shape = shape[:2]
 
     def layer() -> Dict[str, torch.Tensor]:
@@ -1225,10 +1256,23 @@ def streaming_forward(
     it would wait on the device for ``len``; the t=1 kernels then act as the
     ring. ``cfg`` defaults to ``model.cfg``; a serving engine passes its own,
     whose ``cache_mode`` may differ.
+
+    A model cut by ``parallel.sharding.shard_encoder`` streams tensor
+    parallel over its model group, every rank on the same frames: its cache
+    (``model.init_cache``) holds the rank's heads, at (C, B*N, D / mp), the
+    kernels run at heads / mp, each block's closing product is reduced over
+    the group, and an int8 cache's row scales are MAX-reduced over it, so
+    they are the unsharded cache's. With ``shard_patches`` the trunk keeps
+    the rank's patches between blocks, as the full clip does.
     """
-    if model.parallel is not None:
-        raise NotImplementedError("streaming a tensor-parallel encoder (ROADMAP item 14b)")
+    par = model.parallel
     cfg = cfg if cfg is not None else model.cfg
+    shards = cache_shards(model)
+    if (cfg.attention_type == "divided_space_time"
+            and cache["layers"][0]["k"].shape[-1] * shards != cfg.hidden_size):
+        raise ValueError(f"a cache of width {cache['layers'][0]['k'].shape[-1]} for a model of "
+                         f"hidden {cfg.hidden_size} cut into {shards}: make it with "
+                         "model.init_cache (init_cache(..., shards=cache_shards(model)))")
     b, t = pixel_values.shape[:2]
     cache_len = cache["len"]
     if new_valid is not None:
@@ -1238,10 +1282,15 @@ def streaming_forward(
         new_valid = torch.as_tensor(new_valid, dtype=torch.int32, device=cache_len.device)
     total = total_frames_hint if total_frames_hint is not None else cfg.num_frames
     x = embed(model, pixel_values, start_pos=cache_len, total_frames=max(total, t))
+    patches = par is not None and par.shard_patches
+    if patches:
+        x = sharding.split_patches(x, par)
     for layer, kv in zip(model.encoder.layer, cache["layers"]):
         x = layer_forward(layer, x, cfg, cache_kv=kv, cache_len=cache_len, new_valid=new_valid,
-                          attend_cap=attend_capacity)
+                          attend_cap=attend_capacity, parallel=par)
+    if patches:
+        x = sharding.gather_patches(x, par)
     x = layer_norm(x, model.post_layernorm, cfg.layer_norm_eps)
-    out = {"last_hidden_state": x, "pooler_output": map_pool(x, model.head, cfg)}
+    out = {"last_hidden_state": x, "pooler_output": map_pool(x, model.head, cfg, par)}
     cache_len.add_(t if new_valid is None else new_valid)
     return out, cache

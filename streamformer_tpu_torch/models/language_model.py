@@ -26,6 +26,18 @@ with the same scales (``quant.quantize_kv4``). ``forward`` writes the new
 K/V into the planes IN PLACE (the caller's cache is consumed, as the JAX
 package donates it) and returns the cache with its new ``len``.
 
+Tensor parallelism (``parallel.sharding.shard_lm``, the JAX package's LM
+rules): each rank holds its query and kv-heads of q/k/v, its columns of
+gate/up and the matching inputs of o/down, whose partial sums are reduced
+over the model group (their bias added once, after), and its vocab slice of
+the embedding table and the head. ``forward`` runs on the rank's heads and
+its cache holds the rank's kv-heads (``init_cache(kv_heads=
+local_kv_heads(model))``); the int8 and int4 KV scales are per (row,
+position, kv-head), so cutting by kv-head keeps them exact. The lookup is
+masked to the rank's slice and summed over the group; ``lm_logits`` gathers
+the vocab slices (``gather=False`` keeps the rank's, for a reduction such as
+``sharding.sharded_argmax``).
+
 The append clamps its start as ``jax.lax.dynamic_update_slice`` does: L new
 rows at a start past ``C - L`` land at ``C - L``, never out of bounds, while
 the rotary positions and the mask keep the unclamped start. The decode
@@ -46,6 +58,7 @@ import torch.nn.functional as F
 
 from streamformer_tpu_torch.models import encoder
 from streamformer_tpu_torch.ops import quant
+from streamformer_tpu_torch.parallel import sharding
 
 Cache = Dict[str, object]
 
@@ -133,6 +146,8 @@ class LanguageModel(nn.Module):
         # the rotary inverse frequencies, fp32, computed on the host once (a
         # host scalar sent to the card each step would synchronise the stream)
         self.register_buffer("rope_inv", rope_inverse_frequencies(cfg).to(dev), persistent=False)
+        # the model group this LM is sharded over (parallel.sharding.shard_lm)
+        self.parallel = None
         with torch.no_grad():
             for name, p in self.named_parameters():
                 if name.endswith("bias"):
@@ -169,6 +184,32 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor
     dh = x.shape[-1]
     x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _out_features(lin: nn.Module) -> int:
+    return lin.weight.shape[0]
+
+
+def local_kv_heads(model: LanguageModel) -> int:
+    """The kv-heads this rank holds (all of them in one process)."""
+    return _out_features(model.model.layers[0].self_attn.k_proj) // model.cfg.head_dim
+
+
+def _vocab_slice(model: LanguageModel, weight: torch.Tensor):
+    """``(offset, rows)`` of this rank's vocab slice of a table or head of
+    ``weight``'s rows; None when it holds the whole vocab."""
+    if model.parallel is None or weight.shape[0] == model.cfg.vocab_size:
+        return None
+    return model.parallel.rank * weight.shape[0], weight.shape[0]
+
+
+def vocab_shard(model: LanguageModel):
+    """``(TensorParallel, offset)`` of a vocab-sharded head: the group, and
+    the global index of this rank's first vocab row of its logits
+    (``lm_logits(..., gather=False)``); ``(None, 0)`` for the whole vocab."""
+    head = model.model.embed_tokens if model.cfg.tie_word_embeddings else model.lm_head
+    cut = _vocab_slice(model, head.weight)
+    return (None, 0) if cut is None else (model.parallel, cut[0])
 
 
 def _dense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
@@ -223,14 +264,17 @@ def _scores(q: torch.Tensor, k_t: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: LMConfig, batch: int, capacity: int, per_stream_len: bool = False,
-               cache_dtype: Optional[str] = None, device=None) -> Cache:
+               cache_dtype: Optional[str] = None, device=None,
+               kv_heads: Optional[int] = None) -> Cache:
     """A fixed-capacity cache of flat ``(B, C, hkv*dh)`` planes a layer.
     ``per_stream_len=True`` makes ``len`` (B,), each row decoding at its own
     position (ragged); otherwise ``len`` is a 0-d tensor. ``cache_dtype``
     "int8" stores codes with (B, C, hkv) fp32 scales, "int4" packs two codes
-    a byte (a quarter of bf16's bytes)."""
+    a byte (a quarter of bf16's bytes). ``kv_heads`` (default all) is the
+    kv-heads a rank of a model cut by ``sharding.shard_lm`` holds
+    (``local_kv_heads``)."""
     dev = encoder.resolve_device(device)
-    hkv, dh = cfg.num_key_value_heads, cfg.head_dim
+    hkv, dh = kv_heads or cfg.num_key_value_heads, cfg.head_dim
     ln = torch.zeros((batch,) if per_stream_len else (), dtype=torch.int64, device=dev)
     if cache_dtype in ("int8", "int4"):
         if cache_dtype == "int4" and dh % 2:
@@ -293,7 +337,10 @@ def forward(model: LanguageModel, inputs_embeds: torch.Tensor,
     b, l, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     x = inputs_embeds.to(dt)
-    hq, hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    dh = cfg.head_dim
+    attn0 = model.model.layers[0].self_attn
+    # this rank's query and kv-heads (all of them in one process)
+    hq, hkv = _out_features(attn0.q_proj) // dh, _out_features(attn0.k_proj) // dh
     rep = hq // hkv
     if cache is not None:
         start = cache["len"]
@@ -355,11 +402,12 @@ def forward(model: LanguageModel, inputs_embeds: torch.Tensor,
             p = torch.softmax(s, dim=-1).to(dt).view(b, l * rep, kl)
             ctx.append(torch.bmm(p, v_att[:, :, g].to(dt)).view(b, l, rep, dh))
         ctx = torch.stack(ctx, dim=2).reshape(b, l, hq * dh)
-        x = x + _dense(ctx, attn.o_proj)
+        x = x + _row_parallel(model, ctx, attn.o_proj, cfg.num_attention_heads * dh)
 
         h = rms_norm(x, lp.post_attention_layernorm.weight, cfg.rms_norm_eps)
         gate = F.silu(_dense(h, lp.mlp.gate_proj))
-        x = x + _dense(gate * _dense(h, lp.mlp.up_proj), lp.mlp.down_proj)
+        x = x + _row_parallel(model, gate * _dense(h, lp.mlp.up_proj), lp.mlp.down_proj,
+                              cfg.intermediate_size)
 
     x = rms_norm(x, model.model.norm.weight, cfg.rms_norm_eps)
     out = {"logits": lm_logits(model, x) if logits else None, "last_hidden_state": x}
@@ -369,18 +417,53 @@ def forward(model: LanguageModel, inputs_embeds: torch.Tensor,
     return out, new_cache
 
 
+def _row_parallel(model: LanguageModel, x: torch.Tensor, lin: nn.Module,
+                  full_in: int) -> torch.Tensor:
+    """o_proj or down_proj: ``_dense`` in one process (or on a replicated
+    layer); under tensor parallelism the product of this rank's input
+    columns (fp32 partial sums, ``sharding.partial_product``), reduced over
+    the model group, then the bias, rounded to x's dtype."""
+    if model.parallel is None or isinstance(lin, quant.Int8Linear) or \
+            lin.weight.shape[1] == full_in:
+        return _dense(x, lin)
+    y = sharding.all_reduce(sharding.partial_product(x, encoder.cast(lin.weight, x.dtype)),
+                            model.parallel.group)
+    return encoder.cast(y if lin.bias is None else y + encoder.cast(lin.bias, y.dtype), x.dtype)
+
+
 def embed_tokens(model: LanguageModel, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids.to(model.device), model.model.embed_tokens.weight)
+    """The table's rows of ``ids``; a vocab-sharded table looks up the ids in
+    this rank's slice (zeros elsewhere) and sums the ranks' lookups (one
+    nonzero term a row: exact)."""
+    ids = ids.to(model.device)
+    table = model.model.embed_tokens.weight
+    cut = _vocab_slice(model, table)
+    if cut is None:
+        return F.embedding(ids, table)
+    lo, rows = cut
+    mine = (ids >= lo) & (ids < lo + rows)
+    local = F.embedding((ids - lo).clamp(0, rows - 1), table)
+    local = torch.where(mine[..., None], local, torch.zeros((), dtype=local.dtype,
+                                                            device=local.device))
+    return sharding.all_reduce(local, model.parallel.group)
 
 
-def lm_logits(model: LanguageModel, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(model: LanguageModel, x: torch.Tensor, gather: bool = True) -> torch.Tensor:
     """The vocab head over final-norm hidden states (..., D) -> fp32 (..., V):
-    tied to the embedding table, the untied ``lm_head``, or its int8 form."""
+    tied to the embedding table, the untied ``lm_head``, or its int8 form.
+    A vocab-sharded head gives this rank's slice, gathered over the model
+    group into the whole vocab unless ``gather`` is False (then (..., V /
+    mp) from ``vocab_shard(model)``'s offset on)."""
     if model.cfg.tie_word_embeddings:
-        return F.linear(x, encoder.cast(model.model.embed_tokens.weight, x.dtype)).float()
-    if isinstance(model.lm_head, quant.Int8Linear):
+        w = model.model.embed_tokens.weight
+    elif isinstance(model.lm_head, quant.Int8Linear):
         return _dense(x, model.lm_head).float()
-    return F.linear(x, encoder.cast(model.lm_head.weight, x.dtype)).float()
+    else:
+        w = model.lm_head.weight
+    out = F.linear(x, encoder.cast(w, x.dtype)).float()
+    if gather and _vocab_slice(model, w) is not None:
+        out = sharding.all_gather(out, model.parallel.group, dim=-1)
+    return out
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,11 @@ one model group are consecutive.
 from __future__ import annotations
 
 import os
-from typing import Optional
+import socket
+import subprocess
+import sys
+import time
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -123,6 +127,22 @@ def dim_group(mesh, name: str):
     return mesh.get_group(name)
 
 
+def slot_share(mesh, axis: str, slots: int):
+    """``(first, count, group)``: this process's contiguous share of a
+    serving engine's ``slots`` over ``mesh``'s dim ``axis`` and that dim's
+    group; all of them and no group without a mesh. ``slots`` must divide
+    over the dim."""
+    if mesh is None:
+        return 0, slots, None
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no axis {axis!r}: {mesh.mesh_dim_names}")
+    ranks = dim_size(mesh, axis)
+    if slots % ranks:
+        raise ValueError(f"slots={slots} must divide over mesh axis '{axis}'={ranks}")
+    local = slots // ranks
+    return dim_rank(mesh, axis) * local, local, dim_group(mesh, axis)
+
+
 def is_main_process() -> bool:
     """Rank 0 of the job, or the only process."""
     return not dist.is_initialized() or dist.get_rank() == 0
@@ -168,3 +188,49 @@ def shutdown() -> None:
     _CONTROL.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a job's coordinator."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def run_ranks(cmd: Sequence[str], world: int, timeout: float = 600,
+              env: Optional[Dict[str, str]] = None, wait: bool = True):
+    """Run ``cmd`` (a Python command line taking ``--rank``, ``--world`` and
+    ``--port``) as ``world`` processes of one job on this host, the
+    package's checkout on their path and ``env`` added to their
+    environment; returns each rank's output, or raises ``RuntimeError``
+    with the failed ranks' output. With ``wait=False`` it returns at once a
+    function that waits for the ranks (within ``timeout`` of their start)
+    and returns the same, so the caller can work meanwhile."""
+    port = free_port()
+    env = dict(os.environ, **(env or {}))
+    env["PYTHONPATH"] = _ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    deadline = time.monotonic() + timeout
+    procs = [subprocess.Popen([sys.executable, *cmd, "--rank", str(r), "--world", str(world),
+                               "--port", str(port)], env=env, cwd=_ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+
+    def join() -> List[str]:
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            raise RuntimeError(f"{' '.join(cmd)}: ranks {bad} of {world} failed\n" + "\n".join(
+                f"--- rank {r}\n{logs[r][-4000:] if r < len(logs) else ''}" for r in bad))
+        return logs
+
+    return join() if wait else join

@@ -50,6 +50,11 @@ from typing import Dict, Iterable, List, Optional
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.distributed import _functional_collectives as fc
+
+from streamformer_tpu_torch.ops import attention as ops
+from streamformer_tpu_torch.ops import quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +137,9 @@ def shard_encoder(encoder: nn.Module, group, shard_patches: bool = False) -> nn.
     the same on every rank) to this rank's shard of the model group
     ``group``, in place, and set ``encoder.parallel``; a group of one rank
     leaves it whole and one process's. Build the optimizer after this."""
+    if any(isinstance(m, quant.Int8Linear) for m in encoder.modules()):
+        raise NotImplementedError("tensor parallelism over an encoder with int8 weights: cut the "
+                                  "float encoder, the port shards no int8 layer")
     size = dist.get_world_size(group)
     if size == 1:
         encoder.parallel = None
@@ -243,25 +251,46 @@ def grad_norm(params: Iterable[torch.Tensor], grads: Optional[Iterable[torch.Ten
 # --------------------------------------------------------------------------
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def traced() -> bool:
+    """Whether a program is being traced: the collectives are then the
+    functional ones (the ops' own switch, ``ops.attention._via_op``)."""
+    return ops._via_op()
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """A new tensor: x reduced over ``group`` ("sum" or "max")."""
+    if traced():
+        return fc.all_reduce(x, op, group)
     x = x.contiguous().clone()
-    dist.all_reduce(x, group=group)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
     return x
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's x concatenated along ``dim`` in rank order."""
+    piece = x.movedim(dim, 0).contiguous()
+    if traced():
+        out = fc.all_gather_tensor(piece, 0, group)
+    else:
+        out = piece.new_empty((dist.get_world_size(group) * piece.shape[0],)
+                              + tuple(piece.shape[1:]))
+        dist.all_gather_into_tensor(out, piece, group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 def _gather_patches(x: torch.Tensor, par: TensorParallel) -> torch.Tensor:
     """(B, T, N/mp, D) pieces -> (B, T, N, D), rank order along N."""
-    piece = x.movedim(2, 0).contiguous()
-    out = piece.new_empty((par.size * piece.shape[0],) + tuple(piece.shape[1:]))
-    dist.all_gather_into_tensor(out, piece, group=par.group)
-    return out.movedim(0, 2).contiguous()
+    return all_gather(x, par.group, dim=2)
 
 
 def _reduce_scatter_patches(x: torch.Tensor, par: TensorParallel) -> torch.Tensor:
     """(B, T, N, D) partial sums -> this rank's (B, T, N/mp, D) of their sum."""
     whole = x.movedim(2, 0).contiguous()
-    out = whole.new_empty((whole.shape[0] // par.size,) + tuple(whole.shape[1:]))
-    dist.reduce_scatter_tensor(out, whole, group=par.group)
+    if traced():
+        out = fc.reduce_scatter_tensor(whole, "sum", 0, par.group)
+    else:
+        out = whole.new_empty((whole.shape[0] // par.size,) + tuple(whole.shape[1:]))
+        dist.reduce_scatter_tensor(out, whole, group=par.group)
     return out.movedim(0, 2).contiguous()
 
 
@@ -281,7 +310,7 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.par.group), None
+        return all_reduce(g, ctx.par.group), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -290,7 +319,7 @@ class _ReduceFromModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, par):
-        return _all_reduce(x, par.group)
+        return all_reduce(x, par.group)
 
     @staticmethod
     def backward(ctx, g):
@@ -358,8 +387,8 @@ def region_in(x: torch.Tensor, par: TensorParallel, sharded: bool, patches: bool
     patch (all-gather) under sequence parallelism, else x, whose gradient is
     summed over the group when the block is sharded."""
     if patches:
-        return _AllGatherPatches.apply(x, par)
-    return _CopyToModel.apply(x, par) if sharded else x
+        return _gather_patches(x, par) if traced() else _AllGatherPatches.apply(x, par)
+    return _CopyToModel.apply(x, par) if sharded and not traced() else x
 
 
 def region_out(y: torch.Tensor, par: TensorParallel, sharded: bool, patches: bool) -> torch.Tensor:
@@ -367,6 +396,10 @@ def region_out(y: torch.Tensor, par: TensorParallel, sharded: bool, patches: boo
     sharded block reduced over the group (onto this rank's patches under
     sequence parallelism); a replicated block's output, cut to this rank's
     patches under sequence parallelism."""
+    if traced():  # no backward in a traced program: the forwards alone
+        if sharded:
+            return _reduce_scatter_patches(y, par) if patches else all_reduce(y, par.group)
+        return _narrow_patches(y, par) if patches else y
     if sharded:
         return _ReduceScatterPatches.apply(y, par) if patches else _ReduceFromModel.apply(y, par)
     return _narrow_patches(y, par) if patches else y
@@ -374,9 +407,119 @@ def region_out(y: torch.Tensor, par: TensorParallel, sharded: bool, patches: boo
 
 def split_patches(x: torch.Tensor, par: TensorParallel) -> torch.Tensor:
     """Into the sequence-parallel trunk: this rank's patches of x."""
-    return _SplitPatches.apply(x, par)
+    return _narrow_patches(x, par) if traced() else _SplitPatches.apply(x, par)
 
 
 def gather_patches(x: torch.Tensor, par: TensorParallel) -> torch.Tensor:
     """Out of the sequence-parallel trunk: every patch, on every rank."""
-    return _GatherPatches.apply(x, par)
+    return _gather_patches(x, par) if traced() else _GatherPatches.apply(x, par)
+
+
+def partial_product(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x @ weight.T`` of a row-parallel product: this rank's partial sums.
+    Where no gradient is recorded they are the fp32 accumulators (on the
+    card the bf16 product writes them as they are, ``out_dtype``), so the
+    sum over the group is rounded to x's dtype once, as the one-process
+    product's is: bf16 partial sums rounded before the reduction move a
+    bf16 flagship stream 0.012 pooled from one process over 12 layers. A
+    recorded graph keeps x's dtype."""
+    if x.dtype == torch.float32 or (torch.is_grad_enabled()
+                                    and (x.requires_grad or weight.requires_grad)):
+        return F.linear(x, weight)
+    if x.is_cuda:
+        flat = x.reshape(1, -1, x.shape[-1])
+        out = torch.bmm(flat, weight.t()[None], out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], weight.shape[0])
+    return F.linear(x.float(), weight.float())
+
+
+def quantize_rows(x: torch.Tensor, par: Optional[TensorParallel]) -> tuple:
+    """``quant.quantize_rows`` of rows whose last axis is cut over the model
+    group: each row's absmax is MAX-reduced over the group first, so the
+    scale is the whole row's and the codes are the unsharded ones (the int8
+    KV cache's scale is per (position, row) over the whole D). One
+    process's (``par`` None): ``quant.quantize_rows``."""
+    if par is None:
+        return quant.quantize_rows(x)
+    amax = all_reduce(x.abs().amax(dim=-1).float(), par.group, "max")  # exact in fp32
+    scale = amax.clamp_min_(1e-8) / quant._divisor(127.0, x.device)
+    codes = torch.round(x / scale[..., None]).clamp_(-127, 127).to(torch.int8)
+    return codes, scale
+
+
+# --------------------------------------------------------------------------
+# The language model
+# --------------------------------------------------------------------------
+
+
+_LM_LAYER = r"model\.layers\.\d+\."
+
+
+def lm_param_rules(cfg, size: int) -> Dict[str, Shard]:
+    """Parameter-name pattern (of ``LanguageModel``) -> ``Shard``, for a
+    model group of ``size`` ranks: the attention when its query and kv-heads
+    both divide, the MLP when its width does, the embedding table and the
+    untied head when the vocab does."""
+    rules: Dict[str, Shard] = {}
+    if cfg.num_attention_heads % size == 0 and cfg.num_key_value_heads % size == 0:
+        rules.update({_LM_LAYER + r"self_attn\.(q|k|v)_proj\.(weight|bias)": Shard(0),
+                      _LM_LAYER + r"self_attn\.o_proj\.weight": Shard(1)})
+    if cfg.intermediate_size % size == 0:
+        rules.update({_LM_LAYER + r"mlp\.(gate|up)_proj\.weight": Shard(0),
+                      _LM_LAYER + r"mlp\.down_proj\.weight": Shard(1)})
+    if cfg.vocab_size % size == 0:
+        rules.update({r"model\.embed_tokens\.weight": Shard(0), r"lm_head\.weight": Shard(0)})
+    return rules
+
+
+def _int8_block(root: nn.Module, name: str) -> bool:
+    """Whether the block (attention, MLP or head) of parameter ``name`` holds
+    an int8 layer: such a block stays replicated, as a JAX ``kernel_q``."""
+    owner = root.get_submodule(name.rsplit(".", 2)[0])
+    return isinstance(owner, quant.Int8Linear) or any(
+        isinstance(m, quant.Int8Linear) for m in owner.children())
+
+
+def shard_lm(model: nn.Module, group) -> nn.Module:
+    """Cut a ``LanguageModel`` holding the whole weights (the same on every
+    rank; carry a JAX tree across with ``checkpoint.lm_params_from_jax``
+    first) to this rank's shard of the model group ``group``, in place, and
+    set ``model.parallel``; a group of one rank leaves it whole. The rules
+    are ``lm_param_rules``; an int8 layer's block stays replicated. Its
+    caches hold this rank's kv-heads (``language_model.init_cache`` at
+    ``kv_heads=language_model.local_kv_heads(model)``)."""
+    if any(p.requires_grad for p in model.parameters()):
+        raise NotImplementedError("a trainable LM under tensor parallelism (VideoQA stages 2-3 "
+                                  "and DPO sharded): ROADMAP item 14c; shard_lm serves")
+    size = dist.get_world_size(group)
+    if size == 1:
+        model.parallel = None
+        return model
+    par = TensorParallel(group, size, dist.get_rank(group))
+    rules = lm_param_rules(model.cfg, size)
+    for name, p in list(model.named_parameters()):
+        rule = next((r for pat, r in rules.items() if re.fullmatch(pat, name)), None)
+        if rule is None or _int8_block(model, name):
+            continue
+        owner, attr = _owner(model, name)
+        piece = nn.Parameter(shard_of(p.detach(), rule, size, par.rank),
+                             requires_grad=p.requires_grad)
+        piece.tp_shard = (rule, par)
+        setattr(owner, attr, piece)
+    model.parallel = par
+    return model
+
+
+def sharded_argmax(x: torch.Tensor, par: Optional[TensorParallel], offset: int) -> torch.Tensor:
+    """(S, V_local) scores of this rank's vocab slice, from global index
+    ``offset`` on -> (S,) global argmax over every rank's slice, ties to the
+    lowest index as ``torch.argmax`` gives them. One process's: x.argmax."""
+    local = x.argmax(-1)
+    if par is None:
+        return local
+    best = x.gather(-1, local[:, None])[:, 0].double()
+    pair = torch.stack([best, (local + offset).double()], -1)  # both exact in float64
+    every = all_gather(pair[None], par.group)  # (mp, S, 2)
+    top = every[..., 0].amax(0)
+    idx = torch.where(every[..., 0] == top, every[..., 1], float("inf")).amin(0)
+    return idx.long()

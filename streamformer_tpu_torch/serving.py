@@ -36,6 +36,16 @@ normalized on the device if asked, and a tick gathers each slot's frames
 there at its device-resident read pointer. Outputs stay on the device until
 ``poll``, whose one bulk copy is the engine's only device-to-host read.
 All device work runs on the caller's thread, under ``torch.no_grad()``.
+
+Over a device mesh (``mesh=``, JAX ``serving.py``'s data-parallel slots) the
+engine is SPMD, as under ``torchrun``: every rank makes the same calls and
+runs the same admission table over all ``slots`` (FIFO, the same grants),
+while each holds the device state of its contiguous share of the slots
+along ``mesh_axis`` only (cache rows, staging ring, read pointers, stash)
+and runs each tick's step on them. The model is replicated, as the JAX
+engine's ``device_put(params, repl)`` places it. A steady tick issues no
+collective; ``poll(sid)`` broadcasts the owner's features over the mesh
+axis, so every rank returns the same array.
 """
 
 from __future__ import annotations
@@ -45,9 +55,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from streamformer_tpu_torch.models import encoder
 from streamformer_tpu_torch.ops import attention as ops
+from streamformer_tpu_torch.parallel import mesh as mesh_lib
 
 
 class StreamingEngine:
@@ -55,7 +67,9 @@ class StreamingEngine:
 
     ``model`` is a ``StreamformerEncoder``; the engine runs on its device.
     ``collect='pooled'`` keeps the (t, D) pooled features of each stream;
-    ``collect=None`` discards outputs (cache building only).
+    ``collect=None`` discards outputs (cache building only). ``mesh`` (a
+    ``DeviceMesh``, ``parallel.mesh.make_mesh``) shares the slots out over
+    its ``mesh_axis``: ``slots`` must divide over it.
     """
 
     def __init__(
@@ -71,11 +85,14 @@ class StreamingEngine:
         mesh=None,
         mesh_axis: str = "data",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a serving engine sharded over a device mesh (axis {mesh_axis!r}): one engine "
-                "process a GPU behind a router, ROADMAP item 14b"
-            )
+        if mesh is not None and model.parallel is not None:
+            raise ValueError(
+                "a model cut by shard_encoder: the engine's model is replicated over the "
+                "mesh, as the JAX engine places it (device_put(params, repl)); pass the "
+                "whole model and shard the slots")
+        # this rank's slots: [lo, lo + local) of the mesh axis's share
+        self._lo, self._local, self._group = mesh_lib.slot_share(mesh, mesh_axis, slots)
+        self._share = slice(self._lo, self._lo + self._local)
         cfg = model.cfg
         capacity = capacity or cfg.cache_capacity
         if mode == "auto":
@@ -93,7 +110,8 @@ class StreamingEngine:
         self.collect = collect
         dev = self._dev = model.device
         self._dt = encoder.compute_dtype(self.cfg)
-        self._cache = encoder.init_cache(self.cfg, slots, capacity=capacity,
+        local = self._local
+        self._cache = encoder.init_cache(self.cfg, local, capacity=capacity,
                                          per_stream_len=True, device=dev)
         # kernel E appends float planes only: an int8 tick is t=1 steps
         self._quantized = "k_scale" in self._cache["layers"][0]
@@ -114,10 +132,10 @@ class StreamingEngine:
                          for v in normalize)
             self._norm = (mean, std)
         c, hw = cfg.num_channels, cfg.image_size
-        self._stage = torch.zeros((slots, self._stage_depth, c, hw, hw),
+        self._stage = torch.zeros((local, self._stage_depth, c, hw, hw),
                                   dtype=torch.uint8 if self._stage_u8 else self._dt, device=dev)
-        self._slot_index = torch.arange(slots, device=dev)
-        self._rd_dev = torch.zeros(slots, dtype=torch.int64, device=dev)  # device read ptrs
+        self._slot_index = torch.arange(local, device=dev)
+        self._rd_dev = torch.zeros(local, dtype=torch.int64, device=dev)  # device read ptrs
         self._wr = [0] * slots  # absolute frames staged per slot (host)
         self._rd = [0] * slots  # absolute frames consumed per slot (host mirror)
         self._slot_sid: List[Optional[int]] = [None] * slots
@@ -125,6 +143,8 @@ class StreamingEngine:
         self._closed: set = set()
         self._results: Dict[int, list] = {}
         self._served: Dict[int, int] = {}
+        self._polled: Dict[int, int] = {}  # features handed out per stream
+        self._sid_slot: Dict[int, int] = {}  # the slot a stream was granted
         self._fed: Dict[int, int] = {}  # total frames fed per stream
         self._pending: deque = deque()  # sids waiting for a slot
         self._admit_next: set = set()  # slots granted since the last tick
@@ -137,9 +157,13 @@ class StreamingEngine:
         # device copies of the per-slot tick operands, re-sent only when the
         # host pattern changes (steady state: no admits, constant counts)
         self._flags_key: Optional[bytes] = None
-        self._admit_dev = torch.zeros(slots, dtype=torch.bool, device=dev)
-        self._count_dev = torch.zeros(slots, dtype=torch.bool, device=dev)  # active or navail
-        self._no_admit = torch.zeros(slots, dtype=torch.bool, device=dev)
+        self._admit_dev = torch.zeros(local, dtype=torch.bool, device=dev)
+        self._count_dev = torch.zeros(local, dtype=torch.bool, device=dev)  # active or navail
+        self._no_admit = torch.zeros(local, dtype=torch.bool, device=dev)
+
+    def _mine(self, s: int) -> bool:
+        """Whether slot ``s``'s device state lives on this rank."""
+        return self._lo <= s < self._lo + self._local
 
     # -- device side -------------------------------------------------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -213,10 +237,12 @@ class StreamingEngine:
         n = min(len(q), self._stage_depth - (self._wr[s] - self._rd[s]))
         if n <= 0:
             return 0
-        clip = self._upload(np.stack([q.popleft() for _ in range(n)]))
-        start = self._wr[s] % self._stage_depth
-        idx = (torch.arange(n, device=self._dev) + start) % self._stage_depth
-        self._stage[s].index_copy_(0, idx, clip.to(self._stage.dtype))
+        frames = [q.popleft() for _ in range(n)]
+        if self._mine(s):  # another rank's slot: its frames leave the queue all the same
+            clip = self._upload(np.stack(frames))
+            start = self._wr[s] % self._stage_depth
+            idx = (torch.arange(n, device=self._dev) + start) % self._stage_depth
+            self._stage[s - self._lo].index_copy_(0, idx, clip.to(self._stage.dtype))
         self._wr[s] += n
         return n
 
@@ -228,6 +254,7 @@ class StreamingEngine:
         self._queues[sid] = deque()
         self._results[sid] = []
         self._served[sid] = 0
+        self._polled[sid] = 0
         self._fed[sid] = 0
         self._pending.append(sid)
         return sid
@@ -297,6 +324,7 @@ class StreamingEngine:
                     continue
                 if self._queues[head]:
                     self._slot_sid[s] = self._pending.popleft()
+                    self._sid_slot[head] = s
                     self._admit_next.add(s)
                     # the new stream stages from ring position 0; the tick
                     # resets the slot's device read pointer on admit
@@ -305,10 +333,11 @@ class StreamingEngine:
                 break
 
     def _send_flags(self, key: bytes, admit: np.ndarray, counts: np.ndarray) -> None:
+        """This rank's slice of the per-slot operands, sent when they change."""
         if key != self._flags_key:
             self._flags_key = key
-            self._admit_dev = self._upload(admit)
-            self._count_dev = self._upload(counts)
+            self._admit_dev = self._upload(admit[self._share])
+            self._count_dev = self._upload(counts[..., self._share])
 
     @torch.no_grad()
     def tick(self, frames: int = 1) -> bool:
@@ -370,7 +399,7 @@ class StreamingEngine:
         for s in range(self.slots):
             self._rd[s] += int(navail[s])
         if self.collect:
-            self._stash.append((pooled, k, fed_sids, navail))
+            self._stash.append((pooled, k, fed_sids[self._share], navail[self._share]))
             if len(self._stash) >= self._stash_limit:
                 self._drain_stash()  # bound device-resident outputs
         for s, sid in enumerate(fed_sids):
@@ -407,17 +436,36 @@ class StreamingEngine:
         out = self._results[sid]
         feats = np.stack(out) if out else empty
         self._results[sid] = []
+        if self._group is not None and self.collect:
+            feats = self._from_owner(sid, feats)
         # staged frames leave the host queue at feed time, so completion is
         # "every frame ever fed has been served", not an empty queue
         done = (sid in self._closed and not self._queues[sid]
                 and self._served[sid] == self._fed[sid])
         if done:
-            for d in (self._queues, self._results, self._served, self._fed):
+            for d in (self._queues, self._results, self._served, self._polled, self._fed,
+                      self._sid_slot):
                 d.pop(sid, None)
             self._closed.discard(sid)
             if sid in self._pending:  # closed empty before ever admitted
                 self._pending.remove(sid)
         return feats, done
+
+    def _from_owner(self, sid: int, feats: np.ndarray) -> np.ndarray:
+        """The features of ``sid`` from the rank that served its slot,
+        broadcast over the mesh axis (every rank knows how many: the host
+        tables are the same on every rank)."""
+        rows = self._served[sid] - self._polled[sid]
+        self._polled[sid] = self._served[sid]
+        if not rows:
+            return feats
+        owner = self._sid_slot[sid] // self._local
+        nccl = dist.get_backend(self._group) == "nccl"
+        buf = torch.from_numpy(np.ascontiguousarray(feats, np.float32)) if self._mine(
+            self._sid_slot[sid]) else torch.empty(rows, self.cfg.hidden_size)
+        buf = buf.to(self._dev) if nccl else buf
+        dist.broadcast(buf, src=dist.get_global_rank(self._group, owner), group=self._group)
+        return buf.cpu().numpy()
 
     def has_work(self) -> bool:
         """True iff tick() would feed a frame: the engine's own admission

@@ -1,57 +1,46 @@
 """Rank entry points of the port's multi-process CPU tests
 (``tests/test_torch_parallel.py``, ``test_torch_dist_train.py``,
-``test_torch_dist_cli.py``).
+``test_torch_dist_cli.py``, ``test_torch_dist_serve.py``).
 
 The test writes its inputs to a directory, then ``launch`` starts one
-process per rank, ``python tests/_torch_dist_worker.py <case> <rank>
-<world> <port> <dir>``: each joins a gloo process group on localhost, runs
-the case on one thread, and writes ``<case>_<rank>.pt`` for the test to
-hold against the JAX package and the one-process port. This module imports
-torch and the port only, never JAX.
+process per rank through ``parallel.mesh.run_ranks``, ``python
+tests/_torch_dist_worker.py <case> <dir> --rank <r> --world <n> --port
+<p>``: each joins a gloo process group on localhost, runs the case on one
+thread, and writes ``<case>_<rank>.pt`` for the test to hold against the
+JAX package and the one-process port. This module imports torch and the
+port only, never JAX.
 """
 
+import argparse
 import os
 import shutil
-import socket
-import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+from streamformer_tpu_torch.parallel.mesh import free_port, run_ranks  # noqa: F401 (free_port:
+# the tests' own coordinators)
 
 
 def launch(case: str, world: int, out_dir: str, timeout: float = 300) -> list:
     """Run ``case`` on ``world`` ranks; returns each rank's results."""
-    port = free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
-               STREAMFORMER_ALLOW_HASH_TOKENIZER="1", PYTHONPATH=ROOT)
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), case, str(r), str(world),
-                               str(port), out_dir], env=env, cwd=out_dir,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    deadline = time.time() + timeout
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=max(deadline - time.time(), 1))[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
-    assert not bad, f"ranks {bad} failed:\n" + "\n".join(
-        f"--- rank {r}\n{logs[r][-4000:] if r < len(logs) else ''}" for r, _ in bad)
-    return [torch.load(os.path.join(out_dir, f"{case}_{r}.pt"), weights_only=False)
-            for r in range(world)]
+    return start(case, world, out_dir, timeout)()
+
+
+def start(case: str, world: int, out_dir: str, timeout: float = 300):
+    """Start ``case`` on ``world`` ranks; returns a function that waits for
+    them and returns each rank's results (the caller works meanwhile)."""
+    join = run_ranks([os.path.abspath(__file__), case, out_dir], world, timeout,
+                     env={"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+                          "STREAMFORMER_ALLOW_HASH_TOKENIZER": "1"}, wait=False)
+
+    def results() -> list:
+        join()
+        return [torch.load(os.path.join(out_dir, f"{case}_{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+    return results
 
 
 # --------------------------------------------------------------------------
@@ -325,12 +314,214 @@ def case_cli(rank, world, port, out_dir):
     return {}
 
 
-CASES = {"parallel": case_parallel, "train": case_train, "cli": case_cli}
+def _stream_tp(model, cfg, video, calls, *, ragged=False, new_valid=None, reset=None):
+    """``streaming_forward`` of ``video`` in calls of the given frame counts
+    on ``model``'s cache (the rank's heads when it is cut); returns each
+    call's outputs and the cache."""
+    from streamformer_tpu_torch.models import encoder
+
+    cache = encoder.init_cache(cfg, video.shape[0], per_stream_len=ragged, device="cpu",
+                               shards=encoder.cache_shards(model))
+    outs, lo = [], 0
+    for i, t in enumerate(calls):
+        valid = None if new_valid is None else torch.tensor(new_valid[i], dtype=torch.int32)
+        out, cache = encoder.streaming_forward(model, video[:, lo:lo + t], cache, cfg=cfg,
+                                               new_valid=valid)
+        outs.append({k: v.clone() for k, v in out.items()})
+        lo += t
+        if i == 0 and reset is not None:
+            encoder.reset_streams(cache, torch.tensor(reset))
+    return outs, cache
+
+
+class CollectiveCount:
+    """Counts the calls of ``torch.distributed``'s collectives while on."""
+
+    NAMES = ("broadcast", "all_reduce", "all_gather", "all_gather_into_tensor",
+             "reduce_scatter_tensor", "barrier", "send", "recv", "isend", "irecv")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.calls, self.saved = dist, [], {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = getattr(self.dist, name)
+            self.saved[name] = fn
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.calls.append(_name)
+                return _fn(*a, **k)
+
+            setattr(self.dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _serve_engine(model, clips, mesh, **kw):
+    """JAX ``test_serving.py``'s churn: every stream opened and fed its first
+    half, then its second half and closed, run to idle. Returns each
+    stream's features and the collectives the ticks and the polls called."""
+    from streamformer_tpu_torch.serving import StreamingEngine
+
+    eng = StreamingEngine(model, slots=4, stage_dtype="uint8", mode="linear", mesh=mesh, **kw)
+    sids = {}
+    for i, c in clips.items():
+        sids[i] = eng.open()
+        eng.feed(sids[i], c[: len(c) // 2])
+    for i, c in clips.items():
+        eng.feed(sids[i], c[len(c) // 2:])
+        eng.close(sids[i])
+    with CollectiveCount() as ticks:
+        n = eng.run_until_idle()
+    with CollectiveCount() as polls:
+        feats = {i: eng.poll(s)[0] for i, s in sids.items()}
+    return {"feats": feats, "ticks": n, "tick_calls": ticks.calls, "poll_calls": polls.calls,
+            "forwards": eng.forwards}
+
+
+def _decode(model, prompts, mesh, **kw):
+    from streamformer_tpu_torch.lm_serving import DecodeEngine
+
+    eng = DecodeEngine(model, slots=4, capacity=24, max_new_tokens=5, prefill_buckets=(4, 8),
+                       mesh=mesh, **kw)
+    sids = [eng.open_tokens(p) for p in prompts]
+    eng.run_until_idle()
+    out = []
+    for sid in sids:
+        toks, done = eng.poll(sid)
+        assert done, sid
+        out.append(toks)
+    return out
+
+
+def case_serve(rank, world, inp):
+    """Serving over two ranks: the tensor-parallel stream (mesh (1, 2):
+    linear, ring, ragged with ``new_valid``, row-major, int8, sequence
+    parallel), ``space_only`` and ``joint_space_time`` under tensor
+    parallelism forward and backward, ``StreamingEngine`` over the data axis
+    (mesh (2, 1), float and int8, the collectives of its ticks and polls
+    counted), the tensor-parallel LM forward and ragged step, ``DecodeEngine``
+    over (2, 1) and (1, 2), and ``export_sharded_forward`` at (1, 2)."""
+    from streamformer_tpu_torch import export as EX
+    from streamformer_tpu_torch.config import StreamformerConfig
+    from streamformer_tpu_torch.models import encoder
+    from streamformer_tpu_torch.models import language_model as LM
+    from streamformer_tpu_torch.parallel import sharding
+    from streamformer_tpu_torch.parallel.mesh import make_mesh
+
+    tp, dp = make_mesh(1, 2), make_mesh(2, 1)
+    group = tp.get_group("model")
+    res = {"model_rank": tp.get_local_rank("model")}
+    video = inp["video"]
+
+    def tp_encoder(cfg, trainable=False, shard_patches=False):
+        model = encoder.StreamformerEncoder(cfg, device="cpu", trainable=trainable)
+        model.load_state_dict({k: inp["enc_state"][k] for k in model.state_dict()})
+        return sharding.shard_encoder(model, group, shard_patches)
+
+    base = StreamformerConfig(**inp["enc_kw"])
+    res["streams"] = {}
+    for name, case in inp["streams"].items():
+        cfg = base.replace(**case["cfg"])
+        model = tp_encoder(cfg, shard_patches=case.get("shard_patches", False))
+        outs, cache = _stream_tp(model, cfg, video, case["calls"], ragged=case.get("ragged", False),
+                                 new_valid=case.get("new_valid"), reset=case.get("reset"))
+        res["streams"][name] = {"outs": outs, "cache": cache}
+
+    res["attention_types"] = {}
+    for kind in ("space_only", "joint_space_time"):
+        model = tp_encoder(base.replace(attention_type=kind), trainable=True)
+        out = encoder.model_forward(model, video[:, :4])
+        (out["pooler_output"] ** 2).sum().backward()
+        res["attention_types"][kind] = {"pooler": out["pooler_output"].detach(),
+                                        "hidden": out["last_hidden_state"].detach(),
+                                        "grads": _full_grads(model)}
+
+    x = inp["quantize"]
+    half = x.shape[1] // 2
+    mine = x[:, res["model_rank"] * half:(res["model_rank"] + 1) * half]
+    par = sharding.TensorParallel(group, 2, res["model_rank"])
+    res["quantize"] = (*sharding.quantize_rows(mine, par),
+                       sharding.quantize_rows(mine, None)[1])
+
+    res["engine"] = {}
+    for tag, over in (("float", {}), ("int8", {"cache_dtype": "int8"})):
+        whole = encoder.StreamformerEncoder(base.replace(**over), device="cpu")
+        whole.load_state_dict(inp["enc_state"])
+        res["engine"][tag] = _serve_engine(whole, inp["clips"], dp)
+    from streamformer_tpu_torch.serving import StreamingEngine
+
+    res["refusals"] = {}
+    for tag, make in (("cut", lambda: StreamingEngine(tp_encoder(base), slots=4, mesh=dp)),
+                      ("slots", lambda: StreamingEngine(whole, slots=3, mesh=dp))):
+        try:
+            make()
+            res["refusals"][tag] = ""
+        except ValueError as e:
+            res["refusals"][tag] = str(e)
+
+    lm_cfg = LM.LMConfig(**inp["lm_kw"])
+
+    def lm_model(cut):
+        model = LM.LanguageModel(lm_cfg, device="cpu")
+        model.load_state_dict(inp["lm_state"])
+        return sharding.shard_lm(model, group) if cut else model
+
+    lm = lm_model(True)
+    ids = inp["lm_ids"]
+    cache = LM.init_cache(lm_cfg, ids.shape[0], 16, device="cpu",
+                          kv_heads=LM.local_kv_heads(lm))
+    first, cache = LM.forward(lm, LM.embed_tokens(lm, ids), cache=cache)
+    step, cache = LM.forward(lm, LM.embed_tokens(lm, ids[:, -1:]), cache=cache)
+    ragged = LM.init_cache(lm_cfg, 2, 16, per_stream_len=True, device="cpu",
+                           kv_heads=LM.local_kv_heads(lm))
+    ragged["len"] = torch.tensor([3, 5])
+    r_out, ragged = LM.forward(lm, LM.embed_tokens(lm, ids[:, :1]), cache=ragged)
+    res["lm"] = {"first": first["logits"], "step": step["logits"], "ragged": r_out["logits"],
+                 "kv_heads": LM.local_kv_heads(lm),
+                 "embed_rows": lm.model.embed_tokens.weight.shape[0]}
+    prompts = inp["prompts"]
+    res["decode"] = {
+        "dp_greedy": _decode(lm_model(False), prompts, dp),
+        "dp_int4": _decode(lm_model(False), prompts, dp, cache_dtype="int4"),
+        "tp_greedy": _decode(lm, prompts, tp),
+        "tp_int4": _decode(lm, prompts, tp, cache_dtype="int4"),
+        "tp_sampled": _decode(lm, prompts, tp, temperature=0.8, seed=3),
+        "tp_top_k": _decode(lm, prompts, tp, temperature=0.8, top_k=5, seed=3),
+        "dp_eos_each_token": _decode(lm_model(False), prompts, dp, **inp["eos_each"]),
+        "dp_eos_lazy": _decode(lm_model(False), prompts, dp, **inp["eos_lazy"]),
+    }
+
+    blob = EX.export_sharded_forward(base, 2, tp, num_frames=4)
+    prog = EX.load_exported(blob, device="cpu", mesh=tp)
+    model = tp_encoder(base)
+    res["export"] = {"got": prog(model.state_dict(), video[:, :4]),
+                     "live": encoder.model_forward(model, video[:, :4]),
+                     "mesh": prog.metadata["mesh"]}
+    try:
+        EX.load_exported(blob, device="cpu", mesh=dp)
+        res["export"]["refused"] = None
+    except ValueError as e:
+        res["export"]["refused"] = str(e)
+    return res
+
+
+CASES = {"parallel": case_parallel, "train": case_train, "cli": case_cli, "serve": case_serve}
 
 
 def main() -> None:
-    case, rank, world, port, out_dir = sys.argv[1:6]
-    rank, world = int(rank), int(world)
+    p = argparse.ArgumentParser()
+    p.add_argument("case", choices=list(CASES))
+    p.add_argument("out_dir")
+    for flag in ("--rank", "--world", "--port"):
+        p.add_argument(flag, type=int, required=True)
+    args = p.parse_args()
+    case, rank, world, port, out_dir = args.case, args.rank, args.world, args.port, args.out_dir
     torch.set_num_threads(1)
     import torch.distributed as dist
 

@@ -9,6 +9,8 @@ bf16 2e-2 max-abs, about two bf16 ulps at the outputs' magnitude (both
 round the same fp32 result to bf16, and the kernel sums in another order).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1733,3 +1735,170 @@ def test_opcheck_on_the_card(name):
 
     result = torch.library.opcheck(ops.OPS[name], op_inputs(name, "cuda", torch.bfloat16))
     assert set(result.values()) == {"SUCCESS"}, result
+
+
+# ---------------------------------------------------------------------------
+# The rank shape of model parallelism 2: half the heads of the flagship
+# ---------------------------------------------------------------------------
+
+MP2 = dict(rows=1568, per_stream=196, cap=16, heads=6, dh=64)
+MP2_LENS = [0, 1, 5, 9, 14, 15, 15, 15]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["A", "D", "E", "F", "G", "J", "K"])
+def test_decode_kernels_at_the_mp2_rank_shape(kernel, dtype):
+    """A, D, E, F, G, J and K on one rank's cache of the flagship cut over
+    two ranks (6 heads of 64, R=1568, C=16): within the tolerance of their
+    plain versions, the cache writes equal, one launch each."""
+    from streamformer_tpu_torch.models import encoder
+
+    rows, ps, cap, heads, dh = (MP2[k] for k in ("rows", "per_stream", "cap", "heads", "dh"))
+    d = heads * dh
+    length = torch.tensor(cap - 1, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(MP2_LENS, dtype=torch.int32, device="cuda")
+    q, kn, vn = (_randn((rows, d), dtype, s) for s in (61, 62, 63))
+    kc, vc = _randn((cap, rows, d), dtype, 64), _randn((cap, rows, d), dtype, 65)
+    if kernel in ("F", "G"):
+        new, cache = _int8_operands(rows, cap, d, 66)
+        args = (q, *new, *cache)
+    elif kernel in ("J", "K"):
+        kc, vc = kc.transpose(0, 1).contiguous(), vc.transpose(0, 1).contiguous()
+    if kernel == "K":
+        (kq, ks), (vq, vs) = (encoder.quantize_kv_heads(x.float(), heads) for x in (kc, vc))
+        cache = [kq, vq, ks, vs]
+        args = (q, *cache)
+    name, plain, extra = {
+        "A": ("temporal_decode_pm", None, (length, heads)),
+        "D": ("temporal_decode_pm_ragged", None, (lens, ps, heads)),
+        "F": ("temporal_decode_pm_int8", None, (length, heads)),
+        "G": ("temporal_decode_pm_int8_ragged", None, (lens, ps, heads)),
+        "J": ("temporal_decode_rm", None, (length, heads)),
+        "K": ("temporal_decode_rm_readonly", None, (length, heads)),
+        "E": ("temporal_append_pm_ragged", None, None),
+    }[kernel]
+    if kernel == "E":
+        t, valid = 8, torch.tensor([8, 0, 8, 8, 3, 4, 1, 0], dtype=torch.int32, device="cuda")
+        lens = torch.tensor([0, 1, 5, 8, 8, 12, 15, 16], dtype=torch.int32, device="cuda")
+        q, kn, vn = (_randn((t, rows, d), dtype, s) for s in (67, 68, 69))
+        args, extra = (q, kn, vn, kc, vc), (lens, valid, ps, heads)
+        cache = [kc, vc]
+    elif kernel in ("A", "D", "J"):
+        args, cache = (q, kn, vn, kc, vc), [kc, vc]
+    ref_args = [a.clone() for a in args]
+    ref = getattr(ops, name + "_plain")(*ref_args, *extra)
+    before = ops.LAUNCHES[name]
+    got = getattr(ops, name)(*args, *extra)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 1
+    if kernel == "E":
+        for b, n in enumerate(valid.tolist()):
+            sl = slice(b * ps, (b + 1) * ps)
+            if n:
+                assert (got[:n, sl].float() - ref[:n, sl].float()).abs().max().item() \
+                    <= TOL[dtype], b
+    else:
+        assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    n_cache = len(cache)
+    for mine, theirs in zip(args[-n_cache:], ref_args[-n_cache:]):
+        assert torch.equal(mine, theirs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pair", ["D=A", "G=F"])
+def test_ragged_rows_equal_lone_streams_at_the_mp2_rank_shape(pair, dtype):
+    """D = lone A and G = lone F, bit for bit, at 6 heads of 64 (one body
+    each, and a launch plan first tuned at 12 heads)."""
+    rows, ps, cap, heads, dh = (MP2[k] for k in ("rows", "per_stream", "cap", "heads", "dh"))
+    d = heads * dh
+    q = _randn((rows, d), dtype, 71)
+    if pair == "D=A":
+        kn, vn = _randn((rows, d), dtype, 72), _randn((rows, d), dtype, 73)
+        new = (kn, vn)
+        cache = [_randn((cap, rows, d), dtype, 74), _randn((cap, rows, d), dtype, 75)]
+        ragged, lone = ops.temporal_decode_pm_ragged, ops.temporal_decode_pm
+    else:
+        new, cache = _int8_operands(rows, cap, d, 76)
+        ragged, lone = ops.temporal_decode_pm_int8_ragged, ops.temporal_decode_pm_int8
+    whole = [c.clone() for c in cache]
+    got = ragged(q, *new, *whole, torch.tensor(MP2_LENS, dtype=torch.int32, device="cuda"), ps,
+                 heads)
+    for b, length in enumerate(MP2_LENS):
+        sl = slice(b * ps, (b + 1) * ps)
+        mine = [c[:, sl].contiguous() for c in cache]
+        want = lone(q[sl].contiguous(), *(x[sl].contiguous() for x in new), *mine,
+                    torch.tensor(length, dtype=torch.int32, device="cuda"), heads)
+        assert torch.equal(got[sl], want), b
+        for w, m in zip(whole, mine):
+            assert torch.equal(w[:, sl], m), b
+
+
+def test_tp_ring_stream_on_two_ranks_of_one_card(tmp_path):
+    """The tensor-parallel ring stream (``tools.tp_stream``: two gloo ranks
+    on the one card, mp = 2) against the same stream in one process, fp32:
+    each rank's pooled output within 1e-4 on a float cache and on an int8
+    cache (there also at cosine above 0.999, chip_smoke.py's gate), A or F
+    L times a frame on each. The same ranks first serve uint8 streams over
+    a (2, 1) mesh (two slots a rank, polls broadcast from the owner) and run
+    the full clip exported over (1, 2), each within 1e-4 of one process."""
+    from streamformer_tpu_torch.config import StreamformerConfig
+    from streamformer_tpu_torch.models import encoder
+    from streamformer_tpu_torch.serving import StreamingEngine
+    from streamformer_tpu_torch.tools import tp_stream
+
+    cfg = StreamformerConfig(image_size=64, num_frames=8, hidden_size=256, num_hidden_layers=2,
+                             num_attention_heads=4, intermediate_size=512, dtype="float32")
+    model = encoder.StreamformerEncoder(cfg, device="cuda",
+                                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in model.encoder.layer:
+            layer.temporal_attention_gating.fill_(0.5)
+    ckpt = str(tmp_path / "ckpt")
+    cfg.save_pretrained(ckpt)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(ckpt, "pytorch_model.bin"))
+    video = _randn((2, 10, 3, 64, 64), torch.float32, 81)
+    torch.save(video.cpu(), str(tmp_path / "video.pt"))
+    rng = np.random.default_rng(35)
+    clips = [rng.integers(0, 256, (int(n), 3, 64, 64), dtype=np.uint8)
+             for n in rng.integers(2, 9, 6)]
+    torch.save({"clips": clips, "slots": 4, "tick_frames": (1, 3), "burst_ticks": 2,
+                "export_layers": 1}, str(tmp_path / "serve.pt"))
+    ranks = tp_stream.launch(2, ckpt, str(tmp_path / "video.pt"), str(tmp_path), capacity=4,
+                             cache_dtypes=("float", "int8"), serve=str(tmp_path / "serve.pt"))
+    # the engine over (2, 1), two slots a rank, against the one-process engine; the
+    # program exported over (1, 2) against the one-process clip and the rank's live one
+    cut = encoder.StreamformerEncoder(cfg.replace(num_hidden_layers=1), device="cuda")
+    cut.load_state_dict({k: v for k, v in model.state_dict().items() if k in cut.state_dict()})
+    clip = encoder.model_forward(cut, video)
+    for frames in (1, 3):
+        eng = StreamingEngine(model, slots=4, mode="linear", stage_dtype="uint8")
+        feats, ticks = tp_stream.engine_run(eng, clips, frames, 2)
+        for rank in ranks:
+            got = rank["serve"]["engine"][frames]
+            assert got["ticks"] == ticks and got["local_slots"] == 2
+            assert got["launches"]["temporal_decode_pm_ragged" if frames == 1 else
+                                   "temporal_append_pm_ragged"] > 0
+            assert max(float(np.abs(a - b).max()) for a, b in zip(got["feats"], feats)) <= 1e-4
+    for rank in ranks:
+        got = rank.pop("serve")["export"]
+        assert got["mesh"] == {"data": 1, "model": 2}
+        assert got["launches"]["spatial_flat"] == 1 and got["launches"]["temporal_fullclip"] == 1
+        for key in ("last_hidden_state", "pooler_output"):
+            assert (got[key] - clip[key].cpu()).abs().max().item() <= 1e-4
+            assert got["vs_live"][key] <= 1e-4
+    ones = tp_stream.reference(model, video, 4, ("float", "int8"))
+    for name in ("float", "int8"):
+        want = ones[name][0]
+        kernel = "temporal_decode_pm" if name == "float" else "temporal_decode_pm_int8"
+        for rank in ranks:
+            res = rank[name]
+            assert res["width"] == 128
+            assert res["launches"][kernel] == 2 * 10 and res["launches"]["spatial_flat"] == 2 * 10
+            # the int8 ranks at the float gate too: their codes and row scales are
+            # the one-process cache's (the row absmax MAX-reduced over the group)
+            assert (res["pooled"] - want).abs().max().item() <= 1e-4
+            if name == "int8":
+                cos = torch.nn.functional.cosine_similarity(res["pooled"].flatten(),
+                                                            want.flatten(), dim=0)
+                assert cos.item() > 0.999

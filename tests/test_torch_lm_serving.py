@@ -312,5 +312,23 @@ def test_sampler_follows_the_truncated_softmax(top_k, top_p):
 
 
 def test_mesh_is_refused_naming_the_roadmap_item(lm):
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        DecodeEngine(lm[1], mesh=object())
+    """The mesh's refusals that remain (the multi-rank engine runs in
+    ``test_torch_dist_serve.py``): an axis the mesh lacks, slots that do not
+    divide over it; and a trainable LM cut by ``shard_lm``, ROADMAP item
+    14c."""
+    class StubMesh:
+        def __init__(self, names, size):
+            self.mesh_dim_names, self._size = names, size
+
+        def size(self, dim):
+            return self._size
+
+    with pytest.raises(ValueError, match="no axis 'data'"):
+        DecodeEngine(lm[1], slots=2, mesh=StubMesh(("model",), 2))
+    with pytest.raises(ValueError, match="must divide over mesh axis 'data'=3"):
+        DecodeEngine(lm[1], slots=4, mesh=StubMesh(("data",), 3))
+    from streamformer_tpu_torch.parallel import sharding
+
+    trainable = LM.LanguageModel(lm[1].cfg, device="cpu", trainable=True)
+    with pytest.raises(NotImplementedError, match="item 14c"):
+        sharding.shard_lm(trainable, group=None)

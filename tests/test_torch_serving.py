@@ -239,8 +239,14 @@ def test_engine_refusals(pair):
         with pytest.raises(ValueError, match="expected"):  # nothing queued or counted
             lin.feed(sid, bad)
     assert lin._fed[sid] == 0 and not lin._queues[sid] and not lin.has_work()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        StreamingEngine(model, slots=2, mesh=object())
+    with pytest.raises(ValueError, match="no axis 'data'"):
+        StreamingEngine(model, slots=2, mesh=_StubMesh(("model",), 2))
+    with pytest.raises(ValueError, match="must divide over mesh axis 'data'=3"):
+        StreamingEngine(model, slots=2, mesh=_StubMesh(("data",), 3))
+    cut = encoder.StreamformerEncoder(model.cfg, device="cpu")
+    cut.parallel = object()  # as shard_encoder leaves it
+    with pytest.raises(ValueError, match="replicated over the mesh"):
+        StreamingEngine(cut, slots=2, mesh=_StubMesh(("data",), 2))
     mixed = encoder.StreamformerEncoder(model.cfg.replace(cache_dtype="bfloat16"), device="cpu")
     mixed.load_state_dict(model.state_dict())
     eng = StreamingEngine(mixed, slots=2, mode="linear")
@@ -250,6 +256,18 @@ def test_engine_refusals(pair):
     assert eng.forwards == 2  # E chunks of up to 2 frames, one a tick
     for feats, clip in zip(got, clips):
         np.testing.assert_allclose(feats, lone_stream(mixed, clip), atol=VS_LONE, rtol=0)
+
+
+class _StubMesh:
+    """A mesh's names and sizes, for the refusals made before any group is
+    asked for (the multi-rank engine runs in ``test_torch_dist_serve.py``)."""
+
+    def __init__(self, names, size):
+        self.mesh_dim_names = names
+        self._size = size
+
+    def size(self, dim):
+        return self._size
 
 
 def test_engine_staging_wraps_and_overflows(pair):
