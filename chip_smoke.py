@@ -230,9 +230,17 @@ Phases, each fatal on failure:
     step, clips/s, the peak memory; a 3-step profile (device busy, launches
     a step) and MSDeformAttn's device time, its calls of a step replayed
     alone; one C call (the packed (1, 2, 196, 2304) qkv) and one B call
-    (R=2) of a step held to their plain versions at the fp32 limit;
-    ``run_inference`` on two in-memory videos of 6 frames through
-    ``HungarianTracker``, results JSON and ``evaluate_ytvis``'s AP;
+    (R=2) of a step held to their plain versions at the fp32 limit; kernel M
+    (MSDeformAttn, ``csrc/msdeform_attn.cu``) twice a forward's
+    MSDeformAttn calls a step and its backward once a call with a graph
+    (the card-vs-CPU gates above hold it through the adapter and the
+    segmentor), its forward and backward rows on the inputs and output
+    gradient of the step's first call of each shape (an extractor's, a pixel
+    decoder layer's), against the plain version at the fp32 limit (the
+    gradients against max(1, their largest), the locations' off the kinks
+    of bilinear sampling); ``run_inference`` on two in-memory videos of 6
+    frames through ``HungarianTracker``, results JSON and
+    ``evaluate_ytvis``'s AP;
 32. deployment at the flagship (bf16, phase 4's weights): ``save_pretrained``
     then ``from_pretrained`` bit for bit, with the write's seconds and
     bytes; ``torch.export`` artifacts (``streamformer_tpu_torch.export``) of
@@ -383,6 +391,12 @@ SOURCES = {
                                     "streamformer_tpu/ops/attention.py:463"),
     "spatial_attention": ("streamformer_tpu_torch/csrc/spatial_flat.cu",
                           "streamformer_tpu/ops/attention.py:138"),
+    # kernel M replaces no pallas_call: the JAX package's native MSDeformAttn
+    # (a CPU op there) and the XLA gathers of its ms_deform_attn_core
+    "ms_deform_attn": ("streamformer_tpu_torch/csrc/msdeform_attn.cu",
+                       "streamformer_tpu/native/msdeform.cpp:51"),
+    "ms_deform_attn_bwd": ("streamformer_tpu_torch/csrc/msdeform_attn.cu",
+                           "streamformer_tpu/native/msdeform.cpp:92"),
 }
 # flagship: batch, frames, patches (224/16 squared), hidden, heads, cache capacity
 FLAGSHIP = dict(batch=8, frames=16, patches=196, hidden=768, heads=12, capacity=16)
@@ -443,6 +457,8 @@ KERNEL_SYMBOLS = {
                               "tiled::dkv_kernel"),
     "spatial_flat_bwd": ("spatial_flat_bwd", "tiled::dq_kernel", "tiled::dkv_kernel"),
     "temporal_decode_rm_readonly": ("temporal_decode_rm_kernel",),
+    "ms_deform_attn": ("msdeform_attn_kernel",),
+    "ms_deform_attn_bwd": ("msdeform_attn_bwd_kernel",),
 }
 # phase 23: the training entry point. SigLIP-base's text tower (the vision
 # tower's widths are the flagship's); three in-memory tasks of 16 clips of
@@ -701,7 +717,8 @@ def main():
         tol = TOL[dtype_name] if tol is None else tol
         if not err <= tol:
             fail(f"{name} {shape_tag} {dtype_name}: max-abs error {err} > {tol}")
-        ms, plain_ms, lib_ms = time_ms(fn), time_ms(plain), time_ms(library)
+        ms, plain_ms = time_ms(fn), time_ms(plain)
+        lib_ms = None if library is None else time_ms(library)  # None: no PyTorch call computes it
         dev_ms = device_ms(fn, KERNEL_SYMBOLS[name])
         bound_ms, bound_by = bound(nbytes, flops, dtype_name)
         row = dict(name=name, shape=shape_tag, dtype=dtype_name, max_abs_err=err, tol=tol, ms=ms,
@@ -3918,7 +3935,12 @@ def main():
     finally:
         ovis_run.train_step = orig_train_step
     ov_peak = (torch.cuda.max_memory_allocated() - held31) / 2**30
-    want31 = {**zeros, "spatial_flat": L31, "temporal_fullclip": L31}
+    # MSDeformAttn calls a forward (the adapter's extractors, the pixel decoder's
+    # layers): M runs them in both forwards of a step, its backward once a call
+    msda31 = (sum(1 + len(getattr(blk, "extra_extractors", []))
+                  for blk in ovm.params["adapter"].interactions) + scfg31.enc_layers)
+    want31 = {**zeros, "spatial_flat": L31, "temporal_fullclip": L31,
+              "ms_deform_attn": 2 * msda31, "ms_deform_attn_bwd": msda31}
     if len(ov_ms) != ov["steps"] or any(sl_ != want31 for sl_ in ov_launch):
         fail(f"ovis_run.train: {len(ov_ms)} steps, launches a step {ov_launch} (want {want31})")
     if not (np.isfinite(hist31[0]["loss"]) and ckpt_lib.latest_checkpoint(work31) == 0):
@@ -3927,9 +3949,20 @@ def main():
 
     # 31b. a 3-step profile; MSDeformAttn's device time, its calls replayed
     # alone at the step's shapes (forward and backward as the step runs them).
-    # The same step keeps the inputs of a middle layer's B and C calls.
+    # The same step keeps the inputs of a middle layer's B and C calls, and
+    # M's inputs and output gradient at the first call of each shape.
     captured = []
     orig_msda = (ADP.ms_deform_attn, SEG.ms_deform_attn)
+    orig_core, m_held = MSDA.ms_deform_attn_core, {}
+
+    def keep_core(value, shapes, loc, weight):
+        out = orig_core(value, shapes, loc, weight)
+        key = (tuple(tuple(hw) for hw in shapes), tuple(value.shape))
+        if out.requires_grad and key not in m_held:
+            entry = m_held[key] = [x_.detach().clone() for x_ in (value, loc, weight)] + [None]
+            out.register_hook(lambda g_, e_=entry: e_.__setitem__(3, g_.detach().clone()))
+        return out
+
     held31, calls31 = {}, {"b": 0, "c": 0}
     orig31 = {"b": ops.spatial_flat, "c": ops.temporal_fullclip_qkv}
 
@@ -3945,6 +3978,7 @@ def main():
         return MSDA.ms_deform_attn(module, query, ref, value, shapes)
 
     ADP.ms_deform_attn = SEG.ms_deform_attn = capturing
+    MSDA.ms_deform_attn_core = keep_core
     ops.spatial_flat = lambda *a_: keep31("b", a_)
     ops.temporal_fullclip_qkv = lambda *a_: keep31("c", a_)
     popt = ovis_run.make_optimizer(ovm.params, vargs.lr, vargs.weight_decay)
@@ -3952,6 +3986,7 @@ def main():
         orig_train_step(ovm, popt, clips31[0])
     finally:
         ADP.ms_deform_attn, SEG.ms_deform_attn = orig_msda
+        MSDA.ms_deform_attn_core = orig_core
         ops.spatial_flat, ops.temporal_fullclip_qkv = orig31["b"], orig31["c"]
     torch.cuda.synchronize()
     # B and C at the OVIS backbone's shapes (fp32, 2 frames), on the inputs of
@@ -3978,6 +4013,58 @@ def main():
            lambda: F.scaled_dot_product_attention(qh, kh, vh),
            4 * elt * r * n31 * d31, 4 * r * n31 * n31 * d31)
     del held31, qkv, q, k, v, qh, kh, vh
+
+    def m_grad_err(got, want, loc, shapes):
+        """The worst of M's three gradients against max(1, its largest),
+        the locations' off the kinks: a pixel coordinate within 1e-4 of an
+        integer, where bilinear sampling's derivative jumps and two right
+        implementations whose coordinates differ in the last bit may give
+        either side's (tests/test_torch_cuda.py). Returns the error and the
+        coordinates left out."""
+        size = torch.tensor([[wd, ht] for ht, wd in shapes], dtype=torch.float64, device=dev)
+        pos = loc.double() * size[:, None, :] - 0.5
+        keep = (pos - pos.round()).abs() >= 1e-4
+        errs = []
+        for i_, (a_, b_) in enumerate(zip(got, want)):
+            diff = (a_.float() - b_.float()).abs()
+            if i_ == 1:
+                diff = torch.where(keep, diff, torch.zeros_like(diff))
+            errs.append(diff.max().item() / max(1.0, b_.abs().max().item()))
+        return max(errs), int((~keep).sum())
+
+    # M at the step's shapes, forward and backward, on the captured calls
+    if len(m_held) != 2 or any(e_[3] is None for e_ in m_held.values()):
+        fail(f"OVIS step: M's calls captured at {sorted(m_held)}, output gradients "
+             f"{[e_[3] is not None for e_ in m_held.values()]} (want an extractor's and a pixel "
+             "decoder layer's)")
+    m_main = {}
+    for (shp, _), (v_, l_, w_, g_) in m_held.items():
+        where = "extractor" if len(shp) == 1 else "pixel decoder"
+        tag = f"OVIS {where} value {tuple(v_.shape)} loc {tuple(l_.shape)} levels {list(shp)}"
+        m_main[where] = tag
+        dn, elt = str(v_.dtype).split(".")[1], v_.element_size()
+        samples = l_[..., 0].numel()  # (b, q, m, l, p) samples, each over D channels
+        ins = elt * (v_.numel() + l_.numel() + w_.numel())
+        with torch.no_grad():
+            err = max_err(MSDA.ms_deform_attn_core(v_, shp, l_, w_),
+                          MSDA.ms_deform_attn_core_plain(v_, shp, l_, w_))
+        # forward: a multiply-add a corner and one for the weight, a channel
+        record("ms_deform_attn", tag, dn, err, lambda: MSDA.ms_deform_attn_core(v_, shp, l_, w_),
+               lambda: MSDA.ms_deform_attn_core_plain(v_, shp, l_, w_), None,
+               ins + elt * g_.numel(), 10 * samples * v_.shape[-1])
+        pargs = [x_.clone().requires_grad_() for x_ in (v_, l_, w_)]
+        pout = MSDA.ms_deform_attn_core_plain(pargs[0], shp, pargs[1], pargs[2])
+        err, kinks = m_grad_err(MSDA.ms_deform_attn_core_backward(v_, shp, l_, w_, g_),
+                                torch.autograd.grad(pout, pargs, g_, retain_graph=True), l_, shp)
+        # backward: the gathers, four scattered adds, the three gradients' sums
+        record("ms_deform_attn_bwd", tag, dn, err,
+               lambda: MSDA.ms_deform_attn_core_backward(v_, shp, l_, w_, g_),
+               lambda: torch.autograd.grad(pout, pargs, g_, retain_graph=True), None,
+               2 * ins + elt * g_.numel(), 28 * samples * v_.shape[-1])
+        print(f"M {tag} ({smi}): {kinks} of {l_.numel()} location coordinates on a kink, left "
+              "out of the backward's location error")
+        del pargs, pout
+    del m_held
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for c_ in clips31[1:1 + ov["profiled"]]:
             orig_train_step(ovm, popt, c_)
@@ -3987,7 +4074,7 @@ def main():
         fail("the OVIS profile read no device time")
     ov_busy = sum(e.device_time_total for e in rows31) / ov["profiled"] / 1e3
     ov_ops = sum(e.count for e in rows31) / ov["profiled"]
-    gs_ms = sum(e.device_time_total for e in rows31 if "grid_sampler" in e.key) / ov["profiled"] / 1e3
+    m_ms = sum(e.device_time_total for e in rows31 if "msdeform_attn" in e.key) / ov["profiled"] / 1e3
 
     def replay():
         for module, q_, r_, v_, shp, grad in captured:
@@ -4006,6 +4093,8 @@ def main():
     msda_dev = sum(e.device_time_total for e in device_rows(prof)) / 1e3
     ovm.params.zero_grad()
     n_msda = (sum(1 for c_ in captured if not c_[5]), sum(1 for c_ in captured if c_[5]))
+    if n_msda != (msda31, msda31):
+        fail(f"OVIS step: MSDeformAttn calls {n_msda} without and with a graph (want {msda31} each)")
     print(f"OVIS training ({smi}): ovis_run.train at the CLI's defaults (the flagship backbone "
           f"frozen, fp32, {vargs.num_frames} frames of {vargs.input_size}^2; adapter and segmentor "
           f"{n_ovis / 1e6:.1f} M parameters, {scfg31.num_queries} queries, {scfg31.num_classes} "
@@ -4018,8 +4107,8 @@ def main():
     print(f"MSDeformAttn ({smi}): {n_msda[0]} calls without a graph and {n_msda[1]} with one a "
           f"step, replayed alone: device time {msda_dev:.3f} ms ({100 * msda_dev / ov_busy:.1f} % "
           f"of the step's device busy time), wall {msda_ms:.2f} ms (events, L2 flushed first; "
-          f"{100 * msda_ms / steady31:.1f} % of the step); its grid_sampler kernels in the step's "
-          f"profile {gs_ms:.3f} ms a step ({100 * gs_ms / ov_busy:.1f} % of busy)")
+          f"{100 * msda_ms / steady31:.1f} % of the step); kernel M (forward and backward) in the "
+          f"step's profile {m_ms:.3f} ms a step ({100 * m_ms / ov_busy:.1f} % of busy)")
     for e in sorted(rows31, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / ov['profiled'] / 1e3:8.4f} ms/step  "
               f"x{e.count / ov['profiled']:<6.1f} {e.key[:90]}")
@@ -4063,7 +4152,8 @@ def main():
     with open(os.path.join(work31, "results.json")) as f_:
         rows_json = json.load(f_)
     if (inf_launches != {**zeros, "spatial_flat": L31 * n_frames31,
-                         "temporal_fullclip": L31 * n_frames31}
+                         "temporal_fullclip": L31 * n_frames31,
+                         "ms_deform_attn": msda31 * n_frames31}
             or line31["num_videos"] != ov["videos"] or "AP" not in line31
             or not all(len(r_["segmentations"]) == ov["video_frames"] for r_ in rows_json)):
         fail(f"OVIS inference: {line31}, launches {inf_launches}")
@@ -5365,10 +5455,13 @@ def main():
                   "spatial_flat_bwd": f"R={b_ * t_} N={n_}",
                   "temporal_decode_rm": f"R={b_ * n_} C={cap} len={cap - 1}",
                   "temporal_decode_rm_readonly": f"int8 R={b_ * n_} C={cap} len={cap - 1}",
-                  "spatial_attention": "R={} H={} N={} dh={}".format(*L_SHAPES[0])}
+                  "spatial_attention": "R={} H={} N={} dh={}".format(*L_SHAPES[0]),
+                  "ms_deform_attn": m_main["pixel decoder"],
+                  "ms_deform_attn_bwd": m_main["pixel decoder"]}
+    main_dtype = {"ms_deform_attn": "float32", "ms_deform_attn_bwd": "float32"}  # OVIS runs fp32
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        row = results[(name, main_shape[name], "bfloat16")]
+        row = results[(name, main_shape[name], main_dtype.get(name, "bfloat16"))]
         count = sum(path[name] for path in  # encode, engine, their int8 runs, training, then
                     (launches, engine_launches, int8_launches, int8_engine_launches,  # the later
                      train_launches, rm_launches, chunk_launches, consumer_launches,  # slices'

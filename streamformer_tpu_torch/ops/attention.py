@@ -82,6 +82,9 @@ LAUNCHES: Dict[str, int] = {
     "spatial_flat_bwd": 0,
     "temporal_fullclip_bwd": 0,
     "spatial_attention": 0,
+    # kernel M, MSDeformAttn's forward and backward (ops/msdeform_attn.py)
+    "ms_deform_attn": 0,
+    "ms_deform_attn_bwd": 0,
 }
 
 # New frames kernel E's whole-table body takes at most (C's kMaxT), on any

@@ -24,6 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = (
     "temporal_decode_pm", "temporal_decode_rm", "temporal_append_pm", "temporal_decode_pm_int8",
     "spatial_flat", "temporal_fullclip", "spatial_flat_bwd", "temporal_fullclip_bwd",
+    "msdeform_attn",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -42,6 +42,16 @@ CFG = StreamformerConfig(**TOWER)
 CLASSES = 5
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_tree():
     head = jax.tree.map(np.asarray, jax_ar.init_classifier_params(jax.random.PRNGKey(1), JCFG,
                                                                   CLASSES))

@@ -31,6 +31,16 @@ KW = dict(
 )
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _params(cfg, lora=False):
     params = jax.tree.map(np.asarray, jax_encoder.init_params(jax.random.PRNGKey(2), cfg))
     rng = np.random.default_rng(0)

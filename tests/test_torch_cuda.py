@@ -1902,3 +1902,127 @@ def test_tp_ring_stream_on_two_ranks_of_one_card(tmp_path):
                 cos = torch.nn.functional.cosine_similarity(res["pooled"].flatten(),
                                                             want.flatten(), dim=0)
                 assert cos.item() > 0.999
+
+
+# ---------------------------------------------------------------------------
+# Kernel M: MSDeformAttn's forward and backward (ops/msdeform_attn.py), against
+# the plain version on the card and the native CPU oracle on CPU copies
+# ---------------------------------------------------------------------------
+
+from streamformer_tpu_torch import native  # noqa: E402
+from streamformer_tpu_torch.ops import msdeform_attn as MSDA  # noqa: E402
+
+# (batch, queries, heads, channels, points, levels, location range)
+M_CASES = {
+    # the OVIS step's at 2 frames of 224^2: an adapter extractor (the backbone's
+    # 14^2 tokens) and a pixel decoder layer (7^2, 14^2, 28^2, a query a position)
+    "adapter": (2, 1029, 12, 64, 4, [(14, 14)], (-0.1, 1.1)),
+    "pixel_decoder": (2, 1029, 8, 32, 4, [(7, 7), (14, 14), (28, 28)], (-0.1, 1.1)),
+    "outside": (2, 96, 4, 32, 4, [(9, 11), (5, 6)], (-0.8, 1.8)),
+    "five_levels": (1, 50, 2, 32, 3, [(8, 8), (6, 7), (4, 4), (2, 3), (1, 1)], (-0.1, 1.1)),
+    "d24": (2, 40, 3, 24, 4, [(6, 6), (3, 3)], (-0.1, 1.1)),
+    # past the 16 levels of M's argument struct: the level table on the device
+    "eighteen_levels": (1, 30, 2, 32, 2, [(3, 2 + i % 3) for i in range(18)], (-0.1, 1.1)),
+    "no_queries": (2, 0, 4, 32, 4, [(6, 6), (3, 3)], (-0.1, 1.1)),
+}
+
+
+def _m_inputs(case, dtype, seed):
+    b, q, m, d, p, shapes, (lo, hi) = M_CASES[case]
+    rng = np.random.default_rng(seed)
+    s = sum(h * w for h, w in shapes)
+    weight = rng.random((b, q, m, len(shapes) * p)).astype(np.float32)
+    weight /= np.maximum(weight.sum(-1, keepdims=True), 1e-6)
+    arrays = (rng.standard_normal((b, s, m, d)), rng.uniform(lo, hi, (b, q, m, len(shapes), p, 2)),
+              weight.reshape(b, q, m, len(shapes), p), rng.standard_normal((b, q, m * d)))
+    return shapes, [torch.from_numpy(np.asarray(x, np.float32)).to("cuda", dtype) for x in arrays]
+
+
+def _off_kinks(loc, shapes):
+    """Where a location's pixel coordinate lies at least 1e-4 from an
+    integer: at an integer the bilinear sample's derivative in that
+    coordinate jumps (another cell's corners), so two right implementations
+    whose coordinates differ in the last bit may give either one-sided
+    derivative there."""
+    size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float64, device=loc.device)
+    pos = loc.double() * size[:, None, :] - 0.5
+    return (pos - pos.round()).abs() >= 1e-4
+
+
+def _m_errors(got, want, loc, shapes):
+    """Max-abs error of the output; the gradients' against max(1, the
+    gradient's largest) (the weights' is a sum over D, the locations' carries
+    the map's width), the locations' off the kinks."""
+    keep = _off_kinks(loc, shapes).cpu()
+    got, want = [x.float().cpu() for x in got], [x.float().cpu() for x in want]
+    errs = [(got[0] - want[0]).abs().max().item()]
+    for i, (a, b) in enumerate(zip(got[1:], want[1:])):
+        diff = (a - b).abs()
+        if i == 1:
+            diff = torch.where(keep, diff, torch.zeros_like(diff))
+        errs.append(diff.max().item() / max(1.0, b.abs().max().item()))
+    return errs, int((~keep).sum())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(M_CASES))
+def test_ms_deform_attn_matches_plain_and_the_native_oracle(dtype, case):
+    """M's output and its three gradients through ``ms_deform_attn_core`` (the
+    ``autograd.Function``) against the plain version in fp32 on the same
+    inputs (bf16 inputs upcast: ``grid_sample`` in bf16 rounds the grid
+    itself) and against the native CPU oracle on CPU copies."""
+    shapes, (value, loc, weight, grad_out) = _m_inputs(case, dtype, 91)
+    before = dict(ops.LAUNCHES)
+    args = [x.clone().requires_grad_() for x in (value, loc, weight)]
+    out = MSDA.ms_deform_attn_core(args[0], shapes, args[1], args[2])
+    assert type(out.grad_fn).__name__ == "MSDeformAttnCoreBackward"
+    out.backward(grad_out)
+    torch.cuda.synchronize()
+    got = [out.detach()] + [a.grad for a in args]
+    for x, like in zip(got, (grad_out, value, loc, weight)):
+        assert x.shape == like.shape and x.dtype == dtype
+    launched = int(loc.shape[1] > 0)
+    assert ops.LAUNCHES["ms_deform_attn"] == before["ms_deform_attn"] + launched
+    assert ops.LAUNCHES["ms_deform_attn_bwd"] == before["ms_deform_attn_bwd"] + launched
+    if not launched:
+        assert not got[1].any()
+        return
+    v, l_, w, g = (x.float() for x in (value, loc, weight, grad_out))
+    plain = [MSDA.ms_deform_attn_core_plain(v, shapes, l_, w),
+             *MSDA.ms_deform_attn_core_backward_plain(v, shapes, l_, w, g)]
+    arrays = [x.float().cpu().numpy() for x in (value, loc, weight, grad_out)]
+    oracle = [torch.from_numpy(native.ms_deform_attn_forward_np(arrays[0], shapes, *arrays[1:3])),
+              *map(torch.from_numpy, native.ms_deform_attn_backward_np(arrays[0], shapes,
+                                                                       *arrays[1:]))]
+    for want in (plain, oracle):
+        errs, kinks = _m_errors(got, want, l_, shapes)
+        assert max(errs) <= TOL[dtype], (errs, kinks)
+
+
+def test_ms_deform_attn_backward_entry_matches_the_function():
+    """The backward's own entry (chip_smoke's backward row) equals the
+    ``autograd.Function``'s gradients bit for bit when the sums run in one
+    order (fp32, no two samples of a value element in one call: one query)."""
+    shapes = [(5, 6)]
+    rng = np.random.default_rng(92)
+    value, loc, weight, grad_out = (
+        torch.from_numpy(x.astype(np.float32)).cuda() for x in
+        (rng.standard_normal((1, 30, 2, 32)), rng.uniform(0, 1, (1, 1, 2, 1, 1, 2)),
+         rng.random((1, 1, 2, 1, 1)), rng.standard_normal((1, 1, 64))))
+    args = [x.clone().requires_grad_() for x in (value, loc, weight)]
+    MSDA.ms_deform_attn_core(args[0], shapes, args[1], args[2]).backward(grad_out)
+    for a, b in zip(MSDA.ms_deform_attn_core_backward(value, shapes, loc, weight, grad_out), args):
+        assert torch.equal(a, b.grad)
+
+
+@pytest.mark.parametrize("bad", ["float64", "mixed", "half"])
+def test_ms_deform_attn_refuses_other_types(bad):
+    shapes, (value, loc, weight, _) = _m_inputs("d24", torch.float32, 93)
+    if bad == "float64":
+        value, loc, weight = value.double(), loc.double(), weight.double()
+    elif bad == "mixed":
+        value = value.bfloat16()
+    else:
+        value, loc, weight = value.half(), loc.half(), weight.half()
+    with pytest.raises(TypeError, match="torch.float64|torch.bfloat16|torch.float16"):
+        MSDA.ms_deform_attn_core(value, shapes, loc, weight)

@@ -42,6 +42,16 @@ TOL = 1e-3  # 0-255 scale
 EXACT = {"Posterize", "Solarize", "Invert", "Equalize"}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _clip(seed=0, t=2, h=40, w=56):
     return np.random.default_rng(seed).integers(0, 256, (t, h, w, 3)).astype(np.float32)
 

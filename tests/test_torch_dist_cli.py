@@ -32,6 +32,16 @@ ARGV = ["--metadata", None, "--device", "cpu", "--batch_size", "2", "--input_siz
         "--warmup_steps", "1", "--clip_grad", "1.0", "--seed", "3", "--opt", "sgd"]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _write_video(path, n=12, h=48, w=64, seed=0):
     import cv2
 

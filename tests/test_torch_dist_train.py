@@ -42,6 +42,16 @@ COMMON = dict(weight_decay=0.05, clip_grad=1.0, layer_decay=0.75, num_layers=2)
 STREAM = [("Kinetics", 0), ("MSRVTT", 1), ("MSRVTT", 2), ("Kinetics", 3)]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _batches(rng, b=4):
     def px():
         return rng.standard_normal((b, 4, 3, 32, 32)).astype(np.float32)

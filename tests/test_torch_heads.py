@@ -21,6 +21,16 @@ B, T, D, L, HP, OUT = 3, 4, 16, 5, 3, 8
 ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 

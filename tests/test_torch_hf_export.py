@@ -28,6 +28,16 @@ KW = dict(image_size=32, patch_size=16, num_frames=4, hidden_size=64, num_hidden
           num_attention_heads=4, intermediate_size=128, dtype="float32")
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(lora):
     """A JAX tree with every leaf open (gates, biases, LoRA factors), and the
     port's encoder on the same weights."""

@@ -4,6 +4,7 @@ the JAX package (``streamformer_tpu`` and its submodules;
 ``streamformer_tpu_torch`` is the port itself)."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -13,6 +14,9 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "streamformer_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "streamformer_tpu")
+# the subprocesses run on one intra-op thread: their tensors are tiny, and the
+# 6-worker run oversubscribes the cores with each process's default thread pool
+ONE_THREAD = dict(os.environ, OMP_NUM_THREADS="1")
 
 
 def _forbidden(module: str) -> bool:
@@ -77,7 +81,8 @@ def test_port_runs_with_jax_unimportable():
         "tower = TimesformerVisionTower(m, streaming_mode=True)\n"
         "assert tower(px[None, :2]).shape == (1, 2, 4, 32)\n"
     )
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ONE_THREAD, check=True,
+                   timeout=120)
 
 
 def test_training_path_runs_without_jax_optax_or_transformers():
@@ -112,7 +117,8 @@ def test_training_path_runs_without_jax_optax_or_transformers():
         " iter([('Kinetics', batch)] * 2), 0, torch.Generator().manual_seed(0))\n"
         "assert state.step == 1 and stats['loss'] > 0\n"
     )
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ONE_THREAD, check=True,
+                   timeout=120)
 
 
 def test_data_path_imports_without_decoders_or_parsers():
@@ -135,7 +141,8 @@ def test_data_path_imports_without_decoders_or_parsers():
         "assert out.shape == (2, 2, 3, 32, 32) and torch.isfinite(out).all()\n"
         "assert run.get_args(['--metadata', 'm.yaml', '--device', 'cpu']).device == 'cpu'\n"
     )
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ONE_THREAD, check=True,
+                   timeout=120)
 
 
 def test_downstream_training_runs_without_jax_optax_or_transformers():
@@ -179,7 +186,8 @@ def test_downstream_training_runs_without_jax_optax_or_transformers():
         "res = ar_run.train(args, Clips(), Clips())\n"
         "assert np.isfinite(res['history'][0]['loss']) and 'top1_ema' in res['history'][0]\n"
     )
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ONE_THREAD, check=True,
+                   timeout=120)
 
 
 def test_oad_and_ovis_train_without_jax_optax_or_cv2():
@@ -217,4 +225,5 @@ def test_oad_and_ovis_train_without_jax_optax_or_cv2():
         "_, hist = ovis_run.train(args, [clip])\n"
         "assert np.isfinite(hist[0]['loss'])\n"
     )
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ONE_THREAD, check=True,
+                   timeout=120)

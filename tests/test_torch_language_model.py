@@ -33,6 +33,16 @@ FAMILIES = {"qwen2_tied": dict(), "qwen2_untied": dict(tie_word_embeddings=False
             "llama_tied": dict(attention_bias=False)}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_cfg(jcfg: JLM.LMConfig) -> LM.LMConfig:
     return LM.LMConfig(**dataclasses.asdict(jcfg))
 

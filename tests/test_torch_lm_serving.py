@@ -25,6 +25,16 @@ from streamformer_tpu_torch.ops import quant
 from test_torch_language_model import SMALL, embeds, pair
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def lm():
     return pair(seed=3)

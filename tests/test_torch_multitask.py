@@ -39,6 +39,16 @@ ONE_TASK_PER_KIND = ["Kinetics", "TaskRetrieval", "CharadesSTA", "TaskLocalizati
                      "YoutubeVIS", "MEVIS"]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _open(params, seed, lora_rank=0):
     """Open the zero-initialised parts (gates, embeddings, biases), so that
     every leaf receives a gradient that matters; add LoRA factors if asked."""

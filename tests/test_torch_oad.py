@@ -38,6 +38,16 @@ FRAMES = 40
 FLOW = 6
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _configs(variant):
     kw = dict(TINY, **VARIANTS[variant])
     return jax_lstr.LSTRConfig(**kw), oad_lstr.LSTRConfig(**kw)

@@ -39,6 +39,16 @@ TEXT_KW = dict(vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention
 L = KW["num_hidden_layers"]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pair(lora=False):
     kw = dict(KW, **(dict(add_lora_spatial=True, lora_rank=4) if lora else {}))
     jmodel = JaxMultitask(JaxConfig(use_pallas=False, **kw), {}, text_cfg=JaxTextConfig(**TEXT_KW))

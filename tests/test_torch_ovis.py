@@ -55,6 +55,16 @@ JSEG = jax_seg.SegmentorConfig(**SEG)
 PSEG = segmentor.SegmentorConfig(**SEG)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _err(a, b):
     a, b = (x.detach() if isinstance(x, torch.Tensor) else x for x in (a, b))
     return float(np.max(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32))))

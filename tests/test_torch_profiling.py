@@ -18,6 +18,16 @@ CONFIGS = {"flagship": {}, "small": dict(image_size=48, hidden_size=96, num_hidd
            "ar_384": dict(image_size=384, num_frames=16)}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_flop_counts_equal_the_jax_package(name):
     cfg, jcfg = StreamformerConfig(**CONFIGS[name]), JaxConfig(**CONFIGS[name])

@@ -24,6 +24,16 @@ from streamformer_tpu_torch.serving import StreamingEngine
 from test_torch_serving import SMALL, lone_stream
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def model():
     m = encoder.StreamformerEncoder(StreamformerConfig(**SMALL), device="cpu",

@@ -5,6 +5,7 @@ Tolerance 1e-5 max-abs: one fp32 function, two orders of summation.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -17,6 +18,16 @@ from streamformer_tpu_torch.models import text_encoder
 KW = dict(vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
           intermediate_size=64, max_position_embeddings=8)
 ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _pair(seed=0, **overrides):

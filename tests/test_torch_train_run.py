@@ -54,6 +54,16 @@ TEXT_KW = dict(vocab_size=64, hidden_size=32, num_hidden_layers=1, num_attention
                intermediate_size=64, max_position_embeddings=8)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _write_video(path, n=12, h=48, w=64, seed=0):
     import cv2
 

@@ -41,6 +41,16 @@ TEXT_KW = dict(vocab_size=64, hidden_size=32, num_hidden_layers=2, num_attention
 TASKS = {"Kinetics": {"label2id": {"a": 0, "b": 1}}}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _model(seed=0, **overrides):
     return MultitaskModel(StreamformerConfig(**dict(KW, **overrides)), TASKS,
                           SiglipTextConfig(**TEXT_KW), device="cpu",

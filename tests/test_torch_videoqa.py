@@ -14,6 +14,7 @@ of a streaming tower.
 
 import base64
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -42,6 +43,16 @@ from test_torch_language_model import SMALL, err, pair
 
 ATOL = 1e-4
 PROMPTS = [np.array([3, VQ.IMAGE_TOKEN_INDEX, 9, 12]), np.array([5, 7, VQ.IMAGE_TOKEN_INDEX, 2])]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _models(streaming=False, **overrides):
@@ -334,4 +345,6 @@ def test_serving_path_runs_with_jax_unimportable():
         "assert done and len(toks) == 3\n"
     )
     root = pathlib.Path(__file__).resolve().parent.parent
-    subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
+    # one intra-op thread, as the tests in this process run
+    subprocess.run([sys.executable, "-c", code], cwd=root,
+                   env=dict(os.environ, OMP_NUM_THREADS="1"), check=True, timeout=120)

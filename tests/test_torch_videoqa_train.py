@@ -56,6 +56,16 @@ CFG = StreamformerConfig(**TOWER)
 MAX_LEN = 12
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: these tensors are tiny, and the 6-worker run
+    oversubscribes the cores with each worker's default thread pool."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_params_all():
     """The numpy tree {tower, projector, lm}, biases drawn so that they matter."""
     rng = np.random.default_rng(11)
