@@ -277,7 +277,8 @@ Phases, each fatal on failure:
     C=64, the tiled body), past its whole-table plan (R=196 C=4096 t=16) and
     at t=1 on a capacity of 60000 (R=8), its ring mode (R=1568 C=8 t=4 and
     t=12), E's tiled body forced at the flagship (and bit-equal to the whole
-    table: causal, non-causal, ring, a mixed cache), A, D and J with fp32
+    table: causal, non-causal, ring, a mixed cache, a lockstep t=1 step), A,
+    D and J with fp32
     queries on a bf16 cache and bf16 queries on an fp32 cache (that one
     bit-equal to the bf16 cache), each within 2e-2 / 2e-5 of its plain
     version; (b) a 16-frame non-causal chunk into an empty cache bit-equal
@@ -446,13 +447,12 @@ KERNEL_SYMBOLS = {
     "temporal_decode_pm": ("temporal_decode_pm_kernel",),
     "temporal_decode_pm_ragged": ("temporal_decode_pm_kernel",),
     "temporal_decode_rm": ("temporal_decode_pm_kernel",),
-    "temporal_append_pm_ragged": ("temporal_append_pm_kernel", "temporal_append_pm_tiled_kernel"),
+    "temporal_append_pm_ragged": ("temporal_append_pm_kernel", "temporal_append_pm_tiled"),
     "temporal_decode_pm_int8": ("temporal_decode_pm_int8_kernel",),
     "temporal_decode_pm_int8_ragged": ("temporal_decode_pm_int8_kernel",),
-    "spatial_flat": ("spatial_flat_tc_kernel", "spatial_flat_kernel", "tiled::forward_kernel"),
-    "spatial_attention": ("spatial_flat_tc_kernel", "spatial_flat_kernel",
-                          "tiled::forward_kernel"),
-    "temporal_fullclip": ("temporal_fullclip_kernel", "tiled::forward_kernel"),
+    "spatial_flat": ("spatial_flat_tc_kernel", "spatial_flat_kernel", "tiled::forward_"),
+    "spatial_attention": ("spatial_flat_tc_kernel", "spatial_flat_kernel", "tiled::forward_"),
+    "temporal_fullclip": ("temporal_fullclip_kernel", "tiled::forward_"),
     "temporal_fullclip_bwd": ("temporal_fullclip_bwd_kernel", "tiled::dq_kernel",
                               "tiled::dkv_kernel"),
     "spatial_flat_bwd": ("spatial_flat_bwd", "tiled::dq_kernel", "tiled::dkv_kernel"),
@@ -4885,7 +4885,8 @@ def main():
                       e_row("", 12, rf, [37], [0], RING_CAPACITY, causal=False, ring=True,
                             seed=343, row=False),
                       e_row("", E_T, n_, E_LENS, E_VALID, cap, dtype=fp32, kv=bf16, seed=344,
-                            row=False)]
+                            row=False),
+                      e_row("", 1, n_, [cap - 1] * b_, [1] * b_, cap, seed=346, row=False)]
         finally:
             if body == "tiled":
                 ops._body_smem = body_smem34
@@ -4894,8 +4895,8 @@ def main():
     same34 = [all(torch.equal(a_, b__) for a_, b__ in zip(w_, t__))
               for w_, t__ in zip(whole34, bits34)]
     if not all(same34):
-        fail(f"34a: tiled E differs from the whole-table E (causal, non-causal, ring, mixed): "
-             f"{same34}")
+        fail(f"34a: tiled E differs from the whole-table E (causal, non-causal, ring, mixed, "
+             f"linear t=1): {same34}")
     del whole34, bits34
     # A, D and J on a cache of the other float type (bf16 values in both)
     for dtype, kv in ((fp32, bf16), (bf16, fp32)):
@@ -4952,7 +4953,7 @@ def main():
     torch.cuda.empty_cache()
     print(f"34a ({smi}): E without the mask, at 64 frames, past the plan, at C="
           f"{REST['long_cap']}, its ring at t={CHUNKS}; tiled bit-equal to the whole table "
-          f"(causal, non-causal, ring, mixed); A, D, J on mixed caches (the fp32 cache of bf16 "
+          f"(causal, non-causal, ring, mixed, linear t=1); A, D, J on mixed caches (the fp32 cache of bf16 "
           f"values bit-equal to the bf16 cache) ({time.perf_counter() - ta:.1f} s)")
 
     def run34(tag, fn, want):

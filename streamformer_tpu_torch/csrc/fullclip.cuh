@@ -49,10 +49,12 @@
 // A clip of any length T takes this pipeline while one head's item fits a
 // block (`plan`: the heads an item drop as T grows; one head fits up to
 // T = 149 for C and 110 for H at heads of 64 in bf16, 66 and 49 at heads of
-// 128 in fp32); past that C and H run tiled.cuh,
-// which keeps this order of arithmetic, on the CUDA cores with both sides
-// tiled. kMaxT bounds the new frames of kernel E's whole-table body
-// (temporal_append_pm.cu) only; past it E runs tiled.cuh too.
+// 128 in fp32); past that C and H run tiled.cuh, which keeps this order of
+// arithmetic on the CUDA cores: C's forward computes each score once,
+// register-blocked, with a query tile's scores in shared memory (H's
+// backward tiles both sides). kMaxT bounds the new frames of kernel E's
+// whole-table body (temporal_append_pm.cu) only; past it E runs tiled.cuh
+// too.
 #pragma once
 
 #include <initializer_list>

@@ -415,7 +415,8 @@ inline bool fp32_fits(int n, int dh) {
 // tiled.cuh's forward: B's rows are (R, N, D) with heads as column slices,
 // L's (R, H, N, dh) as R * H rows of one head.
 int launch_tiled(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
-                 int heads, bool head_split, float scale, cudaStream_t stream) {
+                 int heads, bool head_split, float scale, int qt, float* scratch,
+                 long long floats, cudaStream_t stream) {
   const long long d = static_cast<long long>(heads) * dh;
   const long long row = head_split ? static_cast<long long>(n) * dh : n * d;
   const long long tok = head_split ? dh : d;
@@ -430,17 +431,18 @@ int launch_tiled(const void* q, const void* k, const void* v, void* out, int row
   a.heads = head_split ? 1 : heads;
   a.causal = 0;
   a.scale = scale;
-  return tiled::forward<T>(head_split ? rows * heads : rows, a, stream);
+  return tiled::forward<T>(head_split ? rows * heads : rows, a, qt, scratch, floats, stream);
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* out, int rows, int n, int dh,
-             int heads, bool head_split, int q_per_block, float scale, int tiled, int dtype,
-             void* stream) {
+             int heads, bool head_split, int q_per_block, float scale, int tiled, void* scratch,
+             long long floats, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == SF_BFLOAT16 && !tiled)
     return launch_tc(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale, st);
   if (dtype == SF_FLOAT32 && tiled)
-    return launch_tiled(q, k, v, out, rows, n, dh, heads, head_split, scale, st);
+    return launch_tiled(q, k, v, out, rows, n, dh, heads, head_split, scale,
+                        tiled < 0 ? 0 : tiled, static_cast<float*>(scratch), floats, st);
   if (dtype == SF_FLOAT32 && fp32_fits(n, dh))
     return launch(q, k, v, out, rows, n, dh, heads, head_split, q_per_block, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -457,19 +459,22 @@ extern "C" int sf_spatial_flat_smem_bytes(int n, int d, int heads, int dtype) {
   return fp32_fits(n, dh) ? smem_bytes(n, dh, 4) : 0;
 }
 
-// B: q, k, v, out (R, N, D). tiled: 1 runs tiled.cuh (fp32 only), 0 the
-// whole-head body.
+// B: q, k, v, out (R, N, D). tiled: 0 runs the whole-head body, else
+// tiled.cuh (fp32 only): 64, 32 or 16 its resident body at that many
+// queries a block, -1 its split body on `scratch`, `floats` fp32
+// (ops._tiled_scratch's size; null otherwise).
 extern "C" int sf_spatial_flat(const void* q, const void* k, const void* v, void* out, int rows,
                                int n, int d, int heads, int q_per_block, float scale, int tiled,
-                               int dtype, void* stream) {
+                               void* scratch, long long floats, int dtype, void* stream) {
   return dispatch(q, k, v, out, rows, n, d / heads, heads, false, q_per_block, scale, tiled,
-                  dtype, stream);
+                  scratch, floats, dtype, stream);
 }
 
 // L: q, k, v, out (R, H, N, dh); tiled as for B.
 extern "C" int sf_spatial_heads(const void* q, const void* k, const void* v, void* out, int rows,
                                 int heads, int n, int dh, int q_per_block, float scale,
-                                int tiled, int dtype, void* stream) {
-  return dispatch(q, k, v, out, rows, n, dh, heads, true, q_per_block, scale, tiled, dtype,
-                  stream);
+                                int tiled, void* scratch, long long floats, int dtype,
+                                void* stream) {
+  return dispatch(q, k, v, out, rows, n, dh, heads, true, q_per_block, scale, tiled, scratch,
+                  floats, dtype, stream);
 }

@@ -46,9 +46,13 @@
 //   block): temporal_fullclip.cu with a cached prefix in front of the new
 //   frames. A (row, head)'s key sequence is the cached slots, oldest first,
 //   then the new frames.
-// - Past that, tiled.cuh's `attend` on the same key sequence: any t, any
-//   capacity (a thread block an item of (row, head, 32 queries); the
-//   cached keys staged from their slots, the new ones from their frames).
+// - Past that, tiled.cuh's forward bodies on the same key sequence: any t,
+//   any capacity; the cached keys read from their slots (ring slots too),
+//   the new ones from their frames. Its resident body (a block an item of
+//   (row, head, 16, 32 or 64 queries), the scores in shared memory) past 4
+//   new frames while a query tile's scores fit; else its split body (the
+//   keys split over blocks, the scores in a scratch the wrapper allocates,
+//   PV four chains a lane), which serves E's t=1 step past A's plan.
 //
 // Both take C's and kernel A's arithmetic step for step: each score one
 // sequential fp32 FMA chain over dh in element order, then times the
@@ -85,8 +89,10 @@
 // - The appended rows are written from the staged K and V chunks, so k_new
 //   and v_new are read once; each item writes only its own columns.
 //
-// The tiled body is slow (tiled.cuh: no register blocking, the scores
-// computed twice); it serves the shapes the whole-table plan cannot hold.
+// The tiled bodies serve the shapes the whole-table plan cannot hold. At
+// t = 1 on a long cache they are bound by the bytes of the cached keys (each
+// read once, the keys split over enough blocks to fill the card); at many
+// new frames by the fp32 FMAs (tiled.cuh's note).
 #include "fullclip.cuh"
 #include "tiled.cuh"
 
@@ -442,52 +448,108 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_append_pm_kernel(const A
   }
 }
 
-// Keys k0 .. k0 + nk - 1 of K (kv 0) or V (kv 1), columns col .. col + dh
-// - 1, as kTile fp32 rows of dh + 1 (tiled.cuh's staging), zeros past nk.
+// The new frames that an item writes, columns c0 .. c0 + cw - 1 of its head
+// (cols: its first column), from k_new and v_new into their slots, by
+// every thread of the block (reads and writes are disjoint, so the order
+// among blocks does not matter).
 template <typename KV>
-__device__ __forceinline__ void stage_keys(float* dst, const Args& a, const Keys& ks, int kv,
-                                           int k0, int nk, int row, int col) {
-  const int dh = a.dh;
-  for (int i = threadIdx.x; i < tiled::kTile * dh; i += tiled::kThreads) {
-    const int r = i / dh, e = i - r * dh;
-    dst[r * (dh + 1) + e] = r < nk ? to_f32(key_row<KV>(a, ks, kv, k0 + r, row, col)[e]) : 0.f;
+__device__ __forceinline__ void write_frames(const Args& a, const Keys& ks, int row, int col,
+                                             int c0, int cw) {
+  const int nc = cw / 8;
+  for (int w = threadIdx.x; w < 2 * ks.n_write * nc; w += blockDim.x) {
+    const int kv = w / (ks.n_write * nc), r = w - kv * ks.n_write * nc;
+    const int f = ks.f0 + r / nc, c = col + c0 + r % nc * 8;
+    copy8(slot_row<KV>(kv ? a.v_cache : a.k_cache, a, slot_of(a, ks, f), row, c),
+          frame<KV>(kv ? a.v_new : a.k_new, row, a.n, f, c));
   }
 }
 
-// The tiled body: a block an item of (row, head, kTile queries), tiled.cuh's
-// `attend` over the item's key sequence; the block of an item's first query
-// tile also writes its head's slice of the appended rows (reads and writes
-// are disjoint, so the order among blocks does not matter).
-template <typename T, typename KV>
-__global__ void __launch_bounds__(tiled::kThreads) temporal_append_pm_tiled_kernel(const Args a) {
-  extern __shared__ __align__(16) float sm[];
-  const int dh = a.dh, nc = dh / 8, tiles = (a.t_len + tiled::kTile - 1) / tiled::kTile;
-  const int rh = blockIdx.x / tiles, row = rh / a.heads, col = (rh - row * a.heads) * dh;
-  const int t0 = (blockIdx.x - rh * tiles) * tiled::kTile, nt = min(tiled::kTile, a.t_len - t0);
+// The tiled bodies (tiled.cuh) on an item's key sequence: the cached slots,
+// then the new frames; the cached keys read from their slots.
+__device__ __forceinline__ Keys item_keys(const Args& a, int row) {
   const int stream = row / a.rows_per_stream;
-  const Keys ks = keys_of(a, a.lens[stream], a.valid[stream]);
-  tiled::load_rows<T>(sm, a.q, a.n, row, t0, nt, col, dh);
-  tiled::attend(
-      sm, dh, t0, nt, ks.n_keys, a.causal, ks.n_old, a.scale,
-      [&](float* dst, int k0, int nk) { stage_keys<KV>(dst, a, ks, 0, k0, nk, row, col); },
-      [&](float* dst, int k0, int nk) { stage_keys<KV>(dst, a, ks, 1, k0, nk, row, col); },
+  return keys_of(a, a.lens[stream], a.valid[stream]);
+}
+
+// Resident: a block an item of (row, head, qt queries); the block of an
+// item's first query tile also writes its head's slice of the appended rows.
+template <typename T, typename KV, int QB>
+__global__ void __launch_bounds__(tiled::kFwdThreads)
+    temporal_append_pm_tiled_kernel(const Args a, const tiled::Resident r) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int dh = a.dh, tiles = (a.t_len + r.qt - 1) / r.qt;
+  const int rh = blockIdx.x / tiles, row = rh / a.heads, col = (rh - row * a.heads) * dh;
+  const int t0 = (blockIdx.x - rh * tiles) * r.qt;
+  const Keys ks = item_keys(a, row);
+  tiled::resident<T, KV, QB>(
+      smem, r, dh, t0, min(r.qt, a.t_len - t0), ks.n_keys, a.causal, ks.n_old, a.scale,
+      [&](int i) -> const T* { return frame<T>(a.q, row, a.n, i, col); },
+      [&](int kv, int j) { return key_row<KV>(a, ks, kv, j, row, col); },
       [&](int i, int c, const float* v) {
-        store8(static_cast<T*>(a.out.p) + fullclip::at(a.out, row, a.n, t0 + i, col + c), v);
+        store8(static_cast<T*>(a.out.p) + fullclip::at(a.out, row, a.n, i, col + c), v);
       });
-  if (t0 == 0)
-    for (int w = threadIdx.x; w < 2 * ks.n_write * nc; w += tiled::kThreads) {
-      const int kv = w / (ks.n_write * nc), r = w - kv * ks.n_write * nc;
-      const int f = ks.f0 + r / nc, c = r % nc * 8;
-      copy8(slot_row<KV>(kv ? a.v_cache : a.k_cache, a, slot_of(a, ks, f), row, col + c),
-            frame<KV>(kv ? a.v_new : a.k_new, row, a.n, f, col + c));
-    }
+  if (t0 == 0) write_frames<KV>(a, ks, row, col, 0, dh);
+}
+
+// Split, the scores: a block a (row, head, chunk of tiled::kSplitKeys keys).
+template <typename T, typename KV, int NQ>
+__global__ void __launch_bounds__(tiled::kFwdConsumers)
+    temporal_append_pm_tiled_scores_kernel(const Args a, const tiled::Split sp) {
+  extern __shared__ __align__(16) float smf[];
+  const int rh = sp.rh0 + static_cast<int>(blockIdx.x) / sp.nch;
+  const int chunk = static_cast<int>(blockIdx.x) % sp.nch;
+  const int row = rh / a.heads, col = (rh - row * a.heads) * a.dh;
+  const Keys ks = item_keys(a, row);
+  tiled::split_scores<T, KV, NQ>(
+      smf, a.dh, sp.q0, sp.nq, chunk, ks.n_keys, a.causal, ks.n_old, a.scale,
+      tiled::split_scores_of(sp, rh), sp.ls, tiled::split_maxes_of(sp, rh), sp.nch,
+      [&](int i) -> const T* { return frame<T>(a.q, row, a.n, i, col); },
+      [&](int kv, int j) { return key_row<KV>(a, ks, kv, j, row, col); });
+}
+
+// Split, PV: a block a (row, head, tiled::kPvCols columns, tiled::kPvQueries
+// queries); the blocks of an item's first query group write their columns
+// of the appended rows.
+template <typename T, typename KV>
+__global__ void __launch_bounds__(tiled::kFwdConsumers)
+    temporal_append_pm_tiled_pv_kernel(const Args a, const tiled::Split sp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const tiled::PvBlock b = tiled::pv_block(sp, a.dh);
+  const int row = b.rh / a.heads, col = (b.rh - row * a.heads) * a.dh;
+  const Keys ks = item_keys(a, row);
+  tiled::split_pv<T, KV>(
+      smem, a.dh, b.qa, b.nq, sp.nq, b.slab, ks.n_keys, a.causal, ks.n_old,
+      tiled::split_scores_of(sp, b.rh) + b.first * sp.ls, sp.ls,
+      tiled::split_maxes_of(sp, b.rh) + b.first * sp.nch, sp.nch, sp.kt,
+      [&](int kv, int j) { return key_row<KV>(a, ks, kv, j, row, col); },
+      [&](int i, int c, float v) {
+        tiled::store1(static_cast<T*>(a.out.p) + fullclip::at(a.out, row, a.n, i, col + c), v);
+      });
+  if (b.qa == 0) {
+    const int c0 = b.slab * tiled::kPvCols;
+    write_frames<KV>(a, ks, row, col, c0, min(tiled::kPvCols, a.dh - c0));
+  }
+}
+
+// The tiled bodies' launches at cap + t keys (qt, scratch, floats:
+// tiled::forward_launch's).
+template <typename T, typename KV>
+int launch_tiled(const Args& a, int qt, float* scratch, long long floats, cudaStream_t stream) {
+  return tiled::forward_launch(
+      a, static_cast<unsigned>(a.rows) * a.heads, a.t_len, a.cap + a.t_len, a.dh, sizeof(KV), qt,
+      scratch, floats, stream, temporal_append_pm_tiled_kernel<T, KV, 1>,
+      temporal_append_pm_tiled_kernel<T, KV, 2>, temporal_append_pm_tiled_kernel<T, KV, 4>,
+      temporal_append_pm_tiled_scores_kernel<T, KV, 1>,
+      temporal_append_pm_tiled_scores_kernel<T, KV, 4>,
+      temporal_append_pm_tiled_scores_kernel<T, KV, tiled::kSplitQueries>,
+      temporal_append_pm_tiled_pv_kernel<T, KV>);
 }
 
 template <typename T, typename KV>
 int launch(const void* const* ptrs, const long long* strides, void* k_cache, void* v_cache,
            const void* lens, const void* valid, int rows_per_stream, int batch, int n,
            int t_len, int cap, int d, int heads, float scale, int causal, int ring, int tiled_body,
-           cudaStream_t stream) {
+           float* scratch, long long floats, cudaStream_t stream) {
   const int dh = d / heads;
   if (t_len < 1 || dh % 8 || dh > 128 || (ring && causal && t_len > 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -509,12 +571,8 @@ int launch(const void* const* ptrs, const long long* strides, void* k_cache, voi
   a.causal = causal;
   a.ring = ring;
   a.scale = scale;
-  if (tiled_body) {
-    const unsigned grid = static_cast<unsigned>(a.rows) * heads *
-                          ((t_len + tiled::kTile - 1) / tiled::kTile);
-    return tiled::launch_grid(temporal_append_pm_tiled_kernel<T, KV>, tiled::forward_smem(dh),
-                              grid, a, stream);
-  }
+  if (tiled_body)
+    return launch_tiled<T, KV>(a, tiled_body < 0 ? 0 : tiled_body, scratch, floats, stream);
   a.p = plan(heads, t_len, cap, dh, sizeof(KV), sizeof(T));
   if (a.p.hg < 1) return static_cast<int>(cudaErrorInvalidValue);
   a.items = a.rows * a.p.groups;
@@ -554,18 +612,21 @@ extern "C" int sf_temporal_append_pm_smem_bytes(int t_len, int capacity, int d, 
 // three each; the caches (C, batch * n, D) contiguous; lens and valid one
 // int32 per stream of rows_per_stream rows. q and out of dtype, k_new, v_new
 // and the caches of kv_dtype. causal: 0 lets every query see every key;
-// ring: the ring's window (not causal past one frame); tiled: 1 runs the
-// tiled body (the same bits), 0 the whole-table one.
+// ring: the ring's window (not causal past one frame); tiled: 0 runs the
+// whole-table body, else tiled.cuh's (the same bits): 64, 32 or 16 its resident
+// body at that many queries a block, -1 its split body on `scratch`, `floats`
+// fp32 (ops._tiled_scratch's size at capacity + t_len keys; null otherwise).
 extern "C" int sf_temporal_append_pm(const void* const* ptrs, const long long* strides,
                                      void* k_cache, void* v_cache, const void* lens,
                                      const void* valid, int rows_per_stream, int batch, int n,
                                      int t_len, int capacity, int d, int heads, float scale,
-                                     int causal, int ring, int tiled, int dtype, int kv_dtype,
-                                     void* stream) {
+                                     int causal, int ring, int tiled, void* scratch,
+                                     long long floats, int dtype, int kv_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sp = static_cast<float*>(scratch);
 #define SF_APPEND(T, KV)                                                                      \
   return launch<T, KV>(ptrs, strides, k_cache, v_cache, lens, valid, rows_per_stream, batch, n, \
-                       t_len, capacity, d, heads, scale, causal, ring, tiled, st)
+                       t_len, capacity, d, heads, scale, causal, ring, tiled, sp, floats, st)
   const bool q16 = dtype == SF_BFLOAT16, kv16 = kv_dtype == SF_BFLOAT16;
   if ((!q16 && dtype != SF_FLOAT32) || (!kv16 && kv_dtype != SF_FLOAT32))
     return static_cast<int>(cudaErrorInvalidValue);

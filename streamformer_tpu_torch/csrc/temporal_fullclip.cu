@@ -154,10 +154,12 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_kernel(const Ar
   }
 }
 
-// tiled.cuh's forward on the same operands.
+// tiled.cuh's forward on the same operands (qt, scratch, floats:
+// tiled::forward's).
 template <typename T>
 int launch_tiled(const void* const* ptrs, const long long* strides, int batch, int n, int t_len,
-                 int d, int heads, float scale, int causal, cudaStream_t stream) {
+                 int d, int heads, float scale, int causal, int qt, float* scratch,
+                 long long floats, cudaStream_t stream) {
   tiled::Args a{};
   a.q = fullclip::operand(ptrs, strides, 0);
   a.k = fullclip::operand(ptrs, strides, 1);
@@ -169,15 +171,18 @@ int launch_tiled(const void* const* ptrs, const long long* strides, int batch, i
   a.heads = heads;
   a.causal = causal;
   a.scale = scale;
-  return tiled::forward<T>(batch * n, a, stream);
+  return tiled::forward<T>(batch * n, a, qt, scratch, floats, stream);
 }
 
 template <typename T>
 int launch(const void* const* ptrs, const long long* strides, int batch, int n, int t_len, int d,
-           int heads, float scale, int causal, int tiled, cudaStream_t stream) {
+           int heads, float scale, int causal, int tiled, float* scratch, long long floats,
+           cudaStream_t stream) {
   const int dh = d / heads;
   if (t_len < 1 || dh % 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (tiled) return launch_tiled<T>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, stream);
+  if (tiled)
+    return launch_tiled<T>(ptrs, strides, batch, n, t_len, d, heads, scale, causal,
+                           tiled < 0 ? 0 : tiled, scratch, floats, stream);
   const fullclip::Plan p = fullclip::plan(heads, t_len, dh, sizeof(T), 3, false, causal);
   if (p.hg < 1) return static_cast<int>(cudaErrorInvalidValue);
   Args<3> a;
@@ -211,16 +216,21 @@ extern "C" int sf_temporal_fullclip_smem_bytes(int t_len, int d, int heads, int 
 }
 
 // ptrs: q, k, v, out; strides: their (b, t, n) element strides, three each.
-// causal: 0 lets every query see every frame. tiled: 1 runs tiled.cuh
-// (which gives the same bits), 0 the whole-row pipeline.
+// causal: 0 lets every query see every frame. tiled: 0 runs the whole-row
+// pipeline, else tiled.cuh (which gives the same bits): 64, 32 or 16 its
+// resident body at that many queries a block, -1 its split body on
+// `scratch`, `floats` fp32 (ops._tiled_scratch's size; null otherwise).
 extern "C" int sf_temporal_fullclip(const void* const* ptrs, const long long* strides, int batch,
                                     int n, int t_len, int d, int heads, float scale, int causal,
-                                    int tiled, int dtype, void* stream) {
+                                    int tiled, void* scratch, long long floats, int dtype,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sp = static_cast<float*>(scratch);
   if (dtype == SF_BFLOAT16)
     return launch<__nv_bfloat16>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, tiled,
-                                 st);
+                                 sp, floats, st);
   if (dtype == SF_FLOAT32)
-    return launch<float>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, tiled, st);
+    return launch<float>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, tiled, sp,
+                         floats, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

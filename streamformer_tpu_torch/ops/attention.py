@@ -102,6 +102,7 @@ _MAX_SMEM = 232448  # dynamic shared memory a block may use on sm_90
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def reset_launches() -> None:
@@ -195,9 +196,11 @@ def append_frame_cap(capacity: int) -> int:
     cache of ``capacity`` slots, at every width the kernels take (the plan
     of the widest, heads of 128 in fp32): at most ``APPEND_MAX_FRAMES``, as
     many as the plan fits in a block's shared memory; 0 when not even one
-    does. A call of more frames runs E's tiled body, which takes any t and
-    any capacity, much slower: the serving engine and the vision tower
-    chunk their appends by this."""
+    does. A call of more frames runs E's tiled bodies (csrc/tiled.cuh),
+    which take any t and any capacity at the same bits but cost more a
+    frame than the whole-table body where both run (PERF.md's kernel
+    table): the serving engine and the vision tower chunk their appends by
+    this."""
     for t in range(APPEND_MAX_FRAMES, 0, -1):
         if _append_min_smem(t, capacity, 128, 4) <= _MAX_SMEM:
             return t
@@ -670,19 +673,25 @@ def _append_kernel(operands, k_cache, v_cache, lens, valid, rows_per_stream, bat
     """Launch kernel E on q, k_new, v_new and out read and written in place,
     each a (tensor, column, (b, t, n) element strides) triple; q and out of
     ``dtype``. The whole-table body where its plan fits (``_body_smem``),
-    else the tiled one; count it under ``temporal_append_pm_ragged``."""
+    else csrc/tiled.cuh's (``_tiled_plan``: split up to 4 new frames or past
+    shared memory, else resident); count it under
+    ``temporal_append_pm_ragged``."""
     code, kv_code = _DTYPE_CODES[dtype], _DTYPE_CODES[k_cache.dtype]
     cap = k_cache.shape[0]
     smem = _body_smem("temporal_append_pm", "sf_temporal_append_pm", t, cap, d, num_heads, code,
                       kv_code)
+    tiled, scratch = (0, None) if smem else _tiled_launch(
+        batch * n * num_heads, t, cap + t, d // num_heads, k_cache.element_size(), k_cache.device)
     ptrs = (_P * 4)(*(x.data_ptr() + col * x.element_size() for x, col, _ in operands))
     strides = (ctypes.c_longlong * 12)(*(s for _, _, st in operands for s in st))
     _launch(
         "temporal_append_pm_ragged", "sf_temporal_append_pm",
-        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P, _L, _I, _I,
+         _P),
         k_cache.device, ptrs, strides, k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
         valid.data_ptr(), rows_per_stream, batch, n, t, cap, d, num_heads,
-        (d // num_heads) ** -0.5, int(causal), int(ring), int(not smem), code, kv_code,
+        (d // num_heads) ** -0.5, int(causal), int(ring), tiled, *_scratch_args(scratch), code,
+        kv_code,
         library="temporal_append_pm",
     )
 
@@ -1043,6 +1052,73 @@ def _body_smem(library: str, symbol: str, *shape: int) -> int:
     return build.function(library, f"{symbol}_smem_bytes", (_I,) * len(shape))(*shape)
 
 
+# csrc/tiled.cuh's forward (C, E and fp32 B and L past their whole-row
+# bodies): at most this many queries an item, or a query tile whose scores
+# do not fit a block, run its split body (scores in a scratch the wrapper
+# allocates, the keys split over blocks); else its resident body.
+_TILED_FEW = 4
+# The most bytes the split body's scratch takes: past it the body runs in
+# launches over chunks of items, or of one item's queries (the same bits).
+_TILED_SCRATCH = 1 << 30
+
+
+def _tiled_resident_smem(queries: int, keys: int, head_dim: int, itemsize: int) -> int:
+    """Shared memory of a block of csrc/tiled.cuh's resident forward
+    (``resident_plan``): two stages of 64 key rows of ``itemsize`` bytes an
+    element (padded by 16), ``queries`` fp32 query rows of head_dim + 4, and
+    their fp32 scores against every key (rows of ``keys | 1``), then four
+    barriers. A launch whose plan passes a block's shared memory raises."""
+    row = _round16(head_dim * itemsize) + 16
+    return (2 * 64 * row + queries * (head_dim + 4) * 4 + _round16(4 * queries * (keys | 1))
+            + 32)
+
+
+def _tiled_plan(t: int, keys: int, head_dim: int, itemsize: int):
+    """How csrc/tiled.cuh's forward takes items of ``t`` queries and at most
+    ``keys`` keys of ``itemsize`` bytes an element: (queries a block of its
+    resident body, the most of 64, 32 and 16, at most t rounded up to 16,
+    whose scores fit; 0 for its split body), and the fp32 scratch the split
+    body needs for each query of each (row, head): its scores (keys rounded
+    up to 4), then one partial max a chunk of 256 keys."""
+    if t > _TILED_FEW:
+        for qt in (64, 32, 16):
+            if (qt == 16 or t > qt // 2) and (
+                    _tiled_resident_smem(qt, keys, head_dim, itemsize) <= _MAX_SMEM):
+                return qt, 0
+    return 0, (keys + 3) // 4 * 4 + -(-keys // 256)
+
+
+def _tiled_scratch(items: int, t: int, per_query: int) -> int:
+    """fp32 values of the split body's scratch for ``items`` items of ``t``
+    queries, ``per_query`` each: all of them while that fits
+    ``_TILED_SCRATCH``, else as many whole items as fit (the body launches
+    over chunks of them), else, where not even one item fits, as many of an
+    item's queries as fit, a multiple of 16 and at least 16 (or t)."""
+    budget, whole = _TILED_SCRATCH // 4, t * per_query
+    if items * whole <= budget:
+        return items * whole
+    if whole <= budget:
+        return budget // whole * whole
+    return max(min(t, 16), budget // per_query // 16 * 16) * per_query
+
+
+def _tiled_launch(items: int, t: int, keys: int, head_dim: int, itemsize: int, device):
+    """The ``tiled`` argument of a launch on csrc/tiled.cuh's forward (the
+    resident body's queries a block, or -1 for the split body) and the
+    split body's scratch for ``items`` (row, head) items (its size goes with
+    it to the launch, which never writes past it), or None."""
+    qt, per_query = _tiled_plan(t, keys, head_dim, itemsize)
+    if qt:
+        return qt, None
+    return -1, torch.empty(_tiled_scratch(items, t, per_query), dtype=torch.float32,
+                           device=device)
+
+
+def _scratch_args(scratch):
+    """A scratch's pointer and its fp32 values, as a launch takes them."""
+    return (None, 0) if scratch is None else (scratch.data_ptr(), scratch.numel())
+
+
 def _spatial_shape(name: str, q, *others) -> None:
     if q.ndim != 3 or any(t.shape != q.shape for t in others):
         raise ValueError(f"{name}: all operands must share one (R, N, D) shape")
@@ -1063,11 +1139,14 @@ def _spatial_flat_forward(q, k, v, num_heads):
     if smem > _MAX_SMEM:
         raise ValueError(f"spatial_flat: needs {smem} bytes of shared memory per block")
     out = torch.empty_like(q)
+    tiled, scratch = (0, None) if smem else _tiled_launch(r * num_heads, n, n, d // num_heads,
+                                                          q.element_size(), device)
     _launch(
-        "spatial_flat", "sf_spatial_flat", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+        "spatial_flat", "sf_spatial_flat",
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _L, _I, _P),
         device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         r, n, d, num_heads, _spatial_chunks(device, r, n, num_heads, q.dtype),
-        (d // num_heads) ** -0.5, int(not smem), code,
+        (d // num_heads) ** -0.5, tiled, *_scratch_args(scratch), code,
     )
     return out
 
@@ -1163,11 +1242,14 @@ def _spatial_attention_forward(q, k, v):
     if smem > _MAX_SMEM:
         raise ValueError(f"spatial_attention: needs {smem} bytes of shared memory per block")
     out = torch.empty_like(q)
+    tiled, scratch = (0, None) if smem else _tiled_launch(r * h, n, n, dh, q.element_size(),
+                                                          device)
     _launch(
         "spatial_attention", "sf_spatial_heads",
-        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _L, _I, _P),
         device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        r, h, n, dh, _spatial_chunks(device, r, n, h, q.dtype), dh**-0.5, int(not smem), code,
+        r, h, n, dh, _spatial_chunks(device, r, n, h, q.dtype), dh**-0.5, tiled,
+        *_scratch_args(scratch), code,
         library="spatial_flat",
     )
     return out
@@ -1271,7 +1353,12 @@ def _fullclip_kernel(name: str, symbol: str, operands, batch: int, n: int, t: in
         *(s for x, _ in operands for s in _frame_strides(x)))
     args = [batch, n, t, d, num_heads, (d // num_heads) ** -0.5, int(causal), int(tiled)]
     if name == "temporal_fullclip":
-        argtypes = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P)
+        argtypes = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _L, _I, _P)
+        scratch = None
+        if tiled:  # which of tiled.cuh's bodies, and the split body's scratch
+            args[-1], scratch = _tiled_launch(batch * n * num_heads, t, t, d // num_heads,
+                                              first.element_size(), first.device)
+        args.extend(_scratch_args(scratch))
     else:  # H's tiled body keeps each query's statistics between its two launches
         argtypes = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _P)
         stats = (torch.empty(batch * n * num_heads * 3 * t, dtype=torch.float32,

@@ -54,6 +54,17 @@ engine on the flagship encoder (bf16, 8 slots, linear cache C=16, a bf16
 and an fp32 cache), each slot fed 16 frames, drained by ticks of 1 frame
 (t=1 steps) and of 8 frames (kernel E's chunks), three times each:
 frames/s by the host's clock.
+
+``--tiled`` prints, in place of the rows above, one row for each shape
+PERF.md keeps for csrc/tiled.cuh's kernels: C's forward and H's backward on
+the packed qkv of one 300-frame clip (past the whole-row plan), E past its
+whole-table plan (R=8 at capacity 60000 and t=1; R=196 at capacity 4096 and
+t=16) and at 64 frames (R=392, causal and not), E forced onto tiled.cuh at
+the flagship throughput tick, and fp32 B, L and I at R=64 N=576 and forced
+at R=128 N=196 ("forced": ``ops._body_smem`` patched to 0); all bf16 but B,
+L and I. Each row has ``device_ms`` and ``call_ms`` as above, over every
+kernel whose symbol holds ``tiled`` (every launch of these calls), and
+``kernels``, each kernel's own device ms a call.
 """
 
 import argparse
@@ -290,6 +301,38 @@ def decode_bytes(kernel: str, dtype: torch.dtype, kv_dtype: torch.dtype, cap: in
     return ROWS * d * (2 * eq + 4 * ekv) + 2 * ekv * d * read
 
 
+def profile_calls(fn, flush: torch.Tensor, symbol: str):
+    """15 calls of fn under ``torch.profiler``, L2 flushed before each: the
+    profile's device rows whose kernel name holds ``symbol``, the device ms
+    of each such launch, and the median of CUDA events around the calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile late in a run may come back without the kernel's rows
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            calls = []
+            for _ in range(15):
+                flush.zero_()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                calls.append((start, end))
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and symbol in e.key and e.device_time_total > 0]
+        if rows:
+            break
+    else:
+        raise SystemExit(f"decode_timing: no device time for {symbol}")
+    launches = [e.device_time_total / 1e3 for e in prof.events()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and symbol in e.name]
+    return rows, launches, statistics.median(s.elapsed_time(e) for s, e in calls)
+
+
 def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor,
                kv_dtype: Optional[torch.dtype] = None) -> dict:
     extra = {}
@@ -315,33 +358,8 @@ def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor,
                  "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     else:
         fn = operands(kernel, dtype, cap, seed=cap, kv_dtype=kv_dtype)
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a profile late in a run may come back without the kernel's rows
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            calls = []
-            for _ in range(15):
-                flush.zero_()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                calls.append((start, end))
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                and SYMBOLS[kernel] in e.key and e.device_time_total > 0]
-        if rows:
-            break
-    else:
-        raise SystemExit(f"decode_timing: no device time for {SYMBOLS[kernel]}")
+    rows, launches, call_ms = profile_calls(fn, flush, SYMBOLS[kernel])
     device_ms = sum(e.device_time_total / e.count for e in rows) / 1e3
-    launches = [e.device_time_total / 1e3 for e in prof.events()
-                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-                and SYMBOLS[kernel] in e.name]
-    call_ms = statistics.median(s.elapsed_time(e) for s, e in calls)
     n = 200
     t0 = time.perf_counter()
     for _ in range(n):
@@ -352,6 +370,61 @@ def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor,
             "device_ms": device_ms, "call_ms": call_ms, "host_us": host_us,
             "device_launches": len(launches), "device_ms_min": min(launches, default=None),
             "device_ms_max": max(launches, default=None), **extra}
+
+
+def tiled_calls(gen):
+    """(name, call, forced onto tiled.cuh) for each of ``--tiled``'s rows."""
+    heads, d = HEADS, HEADS * DH
+
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(dtype)
+
+    def append_call(t, per_stream, lens, valid, cap, causal=True):
+        rows = per_stream * len(lens)
+        q, kn, vn = (draw(t, rows, d) for _ in range(3))
+        kc, vc = (draw(cap, rows, d) for _ in range(2))
+        lens_t, valid_t = (torch.tensor(x, dtype=torch.int32, device=DEVICE)
+                           for x in (lens, valid))
+        return lambda: ops.temporal_append_pm_ragged(q, kn, vn, kc, vc, lens_t, valid_t,
+                                                     per_stream, heads, causal)
+
+    qkv, g = draw(1, 300, PATCHES, 3 * d), draw(1, 300, PATCHES, d)
+    yield "C qkv (1, 300, 196, 2304) T=300", lambda: ops.temporal_fullclip_qkv(qkv, heads), False
+    yield ("H qkv (1, 300, 196, 2304) T=300",
+           lambda: ops.temporal_fullclip_qkv_bwd(qkv, g, heads), False)
+    yield "E R=8 C=60000 len 59999 t=1", append_call(1, 8, [59999], [1], 60000), False
+    yield "E R=196 C=4096 len 4080 t=16", append_call(16, PATCHES, [4080], [16], 4096), False
+    for causal in (True, False):
+        yield (f"E R=392 C=64 t=64 {'causal' if causal else 'non-causal'}",
+               append_call(64, PATCHES, [0, 0], [64, 64], 64, causal), False)
+    yield "E R=1568 C=16 t=8 forced", append_call(E_T, PER_STREAM, E_LENS[16], E_VALID, 16), True
+    for r, n, forced in ((64, 576, False), (128, 196, True)):
+        q, k, v, go = (draw(r, n, d, dtype=torch.float32) for _ in range(4))
+        split = [x.view(r, n, heads, DH).transpose(1, 2).contiguous() for x in (q, k, v)]
+        tag = f"R={r} N={n} fp32" + (" forced" if forced else "")
+        yield f"B {tag}", lambda q=q, k=k, v=v: ops.spatial_flat(q, k, v, heads), forced
+        yield f"L {tag}", lambda s=split: ops.spatial_attention(*s), forced
+        yield (f"I {tag}", lambda q=q, k=k, v=v, go=go: ops.spatial_flat_bwd(q, k, v, go, heads),
+               forced)
+
+
+def tiled_rows(flush: torch.Tensor) -> List[dict]:
+    """``--tiled``'s rows (see the module's docstring)."""
+    body_smem, out = ops._body_smem, []
+    with torch.no_grad():
+        for name, fn, forced in tiled_calls(torch.Generator(device=DEVICE).manual_seed(20)):
+            if forced:
+                ops._body_smem = lambda *a: 0
+            try:
+                rows, _, call_ms = profile_calls(fn, flush, "tiled")
+            finally:
+                ops._body_smem = body_smem
+            kernels = {e.key.replace("(anonymous namespace)::", "").split("(")[0].replace(
+                "void ", ""): e.device_time_total / e.count / 1e3 for e in rows}
+            out.append({"row": name, "device_ms": sum(kernels.values()), "call_ms": call_ms,
+                        "kernels": kernels})
+            torch.cuda.empty_cache()
+    return out
 
 
 def streaming_row() -> dict:
@@ -425,10 +498,16 @@ def main() -> None:
                              "cache)")
     parser.add_argument("--repeat", type=int, default=1, help="times to print each kernel row")
     parser.add_argument("--engine", action="store_true", help="add the engine's tick rows")
+    parser.add_argument("--tiled", action="store_true",
+                        help="only the rows of csrc/tiled.cuh's kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_timing: needs a CUDA device")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    if args.tiled:
+        for row in tiled_rows(flush):
+            print(json.dumps({"label": args.label, **row}), flush=True)
+        return
     pairs = ([(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)] if args.mixed
              else [(torch.bfloat16, None), (torch.float32, None)])
     for kernel in args.kernels.split(","):

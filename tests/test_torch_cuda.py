@@ -230,6 +230,104 @@ def test_fullclip_kernels_at_any_t_match_plain(dtype, causal, t, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("t", [3, 12, 20, 64, 96])
+@pytest.mark.parametrize("body", ["plan", "split"])
+def test_tiled_fullclip_at_the_flagship_heads_equals_the_whole_row(dtype, causal, t, body,
+                                                                   monkeypatch):
+    """C's tiled forward at the flagship's heads (12 of 64), forced where the
+    whole-row pipeline also runs, gives its bits. By its plan: the split
+    body (T = 3), the resident body at 16 queries a block (T = 12), at 32
+    (T = 20) and at 64 (T = 64, 96: one and two tiles). With ``_TILED_FEW``
+    raised, the split body at every T: its scores 16 queries at once, two
+    queries' PV chains a warp, one to six query groups."""
+    rows, heads, dh = 3, 12, 64
+    q, k, v = (_randn((rows, t, heads * dh), dtype, s) for s in (55, 56, 57))
+    if not ops._body_smem("temporal_fullclip", "sf_temporal_fullclip", t, heads * dh, heads,
+                          ops._DTYPE_CODES[dtype], int(causal)):
+        pytest.fail("the whole-row pipeline does not take this T")
+    whole = ops.temporal_fullclip(q, k, v, heads, causal)
+    monkeypatch.setattr(ops, "_body_smem", lambda *a: 0)
+    want = {3: 0, 12: 16, 20: 32}.get(t, 64)
+    if body == "split":
+        monkeypatch.setattr(ops, "_TILED_FEW", 128)
+        want = 0
+    assert ops._tiled_plan(t, t, dh, q.element_size())[0] == want
+    tiled = ops.temporal_fullclip(q, k, v, heads, causal)
+    assert torch.equal(tiled, whole)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_tiled_split_past_shared_memory_matches_plain_and_repeats(dtype, causal, monkeypatch):
+    """Past shared memory (a tile of 16 queries' scores against T = 3400
+    keys, or a cache of 20000 slots under 20 new frames) tiled.cuh splits the
+    keys over blocks with more than 16 queries an item; no whole-row body
+    takes those shapes, so they are held to the plain versions and to a
+    second run of themselves (the same bits), also where a smaller scratch
+    makes the body launch over chunks of items and of one item's queries; a
+    scratch that holds less than one query's scores is refused."""
+    rows, heads, dh, t = 2, 2, 64, 3400
+    assert ops._tiled_plan(t, t, dh, torch.finfo(dtype).bits // 8)[0] == 0
+    q, k, v = (_randn((rows, t, heads * dh), dtype, s) for s in (58, 59, 60))
+    out = ops.temporal_fullclip(q, k, v, heads, causal)
+    again = ops.temporal_fullclip(q, k, v, heads, causal)
+    torch.cuda.synchronize()
+    ref = ops.temporal_fullclip_plain(q, k, v, heads, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(out, again)
+    per_item = t * ops._tiled_plan(t, t, dh, torch.finfo(dtype).bits // 8)[1]
+    for budget in (4 * 2 * per_item, 4 * per_item // 3):  # two items a launch; 1120 queries
+        monkeypatch.setattr(ops, "_TILED_SCRATCH", budget)
+        assert torch.equal(ops.temporal_fullclip(q, k, v, heads, causal), out)
+    monkeypatch.setattr(ops, "_tiled_scratch", lambda items, t, per_query: per_query - 1)
+    with pytest.raises(RuntimeError, match="launch failed"):  # less than one query's scores
+        ops.temporal_fullclip(q, k, v, heads, causal)
+    monkeypatch.undo()
+    kw = dict(t=20, per_stream=4, lens=[19000, 7], valid=[20, 20], cap=20000, heads=2, dh=64,
+              seed=242, causal=causal)
+    assert ops._tiled_plan(20, 20020, 64, torch.finfo(dtype).bits // 8)[0] == 0
+    first = _append_call(dtype, dtype, **kw)
+    second = _append_call(dtype, dtype, **kw)
+    assert torch.equal(first[0], second[0])
+    monkeypatch.setattr(ops, "_TILED_SCRATCH", 4 * 16 * (20020 + 79))  # 16 queries a launch
+    chunked = _append_call(dtype, dtype, **kw)
+    assert torch.equal(first[0], chunked[0])
+    for a, b in zip(first[1], chunked[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["T=1700 batch 3", "T=3400"])
+def test_long_clips_run_within_a_bounded_scratch(case):
+    """C on long clips at the flagship's heads, bf16: the packed qkv of
+    three 1700-frame clips runs the resident body at 16 queries a block
+    (no scratch); 16 rows of 3400 frames run the split body, whose scratch
+    stays within ``ops._TILED_SCRATCH`` (all of it at once would take 8.9
+    GB). Both are held to the plain version on a few of their rows."""
+    heads, dh, dtype = 12, 64, torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(61)  # drawn on the card: 2.3e9 values for the qkv
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if case == "T=3400":
+        q, k, v = (torch.randn(16, 3400, heads * dh, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        base = torch.cuda.memory_allocated()
+        out = ops.temporal_fullclip(q, k, v, heads)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - base
+        assert grew <= out.numel() * out.element_size() + ops._TILED_SCRATCH + (16 << 20)
+        got, ref = out[:2], ops.temporal_fullclip_plain(q[:2], k[:2], v[:2], heads)
+    else:
+        assert ops._tiled_plan(1700, 1700, dh, 2)[0] == 16
+        qkv = torch.randn(3, 1700, 196, 3 * heads * dh, generator=gen, device="cuda").to(dtype)
+        out = ops.temporal_fullclip_qkv(qkv, heads)
+        torch.cuda.synchronize()
+        got, ref = out[:, :, :2], ops.temporal_fullclip_qkv_plain(qkv[:, :, :2], heads)
+    assert torch.isfinite(out.float()).all()
+    assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_packed_fullclip_without_the_mask_equals_the_row_entry(dtype):
     """The encoder's packed entry at 64 frames, not causal: C and H in place
     on the (B, T, N, 3D) qkv equal the (R, T, D) entry bit for bit."""
@@ -1161,19 +1259,25 @@ MIXED_PAIRS = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
 MIXED_IDS = ["fp32q-bf16kv", "bf16q-fp32kv"]
 
 
+def _append_inputs(dtype, kv_dtype, t, rows, d, cap, seed):
+    """E's operands: q (t, R, D) of dtype, k_new, v_new and the two caches
+    (C, R, D) of kv_dtype."""
+    q = _randn((t, rows, d), dtype, seed)
+    kn, vn = (_randn((t, rows, d), kv_dtype, seed + s) for s in (1, 2))
+    gen = torch.Generator("cuda").manual_seed(seed)  # capacities up to 60000: drawn on the card
+    caches = [torch.randn(cap, rows, d, generator=gen, device="cuda").to(kv_dtype)
+              for _ in range(2)]
+    return q, kn, vn, caches
+
+
 def _append_call(dtype, kv_dtype, t, per_stream, lens, valid, cap, heads, dh, seed, causal=True,
                  ring=False):
     """E's (t, R, D) entry against its plain version on the same operands
     (q of dtype, new frames and caches of kv_dtype): the outputs where
     valid (all of them on the ring), and the appended planes equal; returns
     the kernel's output and planes."""
-    d = heads * dh
     rows = per_stream * len(lens)
-    q = _randn((t, rows, d), dtype, seed)
-    kn, vn = (_randn((t, rows, d), kv_dtype, seed + s) for s in (1, 2))
-    gen = torch.Generator("cuda").manual_seed(seed)  # capacities up to 60000: drawn on the card
-    caches = [torch.randn(cap, rows, d, generator=gen, device="cuda").to(kv_dtype)
-              for _ in range(2)]
+    q, kn, vn, caches = _append_inputs(dtype, kv_dtype, t, rows, heads * dh, cap, seed)
     lens_t, valid_t = (torch.tensor(x, dtype=torch.int32, device="cuda") for x in (lens, valid))
     ref_caches = [c.clone() for c in caches]
     ref = ops.temporal_append_pm_ragged_plain(q, kn, vn, *ref_caches, lens_t, valid_t,
@@ -1250,11 +1354,22 @@ def test_append_takes_mixed_caches(pair, case):
 
 @pytest.mark.parametrize("pair", MIXED_PAIRS + [(d, d) for d in DTYPES],
                          ids=MIXED_IDS + ["fp32", "bf16"])
-@pytest.mark.parametrize("case", ["causal", "full", "ring", "ring_t1", "mixed_lens"])
+@pytest.mark.parametrize("case", ["causal", "full", "ring", "ring_t1", "mixed_lens", "linear_t1",
+                                  "linear_t1_ragged", "linear_t3", "causal_split", "full_split",
+                                  "t16_split", "mixed_lens_split", "mixed_lens_items",
+                                  "mixed_lens_queries"])
 def test_tiled_append_equals_the_whole_table_bitwise(pair, case, monkeypatch):
     """Where both bodies take a shape they give the same bits (outputs and
-    planes): ``ops._body_smem`` patched to 0 forces the tiled one."""
+    planes): ``ops._body_smem`` patched to 0 forces the tiled one (its
+    resident body past 4 frames, its split body up to 4). ``_split`` cases
+    raise ``ops._TILED_FEW`` so that the split body takes 8, 16 or 32 frames
+    (its scores 16 queries at once, two queries' PV chains a warp, two query
+    groups); ``_items`` and ``_queries`` also shrink its scratch, so that it
+    launches over chunks of items or of one item's 16 queries. A linear t=1
+    step (the split body, as past A's plan) also equals kernel A (lockstep)
+    or D (ragged lens) on the same operands."""
     dtype, kv = pair
+    base = case.replace("_split", "").replace("_items", "").replace("_queries", "")
     kw = {"causal": dict(t=8, per_stream=196, lens=[0, 5, 12, 16], valid=[8, 8, 4, 0], cap=24),
           "full": dict(t=8, per_stream=196, lens=[0, 5, 12, 16], valid=[8, 8, 4, 0], cap=24,
                        causal=False),
@@ -1262,13 +1377,39 @@ def test_tiled_append_equals_the_whole_table_bitwise(pair, case, monkeypatch):
                        ring=True),
           "ring_t1": dict(t=1, per_stream=196, lens=[3, 40], valid=[0, 0], cap=16, ring=True),
           "mixed_lens": dict(t=32, per_stream=20, lens=[0, 100, 223], valid=[32, 32, 1],
-                             cap=256)}[case]
+                             cap=256),
+          "linear_t1": dict(t=1, per_stream=1568, lens=[11], valid=[1], cap=16),
+          "linear_t1_ragged": dict(t=1, per_stream=196, lens=[0, 3, 9, 15, 15, 1, 7, 12],
+                                   valid=[1] * 8, cap=16),
+          "linear_t3": dict(t=3, per_stream=196, lens=[0, 5, 12, 13], valid=[3, 2, 3, 3],
+                            cap=16),
+          "t16": dict(t=16, per_stream=196, lens=[0, 5, 12, 16], valid=[16, 9, 4, 0], cap=32)}[base]
     whole = _append_call(dtype, kv, heads=12, dh=64, seed=241, **kw)
     monkeypatch.setattr(ops, "_body_smem", lambda *a: 0)
+    if case != base:
+        monkeypatch.setattr(ops, "_TILED_FEW", 32)
+        per_query = ops._tiled_plan(kw["t"], kw["cap"] + kw["t"], 64, 4)[1]
+        if case.endswith("_items"):  # 100 of the 720 items a launch
+            monkeypatch.setattr(ops, "_TILED_SCRATCH", 4 * 100 * kw["t"] * per_query)
+        elif case.endswith("_queries"):  # 16 of an item's queries a launch
+            monkeypatch.setattr(ops, "_TILED_SCRATCH", 4 * 16 * per_query)
     tiled = _append_call(dtype, kv, heads=12, dh=64, seed=241, **kw)
     assert torch.equal(whole[0], tiled[0])
     for a, b in zip(whole[1], tiled[1]):
         assert torch.equal(a, b)
+    if case.startswith("linear_t1"):
+        monkeypatch.undo()
+        rows = kw["per_stream"] * len(kw["lens"])
+        q, kn, vn, caches = _append_inputs(dtype, kv, 1, rows, 768, kw["cap"], 241)
+        lens_t = torch.tensor(kw["lens"], dtype=torch.int32, device="cuda")
+        if case == "linear_t1":
+            step = ops.temporal_decode_pm(q[0], kn[0], vn[0], *caches, lens_t.reshape(()), 12)
+        else:
+            step = ops.temporal_decode_pm_ragged(q[0], kn[0], vn[0], *caches, lens_t,
+                                                 kw["per_stream"], 12)
+        assert torch.equal(step, tiled[0][0])
+        for a, b in zip(caches, tiled[1]):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("kernel", ["A", "D", "J"])

@@ -164,6 +164,65 @@ def test_temporal_append_pm_ragged_matches_pallas(t, lens, valid):
                                           np.asarray(theirs)[:length + n, sl])
 
 
+def test_tiled_plan():
+    """csrc/tiled.cuh's forward body by shape (``ops._tiled_plan``): items of
+    at most 4 queries, or whose 16 queries' scores pass a block's shared
+    memory beside the key stages, take the split body, whose scratch holds
+    for each query of each (row, head) its scores (keys rounded up to 4) and
+    one partial max a chunk of 256 keys; else the resident body, at the most
+    of 64, 32 and 16 queries a block whose scores fit, 64 only past 32
+    queries and 32 only past 16."""
+    assert ops._tiled_plan(1, 60001, 64, 2) == (0, 60004 + 235)  # E at t=1 past A's plan
+    assert ops._tiled_plan(4, 24, 64, 2) == (0, 24 + 1)
+    assert ops._tiled_plan(5, 24, 64, 2) == (16, 0) and ops._tiled_plan(16, 1000, 64, 2) == (16, 0)
+    assert ops._tiled_plan(16, 4112, 64, 2) == (0, 4112 + 17)  # past shared memory
+    assert ops._tiled_plan(300, 300, 64, 2) == (64, 0)  # C at T=300
+    assert ops._tiled_plan(576, 576, 64, 4) == (64, 0)  # fp32 B at N=576
+    assert ops._tiled_plan(32, 288, 64, 2) == (32, 0) and ops._tiled_plan(17, 17, 8, 4) == (32, 0)
+    assert ops._tiled_plan(1000, 1000, 64, 2) == (32, 0)  # 64 queries' scores do not fit
+    assert ops._tiled_plan(1600, 1600, 64, 2) == (32, 0)
+    # 32 queries' scores do not fit, 16 do: C at T=1700, fp32 or bf16
+    assert ops._tiled_plan(1700, 1700, 64, 4) == (16, 0)
+    assert ops._tiled_plan(1700, 1700, 64, 2) == (16, 0)
+    assert ops._tiled_plan(40, 3000, 64, 2) == (16, 0)  # E at 40 frames on 2960 slots
+    assert ops._tiled_plan(3400, 3400, 64, 2) == (0, 3400 + 14)  # not even 16 queries'
+    assert ops._tiled_plan(3100, 3100, 64, 4) == (0, 3100 + 13)
+    for t, keys, dh, elt in ((300, 300, 64, 2), (576, 576, 64, 4), (1000, 1000, 64, 2),
+                             (1600, 1600, 64, 2), (40, 104, 128, 4), (16, 1000, 64, 2),
+                             (1700, 1700, 64, 4), (3000, 3000, 64, 4), (3000, 3100, 64, 2)):
+        qt, scratch = ops._tiled_plan(t, keys, dh, elt)
+        assert scratch == 0 and ops._tiled_resident_smem(qt, keys, dh, elt) <= ops._MAX_SMEM
+    assert ops._tiled_resident_smem(64, 1000, 64, 2) > ops._MAX_SMEM
+    assert ops._tiled_resident_smem(32, 1700, 64, 2) > ops._MAX_SMEM
+    assert ops._tiled_resident_smem(16, 3400, 64, 2) > ops._MAX_SMEM
+    # the resident block: two stages of 64 key rows (64 bf16 + 16 bytes), 64
+    # fp32 query rows of 68, 64 rows of 301 fp32 scores, four barriers
+    assert ops._tiled_resident_smem(64, 300, 64, 2) == 2 * 64 * 144 + 64 * 68 * 4 + 77056 + 32
+
+
+def test_tiled_scratch(monkeypatch):
+    """The split body's scratch (``ops._tiled_scratch``) holds every item's
+    queries while they fit 1 GiB (E at 16 frames on 4096 slots, R=196 x 12
+    heads: 0.62 GB), else as many whole items as fit (C at T=3400 on the
+    flagship clip: 23 of its 2352 items a launch, where all of them would
+    take 109 GB), else 16 queries at a time, or more in multiples of 16; a
+    smaller budget cuts the same way."""
+    budget = (1 << 30) // 4
+    per_q = 4112 + 17
+    assert ops._tiled_scratch(196 * 12, 16, per_q) == 196 * 12 * 16 * per_q
+    per_q = ops._tiled_plan(3400, 3400, 64, 2)[1]
+    assert ops._tiled_scratch(196 * 12, 3400, per_q) == 23 * 3400 * per_q <= budget
+    assert 24 * 3400 * per_q > budget
+    per_q = ops._tiled_plan(20000, 20000, 64, 2)[1]
+    assert ops._tiled_scratch(1, 20000, per_q) == 13360 * per_q <= budget
+    assert ops._tiled_scratch(4, 2, 10) == 80  # a few items: all of them
+    monkeypatch.setattr(ops, "_TILED_SCRATCH", 4 * 1000)
+    assert ops._tiled_scratch(20, 4, 20) == 12 * 80  # whole items: 12 of 80 values
+    assert ops._tiled_scratch(3, 100, 20) == 48 * 20  # 48 of an item's 100 queries
+    assert ops._tiled_scratch(3, 100, 70) == 16 * 70  # at least 16 queries, past the budget
+    assert ops._tiled_scratch(3, 10, 700) == 10 * 700  # or all of an item's, fewer than 16
+
+
 def test_append_frame_cap():
     """Kernel E's whole-table body takes up to 32 new frames (C's kMaxT) on
     any capacity whose plan fits a block's shared memory: 32 at the
