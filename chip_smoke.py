@@ -292,7 +292,15 @@ Phases, each fatal on failure:
     lone streams, and int8
     partial appends (``new_valid``, G a frame) bit-equal to the t=1 G stream
     on the valid frames. Each run's launches held to its path. The phase
-    must take at most 60 s;
+    must take at most 60 s; (f) the t=1 decode kernels past their body's
+    shared-memory plan (the scores of a row in a scratch), at C=8192: kernel
+    rows of F, G (two streams), J and K (int8) at batch 1 (R=196), each
+    within 2e-2 of its plain version with its writes equal, then the
+    flagship cut to 2 layers on filled caches of that capacity, 3 frames at
+    t=1 from the last slots: an int8 pos-major stream (F) and two per-stream
+    ones (G), a row-major bf16 stream (J) and an int8 one (K), each within
+    0.078 / 0.008 of the same stream with the plain versions in the kernels'
+    place, in at most 90 s;
 35. serving over several GPUs: (a) kernel rows of A, D, E, F and G at the
     rank shape of model parallelism 2 (6 heads of 64, R=1568, C=16, bf16),
     each within 2e-2 of its plain version, its cache writes equal; (b) the
@@ -334,7 +342,7 @@ each of its steps, and before its ``run_inference``, read after it), and
 the exported programs (zeroed before each call of phase 32's artifacts,
 read after it), and the shapes and attention types (zeroed before each
 run of phase 33, read after it), and the streaming remainders (zeroed
-before each run of phase 34b-e, read after it), and serving over several
+before each run of phase 34b-f, read after it), and serving over several
 GPUs (each rank of phase 35b zeroes before its stream and reads after it;
 zeroed before each mesh engine run of 35c and the sharded program's call
 of 35e, read after it). Every kernel must have run on its path.
@@ -453,9 +461,9 @@ KERNEL_SYMBOLS = {
     "spatial_flat": ("spatial_flat_tc_kernel", "spatial_flat_kernel", "tiled::forward_"),
     "spatial_attention": ("spatial_flat_tc_kernel", "spatial_flat_kernel", "tiled::forward_"),
     "temporal_fullclip": ("temporal_fullclip_kernel", "tiled::forward_"),
-    "temporal_fullclip_bwd": ("temporal_fullclip_bwd_kernel", "tiled::dq_kernel",
+    "temporal_fullclip_bwd": ("temporal_fullclip_bwd_kernel", "tiled::dq_",
                               "tiled::dkv_kernel"),
-    "spatial_flat_bwd": ("spatial_flat_bwd", "tiled::dq_kernel", "tiled::dkv_kernel"),
+    "spatial_flat_bwd": ("spatial_flat_bwd", "tiled::dq_", "tiled::dkv_kernel"),
     "temporal_decode_rm_readonly": ("temporal_decode_rm_kernel",),
     "ms_deform_attn": ("msdeform_attn_kernel",),
     "ms_deform_attn_bwd": ("msdeform_attn_bwd_kernel",),
@@ -501,7 +509,7 @@ GREEDY_DECIDED_MIN = 0.1
 # phase 27: two questions on 16 frames each, a prompt of 24 + <image> + 16 ids
 # phase 32: the LM decode artifact's engine run (phase 26's widths, two layers)
 LM_EXPORT = dict(slots=8, capacity=128, requests=12, new=16)
-PROFILE_TRIES = 6  # profiles of a kernel's calls before its device time counts as missing
+PROFILE_TRIES = 12  # profiles of a kernel's calls before its device time counts as missing
 EXPORT_LAYERS = 2  # phase 32's encoder programs: a depth cut of the flagship (PERF.md section 4)
 VQA = dict(frames=16, system=24, question=16, max_new=16, capacity=128, buckets=(32, 64))
 # phases 28-29: the downstream training paths. VideoQA stages 2-3 and DPO at
@@ -571,6 +579,11 @@ SHAPES = dict(ar_size=384, ar_frames=16, ar_batch=4, ar_steps=4, ar_height=416, 
 REST = dict(plan_cap=4096, plan_t=16, long_cap=60000, mixed_batch=2, engine_slots=2,
             engine_frames=(6, 4, 8, 5), engine_tick=4, int8_valid=([1, 3, 2, 3], [3, 0, 2, 1]),
             budget_s=60)
+# phase 34f: F, G, J and K past the decode body's shared-memory plan (about
+# C = 3,800 at the flagship width): the capacity, the depth cut of the
+# streams' model (a filled cache of 8192 slots is 2.5 GB a layer in int8, 5
+# GB in bf16), the frames streamed at t=1, the part's budget on the card
+LONG_DECODE = dict(cap=8192, layers=2, frames=3, budget_s=90)
 DEVICE = "cuda"
 
 
@@ -662,11 +675,16 @@ def main():
         iters calls, L2 flushed before each, as time_ms times them (whose
         events also hold the wrapper's host work). Each kernel's mean over
         the launches the profile recorded (late in a run it may miss some,
-        or, now and then, all, three profiles in a row once: a profile
+        or, now and then, all, six profiles in a row once: a profile
         without the kernel's rows is taken again, PROFILE_TRIES profiles at
         most; each such profile prints what it did record, for the cause,
-        an open question in PERF.md), summed over the kernels a call runs."""
+        an open question in PERF.md), times its launches a call (tiled.cuh's
+        backward launches both sides over chunks of its stored p and ds),
+        summed over the kernels a call runs: its count over iters rounded
+        up, since a profile may miss launches but never adds any (the
+        warm-up call is synchronized before it starts)."""
         fn()
+        torch.cuda.synchronize()
         for k in range(PROFILE_TRIES):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
@@ -676,7 +694,8 @@ def main():
             on_card = device_rows(prof)
             rows = [e for e in on_card if any(sym in e.key for sym in symbols)]
             if rows:
-                return sum(e.device_time_total / e.count for e in rows) / 1e3
+                return sum(e.device_time_total / e.count * max(1, -(-e.count // iters))
+                           for e in rows) / 1e3
             print(f"device_ms: profile {k + 1} of {PROFILE_TRIES} holds no row of {symbols}: "
                   f"{len(on_card)} device rows ({sum(e.count for e in on_card)} events: "
                   f"{sorted(e.key for e in on_card)[:4]}), "
@@ -5163,6 +5182,184 @@ def main():
     print(f"phase 34: {s34:.1f} s")
     if s34 > REST["budget_s"]:
         fail(f"phase 34 took {s34:.1f} s, past its {REST['budget_s']} s")
+
+    # 34f. F, G, J and K past their body's shared-memory plan: kernel rows at
+    # batch 1 on seeded operands, then streams of the flagship cut to a few
+    # layers on filled caches of that capacity, each held to the same stream
+    # with the plain versions in the kernels' place
+    tf = time.perf_counter()
+    c34 = LONG_DECODE["cap"]
+    bf16c = ops._DTYPE_CODES[bf16]
+    gl = torch.Generator(device=dev).manual_seed(347)
+    for lib_, sym_, shape_ in (
+            ("temporal_decode_pm_int8", "sf_temporal_decode_pm_int8", (d_, h_, c34, bf16c)),
+            ("temporal_decode_pm", "sf_temporal_decode_pm", (d_, h_, c34, bf16c, bf16c)),
+            ("temporal_decode_rm", "sf_temporal_decode_rm_readonly", (d_, h_, c34, bf16c, 1))):
+        if ops._body_smem(lib_, sym_, *shape_) <= ops._MAX_SMEM:
+            fail(f"34f: {sym_} at C={c34} fits a block's shared memory: not past the plan")
+
+    def codes34(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=gl)
+
+    def scales34(*shape):
+        return 0.005 + 0.025 * torch.rand(*shape, device=dev, generator=gl)
+
+    def dequant34(codes, scales):
+        """bf16 codes * scales (a scale a leading index, or a trailing head),
+        slot chunk by slot chunk: a yardstick's dense cache."""
+        out = torch.empty(codes.shape, dtype=bf16, device=dev)
+        step = 1024
+        for i in range(0, codes.shape[0], step):
+            c_, s_ = codes[i:i + step].float(), scales[i:i + step]
+            if s_.ndim == c_.ndim:  # (R, C, H) scales of (R, C, D) codes
+                c_ = c_.view(*s_.shape, -1) * s_[..., None]
+            else:
+                c_ = c_ * s_[..., None]
+            out[i:i + step] = c_.reshape(out[i:i + step].shape).to(bf16)
+        return out
+
+    def tol34(ref):
+        """TOL of the output's own scale: at C = 8192 each output averages
+        thousands of keys (a mean |x| near 0.015), so a fixed 2e-2 would
+        pass a kernel that dropped a chunk of keys."""
+        return TOL["bfloat16"] * ref.float().abs().max().item()
+
+    length = c34 - 1
+    for name, lens in (("temporal_decode_pm_int8", [length]),
+                       ("temporal_decode_pm_int8_ragged", [length, c34 // 2])):
+        rr = n_ * len(lens)
+        q = randn(rr, d_, dtype=bf16, g=gl)
+        kq, ks = encoder.quantize_kv(randn(rr, d_, dtype=bf16, g=gl))
+        vq, vs = encoder.quantize_kv(randn(rr, d_, dtype=bf16, g=gl))
+        new = (kq, vq, ks, vs)
+        planes = [codes34(c34, rr, d_), codes34(c34, rr, d_), scales34(c34, rr),
+                  scales34(c34, rr)]
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if name == "temporal_decode_pm_int8":
+            fn, plain = ops.temporal_decode_pm_int8, ops.temporal_decode_pm_int8_plain
+            args = lambda p_: (q, *new, *p_, ln.reshape(()), h_)  # noqa: E731
+        else:
+            fn, plain = ops.temporal_decode_pm_int8_ragged, ops.temporal_decode_pm_int8_ragged_plain
+            args = lambda p_: (q, *new, *p_, ln, n_, h_)  # noqa: E731
+        refs = [p_.clone() for p_ in planes]
+        ref = plain(*args(refs))
+        got = fn(*args(planes))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a_, b__) for a_, b__ in zip(planes, refs)):
+            fail(f"{name} C={c34}: appended codes or scales differ")
+        del refs
+        rows_len = ln.long().repeat_interleave(n_)
+        kd, vd = dequant34(planes[0], planes[2]), dequant34(planes[1], planes[3])
+        window = (torch.arange(c34, device=dev)[None] <= rows_len[:, None]).view(rr, 1, 1, c34)
+        q4 = q.view(rr, h_, 1, dh)
+        k4, v4 = (x.view(c34, rr, h_, dh).permute(1, 2, 0, 3) for x in (kd, vd))
+        n_read = n_ * sum(min(x_, c34 - 1) for x_ in lens)
+        record(name, f"past the plan R={rr} C={c34} lens={lens}", "bfloat16", max_err(got, ref),
+               lambda: fn(*args(planes)), lambda: plain(*args(planes)),
+               lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
+               2 * rr * d_ * 2 + 2 * rr * d_ * 2 + 4 * rr * 2 * 2 + n_read * (2 * d_ + 2 * 4),
+               4 * d_ * (n_read + rr), tol=tol34(ref))
+        del q, new, planes, kd, vd, q4, k4, v4, window
+        torch.cuda.empty_cache()
+    # J (bf16 row-major, writes the new frame at len) and K (int8, reads 0..len)
+    q, kn, vn = (randn(n_, d_, dtype=bf16, g=gl) for _ in range(3))
+    kc, vc = randn(n_, c34, d_, dtype=bf16, g=gl), randn(n_, c34, d_, dtype=bf16, g=gl)
+    ln = torch.tensor(length, dtype=torch.int32, device=dev)
+    k_ref, v_ref = kc.clone(), vc.clone()
+    ref = ops.temporal_decode_rm_plain(q, kn, vn, k_ref, v_ref, ln, h_)
+    got = ops.temporal_decode_rm(q, kn, vn, kc, vc, ln, h_)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, k_ref) and torch.equal(vc, v_ref)):
+        fail(f"temporal_decode_rm C={c34}: written cache rows differ")
+    del k_ref, v_ref
+    window = (torch.arange(c34, device=dev) <= length).view(1, c34)
+    q4 = q.view(n_, h_, 1, dh)
+    k4, v4 = (x.view(n_, c34, h_, dh).transpose(1, 2) for x in (kc, vc))
+    record("temporal_decode_rm", f"past the plan R={n_} C={c34} len={length}", "bfloat16",
+           max_err(got, ref), lambda: ops.temporal_decode_rm(q, kn, vn, kc, vc, ln, h_),
+           lambda: ops.temporal_decode_rm_plain(q, kn, vn, kc, vc, ln, h_),
+           lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
+           2 * n_ * d_ * (3 + 1 + 2 * length + 2), 4 * n_ * d_ * (length + 1), tol=tol34(ref))
+    del kc, vc, k4, v4
+    torch.cuda.empty_cache()
+    kq, vq = codes34(n_, c34, d_), codes34(n_, c34, d_)
+    ks, vs = scales34(n_, c34, h_), scales34(n_, c34, h_)
+    ref = ops.temporal_decode_rm_readonly_plain(q, kq, vq, ks, vs, ln, h_)
+    got = ops.temporal_decode_rm_readonly(q, kq, vq, ks, vs, ln, h_)
+    k4, v4 = (dequant34(c_, s_).view(n_, c34, h_, dh).transpose(1, 2)
+              for c_, s_ in ((kq, ks), (vq, vs)))
+    record("temporal_decode_rm_readonly", f"int8 past the plan R={n_} C={c34} len={length}",
+           "bfloat16", max_err(got, ref),
+           lambda: ops.temporal_decode_rm_readonly(q, kq, vq, ks, vs, ln, h_),
+           lambda: ops.temporal_decode_rm_readonly_plain(q, kq, vq, ks, vs, ln, h_),
+           lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=window),
+           2 * n_ * d_ * 2 + 2 * n_ * (length + 1) * (d_ + 4 * h_), 4 * n_ * d_ * (length + 1),
+           tol=tol34(ref))
+    del q, kn, vn, kq, vq, ks, vs, k4, v4, q4
+    torch.cuda.empty_cache()
+
+    # the streams: the flagship's first layers, filled caches, the last frames' slots left
+    cut = cfg.replace(num_hidden_layers=LONG_DECODE["layers"])
+    m34f = encoder.StreamformerEncoder(cut, device=dev)
+    missing = m34f.load_state_dict(model.state_dict(), strict=False).missing_keys
+    if missing:
+        fail(f"34f: the cut model misses {missing[:4]}")
+    l34, nf = cut.num_hidden_layers, LONG_DECODE["frames"]
+
+    def filled(cfg_s, lens):
+        cache_s = encoder.init_cache(cfg_s, len(lens), per_stream_len=len(lens) > 1, device=dev)
+        for layer in cache_s["layers"]:
+            for key, x in layer.items():
+                if x.dtype == torch.int8:
+                    x.copy_(codes34(*x.shape))
+                elif key.endswith("_scale"):
+                    x.copy_(scales34(*x.shape))
+                else:
+                    x.copy_(randn(*x.shape, dtype=x.dtype, g=gl))
+        cache_s["len"].copy_(torch.tensor(lens, dtype=torch.int32, device=dev).reshape(
+            cache_s["len"].shape))
+        return cache_s
+
+    int8_lin = cut.replace(cache_mode="linear", cache_dtype="int8", cache_capacity=c34)
+    rm = cut.replace(cache_layout="row_major", cache_mode="linear", cache_capacity=c34)
+    streams34f = (("F", int8_lin, [c34 - nf], "temporal_decode_pm_int8",
+                   ops.temporal_decode_pm_int8_plain),
+                  ("G", int8_lin, [c34 - nf, c34 // 2], "temporal_decode_pm_int8_ragged",
+                   ops.temporal_decode_pm_int8_ragged_plain),
+                  ("J", rm, [c34 - nf], "temporal_decode_rm", ops.temporal_decode_rm_plain),
+                  ("K", rm.replace(cache_dtype="int8"), [c34 - nf], "temporal_decode_rm_readonly",
+                   ops.temporal_decode_rm_readonly_plain))
+    gaps34f = {}
+    for tag, cfg_s, lens, kname, plain_fn in streams34f:
+        x_s = video[:len(lens), :nf]
+        cache_k = filled(cfg_s, lens)
+        cache_p = {"layers": [{k_: x.clone() for k_, x in layer.items()}
+                              for layer in cache_k["layers"]], "len": cache_k["len"].clone()}
+        got34 = run34(f"{tag} stream C={c34}", lambda: stream34(
+            m34f, x_s, [1] * nf, cfg_s, cache_k)[0], {kname: nf * l34, "spatial_flat": nf * l34})
+        kernel_fn = getattr(ops, kname)
+        setattr(ops, kname, plain_fn)
+        try:
+            ref34 = stream34(m34f, x_s, [1] * nf, cfg_s, cache_p)[0]
+        finally:
+            setattr(ops, kname, kernel_fn)
+        torch.cuda.synchronize()
+        gh = max_err(got34["last_hidden_state"], ref34["last_hidden_state"])
+        gp = max_err(got34["pooler_output"], ref34["pooler_output"])
+        if not (finite(got34) and gh <= STREAM_TOL_HIDDEN and gp <= STREAM_TOL_POOLED):
+            fail(f"34f: the {tag} stream at C={c34} against its plain run: hidden {gh}, pooled "
+                 f"{gp}")
+        gaps34f[tag] = (gh, gp)
+        del cache_k, cache_p, got34, ref34
+        torch.cuda.empty_cache()
+    del m34f
+    sf_ = time.perf_counter() - tf
+    print(f"34f ({smi}): F, G, J and K past the decode body's plan at C={c34}: kernel rows within "
+          f"{TOL['bfloat16']} of their plain versions, writes equal; the flagship cut to {l34} "
+          f"layers on filled caches, {nf} frames at t=1 from the last slots (F, G, J, K {l34} "
+          f"times a frame): (hidden, pooled) from the plain run {gaps34f} ({sf_:.1f} s)")
+    if sf_ > LONG_DECODE["budget_s"]:
+        fail(f"phase 34f took {sf_:.1f} s, past its {LONG_DECODE['budget_s']} s")
 
     # ---- 35. serving over several GPUs: A, D, E, F and G at the rank shape of model
     # parallelism 2; the flagship streamed tensor parallel by two ranks on this card

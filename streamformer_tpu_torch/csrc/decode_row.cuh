@@ -45,14 +45,31 @@
 // chain in key order (int8: with weight p * v_scale); one multiply by the
 // reciprocal last.
 //
+// Past the plan (the (heads, C) scores of a row no longer fit a block's
+// shared memory: about C = 3,800 at the flagship) the same body keeps them
+// in an fp32 scratch the wrapper allocates, one slice of heads x
+// score_stride(C) floats a block, the persistent grid cut to the slices it
+// holds (Args::scores non-null). Staging, the chains and the order of
+// arithmetic are the same, so the scratch mode gives the whole-row body's
+// bits; only where the scores live changes. Each head's max is exact in any
+// order, so there it is folded chunk by chunk as the scores are produced (a
+// segmented warp max, then one shared-memory atomic a head and warp on its
+// order-preserving integer key) instead of a second walk. Each V chunk then
+// reads its keys' scores back once, all threads at once, and stages their
+// exps in shared memory, where PV reads them and each head's sum, one
+// thread in key order, adds them chunk by chunk; the reciprocal and PV's
+// last multiply follow the last chunk. Its stages hold up to 64 keys and
+// 48 KB of slots (a block walks a long row alone).
+//
 // The read-only mode (kReadOnly, kernel K) takes keys 0..min(len, C-1) of
 // the linear cache in position order, the new frame already at position
 // len; it has no new row and writes nothing. On the row-major cache a
 // chunk's positions are one contiguous span, copied with one bulk copy into
 // unpadded slots (measured faster than a copy a slot into padded ones); so
 // that the threads of neighbouring keys still read distinct bank groups,
-// each score chain starts at a load of its own (the key index, modulo the
-// loads a head's row takes) and wraps around: K's scores are one
+// each score chain starts at a load of its own (the key's position in the
+// row, modulo the loads a head's row takes, so that a chunk's size leaves
+// the order alone) and wraps around: K's scores are one
 // sequential fp32 FMA chain over dh, in that rotated order (K is held to
 // its plain version within tolerance, not bit for bit to another kernel).
 // Its int8 cache keeps one scale per (row, position, head), (R, C, H): a
@@ -73,28 +90,42 @@ constexpr int kThreads = kConsumers + 32;  // and the producer warp
 constexpr int kStages = 2;                 // of the ring
 constexpr int kMaxChunk = 32;              // keys a stage holds at most: a producer lane each
 constexpr int kSlotBudget = 18624;         // slot bytes of a stage: 12 bf16 rows at D=768
+// The scratch mode's stages (its scores leave shared memory to them): up to
+// 64 keys and 48 KB of slots, so that a block, which walks a long row alone,
+// keeps some 100 KB in flight
+constexpr int kScratchMaxChunk = 64;
+constexpr int kScratchSlotBudget = 49152;
 
 // Shared memory of a block. A stage holds `chunk` slot rows of
 // `slot_bytes`, then the query's row (used by a row's first chunk), the
 // chunk's int8 scales and the row's length. After the two stages: the
 // query in fp32, PV sums, (heads, C) fp32 scores (rows C + 1 apart, so
-// that a thread per head reads distinct banks), the reciprocals of the
-// sums, and the barriers.
+// that a thread per head reads distinct banks; none in the scratch mode),
+// the reciprocals of the sums, (scratch mode) each head's running max as
+// an integer key, its running sum and a V chunk's (heads, chunk) exps, and
+// the barriers.
 struct Plan {
   int slot_bytes, chunk, q_at, scales_at, len_at, stage_bytes;
-  int q, acc, scores, inv, full, empty, total;
+  int q, acc, scores, inv, max_keys, sums, xs, full, empty, total;
 };
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
+// The scratch mode's floats between two heads' score rows: C + 1 rounded
+// up to 4, so that each row starts 16 bytes aligned.
+__host__ __device__ inline int score_stride(int capacity) { return (capacity + 4) & ~3; }
+
 // scale_cols: int8 scales a key (F, G: 1 a row; K: one a head); span: the
-// read-only mode's unpadded slots, a chunk one copy (rows of whole 16 bytes)
+// read-only mode's unpadded slots, a chunk one copy (rows of whole 16 bytes);
+// scratch: the scores in the wrapper's scratch, not in shared memory
 __host__ __device__ inline Plan plan(int d, int heads, int capacity, int kv_bytes, int q_bytes,
-                                     bool quant, int scale_cols = 1, bool span = false) {
+                                     bool quant, int scale_cols = 1, bool span = false,
+                                     bool scratch = false) {
   Plan p;
   p.slot_bytes = round16(d * kv_bytes) + (span && d * kv_bytes % 16 == 0 ? 0 : 16);
-  const int most = capacity < kMaxChunk ? capacity : kMaxChunk;
-  p.chunk = kSlotBudget / p.slot_bytes;
+  const int most_chunk = scratch ? kScratchMaxChunk : kMaxChunk;
+  const int most = capacity < most_chunk ? capacity : most_chunk;
+  p.chunk = (scratch ? kScratchSlotBudget : kSlotBudget) / p.slot_bytes;
   p.chunk = p.chunk < 1 ? 1 : (p.chunk > most ? most : p.chunk);
   p.q_at = p.chunk * p.slot_bytes;
   p.scales_at = p.q_at + round16(d * q_bytes);
@@ -103,8 +134,11 @@ __host__ __device__ inline Plan plan(int d, int heads, int capacity, int kv_byte
   p.q = kStages * p.stage_bytes;
   p.acc = p.q + round16(4 * d);
   p.scores = p.acc + round16(4 * d);
-  p.inv = p.scores + round16(4 * heads * (capacity + 1));
-  p.full = p.inv + round16(4 * heads);
+  p.inv = p.scores + (scratch ? 0 : round16(4 * heads * (capacity + 1)));
+  p.max_keys = p.inv + round16(4 * heads);
+  p.sums = p.max_keys + (scratch ? round16(4 * heads) : 0);
+  p.xs = p.sums + (scratch ? round16(4 * heads) : 0);
+  p.full = p.xs + (scratch ? round16(4 * heads * p.chunk) : 0);
   p.empty = p.full + 8 * kStages;
   p.total = p.empty + 8 * kStages;
   return p;
@@ -127,7 +161,24 @@ struct Args {
   int rows, capacity, d, heads;
   long slot_stride, row_stride;  // elements between slots, and rows, of a cache
   float scale;
+  float* scores = nullptr;  // scratch mode: heads x score_stride(C) floats a block
 };
+
+// The persistent grid of a launch: as many blocks as fit the card, at most
+// one a row; in the scratch mode (scratch non-null) at most as many as its
+// `floats` hold slices of heads x score_stride(C), and none if not even one.
+// The wrapper sizes the scratch from this grid at the scratch mode's plan
+// (each kernel file's sf_*_scratch_blocks entry).
+template <typename Kernel>
+inline cudaError_t grid(Kernel kernel, const Plan& p, int rows, int heads, int capacity,
+                        const float* scratch, long long floats, int* blocks) {
+  const cudaError_t err = persistent_grid(kernel, kThreads, p.total, rows, blocks);
+  if (err != cudaSuccess || !scratch) return err;
+  const long long fit = floats / (static_cast<long long>(heads) * score_stride(capacity));
+  if (fit < 1) return cudaErrorInvalidValue;
+  if (fit < *blocks) *blocks = static_cast<int>(fit);
+  return cudaSuccess;
+}
 
 // The eight consumer warps' own barrier (the producer warp never joins).
 __device__ __forceinline__ void consumers_sync() {
@@ -192,6 +243,34 @@ __device__ __forceinline__ float dot(const float* q, const KV* k, int dh, int ro
   return s;
 }
 
+// A float's order-preserving unsigned key (b > a as floats iff key(b) >
+// key(a), -0 below +0), and back.
+__device__ __forceinline__ unsigned max_key(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u & 0x80000000u ? ~u : u | 0x80000000u;
+}
+__device__ __forceinline__ float key_max(unsigned k) {
+  return __uint_as_float(k & 0x80000000u ? k & 0x7fffffffu : ~k);
+}
+
+// The scratch mode's running max: every lane of the warp calls it with its
+// score s of head h (on: the lane has one). Lanes of one head are
+// neighbours (h = w / cnt), so a segmented shuffle reduction leaves each
+// head's max over the warp in its first lane, which folds it into keys[h].
+// NaN is skipped, as fmaxf skips it in the whole-row body's walk.
+__device__ __forceinline__ void fold_max(unsigned* keys, int h, float s, bool on, int lane) {
+  float m = on && s == s ? s : -INFINITY;
+  const int hh = on ? h : -1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float mo = __shfl_down_sync(0xffffffffu, m, o);
+    const int ho = __shfl_down_sync(0xffffffffu, hh, o);
+    if (lane + o < 32 && ho == hh) m = fmaxf(m, mo);
+  }
+  const int before = __shfl_up_sync(0xffffffffu, hh, 1);
+  if (on && (lane == 0 || before != hh)) atomicMax(keys + h, max_key(m));
+}
+
 // Eight consecutive elements of a staged row, in fp32.
 __device__ __forceinline__ void eight(const float* p, float* o) { load8(p, o); }
 __device__ __forceinline__ void eight(const __nv_bfloat16* p, float* o) { load8(p, o); }
@@ -205,8 +284,9 @@ template <typename T, typename KV, bool kReadOnly = false>
 __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   extern __shared__ __align__(128) unsigned char smem[];
+  const bool in_scratch = a.scores != nullptr;
   const Plan p = plan(a.d, a.heads, a.capacity, sizeof(KV), sizeof(T), kQuant,
-                      kReadOnly ? a.heads : 1, kReadOnly);
+                      kReadOnly ? a.heads : 1, kReadOnly, in_scratch);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int d = a.d, heads = a.heads, dh = d / heads, cap = a.capacity;
   const int row_bytes = d * static_cast<int>(sizeof(KV));
@@ -262,13 +342,15 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
             if (!scale_span)
               for (int e = lane; e < cnt * heads; e += 32)
                 cp_async4(st + p.scales_at + 4 * e, scale_src + e);
-          } else if (lane < cnt) {  // the scale of key k0 + lane, copied by the lane itself
-            const int i = k0 + lane;
-            long s = slot0 + i;
-            if (s >= cap) s -= cap;
-            const float* src = i == n_old ? (kv ? a.v_new_scale : a.k_new_scale) + row
-                                          : (kv ? a.v_scale : a.k_scale) + s * a.rows + row;
-            cp_async4(st + p.scales_at + 4 * lane, src);
+          } else {  // the scale of key k0 + e, copied by lane e % 32
+            for (int e = lane; e < cnt; e += 32) {
+              const int i = k0 + e;
+              long s = slot0 + i;
+              if (s >= cap) s -= cap;
+              const float* src = i == n_old ? (kv ? a.v_new_scale : a.k_new_scale) + row
+                                            : (kv ? a.v_scale : a.k_scale) + s * a.rows + row;
+              cp_async4(st + p.scales_at + 4 * e, src);
+            }
           }
           cp_async_arrive_noinc(full + g % kStages);
         }
@@ -302,9 +384,13 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
   // ---- the consumer warps
   float* qs = reinterpret_cast<float*>(smem + p.q);
   float* accs = reinterpret_cast<float*>(smem + p.acc);
-  float* ps = reinterpret_cast<float*>(smem + p.scores);
   float* invs = reinterpret_cast<float*>(smem + p.inv);
-  const int ss = cap + 1;  // between the score rows of two heads
+  unsigned* max_keys = reinterpret_cast<unsigned*>(smem + p.max_keys);
+  float* sums = reinterpret_cast<float*>(smem + p.sums);  // scratch mode
+  float* xs = reinterpret_cast<float*>(smem + p.xs);
+  const int ss = in_scratch ? score_stride(cap) : cap + 1;  // between two heads' score rows
+  float* ps = in_scratch ? a.scores + static_cast<long long>(blockIdx.x) * heads * ss
+                         : reinterpret_cast<float*>(smem + p.scores);
   int g = 0;
   for (int row = blockIdx.x; row < a.rows; row += gridDim.x) {
     int len = 0, n_old = 0, n_keys = 1, nck = 1;
@@ -319,28 +405,52 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
         nck = (n_keys + p.chunk - 1) / p.chunk;
         const T* qt = reinterpret_cast<const T*>(buf + p.q_at);
         for (int e = tid; e < d; e += kConsumers) qs[e] = to_f32(qt[e]);
+        if (in_scratch)
+          for (int h = tid; h < heads; h += kConsumers) max_keys[h] = max_key(-INFINITY);
         consumers_sync();
       }
       const int kv = j >= nck;
       const int k0 = (j - kv * nck) * p.chunk, cnt = min(p.chunk, n_keys - k0);
-      if (!kv) {  // scores: one thread per (head, key)
-        for (int w = tid; w < heads * cnt; w += kConsumers) {
-          const int h = w / cnt, i = w - h * cnt;
-          const KV* kp = reinterpret_cast<const KV*>(buf + i * p.slot_bytes) + h * dh;
-          float s = dot<KV, kReadOnly>(qs + h * dh, kp, dh, i);
-          if (kQuant && kReadOnly) {
-            s = __fmul_rn(__fmul_rn(s, a.scale), scales[i * heads + h]);
-          } else {
-            if (kQuant) s = __fmul_rn(s, scales[i]);
-            s = __fmul_rn(s, a.scale);
+      if (!kv) {  // scores: one thread per (head, key); the warp's lanes together
+        const int work = heads * cnt;
+        for (int w0 = tid - lane; w0 < work; w0 += kConsumers) {
+          const int w = w0 + lane, h = w / cnt, i = w - h * cnt;
+          const bool on = w < work;
+          float s = 0.f;
+          if (on) {
+            const KV* kp = reinterpret_cast<const KV*>(buf + i * p.slot_bytes) + h * dh;
+            s = dot<KV, kReadOnly>(qs + h * dh, kp, dh, k0 + i);
+            if (kQuant && kReadOnly) {
+              s = __fmul_rn(__fmul_rn(s, a.scale), scales[i * heads + h]);
+            } else {
+              if (kQuant) s = __fmul_rn(s, scales[i]);
+              s = __fmul_rn(s, a.scale);
+            }
+            ps[h * ss + k0 + i] = s;
           }
-          ps[h * ss + k0 + i] = s;
+          if (in_scratch) fold_max(max_keys, h, s, on, lane);
         }
       } else {  // PV: one thread per (head, 8 elements)
         const bool last = k0 + cnt == n_keys;
+        if (in_scratch) {  // the chunk's exps, from its scores in the scratch
+          for (int w0 = tid; w0 < heads * cnt; w0 += 4 * kConsumers) {
+            float x[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int w = w0 + u * kConsumers, h = w / cnt;
+              if (w < heads * cnt) x[u] = ps[h * ss + k0 + (w - h * cnt)];
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int w = w0 + u * kConsumers;
+              if (w < heads * cnt) xs[w] = expf(__fsub_rn(x[u], invs[w / cnt]));
+            }
+          }
+          consumers_sync();
+        }
         for (int e0 = 8 * tid; e0 < d; e0 += 8 * kConsumers) {
           const int h = e0 / dh;
-          const float* w = ps + h * ss + k0;
+          const float* w = in_scratch ? xs + h * cnt : ps + h * ss + k0;
           float acc[8], v[8];
           if (k0 == 0) {
 #pragma unroll
@@ -348,6 +458,7 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
           } else {
             load8(accs + e0, acc);
           }
+#pragma unroll 4
           for (int i = 0; i < cnt; ++i) {
             const float wt =
                 kQuant ? __fmul_rn(w[i], scales[kReadOnly ? i * heads + h : i]) : w[i];
@@ -355,13 +466,33 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
 #pragma unroll
             for (int e = 0; e < 8; ++e) acc[e] = fmaf(wt, v[e], acc[e]);
           }
-          if (last) {
+          if (last && !in_scratch) {
             const float inv = invs[h];
 #pragma unroll
             for (int e = 0; e < 8; ++e) acc[e] = __fmul_rn(acc[e], inv);
             store8(a.out + static_cast<long>(row) * d + e0, acc);
           } else {
             store8(accs + e0, acc);
+          }
+        }
+        if (in_scratch) {  // each head's sum, in key order, over this chunk's exps
+          for (int h = tid; h < heads; h += kConsumers) {
+            float sum = k0 == 0 ? 0.f : sums[h];
+            for (int i = 0; i < cnt; ++i) sum = __fadd_rn(sum, xs[h * cnt + i]);
+            sums[h] = sum;
+          }
+          if (last) {  // the reciprocals, then PV's last multiply
+            consumers_sync();
+            for (int h = tid; h < heads; h += kConsumers) invs[h] = __fdiv_rn(1.f, sums[h]);
+            consumers_sync();
+            for (int e0 = 8 * tid; e0 < d; e0 += 8 * kConsumers) {
+              const float inv = invs[e0 / dh];
+              float acc[8];
+              load8(accs + e0, acc);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) acc[e] = __fmul_rn(acc[e], inv);
+              store8(a.out + static_cast<long>(row) * d + e0, acc);
+            }
           }
         }
       }
@@ -380,7 +511,10 @@ __device__ __forceinline__ void decode_rows(const Args<T, KV>& a) {
             reinterpret_cast<uint2*>(to)[w] = reinterpret_cast<const uint2*>(from)[w];
         }
       }
-      if (j == nck - 1) {  // all scores in: the softmax
+      if (j == nck - 1 && in_scratch) {  // all scores in: each head's max, folded chunk by chunk
+        consumers_sync();
+        for (int h = tid; h < heads; h += kConsumers) invs[h] = key_max(max_keys[h]);
+      } else if (j == nck - 1) {  // all scores in: the softmax
         consumers_sync();
         for (int h = tid; h < heads; h += kConsumers) {  // each head's max
           float m = -INFINITY;

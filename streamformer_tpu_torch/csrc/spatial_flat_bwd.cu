@@ -746,10 +746,11 @@ inline bool fp32_fits(int n, int dh) {
   return n <= 32 * kMaxKpl && smem_bytes(n, dh, 4) <= fullclip::kMaxSmem;
 }
 
-// tiled.cuh's backward on (R, N, D) rows, heads as column slices.
+// tiled.cuh's backward on (R, N, D) rows, heads as column slices, by its
+// `plan`.
 int launch_tiled(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-                 void* dv, void* stats, int rows, int n, int d, int heads, float scale,
-                 cudaStream_t stream) {
+                 void* dv, void* stats, int rows, int n, int d, int heads, float scale, int plan,
+                 void* scratch, long long floats, cudaStream_t stream) {
   const long long row = static_cast<long long>(n) * d;
   tiled::Args a{};
   a.q = {const_cast<void*>(q), row, d, 0};
@@ -767,14 +768,14 @@ int launch_tiled(const void* q, const void* k, const void* v, const void* g, voi
   a.o0 = {dq, row, d, 0};
   dkv.o0 = {dk, row, d, 0};
   dkv.o1 = {dv, row, d, 0};
-  return tiled::backward<T>(rows, a, dkv, stream);
+  return tiled::backward<T>(rows, a, dkv, plan, static_cast<float*>(scratch), floats, stream);
 }
 
 }  // namespace
 
 // Shared memory a block of the whole-head body needs (bf16: any n); 0 where
 // only tiled.cuh takes the shape (fp32 past fp32_fits), and the wrapper
-// then passes tiled = 1.
+// then passes a plan of its backward as `tiled`.
 extern "C" int sf_spatial_flat_bwd_smem_bytes(int n, int d, int heads, int dtype) {
   const int dh = d / heads;
   if (dtype == SF_BFLOAT16) return tc_smem_bytes(n, dh);
@@ -785,17 +786,20 @@ extern "C" int sf_spatial_flat_bwd_smem_bytes(int n, int d, int heads, int dtype
 // query side and read by the key side: fp32 at any n, bf16 past 256 keys
 // (else unused; the one-block bf16 body keeps them in shared memory).
 // per_block: the fp32 body's rows a block takes; the bf16 body takes a
-// whole head, or 128 queries (keys) an item past 256. tiled: 1 runs
-// tiled.cuh (fp32 only), 0 the whole-head body.
+// whole head, or 128 queries (keys) an item past 256. tiled: 0 runs the
+// whole-head body, else tiled.cuh's backward (fp32 only) on plan tiled - 1
+// (its bits tiled::kBwdSweeps, kBwdStored). scratch: the plan's, `floats`
+// fp32, or null (ops._tiled_bwd_launch).
 extern "C" int sf_spatial_flat_bwd(const void* q, const void* k, const void* v, const void* g,
                                    void* dq, void* dk, void* dv, void* stats, int rows, int n,
                                    int d, int heads, int per_block, float scale, int tiled,
-                                   int dtype, void* stream) {
+                                   void* scratch, long long floats, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == SF_BFLOAT16 && !tiled)
     return launch_tc(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, scale, st);
   if (dtype == SF_FLOAT32 && tiled)
-    return launch_tiled(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, scale, st);
+    return launch_tiled(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, scale, tiled - 1,
+                        scratch, floats, st);
   if (dtype == SF_FLOAT32 && fp32_fits(n, d / heads))
     return launch(q, k, v, g, dq, dk, dv, stats, rows, n, d, heads, per_block, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -35,7 +35,10 @@
 // by 4-byte cp.async on the same barrier. Rows of a width that is not a
 // multiple of 16 bytes (D % 16 == 8) are staged with 8-byte loads instead.
 // Codes become fp32 by a byte permute and an add, exactly. The new codes
-// and both scales are written at slot len % C, which no block reads.
+// and both scales are written at slot len % C, which no block reads. Past
+// the (heads, C) scores a block holds in shared memory (about C = 3,800 at
+// the flagship) the wrapper passes a scratch for them, and any capacity
+// runs (decode_row.cuh's scratch mode, the same bits).
 #include "decode_row.cuh"
 
 namespace {
@@ -50,20 +53,22 @@ template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, const void* k_new_scale,
            const void* v_new_scale, void* k_cache, void* v_cache, void* k_scale, void* v_scale,
            const void* lens, int rows_per_stream, void* out, int rows, int capacity, int d,
-           int heads, float scale, cudaStream_t stream) {
+           int heads, float scale, float* scratch, long long floats, cudaStream_t stream,
+           int* blocks_only) {
   decode::Args<T, int8_t> a{
       static_cast<const T*>(q), static_cast<const int8_t*>(k_new),
       static_cast<const int8_t*>(v_new), static_cast<const float*>(k_new_scale),
       static_cast<const float*>(v_new_scale), static_cast<int8_t*>(k_cache),
       static_cast<int8_t*>(v_cache), static_cast<float*>(k_scale), static_cast<float*>(v_scale),
       static_cast<const int*>(lens), rows_per_stream, static_cast<T*>(out), rows, capacity, d,
-      heads, static_cast<long>(rows) * d, d, scale};
-  const decode::Plan plan = decode::plan(d, heads, capacity, 1, sizeof(T), true);
+      heads, static_cast<long>(rows) * d, d, scale, scratch};
+  const decode::Plan plan =
+      decode::plan(d, heads, capacity, 1, sizeof(T), true, 1, false, scratch || blocks_only);
   int blocks = 0;
-  const cudaError_t err =
-      persistent_grid(temporal_decode_pm_int8_kernel<T>, decode::kThreads, plan.total, rows,
-                      &blocks);
+  const cudaError_t err = decode::grid(temporal_decode_pm_int8_kernel<T>, plan, rows, heads,
+                                       capacity, scratch, floats, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks_only) return *blocks_only = blocks, 0;
   temporal_decode_pm_int8_kernel<T><<<blocks, decode::kThreads, plan.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -71,26 +76,41 @@ int launch(const void* q, const void* k_new, const void* v_new, const void* k_ne
 int dispatch(const void* q, const void* k_new, const void* v_new, const void* k_new_scale,
              const void* v_new_scale, void* k_cache, void* v_cache, void* k_scale, void* v_scale,
              const void* lens, int rows_per_stream, void* out, int rows, int capacity, int d,
-             int heads, float scale, int dtype, void* stream) {
+             int heads, float scale, void* scratch, long long floats, int dtype, void* stream,
+             int* blocks_only = nullptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sp = static_cast<float*>(scratch);
   if (dtype == SF_BFLOAT16)
     return launch<__nv_bfloat16>(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache,
                                  k_scale, v_scale, lens, rows_per_stream, out, rows, capacity, d,
-                                 heads, scale, st);
+                                 heads, scale, sp, floats, st, blocks_only);
   if (dtype == SF_FLOAT32)
     return launch<float>(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache, k_scale,
                          v_scale, lens, rows_per_stream, out, rows, capacity, d, heads, scale,
-                         st);
+                         sp, floats, st, blocks_only);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Shared memory a block needs at width d, heads and capacity, for q's dtype.
+// Shared memory a block needs at width d, heads and capacity, for q's
+// dtype, with the scores in shared memory (past a block's: a scratch of
+// heads x score_stride(C) floats a block, passed as `scratch`, `floats`).
 extern "C" int sf_temporal_decode_pm_int8_smem_bytes(int d, int heads, int capacity,
                                                      int dtype) {
   const int q_bytes = dtype == SF_FLOAT32 ? 4 : 2;
   return decode::plan(d, heads, capacity, 1, q_bytes, true).total;
+}
+
+// The blocks of the scratch mode's persistent grid over `rows` rows (the
+// wrapper allocates a slice of the scratch for each), or minus a CUDA error.
+extern "C" int sf_temporal_decode_pm_int8_scratch_blocks(int d, int heads, int capacity,
+                                                         int dtype, int rows) {
+  int blocks = 0;
+  const int rc = dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, rows, nullptr, rows, capacity, d, heads, 0.f,
+                          nullptr, 0, dtype, nullptr, &blocks);
+  return rc ? -rc : blocks;
 }
 
 // F: one stream, len a single device int32
@@ -98,10 +118,12 @@ extern "C" int sf_temporal_decode_pm_int8(const void* q, const void* k_new, cons
                                           const void* k_new_scale, const void* v_new_scale,
                                           void* k_cache, void* v_cache, void* k_scale,
                                           void* v_scale, const void* len, void* out, int rows,
-                                          int capacity, int d, int heads, float scale, int dtype,
+                                          int capacity, int d, int heads, float scale,
+                                          void* scratch, long long floats, int dtype,
                                           void* stream) {
   return dispatch(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache, k_scale, v_scale,
-                  len, rows, out, rows, capacity, d, heads, scale, dtype, stream);
+                  len, rows, out, rows, capacity, d, heads, scale, scratch, floats, dtype,
+                  stream);
 }
 
 // G: rows / rows_per_stream streams, lens a device int32 vector of that length
@@ -109,7 +131,8 @@ extern "C" int sf_temporal_decode_pm_int8_ragged(
     const void* q, const void* k_new, const void* v_new, const void* k_new_scale,
     const void* v_new_scale, void* k_cache, void* v_cache, void* k_scale, void* v_scale,
     const void* lens, int rows_per_stream, void* out, int rows, int capacity, int d, int heads,
-    float scale, int dtype, void* stream) {
+    float scale, void* scratch, long long floats, int dtype, void* stream) {
   return dispatch(q, k_new, v_new, k_new_scale, v_new_scale, k_cache, v_cache, k_scale, v_scale,
-                  lens, rows_per_stream, out, rows, capacity, d, heads, scale, dtype, stream);
+                  lens, rows_per_stream, out, rows, capacity, d, heads, scale, scratch, floats,
+                  dtype, stream);
 }

@@ -33,7 +33,9 @@
 // compute a thread per (head, key) for the scores (each chain starting at a
 // load of its own, for the banks) and a thread per (head, 8 elements) for
 // PV. Reads stop at the valid prefix, with len read on the device. Every
-// input byte is read once.
+// input byte is read once. Past the (heads, C) scores a block holds in
+// shared memory the wrapper passes a scratch for them (decode_row.cuh's
+// scratch mode), so any capacity runs.
 #include "decode_row.cuh"
 
 namespace {
@@ -48,7 +50,7 @@ temporal_decode_rm_kernel(const decode::Args<T, KV> a) {
 template <typename T, typename KV>
 int launch(const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
            const void* len, void* out, int rows, int capacity, int d, int heads, float scale,
-           cudaStream_t stream) {
+           float* scratch, long long floats, cudaStream_t stream, int* blocks_only = nullptr) {
   constexpr bool kQuant = sizeof(KV) == 1;
   decode::Args<T, KV> a{static_cast<const T*>(q), nullptr, nullptr, nullptr, nullptr,
                         const_cast<KV*>(static_cast<const KV*>(k)),
@@ -56,14 +58,15 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale, con
                         const_cast<float*>(static_cast<const float*>(k_scale)),
                         const_cast<float*>(static_cast<const float*>(v_scale)),
                         static_cast<const int*>(len), rows, static_cast<T*>(out),
-                        rows, capacity, d, heads, d, static_cast<long>(capacity) * d, scale};
-  const decode::Plan plan =
-      decode::plan(d, heads, capacity, sizeof(KV), sizeof(T), kQuant, heads, true);
+                        rows, capacity, d, heads, d, static_cast<long>(capacity) * d, scale,
+                        scratch};
+  const decode::Plan plan = decode::plan(d, heads, capacity, sizeof(KV), sizeof(T), kQuant,
+                                         heads, true, scratch || blocks_only);
   int blocks = 0;
-  const cudaError_t err =
-      persistent_grid(temporal_decode_rm_kernel<T, KV>, decode::kThreads, plan.total, rows,
-                      &blocks);
+  const cudaError_t err = decode::grid(temporal_decode_rm_kernel<T, KV>, plan, rows, heads,
+                                       capacity, scratch, floats, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks_only) return *blocks_only = blocks, 0;
   temporal_decode_rm_kernel<T, KV><<<blocks, decode::kThreads, plan.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -71,7 +74,9 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale, con
 }  // namespace
 
 // Shared memory a block needs at width d, heads and capacity, for q's dtype
-// and an int8 (quantized 1) or float cache.
+// and an int8 (quantized 1) or float cache, with the scores in shared
+// memory (past a block's: a scratch of heads x score_stride(C) floats a
+// block, passed as `scratch`, `floats`).
 extern "C" int sf_temporal_decode_rm_readonly_smem_bytes(int d, int heads, int capacity,
                                                          int dtype, int quantized) {
   const int elt = dtype == SF_FLOAT32 ? 4 : 2;
@@ -79,27 +84,47 @@ extern "C" int sf_temporal_decode_rm_readonly_smem_bytes(int d, int heads, int c
       .total;
 }
 
+// The blocks of the scratch mode's persistent grid over `rows` rows (the
+// wrapper allocates a slice of the scratch for each), or minus a CUDA error.
+extern "C" int sf_temporal_decode_rm_readonly_scratch_blocks(int d, int heads, int capacity,
+                                                             int dtype, int quantized, int rows) {
+  int blocks = 0, rc = static_cast<int>(cudaErrorInvalidValue);
+  const bool f32 = dtype == SF_FLOAT32;
+  if (f32 || dtype == SF_BFLOAT16) {
+#define SF_BLOCKS(T, KV)                                                                  \
+  launch<T, KV>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, rows, capacity, \
+                d, heads, 0.f, nullptr, 0, nullptr, &blocks)
+    rc = f32 ? (quantized ? SF_BLOCKS(float, int8_t) : SF_BLOCKS(float, float))
+             : (quantized ? SF_BLOCKS(__nv_bfloat16, int8_t)
+                          : SF_BLOCKS(__nv_bfloat16, __nv_bfloat16));
+#undef SF_BLOCKS
+  }
+  return rc ? -rc : blocks;
+}
+
 // K: k, v (R, C, D) int8 with (R, C, H) fp32 scales when quantized is 1, else
 // in q's type with null scales; len a single device int32
 extern "C" int sf_temporal_decode_rm_readonly(const void* q, const void* k, const void* v,
                                               const void* k_scale, const void* v_scale,
                                               const void* len, void* out, int rows, int capacity,
-                                              int d, int heads, float scale, int dtype,
-                                              int quantized, void* stream) {
+                                              int d, int heads, float scale, void* scratch,
+                                              long long floats, int dtype, int quantized,
+                                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* sp = static_cast<float*>(scratch);
   if (dtype == SF_BFLOAT16) {
     return quantized
         ? launch<__nv_bfloat16, int8_t>(q, k, v, k_scale, v_scale, len, out, rows, capacity, d,
-                                        heads, scale, st)
+                                        heads, scale, sp, floats, st)
         : launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, k_scale, v_scale, len, out, rows,
-                                               capacity, d, heads, scale, st);
+                                               capacity, d, heads, scale, sp, floats, st);
   }
   if (dtype == SF_FLOAT32) {
     return quantized
         ? launch<float, int8_t>(q, k, v, k_scale, v_scale, len, out, rows, capacity, d, heads,
-                                scale, st)
+                                scale, sp, floats, st)
         : launch<float, float>(q, k, v, k_scale, v_scale, len, out, rows, capacity, d, heads,
-                               scale, st);
+                               scale, sp, floats, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -249,11 +249,12 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_fullclip_bwd_kernel(cons
   }
 }
 
-// tiled.cuh's backward on the same operands: the query side (dq), then the
-// key side (dk, dv), with stats between them.
+// tiled.cuh's backward on the same operands by its `plan`: the query side
+// (dq), then the key side (dk, dv), with stats between them.
 template <typename T>
 int launch_tiled(const void* const* ptrs, const long long* strides, int batch, int n, int t_len,
-                 int d, int heads, float scale, int causal, float* stats, cudaStream_t stream) {
+                 int d, int heads, float scale, int causal, int plan, float* stats,
+                 float* scratch, long long floats, cudaStream_t stream) {
   tiled::Args a{};
   a.q = fullclip::operand(ptrs, strides, 0);
   a.k = fullclip::operand(ptrs, strides, 1);
@@ -270,16 +271,18 @@ int launch_tiled(const void* const* ptrs, const long long* strides, int batch, i
   a.o0 = fullclip::operand(ptrs, strides, 4);
   dkv.o0 = fullclip::operand(ptrs, strides, 5);
   dkv.o1 = fullclip::operand(ptrs, strides, 6);
-  return tiled::backward<T>(batch * n, a, dkv, stream);
+  return tiled::backward<T>(batch * n, a, dkv, plan, scratch, floats, stream);
 }
 
 template <typename T>
 int launch(const void* const* ptrs, const long long* strides, int batch, int n, int t_len, int d,
-           int heads, float scale, int causal, int tiled, float* stats, cudaStream_t stream) {
+           int heads, float scale, int causal, int tiled, float* stats, float* scratch,
+           long long floats, cudaStream_t stream) {
   const int dh = d / heads;
   if (t_len < 1 || dh % 8) return static_cast<int>(cudaErrorInvalidValue);
   if (tiled)
-    return launch_tiled<T>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, stats, stream);
+    return launch_tiled<T>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, tiled - 1,
+                           stats, scratch, floats, stream);
   const fullclip::Plan p = fullclip::plan(heads, t_len, dh, sizeof(T), 4, true, causal);
   if (p.hg < 1) return static_cast<int>(cudaErrorInvalidValue);
   Args<4> a;
@@ -316,20 +319,35 @@ extern "C" int sf_temporal_fullclip_bwd_smem_bytes(int t_len, int d, int heads, 
 }
 
 // ptrs: q, k, v, g, dq, dk, dv; strides: their (b, t, n) element strides,
-// three each. causal: 0 lets every query see every frame. tiled: 1 runs
-// tiled.cuh (which gives the same bits), 0 the whole-row pipeline. stats:
-// for tiled.cuh, fp32 scratch of batch * n * heads * 3 * t_len elements
-// (else unused).
+// three each. causal: 0 lets every query see every frame. tiled: 0 runs the
+// whole-row pipeline, else tiled.cuh's backward (which gives the same bits)
+// on plan tiled - 1 (its bits tiled::kBwdSweeps, kBwdStored). stats: for
+// tiled.cuh, fp32 scratch of batch * n * heads * 3 * t_len elements (else
+// unused); scratch: the plan's, `floats` fp32, or null
+// (ops._tiled_bwd_launch).
 extern "C" int sf_temporal_fullclip_bwd(const void* const* ptrs, const long long* strides,
                                         int batch, int n, int t_len, int d, int heads, float scale,
-                                        int causal, int tiled, void* stats, int dtype,
-                                        void* stream) {
+                                        int causal, int tiled, void* stats, void* scratch,
+                                        long long floats, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sp = static_cast<float*>(stats);
+  float* scr = static_cast<float*>(scratch);
   if (dtype == SF_BFLOAT16)
     return launch<__nv_bfloat16>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, tiled,
-                                 sp, st);
+                                 sp, scr, floats, st);
   if (dtype == SF_FLOAT32)
-    return launch<float>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, tiled, sp, st);
+    return launch<float>(ptrs, strides, batch, n, t_len, d, heads, scale, causal, tiled, sp, scr,
+                         floats, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// csrc/tiled.cuh's shared-memory plans: which 0, the resident forward's
+// total for qt queries against `keys` keys (ops._tiled_resident_smem keeps a
+// copy, which a card test holds to this); 1, the backward's query side with
+// its scores in shared memory (ops._tiled_bwd_plan). elt: bytes an element
+// of the operands.
+extern "C" int sf_tiled_plan(int which, int qt, int keys, int dh, int elt) {
+  if (which == 0) return tiled::resident_plan(qt, keys, dh, elt).total;
+  if (which == 1) return tiled::dq_plan(keys, dh, elt).total;
+  return -1;
 }

@@ -61,15 +61,54 @@
 //   for C at T frames: the wrapper caps it (ops._TILED_SCRATCH, 1 GiB), and
 //   the pair of launches runs once for each chunk of as many whole items,
 //   or of one item's queries, as it holds (forward_launch).
+//
+// Backward. Bound: operations, five dh-long FMA chains a visible (query,
+// key) pair at the least (s, dp, dq, dk, dv): H at T = 300, causal, 3.4e10
+// FMAs, 1.01 ms at 67 TFLOP/s; fp32 I at N = 576, 8.2e10, 2.43 ms. Two
+// launches, the query side's statistics between them; ops._tiled_bwd_plan
+// picks a plan of each side (two bits, backward()):
+//
+// - Query side, resident (dq_kernel): a block an item of (row, head, 32
+//   queries). A producer warp bulk-copies the keys the tile sees, in stages
+//   of kBwdKeys rows in their own type (bf16 stays bf16, rows padded by 16
+//   bytes), three times over: K, V, K. Each score and each dp is computed
+//   once, register-blocked (a thread owns 2 queries x 4 keys, so a staged
+//   key row feeds two chains and a query row four), and kept: the tile's
+//   (32 x keys) scores and dp in shared memory (to 701 keys at dh = 64 in
+//   fp32, 797 in bf16). The max a warp a query (shuffles), the exps by the
+//   warp's lanes, then 1/sum and delta a thread a query (the two serial
+//   chains, each over the query's keys in key order: another block of the
+//   SM computes beside them), ds by every thread in place of the exps, and
+//   dq a thread a (2 queries, 4 columns) over the third pass's K. (16
+//   queries a block, one chain a staged element, ran slower at every shape
+//   tried: fp32 K rows are read from shared memory at 4.5 times the rate
+//   the FMAs take them.)
+// - Query side past shared memory (kBwdSweeps, dq_sweeps_kernel): the same
+//   item and products, the keys swept four times, a stage's scores (and dp)
+//   in a tile of shared memory: the max; the exps and the sum's chain; the
+//   exps, dp and delta's chain; ds and dq. Seven chains a pair where the
+//   resident side spends three (1.9x its time at T = 300), and no device
+//   memory: it ran within 3 % of a query side keeping its scores and dp in
+//   a scratch of device memory (PERF.md), which it replaced.
+// - Key side (dkv_kernel): a block an item of (row, head, kBwdKeyTile
+//   keys); query tiles of kBwdQueries rows of q and g stream through two
+//   stages, and dk and dv run a thread two or four keys' 8 columns (the
+//   head's two halves, so that eight lanes read one span of a staged row
+//   and each row feeds every key), the two chains over the queries in
+//   order. Their p and ds: stored (kBwdStored), the query side writes each
+//   p and ds to a scratch (8 bytes a pair, 2 T^2 fp32 an item; both sides
+//   launch over chunks of items under ops._TILED_SCRATCH) and the stages
+//   bring the tile's rows of them beside q and g; else the block copies its
+//   K and V rows once and recomputes s and dp (register-blocked, 2 queries
+//   x 4 keys a thread), p and ds following from the statistics. The stored
+//   key side ran 1.6-2.0x faster on the H100 at every shape measured (H at
+//   T = 300 3.79 -> 1.96 ms; PERF.md): the recompute's two chains cost more
+//   than moving 8 bytes a pair twice.
 #pragma once
 
 #include "fullclip.cuh"
 
 namespace tiled {
-
-constexpr int kThreads = 256;
-constexpr int kTile = 32;  // backward: queries (keys) an item, keys (queries) a stage
-constexpr int kLd = kTile + 1;  // row of a (kTile x kTile) score tile
 
 struct Args {
   fullclip::Operand q, k, v, g;  // g: the output gradient (backward)
@@ -78,32 +117,6 @@ struct Args {
   int n, len, dh, heads, causal;
   float scale;
 };
-
-// Shared memory of an item: `rows` staged rows of dh + 1 floats, `scores`
-// (kTile x kTile) fp32 tiles, `per_row` fp32 values for each of kTile rows.
-inline int smem_bytes(int dh, int rows, int scores, int per_row) {
-  return 4 * (rows * (dh + 1) + scores * kTile * kLd + per_row * kTile);
-}
-
-// Rows t0 .. t0 + nr - 1 of the head slice (columns col .. col + dh - 1) of
-// operand o for row `row`, as fp32 rows of dh + 1; kTile rows, zeros past nr.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const fullclip::Operand& o, int n, int row,
-                                          int t0, int nr, int col, int dh) {
-  const T* src = static_cast<const T*>(o.p);
-  for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
-    const int r = i / dh, e = i - r * dh;
-    dst[r * (dh + 1) + e] = r < nr ? to_f32(src[fullclip::at(o, row, n, t0 + r, col + e)]) : 0.f;
-  }
-}
-
-// One sequential fp32 FMA chain over dh in element order.
-__device__ __forceinline__ float dot(const float* x, const float* y, int dh) {
-  float acc = 0.f;
-#pragma unroll 8
-  for (int e = 0; e < dh; ++e) acc = fmaf(x[e], y[e], acc);
-  return acc;
-}
 
 // Eight fp32 sums to operand o at (row, t, col), rounded to T.
 template <typename T>
@@ -118,31 +131,33 @@ __device__ __forceinline__ T* elem(const fullclip::Operand& o, int n, int row, i
   return static_cast<T*>(o.p) + fullclip::at(o, row, n, t, col);
 }
 
+// Four consecutive elements in fp32 (p 8- or 16-byte aligned), and four
+// fp32 values stored as T.
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  o[0] = a.x;
+  o[1] = a.y;
+  o[2] = b.x;
+  o[3] = b.y;
+}
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float* v) {
+  store2(p, make_float2(v[0], v[1]));
+  store2(p + 2, make_float2(v[2], v[3]));
+}
+
 // One fp32 value stored as T (round to nearest even).
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// The item of this block: its (row, head), the column of the head, and the
-// first row of its tile.
-struct Item {
-  int rh, row, col, t0, nt;
-};
-
-__device__ __forceinline__ Item item_of(const Args& a) {
-  const int tiles = (a.len + kTile - 1) / kTile;
-  Item it;
-  it.rh = blockIdx.x / tiles;
-  it.row = it.rh / a.heads;
-  it.col = (it.rh - it.row * a.heads) * a.dh;
-  it.t0 = (blockIdx.x - it.rh * tiles) * kTile;
-  it.nt = min(kTile, a.len - it.t0);
-  return it;
-}
-
-// Whether query position qpos sees key position kpos.
-__device__ __forceinline__ bool visible(const Args& a, int qpos, int kpos) {
-  return !a.causal || kpos <= qpos;
-}
 
 // ---- forward: out = softmax(q k^T scale) v
 //
@@ -776,106 +791,285 @@ int forward(int rows, const Args& a, int qt, float* scratch, long long floats,
                         forward_scores_kernel<T, kSplitQueries>, forward_pv_kernel<T>);
 }
 
-// ---- backward, query side: dq, and each query's max, 1/sum and delta
+// ---- backward: dq and each query's max, 1/sum and delta on the query
+// side, then dk and dv on the key side (the design is in the header).
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
-  extern __shared__ __align__(16) float sm[];
-  const int dh = a.dh, ld = dh + 1, nc = dh / 8;
-  float* qs = sm;                  // kTile x ld
-  float* gs = qs + kTile * ld;     // kTile x ld
-  float* ks = gs + kTile * ld;     // kTile x ld
-  float* vs = ks + kTile * ld;     // kTile x ld
-  float* pc = vs + kTile * ld;     // kTile x kLd: exps, then p, then ds
-  float* dc = pc + kTile * kLd;    // kTile x kLd: dp
-  float* mx = dc + kTile * kLd;    // kTile
-  float* inv = mx + kTile;         // kTile: the sum, then 1/sum
-  float* dl = inv + kTile;         // kTile: delta
-  const Item it = item_of(a);
-  const int tid = threadIdx.x;
-  const int kend = a.causal ? it.t0 + it.nt : a.len;
-  load_rows<T>(qs, a.q, a.n, it.row, it.t0, it.nt, it.col, dh);
-  load_rows<T>(gs, a.g, a.n, it.row, it.t0, it.nt, it.col, dh);
-  if (tid < kTile) {
-    mx[tid] = -INFINITY;
-    inv[tid] = 0.f;
-    dl[tid] = 0.f;
-  }
-  // sweeps 1-4: the max; the sum of the exps; delta; dq
-  float acc[2][8];
+constexpr int kBwdQt = 32;       // query side: queries a block, two a thread of 16
+constexpr int kBwdKeys = 64;     // query side: keys a stage, four a thread of 16
+constexpr int kBwdQueries = 32;  // key side: queries a stage, two a thread of 16
+constexpr int kBwdKeyTile = 64;  // key side: keys a block, four a thread of 16
+constexpr int kBwdLd = kBwdQueries + 1;  // row of the key side's (keys x queries) p and ds
+constexpr int kSweepLd = kBwdKeys + 1;   // row of the sweeping query side's (queries x keys) tile
+
+// The backward's plan (the `plan` of backward(), ops._tiled_bwd_plan), two
+// bits: kBwdSweeps, the query side recomputing its scores and dp in four
+// sweeps over the keys (past shared memory), else keeping them in shared
+// memory; kBwdStored, the key side reading p and ds that the query side
+// writes to a scratch, else recomputing s and dp.
+constexpr int kBwdSweeps = 1, kBwdStored = 2;
+
+// Floats between two queries' rows of the stored p (and of ds): len rounded
+// up to 4, so that a key tile's span of a row is one 16-byte aligned copy.
+__host__ __device__ inline int stored_ld(int len) { return (len + 3) / 4 * 4; }
+
+// Query side's shared memory (byte offsets): two stages of kBwdKeys rows of
+// K or V in their own type (rows padded by 16 bytes against bank
+// conflicts); the tile's kBwdQt query and output-gradient rows, in their
+// own type; the (kBwdQt x ld) fp32 scores, which become the exps and then
+// ds, and dp, ld = keys | 1 (odd: neighbouring queries' rows in distinct
+// banks); each query's max, 1/sum and delta; the barriers.
+// ops._tiled_bwd_plan asks for `total` (sf_tiled_plan).
+struct DqPlan {
+  int rb, ld, qs, gs, sc, dc, stat, full, empty, total;
+};
+
+__host__ __device__ inline DqPlan dq_plan(int keys, int dh, int elt) {
+  constexpr int qt = kBwdQt;
+  DqPlan p;
+  p.rb = fullclip::round16(dh * elt) + 16;
+  p.ld = keys | 1;
+  p.qs = kFwdStages * kBwdKeys * p.rb;
+  p.gs = p.qs + qt * p.rb;
+  p.sc = p.gs + qt * p.rb;
+  p.dc = p.sc + fullclip::round16(4 * qt * p.ld);
+  p.stat = p.dc + fullclip::round16(4 * qt * p.ld);
+  p.full = p.stat + fullclip::round16(4 * 3 * qt);
+  p.empty = p.full + 8 * kFwdStages;
+  p.total = p.empty + 8 * kFwdStages;
+  return p;
+}
+
+// The sweeping query side's: two stages of kBwdKeys rows of K, then as many
+// of V (the last two sweeps); the tile's query and output-gradient rows;
+// one stage's (kBwdQt x kSweepLd) fp32 scores (or exps, or ds) and dp; the
+// statistics; the barriers.
+__host__ __device__ inline DqPlan sweep_plan(int dh, int elt) {
+  constexpr int qt = kBwdQt;
+  DqPlan p;
+  p.rb = fullclip::round16(dh * elt) + 16;
+  p.ld = kSweepLd;
+  p.qs = kFwdStages * 2 * kBwdKeys * p.rb;
+  p.gs = p.qs + qt * p.rb;
+  p.sc = p.gs + qt * p.rb;
+  p.dc = p.sc + fullclip::round16(4 * qt * p.ld);
+  p.stat = p.dc + fullclip::round16(4 * qt * p.ld);
+  p.full = p.stat + fullclip::round16(4 * 3 * qt);
+  p.empty = p.full + 8 * kFwdStages;
+  p.total = p.empty + 8 * kFwdStages;
+  return p;
+}
+
+// Key side's: (recomputing) the block's kBwdKeyTile rows of K, then of V;
+// two stages of kBwdQueries query rows and as many output-gradient rows
+// (all in their own type, padded), and (stored) the stage's (queries x
+// kBwdKeyTile) fp32 p, then ds; (recomputing) the stage's (keys x kBwdLd)
+// fp32 p and ds; the barriers (K and V's, then the stages').
+struct DkvPlan {
+  int rb, vs, st, stage_bytes, pc, dc, kv, full, empty, total;
+};
+
+__host__ __device__ inline DkvPlan dkv_plan(int dh, int elt, bool stored) {
+  DkvPlan p;
+  p.rb = fullclip::round16(dh * elt) + 16;
+  p.vs = stored ? 0 : kBwdKeyTile * p.rb;
+  p.st = 2 * p.vs;
+  p.stage_bytes = 2 * kBwdQueries * p.rb + (stored ? 2 * 4 * kBwdQueries * kBwdKeyTile : 0);
+  p.pc = p.st + kFwdStages * p.stage_bytes;
+  p.dc = p.pc + (stored ? 0 : fullclip::round16(4 * kBwdKeyTile * kBwdLd));
+  p.kv = p.dc + (stored ? 0 : fullclip::round16(4 * kBwdKeyTile * kBwdLd));
+  p.full = p.kv + 16;
+  p.empty = p.full + 8 * kFwdStages;
+  p.total = p.empty + 8 * kFwdStages;
+  return p;
+}
+
+// acc[a][b] += the product chains of rows x + 16 a (xr elements apart) and
+// y + 16 b (yr apart), staged in shared memory: each one sequential fp32 FMA
+// chain over dh in element order, fmaf(x, y, acc), as the whole-row body's
+// dot products; a staged row of y feeds A chains and a row of x B.
+template <int A, int B, typename TX, typename TY>
+__device__ __forceinline__ void chains(float (&acc)[A][B], const TX* x, int xr, const TY* y,
+                                       int yr, int dh) {
+#pragma unroll 2
+  for (int e = 0; e < dh; e += 8) {
+    float yf[B][8];
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
+    for (int b = 0; b < B; ++b) load8(y + 16 * b * yr + e, yf[b]);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[f][e] = 0.f;
-  for (int sweep = 0; sweep < 4; ++sweep) {
-    for (int k0 = 0; k0 < kend; k0 += kTile) {
-      const int nk = min(kTile, kend - k0);
-      __syncthreads();
-      load_rows<T>(ks, a.k, a.n, it.row, k0, nk, it.col, dh);
-      if (sweep >= 2) load_rows<T>(vs, a.v, a.n, it.row, k0, nk, it.col, dh);
-      __syncthreads();
-      for (int w = tid; w < kTile * kTile; w += kThreads) {
-        const int i = w / kTile, j = w - i * kTile;
-        const bool on = i < it.nt && j < nk && visible(a, it.t0 + i, k0 + j);
-        const float s = on ? __fmul_rn(dot(qs + i * ld, ks + j * ld, dh), a.scale) : 0.f;
-        if (sweep == 0) {
-          pc[i * kLd + j] = on ? s : -INFINITY;
-        } else if (sweep == 1) {
-          pc[i * kLd + j] = on ? expf(__fsub_rn(s, mx[i])) : 0.f;
-        } else {
-          const float p = on ? __fmul_rn(expf(__fsub_rn(s, mx[i])), inv[i]) : 0.f;
-          const float dp = on ? dot(gs + i * ld, vs + j * ld, dh) : 0.f;
-          if (sweep == 2) {
-            pc[i * kLd + j] = p;
-            dc[i * kLd + j] = dp;
-          } else {
-            pc[i * kLd + j] = on ? __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dl[i])), a.scale) : 0.f;
-          }
-        }
-      }
-      __syncthreads();
-      if (sweep < 3 && tid < it.nt) {
-        const float* row = pc + tid * kLd;
-        if (sweep == 0) {
-          float m = mx[tid];
-          for (int j = 0; j < nk; ++j) m = fmaxf(m, row[j]);
-          mx[tid] = m;
-        } else if (sweep == 1) {
-          float s = inv[tid];
-          for (int j = 0; j < nk; ++j) s = __fadd_rn(s, row[j]);
-          inv[tid] = s;
-        } else {
-          float d = dl[tid];
-          for (int j = 0; j < nk; ++j) d = fmaf(row[j], dc[tid * kLd + j], d);
-          dl[tid] = d;
-        }
-      }
-      if (sweep == 3) {
+    for (int a = 0; a < A; ++a) {
+      float xf[8];
+      load8(x + 16 * a * xr + e, xf);
 #pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          const int w = tid + f * kThreads;
-          const int i = w / nc, c = (w - i * nc) * 8;
-          if (i < it.nt) {
-            const int jn = a.causal ? min(nk, it.t0 + i - k0 + 1) : nk;
-            for (int j = 0; j < jn; ++j) {
-              const float ds = pc[i * kLd + j];
+      for (int b = 0; b < B; ++b)
 #pragma unroll
-              for (int e = 0; e < 8; ++e) acc[f][e] = fmaf(ds, ks[j * ld + c + e], acc[f][e]);
-            }
-          }
-        }
-      }
+        for (int i = 0; i < 8; ++i) acc[a][b] = fmaf(xf[i], yf[b][i], acc[a][b]);
     }
-    __syncthreads();
-    if (sweep == 1 && tid < it.nt) inv[tid] = __fdiv_rn(1.f, inv[tid]);
   }
+}
+
+// One sequential fp32 sum of e[0 .. n) in order, and delta = the chain of
+// fmaf(e_j * r, d_j, delta) in order: the next 16 values' loads issued
+// before the current 16 are added.
+__device__ __forceinline__ float ordered_sum(const float* e, int n) {
+  float sum = 0.f, cur[16], next[16];
+  const int whole = n / 16 * 16;
+#pragma unroll
+  for (int u = 0; u < 16; ++u) cur[u] = u < whole ? e[u] : 0.f;
+  for (int j = 0; j < whole; j += 16) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) next[u] = j + 16 + u < whole ? e[j + 16 + u] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      sum = __fadd_rn(sum, cur[u]);
+      cur[u] = next[u];
+    }
+  }
+  for (int j = whole; j < n; ++j) sum = __fadd_rn(sum, e[j]);
+  return sum;
+}
+__device__ __forceinline__ float ordered_delta(const float* e, const float* d, float r, int n) {
+  float delta = 0.f, ce[8], cd[8], ne[8], nd[8];
+  const int whole = n / 8 * 8;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    ce[u] = u < whole ? e[u] : 0.f;
+    cd[u] = u < whole ? d[u] : 0.f;
+  }
+  for (int j = 0; j < whole; j += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      ne[u] = j + 8 + u < whole ? e[j + 8 + u] : 0.f;
+      nd[u] = j + 8 + u < whole ? d[j + 8 + u] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      delta = fmaf(__fmul_rn(ce[u], r), cd[u], delta);
+      ce[u] = ne[u];
+      cd[u] = nd[u];
+    }
+  }
+  for (int j = whole; j < n; ++j) delta = fmaf(__fmul_rn(e[j], r), d[j], delta);
+  return delta;
+}
+
+// The query side's item (row, head, kBwdQt queries) of block b, and the keys
+// its queries see.
+struct DqItem {
+  int rh, row, col, t0, nq, kend, nkt;
+};
+__device__ __forceinline__ DqItem dq_item(const Args& a, int b) {
+  DqItem it;
+  const int tiles = (a.len + kBwdQt - 1) / kBwdQt;
+  it.rh = b / tiles;
+  it.row = it.rh / a.heads;
+  it.col = (it.rh - it.row * a.heads) * a.dh;
+  it.t0 = (b - it.rh * tiles) * kBwdQt;
+  it.nq = min(kBwdQt, a.len - it.t0);
+  it.kend = a.causal ? it.t0 + it.nq : a.len;  // keys any query of the tile sees
+  it.nkt = (it.kend + kBwdKeys - 1) / kBwdKeys;
+  return it;
+}
+
+// The tile's q and g rows into shared memory (qs, gs; rows rs elements
+// apart), zeros past its last query, by the consumer threads.
+template <typename T>
+__device__ __forceinline__ void stage_query_rows(const Args& a, const DqItem& it, T* qs, T* gs,
+                                                 int rs) {
+  const int nc = a.dh / 8;
+  for (int w = threadIdx.x; w < 2 * kBwdQt * nc; w += kFwdConsumers) {
+    const int og = w >= kBwdQt * nc, r = w - og * kBwdQt * nc, i = r / nc, c = (r - i * nc) * 8;
+    T* dst = (og ? gs : qs) + i * rs + c;
+    if (i < it.nq) {
+      copy8(dst, elem<T>(og ? a.g : a.q, a.n, it.row, it.t0 + i, it.col + c));
+    } else {
+      const float zero[8] = {};
+      store8(dst, zero);
+    }
+  }
+}
+
+// Where the query side writes its tile's p (`stored`: 2 len stored_ld(len)
+// fp32 an item, p then ds, from the launch's first item on): query t0's row
+// of p; ds's rows follow len rows later. Null without a scratch.
+__device__ __forceinline__ float* stored_rows(const Args& a, const DqItem& it, float* stored,
+                                             int block0) {
+  if (!stored) return nullptr;
+  const int item0 = block0 / ((a.len + kBwdQt - 1) / kBwdQt);
+  return stored + (static_cast<long long>(it.rh - item0) * 2 * a.len + it.t0) * stored_ld(a.len);
+}
+
+// dq's chains over one stage of keys k0 .. k0 + cnt (rows of ks, rs
+// elements apart), with ds of query i and key k0 + j at ds[i * ld + j]:
+// unit u = (query group qg, 4 columns), the group's queries qg and qg + 16,
+// at most two units a thread (dh = 128); each column one chain in key
+// order, a staged key row feeding both queries' chains. A later query sees
+// at least an earlier one's keys: both chains up to the smaller limit, then
+// the one with more alone. lim(i): the keys query i sees.
+template <typename T, typename Lim>
+__device__ __forceinline__ void dq_stage(float (&acc)[2][2][4], const float* ds, int ld,
+                                         const T* ks, int rs, int k0, int cnt, int nq, int dh,
+                                         Lim lim) {
+  const int cq = dh / 4, units = 16 * cq;
 #pragma unroll
   for (int f = 0; f < 2; ++f) {
-    const int w = tid + f * kThreads;
-    const int i = w / nc, c = (w - i * nc) * 8;
-    if (i < it.nt) store_row8<T>(a.o0, a.n, it.row, it.t0 + i, it.col + c, acc[f]);
+    const int u = threadIdx.x + f * kFwdConsumers, qg = u / cq, c = (u - qg * cq) * 4;
+    if (u < units && qg < nq) {
+      const float* ds0 = ds + qg * ld;
+      const int jn0 = min(cnt, lim(qg) - k0);
+      auto one = [&](const float* dsr, int j0, int j1, float(&o)[4]) {
+#pragma unroll 4
+        for (int j = j0; j < j1; ++j) {
+          const float x = dsr[j];
+          const float2 k01 = load2(ks + j * rs + c), k23 = load2(ks + j * rs + c + 2);
+          o[0] = fmaf(x, k01.x, o[0]);
+          o[1] = fmaf(x, k01.y, o[1]);
+          o[2] = fmaf(x, k23.x, o[2]);
+          o[3] = fmaf(x, k23.y, o[3]);
+        }
+      };
+      const float* ds1 = ds0 + 16 * ld;
+      const int jn1 = qg + 16 < nq ? min(cnt, lim(qg + 16) - k0) : 0;
+      const int both = min(jn0, jn1);
+#pragma unroll 4
+      for (int j = 0; j < both; ++j) {
+        const float x0 = ds0[j], x1 = ds1[j];
+        const float2 k01 = load2(ks + j * rs + c), k23 = load2(ks + j * rs + c + 2);
+        acc[f][0][0] = fmaf(x0, k01.x, acc[f][0][0]);
+        acc[f][0][1] = fmaf(x0, k01.y, acc[f][0][1]);
+        acc[f][0][2] = fmaf(x0, k23.x, acc[f][0][2]);
+        acc[f][0][3] = fmaf(x0, k23.y, acc[f][0][3]);
+        acc[f][1][0] = fmaf(x1, k01.x, acc[f][1][0]);
+        acc[f][1][1] = fmaf(x1, k01.y, acc[f][1][1]);
+        acc[f][1][2] = fmaf(x1, k23.x, acc[f][1][2]);
+        acc[f][1][3] = fmaf(x1, k23.y, acc[f][1][3]);
+      }
+      one(ds1, max(both, 0), jn1, acc[f][1]);
+      one(ds0, max(both, 0), jn0, acc[f][0]);
+    }
   }
-  if (tid < it.nt) {
+}
+
+// dq (a.o0) from the chains of dq_stage, and each query's max, 1/sum and
+// delta (a.stats: (rows * heads, 3, len)).
+template <typename T>
+__device__ __forceinline__ void dq_write(const Args& a, const DqItem& it,
+                                         const float (&acc)[2][2][4], const float* mx,
+                                         const float* inv, const float* dl) {
+  const int tid = threadIdx.x, cq = a.dh / 4, units = 16 * cq;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int u = tid + f * kFwdConsumers, qg = u / cq, c = (u - qg * cq) * 4;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int i = qg + 16 * x;
+      if (u < units && i < it.nq) {
+        T* out = elem<T>(a.o0, a.n, it.row, it.t0 + i, it.col + c);
+        store2(out, make_float2(acc[f][x][0], acc[f][x][1]));
+        store2(out + 2, make_float2(acc[f][x][2], acc[f][x][3]));
+      }
+    }
+  }
+  if (tid < it.nq) {
     float* st = a.stats + static_cast<long long>(it.rh) * 3 * a.len + it.t0 + tid;
     st[0] = mx[tid];
     st[a.len] = inv[tid];
@@ -883,100 +1077,525 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   }
 }
 
-// ---- backward, key side: dk and dv, queries in order
-
+// The query side: a block a (row, head, kBwdQt queries) item, blocks
+// block0 + blockIdx.x of the launch. A producer warp bulk-copies the keys
+// the tile sees in stages of kBwdKeys rows: K (the scores), V (dp), K again
+// (dq). Eight consumer warps: the scores and dp register-blocked, a thread
+// owning 2 queries x 4 keys of a stage, each product computed once and kept
+// in shared memory; each query's max a warp (shuffles) and its exps by the
+// warp's lanes; its 1/sum and delta, a thread a query, each one chain in
+// key order; ds by every thread; dq by dq_stage. stored (non-null): each p
+// and ds also go to it, 2 len stored_ld(len) fp32 an item from the
+// launch's first item on, for the key side to read.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(const Args a) {
-  extern __shared__ __align__(16) float sm[];
-  const int dh = a.dh, ld = dh + 1, nc = dh / 8;
-  float* ks = sm;                  // kTile x ld: the item's keys
-  float* vs = ks + kTile * ld;     // kTile x ld
-  float* qs = vs + kTile * ld;     // kTile x ld: a query tile
-  float* gs = qs + kTile * ld;     // kTile x ld
-  float* pc = gs + kTile * ld;     // kTile x kLd: p, keys by rows
-  float* dc = pc + kTile * kLd;    // kTile x kLd: ds
-  float* st = dc + kTile * kLd;    // 3 x kTile: the query tile's max, 1/sum, delta
-  const Item it = item_of(a);      // t0, nt: the item's keys
+__global__ void __launch_bounds__(kFwdThreads, 2) dq_kernel(const Args a, const DqPlan p,
+                                                         float* stored, int block0) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int qt = kBwdQt;
+  const int b = block0 + static_cast<int>(blockIdx.x);
+  const DqItem it = dq_item(a, b);
+  const int t0 = it.t0, nq = it.nq, kend = it.kend, nkt = it.nkt, dh = a.dh;
+  const int rs = p.rb / static_cast<int>(sizeof(T));  // elements between staged rows
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + p.full);
+  unsigned long long* empty = reinterpret_cast<unsigned long long*>(smem + p.empty);
   const int tid = threadIdx.x;
-  load_rows<T>(ks, a.k, a.n, it.row, it.t0, it.nt, it.col, dh);
-  load_rows<T>(vs, a.v, a.n, it.row, it.t0, it.nt, it.col, dh);
-  const float* stats = a.stats + static_cast<long long>(it.rh) * 3 * a.len;
-  float ak[2][8], av[2][8];
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) ak[f][e] = av[f][e] = 0.f;
-  for (int q0 = a.causal ? it.t0 : 0; q0 < a.len; q0 += kTile) {
-    const int nq = min(kTile, a.len - q0);
-    __syncthreads();
-    load_rows<T>(qs, a.q, a.n, it.row, q0, nq, it.col, dh);
-    load_rows<T>(gs, a.g, a.n, it.row, q0, nq, it.col, dh);
-    if (tid < nq)
-      for (int s = 0; s < 3; ++s) st[s * kTile + tid] = stats[s * a.len + q0 + tid];
-    __syncthreads();
-    for (int w = tid; w < kTile * kTile; w += kThreads) {
-      const int j = w / kTile, i = w - j * kTile;  // key j of the item, query i of the tile
-      const bool on = j < it.nt && i < nq && visible(a, q0 + i, it.t0 + j);
-      float p = 0.f, ds = 0.f;
-      if (on) {
-        const float s = __fmul_rn(dot(qs + i * ld, ks + j * ld, dh), a.scale);
-        p = __fmul_rn(expf(__fsub_rn(s, st[i])), st[kTile + i]);
-        const float dp = dot(gs + i * ld, vs + j * ld, dh);
-        ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, st[2 * kTile + i])), a.scale);
-      }
-      pc[j * kLd + i] = p;
-      dc[j * kLd + i] = ds;
+  if (tid == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kFwdConsumers / 32);
     }
-    __syncthreads();
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= kFwdConsumers) {  // the producer warp: K tiles, V tiles, K tiles
+    const int lane = tid & 31;
+    const unsigned span = dh * static_cast<unsigned>(sizeof(T));
+    for (int g = 0; g < 3 * nkt; ++g) {
+      const int s = g % kFwdStages, pass = g / nkt;
+      const int k0 = (g - pass * nkt) * kBwdKeys, cnt = min(kBwdKeys, kend - k0);
+      mbar_wait(empty + s, ((g / kFwdStages) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(full + s, cnt * span);
+      __syncwarp();
+      unsigned char* st = smem + s * kBwdKeys * p.rb;
+      const fullclip::Operand& o = pass == 1 ? a.v : a.k;
+      for (int j = lane; j < cnt; j += 32)
+        bulk_copy_g2s(st + j * p.rb, elem<T>(o, a.n, it.row, k0 + j, it.col), span, full + s);
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  T* qs = reinterpret_cast<T*>(smem + p.qs);
+  T* gs = reinterpret_cast<T*>(smem + p.gs);
+  const int ld = p.ld;
+  float* sc = reinterpret_cast<float*>(smem + p.sc);
+  float* dc = reinterpret_cast<float*>(smem + p.dc);
+  float* mx = reinterpret_cast<float*>(smem + p.stat);
+  float* inv = mx + qt;
+  float* dl = inv + qt;
+  auto lim = [&](int i) { return a.causal ? t0 + i + 1 : a.len; };  // keys query i sees
+  stage_query_rows(a, it, qs, gs, rs);
+  fullclip::consumers_sync();
+
+  // the scores (K tiles), then dp (V tiles): thread (tq, tk) owns queries
+  // tq + 16 a and keys tk + 16 b of each stage
+  const int tq = tid >> 4, tk = tid & 15;
+  for (int g = 0; g < 2 * nkt; ++g) {
+    const int s = g % kFwdStages, pass = g >= nkt;
+    const int k0 = (g - pass * nkt) * kBwdKeys, k1 = min(k0 + kBwdKeys, kend);
+    mbar_wait(full + s, (g / kFwdStages) & 1);
+    float acc[2][4] = {};
+    chains(acc, (pass ? gs : qs) + tq * rs, rs,
+           reinterpret_cast<const T*>(smem + s * kBwdKeys * p.rb) + tk * rs, rs, dh);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+    float* out = pass ? dc : sc;
 #pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      const int w = tid + f * kThreads;
-      const int j = w / nc, c = (w - j * nc) * 8;
-      if (j < it.nt) {
-        // causal: queries at or after the key
-        const int i0 = a.causal ? max(0, it.t0 + j - q0) : 0;
-        for (int i = i0; i < nq; ++i) {
-          const float p = pc[j * kLd + i], ds = dc[j * kLd + i];
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int i = tq + 16 * x, j = k0 + tk + 16 * y;
+        if (i < nq && j < k1 && j < lim(i))
+          out[i * ld + j] = pass ? acc[x][y] : __fmul_rn(acc[x][y], a.scale);
+      }
+  }
+  fullclip::consumers_sync();
+
+  // each query's max (a warp a query; exact in any order), then its exps in
+  // place, each lane's loads issued before its stores
+  for (int i = warp; i < nq; i += kFwdConsumers / 32) {
+    float* sr = sc + i * ld;
+    const int n = lim(i);
+    float m = -INFINITY;
+#pragma unroll 4
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, sr[j]);
+    m = warp_max(m);
+    for (int j0 = lane; j0 < n; j0 += 4 * 32) {
+      float x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (j0 + 32 * u < n) x[u] = sr[j0 + 32 * u];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (j0 + 32 * u < n) sr[j0 + 32 * u] = expf(__fsub_rn(x[u], m));
+    }
+    if (lane == 0) mx[i] = m;
+  }
+  fullclip::consumers_sync();
+
+  // 1/sum, then delta = sum_j p dp with p = exp * (1/sum): a thread a query,
+  // each one chain in key order, its loads a batch ahead of the adds (the
+  // other block of the SM computes beside them)
+  if (tid < nq) {
+    const float* e = sc + tid * ld;
+    const float* d = dc + tid * ld;
+    const int n = lim(tid);
+    const float r = __fdiv_rn(1.f, ordered_sum(e, n));
+    inv[tid] = r;
+    dl[tid] = ordered_delta(e, d, r, n);
+  }
+  fullclip::consumers_sync();
+
+  // ds = p (dp - delta) scale in place of the exps, by every thread, four
+  // loads ahead of their stores; p and ds to `stored` too where given
+  const int sl = stored_ld(a.len);
+  float* pw = stored_rows(a, it, stored, block0);
+  for (int w0 = tid; w0 < nq * kend; w0 += 4 * kFwdConsumers) {
+    float x[4], y[4];
+    int at[4], qi[4], kj[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int w = w0 + u * kFwdConsumers, i = w / kend, j = w - i * kend;
+      qi[u] = i;
+      kj[u] = j;
+      at[u] = w < nq * kend && j < lim(i) ? i * ld + j : -1;
+      if (at[u] >= 0) {
+        x[u] = sc[at[u]];
+        y[u] = dc[at[u]];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (at[u] >= 0) {
+        const float pv = __fmul_rn(x[u], inv[qi[u]]);
+        const float ds = __fmul_rn(__fmul_rn(pv, __fsub_rn(y[u], dl[qi[u]])), a.scale);
+        sc[at[u]] = ds;
+        if (pw) {
+          pw[qi[u] * sl + kj[u]] = pv;
+          pw[(static_cast<long long>(a.len) + qi[u]) * sl + kj[u]] = ds;
+        }
+      }
+  }
+  fullclip::consumers_sync();
+
+  // dq over the K tiles again
+  float acc[2][2][4] = {};
+  for (int g = 2 * nkt; g < 3 * nkt; ++g) {
+    const int s = g % kFwdStages, k0 = (g - 2 * nkt) * kBwdKeys, cnt = min(kBwdKeys, kend - k0);
+    mbar_wait(full + s, (g / kFwdStages) & 1);
+    dq_stage(acc, sc + k0, ld, reinterpret_cast<const T*>(smem + s * kBwdKeys * p.rb), rs, k0,
+             cnt, nq, dh, lim);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+  dq_write<T>(a, it, acc, mx, inv, dl);
+}
+
+// The query side past shared memory: the same item, its keys swept four
+// times in stages of kBwdKeys rows, a stage's products register-blocked as
+// above into one (kBwdQt x kSweepLd) tile: (0) the scores, each query's
+// max folded stage by stage (a warp a query); (1) the scores again, their
+// exps, and each query's sum, a thread a query, one chain carried across
+// the stages in key order; (2) the scores and dp, delta's chain likewise;
+// (3) the scores and dp, ds (and p and ds to `stored`, as dq_kernel), and dq
+// by dq_stage on the stage's K rows. The producer stages K rows, and in the
+// last two sweeps V rows beside them. Seven chains a pair against the
+// resident query side's three, and no device-memory traffic for them.
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads, 2) dq_sweeps_kernel(const Args a, const DqPlan p,
+                                                                float* stored, int block0) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int qt = kBwdQt, ld = kSweepLd;
+  const DqItem it = dq_item(a, block0 + static_cast<int>(blockIdx.x));
+  const int t0 = it.t0, nq = it.nq, kend = it.kend, nkt = it.nkt, dh = a.dh;
+  const int rs = p.rb / static_cast<int>(sizeof(T));
+  const int stage_bytes = 2 * kBwdKeys * p.rb;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + p.full);
+  unsigned long long* empty = reinterpret_cast<unsigned long long*>(smem + p.empty);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kFwdConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= kFwdConsumers) {  // the producer warp: K tiles (sweeps 0, 1), K and V (2, 3)
+    const int lane = tid & 31;
+    const unsigned span = dh * static_cast<unsigned>(sizeof(T));
+    for (int g = 0; g < 4 * nkt; ++g) {
+      const int s = g % kFwdStages, sweep = g / nkt, both = sweep >= 2;
+      const int k0 = (g - sweep * nkt) * kBwdKeys, cnt = min(kBwdKeys, kend - k0);
+      mbar_wait(empty + s, ((g / kFwdStages) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(full + s, (1 + both) * cnt * span);
+      __syncwarp();
+      unsigned char* st = smem + s * stage_bytes;
+      for (int j = lane; j < (1 + both) * cnt; j += 32) {
+        const int o = j >= cnt, r = j - o * cnt;
+        bulk_copy_g2s(st + (o * kBwdKeys + r) * p.rb,
+                      elem<T>(o ? a.v : a.k, a.n, it.row, k0 + r, it.col), span, full + s);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, tq = tid >> 4, tk = tid & 15;
+  T* qs = reinterpret_cast<T*>(smem + p.qs);
+  T* gs = reinterpret_cast<T*>(smem + p.gs);
+  float* sc = reinterpret_cast<float*>(smem + p.sc);
+  float* dc = reinterpret_cast<float*>(smem + p.dc);
+  float* mx = reinterpret_cast<float*>(smem + p.stat);
+  float* inv = mx + qt;
+  float* dl = inv + qt;
+  auto lim = [&](int i) { return a.causal ? t0 + i + 1 : a.len; };
+  stage_query_rows(a, it, qs, gs, rs);
+  if (tid < qt) mx[tid] = -INFINITY;
+  fullclip::consumers_sync();
+  float chain = 0.f, r = 0.f;  // thread tid < nq: query tid's sum, then its delta
+  const int sl = stored_ld(a.len);
+  float* pw = stored_rows(a, it, stored, block0);
+  float acc[2][2][4] = {};
+  for (int g = 0; g < 4 * nkt; ++g) {
+    const int s = g % kFwdStages, sweep = g / nkt;
+    const int k0 = (g - sweep * nkt) * kBwdKeys, cnt = min(kBwdKeys, kend - k0);
+    const T* ks = reinterpret_cast<const T*>(smem + s * stage_bytes);
+    mbar_wait(full + s, (g / kFwdStages) & 1);
+    float sa[2][4] = {}, da[2][4] = {};
+    chains(sa, qs + tq * rs, rs, ks + tk * rs, rs, dh);
+    if (sweep >= 2) chains(da, gs + tq * rs, rs, ks + (kBwdKeys + tk) * rs, rs, dh);
+    if (sweep < 3) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    fullclip::consumers_sync();  // the previous stage's tile is read (and mx, inv, dl in)
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int i = tq + 16 * x, j = tk + 16 * y;
+        if (i < nq && j < cnt && k0 + j < lim(i)) {
+          const float sv = __fmul_rn(sa[x][y], a.scale);
+          if (sweep == 0) {
+            sc[i * ld + j] = sv;
+          } else if (sweep < 3) {
+            sc[i * ld + j] = expf(__fsub_rn(sv, mx[i]));
+            if (sweep == 2) dc[i * ld + j] = da[x][y];
+          } else {
+            const float pv = __fmul_rn(expf(__fsub_rn(sv, mx[i])), inv[i]);
+            const float ds = __fmul_rn(__fmul_rn(pv, __fsub_rn(da[x][y], dl[i])), a.scale);
+            sc[i * ld + j] = ds;
+            if (pw) {
+              pw[i * sl + k0 + j] = pv;
+              pw[(static_cast<long long>(a.len) + i) * sl + k0 + j] = ds;
+            }
+          }
+        }
+      }
+    fullclip::consumers_sync();
+    if (sweep == 0) {  // each query's max: a warp a query, folded across the stages
+      for (int i = warp; i < nq; i += kFwdConsumers / 32) {
+        const int n = min(cnt, lim(i) - k0);
+        float m = -INFINITY;
+        for (int j = lane; j < n; j += 32) m = fmaxf(m, sc[i * ld + j]);
+        m = warp_max(m);
+        if (lane == 0) mx[i] = fmaxf(mx[i], m);
+      }
+    } else if (sweep < 3) {  // the sum's chain, then delta's, a thread a query
+      if (tid < nq) {
+        const int n = min(cnt, lim(tid) - k0);
+        const float* e = sc + tid * ld;
+        const float* d = dc + tid * ld;
+        if (sweep == 1) {
+          for (int j = 0; j < n; ++j) chain = __fadd_rn(chain, e[j]);
+        } else {
+          for (int j = 0; j < n; ++j) chain = fmaf(__fmul_rn(e[j], r), d[j], chain);
+        }
+        if (g == (sweep + 1) * nkt - 1) {  // the sweep's last stage
+          if (sweep == 1) {
+            r = __fdiv_rn(1.f, chain);
+            inv[tid] = r;
+            chain = 0.f;
+          } else {
+            dl[tid] = chain;
+          }
+        }
+      }
+    } else {
+      dq_stage(acc, sc, ld, ks, rs, k0, cnt, nq, dh, lim);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+  }
+  fullclip::consumers_sync();
+  dq_write<T>(a, it, acc, mx, inv, dl);
+}
+
+// The key side: a block a (row, head, kBwdKeyTile keys) item, blocks block0
+// + blockIdx.x. The producer warp bulk-copies, query tile after query tile
+// (causal: from the first query that sees the block's first key), the
+// tile's q and g rows into two stages. Recomputing (STORED false): it first
+// copies the item's K and V rows once, and eight consumer warps recompute
+// s and dp register-blocked (a thread owning 2 queries x 4 keys of a
+// stage, each product once), and p and ds from the query side's
+// statistics. STORED: the stage also holds the tile's rows of p and ds that
+// the query side wrote to `stored` (2 len stored_ld(len) fp32 an item from
+// the launch's first item on), the same bits. Then dk and dv, a thread UF
+// keys' 8 columns, each column's two chains running over the queries in
+// order. Writes dk (a.o0) and dv (a.o1).
+template <typename T, int UF, bool STORED>
+__global__ void __launch_bounds__(kFwdThreads, 2) dkv_kernel(const Args a, const DkvPlan p,
+                                                          const float* stored, int block0) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tiles = (a.len + kBwdKeyTile - 1) / kBwdKeyTile;
+  const int b = block0 + static_cast<int>(blockIdx.x);
+  const int rh = b / tiles, row = rh / a.heads, col = (rh - row * a.heads) * a.dh;
+  const int k0 = (b - rh * tiles) * kBwdKeyTile, nk = min(kBwdKeyTile, a.len - k0), dh = a.dh;
+  const int q_first = a.causal ? k0 : 0;
+  const int nqt = (a.len - q_first + kBwdQueries - 1) / kBwdQueries;
+  const int rs = p.rb / static_cast<int>(sizeof(T));
+  const int sl = stored_ld(a.len);
+  unsigned long long* kv = reinterpret_cast<unsigned long long*>(smem + p.kv);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + p.full);
+  unsigned long long* empty = reinterpret_cast<unsigned long long*>(smem + p.empty);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(kv, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kFwdConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid >= kFwdConsumers) {  // the producer warp
+    const int lane = tid & 31;
+    const unsigned span = dh * static_cast<unsigned>(sizeof(T));
+    const unsigned pspan = (nk + 3) / 4 * 16;  // a query's p (or ds) of the block's keys
+    const float* item =
+        STORED ? stored + static_cast<long long>(rh - block0 / tiles) * 2 * a.len * sl : nullptr;
+    if (!STORED) {
+      if (lane == 0) mbar_expect_tx(kv, 2 * nk * span);
+      __syncwarp();
+      for (int j = lane; j < 2 * nk; j += 32) {
+        const int o = j >= nk, r = j - o * nk;
+        bulk_copy_g2s(smem + o * p.vs + r * p.rb,
+                      elem<T>(o ? a.v : a.k, a.n, row, k0 + r, col), span, kv);
+      }
+    }
+    for (int g = 0; g < nqt; ++g) {
+      const int s = g % kFwdStages, q0 = q_first + g * kBwdQueries;
+      const int cnt = min(kBwdQueries, a.len - q0);
+      mbar_wait(empty + s, ((g / kFwdStages) & 1) ^ 1);
+      if (lane == 0) mbar_expect_tx(full + s, 2 * cnt * (span + (STORED ? pspan : 0)));
+      __syncwarp();
+      unsigned char* st = smem + p.st + s * p.stage_bytes;
+      for (int j = lane; j < 2 * cnt; j += 32) {
+        const int o = j >= cnt, r = j - o * cnt;
+        bulk_copy_g2s(st + (o * kBwdQueries + r) * p.rb,
+                      elem<T>(o ? a.g : a.q, a.n, row, q0 + r, col), span, full + s);
+        if (STORED)  // p, then ds: rows of kBwdKeyTile fp32 after the q and g rows
+          bulk_copy_g2s(st + 2 * kBwdQueries * p.rb + (o * kBwdQueries + r) * 4 * kBwdKeyTile,
+                        item + (static_cast<long long>(o) * a.len + q0 + r) * sl + k0, pspan,
+                        full + s);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid & 31, nc = dh / 8, tq = tid >> 4, tk = tid & 15;
+  // dk and dv: thread tid owns keys jb + kstep f (f < UF) and, of each, the
+  // columns lo .. lo + 3 and hi .. hi + 3 (the two halves of the head: the
+  // eight lanes of a key read one contiguous span of each staged row)
+  const int jb = tid / nc, kstep = kFwdConsumers / nc, lo = 4 * (tid % nc), hi = dh / 2 + lo;
+  const T* ks = reinterpret_cast<const T*>(smem);
+  const T* vs = reinterpret_cast<const T*>(smem + p.vs);
+  // p and ds of (key j, query i) at pc[j * pj + i * pi] (and dc)
+  constexpr int pj = STORED ? 1 : kBwdLd, pi = STORED ? kBwdKeyTile : 1;
+  const float* stats = a.stats + static_cast<long long>(rh) * 3 * a.len;
+  float ak[UF][8] = {}, av[UF][8] = {};
+  if (!STORED) mbar_wait(kv, 0);
+  for (int g = 0; g < nqt; ++g) {
+    const int s = g % kFwdStages, q0 = q_first + g * kBwdQueries;
+    const int nq = min(kBwdQueries, a.len - q0);
+    mbar_wait(full + s, (g / kFwdStages) & 1);
+    const T* qst = reinterpret_cast<const T*>(smem + p.st + s * p.stage_bytes);
+    const T* gst = qst + kBwdQueries * rs;
+    const float* pc = STORED ? reinterpret_cast<const float*>(qst + 2 * kBwdQueries * rs)
+                             : reinterpret_cast<const float*>(smem + p.pc);
+    const float* dc = STORED ? pc + kBwdQueries * kBwdKeyTile
+                             : reinterpret_cast<const float*>(smem + p.dc);
+    if (!STORED) {
+      float* pw = reinterpret_cast<float*>(smem + p.pc);
+      float* dw = reinterpret_cast<float*>(smem + p.dc);
+      float sa[2][4] = {}, da[2][4] = {};
+      chains(sa, qst + tq * rs, rs, ks + tk * rs, rs, dh);
+      chains(da, gst + tq * rs, rs, vs + tk * rs, rs, dh);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int i = tq + 16 * x, qpos = q0 + i;
+        float m = 0.f, r = 0.f, delta = 0.f;
+        if (i < nq) {
+          m = stats[qpos];
+          r = stats[a.len + qpos];
+          delta = stats[2 * a.len + qpos];
+        }
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          const int j = tk + 16 * y;
+          float pv = 0.f, ds = 0.f;
+          if (i < nq && j < nk && (!a.causal || k0 + j <= qpos)) {
+            pv = __fmul_rn(expf(__fsub_rn(__fmul_rn(sa[x][y], a.scale), m)), r);
+            ds = __fmul_rn(__fmul_rn(pv, __fsub_rn(da[x][y], delta)), a.scale);
+          }
+          pw[j * kBwdLd + i] = pv;
+          dw[j * kBwdLd + i] = ds;
+        }
+      }
+      fullclip::consumers_sync();
+    }
+    // each of the thread's UF keys' 8 columns (4 at lo, 4 at hi) two chains
+    // over the queries in order; a staged q and g row feeds all UF keys
+    int i0[UF], first = nq;
+#pragma unroll
+    for (int f = 0; f < UF; ++f) {
+      const int j = jb + f * kstep;  // causal: queries at or after the key
+      i0[f] = j < nk ? (a.causal ? max(0, k0 + j - q0) : 0) : nq;
+      first = min(first, i0[f]);
+    }
+    for (int i = first; i < nq; ++i) {
+      float qf[8], gf[8];
+      load4(qst + i * rs + lo, qf);
+      load4(qst + i * rs + hi, qf + 4);
+      load4(gst + i * rs + lo, gf);
+      load4(gst + i * rs + hi, gf + 4);
+#pragma unroll
+      for (int f = 0; f < UF; ++f) {
+        if (i >= i0[f]) {
+          const int j = jb + f * kstep;
+          const float pv = pc[j * pj + i * pi], ds = dc[j * pj + i * pi];
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
-            ak[f][e] = fmaf(ds, qs[i * ld + c + e], ak[f][e]);
-            av[f][e] = fmaf(p, gs[i * ld + c + e], av[f][e]);
+            ak[f][e] = fmaf(ds, qf[e], ak[f][e]);
+            av[f][e] = fmaf(pv, gf[e], av[f][e]);
           }
         }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+    if (!STORED) fullclip::consumers_sync();  // every unit is done with this stage's p and ds
   }
 #pragma unroll
-  for (int f = 0; f < 2; ++f) {
-    const int w = tid + f * kThreads;
-    const int j = w / nc, c = (w - j * nc) * 8;
-    if (j < it.nt) {
-      store_row8<T>(a.o0, a.n, it.row, it.t0 + j, it.col + c, ak[f]);
-      store_row8<T>(a.o1, a.n, it.row, it.t0 + j, it.col + c, av[f]);
+  for (int f = 0; f < UF; ++f) {
+    const int j = jb + f * kstep;
+    if (j < nk) {
+      store4(elem<T>(a.o0, a.n, row, k0 + j, col + lo), ak[f]);
+      store4(elem<T>(a.o0, a.n, row, k0 + j, col + hi), ak[f] + 4);
+      store4(elem<T>(a.o1, a.n, row, k0 + j, col + lo), av[f]);
+      store4(elem<T>(a.o1, a.n, row, k0 + j, col + hi), av[f] + 4);
     }
   }
 }
 
-// Blocks of a backward launch: (rows * heads) items of ceil(len / kTile) tiles.
-inline unsigned grid(int rows, const Args& a) {
-  return static_cast<unsigned>(rows) * a.heads * ((a.len + kTile - 1) / kTile);
+// The key side over `n` items from item i0 on (stored: their p and ds).
+template <typename T, bool STORED>
+int key_side(const Args& dkv, long long i0, long long n, const float* stored,
+             cudaStream_t stream) {
+  const DkvPlan kp = dkv_plan(dkv.dh, sizeof(T), STORED);
+  const int tiles = (dkv.len + kBwdKeyTile - 1) / kBwdKeyTile;
+  const unsigned grid = static_cast<unsigned>(n * tiles);
+  const int block0 = static_cast<int>(i0 * tiles);
+  return dkv.dh <= 64 ? launch_grid(dkv_kernel<T, 2, STORED>, kp.total, grid, kFwdThreads,
+                                    stream, dkv, kp, stored, block0)
+                      : launch_grid(dkv_kernel<T, 4, STORED>, kp.total, grid, kFwdThreads,
+                                    stream, dkv, kp, stored, block0);
 }
 
-inline int backward_smem(int dh) { return smem_bytes(dh, 4 * kTile, 2, 3); }  // either side
-
-template <typename Kernel>
-inline int launch_one(Kernel kernel, int smem, int rows, const Args& a, cudaStream_t stream) {
-  return launch_grid(kernel, smem, grid(rows, a), kThreads, stream, a);
-}
-
-// dq (dq.o0), then dk and dv (a.o0, a.o1 of dkv); a.stats: rows * heads * 3 * len fp32.
+// dq (dq.o0, with each query's statistics in dq.stats: rows * heads * 3 *
+// len fp32), then dk and dv (dkv.o0, dkv.o1), on `plan` (its bits
+// kBwdSweeps and kBwdStored; ops._tiled_bwd_plan picks it, and every plan
+// gives the same bits). The resident query side takes a length whose
+// dq_plan fits a block, the sweeping one any. kBwdStored: `scratch` holds
+// `floats` fp32 for the stored p and ds, 2 len stored_ld(len) an item, and
+// both sides launch over chunks of as many items as it holds (a scratch that
+// does not hold one item's is refused); else no scratch.
 template <typename T>
-int backward(int rows, const Args& dq, const Args& dkv, cudaStream_t stream) {
-  if (dq.dh % 8 || dq.dh > 128 || dq.len < 1 || !dq.stats)
+int backward(int rows, const Args& dq, const Args& dkv, int plan, float* scratch,
+             long long floats, cudaStream_t stream) {
+  const bool sweeps = plan & kBwdSweeps, stored = plan & kBwdStored;
+  if (dq.dh % 8 || dq.dh > 128 || dq.len < 1 || !dq.stats || plan < 0 ||
+      plan > (kBwdSweeps | kBwdStored) || stored != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = launch_one(dq_kernel<T>, backward_smem(dq.dh), rows, dq, stream);
-  if (rc) return rc;
-  return launch_one(dkv_kernel<T>, backward_smem(dkv.dh), rows, dkv, stream);
+  const long long items = static_cast<long long>(rows) * dq.heads;
+  const int qtiles = (dq.len + kBwdQt - 1) / kBwdQt;
+  const DqPlan p = sweeps ? sweep_plan(dq.dh, sizeof(T)) : dq_plan(dq.len, dq.dh, sizeof(T));
+  const long long per = stored ? floats / (2LL * dq.len * stored_ld(dq.len)) : items;
+  if (per < 1) return static_cast<int>(cudaErrorInvalidValue);
+  for (long long i0 = 0; i0 < items; i0 += per) {
+    const long long n = items - i0 < per ? items - i0 : per;
+    const unsigned grid = static_cast<unsigned>(n * qtiles);
+    const int block0 = static_cast<int>(i0 * qtiles);
+    int rc = sweeps ? launch_grid(dq_sweeps_kernel<T>, p.total, grid, kFwdThreads, stream, dq, p,
+                                  scratch, block0)
+                    : launch_grid(dq_kernel<T>, p.total, grid, kFwdThreads, stream, dq, p,
+                                  scratch, block0);
+    if (!rc)
+      rc = stored ? key_side<T, true>(dkv, i0, n, scratch, stream)
+                  : key_side<T, false>(dkv, i0, n, nullptr, stream);
+    if (rc) return rc;
+  }
+  return 0;
 }
 
 }  // namespace tiled

@@ -314,16 +314,16 @@ def temporal_decode_pm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     _check_lengths("temporal_decode_pm", device, cache_len=cache_len)
     if device.type == "cpu":
         return temporal_decode_pm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads)
-    _decode_ready("temporal_decode_pm", q, k_new, v_new, k_cache, v_cache, num_heads,
-                  k_cache.shape[0])
+    scratch = _decode_ready("temporal_decode_pm", q, k_new, v_new, k_cache, v_cache, num_heads,
+                            k_cache.shape[0])
     out = torch.empty_like(q)
     _launch(
         "temporal_decode_pm", "sf_temporal_decode_pm",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P), device,
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _L, _I, _I, _P), device,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-        r, k_cache.shape[0], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[k_cache.dtype],
+        r, k_cache.shape[0], d, num_heads, (d // num_heads) ** -0.5, *_scratch_args(scratch),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype],
     )
     return out
 
@@ -338,26 +338,56 @@ def _check_lengths(name: str, device: torch.device, **lengths: torch.Tensor) -> 
 
 def decode_fits(d: int, num_heads: int, capacity: int, dtype: torch.dtype,
                 kv_dtype: torch.dtype, device: torch.device) -> bool:
-    """Whether A, D and J take a cache of ``capacity`` slots at this width
-    on ``device`` (their (heads, C) scores in a block's shared memory: up to
-    about C = 3,800 at the flagship; the plain versions take any). Past it
-    the encoder runs a new frame through kernel E
-    (``temporal_append_pm_qkv`` at t = 1), which takes any capacity."""
+    """Whether A's, D's and J's (heads, C) scores for a cache of
+    ``capacity`` slots fit a block's shared memory at this width on
+    ``device`` (up to about C = 3,800 at the flagship). The kernels take any
+    capacity (past it their scores go to a scratch, ``_decode_scratch``);
+    past it the encoder runs A's and D's new frame through kernel E
+    (``temporal_append_pm_qkv`` at t = 1) instead, and J stays."""
     if device.type != "cuda":
         return True
     return _body_smem("temporal_decode_pm", "sf_temporal_decode_pm", d, num_heads, capacity,
                       _DTYPE_CODES[dtype], _DTYPE_CODES[kv_dtype]) <= _MAX_SMEM
 
 
-def _decode_ready(name, q, k_new, v_new, k_cache, v_cache, num_heads, capacity) -> None:
-    """What a launch of A, D or J needs: aligned pointers, and the shared
-    memory the capacity asks for."""
+def _decode_ready(name, q, k_new, v_new, k_cache, v_cache, num_heads, capacity):
+    """What a launch of A, D or J needs: aligned pointers; returns the
+    scores' scratch for the capacity (``_decode_scratch``), or None."""
     _cuda_ready(name, q, k_new, v_new, k_cache, v_cache)
-    smem = _body_smem("temporal_decode_pm", "sf_temporal_decode_pm", q.shape[-1], num_heads,
-                      capacity, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype])
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: capacity {capacity} needs {smem} bytes "
-                         "of shared memory per block")
+    return _decode_scratch("temporal_decode_pm", "sf_temporal_decode_pm",
+                           (q.shape[-1], num_heads, capacity, _DTYPE_CODES[q.dtype],
+                            _DTYPE_CODES[k_cache.dtype]), q.shape[0], q.device)
+
+
+def _decode_scratch(library: str, symbol: str, shape, rows: int, device):
+    """The body of the t=1 decode kernels (A, D, J, F, G, K: csrc/decode_row.cuh)
+    keeps a row's (heads, C) fp32 scores in shared memory while its plan
+    (``_body_smem`` of ``symbol`` at ``shape``: d, heads, C, then the dtype
+    codes) fits a block: then None. Past it, the fp32 scratch of its scratch
+    mode (the same bits): a slice of heads x score_stride(C) floats (C + 1
+    rounded up to 4) for each block of its persistent grid over ``rows``
+    rows (``_decode_blocks``), as many as fit ``_TILED_SCRATCH``; the launch
+    cuts its grid to the slices. Patching ``_body_smem`` above ``_MAX_SMEM``
+    forces the scratch mode."""
+    if _body_smem(library, symbol, *shape) <= _MAX_SMEM:
+        return None
+    per_block = shape[1] * ((shape[2] + 4) // 4 * 4)
+    blocks = min(_decode_blocks(library, symbol, device.index, *shape, rows),
+                 _TILED_SCRATCH // 4 // per_block)
+    return torch.empty(max(1, blocks) * per_block, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_blocks(library: str, symbol: str, device_index, *shape: int) -> int:
+    """Blocks of a decode body's persistent grid in its scratch mode, from
+    the C entry ``{symbol}_scratch_blocks`` (the occupancy of its kernel at
+    that plan, at most one a row)."""
+    with torch.cuda.device(device_index):
+        blocks = build.function(library, f"{symbol}_scratch_blocks", (_I,) * len(shape))(*shape)
+    if blocks < 1:
+        raise RuntimeError(f"{symbol}: no persistent grid for its scratch mode (CUDA error "
+                           f"{-blocks})")
+    return blocks
 
 
 def _stream_lengths(name: str, lens: torch.Tensor, rows: int, rows_per_stream: int,
@@ -419,16 +449,16 @@ def temporal_decode_rm(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads):
     _check_lengths("temporal_decode_rm", device, cache_len=cache_len)
     if device.type == "cpu":
         return temporal_decode_rm_plain(q, k_new, v_new, k_cache, v_cache, cache_len, num_heads)
-    _decode_ready("temporal_decode_rm", q, k_new, v_new, k_cache, v_cache, num_heads,
-                  k_cache.shape[1])
+    scratch = _decode_ready("temporal_decode_rm", q, k_new, v_new, k_cache, v_cache, num_heads,
+                            k_cache.shape[1])
     out = torch.empty_like(q)
     _launch(
         "temporal_decode_rm", "sf_temporal_decode_rm",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P), device,
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _L, _I, _I, _P), device,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-        r, k_cache.shape[1], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[k_cache.dtype], library="temporal_decode_pm",
+        r, k_cache.shape[1], d, num_heads, (d // num_heads) ** -0.5, *_scratch_args(scratch),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], library="temporal_decode_pm",
     )
     return out
 
@@ -499,19 +529,16 @@ def temporal_decode_rm_readonly(q, k, v, k_scale, v_scale, cache_len, num_heads)
     if device.type == "cpu":
         return temporal_decode_rm_readonly_plain(q, k, v, k_scale, v_scale, cache_len, num_heads)
     _cuda_ready(name, q, *tensors.values())
-    smem = build.function("temporal_decode_rm", "sf_temporal_decode_rm_readonly_smem_bytes",
-                          (_I, _I, _I, _I, _I))(d, num_heads, c, _DTYPE_CODES[q.dtype],
-                                                int(quantized))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: capacity {c} needs {smem} bytes of shared memory per block")
+    scratch = _decode_scratch("temporal_decode_rm", "sf_temporal_decode_rm_readonly",
+                              (d, num_heads, c, _DTYPE_CODES[q.dtype], int(quantized)), r, device)
     out = torch.empty_like(q)
     _launch(
         name, "sf_temporal_decode_rm_readonly",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P), device,
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _L, _I, _I, _P), device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
         cache_len.data_ptr(), out.data_ptr(), r, c, d, num_heads, (d // num_heads) ** -0.5,
-        _DTYPE_CODES[q.dtype], int(quantized),
+        *_scratch_args(scratch), _DTYPE_CODES[q.dtype], int(quantized),
         library="temporal_decode_rm",
     )
     return out
@@ -583,16 +610,16 @@ def temporal_decode_pm_ragged(q, k_new, v_new, k_cache, v_cache, lens, rows_per_
     if device.type == "cpu":
         return temporal_decode_pm_ragged_plain(q, k_new, v_new, k_cache, v_cache, lens,
                                                rows_per_stream, num_heads)
-    _decode_ready("temporal_decode_pm_ragged", q, k_new, v_new, k_cache, v_cache, num_heads,
-                  k_cache.shape[0])
+    scratch = _decode_ready("temporal_decode_pm_ragged", q, k_new, v_new, k_cache, v_cache,
+                            num_heads, k_cache.shape[0])
     out = torch.empty_like(q)
     _launch(
         "temporal_decode_pm_ragged", "sf_temporal_decode_pm_ragged",
-        (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _P), device,
+        (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _P, _L, _I, _I, _P), device,
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), lens.data_ptr(), rows_per_stream, out.data_ptr(),
-        r, k_cache.shape[0], d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
-        _DTYPE_CODES[k_cache.dtype], library="temporal_decode_pm",
+        r, k_cache.shape[0], d, num_heads, (d // num_heads) ** -0.5, *_scratch_args(scratch),
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_cache.dtype], library="temporal_decode_pm",
     )
     return out
 
@@ -897,10 +924,8 @@ def _launch_int8(name, symbol, q, k_new, v_new, k_new_scale, v_new_scale, k_cach
                 v_scale)
     r, d = q.shape
     c = k_cache.shape[0]
-    smem = build.function("temporal_decode_pm_int8", "sf_temporal_decode_pm_int8_smem_bytes",
-                          (_I, _I, _I, _I))(d, num_heads, c, _DTYPE_CODES[q.dtype])
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{name}: capacity {c} needs {smem} bytes of shared memory per block")
+    scratch = _decode_scratch("temporal_decode_pm_int8", "sf_temporal_decode_pm_int8",
+                              (d, num_heads, c, _DTYPE_CODES[q.dtype]), r, q.device)
     out = torch.empty_like(q)
     args = [q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_new_scale.data_ptr(),
             v_new_scale.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
@@ -909,9 +934,9 @@ def _launch_int8(name, symbol, q, k_new, v_new, k_new_scale, v_new_scale, k_cach
     if rows_per_stream is not None:  # G
         args.append(rows_per_stream)
         types.append(_I)
-    _launch(name, symbol, (*types, _P, _I, _I, _I, _I, _F, _I, _P), q.device, *args,
-            out.data_ptr(), r, c, d, num_heads, (d // num_heads) ** -0.5, _DTYPE_CODES[q.dtype],
-            library="temporal_decode_pm_int8")
+    _launch(name, symbol, (*types, _P, _I, _I, _I, _I, _F, _P, _L, _I, _P), q.device, *args,
+            out.data_ptr(), r, c, d, num_heads, (d // num_heads) ** -0.5,
+            *_scratch_args(scratch), _DTYPE_CODES[q.dtype], library="temporal_decode_pm_int8")
     return out
 
 
@@ -1045,10 +1070,11 @@ def _spatial_chunks(device: torch.device, r: int, n: int, num_heads: int,
 @functools.lru_cache(maxsize=None)
 def _body_smem(library: str, symbol: str, *shape: int) -> int:
     """Shared memory a block of B's, L's, I's, C's, H's or E's whole-row
-    body, or of the decode bodies (A, D, J), takes at this shape, from the
-    C entry ``{symbol}_smem_bytes``; 0 where only csrc/tiled.cuh takes the
-    shape. Each wrapper launches with ``tiled`` = 1 exactly where this is
-    0."""
+    body, or of the decode bodies (A, D, J, F, G, K, the scores in shared
+    memory), takes at this shape, from the C entry ``{symbol}_smem_bytes``;
+    0 where only csrc/tiled.cuh takes the shape. Each whole-row wrapper
+    launches with ``tiled`` = 1 exactly where this is 0; a decode wrapper
+    passes a scratch for its scores where this passes ``_MAX_SMEM``."""
     return build.function(library, f"{symbol}_smem_bytes", (_I,) * len(shape))(*shape)
 
 
@@ -1114,6 +1140,56 @@ def _tiled_launch(items: int, t: int, keys: int, head_dim: int, itemsize: int, d
                            device=device)
 
 
+# csrc/tiled.cuh's backward plan, two bits (H's and I's launches take 1 +
+# the plan as `tiled`): SWEEPS, the query side recomputing its scores and dp
+# in four sweeps over the keys, else keeping them in shared memory; STORED,
+# the key side reading p and ds that the query side stores in a scratch,
+# else recomputing s and dp. Every plan gives the same bits.
+_BWD_SWEEPS, _BWD_STORED = 1, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_c_plan(which: int, queries: int, keys: int, head_dim: int, itemsize: int) -> int:
+    """Shared memory of a block of one of csrc/tiled.cuh's plans, from its C
+    entry ``sf_tiled_plan``: ``which`` 0, the resident forward; 1, the
+    backward's query side with its scores and dp in shared memory."""
+    return build.function("temporal_fullclip_bwd", "sf_tiled_plan", (_I,) * 5)(
+        which, queries, keys, head_dim, itemsize)
+
+
+def _tiled_bwd_plan(t: int, head_dim: int, itemsize: int) -> int:
+    """csrc/tiled.cuh's backward plan for items of ``t`` queries and keys of
+    ``itemsize`` bytes an element: the query side keeps its 32 queries'
+    scores and dp in shared memory while they fit a block, else sweeps; the
+    key side reads the stored p and ds while one item's (2 x t x t fp32)
+    fit ``_TILED_SCRATCH``, else recomputes (the faster on the H100 at every
+    shape measured: PERF.md)."""
+    plan = 0 if _tiled_c_plan(1, 0, t, head_dim, itemsize) <= _MAX_SMEM else _BWD_SWEEPS
+    if 4 * _tiled_stored_floats(t) <= _TILED_SCRATCH:
+        plan |= _BWD_STORED
+    return plan
+
+
+def _tiled_stored_floats(t: int) -> int:
+    """fp32 values of an item's stored p and ds: 2 x t rows of t rounded up
+    to 4."""
+    return 2 * t * (-(-t // 4) * 4)
+
+
+def _tiled_bwd_launch(items: int, t: int, head_dim: int, itemsize: int, device):
+    """The ``tiled`` argument of H's and I's launches on csrc/tiled.cuh's
+    backward (1 + ``_tiled_bwd_plan``) for ``items`` (row, head) items of
+    ``t`` queries, and the stored p and ds's scratch, or None: as many
+    items' as fit ``_TILED_SCRATCH`` (the launches then run over chunks of
+    them)."""
+    plan = _tiled_bwd_plan(t, head_dim, itemsize)
+    if not plan & _BWD_STORED:
+        return 1 + plan, None
+    per = _tiled_stored_floats(t)
+    count = min(items, max(1, _TILED_SCRATCH // 4 // per))
+    return 1 + plan, torch.empty(count * per, dtype=torch.float32, device=device)
+
+
 def _scratch_args(scratch):
     """A scratch's pointer and its fp32 values, as a launch takes them."""
     return (None, 0) if scratch is None else (scratch.data_ptr(), scratch.numel())
@@ -1171,13 +1247,15 @@ def spatial_flat_bwd(q, k, v, g, num_heads):
     # them in shared memory
     stats = (torch.empty(r * num_heads * 3 * n, dtype=torch.float32, device=device)
              if q.dtype == torch.float32 or n > 256 else None)
+    tiled, scratch = (0, None) if smem else _tiled_bwd_launch(r * num_heads, n, d // num_heads,
+                                                              q.element_size(), device)
     _launch(
         "spatial_flat_bwd", "sf_spatial_flat_bwd",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P), device,
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _L, _I, _P), device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), None if stats is None else stats.data_ptr(), r, n, d, num_heads,
         _spatial_chunks(device, r, n, num_heads, q.dtype), (d // num_heads) ** -0.5,
-        int(not smem), code,
+        tiled, *_scratch_args(scratch), code,
     )
     return dq, dk, dv
 
@@ -1360,10 +1438,15 @@ def _fullclip_kernel(name: str, symbol: str, operands, batch: int, n: int, t: in
                                               first.element_size(), first.device)
         args.extend(_scratch_args(scratch))
     else:  # H's tiled body keeps each query's statistics between its two launches
-        argtypes = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _P)
-        stats = (torch.empty(batch * n * num_heads * 3 * t, dtype=torch.float32,
-                             device=first.device) if tiled else None)
+        argtypes = (_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _L, _I, _P)
+        stats = scratch = None
+        if tiled:  # and its plan, with the plan's scratch
+            stats = torch.empty(batch * n * num_heads * 3 * t, dtype=torch.float32,
+                                device=first.device)
+            args[-1], scratch = _tiled_bwd_launch(batch * n * num_heads, t, d // num_heads,
+                                                  first.element_size(), first.device)
         args.append(None if stats is None else stats.data_ptr())
+        args.extend(_scratch_args(scratch))
     _launch(name, symbol, argtypes, first.device, ptrs, strides, *args, code)
 
 

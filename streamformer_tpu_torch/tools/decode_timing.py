@@ -55,6 +55,13 @@ and an fp32 cache), each slot fed 16 frames, drained by ticks of 1 frame
 (t=1 steps) and of 8 frames (kernel E's chunks), three times each:
 frames/s by the host's clock.
 
+``--long`` prints, in place of the rows above, the decode kernels past
+their body's shared-memory plan (the scores of a row in a scratch): F, G
+(one stream), J and K (int8 codes) and ``Kf`` (bf16) at R=196 and C=8192,
+length C-1, bf16 queries, drawn on the card, each with ``plain_ms``,
+``sdpa_ms`` (on the dequantized cache) and ``bound_ms`` as above; a
+checkout that refuses the capacity prints ``"refused"``.
+
 ``--tiled`` prints, in place of the rows above, one row for each shape
 PERF.md keeps for csrc/tiled.cuh's kernels: C's forward and H's backward on
 the packed qkv of one 300-frame clip (past the whole-row plan), E past its
@@ -64,7 +71,16 @@ the flagship throughput tick, and fp32 B, L and I at R=64 N=576 and forced
 at R=128 N=196 ("forced": ``ops._body_smem`` patched to 0); all bf16 but B,
 L and I. Each row has ``device_ms`` and ``call_ms`` as above, over every
 kernel whose symbol holds ``tiled`` (every launch of these calls), and
-``kernels``, each kernel's own device ms a call.
+``kernels``, each kernel's own device ms a call (its mean launch times its
+launches a call).
+
+``--bwd-plans`` prints, in place of the rows above, csrc/tiled.cuh's
+backward on each of its plans (``ops._tiled_bwd_plan`` patched: the query
+side keeping its scores and dp in shared memory or sweeping, the key side
+recomputing s and dp or reading the stored p and ds) for H at T=300 and
+fp32 I at R=64 N=576 and forced at R=128 N=196, and on the sweeping plans
+past shared memory for H on the packed qkv (1, 1700, 16, 2304) and fp32 I
+at R=8 N=1568; each row as ``--tiled``'s, with ``plan``.
 """
 
 import argparse
@@ -333,6 +349,14 @@ def profile_calls(fn, flush: torch.Tensor, symbol: str):
     return rows, launches, statistics.median(s.elapsed_time(e) for s, e in calls)
 
 
+def per_call_ms(rows, calls: int = 15) -> float:
+    """Device ms a call from a profile of ``calls`` calls: each kernel's mean
+    launch times its launches a call (a kernel may launch more than once a
+    call, as tiled.cuh's backward over chunks of its scratch)."""
+    return sum(e.device_time_total / e.count * max(1, round(e.count / calls))
+               for e in rows) / 1e3
+
+
 def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor,
                kv_dtype: Optional[torch.dtype] = None) -> dict:
     extra = {}
@@ -359,7 +383,7 @@ def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor,
     else:
         fn = operands(kernel, dtype, cap, seed=cap, kv_dtype=kv_dtype)
     rows, launches, call_ms = profile_calls(fn, flush, SYMBOLS[kernel])
-    device_ms = sum(e.device_time_total / e.count for e in rows) / 1e3
+    device_ms = per_call_ms(rows)
     n = 200
     t0 = time.perf_counter()
     for _ in range(n):
@@ -370,6 +394,97 @@ def kernel_row(kernel: str, dtype: torch.dtype, cap: int, flush: torch.Tensor,
             "device_ms": device_ms, "call_ms": call_ms, "host_us": host_us,
             "device_launches": len(launches), "device_ms_min": min(launches, default=None),
             "device_ms_max": max(launches, default=None), **extra}
+
+
+LONG_ROWS, LONG_CAP = 196, 8192  # --long: batch 1 at the flagship width, past the decode plan
+
+
+def long_operands(kernel: str, gen: torch.Generator):
+    """``--long``'s F, G, J, K or Kf at length C-1 on operands drawn on the
+    card: the wrapper's call, its plain version's, one masked
+    scaled_dot_product_attention call's on the (dequantized) cache, and the
+    bytes the function moves (every input read once, the output and the
+    appended rows written once)."""
+    r, c, d, dt = LONG_ROWS, LONG_CAP, HEADS * DH, torch.bfloat16
+    length = c - 1
+
+    def draw(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(dt)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, device=DEVICE, generator=gen, dtype=torch.int8)
+
+    def scales(*shape):
+        return torch.rand(*shape, device=DEVICE, generator=gen) * 0.025 + 0.005
+
+    q = draw(r, d)
+    ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
+    window = (torch.arange(c, device=DEVICE) <= length).view(1, c)
+    q4 = q.view(r, HEADS, 1, DH)
+    if kernel in ("F", "G"):
+        new, new_s = [codes(r, d) for _ in range(2)], [scales(r) for _ in range(2)]
+        planes, plane_s = [codes(c, r, d) for _ in range(2)], [scales(c, r) for _ in range(2)]
+        args = (q, *new, *new_s, *planes, *plane_s, ln.reshape(1) if kernel == "G" else ln)
+        dense = [torch.cat([(p[:length].float() * s[:length, :, None]),
+                            (n.float() * ns[:, None])[None]]).to(dt).view(c, r, HEADS, DH)
+                 .permute(1, 2, 0, 3) for p, s, n, ns in zip(planes, plane_s, new, new_s)]
+        nbytes = 2 * r * d * 2 + 2 * (length * r * (d + 4)) + 2 * 2 * r * (d + 4)
+        if kernel == "G":
+            return (lambda: ops.temporal_decode_pm_int8_ragged(*args, r, HEADS),
+                    lambda: ops.temporal_decode_pm_int8_ragged_plain(*args, r, HEADS),
+                    lambda: torch.nn.functional.scaled_dot_product_attention(q4, *dense),
+                    nbytes)
+        return (lambda: ops.temporal_decode_pm_int8(*args, HEADS),
+                lambda: ops.temporal_decode_pm_int8_plain(*args, HEADS),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q4, *dense), nbytes)
+    if kernel == "J":
+        new, caches = [draw(r, d) for _ in range(2)], [draw(r, c, d) for _ in range(2)]
+        dense = [torch.cat([x[:, :length], n[:, None]], 1).view(r, c, HEADS, DH).transpose(1, 2)
+                 for x, n in zip(caches, new)]
+        nbytes = 2 * (6 * r * d + 2 * r * length * d)
+        return (lambda: ops.temporal_decode_rm(q, *new, *caches, ln, HEADS),
+                lambda: ops.temporal_decode_rm_plain(q, *new, *caches, ln, HEADS),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q4, *dense), nbytes)
+    if kernel == "K":
+        cs, ss = [codes(r, c, d) for _ in range(2)], [scales(r, c, HEADS) for _ in range(2)]
+        args = (*cs, *ss)
+        dense = [(x.view(r, c, HEADS, DH).float() * y[..., None]).to(dt).transpose(1, 2)
+                 for x, y in zip(cs, ss)]
+        nbytes = 2 * r * d * 2 + 2 * r * (length + 1) * (d + 4 * HEADS)
+    else:
+        dense_rm = [draw(r, c, d) for _ in range(2)]
+        args = (*dense_rm, None, None)
+        dense = [x.view(r, c, HEADS, DH).transpose(1, 2) for x in dense_rm]
+        nbytes = 2 * r * d * (2 + 2 * (length + 1))
+    return (lambda: ops.temporal_decode_rm_readonly(q, *args, ln, HEADS),
+            lambda: ops.temporal_decode_rm_readonly_plain(q, *args, ln, HEADS),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q4, *dense,
+                                                                     attn_mask=window),
+            nbytes)
+
+
+def long_rows(flush: torch.Tensor) -> List[dict]:
+    """``--long``'s rows (see the module's docstring)."""
+    out = []
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    with torch.no_grad():
+        for kernel in ("F", "G", "J", "K", "Kf"):
+            fn, plain, sdpa, nbytes = long_operands(kernel, gen)
+            row = {"kernel": kernel, "dtype": "bfloat16", "rows": LONG_ROWS,
+                   "capacity": LONG_CAP}
+            try:
+                fn()
+            except ValueError:  # a checkout whose decode body refuses the capacity
+                out.append({**row, "refused": True})
+                continue
+            rows, launches, call_ms = profile_calls(fn, flush, SYMBOLS[kernel])
+            out.append({**row, "device_ms": per_call_ms(rows),
+                        "call_ms": call_ms, "device_launches": len(launches),
+                        "plain_ms": events_ms(plain, flush), "sdpa_ms": events_ms(sdpa, flush),
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+            del fn, plain, sdpa
+            torch.cuda.empty_cache()
+    return out
 
 
 def tiled_calls(gen):
@@ -420,10 +535,49 @@ def tiled_rows(flush: torch.Tensor) -> List[dict]:
             finally:
                 ops._body_smem = body_smem
             kernels = {e.key.replace("(anonymous namespace)::", "").split("(")[0].replace(
-                "void ", ""): e.device_time_total / e.count / 1e3 for e in rows}
+                "void ", ""): per_call_ms([e]) for e in rows}
             out.append({"row": name, "device_ms": sum(kernels.values()), "call_ms": call_ms,
                         "kernels": kernels})
             torch.cuda.empty_cache()
+    return out
+
+
+def bwd_plan_rows(flush: torch.Tensor) -> List[dict]:
+    """``--bwd-plans``' rows (see the module's docstring)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    heads, d = HEADS, HEADS * DH
+
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(dtype)
+
+    past = {"sweeps": ops._BWD_SWEEPS, "sweeps+stored": ops._BWD_SWEEPS | ops._BWD_STORED}
+    near = {"resident": 0, "stored": ops._BWD_STORED, **past}
+    cases = []
+    for t, n, plans in ((300, PATCHES, near), (1700, 16, past)):
+        qkv, g = draw(1, t, n, 3 * d), draw(1, t, n, d)
+        cases.append((f"H qkv (1, {t}, {n}, 2304) T={t}", plans, False,
+                      lambda qkv=qkv, g=g: ops.temporal_fullclip_qkv_bwd(qkv, g, heads)))
+    for r, n, forced, plans in ((64, 576, False, near), (128, 196, True, near),
+                                (8, 1568, False, past)):
+        q, k, v, go = (draw(r, n, d, dtype=torch.float32) for _ in range(4))
+        cases.append((f"I R={r} N={n} fp32" + (" forced" if forced else ""), plans, forced,
+                      lambda q=q, k=k, v=v, go=go: ops.spatial_flat_bwd(q, k, v, go, heads)))
+    body_smem, bwd_plan, out = ops._body_smem, ops._tiled_bwd_plan, []
+    with torch.no_grad():
+        for name, plans, forced, fn in cases:
+            for label, plan in plans.items():
+                if forced:
+                    ops._body_smem = lambda *a: 0
+                ops._tiled_bwd_plan = lambda *a, p=plan: p
+                try:
+                    rows, _, call_ms = profile_calls(fn, flush, "tiled")
+                finally:
+                    ops._body_smem, ops._tiled_bwd_plan = body_smem, bwd_plan
+                kernels = {e.key.replace("(anonymous namespace)::", "").split("(")[0].replace(
+                    "void ", ""): per_call_ms([e]) for e in rows}
+                out.append({"row": name, "plan": label, "device_ms": sum(kernels.values()),
+                            "call_ms": call_ms, "kernels": kernels})
+                torch.cuda.empty_cache()
     return out
 
 
@@ -500,12 +654,17 @@ def main() -> None:
     parser.add_argument("--engine", action="store_true", help="add the engine's tick rows")
     parser.add_argument("--tiled", action="store_true",
                         help="only the rows of csrc/tiled.cuh's kernels")
+    parser.add_argument("--long", action="store_true",
+                        help="only the decode kernels past their body's shared-memory plan")
+    parser.add_argument("--bwd-plans", action="store_true",
+                        help="only csrc/tiled.cuh's backward, on each of its plans")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("decode_timing: needs a CUDA device")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    if args.tiled:
-        for row in tiled_rows(flush):
+    if args.tiled or args.long or args.bwd_plans:
+        rows = tiled_rows if args.tiled else long_rows if args.long else bwd_plan_rows
+        for row in rows(flush):
             print(json.dumps({"label": args.label, **row}), flush=True)
         return
     pairs = ([(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)] if args.mixed

@@ -297,6 +297,106 @@ def test_tiled_split_past_shared_memory_matches_plain_and_repeats(dtype, causal,
         assert torch.equal(a, b)
 
 
+BWD_PLANS = {"resident": 0, "stored": ops._BWD_STORED, "sweeps": ops._BWD_SWEEPS,
+             "sweeps_stored": ops._BWD_SWEEPS | ops._BWD_STORED}
+
+
+def _force_bwd_plan(monkeypatch, plan, t, chunk_items):
+    """csrc/tiled.cuh's backward forced onto ``plan`` (``ops._tiled_bwd_plan``
+    patched) with ``_TILED_SCRATCH`` shrunk so that a stored key side
+    launches over chunks of ``chunk_items`` items."""
+    monkeypatch.setattr(ops, "_tiled_bwd_plan", lambda *a: plan)
+    monkeypatch.setattr(ops, "_TILED_SCRATCH", 4 * chunk_items * ops._tiled_stored_floats(t))
+
+
+@pytest.mark.parametrize("plan", list(BWD_PLANS))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("t", [20, 64, 75])  # the whole-row H takes T <= 79 at fp32 heads of 64
+def test_tiled_backward_plans_equal_the_whole_row(t, causal, dtype, plan, monkeypatch):
+    """H's tiled backward at the flagship's heads (12 of 64), forced where the
+    whole-row pipeline also runs, gives its bits on every plan of its query
+    and key sides (``ops._tiled_bwd_plan`` patched), a stored key side
+    launched over chunks of five items (``_TILED_SCRATCH`` shrunk)."""
+    rows, heads, dh = 3, 12, 64
+    q, k, v, g = (_randn((rows, t, heads * dh), dtype, s) for s in (71, 72, 73, 74))
+    assert ops._body_smem("temporal_fullclip_bwd", "sf_temporal_fullclip_bwd", t, heads * dh,
+                          heads, ops._DTYPE_CODES[dtype], int(causal))
+    whole = ops.temporal_fullclip_bwd(q, k, v, g, heads, causal)
+    monkeypatch.setattr(ops, "_body_smem", lambda *a: 0)
+    _force_bwd_plan(monkeypatch, BWD_PLANS[plan], t, 5)
+    tiled = ops.temporal_fullclip_bwd(q, k, v, g, heads, causal)
+    assert all(torch.equal(a, b) for a, b in zip(tiled, whole))
+
+
+@pytest.mark.parametrize("n", [196, 300])
+def test_tiled_spatial_backward_plans_agree(n, monkeypatch):
+    """fp32 I on csrc/tiled.cuh (forced at N = 196, where the whole-head body
+    also runs; its own at N = 300) at the flagship's heads: every plan of
+    its backward gives one set of bits, within tolerance of the plain
+    version."""
+    rows, heads, dh = 4, 12, 64
+    q, k, v, g = (_randn((rows, n, heads * dh), torch.float32, s) for s in (75, 76, 77, 78))
+    monkeypatch.setattr(ops, "_body_smem", lambda *a: 0)
+    got = []
+    for plan in BWD_PLANS.values():
+        _force_bwd_plan(monkeypatch, plan, n, 7)
+        got.append(ops.spatial_flat_bwd(q, k, v, g, heads))
+    _grad_close(got[0], ops.spatial_flat_bwd_plain(q, k, v, g, heads), torch.float32)
+    for other in got[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(other, got[0]))
+
+
+@pytest.mark.parametrize("case", ["H T=1700 bf16", "I N=1568 fp32"])
+def test_tiled_backward_past_shared_memory_matches_plain_and_repeats(case, monkeypatch):
+    """Past the query side's shared memory (32 queries' scores and dp against
+    1700 or 1568 keys) the query side sweeps: H causal at T = 1700 in bf16
+    and fp32 I at N = 1568, at the flagship's heads, on its own plan (the
+    stored key side) against their plain versions; a second run gives the
+    same bits, and so does the recomputing key side."""
+    heads, dh = 12, 64
+    if case.startswith("H"):
+        dtype, t = torch.bfloat16, 1700
+        q, k, v, g = (_randn((2, t, heads * dh), dtype, s) for s in (81, 82, 83, 84))
+        fn, plain = ops.temporal_fullclip_bwd, ops.temporal_fullclip_bwd_plain
+    else:
+        dtype, t = torch.float32, 1568
+        q, k, v, g = (_randn((2, t, heads * dh), dtype, s) for s in (85, 86, 87, 88))
+        fn, plain = ops.spatial_flat_bwd, ops.spatial_flat_bwd_plain
+    assert ops._tiled_bwd_plan(t, dh, q.element_size()) == BWD_PLANS["sweeps_stored"]
+    grads = fn(q, k, v, g, heads)
+    again = fn(q, k, v, g, heads)
+    monkeypatch.setattr(ops, "_tiled_bwd_plan", lambda *a: BWD_PLANS["sweeps"])
+    theirs = fn(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    _grad_close(grads, plain(q, k, v, g, heads), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert all(torch.equal(a, b) for a, b in zip(grads, theirs))
+
+
+def test_tiled_plans_match_the_c_plans():
+    """The wrapper's copy of csrc/tiled.cuh's resident forward plan
+    (``ops._tiled_resident_smem``, which the CPU tests hold) equals the C
+    one (``sf_tiled_plan``) over a grid of shapes: a drift would make a
+    launch raise. The backward's plan comes from the C one: the query side's
+    32 queries' scores and dp stay in shared memory up to 701 keys at fp32
+    heads of 64, 797 in bf16 (fp32 I forced at N = 196, H at T = 300 and
+    fp32 I at N = 576 among them), and sweep past them; the key side reads
+    the stored p and ds while an item's fit ``_TILED_SCRATCH`` (T up to
+    11,584)."""
+    for dh in (8, 24, 40, 64, 128):
+        for elt in (2, 4):
+            for keys in (1, 17, 64, 300, 576, 1568, 3400, 60001):
+                for qt in (16, 32, 64):
+                    assert ops._tiled_c_plan(0, qt, keys, dh, elt) == ops._tiled_resident_smem(
+                        qt, keys, dh, elt), (qt, keys, dh, elt)
+    for t, elt in ((196, 4), (300, 2), (576, 4), (701, 4), (797, 2)):
+        assert ops._tiled_bwd_plan(t, 64, elt) == ops._BWD_STORED, (t, elt)
+    for t, elt in ((702, 4), (798, 2), (1568, 4), (1700, 2), (11584, 2)):
+        assert ops._tiled_bwd_plan(t, 64, elt) == ops._BWD_SWEEPS | ops._BWD_STORED, (t, elt)
+    assert ops._tiled_bwd_plan(11588, 64, 2) == ops._BWD_SWEEPS
+
+
 @pytest.mark.parametrize("case", ["T=1700 batch 3", "T=3400"])
 def test_long_clips_run_within_a_bounded_scratch(case):
     """C on long clips at the flagship's heads, bf16: the packed qkv of
@@ -863,7 +963,8 @@ def _decode_case(kernel, dtype, rows_or_streams, cap, heads, dh, lens, seed):
     run(fn, caches) calls the kernel ("kernel") or its plain version ("plain")
     on the given caches and returns the output. caches are pos-major
     (C, R, ...) for every kernel; J's are transposed to (R, C, D) for the
-    call and back."""
+    call and back, K's (float, in q's dtype) and K8's (int8 codes and
+    (C, R, H) scales) to (R, C, ...) for the call (K writes nothing)."""
     d = heads * dh
     ragged = kernel in ("D", "G")
     per_stream = rows_or_streams if ragged else None
@@ -872,6 +973,13 @@ def _decode_case(kernel, dtype, rows_or_streams, cap, heads, dh, lens, seed):
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     if kernel in ("F", "G"):
         new, caches = _int8_operands(rows, cap, d, seed + 1)
+    elif kernel == "K8":  # row-major codes and per-(row, position, head) scales, pos-major here
+        new, codes = [], _int8_operands(rows, cap, d, seed + 1)[1][:2]
+        rng = np.random.default_rng(seed + 2)
+        caches = codes + [torch.from_numpy(rng.uniform(0.005, 0.03, (cap, rows, heads)).astype(
+            np.float32)).cuda() for _ in range(2)]
+    elif kernel == "K":  # read-only: no new frame, caches in q's dtype
+        new, caches = [], [_randn((cap, rows, d), dtype, seed + s) for s in (3, 4)]
     else:
         new = [_randn((rows, d), dtype, seed + s) for s in (1, 2)]
         caches = [_randn((cap, rows, d), dtype, seed + s) for s in (3, 4)]
@@ -895,6 +1003,11 @@ def _decode_case(kernel, dtype, rows_or_streams, cap, heads, dh, lens, seed):
             fn = (ops.temporal_decode_pm_int8 if which == "kernel"
                   else ops.temporal_decode_pm_int8_plain)
             return fn(q, *new, *cs, lens_t.reshape(()), heads)
+        if kernel in ("K", "K8"):
+            fn = (ops.temporal_decode_rm_readonly if which == "kernel"
+                  else ops.temporal_decode_rm_readonly_plain)
+            rm = [c.transpose(0, 1).contiguous() for c in cs]
+            return fn(q, rm[0], rm[1], *(rm[2:] or (None, None)), lens_t.reshape(()), heads)
         fn = (ops.temporal_decode_pm_int8_ragged if which == "kernel"
               else ops.temporal_decode_pm_int8_ragged_plain)
         return fn(q, *new, *cs, lens_t, per_stream, heads)
@@ -940,18 +1053,37 @@ def test_decode_kernels_read_nothing_past_the_valid_prefix(kernel, mode, dtype):
         assert torch.equal(a[~mask], b[~mask])
 
 
+def _decode_smem(kernel, dtype, cap, heads, dh):
+    """Shared memory of the decode body's whole-row plan for this kernel."""
+    code, d = ops._DTYPE_CODES[dtype], heads * dh
+    if kernel in ("F", "G"):
+        return ops._body_smem("temporal_decode_pm_int8", "sf_temporal_decode_pm_int8", d, heads,
+                              cap, code)
+    if kernel in ("K", "K8"):
+        return ops._body_smem("temporal_decode_rm", "sf_temporal_decode_rm_readonly", d, heads,
+                              cap, code, int(kernel == "K8"))
+    return ops._body_smem("temporal_decode_pm", "sf_temporal_decode_pm", d, heads, cap, code, code)
+
+
+# K (float) and K8 (int8) read the linear cache only
+CAPACITY_KERNELS = [(k, m) for k in DECODE_KERNELS + ["K", "K8"] for m in ("linear", "ring")
+                    if not (k.startswith("K") and m == "ring")]
+
+
 @pytest.mark.parametrize(
-    "dtype,cap", [(torch.bfloat16, 64), (torch.float32, 64), (torch.float32, 256)],
-    ids=["bf16-C64", "fp32-C64", "fp32-C256"],
+    "dtype,cap", [(torch.bfloat16, 64), (torch.float32, 64), (torch.float32, 256),
+                  (torch.bfloat16, 4608), (torch.float32, 4608)],
+    ids=["bf16-C64", "fp32-C64", "fp32-C256", "bf16-C4608", "fp32-C4608"],
 )
-@pytest.mark.parametrize("mode", ["linear", "ring"])
-@pytest.mark.parametrize("kernel", DECODE_KERNELS)
+@pytest.mark.parametrize("kernel,mode", CAPACITY_KERNELS)
 def test_decode_kernels_at_large_capacities(kernel, mode, dtype, cap):
     """Capacities past one shared-memory stage (the config's default 64, and
-    256 in fp32, where a stage holds 6 slots), at the flagship width on an
-    odd row count: each kernel against its plain version, the appended
-    planes (and scale columns) equal."""
+    256 in fp32, where a stage holds 6 slots), and past the (heads, C)
+    scores a block holds (C = 4608: the scratch mode), at the flagship width
+    on an odd row count: each kernel against its plain version, the
+    appended planes (and scale columns) equal."""
     heads, dh = 12, 64
+    assert (_decode_smem(kernel, dtype, cap, heads, dh) > ops._MAX_SMEM) == (cap > 4000)
     if kernel in ("D", "G"):
         lens = [0, cap // 2, cap - 1] if mode == "linear" else [cap, 2 * cap + 3, 5 * cap + 1]
         size = 13
@@ -968,6 +1100,85 @@ def test_decode_kernels_at_large_capacities(kernel, mode, dtype, cap):
     assert (got.float() - ref.float()).abs().max().item() <= TOL[dtype]
     for mine, theirs in zip(caches, ref_caches):
         assert torch.equal(mine, theirs)
+
+
+@pytest.mark.parametrize("kernel", ["A", "F", "K", "K8"])
+def test_decode_scratch_holds_one_slice_a_block_of_the_grid(kernel):
+    """The decode body's scratch (``ops._decode_scratch``) holds one slice of
+    heads x score_stride(C) fp32 for each block of its kernel's persistent
+    grid in the scratch mode, the C plan's (``_decode_blocks``): at the
+    flagship tick (R = 1568, C = 8192), at least one block an SM and at
+    most one a row; a few rows take one block each."""
+    heads, d, cap = 12, 768, 8192
+    code = ops._DTYPE_CODES[torch.bfloat16]
+    library, symbol, shape = {
+        "A": ("temporal_decode_pm", "sf_temporal_decode_pm", (d, heads, cap, code, code)),
+        "F": ("temporal_decode_pm_int8", "sf_temporal_decode_pm_int8", (d, heads, cap, code)),
+        "K": ("temporal_decode_rm", "sf_temporal_decode_rm_readonly", (d, heads, cap, code, 0)),
+        "K8": ("temporal_decode_rm", "sf_temporal_decode_rm_readonly", (d, heads, cap, code, 1)),
+    }[kernel]
+    device = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_block = heads * ((cap + 4) // 4 * 4)
+    for rows in (1568, 5):
+        blocks = ops._decode_blocks(library, symbol, device.index, *shape, rows)
+        assert (sms <= blocks <= rows) if rows > sms else blocks == rows
+        scratch = ops._decode_scratch(library, symbol, shape, rows, device)
+        assert scratch.numel() == blocks * per_block
+
+
+@pytest.mark.parametrize("grid", ["full", "one_block"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel,mode", CAPACITY_KERNELS)
+def test_decode_scratch_mode_equals_the_whole_row_body(kernel, mode, dtype, grid, monkeypatch):
+    """Where both run (C = 256) the decode body's scratch mode (the scores in
+    the wrapper's fp32 scratch, forced by ``ops._body_smem`` patched past
+    ``_MAX_SMEM``) gives the whole-row body's bits: outputs and the appended
+    planes and scale columns. ``one_block``: a scratch of one slice, so one
+    block walks every row and reuses it."""
+    cap, heads, dh = 256, 12, 64
+    if kernel in ("D", "G"):
+        lens = [0, 100, cap - 1] if mode == "linear" else [cap, 2 * cap + 3, 5 * cap + 1]
+        size = 13
+    else:
+        lens = [cap - 1] if mode == "linear" else [3 * cap + 5]
+        size = 37
+    run, caches, _ = _decode_case(kernel, dtype, size, cap, heads, dh, lens, 131)
+    whole_caches = [c.clone() for c in caches]
+    whole = run("kernel", whole_caches)
+    monkeypatch.setattr(ops, "_body_smem", lambda *a: ops._MAX_SMEM + 1)
+    if grid == "one_block":
+        monkeypatch.setattr(ops, "_TILED_SCRATCH", 4 * heads * (cap + 4))
+    scratch = run("kernel", caches)
+    torch.cuda.synchronize()
+    assert torch.equal(scratch, whole)
+    for a, b in zip(caches, whole_caches):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["linear", "ring"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_scratch_mode_ragged_int8_equals_lone_streams(dtype, mode, monkeypatch):
+    """G = lone F in the scratch mode (forced at C = 256): each stream's rows
+    of a ragged call equal, bit for bit, F on those rows alone at the
+    stream's length, outputs and written planes and scales."""
+    cap, heads, dh, per_stream = 256, 12, 64, 13
+    lens = [0, 100, cap - 1] if mode == "linear" else [cap, 2 * cap + 3, 5 * cap + 1]
+    monkeypatch.setattr(ops, "_body_smem", lambda *a: ops._MAX_SMEM + 1)
+    run, caches, _ = _decode_case("G", dtype, per_stream, cap, heads, dh, lens, 141)
+    q = _randn((per_stream * len(lens), heads * dh), dtype, 141)  # _decode_case's q
+    new, _ = _int8_operands(per_stream * len(lens), cap, heads * dh, 142)
+    lone_caches = [c.clone() for c in caches]
+    ragged = run("kernel", caches)
+    for b, length in enumerate(lens):
+        rows = slice(b * per_stream, (b + 1) * per_stream)
+        part = [c[:, rows].contiguous() for c in lone_caches]
+        out = ops.temporal_decode_pm_int8(q[rows], *(x[rows].clone() for x in new), *part,
+                                          torch.tensor(length, dtype=torch.int32, device="cuda"),
+                                          heads)
+        assert torch.equal(out, ragged[rows])
+        for a, c in zip(part, caches):
+            assert torch.equal(a, c[:, rows])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

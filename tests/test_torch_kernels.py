@@ -200,6 +200,28 @@ def test_tiled_plan():
     assert ops._tiled_resident_smem(64, 300, 64, 2) == 2 * 64 * 144 + 64 * 68 * 4 + 77056 + 32
 
 
+def test_tiled_bwd_plan(monkeypatch):
+    """The launch of csrc/tiled.cuh's backward by plan
+    (``ops._tiled_bwd_launch``; the plan itself comes from the C plan on the
+    card): ``tiled`` = 1 + the plan, and a scratch only for the stored p and
+    ds, 2 x T x (T rounded up to 4) fp32 an item, for every item at once
+    while that fits ``_TILED_SCRATCH``, else for as many as fit, at least
+    one."""
+    for plan in (0, ops._BWD_SWEEPS):
+        monkeypatch.setattr(ops, "_tiled_bwd_plan", lambda *a, p=plan: p)
+        assert ops._tiled_bwd_launch(24, 196, 64, 2, "cpu") == (1 + plan, None)
+    for plan in (ops._BWD_STORED, ops._BWD_STORED | ops._BWD_SWEEPS):
+        monkeypatch.setattr(ops, "_tiled_bwd_plan", lambda *a, p=plan: p)
+        monkeypatch.setattr(ops, "_TILED_SCRATCH", 1 << 30)
+        tiled, scratch = ops._tiled_bwd_launch(24, 299, 64, 2, "cpu")
+        assert tiled == 1 + plan and scratch.numel() == 24 * 2 * 299 * 300
+        monkeypatch.setattr(ops, "_TILED_SCRATCH", 4 * 7 * 2 * 299 * 300 + 4)
+        assert ops._tiled_bwd_launch(24, 299, 64, 2, "cpu")[1].numel() == 7 * 2 * 299 * 300
+        monkeypatch.setattr(ops, "_TILED_SCRATCH", 4)
+        assert ops._tiled_bwd_launch(24, 299, 64, 2, "cpu")[1].numel() == 2 * 299 * 300
+    assert ops._tiled_stored_floats(1) == 2 * 4 and ops._tiled_stored_floats(1700) == 2 * 1700 ** 2
+
+
 def test_tiled_scratch(monkeypatch):
     """The split body's scratch (``ops._tiled_scratch``) holds every item's
     queries while they fit 1 GiB (E at 16 frames on 4096 slots, R=196 x 12
